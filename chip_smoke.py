@@ -1,33 +1,49 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card (an H100 / sm_90a).
 
-    python3 chip_smoke.py [--seed 0] [--batches 3]
+    python3 chip_smoke.py [--seed 0] [--batches 3] [--steps 3]
 
 Phases, each of which raises (and so exits non-zero) on failure:
   1. device  — needs torch.cuda; prints the card's name and power limit
-  2. build   — nvcc-builds every kernel of the serving path from csrc/
-  3. kernels — each kernel against its plain PyTorch version on the card,
-               at the shapes the serving path and the configs give it
-  4. slice   — the port's serving path (Evaluator.test) at interm_117m width
+  2. build   — nvcc-builds every kernel library from csrc/ (flash-attention
+               forward, flash-attention backward, fused dropout), all at once
+  3. kernels — each kernel against its plain PyTorch version on the card:
+               the flash forward at SHAPES, bf16 and fp32, dropout 0 and 0.1;
+               the dq and dk/dv kernels against autograd of the plain forward
+               with the same seed, at SHAPES, both dtypes, dropout 0 and 0.1;
+               the fused dropout bit for bit, forward and backward, at
+               DROPOUT_SHAPES in both dtypes
+  4. slice   — the serving path (Evaluator.test) at interm_117m width
                (configs/interm_117m.yaml: embed 1024, depth 8, 16 heads, bf16,
                batch 8) on a synthetic dataset made from --seed; the kernels'
                launch counts over that run; the prediction against the same
                model on the plain attention, and in fp32 against the CPU
-  5. times   — kernel vs plain (CUDA events, median of 20 after warm-up) and
-               the slice's seconds per test batch
+  5. train   — the training path (Trainer.fit) at the same width: bf16
+               compute, fp32 master parameters, bf16 Adam moments, dropout and
+               drop-path 0.1, batch 8, 2 epochs x --steps steps; exact launch
+               counts of all four kernels; finite losses and moved parameters;
+               one seeded bf16 step on the kernels against the same step on
+               the plain versions, and one seeded fp32 step on the card against
+               the CPU
+  6. times   — kernel vs plain (CUDA events, median of 20 after warm-up), the
+               train step at the slice geometry and at bench.py's 117M
+               geometry (64 x 128 input, 2,048 tokens), and the serving step
 
 The second-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. No result is printed when a phase fails.
 """
 
 import argparse
+import contextlib
 import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -45,17 +61,34 @@ SHAPES = [
     (1, 4100, 4100, 2, 256),
     (2, 300, 1000, 4, 128),
 ]
+# the fused dropout's [rows, cols]: the slice's pos_drop/proj and Mlp hidden,
+# the bench geometry's Mlp hidden, and a ragged shape
+DROPOUT_SHAPES = [(8 * 512, 1024), (8 * 512, 4096), (8 * 2048, 4096), (21, 200)]
+DROP = 0.1
 # bf16: both sides read the same bf16 inputs and accumulate in fp32; the kernel
 # rounds p to bf16 for the tensor-core value product and o once at the end.
 # fp32: summation order only
 O_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 LSE_ATOL = 1e-3
+# gradients against autograd of the plain forward (fp32 math): fp32 sums in
+# another order (atol=rtol 1e-4); bf16 rounds p and ds to bf16 for the tensor
+# cores, an error that grows with N, so atol 2e-2 of the largest gradient
+# and rtol 2e-2
+GRAD_FP32_TOL = 1e-4
+GRAD_BF16_REL = 2e-2
 # the bf16 model on the kernel vs on the plain ("xla") attention: bf16 probs
 # in the plain path round to 8 bits before the value product, and that
 # difference passes through 8 blocks and the decoder
 PRED_BF16_TOL = 5e-2
-# the fp32 model on the card (kernel, cuBLAS/cuDNN without TF32) vs on the CPU
+# the fp32 model on the card (kernels, cuBLAS/cuDNN without TF32) vs on the CPU
 PRED_FP32_TOL = 1e-4
+# one bf16 train step's loss, kernels vs plain versions on the card
+TRAIN_BF16_RTOL = 2e-2
+# one fp32 train step's loss and gradients, card vs CPU
+TRAIN_FP32_TOL = 1e-4
+# bench.py:199-210, the 117M train geometry
+BENCH_VARS = ("land_sea_mask", "orography", "lattitude", "landcover",
+              "total_precipitation_24hr", "2m_temperature_min", "2m_temperature_max")
 
 
 def check(cond, msg):
@@ -82,15 +115,39 @@ def cuda_ms(fn, iters=20, warmup=3):
     return statistics.median(times)
 
 
+def paired_ms(kernel, plain):
+    """(kernel ms, plain ms): each timed twice in turns (plain, kernel,
+    kernel, plain), the better of its two medians."""
+    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
+    return min(k1, k2), min(p1, p2)
+
+
 def make_qkv(b, n_q, n_k, h, d, dtype, gen):
     mk = lambda n: torch.randn(b, n, h, d, generator=gen, device="cuda").to(dtype)
     return mk(n_q), mk(n_k), mk(n_k)
 
 
+def kernels():
+    from orbit2_tpu_torch.ops.dropout import FUSED_DROPOUT
+    from orbit2_tpu_torch.ops.flash_attention import FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD
+
+    return {"flash_attn_fwd": FLASH_FWD, "flash_attn_bwd_dq": FLASH_BWD_DQ,
+            "flash_attn_bwd_dkv": FLASH_BWD_DKV, "fused_dropout": FUSED_DROPOUT}
+
+
+def reset_counts():
+    for k in kernels().values():
+        k.launches = 0
+
+
+def counts():
+    return {name: k.launches for name, k in kernels().items()}
+
+
 def write_dataset(root: Path, in_vars, out_vars, seed: int, n_files=2, t=16):
     """The tests/conftest.py layout at ERA5 5.625 deg (32 x 64) -> 1.40625 deg
-    (128 x 256): per-split npz shards of [T, 1, H, W] arrays, normalize
-    mean/std, lat/lon and climatology."""
+    (128 x 256): per-split (train, val, test) npz shards of [T, 1, H, W]
+    arrays, normalize mean/std, lat/lon and per-split climatology."""
     rng = np.random.default_rng(seed)
 
     def field(v, h, w):
@@ -102,13 +159,15 @@ def write_dataset(root: Path, in_vars, out_vars, seed: int, n_files=2, t=16):
 
     for base, (h, w), variables in ((root / "low", (32, 64), in_vars),
                                     (root / "high", (128, 256), out_vars)):
-        d = base / "test"
-        d.mkdir(parents=True)
-        for i in range(n_files):
-            np.savez(d / f"shard_{i}.npz",
-                     **{v: field(v, h, w).astype(np.float32) for v in variables})
-        np.savez(d / "climatology.npz",
-                 **{v: rng.normal(280, 1, size=(1, h, w)).astype(np.float32) for v in variables})
+        for split in ("train", "val", "test"):
+            d = base / split
+            d.mkdir(parents=True)
+            for i in range(n_files):
+                np.savez(d / f"shard_{i}.npz",
+                         **{v: field(v, h, w).astype(np.float32) for v in variables})
+            np.savez(d / "climatology.npz",
+                     **{v: rng.normal(280, 1, size=(1, h, w)).astype(np.float32)
+                        for v in variables})
         np.save(base / "lat.npy", np.linspace(-88, 88, h).astype(np.float32))
         np.save(base / "lon.npy", np.linspace(0, 358, w).astype(np.float32))
         np.savez(base / "normalize_mean.npz", **{v: np.array([280.0], np.float32) for v in variables})
@@ -143,10 +202,59 @@ def set_attention_impl(model, impl):
             m.attention_impl = impl
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """Routes the model's kernel calls to the kernels' plain PyTorch versions
+    (autograd of the plain forwards), drawing the same seeds in the same
+    order, so a step under it is the same step without the kernels."""
+    import orbit2_tpu_torch.models.components.blocks as blocks
+    import orbit2_tpu_torch.models.res_slimvit as res_slimvit
+    from orbit2_tpu_torch.ops.dropout import dropout_reference
+    from orbit2_tpu_torch.ops.flash_attention import attention_mult, flash_attention_reference
+    from orbit2_tpu_torch.ops.kernel_prng import draw_seed, keep_mult
+
+    def attention(q, k, v, impl, scale=None, dropout_rate=0.0, generator=None):
+        seed = draw_seed(generator) if dropout_rate > 0.0 else 0
+        return flash_attention_reference(q, k, v, scale,
+                                         attention_mult(q, k, dropout_rate, seed))[0]
+
+    def drop(x, rate, training, generator):
+        if not training or rate <= 0.0:
+            return x
+        cols = x.shape[-1]
+        mult = keep_mult(draw_seed(generator), x.numel() // cols, cols, rate, device=x.device)
+        return dropout_reference(x, mult)
+
+    saved = blocks.dot_product_attention, blocks.dropout, res_slimvit.dropout
+    blocks.dot_product_attention, blocks.dropout, res_slimvit.dropout = attention, drop, drop
+    try:
+        yield
+    finally:
+        blocks.dot_product_attention, blocks.dropout, res_slimvit.dropout = saved
+
+
+def train_step_of(model, cfg, in_vars, out_vars, grad_accum=1, mu_dtype=None, nu_dtype=None):
+    from orbit2_tpu_torch.metrics.metrics import METRICS_REGISTRY
+    from orbit2_tpu_torch.training.optim import make_optimizer
+    from orbit2_tpu_torch.training.train import make_train_step
+
+    m = cfg.model
+    opt = make_optimizer("adamw", {"lr": m.lr, "weight_decay": m.weight_decay,
+                                   "betas": (m.beta_1, m.beta_2), "mu_dtype": mu_dtype,
+                                   "nu_dtype": nu_dtype}, model.parameters())
+    loss = METRICS_REGISTRY[cfg.trainer.train_loss](aggregate_only=True)
+    return make_train_step(model, loss, cfg.data.var_weights, opt, in_vars, out_vars, grad_accum)
+
+
+def gens(seed):
+    return torch.Generator().manual_seed(seed), torch.Generator().manual_seed(seed + 1)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batches", type=int, default=3)
+    ap.add_argument("--steps", type=int, default=3, help="train steps per epoch (2 epochs)")
     args = ap.parse_args()
 
     # 1. device
@@ -154,8 +262,12 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         sys.exit(2)
+    from orbit2_tpu_torch.ops.dropout import FusedDropout, dropout_reference
     from orbit2_tpu_torch.ops.flash_attention import (
-        FLASH_FWD, attention_flops, flash_attention_fwd, flash_attention_reference)
+        FLASH_BWD_DKV, FLASH_BWD_DQ, attention_delta, attention_flops, attention_mult,
+        flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd,
+        flash_attention_reference)
+    from orbit2_tpu_torch.ops.kernel_prng import keep_mult
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -165,65 +277,116 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     phase("build")
-    FLASH_FWD.library.load()
-    print(f"flash_attn_fwd built in {FLASH_FWD.library.build_seconds:.2f} s "
-          f"({FLASH_FWD.library.path().name})")
+    libraries = {k.library.source.name: k.library for k in kernels().values()}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        for lib in pool.map(lambda lib: (lib.load(), lib)[1], libraries.values()):
+            print(f"  {lib.source.name} built in {lib.build_seconds:.2f} s ({lib.path().name})")
+    print(f"  all built in {time.perf_counter() - t0:.2f} s (wall)")
 
     # 3. kernels against their plain versions
     phase("kernels")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     errs = {}
+    kernel_seed = 2 ** 40 + args.seed
     for dtype in (torch.bfloat16, torch.float32):
         for shape in SHAPES:
             b, n_q, n_k, h, d = shape
             q, k, v = make_qkv(b, n_q, n_k, h, d, dtype, gen)
-            o, lse = flash_attention_fwd(q, k, v)
-            want_o, want_lse = flash_attention_reference(q, k, v)
-            torch.cuda.synchronize()
-            err_o = (o.float() - want_o.float()).abs().max().item()
-            err_lse = (lse - want_lse).abs().max().item()
-            tol = O_TOL[dtype]
-            ok_o = bool(((o.float() - want_o.float()).abs()
-                         <= tol + tol * want_o.float().abs()).all())
-            print(f"  {str(dtype)[6:]:8s} B{b} Nq{n_q} Nk{n_k} H{h} d{d}: "
-                  f"max|do| {err_o:.3e} (atol=rtol={tol:g})  max|dlse| {err_lse:.3e} "
-                  f"(atol {LSE_ATOL:g})")
-            check(ok_o and err_lse <= LSE_ATOL, f"kernel disagrees with plain at {shape} {dtype}")
-            errs[(dtype, shape)] = err_o
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+            for rate in (0.0, DROP):
+                mult = attention_mult(q, k, rate, kernel_seed)
+                o, lse = flash_attention_fwd(q, k, v, None, rate, kernel_seed)
+                want_o, want_lse = flash_attention_reference(q, k, v, None, mult)
+                torch.cuda.synchronize()
+                err_o = (o.float() - want_o.float()).abs().max().item()
+                err_lse = (lse - want_lse).abs().max().item()
+                tol = O_TOL[dtype]
+                ok_o = bool(((o.float() - want_o.float()).abs()
+                             <= tol + tol * want_o.float().abs()).all())
+                print(f"  fwd {str(dtype)[6:]:8s} drop {rate:g} B{b} Nq{n_q} Nk{n_k} H{h} d{d}: "
+                      f"max|do| {err_o:.3e} (atol=rtol={tol:g})  max|dlse| {err_lse:.3e} "
+                      f"(atol {LSE_ATOL:g})")
+                check(ok_o and err_lse <= LSE_ATOL,
+                      f"flash forward disagrees with plain at {shape} {dtype} drop {rate}")
+                errs[("fwd", dtype, shape, rate)] = err_o
+
+                dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, rate,
+                                                 kernel_seed)
+                qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+                flash_attention_reference(qf, kf, vf, None, mult)[0].backward(do.float())
+                torch.cuda.synchronize()
+                line = []
+                for name, got, want in (("dq", dq, qf.grad), ("dk", dk, kf.grad),
+                                        ("dv", dv, vf.grad)):
+                    check(got.dtype == dtype, f"{name} is {got.dtype}, want {dtype}")
+                    scale = want.abs().max().item()
+                    if dtype == torch.float32:
+                        atol = rtol = GRAD_FP32_TOL
+                    else:
+                        atol, rtol = GRAD_BF16_REL * scale, GRAD_BF16_REL
+                    diff = (got.float() - want).abs()
+                    err = diff.max().item()
+                    ok = bool((diff <= atol + rtol * want.abs()).all())
+                    line.append(f"max|d{name}| {err:.3e} (max|{name}| {scale:.3e})")
+                    check(ok, f"{name} kernel disagrees with plain at {shape} {dtype} drop {rate}")
+                    errs[(name, dtype, shape, rate)] = err
+                print(f"  bwd {str(dtype)[6:]:8s} drop {rate:g} B{b} Nq{n_q} Nk{n_k} H{h} d{d}: "
+                      + "  ".join(line))
+                del mult, qf, kf, vf
+            del q, k, v, do
+    torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        for r, c in DROPOUT_SHAPES:
+            x = torch.randn(r, c, generator=gen, device="cuda").to(dtype).requires_grad_()
+            g = torch.randn(r, c, generator=gen, device="cuda").to(dtype)
+            out = FusedDropout.apply(x, kernel_seed + r, DROP)
+            out.backward(g)
+            mult = keep_mult(kernel_seed + r, r, c, DROP, device="cuda")
+            same_fwd = torch.equal(out, dropout_reference(x.detach(), mult))
+            same_bwd = torch.equal(x.grad, dropout_reference(g, mult))
+            kept = (mult > 0).float().mean().item()
+            print(f"  fused_dropout {str(dtype)[6:]:8s} [{r}, {c}]: fwd bit-equal {same_fwd}, "
+                  f"bwd bit-equal {same_bwd}, kept {kept:.4f}")
+            check(same_fwd and same_bwd, f"fused dropout differs from plain at [{r}, {c}] {dtype}")
+            check(abs(kept - (1 - DROP)) < 4 * math.sqrt(DROP * (1 - DROP) / (r * c)),
+                  f"fused dropout kept {kept} of [{r}, {c}]")
+    errs[("fused_dropout",)] = 0.0
     torch.cuda.synchronize()
 
-    # 4. the serving slice
-    phase("slice")
-    from orbit2_tpu_torch.evaluate import Evaluator
+    from orbit2_tpu_torch.evaluate import Evaluator, model_kwargs
     from orbit2_tpu_torch.training.train import make_eval_step
+    from orbit2_tpu_torch.training.trainer import Trainer
+    from orbit2_tpu_torch.utils.loaders import load_architecture
 
     (ROOT / "_smoke").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "_smoke") as tmp:
         cfg = slice_config(Path(tmp), args.seed)
         m = cfg.model
+
+        # 4. the serving slice
+        phase("slice")
         print(f"  config {CONFIG.name}: embed {m.embed_dim} depth {m.depth} heads {m.num_heads} "
               f"decoder {m.decoder_depth} {cfg.trainer.data_type} batch {cfg.trainer.batch_size} "
               f"attention {m.attention_impl}")
-
-        FLASH_FWD.launches = 0
+        reset_counts()
         ev = Evaluator(cfg, "cuda")
         tt = time.perf_counter()
         metrics = ev.test(max_batches=args.batches)
         torch.cuda.synchronize()
         test_s = time.perf_counter() - tt
-        launches = FLASH_FWD.launches
-
-        print(f"  test(max_batches={args.batches}) {test_s:.3f} s; flash_attn_fwd launches "
-              f"{launches}")
+        serve_counts = counts()
+        print(f"  test(max_batches={args.batches}) {test_s:.3f} s; launches {serve_counts}")
         for key, val in metrics.items():
             print(f"    {key} {val:.6f}")
         check(len(metrics) == 12 and all(np.isfinite(v) for v in metrics.values()),
               "slice metrics missing or not finite")
-        check(launches == m.depth * args.batches,
-              f"flash_attn_fwd launched {launches} times, want depth x batches = "
-              f"{m.depth * args.batches}")
+        check(serve_counts == {"flash_attn_fwd": m.depth * args.batches, "flash_attn_bwd_dq": 0,
+                               "flash_attn_bwd_dkv": 0, "fused_dropout": 0},
+              f"serving launches {serve_counts}, want flash_attn_fwd = depth x batches = "
+              f"{m.depth * args.batches} and nothing else")
 
         dm = ev.data_module
         in_vars, out_vars = dm.get_data_variables()
@@ -232,11 +395,10 @@ def main():
         loader.close()
         x = torch.from_numpy(batch[0]).cuda()
         y = torch.from_numpy(batch[1]).cuda()
-        xm = x.to(next(ev.model.parameters()).dtype)
         with torch.no_grad():
-            pred = ev.model(xm, in_vars, out_vars).float()
+            pred = ev.model(x, in_vars, out_vars).float()
             set_attention_impl(ev.model, "xla")
-            pred_plain = ev.model(xm, in_vars, out_vars).float()
+            pred_plain = ev.model(x, in_vars, out_vars).float()
             set_attention_impl(ev.model, m.attention_impl)
             torch.cuda.synchronize()
         mag = m.superres_mag
@@ -250,6 +412,7 @@ def main():
         torch.testing.assert_close(pred, pred_plain, atol=PRED_BF16_TOL, rtol=PRED_BF16_TOL)
 
         m32 = copy.deepcopy(ev.model).float()
+        m32.dtype = torch.float32
         with torch.no_grad():
             pred_gpu = m32(x[:1], in_vars, out_vars)
             torch.cuda.synchronize()
@@ -261,7 +424,78 @@ def main():
                                    rtol=PRED_FP32_TOL)
         del m32
 
-        # 5. times
+        # 5. the training slice
+        phase("train")
+        print(f"  {cfg.trainer.data_type} compute, fp32 parameters, adam mu "
+              f"{cfg.trainer.adam_mu_dtype} nu {cfg.trainer.adam_nu_dtype}, drop_rate "
+              f"{m.drop_rate} drop_path {m.drop_path}, batch {cfg.trainer.batch_size}, "
+              f"2 epochs x {args.steps} steps")
+        steps = 2 * args.steps
+        reset_counts()
+        trainer = Trainer(cfg, "cuda")
+        tt = time.perf_counter()
+        history = trainer.fit(max_epochs=2, max_steps_per_epoch=args.steps)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - tt
+        train_counts = counts()
+        for rec in history:
+            print(f"    {json.dumps(rec)}")
+        print(f"  fit {fit_s:.3f} s; launches {train_counts}")
+        check(sum(r["batches"] for r in history) == steps, f"fit took {history}")
+        check(all(np.isfinite(r["loss"]) for r in history), "a train loss is not finite")
+        want_counts = {"flash_attn_fwd": m.depth * steps, "flash_attn_bwd_dq": m.depth * steps,
+                       "flash_attn_bwd_dkv": m.depth * steps,
+                       "fused_dropout": 2 * (1 + 3 * m.depth) * steps}
+        check(train_counts == want_counts, f"train launches {train_counts}, want {want_counts}")
+        tdm = trainer._data_modules[next(iter(cfg.data.low_res_dir))]
+        init = load_architecture(tdm, m.preset, **model_kwargs(cfg)).state_dict()
+        params = dict(trainer.model.named_parameters())
+        still = [k for k, p in params.items() if torch.equal(p.detach().cpu(), init[k])]
+        print(f"  parameters moved: {len(params) - len(still)} of {len(params)} "
+              f"({str(next(iter(params.values())).dtype)[6:]})")
+        check(not still and all(p.dtype == torch.float32 for p in params.values()),
+              f"parameters did not move or are not fp32 masters: {still}")
+
+        loader = iter(tdm.train_dataloader())
+        batch = next(loader)
+        loader.close()
+        xb = torch.from_numpy(batch[0]).cuda().to(torch.bfloat16)
+        yb = torch.from_numpy(batch[1]).cuda().to(torch.bfloat16)
+        mu, nu = cfg.trainer.adam_mu_dtype, cfg.trainer.adam_nu_dtype
+        reset_counts()
+        loss_k = train_step_of(copy.deepcopy(trainer.model), cfg, in_vars, out_vars,
+                               mu_dtype=mu, nu_dtype=nu)(xb, yb, *gens(7)).item()
+        check(all(c > 0 for c in counts().values()), f"kernel step launched {counts()}")
+        reset_counts()
+        with plain_versions():
+            loss_p = train_step_of(copy.deepcopy(trainer.model), cfg, in_vars, out_vars,
+                                   mu_dtype=mu, nu_dtype=nu)(xb, yb, *gens(7)).item()
+        check(all(c == 0 for c in counts().values()), f"plain step launched {counts()}")
+        print(f"  bf16 step loss, kernels {loss_k:.6f} vs plain versions {loss_p:.6f} "
+              f"(rtol {TRAIN_BF16_RTOL:g})")
+        check(abs(loss_k - loss_p) <= TRAIN_BF16_RTOL * abs(loss_p), "bf16 step losses differ")
+
+        results = []
+        for device in ("cuda", "cpu"):
+            mdl = copy.deepcopy(trainer.model).to(device)
+            mdl.dtype = torch.float32
+            loss = train_step_of(mdl, cfg, in_vars, out_vars)(
+                xb[:2].float().to(device), yb[:2].float().to(device), *gens(11)).item()
+            results.append((loss, {k: p.grad.cpu() for k, p in mdl.named_parameters()}))
+            del mdl
+        (loss_gpu, g_gpu), (loss_cpu, g_cpu) = results
+        worst = max(((g_gpu[k] - g_cpu[k]).abs().max().item(), k) for k in g_cpu)
+        print(f"  fp32 step with dropout, card (kernels) vs CPU (plain): loss {loss_gpu:.7f} vs "
+              f"{loss_cpu:.7f}; max|dgrad| {worst[0]:.3e} at {worst[1]} "
+              f"(atol=rtol={TRAIN_FP32_TOL:g})")
+        check(math.isclose(loss_gpu, loss_cpu, rel_tol=TRAIN_FP32_TOL, abs_tol=TRAIN_FP32_TOL),
+              "fp32 step losses differ between card and CPU")
+        for k in g_cpu:
+            torch.testing.assert_close(g_gpu[k], g_cpu[k], atol=TRAIN_FP32_TOL,
+                                       rtol=TRAIN_FP32_TOL, msg=k)
+        del results, g_gpu, g_cpu
+
+        # 6. times
         phase("times")
         print(f"gpu: {smi}")
         timed = {}
@@ -269,38 +503,108 @@ def main():
             for shape in SHAPES:
                 b, n_q, n_k, h, d = shape
                 q, k, v = make_qkv(b, n_q, n_k, h, d, dtype, gen)
-                before = FLASH_FWD.launches
-                ms_plain = cuda_ms(lambda: flash_attention_reference(q, k, v))
-                ms_kernel = cuda_ms(lambda: flash_attention_fwd(q, k, v))
-                ms_kernel2 = cuda_ms(lambda: flash_attention_fwd(q, k, v))
-                ms_plain2 = cuda_ms(lambda: flash_attention_reference(q, k, v))
-                check(FLASH_FWD.launches > before, "timing did not launch the kernel")
-                kern = min(ms_kernel, ms_kernel2)
-                plain = min(ms_plain, ms_plain2)
+                do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+                mult = attention_mult(q, k, DROP, kernel_seed)
+                before = counts()
+                kern, plain = paired_ms(lambda: flash_attention_fwd(q, k, v),
+                                        lambda: flash_attention_reference(q, k, v))
+                kern_drop, plain_drop = paired_ms(
+                    lambda: flash_attention_fwd(q, k, v, None, DROP, kernel_seed),
+                    lambda: flash_attention_reference(q, k, v, None, mult))
+                o, lse = flash_attention_fwd(q, k, v, None, DROP, kernel_seed)
+                delta = attention_delta(o, do)
+                dq_ms = cuda_ms(lambda: FLASH_BWD_DQ(q, k, v, do, lse, delta, d ** -0.5, DROP,
+                                                     kernel_seed))
+                dkv_ms = cuda_ms(lambda: FLASH_BWD_DKV(q, k, v, do, lse, delta, d ** -0.5, DROP,
+                                                       kernel_seed))
+                bwd, bwd_plain = paired_ms(
+                    lambda: flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, DROP,
+                                                kernel_seed),
+                    lambda: flash_attention_bwd_reference(q, k, v, o, lse, do, d ** -0.5, mult))
+                after = counts()
+                check(all(after[n] > before[n] for n in
+                          ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")),
+                      "timing did not launch the kernels")
+                timed[("fwd", dtype, shape, 0.0)] = (kern, plain)
+                timed[("fwd", dtype, shape, DROP)] = (kern_drop, plain_drop)
+                timed[("bwd", dtype, shape, DROP)] = (bwd, bwd_plain)
+                timed[("dq", dtype, shape, DROP)] = (dq_ms, bwd_plain)
+                timed[("dkv", dtype, shape, DROP)] = (dkv_ms, bwd_plain)
                 tflops = attention_flops(b, n_q, n_k, h, d) / kern / 1e9
-                timed[(dtype, shape)] = (kern, plain)
-                print(f"  {str(dtype)[6:]:8s} B{b} Nq{n_q} Nk{n_k} H{h} d{d}: kernel "
-                      f"{ms_kernel:.4f}/{ms_kernel2:.4f} ms ({tflops:.1f} TFLOP/s)  plain "
-                      f"{ms_plain:.4f}/{ms_plain2:.4f} ms")
-                del q, k, v
+                print(f"  {str(dtype)[6:]:8s} B{b} Nq{n_q} Nk{n_k} H{h} d{d}: fwd {kern:.4f} ms "
+                      f"({tflops:.1f} TFLOP/s) plain {plain:.4f}; fwd drop {kern_drop:.4f} plain "
+                      f"{plain_drop:.4f}; backward drop (delta + dq + dk/dv) {bwd:.4f} ms "
+                      f"({2.5 * attention_flops(b, n_q, n_k, h, d) / bwd / 1e9:.1f} TFLOP/s; "
+                      f"dq {dq_ms:.4f}, dk/dv {dkv_ms:.4f}) plain {bwd_plain:.4f}")
+                del q, k, v, do, mult, o, lse, delta
+                torch.cuda.empty_cache()
+        for dtype in (torch.bfloat16, torch.float32):
+            for r, c in DROPOUT_SHAPES:
+                x_ = torch.randn(r, c, generator=gen, device="cuda").to(dtype)
+                mult = keep_mult(kernel_seed, r, c, DROP, device="cuda")
+                kern, plain = paired_ms(lambda: FusedDropout.apply(x_, kernel_seed, DROP),
+                                        lambda: dropout_reference(x_, mult))
+                timed[("fused_dropout", dtype, (r, c))] = (kern, plain)
+                gbs = 2 * x_.numel() * x_.element_size() / kern / 1e6
+                print(f"  fused_dropout {str(dtype)[6:]:8s} [{r}, {c}]: {kern:.4f} ms "
+                      f"({gbs:.0f} GB/s) plain {plain:.4f} ms (mask precomputed)")
+                del x_, mult
 
         step = make_eval_step(ev.model, in_vars, out_vars)
         ms_batch = cuda_ms(lambda: step(x, y))
-        print(f"  slice: eval step (forward + clip) {ms_batch:.3f} ms per test batch of "
+        print(f"  serving: eval step (forward + clip) {ms_batch:.3f} ms per test batch of "
               f"{x.shape[0]} (median of 20); test() wall {test_s / args.batches:.4f} s per batch "
               f"over {args.batches} batches incl. loading and metrics")
 
-    slice_shape = (torch.bfloat16, SHAPES[0])
-    print(json.dumps({"kernels": [{
-        "name": "flash_attn_fwd",
-        "route": "cuda",
-        "source": "orbit2_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "orbit2_tpu/ops/flash_attention.py:117",
-        "launches": launches,
-        "max_abs_err": errs[slice_shape],
-        "ms": timed[slice_shape][0],
-        "plain_ms": timed[slice_shape][1],
-    }]}))
+        tstep = train_step_of(trainer.model, cfg, in_vars, out_vars, mu_dtype=mu, nu_dtype=nu)
+        g1, g2 = gens(13)
+        ms_train = cuda_ms(lambda: tstep(xb, yb, g1, g2))
+        print(f"  train step, slice geometry (32 x 64 -> 512 tokens, 23 variables, batch "
+              f"{xb.shape[0]}, bf16): {ms_train:.3f} ms, {xb.shape[0] / ms_train * 1e3:.2f} "
+              f"samples/s (median of 20); fit {fit_s / steps:.4f} s per step over {steps} "
+              f"steps incl. loading and the first step's warm-up")
+        del trainer, tstep, ev
+
+    from orbit2_tpu_torch.models import ResSlimViT
+
+    bench = ResSlimViT(BENCH_VARS, (64, 128), 7, 3, superres_mag=4, patch_size=2,
+                       embed_dim=1024, depth=8, decoder_depth=2, num_heads=16,
+                       learn_pos_emb=True, spatial_resolution=111.0, attention_impl="auto",
+                       drop_rate=0.1, drop_path=0.1, dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(0)).cuda()
+    bench_cfg = copy.deepcopy(cfg)
+    bench_cfg.model.lr, bench_cfg.model.weight_decay = 1e-4, 1e-5
+    bench_cfg.model.beta_1, bench_cfg.model.beta_2 = 0.9, 0.999
+    bench_cfg.data.var_weights = None
+    bstep = train_step_of(bench, bench_cfg, BENCH_VARS, BENCH_VARS[4:], mu_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    bx = torch.from_numpy(rng.normal(size=(8, 7, 64, 128)).astype(np.float32)).cuda()
+    by = torch.from_numpy(rng.normal(size=(8, 3, 256, 512)).astype(np.float32)).cuda()
+    g1, g2 = gens(17)
+    ms_bench = cuda_ms(lambda: bstep(bx, by, g1, g2))
+    print(f"  train step, bench.py 117M geometry (64 x 128 -> 2048 tokens, 7 variables, batch 8, "
+          f"bf16, mu bf16): {ms_bench:.3f} ms, {8 / ms_bench * 1e3:.2f} samples/s "
+          f"(median of 20)")
+
+    slice_shape = SHAPES[0]
+    bf16 = torch.bfloat16
+
+    def entry(name, source, replaces, err, ms):
+        return {"name": name, "route": "cuda", "source": f"orbit2_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": train_counts[name], "max_abs_err": err,
+                "ms": ms[0], "plain_ms": ms[1]}
+
+    print(json.dumps({"kernels": [
+        entry("flash_attn_fwd", "flash_attn_fwd.cu", "orbit2_tpu/ops/flash_attention.py:117",
+              errs[("fwd", bf16, slice_shape, DROP)], timed[("fwd", bf16, slice_shape, DROP)]),
+        entry("flash_attn_bwd_dq", "flash_attn_bwd.cu", "orbit2_tpu/ops/flash_attention.py:287",
+              errs[("dq", bf16, slice_shape, DROP)], timed[("dq", bf16, slice_shape, DROP)]),
+        entry("flash_attn_bwd_dkv", "flash_attn_bwd.cu", "orbit2_tpu/ops/flash_attention.py:328",
+              max(errs[("dk", bf16, slice_shape, DROP)], errs[("dv", bf16, slice_shape, DROP)]),
+              timed[("dkv", bf16, slice_shape, DROP)]),
+        entry("fused_dropout", "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39",
+              errs[("fused_dropout",)], timed[("fused_dropout", bf16, DROPOUT_SHAPES[1])]),
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

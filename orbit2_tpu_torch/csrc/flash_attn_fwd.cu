@@ -35,17 +35,32 @@
 // path. The fp32 tiles at D = 256 take 213,760 bytes of shared memory, above
 // the 48 KB static limit, so every launch raises the dynamic shared-memory
 // limit with cudaFuncSetAttribute.
+//
+// Dropout (drop_rate > 0, the kDropout instances; drop_rate == 0 compiles to
+// the kernels without any of it). As in the TPU kernels (:183-187) dropout
+// comes after the softmax normalizer: l and lse sum the undropped p, and only
+// the p of the value product is multiplied by the {0, 1/keep} mask. The mask
+// of each 64 x 64 score tile is regenerated from the seed and the global
+// (query, key) coordinates (csrc/kernel_prng.cuh, stream = batch*head) into
+// a byte tile in shared memory, one Philox call per 4 bytes, so each thread
+// reads its elements in the mma accumulator layout (the A-fragment layout
+// of p v) and the backward kernels regenerate the same mask with their own
+// tiling.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
+using orbit2::bf16;
+using orbit2::Dropout;
+using orbit2::ld32;
+using orbit2::mma_16816;
+using orbit2::pack_bf16x2;
+
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-using bf16 = __nv_bfloat16;
+constexpr int kKeepLd = kBlockK + 4;  // byte row stride of the keep tile
+constexpr size_t kKeepBytes = (size_t)kBlockQ * kKeepLd;
 
 // ---- bf16: tensor cores (mma.sync m16n8k16) -------------------------------
 
@@ -58,31 +73,13 @@ struct MmaTiles {
   static constexpr size_t kBytes = sizeof(bf16) * (kBlockQ * kLd + kBlockK * kLd + D * kLdVt);
 };
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a b for one 16x8 tile: a 16x16 (row), b 16x8 (col), bf16 in, fp32 acc
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Copies rows [row0, row0 + 64) of one head into shared memory, 8 elements
-// per step (16-byte loads when `vec`), zero-filling rows at or past n_valid.
-// kTranspose stores element (r, c) at dst[c * ld + r].
-template <int D, bool kTranspose>
-__device__ __forceinline__ void load_bf16_tile(bf16* dst, int ld, const bf16* base,
-                                               int64_t row_stride, int row0, int n_valid,
-                                               bool vec) {
+// Copies rows [row0, row0 + 64) of one head into shared memory transposed,
+// element (r, c) at dst[c * ld + r], 8 elements per step (16-byte loads when
+// `vec`), zero-filling rows at or past n_valid.
+template <int D>
+__device__ __forceinline__ void load_bf16_tile_transposed(bf16* dst, int ld, const bf16* base,
+                                                          int64_t row_stride, int row0,
+                                                          int n_valid, bool vec) {
   constexpr int kChunks = D / 8;
   for (int idx = threadIdx.x; idx < kBlockK * kChunks; idx += kMmaThreads) {
     const int r = idx / kChunks;
@@ -98,22 +95,18 @@ __device__ __forceinline__ void load_bf16_tile(bf16* dst, int ld, const bf16* ba
         for (int i = 0; i < 8; ++i) vals[i] = src[i];
       }
     }
-    if (kTranspose) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) dst[(c + i) * ld + r] = vals[i];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = chunk;
-    }
+    for (int i = 0; i < 8; ++i) dst[(c + i) * ld + r] = vals[i];
   }
 }
 
-template <int D>
+template <int D, bool kDropout>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                      int heads, int n_q, int n_k, int64_t sqb, int64_t sqn, int64_t sqh,
                      int64_t skb, int64_t skn, int64_t skh, int64_t svb, int64_t svn,
-                     int64_t svh, float scale_log2, int vec) {
+                     int64_t svh, float scale_log2, int vec, Dropout drop) {
   using L = MmaTiles<D>;
   constexpr int kNT = kBlockK / 8;  // score n-tiles per kv tile
   constexpr int kDT = D / 8;        // output n-tiles
@@ -122,6 +115,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* ks = qs + kBlockQ * L::kLd;
   bf16* vt = ks + kBlockK * L::kLd;
+  uint8_t* keep = reinterpret_cast<uint8_t*>(smem_raw + L::kBytes);  // kDropout only
 
   const int bh = blockIdx.y;
   const int b = bh / heads;
@@ -136,7 +130,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * skb + h * skh;
   const bf16* vb = v + b * svb + h * svh;
 
-  load_bf16_tile<D, false>(qs, L::kLd, qb, sqn, q0, n_q, vec);
+  orbit2::load_bf16_rows<D, kBlockQ, kMmaThreads>(qs, L::kLd, qb, sqn, q0, n_q, vec);
 
   float acc[kDT][4];
 #pragma unroll
@@ -146,8 +140,12 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int k0 = 0; k0 < n_k; k0 += kBlockK) {
     __syncthreads();  // the previous tile's k/v reads are done
-    load_bf16_tile<D, false>(ks, L::kLd, kb, skn, k0, n_k, vec);
-    load_bf16_tile<D, true>(vt, L::kLdVt, vb, svn, k0, n_k, vec);
+    orbit2::load_bf16_rows<D, kBlockK, kMmaThreads>(ks, L::kLd, kb, skn, k0, n_k, vec);
+    load_bf16_tile_transposed<D>(vt, L::kLdVt, vb, svn, k0, n_k, vec);
+    if constexpr (kDropout) {
+      orbit2::fill_keep_tile<kBlockQ, kBlockK, kMmaThreads>(keep, kKeepLd, drop.seed, bh, q0, k0,
+                                                            drop.threshold);
+    }
     __syncthreads();
 
     // s = q k^T: s[j] is the 16x8 tile of kv columns 8j..8j+7; this thread
@@ -210,6 +208,17 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       acc[j][2] *= alpha[1];
       acc[j][3] *= alpha[1];
     }
+    if constexpr (kDropout) {  // after the normalizer: l keeps the undropped p
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rl = r0 + g + 8 * (e >> 1);
+          const int cl = j * 8 + 2 * t + (e & 1);
+          s[j][e] *= keep[rl * kKeepLd + cl] ? drop.scale : 0.f;
+        }
+      }
+    }
 
     // acc += p v: the score tiles 2kk, 2kk+1 are the A fragment of kv step kk
 #pragma unroll
@@ -258,25 +267,13 @@ struct FmaTiles {
       sizeof(float) * (kBlockQ * kLdQ + kBlockK * kLdK + kBlockK * kLdV + kBlockQ * kLdP);
 };
 
-// Copies rows [row0, row0 + 64) of one head into shared memory; rows at or
-// past n_valid are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_f32_tile(float* dst, int ld, const float* base,
-                                              int64_t row_stride, int row0, int n_valid) {
-  for (int idx = threadIdx.x; idx < kBlockK * D; idx += kFmaThreads) {
-    const int r = idx / D;
-    const int c = idx % D;
-    dst[r * ld + c] = row0 + r < n_valid ? base[(int64_t)(row0 + r) * row_stride + c] : 0.f;
-  }
-}
-
-template <int D>
+template <int D, bool kDropout>
 __global__ void __launch_bounds__(kFmaThreads)
 flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int heads, int n_q, int n_k, int64_t sqb,
                      int64_t sqn, int64_t sqh, int64_t skb, int64_t skn, int64_t skh,
-                     int64_t svb, int64_t svn, int64_t svh, float scale_log2) {
+                     int64_t svb, int64_t svn, int64_t svh, float scale_log2, Dropout drop) {
   using L = FmaTiles<D>;
   constexpr int kCols = kBlockK / kThreadsPerRow;  // score columns per thread
   constexpr int kOut = D / kThreadsPerRow;         // output columns per thread
@@ -286,6 +283,7 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* ks = qs + kBlockQ * L::kLdQ;
   float* vs = ks + kBlockK * L::kLdK;
   float* ps = vs + kBlockK * L::kLdV;
+  uint8_t* keep = reinterpret_cast<uint8_t*>(smem + L::kBytes / sizeof(float));  // kDropout only
 
   const int bh = blockIdx.y;
   const int b = bh / heads;
@@ -294,7 +292,8 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int row = threadIdx.x / kThreadsPerRow;
   const int sub = threadIdx.x % kThreadsPerRow;
 
-  load_f32_tile<D>(qs, L::kLdQ, q + b * sqb + h * sqh, sqn, q0, n_q);
+  orbit2::load_f32_rows<D, kBlockQ, kFmaThreads>(qs, L::kLdQ, q + b * sqb + h * sqh, sqn, q0,
+                                                 n_q);
   const float* kb = k + b * skb + h * skh;
   const float* vb = v + b * svb + h * svh;
 
@@ -309,8 +308,12 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = 0; k0 < n_k; k0 += kBlockK) {
     __syncthreads();  // the previous tile's k/v/p reads are done
-    load_f32_tile<D>(ks, L::kLdK, kb, skn, k0, n_k);
-    load_f32_tile<D>(vs, L::kLdV, vb, svn, k0, n_k);
+    orbit2::load_f32_rows<D, kBlockK, kFmaThreads>(ks, L::kLdK, kb, skn, k0, n_k);
+    orbit2::load_f32_rows<D, kBlockK, kFmaThreads>(vs, L::kLdV, vb, svn, k0, n_k);
+    if constexpr (kDropout) {
+      orbit2::fill_keep_tile<kBlockQ, kBlockK, kFmaThreads>(keep, kKeepLd, drop.seed, bh, q0, k0,
+                                                            drop.threshold);
+    }
     __syncthreads();
 
     // s = q k^T for this thread's columns sub, sub + 4, ...
@@ -339,9 +342,14 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float row_sum = 0.f;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
+      const int cl = sub + kThreadsPerRow * j;
       const float p = exp2f(s[j] - m_new);
-      row_sum += p;
-      ps[row * L::kLdP + sub + kThreadsPerRow * j] = p;
+      row_sum += p;  // the normalizer sums the undropped p
+      if constexpr (kDropout) {
+        ps[row * L::kLdP + cl] = p * (keep[row * kKeepLd + cl] ? drop.scale : 0.f);
+      } else {
+        ps[row * L::kLdP + cl] = p;
+      }
     }
     row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 1);
     row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 2);
@@ -383,42 +391,44 @@ struct Args {
   const int64_t* s;  // {q_b, q_n, q_h, k_b, k_n, k_h, v_b, v_n, v_h}
   float scale_log2;
   int vec;
+  Dropout drop;
   cudaStream_t stream;
 };
-
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
 
 dim3 grid_of(const Args& a) {
   return dim3((unsigned)((a.n_q + kBlockQ - 1) / kBlockQ), (unsigned)(a.batch * a.heads));
 }
 
-template <int D>
+template <int D, bool kDropout>
 int launch_bf16(const Args& a) {
-  const size_t smem = MmaTiles<D>::kBytes;
-  cudaError_t err = prepare(flash_fwd_mma_kernel<D>, smem);
+  const size_t smem = MmaTiles<D>::kBytes + (kDropout ? kKeepBytes : 0);
+  cudaError_t err = orbit2::allow_smem(flash_fwd_mma_kernel<D, kDropout>, smem);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_mma_kernel<D><<<grid_of(a), kMmaThreads, smem, a.stream>>>(
+  flash_fwd_mma_kernel<D, kDropout><<<grid_of(a), kMmaThreads, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, (int)a.heads,
       (int)a.n_q, (int)a.n_k, a.s[0], a.s[1], a.s[2], a.s[3], a.s[4], a.s[5], a.s[6], a.s[7],
-      a.s[8], a.scale_log2, a.vec);
+      a.s[8], a.scale_log2, a.vec, a.drop);
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool kDropout>
+int launch_f32(const Args& a) {
+  const size_t smem = FmaTiles<D>::kBytes + (kDropout ? kKeepBytes : 0);
+  cudaError_t err = orbit2::allow_smem(flash_fwd_fma_kernel<D, kDropout>, smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_fwd_fma_kernel<D, kDropout><<<grid_of(a), kFmaThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, (int)a.heads,
+      (int)a.n_q, (int)a.n_k, a.s[0], a.s[1], a.s[2], a.s[3], a.s[4], a.s[5], a.s[6], a.s[7],
+      a.s[8], a.scale_log2, a.drop);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_f32(const Args& a) {
-  const size_t smem = FmaTiles<D>::kBytes;
-  cudaError_t err = prepare(flash_fwd_fma_kernel<D>, smem);
-  if (err != cudaSuccess) return (int)err;
-  flash_fwd_fma_kernel<D><<<grid_of(a), kFmaThreads, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, (int)a.heads,
-      (int)a.n_q, (int)a.n_k, a.s[0], a.s[1], a.s[2], a.s[3], a.s[4], a.s[5], a.s[6], a.s[7],
-      a.s[8], a.scale_log2);
-  return (int)cudaGetLastError();
+int launch(int dtype, const Args& a, bool dropout) {
+  if (dtype == 1) return dropout ? launch_bf16<D, true>(a) : launch_bf16<D, false>(a);
+  return dropout ? launch_f32<D, true>(a) : launch_f32<D, false>(a);
 }
 
 }  // namespace
@@ -426,28 +436,25 @@ int launch_f32(const Args& a) {
 // Plain C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
 // strides: {q_b, q_n, q_h, k_b, k_n, k_h, v_b, v_n, v_h} in elements.
 // vec != 0 promises that every row of q/k/v starts 16-byte aligned (bf16
-// tiles are then loaded with 16-byte loads). Returns 0 on success, a
+// tiles are then loaded with 16-byte loads). dropout != 0 drops attention
+// probabilities: kept when the bits of (seed, batch*head, query, key) are
+// <= drop_threshold, then scaled by drop_scale. Returns 0 on success, a
 // cudaError_t code if the launch failed, or -1 for a dtype or head dim the
 // kernel has no instance for.
 extern "C" int orbit2_flash_attn_fwd(int dtype, int64_t head_dim, const void* q, const void* k,
                                      const void* v, void* o, void* lse, int64_t batch,
                                      int64_t heads, int64_t n_q, int64_t n_k,
                                      const int64_t* strides, double sm_scale, int vec,
-                                     void* stream) {
+                                     int dropout, uint64_t seed, uint32_t drop_threshold,
+                                     float drop_scale, void* stream) {
   const Args a{q, k, v, o, static_cast<float*>(lse), batch, heads, n_q, n_k, strides,
-               (float)(sm_scale * 1.4426950408889634), vec, static_cast<cudaStream_t>(stream)};
-  if (dtype == 1) {
-    switch (head_dim) {
-      case 64: return launch_bf16<64>(a);
-      case 128: return launch_bf16<128>(a);
-      case 256: return launch_bf16<256>(a);
-    }
-  } else if (dtype == 0) {
-    switch (head_dim) {
-      case 64: return launch_f32<64>(a);
-      case 128: return launch_f32<128>(a);
-      case 256: return launch_f32<256>(a);
-    }
+               (float)(sm_scale * 1.4426950408889634), vec,
+               Dropout{seed, drop_threshold, drop_scale}, static_cast<cudaStream_t>(stream)};
+  if (dtype != 0 && dtype != 1) return -1;
+  switch (head_dim) {
+    case 64: return launch<64>(dtype, a, dropout != 0);
+    case 128: return launch<128>(dtype, a, dropout != 0);
+    case 256: return launch<256>(dtype, a, dropout != 0);
   }
   return -1;
 }

@@ -20,18 +20,31 @@ import json
 import logging
 from typing import Dict, Mapping, Optional
 
-import numpy as np
 import torch
 
 from orbit2_tpu_torch.config import Config, load_config
 from orbit2_tpu_torch.data.itermodule import IterDataModule
+from orbit2_tpu_torch.training.checkpoint import load_state_npz
 from orbit2_tpu_torch.training.train import evaluate_batch, make_eval_step
 from orbit2_tpu_torch.utils.loaders import load_downscaling_module
 
 log = logging.getLogger("orbit2_tpu_torch")
 
 
-def _check_scope(cfg: Config) -> None:
+def model_kwargs(c: Config) -> dict:
+    """The ResSlimViT arguments of a config, weights drawn from trainer.seed."""
+    m = c.model
+    return dict(
+        default_vars=c.data.default_vars, superres_mag=m.superres_mag, cnn_ratio=m.cnn_ratio,
+        patch_size=m.patch_size, embed_dim=m.embed_dim, depth=m.depth,
+        decoder_depth=m.decoder_depth, num_heads=m.num_heads, mlp_ratio=m.mlp_ratio,
+        drop_path=m.drop_path, drop_rate=m.drop_rate, attention_impl=m.attention_impl,
+        gelu_approx=m.gelu_approx, data_type=c.trainer.data_type, moe_experts=m.moe_experts,
+        pipeline_stages=c.parallelism.pipeline,
+        generator=torch.Generator().manual_seed(c.trainer.seed))
+
+
+def check_scope(cfg: Config) -> None:
     if cfg.trainer.task != "downscaling":
         raise NotImplementedError(f"task {cfg.trainer.task!r}: only downscaling is ported")
     par = cfg.parallelism
@@ -53,7 +66,7 @@ class Evaluator:
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  data_key: Optional[str] = None):
         self.cfg = c = config.validate()
-        _check_scope(c)
+        check_scope(c)
         self.device = torch.device(device)
         self.data_key = data_key or next(iter(c.data.low_res_dir))
         self.data_module = dm = IterDataModule(
@@ -64,17 +77,8 @@ class Evaluator:
             num_workers=c.trainer.num_workers, drop_last=True, div=1, overlap=0,
             seed=c.trainer.data_seed if c.trainer.data_seed is not None else c.trainer.seed)
         dm.setup("test")
-        m = c.model
-        model_kwargs = dict(
-            default_vars=c.data.default_vars, superres_mag=m.superres_mag,
-            cnn_ratio=m.cnn_ratio, patch_size=m.patch_size, embed_dim=m.embed_dim,
-            depth=m.depth, decoder_depth=m.decoder_depth, num_heads=m.num_heads,
-            mlp_ratio=m.mlp_ratio, drop_path=m.drop_path, attention_impl=m.attention_impl,
-            gelu_approx=m.gelu_approx, data_type=c.trainer.data_type, moe_experts=m.moe_experts,
-            pipeline_stages=c.parallelism.pipeline,
-            generator=torch.Generator().manual_seed(c.trainer.seed))
-        self.model, self.test_losses, self.test_transforms = load_downscaling_module(
-            dm, m.preset, model_kwargs)
+        (self.model, _, _, self.test_losses, _, _,
+         self.test_transforms) = load_downscaling_module(dm, c.model.preset, model_kwargs(c))
         in_shape, _ = dm.get_data_dims()
         in_vars, out_vars = dm.get_data_variables()
         self.model.for_phase(spatial_resolution=c.data.spatial_resolution[self.data_key],
@@ -82,7 +86,8 @@ class Evaluator:
                              out_channels=len(out_vars))
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
-        self.model.to(self.device).eval()
+        # serving holds the parameters in the compute dtype: no per-use casts
+        self.model.to(self.device, self.model.dtype).eval()
 
     def test(self, max_batches: Optional[int] = None) -> Dict[str, float]:
         dm = self.data_module
@@ -120,8 +125,7 @@ def main(argv=None):
     cfg = load_config(args.config)
     state_dict = None
     if args.torch_npz:
-        with np.load(args.torch_npz) as raw:
-            state_dict = {k: torch.from_numpy(raw[k]) for k in raw.files}
+        state_dict = load_state_npz(args.torch_npz)
     else:
         log.warning("no --torch-npz: evaluating weights drawn from trainer.seed")
     ev = Evaluator(cfg, args.device, state_dict=state_dict, data_key=args.data_key)

@@ -1,11 +1,68 @@
-"""Test metrics in PyTorch: rmse, pearson and mean_bias, counterparts of
-orbit2_tpu/metrics/functional.py:181-243 (reference functional.py:235-324).
+"""Losses and test metrics in PyTorch, counterparts of
+orbit2_tpu/metrics/functional.py: the train losses mse and bayesian_tv
+(:34-115, reference functional.py:117-202) and the test metrics rmse,
+pearson and mean_bias (:181-243, reference functional.py:235-324).
 Inputs are [B, C, H, W]; each non-aggregate call returns
 concat([per_channel (C,), aggregate (1,)]) like the reference."""
 
 from __future__ import annotations
 
+from typing import Dict, Optional, Sequence
+
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+
+def channel_weights(var_names: Optional[Sequence[str]], var_weights: Optional[Dict[str, float]],
+                    num_channels: int) -> Optional[np.ndarray]:
+    """Per-channel weight vector (reference functional.py:188-196): 1 unless
+    `var_weights` names the channel's variable."""
+    if var_names is None:
+        return None
+    if len(var_names) != num_channels:
+        raise ValueError("Number of variable names must match channel dimension")
+    return np.asarray([float((var_weights or {}).get(v, 1.0)) for v in var_names], np.float32)
+
+
+def _apply_weights(error, var_names, var_weights, lat_weights):
+    if lat_weights is not None:
+        error = error * lat_weights
+    w = channel_weights(var_names, var_weights, error.shape[1])
+    if w is not None:
+        error = error * torch.as_tensor(w, dtype=error.dtype, device=error.device).view(1, -1, 1, 1)
+    return error
+
+
+def _per_channel_and_agg(error, aggregate_only: bool):
+    loss = error.mean()
+    if aggregate_only:
+        return loss
+    return torch.cat([error.mean(dim=(0, 2, 3)), loss[None]])
+
+
+def mse(pred, target, var_names=None, var_weights=None, aggregate_only: bool = False,
+        lat_weights=None):
+    """Weighted MSE (reference functional.py:173-202)."""
+    error = _apply_weights(torch.square(pred - target), var_names, var_weights, lat_weights)
+    return _per_channel_and_agg(error, aggregate_only)
+
+
+def bayesian_tv(pred, target, var_names=None, var_weights=None, aggregate_only: bool = False,
+                lat_weights=None, prior_weight: float = 0.02, diag_weight: float = 0.7):
+    """MSE + directional total-variation prior, ORBIT-2's default train loss
+    (reference functional.py:117-167): vertical and horizontal differences
+    weighted 1, the two diagonals `diag_weight`, all scaled by `prior_weight`
+    and zero-padded back to [H, W] (bottom row; right column; bottom + right;
+    bottom + left)."""
+    mse_error = torch.square(pred - target)
+    dif1 = F.pad(torch.abs(pred[:, :, 1:, :] - pred[:, :, :-1, :]), (0, 0, 0, 1))
+    dif2 = F.pad(torch.abs(pred[:, :, :, 1:] - pred[:, :, :, :-1]), (0, 1, 0, 0))
+    dif3 = F.pad(torch.abs(pred[:, :, 1:, 1:] - pred[:, :, :-1, :-1]), (0, 1, 0, 1))
+    dif4 = F.pad(torch.abs(pred[:, :, 1:, :-1] - pred[:, :, :-1, 1:]), (1, 0, 0, 1))
+    prior_error = prior_weight * (dif1 + dif2 + diag_weight * dif3 + diag_weight * dif4)
+    error = _apply_weights(mse_error + prior_error, var_names, var_weights, lat_weights)
+    return _per_channel_and_agg(error, aggregate_only)
 
 
 def rmse(pred, target, aggregate_only: bool = False, lat_weights=None, mask=None):

@@ -1,7 +1,7 @@
-"""Metric classes registered in METRICS_REGISTRY: the test metrics of the
-serving path, counterparts of orbit2_tpu/metrics/metrics.py (reference
-src/climate_learn/metrics/metrics.py). The rest of the loss zoo comes with
-training."""
+"""Metric classes registered in METRICS_REGISTRY, counterparts of
+orbit2_tpu/metrics/metrics.py (reference src/climate_learn/metrics/
+metrics.py): the train losses mse and bayesian_tv and the test metrics rmse,
+pearson and mean_bias. The rest of the loss zoo is not ported yet."""
 
 from __future__ import annotations
 
@@ -34,6 +34,20 @@ class Metric:
         raise NotImplementedError
 
 
+@register("mse")
+class MSE(Metric):
+    def __call__(self, pred, target, var_names=None, var_weights=None):
+        return F.mse(pred, target, var_names, var_weights, self.aggregate_only)
+
+
+@register("bayesian_tv")
+class BayesianTV(Metric):
+    """ORBIT-2 default train loss (reference metrics.py:204, functional.py:117-167)."""
+
+    def __call__(self, pred, target, var_names=None, var_weights=None):
+        return F.bayesian_tv(pred, target, var_names, var_weights, self.aggregate_only)
+
+
 @register("rmse")
 class RMSE(Metric):
     def __call__(self, pred, target, mask=None, **_):
@@ -52,4 +66,5 @@ class MeanBias(Metric):
         return F.mean_bias(pred, target, self.aggregate_only)
 
 
-__all__ = ["METRICS_REGISTRY", "MetricsMetaInfo", "Metric", "RMSE", "Pearson", "MeanBias"]
+__all__ = ["METRICS_REGISTRY", "MetricsMetaInfo", "Metric", "MSE", "BayesianTV", "RMSE",
+           "Pearson", "MeanBias"]

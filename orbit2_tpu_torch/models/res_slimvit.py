@@ -10,9 +10,16 @@ training/checkpoint.py::state_dict_from_jax_params and load strictly.
 The math follows the JAX package: one gathered einsum for the per-variable
 patch embedding, the reduced variable-aggregation attention, the on-the-fly
 pos-embed resize, the CNN residual path with the crop-to-match add, and the
-reference's exact unpatchify permutation. Only the deterministic forward is
-ported, so the dropout rates of the JAX module have no counterpart yet;
-mixture-of-experts, pipeline and sequence sharding raise.
+reference's exact unpatchify permutation.
+
+Training as in the JAX module: `drop_rate` drives pos_drop (after the
+spatial embedding) and each block's attention-probability, projection and
+Mlp dropout, `drop_path` the per-depth stochastic-depth rates
+linspace(0, drop_path, depth). The parameters are created in fp32 (the JAX
+module's param_dtype; masters when training) and the forward computes in
+`dtype`: x is cast to it on entry and every layer casts its weights to it
+at use, a no-op once the parameters are in `dtype` (as for serving). Mixture-of-experts,
+pipeline and sequence sharding, w8a8 and remat raise.
 """
 
 from __future__ import annotations
@@ -20,16 +27,21 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from orbit2_tpu_torch.models.components.blocks import (
     Block,
+    Conv2d,
+    Generator,
+    LayerNorm,
+    Linear,
     VariableMappingAttention,
     init_linear_,
-    require_eval,
     trunc_normal_,
 )
+from orbit2_tpu_torch.ops.dropout import dropout
 from orbit2_tpu_torch.ops.pos_embed import (
     get_2d_sincos_pos_embed,
     interpolate_pos_embed_on_the_fly,
@@ -54,7 +66,7 @@ class _TokenEmbed(nn.Module):
 
     def __init__(self, patch_size: int, embed_dim: int):
         super().__init__()
-        self.proj = nn.Conv2d(1, embed_dim, patch_size, patch_size)
+        self.proj = Conv2d(1, embed_dim, patch_size, patch_size)
 
 
 def _lecun_normal_(t: torch.Tensor, generator) -> None:
@@ -69,12 +81,14 @@ class ResSlimViT(nn.Module):
     def __init__(self, default_vars: Sequence[str], img_size: Tuple[int, int],
                  in_channels: int, out_channels: int, superres_mag: int = 4,
                  cnn_ratio: int = 4, patch_size: int = 2, drop_path: float = 0.1,
+                 drop_rate: float = 0.1,
                  learn_pos_emb: bool = False, embed_dim: int = 1024, depth: int = 24,
                  decoder_depth: int = 8, num_heads: int = 16, mlp_ratio: float = 4.0,
                  spatial_resolution: float = 0.0, attention_impl: str = "xla",
                  gelu_approx: str = "exact", quant: str = "none", moe_experts: int = 0,
-                 pipeline_stages: int = 1, seq_shard: bool = False,
+                 pipeline_stages: int = 1, seq_shard: bool = False, remat: bool = False,
                  base_img_size: Optional[Tuple[int, int]] = None,
+                 dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if quant != "none":
@@ -84,6 +98,8 @@ class ResSlimViT(nn.Module):
         if pipeline_stages > 1 or seq_shard:
             raise NotImplementedError(
                 "pipeline_stages > 1 / seq_shard: the parallel trunks are not ported yet")
+        if remat:
+            raise NotImplementedError("remat: activation recomputation is not ported yet")
         if gelu_approx not in ("exact", "tanh"):
             raise ValueError(f"unknown gelu_approx {gelu_approx!r}")
         self.default_vars = tuple(default_vars)
@@ -93,6 +109,8 @@ class ResSlimViT(nn.Module):
         self.superres_mag = superres_mag
         self.patch_size = patch_size
         self.embed_dim = embed_dim
+        self.drop_rate = drop_rate
+        self.dtype = dtype
         self.spatial_resolution = spatial_resolution
         self.base_img_size = tuple(base_img_size or img_size)
         D, p, mag = embed_dim, patch_size, superres_mag
@@ -106,23 +124,25 @@ class ResSlimViT(nn.Module):
         pe = get_2d_sincos_pos_embed(D, base[0] // p, base[1] // p)
         self.pos_embed = nn.Parameter(torch.as_tensor(pe, dtype=torch.float32)[None],
                                       requires_grad=learn_pos_emb)
-        self.spatial_embed = nn.Linear(1, D)
-        dpr = torch.linspace(0, drop_path, depth).tolist()
+        self.spatial_embed = Linear(1, D)
+        # float64 rates, as numpy gives them to the JAX module
+        dpr = np.linspace(0, drop_path, depth)
         self.blocks = nn.ModuleList(
-            Block(D, num_heads, mlp_ratio, qkv_bias=True, drop_path=dpr[i],
-                  attention_impl=attention_impl, gelu_tanh=gelu_approx == "tanh")
+            Block(D, num_heads, mlp_ratio, qkv_bias=True, proj_drop=drop_rate,
+                  attn_drop=drop_rate, drop_path=float(dpr[i]), attention_impl=attention_impl,
+                  gelu_tanh=gelu_approx == "tanh")
             for i in range(depth))
-        self.norm = nn.LayerNorm(D, eps=1e-5)
+        self.norm = LayerNorm(D, eps=1e-5)
         head = []
         for _ in range(decoder_depth):
-            head += [nn.Linear(D, D), nn.GELU()]
-        head.append(nn.Linear(D, out_channels * (mag * p) ** 2))
+            head += [Linear(D, D), nn.GELU()]
+        head.append(Linear(D, out_channels * (mag * p) ** 2))
         self.head = nn.Sequential(*head)
-        self.conv_out = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv_out = Conv2d(out_channels, out_channels, 3, padding=1)
         n_sel = out_channels + len(RESIDUAL_STATIC_VARS)
         self.path2 = nn.Sequential(
-            nn.Conv2d(n_sel, cnn_ratio * mag * mag, 3, padding=1), nn.GELU(),
-            nn.PixelShuffle(mag), nn.Conv2d(cnn_ratio, out_channels, 3, padding=1))
+            Conv2d(n_sel, cnn_ratio * mag * mag, 3, padding=1), nn.GELU(),
+            nn.PixelShuffle(mag), Conv2d(cnn_ratio, out_channels, 3, padding=1))
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -155,23 +175,26 @@ class ResSlimViT(nn.Module):
         self.in_channels = in_channels
         return self
 
-    def forward(self, x, in_variables: Sequence[str], out_variables: Sequence[str]):
+    def forward(self, x, in_variables: Sequence[str], out_variables: Sequence[str],
+                dropout_gen: Generator = None, drop_path_gen: Generator = None):
         """x: [B, C_in, H, W] (or [B, T, C, H, W], flattened like reference
-        :313-314); returns [B, C_out, H*mag, W*mag]."""
-        require_eval(self)
+        :313-314); returns [B, C_out, H*mag, W*mag] in the compute dtype. In
+        train() mode the dropout sites draw from `dropout_gen` and DropPath
+        from `drop_path_gen` (inert without it)."""
         if x.ndim == 5:
             x = x.flatten(1, 2)
+        x = x.to(self.dtype)
         in_variables, out_variables = tuple(in_variables), tuple(out_variables)
         if len(out_variables) != self.out_channels:
             raise ValueError(f"{len(out_variables)} out variables for a "
                              f"{self.out_channels}-channel head")
         path2 = self.path2(x[:, find_var_index(in_variables, out_variables)])
-        y = self.head(self._forward_encoder(x, in_variables))
+        y = self.head(self._forward_encoder(x, in_variables, dropout_gen, drop_path_gen))
         y = self.conv_out(self._unpatchify(y, x.shape[2], x.shape[3]))
         # crop-to-match add (reference :333-336)
         return y + path2[:, :, : y.shape[2], : y.shape[3]]
 
-    def _forward_encoder(self, x, in_variables):
+    def _forward_encoder(self, x, in_variables, dropout_gen, drop_path_gen):
         B, V, H, W = x.shape
         p, D = self.patch_size, self.embed_dim
         h, w = H // p, W // p
@@ -179,20 +202,22 @@ class ResSlimViT(nn.Module):
 
         # token embedding: every variable's conv patch projection as one einsum
         patches = x.reshape(B, V, h, p, w, p).permute(0, 1, 2, 4, 3, 5).reshape(B, V, h * w, p * p)
-        kern = torch.stack([self.token_embeds[i].proj.weight.reshape(D, p * p) for i in var_ids])
-        bias = torch.stack([self.token_embeds[i].proj.bias for i in var_ids])
+        kern = torch.stack([self.token_embeds[i].proj.weight.reshape(D, p * p)
+                            for i in var_ids]).to(x.dtype)
+        bias = torch.stack([self.token_embeds[i].proj.bias for i in var_ids]).to(x.dtype)
         tokens = torch.einsum("bvlp,vdp->blvd", patches, kern) + bias
-        tokens = tokens + self.var_embed[0, var_ids]
+        tokens = tokens + self.var_embed[0, var_ids].to(x.dtype)
 
         # variable aggregation over the (B*L, V) layout (reference :205-230)
         L = h * w
         tokens = self.var_agg(self.var_query, tokens.reshape(B * L, V, D)).reshape(B, L, D)
 
-        tokens = tokens + interpolate_pos_embed_on_the_fly(self.pos_embed, p, (H, W))
+        tokens = tokens + interpolate_pos_embed_on_the_fly(self.pos_embed.to(x.dtype), p, (H, W))
         res = torch.tensor([[self.spatial_resolution]], dtype=x.dtype, device=x.device)
         tokens = tokens + self.spatial_embed(res)
+        tokens = dropout(tokens, self.drop_rate, self.training, dropout_gen)  # pos_drop
         for blk in self.blocks:
-            tokens = blk(tokens)
+            tokens = blk(tokens, dropout_gen, drop_path_gen)
         return self.norm(tokens)
 
     def _unpatchify(self, y, H, W):

@@ -1,13 +1,17 @@
 """Attention implementation dispatch (counterpart of orbit2_tpu/ops/attention.py).
 
-  * "auto" / "pallas" — the flash-attention forward (ops/flash_attention.py):
-    the hand-written CUDA kernel for bf16 or fp32 CUDA tensors (any N >= 1;
-    ragged tails are masked in the kernel), its plain version for CPU tensors.
+  * "auto" / "pallas" — flash attention (ops/flash_attention.py): the
+    hand-written CUDA kernels for bf16 or fp32 CUDA tensors (any N >= 1;
+    ragged tails are masked in the kernel), their plain versions for CPU
+    tensors; attention-probability dropout runs inside the kernels.
   * "xla" / "naive"   — plain softmax attention, the JAX `_sdpa` math:
-    probabilities in fp32, cast to the input dtype before the value product.
+    probabilities in fp32, cast to the input dtype, dropped, then the value
+    product.
 
-All functions take q, k, v as [B, N, H, Dh] ("BNHD") and return [B, N, H, Dh].
-Attention dropout is not ported yet and raises.
+Both take the dropout seed from `generator` and draw the same Philox mask
+(ops/kernel_prng.py at (seed, batch*head, query, key)), so at equal seeds the
+two paths drop the same probabilities. All functions take q, k, v as
+[B, N, H, Dh] ("BNHD") and return [B, N, H, Dh].
 """
 
 from __future__ import annotations
@@ -16,23 +20,31 @@ from typing import Optional
 
 import torch
 
-from orbit2_tpu_torch.ops.flash_attention import flash_attention
+from orbit2_tpu_torch.ops.flash_attention import attention_mult, flash_attention
+from orbit2_tpu_torch.ops.kernel_prng import draw_seed
 
-def _sdpa(q, k, v, scale: float):
+
+def _sdpa(q, k, v, scale: float, dropout_rate: float = 0.0, seed: int = 0):
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    mult = attention_mult(q, k, dropout_rate, seed)
+    if mult is not None:
+        probs = (probs.float() * mult.view(probs.shape)).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 def dot_product_attention(q, k, v, impl: str = "xla", scale: Optional[float] = None,
-                          dropout_rate: float = 0.0):
-    """q: [B, Nq, H, Dh]; k/v: [B, Nk, H, Dh]."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout is not ported yet: it comes with the training kernels")
+                          dropout_rate: float = 0.0,
+                          generator: Optional[torch.Generator] = None):
+    """q: [B, Nq, H, Dh]; k/v: [B, Nk, H, Dh]. dropout_rate > 0 needs `generator`."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
+    seed = 0
+    if dropout_rate > 0.0:
+        if generator is None:
+            raise ValueError("attention dropout needs a generator")
+        seed = draw_seed(generator)
     if impl in ("auto", "pallas"):
-        return flash_attention(q, k, v, sm_scale=scale)
+        return flash_attention(q, k, v, sm_scale=scale, dropout_rate=dropout_rate, seed=seed)
     if impl in ("xla", "naive"):
-        return _sdpa(q, k, v, scale)
+        return _sdpa(q, k, v, scale, dropout_rate, seed)
     raise ValueError(f"unknown attention impl {impl!r}")

@@ -4,7 +4,10 @@
 orbit2_tpu/training/checkpoint.py::export_torch_state_dict: it maps the JAX
 ResSlimViT param tree (numpy or array-likes, no JAX needed) onto the
 reference state-dict layout that orbit2_tpu_torch's ResSlimViT carries, ready
-for `load_state_dict(strict=True)`.
+for `load_state_dict(strict=True)`. Any tree shaped like the params maps the
+same way: JAX gradients (jax.grad of a loss in the params) land on the port's
+parameter names, to be held against each parameter's .grad, and so do
+optimizer moments.
 """
 
 from __future__ import annotations
@@ -13,6 +16,13 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+
+def load_state_npz(path: str) -> Dict[str, torch.Tensor]:
+    """A reference-layout state dict saved as an npz of numpy arrays (the
+    CLIs' --torch-npz)."""
+    with np.load(path) as raw:
+        return {k: torch.from_numpy(raw[k]) for k in raw.files}
 
 
 def _to_numpy(tree):

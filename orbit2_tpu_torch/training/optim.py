@@ -1,0 +1,145 @@
+"""AdamW and the per-epoch learning-rate schedule (counterpart of
+orbit2_tpu/training/optim.py).
+
+`AdamW` reproduces optax.adamw and the JAX package's `_adamw_2dtypes`
+(optim.py:21-89) step for step:
+  * the moments are updated in fp32 whatever their storage dtype; the update
+    is computed from these fresh fp32 moments and only then are the stored
+    moments cast down (one rounding per step), so bf16 mu/nu storage halves
+    their memory without bf16 arithmetic;
+  * update = mu_hat / (sqrt(nu_hat) + eps) with eps = 1e-8 outside the root,
+    mu_hat = mu / (1 - b1^t), nu_hat = nu / (1 - b2^t);
+  * weight decay is added after the Adam scaling and before the learning
+    rate, on every parameter: p -= lr * (update + wd * p);
+  * every hyperparameter, 1 - b, and b^t are fp32 values, as the pinned fp32
+    hyperparameters make optax compute them (optim.py:117-123); b^t is
+    computed on the host from the step count by squaring in fp32, as XLA
+    evaluates a power with an integral exponent, so a step never waits for
+    the device.
+torch.optim.AdamW is not used: it cannot keep bf16 moments beside fp32
+parameters. The step runs as torch._foreach_* ops over the parameter list.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Sequence
+
+import numpy as np
+import torch
+
+_DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _f32(x: float) -> float:
+    """x rounded to fp32 (returned as the Python float of that fp32 value)."""
+    return float(np.float32(x))
+
+
+def _pow_f32(base: np.float32, n: int) -> np.float32:
+    """base ** n by binary exponentiation, every product rounded to fp32."""
+    out, sq = np.float32(1.0), np.float32(base)
+    while n:
+        if n & 1:
+            out = np.float32(out * sq)
+        sq = np.float32(sq * sq)
+        n >>= 1
+    return out
+
+
+class AdamW:
+    """AdamW over `params` (tensors whose .grad the step reads). mu_dtype /
+    nu_dtype: storage dtype of the moments, None for the parameter's."""
+
+    def __init__(self, params: Sequence[torch.Tensor], lr: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
+                 mu_dtype=None, nu_dtype=None):
+        self.params = [p for p in params if p.requires_grad]
+        self.b1, self.b2 = np.float32(b1), np.float32(b2)
+        self.eps = _f32(eps)
+        self.weight_decay = _f32(weight_decay)
+        self.lr = _f32(lr)
+        self.count = 0
+        with torch.no_grad():
+            self.mu = [torch.zeros_like(p, dtype=_DTYPES[mu_dtype] or p.dtype)
+                       for p in self.params]
+            self.nu = [torch.zeros_like(p, dtype=_DTYPES[nu_dtype] or p.dtype)
+                       for p in self.params]
+
+    def set_learning_rate(self, lr: float) -> None:
+        self.lr = _f32(lr)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        params = [p for p in self.params if p.grad is not None]
+        if len(params) != len(self.params):
+            raise RuntimeError("AdamW.step: every parameter needs a gradient")
+        grads = [p.grad.float() for p in params]
+        self.count += 1
+        b1, b2 = self.b1, self.b2
+        one = np.float32(1.0)
+        bc1 = float(one - _pow_f32(b1, self.count))
+        bc2 = float(one - _pow_f32(b2, self.count))
+
+        # fresh fp32 moments: (1 - b) g^k + b m, each product rounded as optax does
+        mu = torch._foreach_mul(grads, float(one - b1))
+        torch._foreach_add_(mu, torch._foreach_mul([m.float() for m in self.mu], float(b1)))
+        nu = torch._foreach_mul(torch._foreach_mul(grads, grads), float(one - b2))
+        torch._foreach_add_(nu, torch._foreach_mul([v.float() for v in self.nu], float(b2)))
+
+        upd = torch._foreach_div(mu, bc1)
+        denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_add_(upd, torch._foreach_mul(params, self.weight_decay))
+        torch._foreach_mul_(upd, -self.lr)
+        torch._foreach_add_(params, upd)
+
+        torch._foreach_copy_(self.mu, mu)  # the stored moments, cast to their dtype
+        torch._foreach_copy_(self.nu, nu)
+
+
+def make_optimizer(name: str, hyperparams: Dict[str, Any], params) -> AdamW:
+    """reference load_optimizer (loaders.py:390-406); "adamw" only. The
+    learning rate is changed per epoch with `set_learning_rate`."""
+    if name != "adamw":
+        raise NotImplementedError(f"optimizer {name!r} is not ported: only adamw")
+    b1, b2 = hyperparams.get("betas", (0.9, 0.999))
+    return AdamW(params, lr=float(hyperparams.get("lr", 1e-3)), b1=float(b1), b2=float(b2),
+                 weight_decay=float(hyperparams.get("weight_decay", 0.0)),
+                 mu_dtype=hyperparams.get("mu_dtype"), nu_dtype=hyperparams.get("nu_dtype"))
+
+
+def set_learning_rate(optimizer: AdamW, lr: float) -> AdamW:
+    optimizer.set_learning_rate(lr)
+    return optimizer
+
+
+def linear_warmup_cosine_annealing(base_lr: float, warmup_epochs: int, max_epochs: int,
+                                   warmup_start_lr: float = 0.0, eta_min: float = 0.0):
+    """Returns epoch -> lr (reference lr_scheduler.py:93-115 closed form)."""
+
+    def schedule(epoch: int) -> float:
+        if epoch < warmup_epochs:
+            return warmup_start_lr + epoch * (base_lr - warmup_start_lr) / max(
+                1, warmup_epochs - 1)
+        t = (epoch - warmup_epochs) / max(1, max_epochs - warmup_epochs)
+        return eta_min + 0.5 * (base_lr - eta_min) * (1 + math.cos(math.pi * t))
+
+    return schedule
+
+
+def make_lr_scheduler(name: str, hyperparams: Dict[str, Any]):
+    """reference load_lr_scheduler (loaders.py:409-433) -> epoch -> lr;
+    "linear-warmup-cosine-annealing" only."""
+    if name != "linear-warmup-cosine-annealing":
+        raise NotImplementedError(f"lr scheduler {name!r} is not ported")
+    return linear_warmup_cosine_annealing(
+        base_lr=float(hyperparams["lr"]), warmup_epochs=int(hyperparams["warmup_epochs"]),
+        max_epochs=int(hyperparams["max_epochs"]),
+        warmup_start_lr=float(hyperparams.get("warmup_start_lr", 0.0)),
+        eta_min=float(hyperparams.get("eta_min", 0.0)))
+
+
+__all__ = ["AdamW", "make_optimizer", "make_lr_scheduler", "set_learning_rate",
+           "linear_warmup_cosine_annealing"]

@@ -1,11 +1,10 @@
-"""Eval pieces of the training control plane (counterpart of the serving half
-of orbit2_tpu/training/train.py): clip_replace_constant, the crop-to-match,
-the eval step and the per-batch metric dict. The train step comes with the
-training kernels."""
+"""The training control plane's steps (counterpart of
+orbit2_tpu/training/train.py): clip_replace_constant, the crop-to-match, the
+train step, the eval step and the per-batch metric dict."""
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -14,31 +13,75 @@ from orbit2_tpu_torch.data.processing.era5_constants import CONSTANTS
 
 def clip_replace_constant(y, yhat, out_variables: Sequence[str]):
     """Clamp precipitation predictions at 0 and replace constant channels
-    with ground truth (reference intermediate_downscaling.py:267-278)."""
-    out_variables = list(out_variables)
-    yhat = yhat.clone()
-    if "total_precipitation_24hr" in out_variables:
-        i = out_variables.index("total_precipitation_24hr")
-        yhat[:, i] = yhat[:, i].clamp(min=0.0)
+    with ground truth (reference intermediate_downscaling.py:267-278).
+    Out of place, so gradients flow through the kept channels."""
+    chans = []
     for i, var in enumerate(out_variables):
+        c = yhat[:, i]
         if var in CONSTANTS:
-            yhat[:, i] = y[:, i]
-    return yhat
+            c = y[:, i].to(yhat.dtype)
+        elif var == "total_precipitation_24hr":
+            c = c.clamp(min=0.0)
+        chans.append(c)
+    return torch.stack(chans, dim=1)
 
 
 def _crop_to_match(yhat, y):
     return y[:, :, : yhat.shape[2], : yhat.shape[3]]
 
 
+def make_train_step(model, train_loss_metric, var_weights: Optional[Dict[str, float]],
+                    optimizer, in_variables: Sequence[str], out_variables: Sequence[str],
+                    grad_accum: int = 1):
+    """Returns step(x, y, dropout_gen, drop_path_gen) -> loss (a 0-dim device
+    tensor): train-mode forward, clip, the train loss, backward and one
+    optimizer update (reference intermediate_downscaling.py:281-306, 715-742;
+    JAX train.py:52-194). The dropout sites and DropPath draw from their own
+    generators, the JAX package's two rng streams.
+
+    grad_accum > 1 splits the batch into that many microbatches and averages
+    their gradients and losses before the one update. The gradients stay in
+    each parameter's .grad until the next step."""
+    in_variables, out_variables = tuple(in_variables), tuple(out_variables)
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def loss_of(xb, yb, dropout_gen, drop_path_gen):
+        yhat = model(xb, in_variables, out_variables, dropout_gen, drop_path_gen).float()
+        yhat = clip_replace_constant(yb, yhat, out_variables)
+        losses = train_loss_metric(yhat, _crop_to_match(yhat, yb),
+                                   var_names=list(out_variables), var_weights=var_weights)
+        return losses if losses.ndim == 0 else losses[-1]
+
+    def step(x, y, dropout_gen: torch.Generator, drop_path_gen: Optional[torch.Generator]):
+        if x.shape[0] % grad_accum:
+            raise ValueError(f"batch {x.shape[0]} not divisible by grad_accum {grad_accum}")
+        model.train()
+        for p in params:
+            p.grad = None
+        loss = None
+        for xb, yb in zip(x.chunk(grad_accum), y.chunk(grad_accum)):
+            l = loss_of(xb, yb, dropout_gen, drop_path_gen)
+            l.backward()
+            loss = l.detach() if loss is None else loss + l.detach()
+        if grad_accum > 1:
+            loss = loss / grad_accum
+            torch._foreach_div_([p.grad for p in params], float(grad_accum))
+        optimizer.step()
+        return loss
+
+    return step
+
+
 def make_eval_step(model, in_variables, out_variables):
     """Forward + clip (reference evaluate_func, intermediate_downscaling.py:
-    329-364): step(x, y) -> fp32 yhat. x is cast to the model's dtype."""
+    329-364): step(x, y) -> fp32 yhat, the model in eval mode (the model
+    casts x to its compute dtype)."""
     in_variables, out_variables = tuple(in_variables), tuple(out_variables)
-    dtype = next(model.parameters()).dtype
 
     @torch.no_grad()
     def step(x, y):
-        yhat = model(x.to(dtype), in_variables, out_variables).float()
+        model.eval()
+        yhat = model(x, in_variables, out_variables).float()
         return clip_replace_constant(y, yhat, out_variables)
 
     return step

@@ -99,11 +99,16 @@ def _pred_target(seed=0):
             rng.normal(size=(3, 4, 5, 6)).astype(np.float32))
 
 
-@pytest.mark.parametrize("name", ["rmse", "pearson", "mean_bias"])
-def test_metric_matches_jax(name):
+@pytest.mark.parametrize("name,kw", [
+    ("rmse", {}), ("pearson", {}), ("mean_bias", {}), ("mse", {}), ("bayesian_tv", {}),
+    ("mse", {"var_names": ["a", "b", "c", "d"], "var_weights": {"b": 10, "d": 0.5}}),
+    ("bayesian_tv", {"var_names": ["a", "b", "c", "d"], "var_weights": {"b": 10, "d": 0.5}}),
+], ids=["rmse", "pearson", "mean_bias", "mse", "bayesian_tv", "mse-weighted",
+        "bayesian_tv-weighted"])
+def test_metric_matches_jax(name, kw):
     p, t = _pred_target()
-    want = np.asarray(getattr(JF, name)(jnp.asarray(p), jnp.asarray(t)))
-    got = getattr(TF, name)(torch.from_numpy(p), torch.from_numpy(t)).numpy()
+    want = np.asarray(getattr(JF, name)(jnp.asarray(p), jnp.asarray(t), **kw))
+    got = getattr(TF, name)(torch.from_numpy(p), torch.from_numpy(t), **kw).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 

@@ -1,13 +1,15 @@
-"""Flash-attention forward of the PyTorch port.
+"""Flash attention of the PyTorch port, forward and backward.
 
-CPU: the port's plain version (`flash_attention_reference`, the path its
-wrapper takes for CPU tensors) against the JAX package's Pallas kernels run in
-interpret mode, on the same numpy inputs, at fp32: o within atol 2e-5 and the
-base-2 lse within atol 1e-5 (both sides sum in fp32 in different orders).
+CPU: the port's plain versions (the paths its wrappers take for CPU tensors)
+against the JAX package's Pallas kernels run in interpret mode, on the same
+numpy inputs, at fp32: o within atol 2e-5, the base-2 lse within atol 1e-5,
+dq/dk/dv within atol=rtol 1e-4 (both sides sum in fp32 in different orders).
+With dropout the port's plain math is given the JAX kernels' own multiplier,
+rebuilt block by block, since the two packages draw different bits.
 
-CUDA (marker `cuda`, skipped without a card): the hand-written kernel against
-the plain version on the card. JAX is imported only inside the CPU parity
-tests, so the CUDA cases run on a machine without JAX:
+CUDA (marker `cuda`, skipped without a card): the hand-written kernels
+against the plain versions on the card. JAX is imported only inside the CPU
+parity tests, so the CUDA cases run on a machine without JAX:
 `python -m pytest --noconftest -m cuda tests/test_torch_flash_attention.py`.
 """
 
@@ -18,8 +20,13 @@ import pytest
 import torch
 
 from orbit2_tpu_torch.ops.flash_attention import (
+    FLASH_BWD_DKV,
+    FLASH_BWD_DQ,
     FLASH_FWD,
+    attention_mult,
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
     flash_attention_fwd,
     flash_attention_reference,
 )
@@ -105,10 +112,139 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     torch.testing.assert_close(lse, want_lse, atol=0, rtol=0)
 
 
-def test_dropout_is_not_ported_yet():
-    q, k, v = (torch.from_numpy(a) for a in make_qkv(1, 8, 8, 1, 64))
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, k, v, dropout_rate=0.1)
+def torch_grads(q, k, v, do, fn):
+    """(o, dq, dk, dv) of o = fn(q, k, v) under the cotangent do."""
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    o = fn(q, k, v)
+    o.backward(torch.from_numpy(do))
+    return o.detach().numpy(), q.grad.numpy(), k.grad.numpy(), v.grad.numpy()
+
+
+def jax_grads(q, k, v, do, **kw):
+    """(o, dq, dk, dv) of the JAX package's public flash_attention (Pallas
+    forward and backward kernels, interpret mode) through jax.vjp."""
+    import jax
+    import jax.numpy as jnp
+
+    from orbit2_tpu.ops.flash_attention import flash_attention as jax_flash
+
+    o, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, **kw),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    return (np.asarray(o),) + tuple(np.asarray(g) for g in vjp(jnp.asarray(do)))
+
+
+@pytest.mark.parametrize("n_q,n_k,d", [
+    (256, 256, 64),
+    (300, 300, 64),    # ragged N: padded blocks in JAX, masked tails here
+    (300, 200, 128),   # N_q != N_k at head dim 128
+], ids=["n256-d64", "n300-d64", "rect-d128"])
+def test_backward_matches_jax_pallas(n_q, n_k, d):
+    q, k, v = make_qkv(2, n_q, n_k, 2, d, seed=4)
+    do = np.random.default_rng(5).normal(size=q.shape).astype(np.float32)
+    want = jax_grads(q, k, v, do)
+    got = torch_grads(q, k, v, do, flash_attention)
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4, err_msg=name)
+
+
+def jax_dropout_mult(key, b, h, n_q, n_k, d, rate):
+    """The multiplier the JAX kernels apply for `key`: the wrapper's seed
+    (flash_attention.py:506-509), its block sizes (:494-504) and block seeds
+    seed + bh * 1000003 + q_block * 7919 + k_block (:111), cropped to
+    [B*H, N_q, N_k]."""
+    import jax
+    import jax.numpy as jnp
+
+    from orbit2_tpu.ops import flash_attention as jfa
+    from orbit2_tpu.ops.kernel_prng import keep_mult as jax_keep_mult
+
+    bq = jfa.scale_block_for_head_dim(jfa.DEFAULT_BLOCK_Q_DROPOUT, d)
+    bk = jfa.scale_block_for_head_dim(jfa.DEFAULT_BLOCK_K, d)
+    while bq > 128 and bq > n_q:
+        bq //= 2
+    while bk > 128 and bk > n_k:
+        bk //= 2
+    seed = jax.random.randint(key, (1,), -2 ** 31, 2 ** 31 - 1, dtype=jnp.int32)[0]
+    nqb, nkb = math.ceil(n_q / bq), math.ceil(n_k / bk)
+    mult = np.zeros((b * h, nqb * bq, nkb * bk), np.float32)
+    for bh in range(b * h):
+        for i in range(nqb):
+            for kb in range(nkb):
+                block_seed = seed + jnp.int32(bh) * 1000003 + jnp.int32(i) * 7919 + jnp.int32(kb)
+                mult[bh, i * bq:(i + 1) * bq, kb * bk:(kb + 1) * bk] = np.asarray(
+                    jax_keep_mult(block_seed, (bq, bk), rate))
+    return torch.from_numpy(mult[:, :n_q, :n_k].copy())
+
+
+@pytest.mark.parametrize("n_q,n_k,d", [(256, 256, 64), (300, 200, 128)],
+                         ids=["n256-d64", "rect-d128"])
+def test_dropout_matches_jax_pallas_on_its_mask(n_q, n_k, d):
+    """Dropout after the normalizer, lse unchanged, dp masked, the delta
+    identity: the port's plain forward and backward on the JAX kernels' own
+    multiplier equal the JAX kernels."""
+    import jax
+
+    b, h, rate = 1, 2, 0.1
+    key = jax.random.PRNGKey(11)
+    q, k, v = make_qkv(b, n_q, n_k, h, d, seed=6)
+    do = np.random.default_rng(7).normal(size=q.shape).astype(np.float32)
+    want = jax_grads(q, k, v, do, dropout_rate=rate, dropout_rng=key)
+    mult = jax_dropout_mult(key, b, h, n_q, n_k, d, rate)
+    scale = d ** -0.5
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = flash_attention_reference(qt, kt, vt, scale, mult)
+    _, want_lse = flash_attention_reference(qt, kt, vt, scale)
+    torch.testing.assert_close(lse, want_lse, atol=0, rtol=0)
+    np.testing.assert_allclose(o.numpy(), want[0], atol=2e-5, rtol=0)
+    grads = flash_attention_bwd_reference(qt, kt, vt, o, lse, dot, scale, mult)
+    for name, a, w in zip(("dq", "dk", "dv"), grads, want[1:]):
+        np.testing.assert_allclose(a.numpy(), w, atol=1e-4, rtol=1e-4, err_msg=name)
+
+
+def sdpa_masked(q, k, v, mult):
+    """Autograd reference: softmax attention with the given probability multiplier."""
+    b, n_q, h, d = q.shape
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * d ** -0.5, dim=-1)
+    if mult is not None:
+        p = p * mult.view(b, h, n_q, -1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def test_dropout_gradients_match_masked_reference():
+    """The autograd.Function with dropout (plain path: the mask regenerated in
+    the backward from the seed) vs autograd of SDPA with the same mask."""
+    n, d, rate, seed = 256, 64, 0.25, 2 ** 33 + 5
+    q, k, v = make_qkv(1, n, n, 1, d, seed=7)
+    q, k = q * 0.3, k * 0.3
+    do = np.random.default_rng(8).normal(size=q.shape).astype(np.float32)
+    mult = attention_mult(torch.from_numpy(q), torch.from_numpy(k), rate, seed)
+    got = torch_grads(q, k, v, do, lambda a, b, c: flash_attention(a, b, c, dropout_rate=rate,
+                                                                   seed=seed))
+    want = torch_grads(q, k, v, do, lambda a, b, c: sdpa_masked(a, b, c, mult))
+    for name, a, w in zip(("o", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a, w, atol=2e-5, rtol=2e-5, err_msg=name)
+
+
+def test_gradients_with_padding():
+    q, k, v = make_qkv(1, 160, 160, 1, 64, seed=3)
+    do = np.random.default_rng(9).normal(size=q.shape).astype(np.float32)
+    got = torch_grads(q, k, v, do, flash_attention)
+    want = torch_grads(q, k, v, do, lambda a, b, c: sdpa_masked(a, b, c, None))
+    for name, a, w in zip(("o", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a, w, atol=2e-5, rtol=2e-5, err_msg=name)
+
+
+def test_cpu_backward_takes_the_plain_version_without_launching():
+    q, k, v = (torch.from_numpy(a) for a in make_qkv(1, 20, 30, 2, 64))
+    do = torch.ones_like(q)
+    o, lse = flash_attention_fwd(q, k, v, 0.125, 0.1, 3)
+    before = (FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches)
+    got = flash_attention_bwd(q, k, v, o, lse, do, 0.125, 0.1, 3)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, 0.125,
+                                         attention_mult(q, k, 0.1, 3))
+    assert (FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches) == before
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=0, rtol=0)
 
 
 # ---- on the card -------------------------------------------------------------
@@ -173,3 +309,57 @@ def test_kernel_raises_on_what_it_does_not_take(cuda):
     q = torch.zeros(1, 8, 1, 96, device=cuda)
     with pytest.raises(ValueError):
         flash_attention_fwd(q, q, q)
+
+
+def grad_tol(dtype, *grads):
+    """fp32: atol=rtol 1e-4 (summation order). bf16: the kernels round p and
+    ds to bf16 for the tensor-core products, so 2e-2 of the largest gradient."""
+    if dtype == torch.float32:
+        return dict(atol=1e-4, rtol=1e-4)
+    return dict(atol=2e-2 * max(g.abs().max().item() for g in grads), rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["nodrop", "drop"])
+@pytest.mark.parametrize("b,n_q,n_k,h,d", [
+    (2, 256, 256, 4, 64),
+    (1, 100, 70, 2, 128),   # ragged tails, N_q != N_k
+    (1, 130, 300, 2, 256),  # several tiles at the widest head
+])
+def test_kernels_fwd_bwd_match_plain_on_card(cuda, dtype, rate, b, n_q, n_k, h, d):
+    """Forward (with dropout) and the dq and dk/dv kernels against the plain
+    forward and autograd of it, with the same seed."""
+    seed = 2 ** 35 + 3
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in make_qkv(b, n_q, n_k, h, d, seed=3))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(cuda, dtype)
+    mult = attention_mult(q, k, rate, seed)
+    o, lse = flash_attention_fwd(q, k, v, None, rate, seed)
+    want_o, want_lse = flash_attention_reference(q, k, v, None, mult)
+    torch.testing.assert_close(o, want_o, **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL)
+    before = (FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches)
+    got = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, rate, seed)
+    torch.cuda.synchronize()
+    assert (FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches) == (before[0] + 1, before[1] + 1)
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    flash_attention_reference(qf, kf, vf, None, mult)[0].backward(do.float())
+    want = (qf.grad, kf.grad, vf.grad)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), w, **grad_tol(dtype, w), msg=name)
+
+
+@pytest.mark.cuda
+def test_backward_reads_strided_qkv_views(cuda):
+    b, n, h, d = 2, 130, 4, 64
+    g = torch.Generator(device="cpu").manual_seed(0)
+    qkv = torch.randn(b, n, 3, h, d, generator=g).to(cuda, torch.bfloat16).requires_grad_()
+    q, k, v = qkv.unbind(2)
+    flash_attention(q, k, v, dropout_rate=0.1, seed=9).float().square().sum().backward()
+    got = qkv.grad.clone()
+    qkv.grad = None
+    mult = attention_mult(q, k, 0.1, 9)
+    qf = qkv.detach().float().requires_grad_()
+    flash_attention_reference(*qf.unbind(2), None, mult)[0].square().sum().backward()
+    torch.testing.assert_close(got.float(), qf.grad, **grad_tol(torch.bfloat16, qf.grad))

@@ -13,15 +13,20 @@ MODULES = [
     "orbit2_tpu_torch.registry",
     "orbit2_tpu_torch.data",
     "orbit2_tpu_torch.ops.attention",
+    "orbit2_tpu_torch.ops.dropout",
     "orbit2_tpu_torch.ops.flash_attention",
+    "orbit2_tpu_torch.ops.kernel_prng",
     "orbit2_tpu_torch.ops.pos_embed",
     "orbit2_tpu_torch.models",
     "orbit2_tpu_torch.metrics",
     "orbit2_tpu_torch.transforms",
     "orbit2_tpu_torch.training.checkpoint",
+    "orbit2_tpu_torch.training.optim",
     "orbit2_tpu_torch.training.train",
+    "orbit2_tpu_torch.training.trainer",
     "orbit2_tpu_torch.utils.loaders",
     "orbit2_tpu_torch.evaluate",
+    "orbit2_tpu_torch.train",
 ]
 
 
@@ -38,3 +43,24 @@ def test_port_never_imports_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_library_name_hashes_the_included_headers(tmp_path, monkeypatch):
+    """An edited csrc/ header, included directly or through another header,
+    renames the library, so a stale build is never loaded."""
+    import shutil
+
+    from orbit2_tpu_torch.ops import _nvcc
+
+    for name in ("flash_attn_bwd.cu", "flash_common.cuh", "kernel_prng.cuh"):
+        shutil.copy(_nvcc.CSRC_DIR / name, tmp_path / name)
+    monkeypatch.setattr(_nvcc, "CSRC_DIR", tmp_path)
+    lib = _nvcc.NvccLibrary("flash_attn_bwd.cu")
+    assert {p.name for p in lib.sources()} == {"flash_attn_bwd.cu", "flash_common.cuh",
+                                               "kernel_prng.cuh"}
+    before = lib.path()
+    assert lib.path() == before
+    with open(tmp_path / "kernel_prng.cuh", "a") as f:
+        f.write("// edited\n")
+    assert lib.path() != before
+    assert lib.path().name.startswith("libflash_attn_bwd_")

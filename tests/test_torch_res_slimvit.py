@@ -93,12 +93,22 @@ def test_for_phase_resizes_pos_embed_like_jax():
 
 
 def test_train_mode_forward_raises():
-    tm = ResSlimViT(DEFAULT_VARS, (8, 16), 7, 3, embed_dim=32, depth=1, decoder_depth=1,
-                    num_heads=2, learn_pos_emb=True)
-    x = torch.zeros(1, 7, 8, 16)
-    with pytest.raises(NotImplementedError):
-        tm.train()(x, DEFAULT_VARS, OUT_VARS)
-    assert tm.eval()(x, DEFAULT_VARS, OUT_VARS).shape == (1, 3, 32, 64)
+    """Train mode is ported: at dropout > 0 a train-mode forward runs, differs
+    from eval and is fixed by its generators; without a dropout generator
+    it raises."""
+    tm = ResSlimViT(DEFAULT_VARS, (8, 16), 7, 3, embed_dim=64, depth=1, decoder_depth=1,
+                    num_heads=1, learn_pos_emb=True, drop_rate=0.1, drop_path=0.1)
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 7, 8, 16)).astype(np.float32))
+    with torch.no_grad():
+        want = tm.eval()(x, DEFAULT_VARS, OUT_VARS)
+        gens = lambda: (torch.Generator().manual_seed(1), torch.Generator().manual_seed(2))
+        got = tm.train()(x, DEFAULT_VARS, OUT_VARS, *gens())
+        again = tm(x, DEFAULT_VARS, OUT_VARS, *gens())
+        with pytest.raises(ValueError):
+            tm(x, DEFAULT_VARS, OUT_VARS)
+    assert got.shape == want.shape == (2, 3, 32, 64)
+    assert not torch.allclose(got, want)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("kwargs", [dict(moe_experts=4), dict(pipeline_stages=2),

@@ -6,18 +6,28 @@
 Phases, each of which raises (and so exits non-zero) on failure:
   1. device  — needs torch.cuda; prints the card's name and power limit
   2. build   — nvcc-builds every kernel library from csrc/ (flash-attention
-               forward, flash-attention backward, fused dropout), all at once
+               forward, flash-attention backward, fused dropout, fused MLP),
+               all at once
   3. kernels — each kernel against its plain PyTorch version on the card:
                the flash forward at SHAPES, bf16 and fp32, dropout 0 and 0.1;
                the dq and dk/dv kernels against autograd of the plain forward
                with the same seed, at SHAPES, both dtypes, dropout 0 and 0.1;
                the fused dropout bit for bit, forward and backward, at
-               DROPOUT_SHAPES in both dtypes
+               DROPOUT_SHAPES in both dtypes; the fused MLP's forward against
+               its plain version and its dx and dW kernels against autograd
+               of it, at MLP_SHAPES, both dtypes, dropout 0 and 0.1, with the
+               zero pattern of the unfused chain (K5) under the same seeds
   4. slice   — the serving path (Evaluator.test) at interm_117m width
                (configs/interm_117m.yaml: embed 1024, depth 8, 16 heads, bf16,
                batch 8) on a synthetic dataset made from --seed; the kernels'
                launch counts over that run; the prediction against the same
                model on the plain attention, and in fp32 against the CPU
+     fused   — the same Evaluator.test with every Mlp.use_fused set: launch
+               counts (the fused MLP forward once per block and batch); the
+               prediction against use_fused off, and in fp32 against the CPU;
+               then one gradient of the fused eval-mode model (input and
+               weights), which runs the dx and dW kernels, against use_fused
+               off and, in fp32, against the CPU
   5. train   — the training path (Trainer.fit) at the same width: bf16
                compute, fp32 master parameters, bf16 Adam moments, dropout and
                drop-path 0.1, batch 8, 2 epochs x --steps steps; exact launch
@@ -26,8 +36,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
                the plain versions, and one seeded fp32 step on the card against
                the CPU
   6. times   — kernel vs plain (CUDA events, median of 20 after warm-up), the
-               train step at the slice geometry and at bench.py's 117M
-               geometry (64 x 128 input, 2,048 tokens), and the serving step
+               fused MLP also against the unfused bf16 chain, the train step
+               at the slice geometry and at bench.py's 117M geometry (64 x 128
+               input, 2,048 tokens), and the serving step with and without
+               the fused MLP
 
 The second-to-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. No result is printed when a phase fails.
@@ -86,6 +98,21 @@ PRED_FP32_TOL = 1e-4
 TRAIN_BF16_RTOL = 2e-2
 # one fp32 train step's loss and gradients, card vs CPU
 TRAIN_FP32_TOL = 1e-4
+# the fused MLP's [tokens, D -> F -> D2]: the 117M serving slice, bench.py's
+# 117M geometry, a ragged token count, a small case, and F != 4 D with a
+# partial D2 tile, fed as a strided [1, N, D] view (B = 1)
+MLP_SHAPES = [(8 * 512, 1024, 4096, 1024), (8 * 2048, 1024, 4096, 1024),
+              (4104, 1024, 4096, 1024), (64, 128, 256, 128), (512, 256, 640, 384)]
+# the fused MLP against its plain version (forward) and autograd of it
+# (gradients), relative to the largest value: bf16 rounds h, dpre and do2 to
+# bf16 where the plain autograd keeps fp32 (atol 2e-2 x max, rtol 2e-2);
+# fp32 sums over up to 16,384 tokens in another order (atol 1e-4 x max, rtol
+# 1e-4)
+MLP_REL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# one gradient of the bf16 serving model, fused vs unfused MLP: relative L2
+# error of each gradient tensor (the two paths round the hidden at different
+# points, through 8 blocks and the decoder)
+MODEL_GRAD_REL = 5e-2
 # bench.py:199-210, the 117M train geometry
 BENCH_VARS = ("land_sea_mask", "orography", "lattitude", "landcover",
               "total_precipitation_24hr", "2m_temperature_min", "2m_temperature_max")
@@ -130,9 +157,17 @@ def make_qkv(b, n_q, n_k, h, d, dtype, gen):
 def kernels():
     from orbit2_tpu_torch.ops.dropout import FUSED_DROPOUT
     from orbit2_tpu_torch.ops.flash_attention import FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD
+    from orbit2_tpu_torch.ops.fused_mlp import FUSED_MLP_DW, FUSED_MLP_DX, FUSED_MLP_FWD
 
     return {"flash_attn_fwd": FLASH_FWD, "flash_attn_bwd_dq": FLASH_BWD_DQ,
-            "flash_attn_bwd_dkv": FLASH_BWD_DKV, "fused_dropout": FUSED_DROPOUT}
+            "flash_attn_bwd_dkv": FLASH_BWD_DKV, "fused_dropout": FUSED_DROPOUT,
+            "fused_mlp_fwd": FUSED_MLP_FWD, "fused_mlp_dx": FUSED_MLP_DX,
+            "fused_mlp_dw": FUSED_MLP_DW}
+
+
+def only(**launched):
+    """The launch counts of a run that launched `launched` and nothing else."""
+    return {name: launched.get(name, 0) for name in kernels()}
 
 
 def reset_counts():
@@ -200,6 +235,157 @@ def set_attention_impl(model, impl):
     for m in model.modules():
         if isinstance(m, Attention):
             m.attention_impl = impl
+
+
+def set_use_fused(model, flag):
+    from orbit2_tpu_torch.models.components.blocks import Mlp
+
+    for m in model.modules():
+        if isinstance(m, Mlp):
+            m.use_fused = flag
+
+
+def eval_grad(model, x, in_vars, out_vars):
+    """(loss, gradients) of the eval-mode prediction's mean square with respect
+    to the input ("input") and every trainable parameter."""
+    model.eval()
+    model.zero_grad(set_to_none=True)
+    xg = x.detach().clone().requires_grad_()
+    loss = model(xg, in_vars, out_vars).float().square().mean()
+    loss.backward()
+    grads = {"input": xg.grad.float()}
+    grads.update((k, p.grad.float()) for k, p in model.named_parameters() if p.grad is not None)
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def mlp_inputs(shape, dtype, gen, batch_one=False):
+    """x [T, D] (a strided view of a [1, T, 2D] tensor when batch_one), w1 [F, D],
+    b1, w2 [D2, F], b2 on the card."""
+    t, d, f, d2 = shape
+    mk = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device="cuda") * scale).to(dtype)
+    x = mk(t, d)
+    if batch_one:
+        x = torch.cat([x, mk(t, d)], dim=1).view(1, t, 2 * d)[..., :d].reshape(t, d)
+    return x, mk(f, d, scale=d ** -0.5), mk(f, scale=0.1), mk(d2, f, scale=f ** -0.5), mk(d2, scale=0.1)
+
+
+def mlp_close(got, want, dtype, what):
+    """Max abs error of got against want, raising beyond MLP_REL."""
+    diff = (got.float() - want.float()).abs()
+    scale = want.float().abs().max().item()
+    rel = MLP_REL[dtype]
+    check(bool((diff <= rel * scale + rel * want.float().abs()).all()),
+          f"{what}: max|d| {diff.max().item():.3e} beyond atol {rel:g} x {scale:.3e}, rtol {rel:g}")
+    return diff.max().item()
+
+
+def check_fused_mlp(gen, kernel_seed, errs):
+    """The fused MLP's three kernels against their plain versions at MLP_SHAPES."""
+    import torch.nn.functional as F
+
+    from orbit2_tpu_torch.ops.dropout import dropout
+    from orbit2_tpu_torch.ops.fused_mlp import (
+        fused_mlp, fused_mlp_bwd, fused_mlp_fwd, fused_mlp_reference, mlp_masks)
+    from orbit2_tpu_torch.ops.kernel_prng import draw_seed
+
+    s1, s2 = kernel_seed + 1, kernel_seed + 2
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in MLP_SHAPES:
+            t, d, f, d2 = shape
+            x, w1, b1, w2, b2 = mlp_inputs(shape, dtype, gen, batch_one=shape == MLP_SHAPES[-1])
+            do = torch.randn(t, d2, generator=gen, device="cuda").to(dtype)
+            for rate in (0.0, DROP):
+                m1, m2 = mlp_masks(rate, s1, s2, t, f, d2, device="cuda")
+                out = fused_mlp_fwd(x, w1, b1, w2, b2, rate, s1, s2)
+                grads = fused_mlp_bwd(x, w1, b1, w2, do, rate, s1, s2)
+                again = fused_mlp_bwd(x, w1, b1, w2, do, rate, s1, s2)
+                want = fused_mlp_reference(x, w1, b1, w2, b2, m1, m2)
+                leaves = [a.detach().float().requires_grad_() for a in (x, w1, b1, w2, b2)]
+                fused_mlp_reference(*leaves, m1, m2).backward(do.float())
+                torch.cuda.synchronize()
+                case = f"fused mlp {str(dtype)[6:]} drop {rate:g} {list(shape)}"
+                err = {"out": mlp_close(out, want, dtype, f"{case} out")}
+                for name, got, leaf in zip(("dx", "dw1", "db1", "dw2", "db2"), grads, leaves):
+                    err[name] = mlp_close(got, leaf.grad, dtype, f"{case} {name}")
+                check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                      f"{case}: two backward runs differ")
+                line = "max abs err " + "  ".join(f"{k} {v:.3e}" for k, v in err.items())
+                if rate:
+                    with torch.no_grad():
+                        fused = fused_mlp(x, w1, b1, w2, b2, rate, torch.Generator().manual_seed(5))
+                        g = torch.Generator().manual_seed(5)
+                        h = dropout(F.gelu(F.linear(x, w1, b1)), rate, True, g)
+                        chain = dropout(F.linear(h, w2, b2), rate, True, g)
+                        g = torch.Generator().manual_seed(5)
+                        dropped = mlp_masks(rate, draw_seed(g), draw_seed(g), t, f, d2,
+                                            device="cuda")[1] == 0
+                        torch.cuda.synchronize()
+                    # both drop exactly the output mask's elements; a kept element
+                    # may still be an exact zero by cancellation (about one in 2^24)
+                    stray = [((z == 0) & ~dropped).sum().item() for z in (fused, chain)]
+                    check(bool((fused[dropped] == 0).all() and (chain[dropped] == 0).all())
+                          and sum(stray) <= max(4, t * d2 >> 20),
+                          f"{case}: zero pattern differs from the unfused chain's (stray {stray})")
+                    err["chain"] = mlp_close(fused, chain, dtype, f"{case} vs unfused chain")
+                    line += (f"; zeros = the unfused K5 chain's ("
+                             f"{dropped.float().mean().item():.4f} dropped; exact zeros "
+                             f"among kept: {stray[0]} fused, {stray[1]} unfused)")
+                    del fused, h, chain, dropped
+                print(f"  {case}: {line}; bwd bit-equal over two runs")
+                errs[("mlp_fwd", dtype, shape, rate)] = err["out"]
+                errs[("mlp_dx", dtype, shape, rate)] = err["dx"]
+                errs[("mlp_dw", dtype, shape, rate)] = max(err[k] for k in ("dw1", "db1", "dw2", "db2"))
+                del out, grads, again, want, leaves, m1, m2
+            del x, w1, b1, w2, b2, do
+            torch.cuda.empty_cache()
+
+
+def time_fused_mlp(gen):
+    """Kernel vs plain ms of the fused MLP in bf16 at dropout 0 (the model's
+    eval-mode use) at the two 117M shapes: the forward, dx and dW kernels
+    against the plain versions, and forward and forward + backward also
+    against the unfused bf16 chain (cuBLAS GEMMs, GELU; autograd)."""
+    import torch.nn.functional as F
+
+    from orbit2_tpu_torch.ops.fused_mlp import (
+        FUSED_MLP_DW, FUSED_MLP_DX, fused_mlp_bwd, fused_mlp_bwd_reference, fused_mlp_fwd,
+        fused_mlp_reference)
+
+    timed = {}
+    for shape in MLP_SHAPES[:2]:
+        t, d, f, d2 = shape
+        args = mlp_inputs(shape, torch.bfloat16, gen)
+        do = torch.randn(t, d2, generator=gen, device="cuda").to(torch.bfloat16)
+        leaves = [a.detach().requires_grad_() for a in args]
+        chain = lambda a: F.linear(F.gelu(F.linear(a[0], a[1], a[2])), a[3], a[4])
+        kern_fb = lambda: (fused_mlp_fwd(*args), fused_mlp_bwd(*args[:4], do))
+        before = counts()
+        fwd, fwd_plain = paired_ms(lambda: fused_mlp_fwd(*args),
+                                   lambda: fused_mlp_reference(*args))
+        with torch.no_grad():
+            _, fwd_chain = paired_ms(lambda: fused_mlp_fwd(*args), lambda: chain(args))
+        fb, fb_plain = paired_ms(kern_fb, lambda: (fused_mlp_reference(*args),
+                                                   fused_mlp_bwd_reference(*args[:4], do)))
+        _, fb_chain = paired_ms(kern_fb, lambda: torch.autograd.grad(chain(leaves), leaves, do))
+        dx = cuda_ms(lambda: FUSED_MLP_DX(*args[:4], do, 0.0, 0, 0))
+        dw = cuda_ms(lambda: FUSED_MLP_DW(*args[:4], do, 0.0, 0, 0))
+        bwd_plain = cuda_ms(lambda: fused_mlp_bwd_reference(*args[:4], do))
+        after = counts()
+        check(all(after[n] > before[n] for n in ("fused_mlp_fwd", "fused_mlp_dx", "fused_mlp_dw")),
+              "timing did not launch the fused MLP kernels")
+        flops = 2 * t * (d * f + f * d2)  # the forward's two products
+        print(f"  fused mlp bf16 [{t}, {d} -> {f} -> {d2}]: fwd {fwd:.4f} ms "
+              f"({flops / fwd / 1e9:.1f} TFLOP/s of the two products) plain {fwd_plain:.4f}, "
+              f"unfused chain {fwd_chain:.4f}; fwd + bwd {fb:.4f} ms ({3 * flops / fb / 1e9:.1f} "
+              f"TFLOP/s of six products; dx {dx:.4f}, dW {dw:.4f}) plain {fb_plain:.4f} "
+              f"(backward alone {bwd_plain:.4f}), unfused chain {fb_chain:.4f}")
+        timed[("mlp_fwd", shape)] = (fwd, fwd_plain)
+        timed[("mlp_dx", shape)] = (dx, bwd_plain)
+        timed[("mlp_dw", shape)] = (dw, bwd_plain)
+        del args, do, leaves
+        torch.cuda.empty_cache()
+    return timed
 
 
 @contextlib.contextmanager
@@ -355,6 +541,7 @@ def main():
                   f"fused dropout kept {kept} of [{r}, {c}]")
     errs[("fused_dropout",)] = 0.0
     torch.cuda.synchronize()
+    check_fused_mlp(gen, kernel_seed, errs)
 
     from orbit2_tpu_torch.evaluate import Evaluator, model_kwargs
     from orbit2_tpu_torch.training.train import make_eval_step
@@ -383,8 +570,7 @@ def main():
             print(f"    {key} {val:.6f}")
         check(len(metrics) == 12 and all(np.isfinite(v) for v in metrics.values()),
               "slice metrics missing or not finite")
-        check(serve_counts == {"flash_attn_fwd": m.depth * args.batches, "flash_attn_bwd_dq": 0,
-                               "flash_attn_bwd_dkv": 0, "fused_dropout": 0},
+        check(serve_counts == only(flash_attn_fwd=m.depth * args.batches),
               f"serving launches {serve_counts}, want flash_attn_fwd = depth x batches = "
               f"{m.depth * args.batches} and nothing else")
 
@@ -424,6 +610,82 @@ def main():
                                    rtol=PRED_FP32_TOL)
         del m32
 
+        # 4b. the serving slice with every Mlp on the fused MLP
+        phase("fused")
+        set_use_fused(ev.model, True)
+        reset_counts()
+        tt = time.perf_counter()
+        metrics_fused = ev.test(max_batches=args.batches)
+        torch.cuda.synchronize()
+        fused_test_s = time.perf_counter() - tt
+        fused_counts = counts()
+        print(f"  test(max_batches={args.batches}) with use_fused {fused_test_s:.3f} s; "
+              f"launches {fused_counts}")
+        for key, val in metrics_fused.items():
+            print(f"    {key} {val:.6f} (use_fused off {metrics[key]:.6f})")
+        check(len(metrics_fused) == 12 and all(np.isfinite(v) for v in metrics_fused.values()),
+              "fused slice metrics missing or not finite")
+        check(fused_counts == only(flash_attn_fwd=m.depth * args.batches,
+                                   fused_mlp_fwd=m.depth * args.batches),
+              f"fused serving launches {fused_counts}, want flash_attn_fwd and fused_mlp_fwd = "
+              f"depth x batches = {m.depth * args.batches} and nothing else")
+        with torch.no_grad():
+            pred_fused = ev.model(x, in_vars, out_vars).float()
+            torch.cuda.synchronize()
+        check(tuple(pred_fused.shape) == want_shape and bool(pred_fused.isfinite().all()),
+              f"bad fused prediction {tuple(pred_fused.shape)}")
+        print(f"  bf16 prediction, use_fused vs off on the card: max|d| "
+              f"{(pred_fused - pred).abs().max().item():.3e} (atol=rtol={PRED_BF16_TOL:g})")
+        torch.testing.assert_close(pred_fused, pred, atol=PRED_BF16_TOL, rtol=PRED_BF16_TOL)
+
+        m32 = copy.deepcopy(ev.model).float()
+        m32.dtype = torch.float32
+        with torch.no_grad():
+            pred_gpu = m32(x[:1], in_vars, out_vars).cpu()
+        loss_gpu, g_gpu = eval_grad(m32, x[:1], in_vars, out_vars)
+        g_gpu = {k: v.cpu() for k, v in g_gpu.items()}
+        m32.cpu()
+        with torch.no_grad():
+            pred_cpu = m32(x[:1].cpu(), in_vars, out_vars)
+        loss_cpu, g_cpu = eval_grad(m32, x[:1].cpu(), in_vars, out_vars)
+        print(f"  fp32 prediction with use_fused, card (kernels) vs CPU (plain): max|d| "
+              f"{(pred_gpu - pred_cpu).abs().max().item():.3e} (atol=rtol={PRED_FP32_TOL:g})")
+        torch.testing.assert_close(pred_gpu, pred_cpu, atol=PRED_FP32_TOL, rtol=PRED_FP32_TOL)
+        worst = max(((g_gpu[k] - g_cpu[k]).abs().max().item(), k) for k in g_cpu)
+        print(f"  fp32 eval-mode gradient with use_fused, card vs CPU: loss {loss_gpu:.7f} vs "
+              f"{loss_cpu:.7f}; max|dgrad| {worst[0]:.3e} at {worst[1]} "
+              f"(atol=rtol={TRAIN_FP32_TOL:g})")
+        check(math.isclose(loss_gpu, loss_cpu, rel_tol=TRAIN_FP32_TOL, abs_tol=TRAIN_FP32_TOL),
+              "fp32 eval-mode losses differ between card and CPU")
+        for k in g_cpu:
+            torch.testing.assert_close(g_gpu[k], g_cpu[k], atol=TRAIN_FP32_TOL,
+                                       rtol=TRAIN_FP32_TOL, msg=k)
+        del m32, g_gpu, g_cpu
+
+        # the gradient of the fused serving model: the dx and dW kernels on the model path
+        reset_counts()
+        loss_f, g_fused = eval_grad(ev.model, x, in_vars, out_vars)
+        torch.cuda.synchronize()
+        grad_counts = counts()
+        print(f"  eval-mode gradient of the fused bf16 model (batch {x.shape[0]}): launches "
+              f"{grad_counts}")
+        check(grad_counts == only(flash_attn_fwd=m.depth, flash_attn_bwd_dq=m.depth,
+                                  flash_attn_bwd_dkv=m.depth, fused_mlp_fwd=m.depth,
+                                  fused_mlp_dx=m.depth, fused_mlp_dw=m.depth),
+              f"eval-mode gradient launches {grad_counts}, want depth = {m.depth} of each "
+              f"but the fused dropout")
+        set_use_fused(ev.model, False)
+        loss_u, g_unfused = eval_grad(ev.model, x, in_vars, out_vars)
+        rel = {k: ((g_fused[k] - g_unfused[k]).norm() / g_unfused[k].norm().clamp_min(1e-30)).item()
+               for k in g_unfused}
+        worst = max((v, k) for k, v in rel.items())
+        print(f"  bf16 eval-mode gradient, use_fused vs off: loss {loss_f:.6f} vs {loss_u:.6f}; "
+              f"worst relative L2 error {worst[0]:.3e} at {worst[1]} over {len(rel)} tensors "
+              f"(bound {MODEL_GRAD_REL:g})")
+        check(all(torch.isfinite(g).all() for g in g_fused.values()), "a fused gradient is not finite")
+        check(worst[0] <= MODEL_GRAD_REL, "bf16 eval-mode gradients differ with use_fused")
+        del g_fused, g_unfused
+
         # 5. the training slice
         phase("train")
         print(f"  {cfg.trainer.data_type} compute, fp32 parameters, adam mu "
@@ -443,9 +705,9 @@ def main():
         print(f"  fit {fit_s:.3f} s; launches {train_counts}")
         check(sum(r["batches"] for r in history) == steps, f"fit took {history}")
         check(all(np.isfinite(r["loss"]) for r in history), "a train loss is not finite")
-        want_counts = {"flash_attn_fwd": m.depth * steps, "flash_attn_bwd_dq": m.depth * steps,
-                       "flash_attn_bwd_dkv": m.depth * steps,
-                       "fused_dropout": 2 * (1 + 3 * m.depth) * steps}
+        want_counts = only(flash_attn_fwd=m.depth * steps, flash_attn_bwd_dq=m.depth * steps,
+                           flash_attn_bwd_dkv=m.depth * steps,
+                           fused_dropout=2 * (1 + 3 * m.depth) * steps)
         check(train_counts == want_counts, f"train launches {train_counts}, want {want_counts}")
         tdm = trainer._data_modules[next(iter(cfg.data.low_res_dir))]
         init = load_architecture(tdm, m.preset, **model_kwargs(cfg)).state_dict()
@@ -465,7 +727,8 @@ def main():
         reset_counts()
         loss_k = train_step_of(copy.deepcopy(trainer.model), cfg, in_vars, out_vars,
                                mu_dtype=mu, nu_dtype=nu)(xb, yb, *gens(7)).item()
-        check(all(c > 0 for c in counts().values()), f"kernel step launched {counts()}")
+        check(all(c > 0 for c, w in zip(counts().values(), want_counts.values()) if w),
+              f"kernel step launched {counts()}")
         reset_counts()
         with plain_versions():
             loss_p = train_step_of(copy.deepcopy(trainer.model), cfg, in_vars, out_vars,
@@ -549,12 +812,19 @@ def main():
                 print(f"  fused_dropout {str(dtype)[6:]:8s} [{r}, {c}]: {kern:.4f} ms "
                       f"({gbs:.0f} GB/s) plain {plain:.4f} ms (mask precomputed)")
                 del x_, mult
+        timed.update(time_fused_mlp(gen))
 
         step = make_eval_step(ev.model, in_vars, out_vars)
-        ms_batch = cuda_ms(lambda: step(x, y))
+        fused_model = copy.deepcopy(ev.model)
+        set_use_fused(fused_model, True)
+        fused_step = make_eval_step(fused_model, in_vars, out_vars)
+        ms_fused, ms_batch = paired_ms(lambda: fused_step(x, y), lambda: step(x, y))
         print(f"  serving: eval step (forward + clip) {ms_batch:.3f} ms per test batch of "
-              f"{x.shape[0]} (median of 20); test() wall {test_s / args.batches:.4f} s per batch "
-              f"over {args.batches} batches incl. loading and metrics")
+              f"{x.shape[0]}, with use_fused {ms_fused:.3f} ms (the better of two medians of 20, "
+              f"in turns); test() wall {test_s / args.batches:.4f} s per batch over "
+              f"{args.batches} batches incl. loading and metrics, with use_fused "
+              f"{fused_test_s / args.batches:.4f} s")
+        del fused_model, fused_step
 
         tstep = train_step_of(trainer.model, cfg, in_vars, out_vars, mu_dtype=mu, nu_dtype=nu)
         g1, g2 = gens(13)
@@ -587,11 +857,13 @@ def main():
           f"(median of 20)")
 
     slice_shape = SHAPES[0]
+    mlp_shape = MLP_SHAPES[0]
     bf16 = torch.bfloat16
 
-    def entry(name, source, replaces, err, ms):
+    def entry(name, source, replaces, err, ms, launched=None):
+        launched = train_counts if launched is None else launched
         return {"name": name, "route": "cuda", "source": f"orbit2_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": train_counts[name], "max_abs_err": err,
+                "replaces": replaces, "launches": launched[name], "max_abs_err": err,
                 "ms": ms[0], "plain_ms": ms[1]}
 
     print(json.dumps({"kernels": [
@@ -604,6 +876,12 @@ def main():
               timed[("dkv", bf16, slice_shape, DROP)]),
         entry("fused_dropout", "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39",
               errs[("fused_dropout",)], timed[("fused_dropout", bf16, DROPOUT_SHAPES[1])]),
+        entry("fused_mlp_fwd", "fused_mlp.cu", "orbit2_tpu/ops/fused_mlp.py:125",
+              errs[("mlp_fwd", bf16, mlp_shape, 0.0)], timed[("mlp_fwd", mlp_shape)], fused_counts),
+        entry("fused_mlp_dx", "fused_mlp.cu", "orbit2_tpu/ops/fused_mlp.py:177",
+              errs[("mlp_dx", bf16, mlp_shape, 0.0)], timed[("mlp_dx", mlp_shape)], grad_counts),
+        entry("fused_mlp_dw", "fused_mlp.cu", "orbit2_tpu/ops/fused_mlp.py:209",
+              errs[("mlp_dw", bf16, mlp_shape, 0.0)], timed[("mlp_dw", mlp_shape)], grad_counts),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,7 @@ from torch import nn
 
 from orbit2_tpu_torch.ops.attention import dot_product_attention
 from orbit2_tpu_torch.ops.dropout import dropout
+from orbit2_tpu_torch.ops.fused_mlp import fused_mlp
 
 Generator = Optional[torch.Generator]
 
@@ -102,22 +103,36 @@ class LayerScale(nn.Module):
 
 class Mlp(nn.Module):
     """fc1 -> GELU (erf, or tanh when gelu_tanh) -> drop -> fc2 -> drop
-    (reference mlp.py:22-73); both dropouts are the fused kernel."""
+    (reference mlp.py:22-73); both dropouts are the fused kernel.
+
+    `use_fused` (JAX blocks.py:151, :174-183) sends an eval-mode, erf-GELU
+    forward through ops/fused_mlp.py (the K6 kernels, which never store the
+    hidden), on the weights cast to x's dtype; where that declines on shape
+    the plain chain runs. The parameters stay fc1/fc2 either way, so weights
+    load the same. Off by default, as in the JAX package, whose measurements
+    on a TPU found the fused kernel slower at model level (blocks.py:128-137;
+    a TPU finding, not one about this port)."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: Optional[int] = None, drop: float = 0.0, use_bias: bool = True,
-                 gelu_tanh: bool = False):
+                 gelu_tanh: bool = False, use_fused: bool = False):
         super().__init__()
         self.fc1 = Linear(in_features, hidden_features, bias=use_bias)
         self.fc2 = Linear(hidden_features, out_features or in_features, bias=use_bias)
         self.drop = drop
         self.approximate = "tanh" if gelu_tanh else "none"
+        self.use_fused = use_fused
 
     def reset_parameters(self, generator=None):
         init_linear_(self.fc1, generator)
         init_linear_(self.fc2, generator)
 
     def forward(self, x, generator: Generator = None):
+        if self.use_fused and not self.training and self.approximate == "none":
+            out = fused_mlp(x, _cast(self.fc1.weight, x.dtype), _cast(self.fc1.bias, x.dtype),
+                            _cast(self.fc2.weight, x.dtype), _cast(self.fc2.bias, x.dtype))
+            if out is not None:
+                return out
         h = F.gelu(self.fc1(x), approximate=self.approximate)
         h = dropout(h, self.drop, self.training, generator)
         return dropout(self.fc2(h), self.drop, self.training, generator)

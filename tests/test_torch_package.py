@@ -15,6 +15,7 @@ MODULES = [
     "orbit2_tpu_torch.ops.attention",
     "orbit2_tpu_torch.ops.dropout",
     "orbit2_tpu_torch.ops.flash_attention",
+    "orbit2_tpu_torch.ops.fused_mlp",
     "orbit2_tpu_torch.ops.kernel_prng",
     "orbit2_tpu_torch.ops.pos_embed",
     "orbit2_tpu_torch.models",

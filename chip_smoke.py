@@ -6,8 +6,8 @@
 Phases, each of which raises (and so exits non-zero) on failure:
   1. device  — needs torch.cuda; prints the card's name and power limit
   2. build   — nvcc-builds every kernel library from csrc/ (flash-attention
-               forward, flash-attention backward, fused dropout, fused MLP),
-               all at once
+               forward, flash-attention backward, fused dropout, fused MLP,
+               attention probes), all at once
   3. kernels — each kernel against its plain PyTorch version on the card:
                the flash forward at SHAPES, bf16 and fp32, dropout 0 and 0.1;
                the dq and dk/dv kernels against autograd of the plain forward
@@ -17,6 +17,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
                its plain version and its dx and dW kernels against autograd
                of it, at MLP_SHAPES, both dtypes, dropout 0 and 0.1, with the
                zero pattern of the unfused chain (K5) under the same seeds
+     probes  — the four attention probes against their plain versions at
+               PROBE_SHAPES (atol 1e-2 x max|o| and rtol 1e-2), the bound
+               shift also against the fp32 softmax (atol 1e-2), with exact
+               launch counts; then the probe path, `python -m
+               orbit2_tpu_torch.scripts.bench_attn2`'s run at (B8, N2048, H16,
+               d64), with its exact launch counts
   4. slice   — the serving path (Evaluator.test) at interm_117m width
                (configs/interm_117m.yaml: embed 1024, depth 8, 16 heads, bf16,
                batch 8) on a synthetic dataset made from --seed; the kernels'
@@ -35,14 +41,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
                one seeded bf16 step on the kernels against the same step on
                the plain versions, and one seeded fp32 step on the card against
                the CPU
-  6. times   — kernel vs plain (CUDA events, median of 20 after warm-up), the
-               fused MLP also against the unfused bf16 chain, the train step
-               at the slice geometry and at bench.py's 117M geometry (64 x 128
-               input, 2,048 tokens), and the serving step with and without
-               the fused MLP
+  6. times   — kernel vs plain (CUDA events, median of 20 after warm-up), each
+               kernel also against the one PyTorch call that computes its
+               function where there is one (SDPA pinned to its flash backend,
+               F.dropout), the fused MLP against the unfused bf16 chain and
+               the first two probes against their bmm pair; the probes'
+               decomposition of the flash forward at (B8, N2048, H16, d64);
+               the train step at the slice geometry and at bench.py's 117M
+               geometry (64 x 128 input, 2,048 tokens), and the serving step
+               with and without the fused MLP
 
-The second-to-last line is {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}. No result is printed when a phase fails.
+The second-to-last line is {"kernels": [...]}: for each kernel its launches
+on its path, max abs error, ms, plain ms, library ms (null where no single
+PyTorch call computes its function; then `chain_ms`, where timed, is the
+unfused chain of PyTorch calls), and its bound: the larger of its useful
+tensor-core flops over 989 TFLOP/s and the bytes it must move over 3.35 TB/s
+(H100 SXM dense bf16 and HBM3 peaks). The last line is {"ok": true, "device":
+{...}}. No result is printed when a phase fails.
 """
 
 import argparse
@@ -60,6 +75,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "interm_117m.yaml"
@@ -113,6 +129,18 @@ MLP_REL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # error of each gradient tensor (the two paths round the hidden at different
 # points, through 8 blocks and the decoder)
 MODEL_GRAD_REL = 5e-2
+# the attention probes' [BH, N] at head dim 64: scripts/bench_attn2.py's
+# (B8 x H16, N2048) and a small case of three q and kv tiles
+PROBE_SHAPES = [(128, 2048), (4, 192)]
+# probes against their plain versions, relative to max|o|: both round s or p
+# to bf16 at the same points, but fp32 sums run in another order, so a value
+# may round to the other side of a tie (atol 1e-2 x max|o|, rtol 1e-2)
+PROBE_REL = 1e-2
+# the bound shift against the fp32 softmax: bf16 p and o
+PROBE_SOFTMAX_ATOL = 1e-2
+# H100 SXM peaks (dense bf16 tensor cores, HBM3) for the kernels' bounds
+PEAK_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
 # bench.py:199-210, the 117M train geometry
 BENCH_VARS = ("land_sea_mask", "orography", "lattitude", "landcover",
               "total_precipitation_24hr", "2m_temperature_min", "2m_temperature_max")
@@ -142,6 +170,12 @@ def cuda_ms(fn, iters=20, warmup=3):
     return statistics.median(times)
 
 
+def best_ms(fn):
+    """The better of two medians of `fn` (cuda_ms), as paired_ms takes for a
+    kernel: the library calls' times."""
+    return min(cuda_ms(fn), cuda_ms(fn))
+
+
 def paired_ms(kernel, plain):
     """(kernel ms, plain ms): each timed twice in turns (plain, kernel,
     kernel, plain), the better of its two medians."""
@@ -155,6 +189,8 @@ def make_qkv(b, n_q, n_k, h, d, dtype, gen):
 
 
 def kernels():
+    from orbit2_tpu_torch.ops.attn_probes import (
+        PROBE_BOUND_SHIFT, PROBE_EXP_NOREDUCE, PROBE_FULL_SOFTMAX, PROBE_MATMUL_ONLY)
     from orbit2_tpu_torch.ops.dropout import FUSED_DROPOUT
     from orbit2_tpu_torch.ops.flash_attention import FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD
     from orbit2_tpu_torch.ops.fused_mlp import FUSED_MLP_DW, FUSED_MLP_DX, FUSED_MLP_FWD
@@ -162,7 +198,9 @@ def kernels():
     return {"flash_attn_fwd": FLASH_FWD, "flash_attn_bwd_dq": FLASH_BWD_DQ,
             "flash_attn_bwd_dkv": FLASH_BWD_DKV, "fused_dropout": FUSED_DROPOUT,
             "fused_mlp_fwd": FUSED_MLP_FWD, "fused_mlp_dx": FUSED_MLP_DX,
-            "fused_mlp_dw": FUSED_MLP_DW}
+            "fused_mlp_dw": FUSED_MLP_DW, "probe_matmul_only": PROBE_MATMUL_ONLY,
+            "probe_exp_noreduce": PROBE_EXP_NOREDUCE, "probe_full_softmax": PROBE_FULL_SOFTMAX,
+            "probe_bound_shift": PROBE_BOUND_SHIFT}
 
 
 def only(**launched):
@@ -270,11 +308,11 @@ def mlp_inputs(shape, dtype, gen, batch_one=False):
     return x, mk(f, d, scale=d ** -0.5), mk(f, scale=0.1), mk(d2, f, scale=f ** -0.5), mk(d2, scale=0.1)
 
 
-def mlp_close(got, want, dtype, what):
-    """Max abs error of got against want, raising beyond MLP_REL."""
+def close(got, want, rel, what):
+    """Max abs error of got against want, raising beyond atol rel x max|want|
+    and rtol rel."""
     diff = (got.float() - want.float()).abs()
     scale = want.float().abs().max().item()
-    rel = MLP_REL[dtype]
     check(bool((diff <= rel * scale + rel * want.float().abs()).all()),
           f"{what}: max|d| {diff.max().item():.3e} beyond atol {rel:g} x {scale:.3e}, rtol {rel:g}")
     return diff.max().item()
@@ -305,9 +343,9 @@ def check_fused_mlp(gen, kernel_seed, errs):
                 fused_mlp_reference(*leaves, m1, m2).backward(do.float())
                 torch.cuda.synchronize()
                 case = f"fused mlp {str(dtype)[6:]} drop {rate:g} {list(shape)}"
-                err = {"out": mlp_close(out, want, dtype, f"{case} out")}
+                err = {"out": close(out, want, MLP_REL[dtype], f"{case} out")}
                 for name, got, leaf in zip(("dx", "dw1", "db1", "dw2", "db2"), grads, leaves):
-                    err[name] = mlp_close(got, leaf.grad, dtype, f"{case} {name}")
+                    err[name] = close(got, leaf.grad, MLP_REL[dtype], f"{case} {name}")
                 check(all(torch.equal(a, b) for a, b in zip(grads, again)),
                       f"{case}: two backward runs differ")
                 line = "max abs err " + "  ".join(f"{k} {v:.3e}" for k, v in err.items())
@@ -327,7 +365,7 @@ def check_fused_mlp(gen, kernel_seed, errs):
                     check(bool((fused[dropped] == 0).all() and (chain[dropped] == 0).all())
                           and sum(stray) <= max(4, t * d2 >> 20),
                           f"{case}: zero pattern differs from the unfused chain's (stray {stray})")
-                    err["chain"] = mlp_close(fused, chain, dtype, f"{case} vs unfused chain")
+                    err["chain"] = close(fused, chain, MLP_REL[dtype], f"{case} vs unfused chain")
                     line += (f"; zeros = the unfused K5 chain's ("
                              f"{dropped.float().mean().item():.4f} dropped; exact zeros "
                              f"among kept: {stray[0]} fused, {stray[1]} unfused)")
@@ -341,11 +379,13 @@ def check_fused_mlp(gen, kernel_seed, errs):
             torch.cuda.empty_cache()
 
 
-def time_fused_mlp(gen):
+def time_fused_mlp(gen, bounds, libs):
     """Kernel vs plain ms of the fused MLP in bf16 at dropout 0 (the model's
     eval-mode use) at the two 117M shapes: the forward, dx and dW kernels
-    against the plain versions, and forward and forward + backward also
-    against the unfused bf16 chain (cuBLAS GEMMs, GELU; autograd)."""
+    against the plain versions, and forward, backward and forward + backward
+    also against the unfused bf16 chain (cuBLAS GEMMs, GELU; autograd), which
+    is no single library call. Adds each kernel's bound to `bounds` and the
+    chain's times to `libs`."""
     import torch.nn.functional as F
 
     from orbit2_tpu_torch.ops.fused_mlp import (
@@ -371,6 +411,8 @@ def time_fused_mlp(gen):
         dx = cuda_ms(lambda: FUSED_MLP_DX(*args[:4], do, 0.0, 0, 0))
         dw = cuda_ms(lambda: FUSED_MLP_DW(*args[:4], do, 0.0, 0, 0))
         bwd_plain = cuda_ms(lambda: fused_mlp_bwd_reference(*args[:4], do))
+        out_chain = chain(leaves)
+        bwd_chain = best_ms(lambda: torch.autograd.grad(out_chain, leaves, do, retain_graph=True))
         after = counts()
         check(all(after[n] > before[n] for n in ("fused_mlp_fwd", "fused_mlp_dx", "fused_mlp_dw")),
               "timing did not launch the fused MLP kernels")
@@ -380,11 +422,191 @@ def time_fused_mlp(gen):
               f"unfused chain {fwd_chain:.4f}; fwd + bwd {fb:.4f} ms ({3 * flops / fb / 1e9:.1f} "
               f"TFLOP/s of six products; dx {dx:.4f}, dW {dw:.4f}) plain {fb_plain:.4f} "
               f"(backward alone {bwd_plain:.4f}), unfused chain {fb_chain:.4f}")
+        # useful products: the forward's two; dx recomputes h_pre and takes dh
+        # and dx; dW recomputes h_pre and takes dh, dW1 and dW2
+        bounds[("mlp_fwd", shape)] = roofline(flops, nbytes(*args) + 2 * t * d2)
+        bounds[("mlp_dx", shape)] = roofline(2 * t * (d * f + f * d2 + f * d),
+                                             nbytes(*args[:4], do, args[0]))
+        bounds[("mlp_dw", shape)] = roofline(2 * t * (d * f + f * d2 + f * d + d2 * f),
+                                             nbytes(*args[:4], do, *args[1:]))
+        libs[("mlp_fwd_chain", shape)] = fwd_chain
+        libs[("mlp_bwd_chain", shape)] = bwd_chain
+        print(f"    unfused chain backward alone {bwd_chain:.4f} ms; bounds fwd "
+              f"{bounds[('mlp_fwd', shape)][0]:.4f}, dx {bounds[('mlp_dx', shape)][0]:.4f}, dW "
+              f"{bounds[('mlp_dw', shape)][0]:.4f} ms")
         timed[("mlp_fwd", shape)] = (fwd, fwd_plain)
         timed[("mlp_dx", shape)] = (dx, bwd_plain)
         timed[("mlp_dw", shape)] = (dw, bwd_plain)
-        del args, do, leaves
+        del args, do, leaves, out_chain
         torch.cuda.empty_cache()
+    return timed
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def roofline(flops, moved):
+    """(ms, "operations" or "bytes"): the least time the card could take for
+    `flops` useful tensor-core flops and `moved` bytes, at the H100 peaks."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sdpa_ms(q, k, v, do):
+    """SDPA pinned to its flash backend (any other raises) on q, k, v
+    [B, N, H, D] viewed as
+    [B, H, N, D]: {"fwd": {0.0: ms, DROP: ms}, "bwd": ms of its backward alone
+    (dq, dk and dv) at dropout DROP under the cotangent do}."""
+    import torch.nn.functional as F
+
+    leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    out = {"fwd": {}}
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION), torch.no_grad():
+        for rate in (0.0, DROP):
+            out["fwd"][rate] = best_ms(
+                lambda: F.scaled_dot_product_attention(*leaves, dropout_p=rate))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        o = F.scaled_dot_product_attention(*leaves, dropout_p=DROP)
+        do_t = do.transpose(1, 2)
+        out["bwd"] = best_ms(lambda: torch.autograd.grad(o, leaves, do_t, retain_graph=True))
+    return out
+
+
+def cuda_kernel_names(fn):
+    """Names of the CUDA kernels one call of fn launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def probe_cases(q, k, v):
+    """(name, kernel call, plain call) of each probe on q, k, v [BH, N, 64],
+    the bound shift on bound_shift_inputs(q, k)."""
+    from orbit2_tpu_torch.ops import attn_probes as ap
+
+    qs, bound = ap.bound_shift_inputs(q, k)
+    return [("probe_matmul_only", lambda: ap.matmul_only(q, k, v),
+             lambda: ap.matmul_only_reference(q, k, v)),
+            ("probe_exp_noreduce", lambda: ap.exp_noreduce(q, k, v),
+             lambda: ap.exp_noreduce_reference(q, k, v)),
+            ("probe_full_softmax", lambda: ap.full_softmax(q, k, v),
+             lambda: ap.full_softmax_reference(q, k, v)),
+            ("probe_bound_shift", lambda: ap.bound_shift(qs, k, v, bound),
+             lambda: ap.bound_shift_reference(qs, k, v, bound))]
+
+
+def check_probes(gen, errs):
+    """Each probe against its plain version at PROBE_SHAPES, the bound shift
+    also against the fp32 softmax; one launch a call."""
+    from orbit2_tpu_torch.ops.attn_probes import HEAD_DIM, softmax_attention
+
+    reset_counts()
+    for bh, n in PROBE_SHAPES:
+        q, k, v = (torch.randn(bh, n, HEAD_DIM, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        line = []
+        for name, kernel, plain in probe_cases(q, k, v):
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            errs[(name, (bh, n))] = close(got, want, PROBE_REL, f"{name} BH{bh} N{n}")
+            line.append(f"{name[6:]} {errs[(name, (bh, n))]:.3e} (max|o| "
+                        f"{want.float().abs().max().item():.3e})")
+        soft = (got.float() - softmax_attention(q, k, v)).abs().max().item()
+        print(f"  probes BH{bh} N{n} d{HEAD_DIM} bf16 vs plain, max abs err: " + "; ".join(line)
+              + f" (atol=rtol {PROBE_REL:g} x max|o|); bound_shift vs fp32 softmax {soft:.3e} "
+              f"(atol {PROBE_SOFTMAX_ATOL:g})")
+        check(soft <= PROBE_SOFTMAX_ATOL, f"bound shift vs softmax {soft} at BH{bh} N{n}")
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    want = only(**{name: len(PROBE_SHAPES) for name in kernels() if name.startswith("probe_")})
+    check(counts() == want, f"probe checks launched {counts()}, want {want}")
+
+
+def run_probe_path():
+    """The probe path: `python -m orbit2_tpu_torch.scripts.bench_attn2`'s run
+    at its shape and default iterations, the counts reset just before and read
+    just after. Returns (its result, the counts)."""
+    from orbit2_tpu_torch.scripts import bench_attn2 as cli
+
+    iters, warmup = 30, 3  # the CLI's defaults
+    reset_counts()
+    res = cli.run(cli.B, cli.N, cli.H, cli.D, "cuda", iters, warmup)
+    torch.cuda.synchronize()
+    launched = counts()
+    per = iters + warmup  # each timed variant; the bound shift twice, plus its checked output
+    want = only(probe_matmul_only=per, probe_exp_noreduce=per, probe_full_softmax=per,
+                probe_bound_shift=2 * per + 1, flash_attn_fwd=per)
+    print(f"  probe path (bench_attn2.run, B{cli.B} N{cli.N} H{cli.H} d{cli.D}): launches "
+          f"{launched}")
+    for variant, ms in res["times"]:
+        print(f"    {variant:32s} {ms:8.4f} ms {res['flops'] / ms / 1e9:6.1f} TFLOP/s")
+    print(f"    bound shift max abs err vs fp32 softmax {res['bound_shift_err']:.3e} "
+          f"(atol {PROBE_SOFTMAX_ATOL:g})")
+    check(launched == want, f"probe path launched {launched}, want {want}")
+    check(all(ms > 0 for _, ms in res["times"]), "a probe path time is not positive")
+    check(res["bound_shift_err"] <= PROBE_SOFTMAX_ATOL, "probe path bound shift vs softmax")
+    return res, launched
+
+
+def time_probes(res, smi):
+    """Each probe against its plain version (in turns) and against the one
+    PyTorch call that computes its function (SDPA, flash backend) or, for the
+    first two, their bmm pair, at the probe path's shape, with its bound; then
+    the decomposition of the flash forward from the probe path's times."""
+    import torch.nn.functional as F
+
+    from orbit2_tpu_torch.ops.attn_probes import EXP_SHIFT, bound_shift_inputs
+    from orbit2_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from orbit2_tpu_torch.scripts import bench_attn2 as cli
+
+    b, n, h, d = cli.B, cli.N, cli.H, cli.D
+    q, k, v = cli.make_inputs(b, n, h, d, "cuda")
+    flops = res["flops"]
+    moved = nbytes(q, k, v, q)  # q, k, v read; o written
+    bound = roofline(flops, moved)
+    sdpa = lambda scale=None: F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                              scale=scale)
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        sdpa_t = best_ms(sdpa)
+        sdpa_ln2_t = best_ms(lambda: sdpa(math.log(2.0)))
+        names = cuda_kernel_names(sdpa)
+    scores = lambda: torch.bmm(q, k.transpose(1, 2))  # bf16 out: s rounded as in the probe
+    library = {"probe_matmul_only": (None, best_ms(lambda: torch.bmm(scores(), v))),
+               "probe_exp_noreduce": (None, best_ms(
+                   lambda: torch.bmm(torch.exp2(scores() - EXP_SHIFT), v))),
+               "probe_full_softmax": (sdpa_ln2_t, None),
+               "probe_bound_shift": (sdpa_t, None)}
+    timed = {}
+    for name, kernel, plain in probe_cases(q, k, v):
+        before = counts()[name]
+        ms = paired_ms(kernel, plain)
+        check(counts()[name] > before, f"timing did not launch {name}")
+        extra = 4 * q.shape[0] * n if name == "probe_bound_shift" else 0  # the fp32 bound
+        lib, chain = library[name]
+        timed[name] = (ms, roofline(flops, moved + extra), lib, chain)
+        print(f"  {name} bf16 BH{q.shape[0]} N{n} d{d}: {ms[0]:.4f} ms "
+              f"({flops / ms[0] / 1e9:.1f} TFLOP/s) plain {ms[1]:.4f}; "
+              + (f"SDPA (flash) {lib:.4f}" if lib is not None else f"bmm chain {chain:.4f}")
+              + f"; bound {timed[name][1][0]:.4f} ms ({timed[name][1][1]})")
+    q4, k4, v4 = (t.view(b, h, n, d).transpose(1, 2) for t in (q, k, v))
+    k1_drop = cuda_ms(lambda: flash_attention_fwd(q4, k4, v4, None, DROP, 7))
+    rows = res["times"] + [("flash forward (K1), dropout 0.1", k1_drop),
+                           ("SDPA, flash backend", sdpa_t)]
+    print(f"  decomposition of the flash forward at (B{b}, N{n}, H{h}, d{d}) bf16, "
+          f"{flops / 1e9:.1f} GFLOP; bound {bound[0]:.4f} ms ({bound[1]}: "
+          f"{flops / 1e9:.1f} GFLOP at {PEAK_FLOPS / 1e12:g} TFLOP/s, {moved / 1e6:.1f} MB at "
+          f"{PEAK_BYTES_PER_S / 1e12:g} TB/s); {b * h * n * n / 1e6:.0f} M exp2 a softmax; "
+          f"gpu: {smi}")
+    print(f"    {'variant':34s} {'ms':>8s} {'TFLOP/s':>8s} {'bound/ms':>8s}")
+    for variant, ms in rows:
+        print(f"    {variant:34s} {ms:8.4f} {flops / ms / 1e9:8.1f} {bound[0] / ms:8.3f}")
+    print(f"    SDPA backend FLASH_ATTENTION (pinned by sdpa_kernel); its kernels: {names}; "
+          f"with scale ln 2 (probe_full_softmax's function) {sdpa_ln2_t:.4f} ms")
     return timed
 
 
@@ -542,6 +764,11 @@ def main():
     errs[("fused_dropout",)] = 0.0
     torch.cuda.synchronize()
     check_fused_mlp(gen, kernel_seed, errs)
+
+    # 3b. the attention probes, then their path
+    phase("probes")
+    check_probes(gen, errs)
+    probe_res, probe_counts = run_probe_path()
 
     from orbit2_tpu_torch.evaluate import Evaluator, model_kwargs
     from orbit2_tpu_torch.training.train import make_eval_step
@@ -761,7 +988,7 @@ def main():
         # 6. times
         phase("times")
         print(f"gpu: {smi}")
-        timed = {}
+        timed, libs, bounds = {}, {}, {}
         for dtype in (torch.bfloat16, torch.float32):
             for shape in SHAPES:
                 b, n_q, n_k, h, d = shape
@@ -788,6 +1015,21 @@ def main():
                 check(all(after[n] > before[n] for n in
                           ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")),
                       "timing did not launch the kernels")
+                lib_line = ""
+                if dtype == torch.bfloat16:
+                    lib = sdpa_ms(q, k, v, do)
+                    lib_line = (f"; SDPA (flash): fwd {lib['fwd'][0.0]:.4f}, fwd drop "
+                                f"{lib['fwd'][DROP]:.4f}, backward drop {lib['bwd']:.4f}")
+                    att = attention_flops(b, n_q, n_k, h, d)
+                    rows_f32 = 4 * b * h * n_q  # one fp32 a query row: lse, delta
+                    bounds[("fwd", shape)] = roofline(att, nbytes(q, k, v, q) + rows_f32)
+                    bounds[("dq", shape)] = roofline(1.5 * att, nbytes(q, k, v, do, q)
+                                                     + 2 * rows_f32)
+                    bounds[("dkv", shape)] = roofline(2 * att, nbytes(q, k, v, do, k, v)
+                                                      + 2 * rows_f32)
+                    libs[("fwd", shape, 0.0)] = lib["fwd"][0.0]
+                    libs[("fwd", shape, DROP)] = lib["fwd"][DROP]
+                    libs[("bwd", shape)] = lib["bwd"]
                 timed[("fwd", dtype, shape, 0.0)] = (kern, plain)
                 timed[("fwd", dtype, shape, DROP)] = (kern_drop, plain_drop)
                 timed[("bwd", dtype, shape, DROP)] = (bwd, bwd_plain)
@@ -798,7 +1040,7 @@ def main():
                       f"({tflops:.1f} TFLOP/s) plain {plain:.4f}; fwd drop {kern_drop:.4f} plain "
                       f"{plain_drop:.4f}; backward drop (delta + dq + dk/dv) {bwd:.4f} ms "
                       f"({2.5 * attention_flops(b, n_q, n_k, h, d) / bwd / 1e9:.1f} TFLOP/s; "
-                      f"dq {dq_ms:.4f}, dk/dv {dkv_ms:.4f}) plain {bwd_plain:.4f}")
+                      f"dq {dq_ms:.4f}, dk/dv {dkv_ms:.4f}) plain {bwd_plain:.4f}" + lib_line)
                 del q, k, v, do, mult, o, lse, delta
                 torch.cuda.empty_cache()
         for dtype in (torch.bfloat16, torch.float32):
@@ -809,10 +1051,15 @@ def main():
                                         lambda: dropout_reference(x_, mult))
                 timed[("fused_dropout", dtype, (r, c))] = (kern, plain)
                 gbs = 2 * x_.numel() * x_.element_size() / kern / 1e6
+                lib = best_ms(lambda: torch.nn.functional.dropout(x_, DROP, training=True))
+                libs[("fused_dropout", dtype, (r, c))] = lib
+                bounds[("fused_dropout", dtype, (r, c))] = roofline(0, 2 * nbytes(x_))
                 print(f"  fused_dropout {str(dtype)[6:]:8s} [{r}, {c}]: {kern:.4f} ms "
-                      f"({gbs:.0f} GB/s) plain {plain:.4f} ms (mask precomputed)")
+                      f"({gbs:.0f} GB/s) plain {plain:.4f} ms (mask precomputed); F.dropout "
+                      f"{lib:.4f} ms; bound {bounds[('fused_dropout', dtype, (r, c))][0]:.4f} ms")
                 del x_, mult
-        timed.update(time_fused_mlp(gen))
+        timed.update(time_fused_mlp(gen, bounds, libs))
+        probe_timed = time_probes(probe_res, smi)
 
         step = make_eval_step(ev.model, in_vars, out_vars)
         fused_model = copy.deepcopy(ev.model)
@@ -860,28 +1107,53 @@ def main():
     mlp_shape = MLP_SHAPES[0]
     bf16 = torch.bfloat16
 
-    def entry(name, source, replaces, err, ms, launched=None):
+    def entry(name, source, replaces, err, ms, bound, library, launched=None, chain=None):
         launched = train_counts if launched is None else launched
-        return {"name": name, "route": "cuda", "source": f"orbit2_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launched[name], "max_abs_err": err,
-                "ms": ms[0], "plain_ms": ms[1]}
+        e = {"name": name, "route": "cuda", "source": f"orbit2_tpu_torch/csrc/{source}",
+             "replaces": replaces, "launches": launched[name], "max_abs_err": err,
+             "ms": ms[0], "plain_ms": ms[1], "bound_ms": bound[0], "bound_by": bound[1],
+             "library_ms": library}
+        if chain is not None:
+            e["chain_ms"] = chain
+        return e
 
+    def probe_entry(name, line):
+        ms, bound, library, chain = probe_timed[name]
+        return entry(name, "attn_probes.cu", f"scripts/bench_attn2.py:{line}",
+                     errs[(name, PROBE_SHAPES[0])], ms, bound, library, probe_counts, chain)
+
+    drop_shape = DROPOUT_SHAPES[1]
     print(json.dumps({"kernels": [
         entry("flash_attn_fwd", "flash_attn_fwd.cu", "orbit2_tpu/ops/flash_attention.py:117",
-              errs[("fwd", bf16, slice_shape, DROP)], timed[("fwd", bf16, slice_shape, DROP)]),
+              errs[("fwd", bf16, slice_shape, DROP)], timed[("fwd", bf16, slice_shape, DROP)],
+              bounds[("fwd", slice_shape)], libs[("fwd", slice_shape, DROP)]),
+        # the library call of K2 and K3 is SDPA's whole backward (dq, dk and dv)
         entry("flash_attn_bwd_dq", "flash_attn_bwd.cu", "orbit2_tpu/ops/flash_attention.py:287",
-              errs[("dq", bf16, slice_shape, DROP)], timed[("dq", bf16, slice_shape, DROP)]),
+              errs[("dq", bf16, slice_shape, DROP)], timed[("dq", bf16, slice_shape, DROP)],
+              bounds[("dq", slice_shape)], libs[("bwd", slice_shape)]),
         entry("flash_attn_bwd_dkv", "flash_attn_bwd.cu", "orbit2_tpu/ops/flash_attention.py:328",
               max(errs[("dk", bf16, slice_shape, DROP)], errs[("dv", bf16, slice_shape, DROP)]),
-              timed[("dkv", bf16, slice_shape, DROP)]),
+              timed[("dkv", bf16, slice_shape, DROP)], bounds[("dkv", slice_shape)],
+              libs[("bwd", slice_shape)]),
         entry("fused_dropout", "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39",
-              errs[("fused_dropout",)], timed[("fused_dropout", bf16, DROPOUT_SHAPES[1])]),
+              errs[("fused_dropout",)], timed[("fused_dropout", bf16, drop_shape)],
+              bounds[("fused_dropout", bf16, drop_shape)], libs[("fused_dropout", bf16, drop_shape)]),
         entry("fused_mlp_fwd", "fused_mlp.cu", "orbit2_tpu/ops/fused_mlp.py:125",
-              errs[("mlp_fwd", bf16, mlp_shape, 0.0)], timed[("mlp_fwd", mlp_shape)], fused_counts),
+              errs[("mlp_fwd", bf16, mlp_shape, 0.0)], timed[("mlp_fwd", mlp_shape)],
+              bounds[("mlp_fwd", mlp_shape)], None, fused_counts,
+              libs[("mlp_fwd_chain", mlp_shape)]),
         entry("fused_mlp_dx", "fused_mlp.cu", "orbit2_tpu/ops/fused_mlp.py:177",
-              errs[("mlp_dx", bf16, mlp_shape, 0.0)], timed[("mlp_dx", mlp_shape)], grad_counts),
+              errs[("mlp_dx", bf16, mlp_shape, 0.0)], timed[("mlp_dx", mlp_shape)],
+              bounds[("mlp_dx", mlp_shape)], None, grad_counts,
+              libs[("mlp_bwd_chain", mlp_shape)]),
         entry("fused_mlp_dw", "fused_mlp.cu", "orbit2_tpu/ops/fused_mlp.py:209",
-              errs[("mlp_dw", bf16, mlp_shape, 0.0)], timed[("mlp_dw", mlp_shape)], grad_counts),
+              errs[("mlp_dw", bf16, mlp_shape, 0.0)], timed[("mlp_dw", mlp_shape)],
+              bounds[("mlp_dw", mlp_shape)], None, grad_counts,
+              libs[("mlp_bwd_chain", mlp_shape)]),
+        probe_entry("probe_matmul_only", 47),
+        probe_entry("probe_exp_noreduce", 56),
+        probe_entry("probe_full_softmax", 66),
+        probe_entry("probe_bound_shift", 78),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

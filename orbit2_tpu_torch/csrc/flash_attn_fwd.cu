@@ -53,8 +53,6 @@ namespace {
 
 using orbit2::bf16;
 using orbit2::Dropout;
-using orbit2::ld32;
-using orbit2::mma_16816;
 using orbit2::pack_bf16x2;
 
 constexpr int kBlockQ = 64;
@@ -72,33 +70,6 @@ struct MmaTiles {
   static constexpr int kLdVt = kBlockK + 8;  // transposed v tile [d][kv], bf16
   static constexpr size_t kBytes = sizeof(bf16) * (kBlockQ * kLd + kBlockK * kLd + D * kLdVt);
 };
-
-// Copies rows [row0, row0 + 64) of one head into shared memory transposed,
-// element (r, c) at dst[c * ld + r], 8 elements per step (16-byte loads when
-// `vec`), zero-filling rows at or past n_valid.
-template <int D>
-__device__ __forceinline__ void load_bf16_tile_transposed(bf16* dst, int ld, const bf16* base,
-                                                          int64_t row_stride, int row0,
-                                                          int n_valid, bool vec) {
-  constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < kBlockK * kChunks; idx += kMmaThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    uint4 chunk = make_uint4(0u, 0u, 0u, 0u);
-    bf16* vals = reinterpret_cast<bf16*>(&chunk);
-    if (row0 + r < n_valid) {
-      const bf16* src = base + (int64_t)(row0 + r) * row_stride + c;
-      if (vec) {
-        chunk = *reinterpret_cast<const uint4*>(src);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) vals[i] = src[i];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(c + i) * ld + r] = vals[i];
-  }
-}
 
 template <int D, bool kDropout>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -141,7 +112,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int k0 = 0; k0 < n_k; k0 += kBlockK) {
     __syncthreads();  // the previous tile's k/v reads are done
     orbit2::load_bf16_rows<D, kBlockK, kMmaThreads>(ks, L::kLd, kb, skn, k0, n_k, vec);
-    load_bf16_tile_transposed<D>(vt, L::kLdVt, vb, svn, k0, n_k, vec);
+    orbit2::load_bf16_rows_transposed<D, kBlockK, kMmaThreads>(vt, L::kLdVt, vb, svn, k0, n_k,
+                                                               vec);
     if constexpr (kDropout) {
       orbit2::fill_keep_tile<kBlockQ, kBlockK, kMmaThreads>(keep, kKeepLd, drop.seed, bh, q0, k0,
                                                             drop.threshold);
@@ -151,20 +123,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // s = q k^T: s[j] is the 16x8 tile of kv columns 8j..8j+7; this thread
     // holds rows g, g+8 and columns 2t, 2t+1 of each
     float s[kNT][4];
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const bf16* qa = qs + (r0 + g) * L::kLd + kk * 16 + 2 * t;
-      const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * L::kLd), ld32(qa + 8),
-                             ld32(qa + 8 * L::kLd + 8)};
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const bf16* kf = ks + (j * 8 + g) * L::kLd + kk * 16 + 2 * t;
-        const uint32_t bfrag[2] = {ld32(kf), ld32(kf + 8)};
-        mma_16816(s[j], a, bfrag);
-      }
-    }
+    orbit2::tile_scores<D, kBlockK>(s, qs, L::kLd, ks, L::kLd, r0, g, t);
 
     // online softmax in base 2; a row's 4 threads are lanes 4g..4g+3
     float m_tile[2] = {-INFINITY, -INFINITY};
@@ -221,19 +180,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // acc += p v: the score tiles 2kk, 2kk+1 are the A fragment of kv step kk
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < kDT; ++j) {
-        const bf16* vf = vt + (j * 8 + g) * L::kLdVt + kk * 16 + 2 * t;
-        const uint32_t bfrag[2] = {ld32(vf), ld32(vf + 8)};
-        mma_16816(acc[j], a, bfrag);
-      }
-    }
+    orbit2::tile_pv<D, kBlockK>(acc, s, vt, L::kLdVt, g, t);
   }
 
 #pragma unroll

@@ -1,6 +1,8 @@
 // Pieces shared by the flash-attention forward (flash_attn_fwd.cu) and
-// backward (flash_attn_bwd.cu) kernels: the bf16 tensor-core product, the
-// fragment loads, the dropout keep tile and the launch arguments.
+// backward (flash_attn_bwd.cu) kernels, the fused MLP and the attention
+// probes (attn_probes.cu): the bf16 tensor-core product, the fragment and
+// tile loads, the forward's two tile products, the dropout keep tile and the
+// launch arguments.
 
 #pragma once
 
@@ -67,6 +69,75 @@ __device__ __forceinline__ void load_bf16_rows(bf16* dst, int ld, const bf16* ba
       }
     }
     *reinterpret_cast<uint4*>(dst + r * ld + c) = chunk;
+  }
+}
+
+// Copies rows [row0, row0 + kRows) of one head into shared memory
+// transposed, element (r, c) at dst[c * ld + r], 8 elements per step
+// (16-byte loads when `vec`), zero-filling rows at or past n_valid.
+template <int D, int kRows, int kThreads>
+__device__ __forceinline__ void load_bf16_rows_transposed(bf16* dst, int ld, const bf16* base,
+                                                          int64_t row_stride, int row0,
+                                                          int n_valid, bool vec) {
+  constexpr int kChunks = D / 8;
+  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
+    const int r = idx / kChunks;
+    const int c = (idx % kChunks) * 8;
+    uint4 chunk = make_uint4(0u, 0u, 0u, 0u);
+    bf16* vals = reinterpret_cast<bf16*>(&chunk);
+    if (row0 + r < n_valid) {
+      const bf16* src = base + (int64_t)(row0 + r) * row_stride + c;
+      if (vec) {
+        chunk = *reinterpret_cast<const uint4*>(src);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) vals[i] = src[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dst[(c + i) * ld + r] = vals[i];
+  }
+}
+
+// s = q k^T for one warp's 16 query rows (rows r0.. of the q tile) against
+// kCols keys (rows of the k tile): s[j] is the 16x8 tile of keys 8j..8j+7 in
+// the mma accumulator layout, rows g, g+8 and columns 2t, 2t+1.
+template <int D, int kCols>
+__device__ __forceinline__ void tile_scores(float (&s)[kCols / 8][4], const bf16* qs, int ldq,
+                                            const bf16* ks, int ldk, int r0, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < kCols / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const bf16* qa = qs + (r0 + g) * ldq + kk * 16 + 2 * t;
+    const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * ldq), ld32(qa + 8), ld32(qa + 8 * ldq + 8)};
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j) {
+      const bf16* kf = ks + (j * 8 + g) * ldk + kk * 16 + 2 * t;
+      const uint32_t b[2] = {ld32(kf), ld32(kf + 8)};
+      mma_16816(s[j], a, b);
+    }
+  }
+}
+
+// acc += p v for one warp's 16 rows: p (kCols keys in the accumulator layout
+// of tile_scores, which is the A-fragment layout of this product) rounded to
+// bf16, and vt the transposed v tile [D][kCols].
+template <int D, int kCols>
+__device__ __forceinline__ void tile_pv(float (&acc)[D / 8][4], const float (&p)[kCols / 8][4],
+                                        const bf16* vt, int ldvt, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < kCols / 16; ++kk) {
+    const uint32_t a[4] = {pack_bf16x2(p[2 * kk][0], p[2 * kk][1]),
+                           pack_bf16x2(p[2 * kk][2], p[2 * kk][3]),
+                           pack_bf16x2(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           pack_bf16x2(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const bf16* vf = vt + (j * 8 + g) * ldvt + kk * 16 + 2 * t;
+      const uint32_t b[2] = {ld32(vf), ld32(vf + 8)};
+      mma_16816(acc[j], a, b);
+    }
   }
 }
 

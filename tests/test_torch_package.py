@@ -13,6 +13,7 @@ MODULES = [
     "orbit2_tpu_torch.registry",
     "orbit2_tpu_torch.data",
     "orbit2_tpu_torch.ops.attention",
+    "orbit2_tpu_torch.ops.attn_probes",
     "orbit2_tpu_torch.ops.dropout",
     "orbit2_tpu_torch.ops.flash_attention",
     "orbit2_tpu_torch.ops.fused_mlp",
@@ -28,6 +29,7 @@ MODULES = [
     "orbit2_tpu_torch.utils.loaders",
     "orbit2_tpu_torch.evaluate",
     "orbit2_tpu_torch.train",
+    "orbit2_tpu_torch.scripts.bench_attn2",
 ]
 
 
@@ -65,3 +67,18 @@ def test_library_name_hashes_the_included_headers(tmp_path, monkeypatch):
         f.write("// edited\n")
     assert lib.path() != before
     assert lib.path().name.startswith("libflash_attn_bwd_")
+
+
+def test_port_calls_no_library_attention_or_compiler():
+    """The port's kernels are its own: no file of the package calls PyTorch's
+    fused attention or torch.compile (chip_smoke.py times SDPA only as a
+    yardstick)."""
+    import re
+    from pathlib import Path
+
+    pattern = re.compile(r"scaled_dot_product_attention|torch\.compile\b|sdpa_kernel")
+    root = Path(REPO) / "orbit2_tpu_torch"
+    hits = [f"{path.relative_to(REPO)}:{i}" for path in sorted(root.rglob("*"))
+            if path.suffix in (".py", ".cu", ".cuh") and "_build" not in path.parts
+            for i, line in enumerate(path.read_text().splitlines(), 1) if pattern.search(line)]
+    assert not hits, hits

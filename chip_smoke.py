@@ -18,9 +18,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
                of it, at MLP_SHAPES, both dtypes, dropout 0 and 0.1, with the
                zero pattern of the unfused chain (K5) under the same seeds
      probes  — the four attention probes against their plain versions at
-               PROBE_SHAPES (atol 1e-2 x max|o| and rtol 1e-2), the bound
-               shift also against the fp32 softmax (atol 1e-2), with exact
-               launch counts; then the probe path, `python -m
+               PROBE_SHAPES (atol 1e-2 x the row's max|o| and rtol 1e-2, a
+               tolerance that must fail the plain version without the last
+               kv tile), the bound shift also against the fp32 softmax (atol
+               1e-2), with exact launch counts; then the probe path, `python -m
                orbit2_tpu_torch.scripts.bench_attn2`'s run at (B8, N2048, H16,
                d64), with its exact launch counts
   4. slice   — the serving path (Evaluator.test) at interm_117m width
@@ -132,9 +133,11 @@ MODEL_GRAD_REL = 5e-2
 # the attention probes' [BH, N] at head dim 64: scripts/bench_attn2.py's
 # (B8 x H16, N2048) and a small case of three q and kv tiles
 PROBE_SHAPES = [(128, 2048), (4, 192)]
-# probes against their plain versions, relative to max|o|: both round s or p
-# to bf16 at the same points, but fp32 sums run in another order, so a value
-# may round to the other side of a tie (atol 1e-2 x max|o|, rtol 1e-2)
+# probes against their plain versions, relative to each row's max|o| over its
+# 64 outputs (the unscaled scores make rows differ by orders of magnitude):
+# both round s or p to bf16 at the same points, but fp32 sums run in another
+# order, so a value may round to the other side of a tie (atol 1e-2 x the
+# row's max|o|, rtol 1e-2)
 PROBE_REL = 1e-2
 # the bound shift against the fp32 softmax: bf16 p and o
 PROBE_SOFTMAX_ATOL = 1e-2
@@ -308,14 +311,23 @@ def mlp_inputs(shape, dtype, gen, batch_one=False):
     return x, mk(f, d, scale=d ** -0.5), mk(f, scale=0.1), mk(d2, f, scale=f ** -0.5), mk(d2, scale=0.1)
 
 
-def close(got, want, rel, what):
-    """Max abs error of got against want, raising beyond atol rel x max|want|
-    and rtol rel."""
+def beyond(got, want, rel, rows=False):
+    """(values of got beyond atol rel x max|want| and rtol rel, max abs error),
+    the max taken over each row's last dim when `rows`, else over the whole
+    tensor."""
     diff = (got.float() - want.float()).abs()
-    scale = want.float().abs().max().item()
-    check(bool((diff <= rel * scale + rel * want.float().abs()).all()),
-          f"{what}: max|d| {diff.max().item():.3e} beyond atol {rel:g} x {scale:.3e}, rtol {rel:g}")
-    return diff.max().item()
+    mag = want.float().abs()
+    scale = mag.amax(dim=-1, keepdim=True) if rows else mag.max()
+    return int((~(diff <= rel * scale + rel * mag)).sum().item()), diff.max().item()
+
+
+def close(got, want, rel, what, rows=False):
+    """Max abs error of got against want, raising where `beyond` counts a
+    value."""
+    bad, err = beyond(got, want, rel, rows)
+    check(bad == 0, f"{what}: {bad} values beyond atol {rel:g} x max|want|"
+          f"{' of their row' if rows else ''}, rtol {rel:g} (max|d| {err:.3e})")
+    return err
 
 
 def check_fused_mlp(gen, kernel_seed, errs):
@@ -502,24 +514,30 @@ def probe_cases(q, k, v):
 
 def check_probes(gen, errs):
     """Each probe against its plain version at PROBE_SHAPES, the bound shift
-    also against the fp32 softmax; one launch a call."""
-    from orbit2_tpu_torch.ops.attn_probes import HEAD_DIM, softmax_attention
+    also against the fp32 softmax; one launch a call. The tolerance must fail
+    the plain version run without the last kv tile."""
+    from orbit2_tpu_torch.ops.attn_probes import BLOCK, HEAD_DIM, softmax_attention
 
     reset_counts()
     for bh, n in PROBE_SHAPES:
         q, k, v = (torch.randn(bh, n, HEAD_DIM, generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
+        cut = probe_cases(q, k[:, :-BLOCK], v[:, :-BLOCK])
         line = []
-        for name, kernel, plain in probe_cases(q, k, v):
+        for (name, kernel, plain), (_, _, plain_cut) in zip(probe_cases(q, k, v), cut):
             got, want = kernel(), plain()
             torch.cuda.synchronize()
-            errs[(name, (bh, n))] = close(got, want, PROBE_REL, f"{name} BH{bh} N{n}")
+            errs[(name, (bh, n))] = close(got, want, PROBE_REL, f"{name} BH{bh} N{n}", rows=True)
+            missed = beyond(plain_cut(), want, PROBE_REL, rows=True)[0]
+            check(missed > 0, f"{name} BH{bh} N{n}: the tolerance passes the plain version "
+                  "without the last kv tile")
             line.append(f"{name[6:]} {errs[(name, (bh, n))]:.3e} (max|o| "
-                        f"{want.float().abs().max().item():.3e})")
+                        f"{want.float().abs().max().item():.3e}; last kv tile dropped: "
+                        f"{missed} beyond)")
         soft = (got.float() - softmax_attention(q, k, v)).abs().max().item()
         print(f"  probes BH{bh} N{n} d{HEAD_DIM} bf16 vs plain, max abs err: " + "; ".join(line)
-              + f" (atol=rtol {PROBE_REL:g} x max|o|); bound_shift vs fp32 softmax {soft:.3e} "
-              f"(atol {PROBE_SOFTMAX_ATOL:g})")
+              + f" (atol {PROBE_REL:g} x max|o| of the row, rtol {PROBE_REL:g}); bound_shift "
+              f"vs fp32 softmax {soft:.3e} (atol {PROBE_SOFTMAX_ATOL:g})")
         check(soft <= PROBE_SOFTMAX_ATOL, f"bound shift vs softmax {soft} at BH{bh} N{n}")
         del q, k, v, got, want
         torch.cuda.empty_cache()
@@ -529,16 +547,16 @@ def check_probes(gen, errs):
 
 def run_probe_path():
     """The probe path: `python -m orbit2_tpu_torch.scripts.bench_attn2`'s run
-    at its shape and default iterations, the counts reset just before and read
-    just after. Returns (its result, the counts)."""
+    at its shape, the counts reset just before and read just after. Returns
+    (its result, the counts)."""
     from orbit2_tpu_torch.scripts import bench_attn2 as cli
 
-    iters, warmup = 30, 3  # the CLI's defaults
     reset_counts()
-    res = cli.run(cli.B, cli.N, cli.H, cli.D, "cuda", iters, warmup)
+    res = cli.run(cli.B, cli.N, cli.H, cli.D, "cuda")
     torch.cuda.synchronize()
     launched = counts()
-    per = iters + warmup  # each timed variant; the bound shift twice, plus its checked output
+    # each timed variant; the bound shift twice, plus its checked output
+    per = cli.ITERS + cli.WARMUP
     want = only(probe_matmul_only=per, probe_exp_noreduce=per, probe_full_softmax=per,
                 probe_bound_shift=2 * per + 1, flash_attn_fwd=per)
     print(f"  probe path (bench_attn2.run, B{cli.B} N{cli.N} H{cli.H} d{cli.D}): launches "

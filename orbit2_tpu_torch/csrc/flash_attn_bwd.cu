@@ -49,7 +49,6 @@ namespace {
 
 using orbit2::bf16;
 using orbit2::Dropout;
-using orbit2::ld32;
 using orbit2::ld_pair_rows;
 using orbit2::mma_16816;
 using orbit2::pack_bf16x2;
@@ -89,25 +88,6 @@ struct Mma {
   static constexpr size_t kTile = sizeof(bf16) * kBlock * kLd;
   static constexpr size_t kKeep = (size_t)kBlock * kKeepLd;
 };
-
-// s[j] += a_rows b_rows^T over D for one warp's 16 rows: a is [row][d] at
-// row r0, b is [row][d]; s[j] is the 16x8 tile of b rows 8j..8j+7.
-template <int D>
-__device__ __forceinline__ void rows_times_rows(float (&s)[kBlock / 8][4], const bf16* a,
-                                                const bf16* b, int r0, int g, int t) {
-  constexpr int kLd = Mma<D>::kLd;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const bf16* pa = a + (r0 + g) * kLd + kk * 16 + 2 * t;
-    const uint32_t af[4] = {ld32(pa), ld32(pa + 8 * kLd), ld32(pa + 8), ld32(pa + 8 * kLd + 8)};
-#pragma unroll
-    for (int j = 0; j < kBlock / 8; ++j) {
-      const bf16* pb = b + (j * 8 + g) * kLd + kk * 16 + 2 * t;
-      const uint32_t bf[2] = {ld32(pb), ld32(pb + 8)};
-      mma_16816(s[j], af, bf);
-    }
-  }
-}
 
 // acc[j] += x b over the tile's 64 rows, where x (16 x 64) is held in the
 // accumulator layout of a score tile and b is a [row][d] tile: acc[j] is the
@@ -206,10 +186,8 @@ __global__ void __launch_bounds__(Mma<D>::kThreads) dq_mma_kernel(Args a) {
     __syncthreads();
 
     float s[kBlock / 8][4], dp[kBlock / 8][4];
-    zero(s);
-    zero(dp);
-    rows_times_rows<D>(s, qs, ks, r0, g, t);
-    rows_times_rows<D>(dp, dos, vs, r0, g, t);
+    orbit2::tile_scores<D, kBlock>(s, qs, L::kLd, ks, L::kLd, r0, g, t);  // the forward's product
+    orbit2::tile_scores<D, kBlock>(dp, dos, L::kLd, vs, L::kLd, r0, g, t);
 #pragma unroll
     for (int j = 0; j < kBlock / 8; ++j) {
 #pragma unroll
@@ -277,10 +255,8 @@ __global__ void __launch_bounds__(Mma<D>::kThreads) dkv_mma_kernel(Args a) {
 
     // transposed scores: rows are this warp's keys, columns the tile's queries
     float st[kBlock / 8][4], dpt[kBlock / 8][4];
-    zero(st);
-    zero(dpt);
-    rows_times_rows<D>(st, ks, qs, r0, g, t);
-    rows_times_rows<D>(dpt, vs, dos, r0, g, t);
+    orbit2::tile_scores<D, kBlock>(st, ks, L::kLd, qs, L::kLd, r0, g, t);
+    orbit2::tile_scores<D, kBlock>(dpt, vs, L::kLd, dos, L::kLd, r0, g, t);
 #pragma unroll
     for (int j = 0; j < kBlock / 8; ++j) {
 #pragma unroll

@@ -1,8 +1,8 @@
 // Pieces shared by the flash-attention forward (flash_attn_fwd.cu) and
 // backward (flash_attn_bwd.cu) kernels, the fused MLP and the attention
 // probes (attn_probes.cu): the bf16 tensor-core product, the fragment and
-// tile loads, the forward's two tile products, the dropout keep tile and the
-// launch arguments.
+// tile loads, the score tile product (forward, backward and probes), the
+// forward's value product, the dropout keep tile and the launch arguments.
 
 #pragma once
 
@@ -101,7 +101,9 @@ __device__ __forceinline__ void load_bf16_rows_transposed(bf16* dst, int ld, con
 
 // s = q k^T for one warp's 16 query rows (rows r0.. of the q tile) against
 // kCols keys (rows of the k tile): s[j] is the 16x8 tile of keys 8j..8j+7 in
-// the mma accumulator layout, rows g, g+8 and columns 2t, 2t+1.
+// the mma accumulator layout, rows g, g+8 and columns 2t, 2t+1. Any two
+// row-major [row][d] tiles: the backward also forms do v^T, k q^T and v do^T
+// with it, and so recomputes the forward's scores in the forward's order.
 template <int D, int kCols>
 __device__ __forceinline__ void tile_scores(float (&s)[kCols / 8][4], const bf16* qs, int ldq,
                                             const bf16* ks, int ldk, int r0, int g, int t) {

@@ -1,12 +1,12 @@
 """Where the flash forward's time goes on the card: the four attention probes
 and the flash forward on the same q, k, v.
 
-Usage: python -m orbit2_tpu_torch.scripts.bench_attn2 [--device cuda] [--iters 30] [--warmup 3]
+Usage: python -m orbit2_tpu_torch.scripts.bench_attn2 [--device cuda]
 
 Counterpart of scripts/bench_attn2.py. The inputs are its make_inputs: q, k,
 v drawn from numpy.random.default_rng(0) at B 8, N 2048, H 16, D 64 as
-[B*H, N, D] bf16. One line per variant: name, ms (median of --iters CUDA-event
-timings after --warmup calls) and TFLOP/s on the useful 4 BH N^2 D. The bound
+[B*H, N, D] bf16. One line per variant: name, ms (median of ITERS CUDA-event
+timings after WARMUP calls) and TFLOP/s on the useful 4 BH N^2 D. The bound
 shift is timed alone and with its preparation (`bound_shift_inputs`), which
 the JAX script's timed function includes, and its max abs error against the
 fp32 softmax follows. The flash forward reads the same tensors viewed as
@@ -35,6 +35,7 @@ from orbit2_tpu_torch.ops.attn_probes import (
 from orbit2_tpu_torch.ops.flash_attention import flash_attention_fwd
 
 B, N, H, D = 8, 2048, 16, 64
+ITERS, WARMUP = 30, 3  # timed calls (scripts/bench_attn2.py's 30) and warm-up calls
 
 
 def make_inputs(b: int, n: int, h: int, d: int, device):
@@ -44,16 +45,16 @@ def make_inputs(b: int, n: int, h: int, d: int, device):
                  for _ in range(3))
 
 
-def device_ms(fn: Callable, device: torch.device, iters: int, warmup: int) -> Optional[float]:
-    """Median ms of one call by CUDA events after `warmup` calls; on the CPU
-    one untimed call and None."""
+def device_ms(fn: Callable, device: torch.device) -> Optional[float]:
+    """Median ms of one call by CUDA events over ITERS calls after WARMUP;
+    on the CPU one untimed call and None."""
     if device.type != "cuda":
         fn()
         return None
-    for _ in range(warmup):
+    for _ in range(WARMUP):
         fn()
     times = []
-    for _ in range(iters):
+    for _ in range(ITERS):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -63,7 +64,7 @@ def device_ms(fn: Callable, device: torch.device, iters: int, warmup: int) -> Op
     return statistics.median(times)
 
 
-def run(b: int, n: int, h: int, d: int, device="cuda", iters: int = 30, warmup: int = 3):
+def run(b: int, n: int, h: int, d: int, device="cuda"):
     """{"times": [(variant, ms or None)], "flops": useful flops,
     "bound_shift_err": max abs error against the fp32 softmax} at (b, n, h, d)."""
     device = torch.device(device)
@@ -83,7 +84,7 @@ def run(b: int, n: int, h: int, d: int, device="cuda", iters: int = 30, warmup: 
         ("bound-shift + preparation", prepared_bound_shift),
         ("flash forward (K1)", lambda: flash_attention_fwd(q4, k4, v4)),
     ]
-    times = [(name, device_ms(fn, device, iters, warmup)) for name, fn in variants]
+    times = [(name, device_ms(fn, device)) for name, fn in variants]
     got = bound_shift(qs, k, v, bound).float()
     err = (got - softmax_attention(q, k, v)).abs().max().item()
     return {"times": times, "flops": probe_flops(b * h, n, d), "bound_shift_err": err}
@@ -92,14 +93,12 @@ def run(b: int, n: int, h: int, d: int, device="cuda", iters: int = 30, warmup: 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", default="cuda")
-    p.add_argument("--iters", type=int, default=30)
-    p.add_argument("--warmup", type=int, default=3)
     args = p.parse_args(argv)
 
     device = torch.device(args.device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"device: {name}; B {B} N {N} H {H} D {D} bf16", flush=True)
-    res = run(B, N, H, D, device, args.iters, args.warmup)
+    res = run(B, N, H, D, device)
     for variant, ms in res["times"]:
         if ms is None:
             print(f"{variant:28s} not timed on {device.type}")

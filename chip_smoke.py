@@ -7,7 +7,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
   1. device  — needs torch.cuda; prints the card's name and power limit
   2. build   — nvcc-builds every kernel library from csrc/ (flash-attention
                forward, flash-attention backward, fused dropout, fused MLP,
-               attention probes), all at once
+               attention probes), all at once; cuobjdump -sass of the Hopper
+               forward's instances (K1 bf16 and the four probes): each must
+               issue HGMMA and UTMALDG and touch no local memory; the integer
+               instructions of one Philox call, from the same SASS
   3. kernels — each kernel against its plain PyTorch version on the card:
                the flash forward at SHAPES, bf16 and fp32, dropout 0 and 0.1;
                the dq and dk/dv kernels against autograd of the plain forward
@@ -42,7 +45,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
                one seeded bf16 step on the kernels against the same step on
                the plain versions, and one seeded fp32 step on the card against
                the CPU
-  6. times   — kernel vs plain (CUDA events, median of 20 after warm-up), each
+  6. times   — kernel vs plain (CUDA events, median of 20 after warm-up; K1
+               also by the profiler's kernel time alone, beside SDPA and its
+               two bounds, tensor cores and its dropout's Philox calls), each
                kernel also against the one PyTorch call that computes its
                function where there is one (SDPA pinned to its flash backend,
                F.dropout), the fused MLP against the unfused bf16 chain and
@@ -57,7 +62,9 @@ on its path, max abs error, ms, plain ms, library ms (null where no single
 PyTorch call computes its function; then `chain_ms`, where timed, is the
 unfused chain of PyTorch calls), and its bound: the larger of its useful
 tensor-core flops over 989 TFLOP/s and the bytes it must move over 3.35 TB/s
-(H100 SXM dense bf16 and HBM3 peaks). The last line is {"ok": true, "device":
+(H100 SXM dense bf16 and HBM3 peaks), and for K1 with dropout also its
+Philox calls' integer instructions over 64 lanes an SM at the card's
+maximum SM clock. The last line is {"ok": true, "device":
 {...}}. No result is printed when a phase fails.
 """
 
@@ -82,13 +89,15 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "interm_117m.yaml"
 
 # (B, N_q, N_k, H, D): the slice, the 117M bench shape, the 1B serving shape,
-# a ragged N over many kv tiles at the widest head, and N_q != N_k
+# a ragged N over many kv tiles at the widest head, N_q != N_k, and one query
+# against one key past a 128-key tile at an odd B*H
 SHAPES = [
     (8, 512, 512, 16, 64),
     (8, 2048, 2048, 16, 64),
     (2, 2048, 2048, 24, 128),
     (1, 4100, 4100, 2, 256),
     (2, 300, 1000, 4, 128),
+    (3, 1, 129, 5, 64),
 ]
 # the fused dropout's [rows, cols]: the slice's pos_drop/proj and Mlp hidden,
 # the bench geometry's Mlp hidden, and a ragged shape
@@ -144,6 +153,12 @@ PROBE_SOFTMAX_ATOL = 1e-2
 # H100 SXM peaks (dense bf16 tensor cores, HBM3) for the kernels' bounds
 PEAK_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# 32-bit integer lanes of an SM (Hopper white paper): with the SM count and the
+# card's maximum SM clock (nvidia-smi), the rate that bounds K1's dropout bits
+INT32_LANES_PER_SM = 64
+# the Hopper forward's kernel template (csrc/flash_fwd_hopper.cuh), whose
+# instances must issue wgmma (HGMMA) and TMA loads (UTMALDG) and spill nothing
+HOPPER_KERNEL = "flash_fwd_tma_wgmma"
 # bench.py:199-210, the 117M train geometry
 BENCH_VARS = ("land_sea_mask", "orography", "lattitude", "landcover",
               "total_precipitation_24hr", "2m_temperature_min", "2m_temperature_max")
@@ -154,8 +169,11 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
+START = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - START:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -454,6 +472,52 @@ def time_fused_mlp(gen, bounds, libs):
     return timed
 
 
+def sass_check(libraries):
+    """cuobjdump -sass of the libraries: every instance of HOPPER_KERNEL must
+    hold HGMMA and UTMALDG and no local-memory access (STL/LDL). Returns
+    {instance name: {opcode: static count}}."""
+    import re
+
+    from orbit2_tpu_torch.ops._nvcc import _nvcc
+
+    cuobjdump = str(Path(_nvcc()).parent / "cuobjdump")
+    found = {}
+    for lib in libraries:
+        sass = subprocess.run([cuobjdump, "-sass", str(lib.path())], capture_output=True,
+                              text=True, check=True).stdout
+        for section in sass.split("Function : ")[1:]:
+            name = section.split("\n", 1)[0].strip()
+            if HOPPER_KERNEL not in name:
+                continue
+            ops = {}
+            for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", section):
+                ops[op] = ops.get(op, 0) + 1
+            found[name] = ops
+            check(ops.get("HGMMA", 0) > 0 and ops.get("UTMALDG", 0) > 0,
+                  f"{name}: no HGMMA or UTMALDG in its SASS")
+            check(not ops.get("STL") and not ops.get("LDL"), f"{name}: local-memory spill")
+    return found
+
+
+def philox_ops_per_call(found):
+    """Integer instructions a Philox call costs K1, from the SASS of its d64
+    instances: the integer opcodes the dropout instance adds, over the calls
+    its code holds (each inlined draw of keep bits makes 16 calls and 2 shuffles)."""
+    def instance(dropout):
+        return next(ops for name, ops in found.items()
+                    if "ILi64ELi0ELb" + ("1" if dropout else "0") in name)
+
+    def integer(ops):
+        return sum(n for op, n in ops.items()
+                   if op.startswith(("I", "LOP", "SEL", "VIADD", "R2P", "LEA", "PRMT"))
+                   or op == "SHF")
+
+    drop, plain = instance(True), instance(False)
+    draws = (drop.get("SHFL", 0) - plain.get("SHFL", 0)) // 2
+    check(draws > 0, "cannot find the dropout bits in K1's SASS")
+    return (integer(drop) - integer(plain)) / (16 * draws)
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -483,6 +547,45 @@ def sdpa_ms(q, k, v, do):
         do_t = do.transpose(1, 2)
         out["bwd"] = best_ms(lambda: torch.autograd.grad(o, leaves, do_t, retain_graph=True))
     return out
+
+
+def kernel_ms(fn, iters=10):
+    """Device time of one call of fn (which launches one kernel) by
+    torch.profiler: the kernel's own time without the host's launch work,
+    the mean over the kernels the session recorded of `iters` calls after
+    warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ran = [e.time_range.elapsed_us() for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(iters // 2 <= len(ran) <= iters, f"profiled {len(ran)} kernels of {iters} calls")
+    return sum(ran) / len(ran) / 1e3
+
+
+def k1_rows(gen, seed, timed, libs, bounds, smi):
+    """K1's row at each SHAPES case, bf16: its event times (phase 6), its
+    kernel time alone, SDPA's (flash) and both bounds, the tensor cores' (or
+    bytes') and the Philox calls' of its dropout."""
+    from orbit2_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    for shape in SHAPES:
+        b, n_q, n_k, h, d = shape
+        q, k, v = make_qkv(*shape, torch.bfloat16, gen)
+        ms = {rate: (timed[("fwd", torch.bfloat16, shape, rate)][0],
+                     kernel_ms(lambda: flash_attention_fwd(q, k, v, None, rate, seed)))
+              for rate in (0.0, DROP)}
+        print(f"  K1 bf16 B{b} Nq{n_q} Nk{n_k} H{h} d{d}: fwd {ms[0.0][0]:.4f} ms (kernel alone "
+              f"{ms[0.0][1]:.4f}), drop {ms[DROP][0]:.4f} ms (kernel alone {ms[DROP][1]:.4f}); "
+              f"SDPA (flash) {libs[('fwd', shape, 0.0)]:.4f} / {libs[('fwd', shape, DROP)]:.4f}; "
+              f"bounds: tensor cores and bytes {bounds[('fwd', shape)][0]:.4f} "
+              f"({bounds[('fwd', shape)][1]}), Philox integer {bounds[('philox', shape)]:.4f} "
+              f"({b * h * n_q * n_k / 4 / 1e6:.1f} M calls); gpu: {smi}")
 
 
 def cuda_kernel_names(fn):
@@ -700,6 +803,9 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"gpu: {smi}")
+    max_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
@@ -711,6 +817,17 @@ def main():
         for lib in pool.map(lambda lib: (lib.load(), lib)[1], libraries.values()):
             print(f"  {lib.source.name} built in {lib.build_seconds:.2f} s ({lib.path().name})")
     print(f"  all built in {time.perf_counter() - t0:.2f} s (wall)")
+    hopper = sass_check(libraries.values())
+    check(len(hopper) == 10, f"{len(hopper)} instances of {HOPPER_KERNEL}, want 6 of K1 and 4 "
+          "probes")
+    for name, ops in sorted(hopper.items()):
+        print(f"  {name[:60]}: HGMMA {ops['HGMMA']}, UTMALDG {ops['UTMALDG']}, no STL/LDL")
+    int_per_call = philox_ops_per_call(hopper)
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    int_rate = INT32_LANES_PER_SM * sm_count * max_mhz * 1e6
+    print(f"  K1's dropout: {int_per_call:.1f} integer instructions a Philox call (SASS); "
+          f"{INT32_LANES_PER_SM} lanes x {sm_count} SMs x {max_mhz:.0f} MHz = "
+          f"{int_rate / 1e12:.2f} T integer instructions/s")
 
     # 3. kernels against their plain versions
     phase("kernels")
@@ -1048,6 +1165,11 @@ def main():
                     libs[("fwd", shape, 0.0)] = lib["fwd"][0.0]
                     libs[("fwd", shape, DROP)] = lib["fwd"][DROP]
                     libs[("bwd", shape)] = lib["bwd"]
+                    # with dropout K1 also draws one Philox call per 4 scores
+                    philox = b * h * n_q * n_k / 4 * int_per_call / int_rate * 1e3
+                    bounds[("philox", shape)] = philox
+                    bounds[("fwd_drop", shape)] = max(bounds[("fwd", shape)],
+                                                      (philox, "operations"))
                 timed[("fwd", dtype, shape, 0.0)] = (kern, plain)
                 timed[("fwd", dtype, shape, DROP)] = (kern_drop, plain_drop)
                 timed[("bwd", dtype, shape, DROP)] = (bwd, bwd_plain)
@@ -1121,6 +1243,9 @@ def main():
           f"bf16, mu bf16): {ms_bench:.3f} ms, {8 / ms_bench * 1e3:.2f} samples/s "
           f"(median of 20)")
 
+    # after the steps: a profiler session may slow the launches that follow it
+    k1_rows(gen, kernel_seed, timed, libs, bounds, smi)
+
     slice_shape = SHAPES[0]
     mlp_shape = MLP_SHAPES[0]
     bf16 = torch.bfloat16
@@ -1141,10 +1266,11 @@ def main():
                      errs[(name, PROBE_SHAPES[0])], ms, bound, library, probe_counts, chain)
 
     drop_shape = DROPOUT_SHAPES[1]
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - START:.1f} s")
     print(json.dumps({"kernels": [
         entry("flash_attn_fwd", "flash_attn_fwd.cu", "orbit2_tpu/ops/flash_attention.py:117",
               errs[("fwd", bf16, slice_shape, DROP)], timed[("fwd", bf16, slice_shape, DROP)],
-              bounds[("fwd", slice_shape)], libs[("fwd", slice_shape, DROP)]),
+              bounds[("fwd_drop", slice_shape)], libs[("fwd", slice_shape, DROP)]),
         # the library call of K2 and K3 is SDPA's whole backward (dq, dk and dv)
         entry("flash_attn_bwd_dq", "flash_attn_bwd.cu", "orbit2_tpu/ops/flash_attention.py:287",
               errs[("dq", bf16, slice_shape, DROP)], timed[("dq", bf16, slice_shape, DROP)],

@@ -97,7 +97,8 @@ class NvccKernel:
     """One entry point of an NvccLibrary and the count of its launches.
 
     The entry point takes `argtypes` followed by the CUDA stream, and
-    returns 0, a cudaError_t code, or -1 for an instance it does not have;
+    returns 0, a cudaError_t code, -1 for an instance it does not have or
+    -2 for a TMA tensor map the driver refuses;
     `launch` raises on anything but 0 and counts the launches that ran."""
 
     def __init__(self, library: NvccLibrary, symbol: str, argtypes):
@@ -122,9 +123,13 @@ class NvccKernel:
     def launch(self, device, *args) -> None:
         """Calls the entry point on `device`'s current stream."""
         fn = self._entry()
-        with torch.cuda.device(device):
+        if device.index is None or device.index == torch.cuda.current_device():
             err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
-            msg = "no kernel instance" if err < 0 else self._errstr(err).decode()
+            msg = ({-1: "no kernel instance", -2: "tensor map refused by the driver"}.get(err)
+                   or self._errstr(err).decode())
             raise RuntimeError(f"{self.name} launch failed ({err}): {msg}")
         self.launches += 1

@@ -11,8 +11,9 @@ except in the bound shift.
 - `bound_shift`: o = (bf16(p) v) / rowsum(bf16(p)), p = exp2(qs k^T - b), on
   the (qs, b) of `bound_shift_inputs`
 
-The kernels (csrc/attn_probes.cu) are the flash forward's bf16 tiles and
-products with parts removed, so their times decompose the forward's. Each
+The kernels (csrc/attn_probes.cu) are variants of the flash forward's bf16
+kernel (csrc/flash_fwd_hopper.cuh) that change only what happens to the
+scores between its two products, so their times decompose the forward's. Each
 plain version rounds where the kernel rounds: s or p to bf16 before the value
 product, o once at the end. On CPU tensors a wrapper computes its plain
 version; on CUDA tensors it launches its kernel or raises.
@@ -26,10 +27,11 @@ from typing import Tuple
 import torch
 
 from orbit2_tpu_torch.ops._nvcc import NvccKernel, NvccLibrary
+from orbit2_tpu_torch.ops.flash_attention import tma_layout
 
 LOG2E = 1.4426950408889634
 HEAD_DIM = 64
-BLOCK = 64  # the kernels' query and kv tile: N must be a multiple of it
+BLOCK = 64  # the JAX probes' query block: N must be a multiple of it
 EXP_SHIFT = 20.0  # scripts/bench_attn2.py:59
 
 LIBRARY = NvccLibrary("attn_probes.cu")
@@ -41,22 +43,24 @@ class ProbeKernel(NvccKernel):
     def __init__(self, symbol: str, with_bound: bool = False):
         self.with_bound = with_bound
         super().__init__(LIBRARY, symbol, [ctypes.c_void_p] * (5 if with_bound else 4)
-                         + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int])
+                         + [ctypes.c_int64, ctypes.c_int64])
 
     def __call__(self, q, k, v, bound=None):
         if (bound is None) == self.with_bound:
             raise ValueError(f"{self.name} takes {'a' if self.with_bound else 'no'} bound")
         if _check(q, k, v, bound) != "cuda":
             raise ValueError(f"{self.name}: q, k, v must be CUDA tensors")
-        q, k, v = (t.contiguous() for t in (q, k, v))
+        # the kernel reads q, k and v by TMA as contiguous [BH, N, 1, 64]: a
+        # strided or unaligned operand goes in as a fresh contiguous copy
+        q, k, v = (t if t.is_contiguous() and not tma_layout(t[:, :, None])[2]
+                   else t.clone(memory_format=torch.contiguous_format) for t in (q, k, v))
         ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
         if self.with_bound:
             bound = bound.contiguous()
             ptrs.append(bound.data_ptr())
-        o = torch.empty_like(q)
+        o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         bh, n, _ = q.shape
-        vec = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
-        self.launch(q.device, *ptrs, o.data_ptr(), bh, n, int(vec))
+        self.launch(q.device, *ptrs, o.data_ptr(), bh, n)
         return o
 
 

@@ -45,9 +45,46 @@ def _strides(*tensors):
 
 
 def _vec(*tensors) -> bool:
-    """Every row 16-byte aligned: the bf16 tiles load 8 elements at a time."""
+    """Every row 16-byte aligned: the backward's bf16 tiles load 8 elements at
+    a time."""
     return all(t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
                for t in tensors)
+
+
+def tma_layout(t: torch.Tensor) -> Tuple[Tuple[int, ...], Tuple[int, ...], bool]:
+    """How the bf16 forward's TMA map sees a [B, N, H, D] operand: (its dims
+    innermost first (D, H, N, B), the byte strides of H, N and B, whether the
+    kernel needs a contiguous copy of it). TMA takes a 16-byte-aligned base,
+    a contiguous last dim and byte strides that are positive multiples of 16.
+    A dim of size 1 is never stepped, so its stride is replaced by one that
+    a contiguous tensor could have."""
+    b, n, h, d = t.shape
+    sb, sn, sh, sd = t.stride()
+    size = t.element_size()
+    strides = []
+    step = d * size  # the last stride taken, times its dim: a contiguous layout's
+    for dim, stride in ((h, sh), (n, sn), (b, sb)):
+        byte = stride * size if dim > 1 else step
+        strides.append(byte)
+        step = byte * dim
+    needs_copy = (sd != 1 or t.data_ptr() % 16 != 0
+                  or any(s <= 0 or s % 16 for s in strides))
+    return (d, h, n, b), tuple(strides), needs_copy
+
+
+def _tma_operands(*tensors):
+    """The bf16 tensors as the kernel reads them by TMA, each as it is or as a
+    fresh contiguous copy (a new allocation is aligned) where tma_layout asks
+    for one, followed by their element strides {b, n, h} for the C entry."""
+    out, strides = [], []
+    for t in tensors:
+        _, byte_strides, needs_copy = tma_layout(t)
+        if needs_copy:
+            t = t.clone(memory_format=torch.contiguous_format)
+            byte_strides = tma_layout(t)[1]
+        out.append(t)
+        strides.extend(s // t.element_size() for s in reversed(byte_strides))
+    return (*out, (ctypes.c_int64 * len(strides))(*strides))
 
 
 class FlashForwardKernel(NvccKernel):
@@ -56,18 +93,24 @@ class FlashForwardKernel(NvccKernel):
     def __init__(self):
         super().__init__(NvccLibrary("flash_attn_fwd.cu"), "orbit2_flash_attn_fwd",
                          [ctypes.c_int, ctypes.c_int64] + [ctypes.c_void_p] * 5
-                         + [ctypes.c_int64] * 4 + [ctypes.c_void_p, ctypes.c_double, ctypes.c_int]
+                         + [ctypes.c_int64] * 4 + [ctypes.c_void_p, ctypes.c_double]
                          + _DROPOUT_ARGS)
 
     def __call__(self, q, k, v, sm_scale: float, dropout_rate: float = 0.0, seed: int = 0):
         _check_cuda_inputs(q, k, v)
+        if q.dtype == torch.bfloat16:
+            # The bf16 kernel reads q, k and v by TMA. An operand that breaks
+            # TMA's alignment rule goes in as a contiguous copy, to the same
+            # kernel; the strides passed are the maps'.
+            q, k, v, strides = _tma_operands(q, k, v)
+        else:
+            strides = _strides(q, k, v)
         b, n_q, h, d = q.shape
         o = torch.empty((b, n_q, h, d), dtype=q.dtype, device=q.device)
         lse = torch.empty((b * h, n_q), dtype=torch.float32, device=q.device)
         self.launch(q.device, _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, n_q, k.shape[1],
-                    _strides(q, k, v), float(sm_scale), int(_vec(q, k, v)),
-                    *_dropout_args(dropout_rate, seed))
+                    strides, float(sm_scale), *_dropout_args(dropout_rate, seed))
         return o, lse
 
 
@@ -277,5 +320,4 @@ def attention_flops(b: int, n_q: int, n_k: int, h: int, d: int) -> int:
 __all__ = ["FLASH_FWD", "FLASH_BWD_DQ", "FLASH_BWD_DKV", "FlashAttention", "flash_attention",
            "flash_attention_fwd", "flash_attention_bwd", "flash_attention_reference",
            "flash_attention_bwd_reference", "attention_delta", "attention_mult",
-           "attention_flops", "LOG2E",
-           "HEAD_DIMS"]
+           "attention_flops", "tma_layout", "LOG2E", "HEAD_DIMS"]

@@ -254,6 +254,19 @@ def test_kernel_matches_plain_on_card(cuda, name, bh, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", list(KERNELS))
+def test_kernel_takes_unaligned_and_strided_inputs_on_card(cuda, name):
+    """An operand off 16-byte alignment or strided goes to the kernel as a
+    contiguous copy (the TMA maps' rule)."""
+    q, k, v = (t.to(cuda) for t in make_qkv(2, 192, seed=7))
+    flat = torch.cat([torch.zeros(1, dtype=q.dtype, device=cuda), k.flatten()])
+    k_off = flat[1:].view(k.shape)  # contiguous, base off alignment
+    v_str = torch.stack([v, v], dim=-1)[..., 0]  # strided
+    got, want = run_probe(name, q, k_off, v_str)
+    assert_close_rel(got.float().cpu().numpy(), want.float().cpu().numpy(), name)
+
+
+@pytest.mark.cuda
 def test_bound_shift_kernel_matches_softmax_on_card(cuda):
     q, k, v = (t.to(cuda) for t in make_qkv(4, 512, seed=9))
     qs, bound = ap.bound_shift_inputs(q, k)

@@ -29,6 +29,7 @@ from orbit2_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_reference,
     flash_attention_fwd,
     flash_attention_reference,
+    tma_layout,
 )
 
 
@@ -247,6 +248,41 @@ def test_cpu_backward_takes_the_plain_version_without_launching():
         torch.testing.assert_close(a, w, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("case", ["packed", "packed_b1", "contiguous", "contiguous_b1",
+                                  "unaligned"])
+def test_tma_layout(case):
+    """The dims and byte strides of the bf16 forward's TMA maps, and when the
+    wrapper must copy an operand first: the q/k/v views of the packed
+    [B, N, 3, H, D] projection (the main path) go in as they are; an
+    operand whose base is off 16-byte alignment is copied."""
+    b, n, h, d = (1 if case.endswith("b1") else 2), 130, 4, 64
+    offset = 1 if case == "unaligned" else 0
+    flat = torch.zeros(b * n * 3 * h * d + 16, dtype=torch.bfloat16)
+    base = flat[8 - flat.data_ptr() % 16 // 2:]  # 16-byte aligned
+    if case.startswith("contiguous"):
+        t = base[:b * n * h * d].view(b, n, h, d)
+        want = (2 * d, 2 * h * d, 2 * n * h * d)
+    else:
+        t = base[offset:offset + b * n * 3 * h * d].view(b, n, 3, h, d)[:, :, 1]
+        want = (2 * d, 2 * 3 * h * d, 2 * n * 3 * h * d)
+    dims, strides, needs_copy = tma_layout(t)
+    assert dims == (d, h, n, b)
+    assert strides == want
+    assert needs_copy == (case == "unaligned")
+    if not needs_copy:
+        assert all(s % 16 == 0 for s in strides) and t.data_ptr() % 16 == 0
+
+
+def test_tma_layout_replaces_the_strides_of_size_one_dims():
+    """A dim of size 1 is never stepped: its stride (here one that breaks
+    TMA's rule) becomes a contiguous one, and the operand needs no copy."""
+    t = torch.zeros(7 * 320, dtype=torch.bfloat16).as_strided((1, 7, 1, 64), (3, 320, 1, 1))
+    dims, strides, needs_copy = tma_layout(t)
+    assert dims == (64, 1, 7, 1)
+    assert strides == (128, 640, 640 * 7)
+    assert not needs_copy
+
+
 # ---- on the card -------------------------------------------------------------
 
 @pytest.fixture
@@ -285,11 +321,32 @@ def test_kernel_matches_plain_on_card(cuda, dtype, b, n_q, n_k, h, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["nodrop", "drop"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("b,n_q,n_k,h", [
+    (3, 1, 129, 5),    # one query; one key past a 128-key tile; odd B*H
+    (1, 200, 129, 3),  # N_q not a multiple of the 128-query tile; odd B*H
+    (1, 129, 257, 1),  # one query past a tile; one key past 2 (4 at d 256) kv tiles
+], ids=["nq1-nk129", "nq200-nk129", "nq129-nk257"])
+def test_kernel_tile_edges_on_card(cuda, rate, d, b, n_q, n_k, h):
+    """The bf16 kernel's ragged tiles: TMA's zero rows past N_k get p = 0 and
+    query rows past N_q are not stored, with and without dropout (the same
+    Philox mask as the plain version)."""
+    seed = 2 ** 37 + 1
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+               for a in make_qkv(b, n_q, n_k, h, d, seed=5))
+    o, lse = flash_attention_fwd(q, k, v, None, rate, seed)
+    want_o, want_lse = flash_attention_reference(q, k, v, None, attention_mult(q, k, rate, seed))
+    torch.testing.assert_close(o, want_o, **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, want_lse, **LSE_TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
 def test_kernel_reads_strided_qkv_views(cuda, offset):
     """The views of a packed [B, N, 3, H, D] projection go in with no copy;
-    offset 1 shifts every row off 16-byte alignment (the kernel's
-    element-wise load path)."""
+    offset 1 shifts every row off 16-byte alignment, and the wrapper hands
+    the kernel a contiguous copy (tma_layout)."""
     b, n, h, d = 2, 130, 4, 64
     g = torch.Generator(device="cpu").manual_seed(0)
     flat = torch.randn(b * n * 3 * h * d + offset, generator=g).to(cuda, torch.bfloat16)

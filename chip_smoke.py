@@ -63,8 +63,9 @@ PyTorch call computes its function; then `chain_ms`, where timed, is the
 unfused chain of PyTorch calls), and its bound: the larger of its useful
 tensor-core flops over 989 TFLOP/s and the bytes it must move over 3.35 TB/s
 (H100 SXM dense bf16 and HBM3 peaks), and for K1 with dropout also its
-Philox calls' integer instructions over 64 lanes an SM at the card's
-maximum SM clock. The last line is {"ok": true, "device":
+Philox calls' integer instructions, per SM pipe (IMAD on the FMA pipe and
+the other integer opcodes on the ALU pipe, 64 lanes each, and all of them at
+the SM's issue rate of 128 lanes) at the card's maximum SM clock. The last line is {"ok": true, "device":
 {...}}. No result is printed when a phase fails.
 """
 
@@ -153,9 +154,13 @@ PROBE_SOFTMAX_ATOL = 1e-2
 # H100 SXM peaks (dense bf16 tensor cores, HBM3) for the kernels' bounds
 PEAK_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
-# 32-bit integer lanes of an SM (Hopper white paper): with the SM count and the
-# card's maximum SM clock (nvidia-smi), the rate that bounds K1's dropout bits
-INT32_LANES_PER_SM = 64
+# Integer instructions on an SM (Hopper): IMAD and its forms issue to the FMA
+# pipe, the other integer opcodes (LOP3, IADD3, SHF, ISETP, ...) to the ALU
+# pipe, 64 lanes each, and the SM issues at most 4 warp instructions (128
+# lanes) a clock. With the SM count and the card's maximum SM clock
+# (nvidia-smi) they bound K1's dropout bits.
+INT_PIPE_LANES_PER_SM = 64
+ISSUE_LANES_PER_SM = 128
 # the Hopper forward's kernel template (csrc/flash_fwd_hopper.cuh), whose
 # instances must issue wgmma (HGMMA) and TMA loads (UTMALDG) and spill nothing
 HOPPER_KERNEL = "flash_fwd_tma_wgmma"
@@ -502,20 +507,43 @@ def sass_check(libraries):
 def philox_ops_per_call(found):
     """Integer instructions a Philox call costs K1, from the SASS of its d64
     instances: the integer opcodes the dropout instance adds, over the calls
-    its code holds (each inlined draw of keep bits makes 16 calls and 2 shuffles)."""
+    its code holds (each inlined draw of keep bits makes 16 calls and 2
+    shuffles), as (on the FMA pipe: IMAD, on the ALU pipe: the others)."""
     def instance(dropout):
         return next(ops for name, ops in found.items()
                     if "ILi64ELi0ELb" + ("1" if dropout else "0") in name)
 
-    def integer(ops):
+    def integer(ops, fma_pipe):
         return sum(n for op, n in ops.items()
-                   if op.startswith(("I", "LOP", "SEL", "VIADD", "R2P", "LEA", "PRMT"))
-                   or op == "SHF")
+                   if (op.startswith(("I", "LOP", "SEL", "VIADD", "R2P", "LEA", "PRMT"))
+                       or op == "SHF") and op.startswith("IMAD") == fma_pipe)
 
     drop, plain = instance(True), instance(False)
     draws = (drop.get("SHFL", 0) - plain.get("SHFL", 0)) // 2
     check(draws > 0, "cannot find the dropout bits in K1's SASS")
-    return (integer(drop) - integer(plain)) / (16 * draws)
+    return tuple((integer(drop, pipe) - integer(plain, pipe)) / (16 * draws)
+                 for pipe in (True, False))
+
+
+def device_switch_us(n=20000):
+    """Host microseconds a kernel launch spends entering and leaving
+    torch.cuda.device for the current device (NvccKernel.launch), and in the
+    check that the device is current, which could skip it: the better of
+    two means over n calls each."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def switch():
+        with torch.cuda.device(dev):
+            pass
+
+    def per_call(fn):
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t) / n * 1e6
+
+    return (min(per_call(switch) for _ in range(2)),
+            min(per_call(lambda: dev.index == torch.cuda.current_device()) for _ in range(2)))
 
 
 def nbytes(*tensors):
@@ -822,12 +850,18 @@ def main():
           "probes")
     for name, ops in sorted(hopper.items()):
         print(f"  {name[:60]}: HGMMA {ops['HGMMA']}, UTMALDG {ops['UTMALDG']}, no STL/LDL")
-    int_per_call = philox_ops_per_call(hopper)
+    fma_per_call, alu_per_call = philox_ops_per_call(hopper)
+    # SM clocks a Philox call takes at best: its busier pipe, or the issue rate
+    call_clocks = max(fma_per_call / INT_PIPE_LANES_PER_SM, alu_per_call / INT_PIPE_LANES_PER_SM,
+                      (fma_per_call + alu_per_call) / ISSUE_LANES_PER_SM)
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-    int_rate = INT32_LANES_PER_SM * sm_count * max_mhz * 1e6
-    print(f"  K1's dropout: {int_per_call:.1f} integer instructions a Philox call (SASS); "
-          f"{INT32_LANES_PER_SM} lanes x {sm_count} SMs x {max_mhz:.0f} MHz = "
-          f"{int_rate / 1e12:.2f} T integer instructions/s")
+    call_s = call_clocks / (sm_count * max_mhz * 1e6)  # per call, over the whole card
+    print(f"  K1's dropout: {fma_per_call + alu_per_call:.1f} integer instructions a Philox call "
+          f"(SASS), {fma_per_call:.1f} IMAD on the FMA pipe and {alu_per_call:.1f} on the ALU "
+          f"pipe: max({fma_per_call:.1f} / {INT_PIPE_LANES_PER_SM}, {alu_per_call:.1f} / "
+          f"{INT_PIPE_LANES_PER_SM}, {fma_per_call + alu_per_call:.1f} / {ISSUE_LANES_PER_SM}) = "
+          f"{call_clocks:.3f} SM clocks a call; {sm_count} SMs x {max_mhz:.0f} MHz = "
+          f"{1 / call_s / 1e12:.3f} T calls/s")
 
     # 3. kernels against their plain versions
     phase("kernels")
@@ -1166,7 +1200,7 @@ def main():
                     libs[("fwd", shape, DROP)] = lib["fwd"][DROP]
                     libs[("bwd", shape)] = lib["bwd"]
                     # with dropout K1 also draws one Philox call per 4 scores
-                    philox = b * h * n_q * n_k / 4 * int_per_call / int_rate * 1e3
+                    philox = b * h * n_q * n_k / 4 * call_s * 1e3
                     bounds[("philox", shape)] = philox
                     bounds[("fwd_drop", shape)] = max(bounds[("fwd", shape)],
                                                       (philox, "operations"))
@@ -1220,6 +1254,12 @@ def main():
               f"{xb.shape[0]}, bf16): {ms_train:.3f} ms, {xb.shape[0] / ms_train * 1e3:.2f} "
               f"samples/s (median of 20); fit {fit_s / steps:.4f} s per step over {steps} "
               f"steps incl. loading and the first step's warm-up")
+        switch_us, current_us = device_switch_us()
+        per_step = sum(train_counts.values()) / steps
+        print(f"  launch host cost: torch.cuda.device entered and left {switch_us:.3f} us a "
+              f"launch, the current-device check {current_us:.3f} us; {per_step:.0f} kernel "
+              f"launches a slice train step, so {per_step * (switch_us - current_us) / 1e3:.4f} "
+              f"ms a step of {ms_train:.3f}")
         del trainer, tstep, ev
 
     from orbit2_tpu_torch.models import ResSlimViT

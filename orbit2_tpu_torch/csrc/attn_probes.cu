@@ -2,7 +2,7 @@
 // what happens between its two products replaced, to say where its time goes.
 //
 // Replaces the Pallas TPU probes of scripts/bench_attn2.py, all on q, k, v
-// [BH, N, 64] bf16 contiguous, o [BH, N, 64] bf16, sums in fp32:
+// [BH, N, 64] bf16, o [BH, N, 64] bf16, sums in fp32:
 //   orbit2_probe_matmul_only   `_kern_matmul_only` (:47):  o = bf16(q k^T) v
 //   orbit2_probe_exp_noreduce  `_kern_exp_noreduce` (:56): o = bf16(exp2(q k^T - 20)) v
 //   orbit2_probe_full_softmax  `_kern_full_softmax` (:66): m = rowmax(s),
@@ -46,10 +46,9 @@ namespace {
 using orbit2::hopper::Variant;
 
 template <int P>
-int launch(const void* q, const void* k, const void* v, const void* bound, void* o, int64_t bh,
-           int64_t n, void* stream) {
+int launch(const void* q, const void* k, const void* v, const void* bound, void* o,
+           const int64_t* strides, int64_t bh, int64_t n, void* stream) {
   if (n < 64 || n % 64 != 0 || n > INT32_MAX || bh < 1 || bh > 65535) return -1;
-  const int64_t strides[9] = {n * 64, 64, 64, n * 64, 64, 64, n * 64, 64, 64};  // {b, n, h} x 3
   const orbit2::hopper::Params prm{static_cast<orbit2::bf16*>(o), nullptr,
                                    static_cast<const float*>(bound), 1, (int)n, (int)n, 1.f,
                                    orbit2::Dropout{0, 0, 0.f}};
@@ -59,31 +58,36 @@ int launch(const void* q, const void* k, const void* v, const void* bound, void*
 
 }  // namespace
 
-// Plain C entry points, bound with ctypes. q (qs for the bound shift), k, v
-// and o are contiguous [bh, n, 64] bf16 with 16-byte-aligned bases (TMA's
-// rule; the wrapper copies an operand that breaks it), bound contiguous
-// [bh, n] fp32. Each returns 0 on success, a cudaError_t code if the launch
-// failed, -1 for a shape it has no instance for (n not a positive multiple
-// of 64, bh outside [1, 65535]), or -2 when the driver refuses a tensor map.
+// Plain C entry points, bound with ctypes. q (qs for the bound shift), k and
+// v are [bh, n, 64] bf16 as K1's [B = bh, N = n, H = 1, 64], with element
+// strides {b, n, h} each in `strides` (9 values) and TMA's alignment (the
+// wrapper copies an operand that breaks it); o is contiguous [bh, n, 64]
+// bf16, bound contiguous [bh, n] fp32. Each returns 0 on success, a
+// cudaError_t code if the launch failed, -1 for a shape it has no instance
+// for (n not a positive multiple of 64, bh outside [1, 65535]), or -2 when
+// the driver refuses a tensor map.
 extern "C" int orbit2_probe_matmul_only(const void* q, const void* k, const void* v, void* o,
-                                        int64_t bh, int64_t n, void* stream) {
-  return launch<Variant::kMatmulOnly>(q, k, v, nullptr, o, bh, n, stream);
+                                        const int64_t* strides, int64_t bh, int64_t n,
+                                        void* stream) {
+  return launch<Variant::kMatmulOnly>(q, k, v, nullptr, o, strides, bh, n, stream);
 }
 
 extern "C" int orbit2_probe_exp_noreduce(const void* q, const void* k, const void* v, void* o,
-                                         int64_t bh, int64_t n, void* stream) {
-  return launch<Variant::kExpNoReduce>(q, k, v, nullptr, o, bh, n, stream);
+                                         const int64_t* strides, int64_t bh, int64_t n,
+                                         void* stream) {
+  return launch<Variant::kExpNoReduce>(q, k, v, nullptr, o, strides, bh, n, stream);
 }
 
 extern "C" int orbit2_probe_full_softmax(const void* q, const void* k, const void* v, void* o,
-                                         int64_t bh, int64_t n, void* stream) {
-  return launch<Variant::kFullSoftmax>(q, k, v, nullptr, o, bh, n, stream);
+                                         const int64_t* strides, int64_t bh, int64_t n,
+                                         void* stream) {
+  return launch<Variant::kFullSoftmax>(q, k, v, nullptr, o, strides, bh, n, stream);
 }
 
 extern "C" int orbit2_probe_bound_shift(const void* qs, const void* k, const void* v,
-                                        const void* bound, void* o, int64_t bh, int64_t n,
-                                        void* stream) {
-  return launch<Variant::kBoundShift>(qs, k, v, bound, o, bh, n, stream);
+                                        const void* bound, void* o, const int64_t* strides,
+                                        int64_t bh, int64_t n, void* stream) {
+  return launch<Variant::kBoundShift>(qs, k, v, bound, o, strides, bh, n, stream);
 }
 
 extern "C" const char* orbit2_cuda_error_string(int code) {

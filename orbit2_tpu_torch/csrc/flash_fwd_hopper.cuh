@@ -41,9 +41,10 @@
 //     scores, no keep tile, no barrier). The bits do not depend on the
 //     scores, so they are drawn while the products run.
 //
-// Measured on an H100 (PERF.md): at (B8, N2048, H16, d64) 0.41 ms without
-// dropout, level with SDPA's flash forward; 0.89 ms with dropout, where the
-// Philox calls (~55 integer instructions each) bound it at 0.44 ms.
+// Measured on an H100 (PERF.md, chip_smoke.py): at (B8, N2048, H16, d64)
+// about 0.41 ms without dropout, level with SDPA's flash forward, and about
+// 0.88 ms with dropout, where the Philox calls (~55 integer instructions
+// each, over the SM's FMA and ALU pipes) bound it.
 //
 // Tiles and budgets (227 KB of shared memory and 64 K registers an SM; one
 // block an SM):
@@ -713,7 +714,8 @@ int launch(const void* q, const void* k, const void* v, const int64_t* strides, 
       return kEncodeFailed;
   }
   const auto kernel = flash_fwd_tma_wgmma<D, kVariant, kDropout>;
-  static const cudaError_t allowed = allow_smem(kernel, Tiles<D>::kSmemBytes);  // once
+  // at every launch: the limit belongs to the function in the current device's context
+  const cudaError_t allowed = allow_smem(kernel, Tiles<D>::kSmemBytes);
   if (allowed != cudaSuccess) return (int)allowed;
   const dim3 grid((unsigned)((prm.n_q + kBlockQ - 1) / kBlockQ), (unsigned)(batch * prm.heads));
   kernel<<<grid, kThreads, Tiles<D>::kSmemBytes, stream>>>(maps[0], maps[1], maps[2], prm);

@@ -123,11 +123,8 @@ class NvccKernel:
     def launch(self, device, *args) -> None:
         """Calls the entry point on `device`'s current stream."""
         fn = self._entry()
-        if device.index is None or device.index == torch.cuda.current_device():
+        with torch.cuda.device(device):
             err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-        else:
-            with torch.cuda.device(device):
-                err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             msg = ({-1: "no kernel instance", -2: "tensor map refused by the driver"}.get(err)
                    or self._errstr(err).decode())

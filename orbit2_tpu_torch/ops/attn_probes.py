@@ -27,7 +27,7 @@ from typing import Tuple
 import torch
 
 from orbit2_tpu_torch.ops._nvcc import NvccKernel, NvccLibrary
-from orbit2_tpu_torch.ops.flash_attention import tma_layout
+from orbit2_tpu_torch.ops.flash_attention import tma_operands
 
 LOG2E = 1.4426950408889634
 HEAD_DIM = 64
@@ -42,7 +42,7 @@ class ProbeKernel(NvccKernel):
 
     def __init__(self, symbol: str, with_bound: bool = False):
         self.with_bound = with_bound
-        super().__init__(LIBRARY, symbol, [ctypes.c_void_p] * (5 if with_bound else 4)
+        super().__init__(LIBRARY, symbol, [ctypes.c_void_p] * (6 if with_bound else 5)
                          + [ctypes.c_int64, ctypes.c_int64])
 
     def __call__(self, q, k, v, bound=None):
@@ -50,17 +50,15 @@ class ProbeKernel(NvccKernel):
             raise ValueError(f"{self.name} takes {'a' if self.with_bound else 'no'} bound")
         if _check(q, k, v, bound) != "cuda":
             raise ValueError(f"{self.name}: q, k, v must be CUDA tensors")
-        # the kernel reads q, k and v by TMA as contiguous [BH, N, 1, 64]: a
-        # strided or unaligned operand goes in as a fresh contiguous copy
-        q, k, v = (t if t.is_contiguous() and not tma_layout(t[:, :, None])[2]
-                   else t.clone(memory_format=torch.contiguous_format) for t in (q, k, v))
+        # the kernel reads q, k and v by TMA as K1's [B = BH, N, H = 1, 64]
+        q, k, v, strides = tma_operands(q[:, :, None], k[:, :, None], v[:, :, None])
         ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
         if self.with_bound:
             bound = bound.contiguous()
             ptrs.append(bound.data_ptr())
-        o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        bh, n, _ = q.shape
-        self.launch(q.device, *ptrs, o.data_ptr(), bh, n)
+        bh, n = q.shape[:2]
+        o = torch.empty((bh, n, HEAD_DIM), dtype=q.dtype, device=q.device)
+        self.launch(q.device, *ptrs, o.data_ptr(), strides, bh, n)
         return o
 
 

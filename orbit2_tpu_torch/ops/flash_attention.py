@@ -72,7 +72,7 @@ def tma_layout(t: torch.Tensor) -> Tuple[Tuple[int, ...], Tuple[int, ...], bool]
     return (d, h, n, b), tuple(strides), needs_copy
 
 
-def _tma_operands(*tensors):
+def tma_operands(*tensors):
     """The bf16 tensors as the kernel reads them by TMA, each as it is or as a
     fresh contiguous copy (a new allocation is aligned) where tma_layout asks
     for one, followed by their element strides {b, n, h} for the C entry."""
@@ -102,7 +102,7 @@ class FlashForwardKernel(NvccKernel):
             # The bf16 kernel reads q, k and v by TMA. An operand that breaks
             # TMA's alignment rule goes in as a contiguous copy, to the same
             # kernel; the strides passed are the maps'.
-            q, k, v, strides = _tma_operands(q, k, v)
+            q, k, v, strides = tma_operands(q, k, v)
         else:
             strides = _strides(q, k, v)
         b, n_q, h, d = q.shape
@@ -320,4 +320,4 @@ def attention_flops(b: int, n_q: int, n_k: int, h: int, d: int) -> int:
 __all__ = ["FLASH_FWD", "FLASH_BWD_DQ", "FLASH_BWD_DKV", "FlashAttention", "flash_attention",
            "flash_attention_fwd", "flash_attention_bwd", "flash_attention_reference",
            "flash_attention_bwd_reference", "attention_delta", "attention_mult",
-           "attention_flops", "tma_layout", "LOG2E", "HEAD_DIMS"]
+           "attention_flops", "tma_layout", "tma_operands", "LOG2E", "HEAD_DIMS"]

@@ -30,6 +30,7 @@ from orbit2_tpu_torch.ops.flash_attention import (
     flash_attention_fwd,
     flash_attention_reference,
     tma_layout,
+    tma_operands,
 )
 
 
@@ -283,6 +284,24 @@ def test_tma_layout_replaces_the_strides_of_size_one_dims():
     assert not needs_copy
 
 
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_tma_operands_of_the_probes_layout(offset):
+    """The probes' [BH, N, 64] operands, seen as K1's [B = BH, N, H = 1, 64]:
+    an aligned contiguous one goes in as it is with element strides
+    {N 64, 64, 64}; one off 16-byte alignment goes in as a contiguous copy
+    with the same strides."""
+    bh, n = 3, 192
+    flat = torch.arange(bh * n * 64 + 16, dtype=torch.float32).to(torch.bfloat16)
+    base = flat[8 - flat.data_ptr() % 16 // 2 + offset:]
+    q = base[:bh * n * 64].view(bh, n, 64)
+    got, strides = tma_operands(q[:, :, None])
+    assert tuple(got.shape) == (bh, n, 1, 64)
+    assert list(strides) == [n * 64, 64, 64]
+    assert (got.data_ptr() == q.data_ptr()) == (offset == 0)
+    assert got.data_ptr() % 16 == 0
+    torch.testing.assert_close(got[:, :, 0], q, atol=0, rtol=0)
+
+
 # ---- on the card -------------------------------------------------------------
 
 @pytest.fixture
@@ -356,6 +375,22 @@ def test_kernel_reads_strided_qkv_views(cuda, offset):
     want_o, want_lse = flash_attention_reference(q, k, v)
     torch.testing.assert_close(o, want_o, **TOL[torch.bfloat16])
     torch.testing.assert_close(lse, want_lse, **LSE_TOL)
+
+
+@pytest.mark.cuda
+def test_kernel_launches_on_a_second_device(cuda):
+    """The shared-memory limit of the bf16 kernel belongs to each device's
+    context: after a launch on the first card, a launch on the second works
+    and matches its plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+                   for a in make_qkv(2, 256, 256, 4, 64, seed=4))
+        o, lse = flash_attention_fwd(q, k, v)
+        want_o, want_lse = flash_attention_reference(q, k, v)
+        torch.testing.assert_close(o, want_o, **TOL[torch.bfloat16])
+        torch.testing.assert_close(lse, want_lse, **LSE_TOL)
 
 
 @pytest.mark.cuda

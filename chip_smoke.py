@@ -8,13 +8,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
   2. build   — nvcc-builds every kernel library from csrc/ (flash-attention
                forward, flash-attention backward, fused dropout, fused MLP,
                attention probes), all at once; cuobjdump -sass of the Hopper
-               forward's instances (K1 bf16 and the four probes): each must
-               issue HGMMA and UTMALDG and touch no local memory; the integer
-               instructions of one Philox call, from the same SASS
+               kernels' instances (K1 bf16, the four probes, and the bf16 dq
+               and dk/dv kernels at d 64 and 128): each must issue HGMMA and
+               UTMALDG and touch no local memory; the integer instructions of
+               one Philox call, from K1's SASS
   3. kernels — each kernel against its plain PyTorch version on the card:
                the flash forward at SHAPES, bf16 and fp32, dropout 0 and 0.1;
                the dq and dk/dv kernels against autograd of the plain forward
-               with the same seed, at SHAPES, both dtypes, dropout 0 and 0.1;
+               with the same seed, at SHAPES, both dtypes, dropout 0 and 0.1,
+               bit-equal over two runs; the bf16 backward at its tile edges
+               (N_q and N_k at 1, each tile size less one, itself and plus
+               one, and past three tiles) at every head dim, dropout 0 and
+               0.1;
                the fused dropout bit for bit, forward and backward, at
                DROPOUT_SHAPES in both dtypes; the fused MLP's forward against
                its plain version and its dx and dW kernels against autograd
@@ -45,9 +50,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
                one seeded bf16 step on the kernels against the same step on
                the plain versions, and one seeded fp32 step on the card against
                the CPU
-  6. times   — kernel vs plain (CUDA events, median of 20 after warm-up; K1
-               also by the profiler's kernel time alone, beside SDPA and its
-               two bounds, tensor cores and its dropout's Philox calls), each
+  6. times   — kernel vs plain (CUDA events, median of 20 after warm-up; K1,
+               K2 and K3 also by the profiler's kernel time alone, beside SDPA
+               and their two bounds, tensor cores and their dropout's Philox
+               calls), each
                kernel also against the one PyTorch call that computes its
                function where there is one (SDPA pinned to its flash backend,
                F.dropout), the fused MLP against the unfused bf16 chain and
@@ -62,8 +68,8 @@ on its path, max abs error, ms, plain ms, library ms (null where no single
 PyTorch call computes its function; then `chain_ms`, where timed, is the
 unfused chain of PyTorch calls), and its bound: the larger of its useful
 tensor-core flops over 989 TFLOP/s and the bytes it must move over 3.35 TB/s
-(H100 SXM dense bf16 and HBM3 peaks), and for K1 with dropout also its
-Philox calls' integer instructions, per SM pipe (IMAD on the FMA pipe and
+(H100 SXM dense bf16 and HBM3 peaks), and for K1-K3 with dropout also
+their Philox calls' integer instructions, per SM pipe (IMAD on the FMA pipe and
 the other integer opcodes on the ALU pipe, 64 lanes each, and all of them at
 the SM's issue rate of 128 lanes) at the card's maximum SM clock. The last line is {"ok": true, "device":
 {...}}. No result is printed when a phase fails.
@@ -161,9 +167,12 @@ PEAK_BYTES_PER_S = 3.35e12
 # (nvidia-smi) they bound K1's dropout bits.
 INT_PIPE_LANES_PER_SM = 64
 ISSUE_LANES_PER_SM = 128
-# the Hopper forward's kernel template (csrc/flash_fwd_hopper.cuh), whose
-# instances must issue wgmma (HGMMA) and TMA loads (UTMALDG) and spill nothing
-HOPPER_KERNEL = "flash_fwd_tma_wgmma"
+# the Hopper kernel templates (csrc/flash_fwd_hopper.cuh: K1 and the probes;
+# csrc/flash_bwd_hopper.cuh: K2 and K3), whose instances must issue wgmma
+# (HGMMA) and TMA loads (UTMALDG) and spill nothing: 6 of K1, 4 probes, and
+# 4 each of K2 and K3 (d 64 and 128, with and without dropout)
+HOPPER_FWD = "flash_fwd_tma_wgmma"
+HOPPER_KERNELS = {HOPPER_FWD: 10, "flash_bwd_dq_tma_wgmma": 4, "flash_bwd_dkv_tma_wgmma": 4}
 # bench.py:199-210, the 117M train geometry
 BENCH_VARS = ("land_sea_mask", "orography", "lattitude", "landcover",
               "total_precipitation_24hr", "2m_temperature_min", "2m_temperature_max")
@@ -477,10 +486,48 @@ def time_fused_mlp(gen, bounds, libs):
     return timed
 
 
+def check_backward(q, k, v, o, lse, do, mult, rate, seed, case):
+    """dq, dk and dv of flash_attention_bwd against autograd of the plain
+    forward under the same multiplier (fp32: atol=rtol GRAD_FP32_TOL; bf16:
+    atol GRAD_BF16_REL x the largest value of the gradient, or of the case's
+    gradients where that one is identically zero, rtol GRAD_BF16_REL), and
+    two runs bit-equal. Returns ({name: max abs error}, a line to print)."""
+    from orbit2_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_reference
+
+    dtype, d = q.dtype, q.shape[-1]
+    got = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, rate, seed)
+    again = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, rate, seed)
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    flash_attention_reference(qf, kf, vf, None, mult)[0].backward(do.float())
+    torch.cuda.synchronize()
+    err, line = {}, []
+    refs = (qf.grad, kf.grad, vf.grad)
+    for name, g, want, g2 in zip(("dq", "dk", "dv"), got, refs, again):
+        check(g.dtype == dtype, f"{name} is {g.dtype}, want {dtype}")
+        scale = want.abs().max().item()
+        if scale == 0.0:
+            # an identically zero gradient (dq at N_k = 1: a softmax over one
+            # key has none), where the kernel leaves the rounding of
+            # dp - delta: held against the case's largest gradient
+            scale = max(r.abs().max().item() for r in refs)
+        if dtype == torch.float32:
+            atol = rtol = GRAD_FP32_TOL
+        else:
+            atol, rtol = GRAD_BF16_REL * scale, GRAD_BF16_REL
+        diff = (g.float() - want).abs()
+        err[name] = diff.max().item()
+        check(bool((diff <= atol + rtol * want.abs()).all()),
+              f"{name} kernel disagrees with plain at {case}")
+        check(torch.equal(g, g2), f"{name}: two backward runs differ at {case}")
+        line.append(f"max|d{name}| {err[name]:.3e} (max|{name}| {scale:.3e})")
+    return err, "  ".join(line) + "; bit-equal over two runs"
+
+
 def sass_check(libraries):
-    """cuobjdump -sass of the libraries: every instance of HOPPER_KERNEL must
-    hold HGMMA and UTMALDG and no local-memory access (STL/LDL). Returns
-    {instance name: {opcode: static count}}."""
+    """cuobjdump -sass of the libraries: every instance of HOPPER_KERNELS
+    must hold HGMMA and UTMALDG and no local-memory access (STL/LDL), and
+    each template must have its count of instances. Returns {instance name:
+    {opcode: static count}}."""
     import re
 
     from orbit2_tpu_torch.ops._nvcc import _nvcc
@@ -492,7 +539,7 @@ def sass_check(libraries):
                               text=True, check=True).stdout
         for section in sass.split("Function : ")[1:]:
             name = section.split("\n", 1)[0].strip()
-            if HOPPER_KERNEL not in name:
+            if not any(kernel in name for kernel in HOPPER_KERNELS):
                 continue
             ops = {}
             for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", section):
@@ -501,6 +548,9 @@ def sass_check(libraries):
             check(ops.get("HGMMA", 0) > 0 and ops.get("UTMALDG", 0) > 0,
                   f"{name}: no HGMMA or UTMALDG in its SASS")
             check(not ops.get("STL") and not ops.get("LDL"), f"{name}: local-memory spill")
+    for kernel, want in HOPPER_KERNELS.items():
+        have = sum(kernel in name for name in found)
+        check(have == want, f"{have} instances of {kernel}, want {want}")
     return found
 
 
@@ -511,7 +561,7 @@ def philox_ops_per_call(found):
     shuffles), as (on the FMA pipe: IMAD, on the ALU pipe: the others)."""
     def instance(dropout):
         return next(ops for name, ops in found.items()
-                    if "ILi64ELi0ELb" + ("1" if dropout else "0") in name)
+                    if HOPPER_FWD in name and "ILi64ELi0ELb" + ("1" if dropout else "0") in name)
 
     def integer(ops, fma_pipe):
         return sum(n for op, n in ops.items()
@@ -614,6 +664,41 @@ def k1_rows(gen, seed, timed, libs, bounds, smi):
               f"bounds: tensor cores and bytes {bounds[('fwd', shape)][0]:.4f} "
               f"({bounds[('fwd', shape)][1]}), Philox integer {bounds[('philox', shape)]:.4f} "
               f"({b * h * n_q * n_k / 4 / 1e6:.1f} M calls); gpu: {smi}")
+
+
+def bwd_rows(gen, seed, timed, libs, bounds, smi):
+    """K2's and K3's rows at each SHAPES case, bf16, on contiguous (aligned)
+    operands, so that no copy kernel runs: the event times (phase 6), each
+    kernel's time alone with and without dropout, SDPA's whole backward (flash,
+    dropout DROP) and the bounds, the tensor cores' (or bytes') and with
+    dropout the Philox calls'."""
+    from orbit2_tpu_torch.ops.flash_attention import (
+        FLASH_BWD_DKV, FLASH_BWD_DQ, attention_delta, flash_attention_fwd)
+
+    for shape in SHAPES:
+        b, n_q, n_k, h, d = shape
+        q, k, v = make_qkv(*shape, torch.bfloat16, gen)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        alone = {}
+        for rate in (0.0, DROP):
+            o, lse = flash_attention_fwd(q, k, v, None, rate, seed)
+            delta = attention_delta(o, do)
+            for name, kern in (("dq", FLASH_BWD_DQ), ("dkv", FLASH_BWD_DKV)):
+                alone[(name, rate)] = kernel_ms(
+                    lambda: kern(q, k, v, do, lse, delta, d ** -0.5, rate, seed))
+        ev = {name: timed[(name, torch.bfloat16, shape, DROP)][0] for name in ("dq", "dkv")}
+        both = alone[("dq", DROP)] + alone[("dkv", DROP)]
+        print(f"  K2/K3 bf16 B{b} Nq{n_q} Nk{n_k} H{h} d{d}: kernel alone dq "
+              f"{alone[('dq', 0.0)]:.4f} / drop {alone[('dq', DROP)]:.4f} ms, dk/dv "
+              f"{alone[('dkv', 0.0)]:.4f} / drop {alone[('dkv', DROP)]:.4f} ms, with dropout "
+              f"together {both:.4f} ms (events dq {ev['dq']:.4f}, dk/dv {ev['dkv']:.4f}); SDPA "
+              f"(flash) whole backward, drop {libs[('bwd', shape)]:.4f} ms "
+              f"({both / libs[('bwd', shape)]:.2f}x); bounds: tensor cores and bytes dq "
+              f"{bounds[('dq', shape)][0]:.4f} ({bounds[('dq', shape)][1]}), dk/dv "
+              f"{bounds[('dkv', shape)][0]:.4f} ({bounds[('dkv', shape)][1]}), Philox integer "
+              f"{bounds[('philox', shape)]:.4f} each; gpu: {smi}")
+        del q, k, v, do
+        torch.cuda.empty_cache()
 
 
 def cuda_kernel_names(fn):
@@ -821,9 +906,9 @@ def main():
         sys.exit(2)
     from orbit2_tpu_torch.ops.dropout import FusedDropout, dropout_reference
     from orbit2_tpu_torch.ops.flash_attention import (
-        FLASH_BWD_DKV, FLASH_BWD_DQ, attention_delta, attention_flops, attention_mult,
+        FLASH_BWD_DKV, FLASH_BWD_DQ, HEAD_DIMS, attention_delta, attention_flops, attention_mult,
         flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd,
-        flash_attention_reference)
+        flash_attention_reference, tile_edge_lengths)
     from orbit2_tpu_torch.ops.kernel_prng import keep_mult
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -846,8 +931,6 @@ def main():
             print(f"  {lib.source.name} built in {lib.build_seconds:.2f} s ({lib.path().name})")
     print(f"  all built in {time.perf_counter() - t0:.2f} s (wall)")
     hopper = sass_check(libraries.values())
-    check(len(hopper) == 10, f"{len(hopper)} instances of {HOPPER_KERNEL}, want 6 of K1 and 4 "
-          "probes")
     for name, ops in sorted(hopper.items()):
         print(f"  {name[:60]}: HGMMA {ops['HGMMA']}, UTMALDG {ops['UTMALDG']}, no STL/LDL")
     fma_per_call, alu_per_call = philox_ops_per_call(hopper)
@@ -890,31 +973,32 @@ def main():
                       f"flash forward disagrees with plain at {shape} {dtype} drop {rate}")
                 errs[("fwd", dtype, shape, rate)] = err_o
 
-                dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, rate,
-                                                 kernel_seed)
-                qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
-                flash_attention_reference(qf, kf, vf, None, mult)[0].backward(do.float())
-                torch.cuda.synchronize()
-                line = []
-                for name, got, want in (("dq", dq, qf.grad), ("dk", dk, kf.grad),
-                                        ("dv", dv, vf.grad)):
-                    check(got.dtype == dtype, f"{name} is {got.dtype}, want {dtype}")
-                    scale = want.abs().max().item()
-                    if dtype == torch.float32:
-                        atol = rtol = GRAD_FP32_TOL
-                    else:
-                        atol, rtol = GRAD_BF16_REL * scale, GRAD_BF16_REL
-                    diff = (got.float() - want).abs()
-                    err = diff.max().item()
-                    ok = bool((diff <= atol + rtol * want.abs()).all())
-                    line.append(f"max|d{name}| {err:.3e} (max|{name}| {scale:.3e})")
-                    check(ok, f"{name} kernel disagrees with plain at {shape} {dtype} drop {rate}")
-                    errs[(name, dtype, shape, rate)] = err
-                print(f"  bwd {str(dtype)[6:]:8s} drop {rate:g} B{b} Nq{n_q} Nk{n_k} H{h} d{d}: "
-                      + "  ".join(line))
-                del mult, qf, kf, vf
+                case = f"{str(dtype)[6:]:8s} drop {rate:g} B{b} Nq{n_q} Nk{n_k} H{h} d{d}"
+                err, line = check_backward(q, k, v, o, lse, do, mult, rate, kernel_seed, case)
+                print(f"  bwd {case}: {line}")
+                for name in ("dq", "dk", "dv"):
+                    errs[(name, dtype, shape, rate)] = err[name]
+                del mult
             del q, k, v, do
     torch.cuda.empty_cache()
+    # the bf16 backward at its tile edges: N_q rising against N_k falling
+    for d in HEAD_DIMS:
+        lengths = tile_edge_lengths(d)
+        worst = {}
+        for n_q, n_k in zip(lengths, reversed(lengths)):
+            q, k, v = make_qkv(1, n_q, n_k, 2, d, torch.bfloat16, gen)
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+            for rate in (0.0, DROP):
+                mult = attention_mult(q, k, rate, kernel_seed)
+                o, lse = flash_attention_fwd(q, k, v, None, rate, kernel_seed)
+                case = f"bf16 drop {rate:g} B1 Nq{n_q} Nk{n_k} H2 d{d}"
+                err, _ = check_backward(q, k, v, o, lse, do, mult, rate, kernel_seed, case)
+                for name, e in err.items():
+                    worst[name] = max(worst.get(name, 0.0), e)
+        print(f"  bwd tile edges bf16 d{d}, (N_q, N_k) in {list(zip(lengths, reversed(lengths)))}, "
+              f"dropout 0 and {DROP:g}: worst " + "  ".join(f"max|d{k}| {v:.3e}"
+                                                          for k, v in worst.items())
+              + "; bit-equal over two runs")
     for dtype in (torch.bfloat16, torch.float32):
         for r, c in DROPOUT_SHAPES:
             x = torch.randn(r, c, generator=gen, device="cuda").to(dtype).requires_grad_()
@@ -1202,8 +1286,10 @@ def main():
                     # with dropout K1 also draws one Philox call per 4 scores
                     philox = b * h * n_q * n_k / 4 * call_s * 1e3
                     bounds[("philox", shape)] = philox
-                    bounds[("fwd_drop", shape)] = max(bounds[("fwd", shape)],
-                                                      (philox, "operations"))
+                    # and so do K2 and K3, each regenerating the forward's mask
+                    for op in ("fwd", "dq", "dkv"):
+                        bounds[(op + "_drop", shape)] = max(bounds[(op, shape)],
+                                                            (philox, "operations"))
                 timed[("fwd", dtype, shape, 0.0)] = (kern, plain)
                 timed[("fwd", dtype, shape, DROP)] = (kern_drop, plain_drop)
                 timed[("bwd", dtype, shape, DROP)] = (bwd, bwd_plain)
@@ -1285,6 +1371,7 @@ def main():
 
     # after the steps: a profiler session may slow the launches that follow it
     k1_rows(gen, kernel_seed, timed, libs, bounds, smi)
+    bwd_rows(gen, kernel_seed, timed, libs, bounds, smi)
 
     slice_shape = SHAPES[0]
     mlp_shape = MLP_SHAPES[0]
@@ -1314,10 +1401,10 @@ def main():
         # the library call of K2 and K3 is SDPA's whole backward (dq, dk and dv)
         entry("flash_attn_bwd_dq", "flash_attn_bwd.cu", "orbit2_tpu/ops/flash_attention.py:287",
               errs[("dq", bf16, slice_shape, DROP)], timed[("dq", bf16, slice_shape, DROP)],
-              bounds[("dq", slice_shape)], libs[("bwd", slice_shape)]),
+              bounds[("dq_drop", slice_shape)], libs[("bwd", slice_shape)]),
         entry("flash_attn_bwd_dkv", "flash_attn_bwd.cu", "orbit2_tpu/ops/flash_attention.py:328",
               max(errs[("dk", bf16, slice_shape, DROP)], errs[("dv", bf16, slice_shape, DROP)]),
-              timed[("dkv", bf16, slice_shape, DROP)], bounds[("dkv", slice_shape)],
+              timed[("dkv", bf16, slice_shape, DROP)], bounds[("dkv_drop", slice_shape)],
               libs[("bwd", slice_shape)]),
         entry("fused_dropout", "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39",
               errs[("fused_dropout",)], timed[("fused_dropout", bf16, drop_shape)],

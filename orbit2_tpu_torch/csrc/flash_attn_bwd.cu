@@ -1,5 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), non-causal: two kernels, as
-// in FlashAttention-2 and the TPU package.
+// Flash-attention backward, non-causal: two kernels, as in FlashAttention-2
+// and the TPU package.
 //
 // Replaces the Pallas TPU kernels `_dq_kernel` and `_dkv_kernel`
 // (orbit2_tpu/ops/flash_attention.py:287-375, called from `_flash_bwd` at
@@ -11,38 +11,40 @@
 //   dq = sum_kv ds k,   ds = p * (dp * m - delta) * scale      (dq kernel)
 //   dv = sum_q (p * m)^T do,   dk = sum_q ds^T q               (dk/dv kernel)
 //
-// The dq kernel owns one (batch*head, 64-query tile) and streams k/v tiles;
-// the dk/dv kernel owns one (batch*head, 64-key tile) and streams q/do
-// tiles. Each block writes only its own rows: no atomics, deterministic.
-// Both recompute the scores exactly as the forward does (the same products
-// in the same order, the same fp32 scale by sm_scale * log2(e)), so p agrees
-// with the lse that normalized it, and both regenerate the forward's dropout
-// mask from (seed, batch*head, query, key) into a byte tile in shared memory
-// (csrc/kernel_prng.cuh), whatever their tiling. q/k/v/do are read through
-// their strides (last dim contiguous); ragged N_q and N_k are masked in the
-// kernel (zero-filled tile rows, p = 0 past N_k, rows past the end not
-// stored). dq/dk/dv are written contiguous [B, N, H, D] in the input dtype.
+// The dq kernel owns one (batch*head, query tile) and streams k/v tiles; the
+// dk/dv kernel owns one (batch*head, key tile) and streams q/do tiles. Each
+// block writes only its own rows: no atomics, so dq, dk and dv are bit-equal
+// from run to run. Both recompute the scores with the forward's scale
+// (sm_scale * log2(e) rounded to fp32) and regenerate the forward's dropout
+// mask from (seed, batch*head, query, key) (csrc/kernel_prng.cuh), whatever
+// their tiling. Ragged N_q and N_k are masked in the kernel (zero-filled tile
+// rows, p = 0 past N_k, rows past the end not stored). dq/dk/dv are written
+// contiguous [B, N, H, D] in the input dtype.
 //
-// What bounds it on the H100. The backward does 2.5x the forward's matrix
-// work (five products of N_q x N_k x D per head, against two), so it is bound
-// by the matrix units, like the forward:
-//   * bf16: mma.sync m16n8k16 (bf16 in, fp32 accumulate). Each warp holds
-//     16 rows of the score tile in registers, turns them into ds (dq) or
-//     p*m and ds (dk/dv) in place, and feeds them as the A operand of the
-//     next product, so neither p nor ds goes through shared memory. The B
-//     operands whose k index runs down a tile's rows (k for dq, q and do for
-//     dk/dv) are gathered as two 16-bit loads per register. The accumulators
-//     of a 64-column slice of D take 32 registers a product, so at D = 128
-//     and 256 the block runs D / 64 groups of 4 warps, each recomputing the
-//     scores and owning one slice of the output columns: that duplicates the
-//     score products (1.5x the matrix work at D = 128, 2.5x at 256) but keeps
-//     every accumulator in registers. wgmma with TMA-fed tiles is later work.
+// What bounds it on the H100: the backward does 2.5x the forward's matrix
+// work (five products of N_q x N_k x D per head, against two; seven as two
+// kernels, which both recompute s and dp), so the matrix units, and with
+// dropout the Philox calls (one per 4 scores in each kernel).
+//   * bf16, D = 64 and 128: flash_bwd_dq_tma_wgmma and
+//     flash_bwd_dkv_tma_wgmma of flash_bwd_hopper.cuh, K1's design (TMA
+//     ring, one producer warp, two consumer warpgroups on wgmma, dropout
+//     bits in registers). Its header says how they are laid out.
+//   * bf16, D = 256: mma.sync m16n8k16 (bf16 in, fp32 accumulate), whose
+//     dk and dv would take 256 registers a thread in the wgmma layout. Each
+//     warp holds 16 rows of the score tile in registers, turns them into ds
+//     (dq) or p*m and ds (dk/dv) in place, and feeds them as the A operand
+//     of the next product; the B operands whose k index runs down a tile's
+//     rows are gathered as two 16-bit loads per register. The block runs
+//     four groups of 4 warps, each recomputing the scores and owning 64 of
+//     the output columns (2.5x the matrix work); the mask goes through a
+//     byte tile in shared memory.
 //   * fp32: the tensor cores have no full-fp32 mode, so 8 threads per row do
 //     the products with fp32 FMAs on 32 x 32 tiles (four fp32 tiles of D = 256
 //     fit the 227 KB of shared memory at that size); p and ds go through
 //     shared memory. Exact to fp32 rounding and bound by shared-memory
 //     bandwidth.
 
+#include "flash_bwd_hopper.cuh"
 #include "flash_common.cuh"
 
 namespace {
@@ -67,14 +69,17 @@ struct Args {
   int64_t batch;
   // element strides {b, n, h} of q, k, v and do
   int64_t sqb, sqn, sqh, skb, skn, skh, svb, svn, svh, sob, son, soh;
+  const int64_t* strides;  // the same twelve, for the TMA maps
   float scale;       // sm_scale
   float scale_log2;  // sm_scale * log2(e), as the forward rounds it
-  int vec;
   Dropout drop;
   cudaStream_t stream;
 };
 
-// ---- bf16: tensor cores (mma.sync m16n8k16) -------------------------------
+// ---- bf16 at D = 256: tensor cores (mma.sync m16n8k16) ---------------------
+// The wrapper's bf16 operands follow TMA's alignment rule
+// (ops/flash_attention.py::tma_operands), so every row starts 16-byte
+// aligned and the tiles load 8 elements at a time.
 
 constexpr int kBlock = 64;            // query and key tile rows
 constexpr int kKeepLd = kBlock + 4;   // byte row stride of the keep tile
@@ -161,10 +166,9 @@ __global__ void __launch_bounds__(Mma<D>::kThreads) dq_mma_kernel(Args a) {
   const bf16* kb = static_cast<const bf16*>(a.k) + b * a.skb + h * a.skh;
   const bf16* vb = static_cast<const bf16*>(a.v) + b * a.svb + h * a.svh;
   orbit2::load_bf16_rows<D, kBlock, L::kThreads>(
-      qs, L::kLd, static_cast<const bf16*>(a.q) + b * a.sqb + h * a.sqh, a.sqn, q0, a.n_q, a.vec);
+      qs, L::kLd, static_cast<const bf16*>(a.q) + b * a.sqb + h * a.sqh, a.sqn, q0, a.n_q);
   orbit2::load_bf16_rows<D, kBlock, L::kThreads>(
-      dos, L::kLd, static_cast<const bf16*>(a.dout) + b * a.sob + h * a.soh, a.son, q0, a.n_q,
-      a.vec);
+      dos, L::kLd, static_cast<const bf16*>(a.dout) + b * a.sob + h * a.soh, a.son, q0, a.n_q);
   float lse[2], delta[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -177,8 +181,8 @@ __global__ void __launch_bounds__(Mma<D>::kThreads) dq_mma_kernel(Args a) {
   zero(acc);
   for (int k0 = 0; k0 < a.n_k; k0 += kBlock) {
     __syncthreads();  // the previous tile's reads are done
-    orbit2::load_bf16_rows<D, kBlock, L::kThreads>(ks, L::kLd, kb, a.skn, k0, a.n_k, a.vec);
-    orbit2::load_bf16_rows<D, kBlock, L::kThreads>(vs, L::kLd, vb, a.svn, k0, a.n_k, a.vec);
+    orbit2::load_bf16_rows<D, kBlock, L::kThreads>(ks, L::kLd, kb, a.skn, k0, a.n_k);
+    orbit2::load_bf16_rows<D, kBlock, L::kThreads>(vs, L::kLd, vb, a.svn, k0, a.n_k);
     if constexpr (kDropout) {
       orbit2::fill_keep_tile<kBlock, kBlock, L::kThreads>(keep, kKeepLd, a.drop.seed, bh, q0, k0,
                                                           a.drop.threshold);
@@ -231,17 +235,17 @@ __global__ void __launch_bounds__(Mma<D>::kThreads) dkv_mma_kernel(Args a) {
   const bf16* qb = static_cast<const bf16*>(a.q) + b * a.sqb + h * a.sqh;
   const bf16* ob = static_cast<const bf16*>(a.dout) + b * a.sob + h * a.soh;
   orbit2::load_bf16_rows<D, kBlock, L::kThreads>(
-      ks, L::kLd, static_cast<const bf16*>(a.k) + b * a.skb + h * a.skh, a.skn, k0, a.n_k, a.vec);
+      ks, L::kLd, static_cast<const bf16*>(a.k) + b * a.skb + h * a.skh, a.skn, k0, a.n_k);
   orbit2::load_bf16_rows<D, kBlock, L::kThreads>(
-      vs, L::kLd, static_cast<const bf16*>(a.v) + b * a.svb + h * a.svh, a.svn, k0, a.n_k, a.vec);
+      vs, L::kLd, static_cast<const bf16*>(a.v) + b * a.svb + h * a.svh, a.svn, k0, a.n_k);
 
   float dk[kGroupCols / 8][4], dv[kGroupCols / 8][4];
   zero(dk);
   zero(dv);
   for (int q0 = 0; q0 < a.n_q; q0 += kBlock) {
     __syncthreads();  // the previous tile's reads are done
-    orbit2::load_bf16_rows<D, kBlock, L::kThreads>(qs, L::kLd, qb, a.sqn, q0, a.n_q, a.vec);
-    orbit2::load_bf16_rows<D, kBlock, L::kThreads>(dos, L::kLd, ob, a.son, q0, a.n_q, a.vec);
+    orbit2::load_bf16_rows<D, kBlock, L::kThreads>(qs, L::kLd, qb, a.sqn, q0, a.n_q);
+    orbit2::load_bf16_rows<D, kBlock, L::kThreads>(dos, L::kLd, ob, a.son, q0, a.n_q);
     for (int i = threadIdx.x; i < kBlock; i += L::kThreads) {
       const bool valid = q0 + i < a.n_q;
       lse_s[i] = valid ? a.lse[(int64_t)bh * a.n_q + q0 + i] : 0.f;
@@ -469,12 +473,23 @@ int launch_kernel(Kernel kernel, int rows, int block, int threads, size_t smem, 
   return (int)cudaGetLastError();
 }
 
+// dq (the dq kernel) or dk and dv (the dk/dv kernel) of the Hopper kernels
+orbit2::hopper::BwdParams hopper_params(const Args& a) {
+  return {static_cast<bf16*>(a.dq != nullptr ? a.dq : a.dk), static_cast<bf16*>(a.dv), a.lse,
+          a.delta, a.heads, a.n_q, a.n_k, a.scale, a.scale_log2, a.drop};
+}
+
 template <int D, bool kDropout>
 int launch_dq(int dtype, const Args& a) {
   if (dtype == 1) {
-    using L = Mma<D>;
-    return launch_kernel(dq_mma_kernel<D, kDropout>, a.n_q, kBlock, L::kThreads,
-                         4 * L::kTile + (kDropout ? L::kKeep : 0), a);
+    if constexpr (D != 256) {
+      return orbit2::hopper::launch_dq<D, kDropout>(a.q, a.k, a.v, a.dout, a.strides, a.batch,
+                                                    hopper_params(a), a.stream);
+    } else {
+      using L = Mma<D>;
+      return launch_kernel(dq_mma_kernel<D, kDropout>, a.n_q, kBlock, L::kThreads,
+                           4 * L::kTile + (kDropout ? L::kKeep : 0), a);
+    }
   }
   using L = Fma<D>;
   return launch_kernel(dq_fma_kernel<D, kDropout>, a.n_q, kFBlock, kFThreads,
@@ -484,10 +499,16 @@ int launch_dq(int dtype, const Args& a) {
 template <int D, bool kDropout>
 int launch_dkv(int dtype, const Args& a) {
   if (dtype == 1) {
-    using L = Mma<D>;
-    return launch_kernel(dkv_mma_kernel<D, kDropout>, a.n_k, kBlock, L::kThreads,
-                         4 * L::kTile + 2 * kBlock * sizeof(float) + (kDropout ? L::kKeep : 0),
-                         a);
+    if constexpr (D != 256) {
+      return orbit2::hopper::launch_dkv<D, kDropout>(a.q, a.k, a.v, a.dout, a.strides, a.batch,
+                                                     hopper_params(a), a.stream);
+    } else {
+      using L = Mma<D>;
+      return launch_kernel(dkv_mma_kernel<D, kDropout>, a.n_k, kBlock, L::kThreads,
+                           4 * L::kTile + 2 * kBlock * sizeof(float) +
+                               (kDropout ? L::kKeep : 0),
+                           a);
+    }
   }
   using L = Fma<D>;
   return launch_kernel(dkv_fma_kernel<D, kDropout>, a.n_k, kFBlock, kFThreads,
@@ -514,12 +535,12 @@ int dispatch(bool dkv, int dtype, int64_t head_dim, const Args& a, int dropout) 
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dq, void* dk, void* dv, int64_t batch, int64_t heads,
-               int64_t n_q, int64_t n_k, const int64_t* s, double sm_scale, int vec,
+               int64_t n_q, int64_t n_k, const int64_t* s, double sm_scale,
                uint64_t seed, uint32_t drop_threshold, float drop_scale, void* stream) {
   return Args{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
               dq, dk, dv, (int)heads, (int)n_q, (int)n_k, batch,
-              s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
-              (float)sm_scale, (float)(sm_scale * 1.4426950408889634), vec,
+              s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], s,
+              (float)sm_scale, (float)(sm_scale * 1.4426950408889634),
               Dropout{seed, drop_threshold, drop_scale}, static_cast<cudaStream_t>(stream)};
 }
 
@@ -528,19 +549,21 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout, co
 // Plain C entry points, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
 // strides: {b, n, h} element strides of q, k, v and do (12 values); lse and
 // delta are contiguous fp32 [B*H, N_q]; dq [B, N_q, H, D] and dk/dv
-// [B, N_k, H, D] are written contiguous. vec != 0 promises that every row of
-// q/k/v/do starts 16-byte aligned. dropout, seed, drop_threshold and
-// drop_scale are the forward's. Each returns 0 on success, a cudaError_t code
-// if the launch failed, or -1 for a dtype or head dim it has no instance for.
+// [B, N_k, H, D] are written contiguous. For bf16 the base pointers must be
+// 16-byte aligned and the strides multiples of 8 (TMA's rule; the wrapper
+// copies an operand that breaks it). dropout, seed, drop_threshold and
+// drop_scale are the forward's. Each returns 0 on success, a cudaError_t
+// code if the launch failed, -1 for a dtype or head dim it has no instance
+// for, or -2 when the driver refuses a bf16 operand's tensor map.
 extern "C" int orbit2_flash_attn_bwd_dq(int dtype, int64_t head_dim, const void* q,
                                         const void* k, const void* v, const void* dout,
                                         const void* lse, const void* delta, void* dq,
                                         int64_t batch, int64_t heads, int64_t n_q, int64_t n_k,
-                                        const int64_t* strides, double sm_scale, int vec,
+                                        const int64_t* strides, double sm_scale,
                                         int dropout, uint64_t seed, uint32_t drop_threshold,
                                         float drop_scale, void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, dq, nullptr, nullptr, batch, heads, n_q,
-                           n_k, strides, sm_scale, vec, seed, drop_threshold, drop_scale, stream);
+                           n_k, strides, sm_scale, seed, drop_threshold, drop_scale, stream);
   return dispatch(false, dtype, head_dim, a, dropout);
 }
 
@@ -548,11 +571,11 @@ extern "C" int orbit2_flash_attn_bwd_dkv(int dtype, int64_t head_dim, const void
                                          const void* k, const void* v, const void* dout,
                                          const void* lse, const void* delta, void* dk, void* dv,
                                          int64_t batch, int64_t heads, int64_t n_q, int64_t n_k,
-                                         const int64_t* strides, double sm_scale, int vec,
+                                         const int64_t* strides, double sm_scale,
                                          int dropout, uint64_t seed, uint32_t drop_threshold,
                                          float drop_scale, void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, nullptr, dk, dv, batch, heads, n_q, n_k,
-                           strides, sm_scale, vec, seed, drop_threshold, drop_scale, stream);
+                           strides, sm_scale, seed, drop_threshold, drop_scale, stream);
   return dispatch(true, dtype, head_dim, a, dropout);
 }
 

@@ -1,8 +1,9 @@
 // Pieces shared by the flash-attention kernels (flash_attn_fwd.cu,
-// flash_attn_bwd.cu, the Hopper forward of flash_fwd_hopper.cuh) and the
-// fused MLP: the bf16 mma.sync product, the fragment and tile loads, the
-// backward's score tile product, the dropout keep tile (the fp32 forward and
-// the backward) and the launch arguments.
+// flash_attn_bwd.cu, the Hopper kernels of flash_fwd_hopper.cuh and
+// flash_bwd_hopper.cuh) and the fused MLP: the bf16 mma.sync product, the
+// fragment and tile loads and the score tile product (the backward at
+// D = 256), the dropout keep tile (the fp32 kernels and the backward at
+// D = 256) and the launch arguments.
 
 #pragma once
 
@@ -46,27 +47,19 @@ __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Copies rows [row0, row0 + kRows) of one head (D bf16 each) into a
-// row-major shared tile, 8 elements per step (16-byte loads when `vec`),
+// Copies rows [row0, row0 + kRows) of one head (D bf16 each, every row
+// 16-byte aligned) into a row-major shared tile, 8 elements per step,
 // zero-filling rows at or past n_valid.
 template <int D, int kRows, int kThreads>
 __device__ __forceinline__ void load_bf16_rows(bf16* dst, int ld, const bf16* base,
-                                               int64_t row_stride, int row0, int n_valid,
-                                               bool vec) {
+                                               int64_t row_stride, int row0, int n_valid) {
   constexpr int kChunks = D / 8;
   for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
     const int r = idx / kChunks;
     const int c = (idx % kChunks) * 8;
     uint4 chunk = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < n_valid) {
-      const bf16* src = base + (int64_t)(row0 + r) * row_stride + c;
-      if (vec) {
-        chunk = *reinterpret_cast<const uint4*>(src);
-      } else {
-        bf16* vals = reinterpret_cast<bf16*>(&chunk);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) vals[i] = src[i];
-      }
+      chunk = *reinterpret_cast<const uint4*>(base + (int64_t)(row0 + r) * row_stride + c);
     }
     *reinterpret_cast<uint4*>(dst + r * ld + c) = chunk;
   }

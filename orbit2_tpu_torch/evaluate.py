@@ -57,12 +57,13 @@ def check_scope(cfg: Config) -> None:
 
 
 class Evaluator:
-    """Builds the data module and model of `config` on `device`; `test()`
+    """Builds the data module and model of `config` on `device` (the card
+    unless the caller asks for "cpu"); `test()`
     evaluates the test split. `state_dict` (reference layout, e.g. from
     training/checkpoint.py::state_dict_from_jax_params) is loaded strictly;
     without one the weights are drawn from `config.trainer.seed`."""
 
-    def __init__(self, config: Config, device="cpu",
+    def __init__(self, config: Config, device="cuda",
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  data_key: Optional[str] = None):
         self.cfg = c = config.validate()

@@ -44,13 +44,6 @@ def _strides(*tensors):
     return (ctypes.c_int64 * (3 * len(tensors)))(*(s for t in tensors for s in t.stride()[:3]))
 
 
-def _vec(*tensors) -> bool:
-    """Every row 16-byte aligned: the backward's bf16 tiles load 8 elements at
-    a time."""
-    return all(t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
-               for t in tensors)
-
-
 def tma_layout(t: torch.Tensor) -> Tuple[Tuple[int, ...], Tuple[int, ...], bool]:
     """How the bf16 forward's TMA map sees a [B, N, H, D] operand: (its dims
     innermost first (D, H, N, B), the byte strides of H, N and B, whether the
@@ -87,6 +80,17 @@ def tma_operands(*tensors):
     return (*out, (ctypes.c_int64 * len(strides))(*strides))
 
 
+def kernel_operands(*tensors):
+    """The operands as the flash kernels read them, followed by their element
+    strides {b, n, h}: the bf16 kernels read by TMA, so a bf16 operand that
+    breaks TMA's alignment rule (a view off 16-byte alignment, a strided `do`
+    from autograd) goes in as a contiguous copy (tma_operands); fp32 ones go
+    in as they are, read through their strides."""
+    if tensors[0].dtype == torch.bfloat16:
+        return tma_operands(*tensors)
+    return (*tensors, _strides(*tensors))
+
+
 class FlashForwardKernel(NvccKernel):
     """csrc/flash_attn_fwd.cu: (o, lse) of q, k, v."""
 
@@ -98,13 +102,7 @@ class FlashForwardKernel(NvccKernel):
 
     def __call__(self, q, k, v, sm_scale: float, dropout_rate: float = 0.0, seed: int = 0):
         _check_cuda_inputs(q, k, v)
-        if q.dtype == torch.bfloat16:
-            # The bf16 kernel reads q, k and v by TMA. An operand that breaks
-            # TMA's alignment rule goes in as a contiguous copy, to the same
-            # kernel; the strides passed are the maps'.
-            q, k, v, strides = tma_operands(q, k, v)
-        else:
-            strides = _strides(q, k, v)
+        q, k, v, strides = kernel_operands(q, k, v)
         b, n_q, h, d = q.shape
         o = torch.empty((b, n_q, h, d), dtype=q.dtype, device=q.device)
         lse = torch.empty((b * h, n_q), dtype=torch.float32, device=q.device)
@@ -115,43 +113,64 @@ class FlashForwardKernel(NvccKernel):
 
 
 BWD_LIBRARY = NvccLibrary("flash_attn_bwd.cu")  # both backward kernels
+# The bf16 backward's tiles by head dim (csrc/flash_bwd_hopper.cuh at D 64
+# and 128, the mma.sync kernels of csrc/flash_attn_bwd.cu at 256): the dq
+# kernel's (query rows of a block, keys of a stage) and the dk/dv kernel's
+# (keys of a block, query rows of a stage).
+BWD_TILES = {64: {"dq": (128, 128), "dkv": (128, 64)},
+             128: {"dq": (128, 64), "dkv": (128, 64)},
+             256: {"dq": (64, 64), "dkv": (64, 64)}}
+
+
+def tile_edge_lengths(d: int) -> Tuple[int, ...]:
+    """Sequence lengths at the bf16 backward's tile edges for head dim d: 1,
+    each tile size of BWD_TILES[d] less one, itself and plus one, and one
+    past three of the largest tile."""
+    sizes = {n for pair in BWD_TILES[d].values() for n in pair}
+    lengths = {1, 3 * max(sizes) + 1}
+    for n in sizes:
+        lengths.update((n - 1, n, n + 1))
+    return tuple(sorted(lengths))
 _BWD_ARGS_HEAD = [ctypes.c_int, ctypes.c_int64] + [ctypes.c_void_p] * 6
-_BWD_ARGS_TAIL = ([ctypes.c_int64] * 4 + [ctypes.c_void_p, ctypes.c_double, ctypes.c_int]
-                  + _DROPOUT_ARGS)
+_BWD_ARGS_TAIL = [ctypes.c_int64] * 4 + [ctypes.c_void_p, ctypes.c_double] + _DROPOUT_ARGS
 
 
 class FlashBackwardDqKernel(NvccKernel):
-    """csrc/flash_attn_bwd.cu, dq kernel."""
+    """csrc/flash_attn_bwd.cu, dq kernel (bf16 at D 64 and 128:
+    csrc/flash_bwd_hopper.cuh)."""
 
     def __init__(self):
         super().__init__(BWD_LIBRARY, "orbit2_flash_attn_bwd_dq",
                          _BWD_ARGS_HEAD + [ctypes.c_void_p] + _BWD_ARGS_TAIL)
 
     def __call__(self, q, k, v, do, lse, delta, sm_scale, dropout_rate, seed):
+        q, k, v, do, strides = kernel_operands(q, k, v, do)
         b, n_q, h, d = q.shape
         dq = torch.empty((b, n_q, h, d), dtype=q.dtype, device=q.device)
         self.launch(q.device, _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                    dq.data_ptr(), b, h, n_q, k.shape[1], _strides(q, k, v, do),
-                    float(sm_scale), int(_vec(q, k, v, do)), *_dropout_args(dropout_rate, seed))
+                    dq.data_ptr(), b, h, n_q, k.shape[1], strides, float(sm_scale),
+                    *_dropout_args(dropout_rate, seed))
         return dq
 
 
 class FlashBackwardDkvKernel(NvccKernel):
-    """csrc/flash_attn_bwd.cu, dk/dv kernel."""
+    """csrc/flash_attn_bwd.cu, dk/dv kernel (bf16 at D 64 and 128:
+    csrc/flash_bwd_hopper.cuh)."""
 
     def __init__(self):
         super().__init__(BWD_LIBRARY, "orbit2_flash_attn_bwd_dkv",
                          _BWD_ARGS_HEAD + [ctypes.c_void_p] * 2 + _BWD_ARGS_TAIL)
 
     def __call__(self, q, k, v, do, lse, delta, sm_scale, dropout_rate, seed):
+        q, k, v, do, strides = kernel_operands(q, k, v, do)
         b, n_q, h, d = q.shape
         dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
         dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
         self.launch(q.device, _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                    dk.data_ptr(), dv.data_ptr(), b, h, n_q, k.shape[1], _strides(q, k, v, do),
-                    float(sm_scale), int(_vec(q, k, v, do)), *_dropout_args(dropout_rate, seed))
+                    dk.data_ptr(), dv.data_ptr(), b, h, n_q, k.shape[1], strides,
+                    float(sm_scale), *_dropout_args(dropout_rate, seed))
         return dk, dv
 
 
@@ -320,4 +339,5 @@ def attention_flops(b: int, n_q: int, n_k: int, h: int, d: int) -> int:
 __all__ = ["FLASH_FWD", "FLASH_BWD_DQ", "FLASH_BWD_DKV", "FlashAttention", "flash_attention",
            "flash_attention_fwd", "flash_attention_bwd", "flash_attention_reference",
            "flash_attention_bwd_reference", "attention_delta", "attention_mult",
-           "attention_flops", "tma_layout", "tma_operands", "LOG2E", "HEAD_DIMS"]
+           "attention_flops", "kernel_operands", "tile_edge_lengths", "tma_layout",
+           "tma_operands", "BWD_TILES", "LOG2E", "HEAD_DIMS"]

@@ -45,13 +45,14 @@ DROP_PATH_SEED_OFFSET = 18
 
 
 class Trainer:
-    """Builds the data modules, model and optimizer of `config` on `device`.
+    """Builds the data modules, model and optimizer of `config` on `device`
+    (the card unless the caller asks for "cpu").
     `state_dict` (reference layout, e.g. from
     training/checkpoint.py::state_dict_from_jax_params) is loaded strictly
     as the initial parameters; without one they are drawn from
     `config.trainer.seed`."""
 
-    def __init__(self, config: Config, device="cpu",
+    def __init__(self, config: Config, device="cuda",
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  checkpoint_dir: Optional[str] = None, run_validation: bool = False):
         self.cfg = c = config.validate()

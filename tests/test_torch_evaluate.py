@@ -118,3 +118,15 @@ def test_clip_replace_constant_matches_jax():
     want = np.asarray(jax_clip(jnp.asarray(y), jnp.asarray(yhat), out_vars))
     got = clip_replace_constant(torch.from_numpy(y), torch.from_numpy(yhat), out_vars)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("entry", ["evaluator", "trainer"])
+def test_entry_points_default_to_the_card(entry):
+    """Evaluator and Trainer run on the card unless the caller passes "cpu",
+    as the CLIs do (--device cuda)."""
+    import inspect
+
+    from orbit2_tpu_torch.training.trainer import Trainer as TorchTrainer
+
+    cls = {"evaluator": Evaluator, "trainer": TorchTrainer}[entry]
+    assert inspect.signature(cls.__init__).parameters["device"].default == "cuda"

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from orbit2_tpu_torch.ops.flash_attention import (
+    BWD_TILES,
     FLASH_BWD_DKV,
     FLASH_BWD_DQ,
     FLASH_FWD,
@@ -29,6 +30,8 @@ from orbit2_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_reference,
     flash_attention_fwd,
     flash_attention_reference,
+    kernel_operands,
+    tile_edge_lengths,
     tma_layout,
     tma_operands,
 )
@@ -302,6 +305,85 @@ def test_tma_operands_of_the_probes_layout(offset):
     torch.testing.assert_close(got[:, :, 0], q, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("case", ["bf16-aligned", "bf16-unaligned", "bf16-strided-do", "fp32"])
+def test_kernel_operands(case):
+    """The backward's operand rule: bf16 operands go in by TMA, as they are
+    where TMA's rule allows (the packed qkv views, a strided `do` whose rows
+    are 16-byte aligned) and as contiguous copies where it does not; fp32
+    ones go in as they are, with their own element strides."""
+    b, n, h, d = 2, 70, 3, 64
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    offset = 1 if case == "bf16-unaligned" else 0
+    flat = torch.randn(b * n * 3 * h * d + 16, generator=torch.Generator().manual_seed(0)).to(dtype)
+    base = flat[(-flat.data_ptr() % 16) // flat.element_size() + offset:]
+    q, k, v = base[:b * n * 3 * h * d].view(b, n, 3, h, d).unbind(2)
+    wide = torch.randn(b, n, h, 2 * d).to(dtype)
+    do = wide[..., :d] if case == "bf16-strided-do" else torch.randn(b, n, h, d).to(dtype)
+    *got, strides = kernel_operands(q, k, v, do)
+    copied = [g.data_ptr() != t.data_ptr() for g, t in zip(got, (q, k, v, do))]
+    assert copied == [case == "bf16-unaligned"] * 3 + [False]
+    for g, t in zip(got, (q, k, v, do)):
+        torch.testing.assert_close(g, t, atol=0, rtol=0)
+    want = [st for g in got for st in g.stride()[:3]]
+    assert list(strides) == want
+    if dtype == torch.bfloat16:
+        assert all(g.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in g.stride()[:3])
+                   for g in got)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_tile_edge_lengths(d):
+    """The backward's tile-edge lengths: 1, each tile size of the plan less
+    one, itself and plus one, and one past three of the largest tile."""
+    sizes = {n for pair in BWD_TILES[d].values() for n in pair}
+    want = {1, 3 * max(sizes) + 1} | {n + e for n in sizes for e in (-1, 0, 1)}
+    assert tile_edge_lengths(d) == tuple(sorted(want))
+    assert {64, 63, 65, 1} <= set(tile_edge_lengths(d))
+
+
+def loss_grads(q, k, v, fn):
+    """Gradients of sum(fn(q, k, v) ** 2), the JAX tests' loss."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    fn(q, k, v).float().square().sum().backward()
+    return q.grad, k.grad, v.grad
+
+
+def jax_loss_grads(q, k, v, **kw):
+    """The same gradients from the JAX package's flash_attention (Pallas
+    kernels in interpret mode)."""
+    import jax
+    import jax.numpy as jnp
+
+    from orbit2_tpu.ops.flash_attention import flash_attention as jax_flash
+
+    loss = lambda a, b, c: jnp.sum(jax_flash(a, b, c, **kw) ** 2)
+    grads = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    return tuple(np.asarray(g) for g in grads)
+
+
+# the JAX package's gradient tests (tests/test_flash_attention.py:43, :59,
+# :186, :219): their shapes, loss and blocks
+JAX_GRAD_CASES = {
+    "match_sdpa": dict(b=1, n=256, h=2, d=32, seed=0, kw={}),
+    "padding": dict(b=1, n=160, h=1, d=32, seed=3, kw={}),
+    "multiblock": dict(b=1, n=512, h=2, d=32, seed=10, kw=dict(block_q=128, block_k=256)),
+    "large_head_dim": dict(b=1, n=256, h=2, d=256, seed=12, kw={}),
+}
+
+
+@pytest.mark.parametrize("case", list(JAX_GRAD_CASES))
+def test_gradients_match_jax_grad_tests(case):
+    """The port's autograd (the plain path on CPU tensors) against the JAX
+    package's Pallas backward on its own gradient tests' cases, at fp32
+    (atol=rtol 1e-4: both sum in fp32 in different orders)."""
+    c = JAX_GRAD_CASES[case]
+    q, k, v = make_qkv(c["b"], c["n"], c["n"], c["h"], c["d"], seed=c["seed"])
+    want = jax_loss_grads(q, k, v, **c["kw"])
+    got = loss_grads(*(torch.from_numpy(a) for a in (q, k, v)), flash_attention)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), w, atol=1e-4, rtol=1e-4, err_msg=name)
+
+
 # ---- on the card -------------------------------------------------------------
 
 @pytest.fixture
@@ -455,3 +537,107 @@ def test_backward_reads_strided_qkv_views(cuda):
     qf = qkv.detach().float().requires_grad_()
     flash_attention_reference(*qf.unbind(2), None, mult)[0].square().sum().backward()
     torch.testing.assert_close(got.float(), qf.grad, **grad_tol(torch.bfloat16, qf.grad))
+
+
+def bwd_case(dev, b, n_q, n_k, h, d, seed, dtype=torch.bfloat16):
+    """q, k, v and do on `dev`, made with numpy from `seed`."""
+    q, k, v = (torch.from_numpy(a).to(dev, dtype) for a in make_qkv(b, n_q, n_k, h, d, seed=seed))
+    do = np.random.default_rng(seed + 1).normal(size=q.shape).astype(np.float32)
+    return q, k, v, torch.from_numpy(do).to(dev, dtype)
+
+
+def check_bwd_on_card(q, k, v, do, rate, seed):
+    """flash_attention_bwd against autograd of the plain forward with the
+    same multiplier (grad_tol), and two runs bit-equal."""
+    d = q.shape[-1]
+    mult = attention_mult(q, k, rate, seed)
+    o, lse = flash_attention_fwd(q, k, v, None, rate, seed)
+    got = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, rate, seed)
+    again = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, rate, seed)
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    flash_attention_reference(qf, kf, vf, None, mult)[0].backward(do.float())
+    refs = (qf.grad, kf.grad, vf.grad)
+    for name, a, w, a2 in zip(("dq", "dk", "dv"), got, refs, again):
+        # an identically zero gradient (dq at N_k = 1: a softmax over one key
+        # has none) is held against the case's largest gradient
+        scale = (w,) if w.abs().max() > 0 else refs
+        torch.testing.assert_close(a.float(), w, **grad_tol(q.dtype, *scale), msg=name)
+        assert torch.equal(a, a2), f"{name}: two runs differ"
+
+
+def edge_pairs(d):
+    """(N_q, N_k) at the backward's tile edges: N_q rising against N_k falling."""
+    lengths = tile_edge_lengths(d)
+    return list(zip(lengths, reversed(lengths)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["nodrop", "drop"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_backward_tile_edges_on_card(cuda, rate, d):
+    """The bf16 dq and dk/dv kernels at N_q and N_k of 1, each tile size less
+    one, itself and plus one, and past three tiles, with and without dropout
+    (the forward's mask), at an odd B*H."""
+    for n_q, n_k in edge_pairs(d):
+        q, k, v, do = bwd_case(cuda, 1, n_q, n_k, 3, d, seed=n_q + 7 * n_k)
+        check_bwd_on_card(q, k, v, do, rate, 2 ** 36 + n_q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_backward_reads_a_strided_do(cuda, offset):
+    """`do` as a strided view (autograd may hand one over): its rows 16-byte
+    aligned, it goes in with no copy; shifted by one element, as a copy."""
+    q, k, v, _ = bwd_case(cuda, 2, 130, 200, 4, 64, seed=21)
+    wide = torch.randn(2 * 130 * 4 * 128 + offset, generator=torch.Generator().manual_seed(3))
+    do = wide.to(cuda, torch.bfloat16)[offset:].view(2, 130, 4, 128)[..., 32:96]
+    assert not do.is_contiguous()
+    check_bwd_on_card(q, k, v, do, 0.1, 2 ** 33 + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_backward_reads_packed_qkv_views(cuda, offset, d):
+    """The q, k and v views of a packed [B, N, 3, H, D] projection through
+    tma_operands: as they are when aligned, as contiguous copies when the
+    whole projection is shifted off 16-byte alignment."""
+    b, n, h = 2, 150, 4
+    g = torch.Generator().manual_seed(d + offset)
+    flat = torch.randn(b * n * 3 * h * d + offset, generator=g).to(cuda, torch.bfloat16)
+    q, k, v = flat[offset:].view(b, n, 3, h, d).unbind(2)
+    do = torch.randn(b, n, h, d, generator=g).to(cuda, torch.bfloat16)
+    check_bwd_on_card(q, k, v, do, 0.1, 2 ** 34 + d)
+
+
+@pytest.mark.cuda
+def test_backward_launches_on_a_second_device(cuda):
+    """The backward kernels raise their shared-memory limit in each device's
+    context: after launches on the first card, launches on the second work."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        for d in (64, 128):
+            check_bwd_on_card(*bwd_case(dev, 2, 200, 200, 4, d, seed=d), 0.1, 2 ** 32 + d)
+
+
+# the JAX gradient tests' cases on the card, at the kernels' smallest head
+# dim where the JAX test takes 32
+CARD_GRAD_CASES = {name: dict(c, d=max(c["d"], 64)) for name, c in JAX_GRAD_CASES.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case", list(CARD_GRAD_CASES))
+def test_gradients_of_jax_grad_tests_on_card(cuda, dtype, case):
+    """The JAX package's gradient tests (sum o^2 through the flash
+    attention) on the card: the kernels against autograd of the plain
+    forward on the same inputs (grad_tol)."""
+    c = CARD_GRAD_CASES[case]
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in make_qkv(c["b"], c["n"], c["n"], c["h"], c["d"], seed=c["seed"]))
+    got = loss_grads(q, k, v, flash_attention)
+    want = loss_grads(q.float(), k.float(), v.float(),
+                      lambda a, b, c_: flash_attention_reference(a, b, c_)[0])
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), w, **grad_tol(dtype, w), msg=name)

@@ -11,7 +11,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
                kernels' instances (K1 bf16, the four probes, and the bf16 dq
                and dk/dv kernels at d 64 and 128): each must issue HGMMA and
                UTMALDG and touch no local memory; the integer instructions of
-               one Philox call, from K1's SASS
+               one Philox call and of a dropped element, per pipe, from the
+               SASS of K1's, K2's and K3's d64 dropout instances
   3. kernels — each kernel against its plain PyTorch version on the card:
                the flash forward at SHAPES, bf16 and fp32, dropout 0 and 0.1;
                the dq and dk/dv kernels against autograd of the plain forward
@@ -53,7 +54,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
   6. times   — kernel vs plain (CUDA events, median of 20 after warm-up; K1,
                K2 and K3 also by the profiler's kernel time alone, beside SDPA
                and their two bounds, tensor cores and their dropout's Philox
-               calls), each
+               calls; K5 also by its kernel time alone beside F.dropout's,
+               its bytes bound and its host time a call), each
                kernel also against the one PyTorch call that computes its
                function where there is one (SDPA pinned to its flash backend,
                F.dropout), the fused MLP against the unfused bf16 chain and
@@ -107,8 +109,9 @@ SHAPES = [
     (3, 1, 129, 5, 64),
 ]
 # the fused dropout's [rows, cols]: the slice's pos_drop/proj and Mlp hidden,
-# the bench geometry's Mlp hidden, and a ragged shape
-DROPOUT_SHAPES = [(8 * 512, 1024), (8 * 512, 4096), (8 * 2048, 4096), (21, 200)]
+# the bench geometry's Mlp hidden and its pos_drop, proj and Mlp output (34 of
+# K5's 50 launches a bench-geometry step), and a ragged shape
+DROPOUT_SHAPES = [(8 * 512, 1024), (8 * 512, 4096), (8 * 2048, 4096), (8 * 2048, 1024), (21, 200)]
 DROP = 0.1
 # bf16: both sides read the same bf16 inputs and accumulate in fp32; the kernel
 # rounds p to bf16 for the tensor-core value product and o once at the end.
@@ -164,15 +167,24 @@ PEAK_BYTES_PER_S = 3.35e12
 # pipe, the other integer opcodes (LOP3, IADD3, SHF, ISETP, ...) to the ALU
 # pipe, 64 lanes each, and the SM issues at most 4 warp instructions (128
 # lanes) a clock. With the SM count and the card's maximum SM clock
-# (nvidia-smi) they bound K1's dropout bits.
+# (nvidia-smi) they bound the dropout bits of K1, K2 and K3.
 INT_PIPE_LANES_PER_SM = 64
 ISSUE_LANES_PER_SM = 128
+# elements of one Philox call (csrc/kernel_prng.cuh: 8 columns, 16 bits each)
+ELEMENTS_PER_CALL = 8
 # the Hopper kernel templates (csrc/flash_fwd_hopper.cuh: K1 and the probes;
 # csrc/flash_bwd_hopper.cuh: K2 and K3), whose instances must issue wgmma
 # (HGMMA) and TMA loads (UTMALDG) and spill nothing: 6 of K1, 4 probes, and
 # 4 each of K2 and K3 (d 64 and 128, with and without dropout)
 HOPPER_FWD = "flash_fwd_tma_wgmma"
 HOPPER_KERNELS = {HOPPER_FWD: 10, "flash_bwd_dq_tma_wgmma": 4, "flash_bwd_dkv_tma_wgmma": 4}
+# the d64 instances whose dropout SASS is counted, and the Philox calls a lane
+# makes per shuffle of drop flags in their draw: K1's and K2's drop_bits make
+# BK / 16 calls and 2 exchanges of BK / 64 words, K3's drop_bits_t BQ / 16
+# calls and 3 exchanges (csrc/flash_fwd_hopper.cuh, flash_bwd_hopper.cuh)
+DROPOUT_SASS = {"fwd": (HOPPER_FWD, "ILi64ELi0ELb{}", 2.0),
+                "dq": ("flash_bwd_dq_tma_wgmma", "ILi64ELb{}", 2.0),
+                "dkv": ("flash_bwd_dkv_tma_wgmma", "ILi64ELb{}", 4.0 / 3.0)}
 # bench.py:199-210, the 117M train geometry
 BENCH_VARS = ("land_sea_mask", "orography", "lattitude", "landcover",
               "total_precipitation_24hr", "2m_temperature_min", "2m_temperature_max")
@@ -554,25 +566,38 @@ def sass_check(libraries):
     return found
 
 
-def philox_ops_per_call(found):
-    """Integer instructions a Philox call costs K1, from the SASS of its d64
-    instances: the integer opcodes the dropout instance adds, over the calls
-    its code holds (each inlined draw of keep bits makes 16 calls and 2
-    shuffles), as (on the FMA pipe: IMAD, on the ALU pipe: the others)."""
-    def instance(dropout):
-        return next(ops for name, ops in found.items()
-                    if HOPPER_FWD in name and "ILi64ELi0ELb" + ("1" if dropout else "0") in name)
+def dropout_ops(found):
+    """Integer instructions the dropout adds to the d64 instances of K1, K2
+    and K3, from their SASS: the integer opcodes of the dropout instance less
+    those of the same kernel without it, over the Philox calls its code holds
+    (DROPOUT_SASS: calls per extra shuffle). Returns {kernel: (IMAD on the
+    FMA pipe a call, others on the ALU pipe a call, calls)}; a dropped
+    element costs a call's instructions over ELEMENTS_PER_CALL. The drawing,
+    compare, flag exchange and the multiply-select where the flags are read
+    are all counted."""
+    def instance(kernel, pattern, dropout):
+        tag = pattern.format(int(dropout))
+        return next(ops for name, ops in found.items() if kernel in name and tag in name)
 
     def integer(ops, fma_pipe):
         return sum(n for op, n in ops.items()
                    if (op.startswith(("I", "LOP", "SEL", "VIADD", "R2P", "LEA", "PRMT"))
                        or op == "SHF") and op.startswith("IMAD") == fma_pipe)
 
-    drop, plain = instance(True), instance(False)
-    draws = (drop.get("SHFL", 0) - plain.get("SHFL", 0)) // 2
-    check(draws > 0, "cannot find the dropout bits in K1's SASS")
-    return tuple((integer(drop, pipe) - integer(plain, pipe)) / (16 * draws)
-                 for pipe in (True, False))
+    out = {}
+    for key, (kernel, pattern, calls_per_shfl) in DROPOUT_SASS.items():
+        drop, plain = instance(kernel, pattern, True), instance(kernel, pattern, False)
+        calls = (drop.get("SHFL", 0) - plain.get("SHFL", 0)) * calls_per_shfl
+        check(calls > 0, f"cannot find the dropout bits in {kernel}'s SASS")
+        out[key] = tuple((integer(drop, pipe) - integer(plain, pipe)) / calls
+                         for pipe in (True, False)) + (calls,)
+    return out
+
+
+def call_clocks(fma, alu):
+    """SM clocks a Philox call takes at best: its busier pipe, or the issue rate."""
+    return max(fma / INT_PIPE_LANES_PER_SM, alu / INT_PIPE_LANES_PER_SM,
+               (fma + alu) / ISSUE_LANES_PER_SM)
 
 
 def device_switch_us(n=20000):
@@ -627,23 +652,67 @@ def sdpa_ms(q, k, v, do):
     return out
 
 
-def kernel_ms(fn, iters=10):
+def kernel_ms(fn, iters=10, sessions=3):
     """Device time of one call of fn (which launches one kernel) by
     torch.profiler: the kernel's own time without the host's launch work,
     the mean over the kernels the session recorded of `iters` calls after
-    warm-up."""
+    warm-up. A session that records too few kernels (the profiler now and
+    then hands back an empty session) is run again, up to `sessions` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ran = [e.time_range.elapsed_us() for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ran = [e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if iters // 2 <= len(ran):
+            break
     check(iters // 2 <= len(ran) <= iters, f"profiled {len(ran)} kernels of {iters} calls")
     return sum(ran) / len(ran) / 1e3
+
+
+def host_us(fn, n=200):
+    """Host microseconds one call of fn takes to return (wrapper, ctypes and
+    launch), the device idle before the first: the mean over n calls, fewer
+    than the launch queue holds, so none waits for the device."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    per = (time.perf_counter() - t) / n * 1e6
+    torch.cuda.synchronize()
+    return per
+
+
+def dropout_rows(gen, seed, timed, libs, bounds, smi):
+    """K5's rows at each DROPOUT_SHAPES case in both dtypes: its kernel time
+    alone and F.dropout's (the profiler's), beside their event times (phase
+    6), the bytes bound and the host time a call."""
+    import torch.nn.functional as F
+
+    from orbit2_tpu_torch.ops.dropout import FusedDropout
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for r, c in DROPOUT_SHAPES:
+            x = torch.randn(r, c, generator=gen, device="cuda").to(dtype)
+            alone = kernel_ms(lambda: FusedDropout.apply(x, seed, DROP))
+            lib_alone = kernel_ms(lambda: F.dropout(x, DROP, training=True))
+            key = (dtype, (r, c))
+            timed[("fused_dropout_kernel",) + key] = alone
+            libs[("fused_dropout_kernel",) + key] = lib_alone
+            bound = bounds[("fused_dropout",) + key][0]
+            print(f"  K5 {str(dtype)[6:]:8s} [{r}, {c}]: kernel alone {alone:.4f} ms "
+                  f"({2 * nbytes(x) / alone / 1e6:.0f} GB/s, {bound / alone:.3f} of the bytes bound "
+                  f"{bound:.4f}), events {timed[('fused_dropout',) + key][0]:.4f}; F.dropout kernel "
+                  f"alone {lib_alone:.4f} ({alone / lib_alone:.2f}x), events "
+                  f"{libs[('fused_dropout',) + key]:.4f}; host "
+                  f"{timed[('fused_dropout_host_us',) + key]:.1f} us a call; gpu: {smi}")
+            del x
 
 
 def k1_rows(gen, seed, timed, libs, bounds, smi):
@@ -662,8 +731,8 @@ def k1_rows(gen, seed, timed, libs, bounds, smi):
               f"{ms[0.0][1]:.4f}), drop {ms[DROP][0]:.4f} ms (kernel alone {ms[DROP][1]:.4f}); "
               f"SDPA (flash) {libs[('fwd', shape, 0.0)]:.4f} / {libs[('fwd', shape, DROP)]:.4f}; "
               f"bounds: tensor cores and bytes {bounds[('fwd', shape)][0]:.4f} "
-              f"({bounds[('fwd', shape)][1]}), Philox integer {bounds[('philox', shape)]:.4f} "
-              f"({b * h * n_q * n_k / 4 / 1e6:.1f} M calls); gpu: {smi}")
+              f"({bounds[('fwd', shape)][1]}), Philox integer {bounds[('philox_fwd', shape)]:.4f} "
+              f"({b * h * n_q * n_k / ELEMENTS_PER_CALL / 1e6:.1f} M calls); gpu: {smi}")
 
 
 def bwd_rows(gen, seed, timed, libs, bounds, smi):
@@ -696,7 +765,8 @@ def bwd_rows(gen, seed, timed, libs, bounds, smi):
               f"({both / libs[('bwd', shape)]:.2f}x); bounds: tensor cores and bytes dq "
               f"{bounds[('dq', shape)][0]:.4f} ({bounds[('dq', shape)][1]}), dk/dv "
               f"{bounds[('dkv', shape)][0]:.4f} ({bounds[('dkv', shape)][1]}), Philox integer "
-              f"{bounds[('philox', shape)]:.4f} each; gpu: {smi}")
+              f"dq {bounds[('philox_dq', shape)]:.4f}, dk/dv {bounds[('philox_dkv', shape)]:.4f}; "
+              f"gpu: {smi}")
         del q, k, v, do
         torch.cuda.empty_cache()
 
@@ -909,7 +979,7 @@ def main():
         FLASH_BWD_DKV, FLASH_BWD_DQ, HEAD_DIMS, attention_delta, attention_flops, attention_mult,
         flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd,
         flash_attention_reference, tile_edge_lengths)
-    from orbit2_tpu_torch.ops.kernel_prng import keep_mult
+    from orbit2_tpu_torch.ops.kernel_prng import keep_mult, keep_threshold
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -933,18 +1003,18 @@ def main():
     hopper = sass_check(libraries.values())
     for name, ops in sorted(hopper.items()):
         print(f"  {name[:60]}: HGMMA {ops['HGMMA']}, UTMALDG {ops['UTMALDG']}, no STL/LDL")
-    fma_per_call, alu_per_call = philox_ops_per_call(hopper)
-    # SM clocks a Philox call takes at best: its busier pipe, or the issue rate
-    call_clocks = max(fma_per_call / INT_PIPE_LANES_PER_SM, alu_per_call / INT_PIPE_LANES_PER_SM,
-                      (fma_per_call + alu_per_call) / ISSUE_LANES_PER_SM)
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-    call_s = call_clocks / (sm_count * max_mhz * 1e6)  # per call, over the whole card
-    print(f"  K1's dropout: {fma_per_call + alu_per_call:.1f} integer instructions a Philox call "
-          f"(SASS), {fma_per_call:.1f} IMAD on the FMA pipe and {alu_per_call:.1f} on the ALU "
-          f"pipe: max({fma_per_call:.1f} / {INT_PIPE_LANES_PER_SM}, {alu_per_call:.1f} / "
-          f"{INT_PIPE_LANES_PER_SM}, {fma_per_call + alu_per_call:.1f} / {ISSUE_LANES_PER_SM}) = "
-          f"{call_clocks:.3f} SM clocks a call; {sm_count} SMs x {max_mhz:.0f} MHz = "
-          f"{1 / call_s / 1e12:.3f} T calls/s")
+    call_s = {}  # seconds a Philox call takes the whole card, per kernel
+    for key, (fma, alu, calls) in dropout_ops(hopper).items():
+        clocks = call_clocks(fma, alu)
+        call_s[key] = clocks / (sm_count * max_mhz * 1e6)
+        print(f"  {DROPOUT_SASS[key][0]} d64 dropout: {fma + alu:.1f} integer instructions a "
+              f"Philox call (SASS, {calls:g} calls in its code), {fma:.1f} IMAD on the FMA pipe "
+              f"and {alu:.1f} on the ALU pipe; a dropped element {(fma + alu) / ELEMENTS_PER_CALL:.2f}"
+              f" ({fma / ELEMENTS_PER_CALL:.2f} FMA, {alu / ELEMENTS_PER_CALL:.2f} ALU): "
+              f"max({fma:.1f} / {INT_PIPE_LANES_PER_SM}, {alu:.1f} / {INT_PIPE_LANES_PER_SM}, "
+              f"{fma + alu:.1f} / {ISSUE_LANES_PER_SM}) = {clocks:.3f} SM clocks a call; "
+              f"{sm_count} SMs x {max_mhz:.0f} MHz = {1 / call_s[key] / 1e12:.3f} T calls/s")
 
     # 3. kernels against their plain versions
     phase("kernels")
@@ -1012,7 +1082,8 @@ def main():
             print(f"  fused_dropout {str(dtype)[6:]:8s} [{r}, {c}]: fwd bit-equal {same_fwd}, "
                   f"bwd bit-equal {same_bwd}, kept {kept:.4f}")
             check(same_fwd and same_bwd, f"fused dropout differs from plain at [{r}, {c}] {dtype}")
-            check(abs(kept - (1 - DROP)) < 4 * math.sqrt(DROP * (1 - DROP) / (r * c)),
+            p_keep = (keep_threshold(DROP) + 1) / 2 ** 16  # within 2^-16 of 1 - DROP
+            check(abs(kept - p_keep) < 4 * math.sqrt(p_keep * (1 - p_keep) / (r * c)),
                   f"fused dropout kept {kept} of [{r}, {c}]")
     errs[("fused_dropout",)] = 0.0
     torch.cuda.synchronize()
@@ -1283,11 +1354,13 @@ def main():
                     libs[("fwd", shape, 0.0)] = lib["fwd"][0.0]
                     libs[("fwd", shape, DROP)] = lib["fwd"][DROP]
                     libs[("bwd", shape)] = lib["bwd"]
-                    # with dropout K1 also draws one Philox call per 4 scores
-                    philox = b * h * n_q * n_k / 4 * call_s * 1e3
-                    bounds[("philox", shape)] = philox
-                    # and so do K2 and K3, each regenerating the forward's mask
+                    # with dropout K1 also draws one Philox call per 8 scores, and so
+                    # do K2 and K3, each regenerating the forward's mask, at each
+                    # kernel's own cost a call
+                    calls = b * h * n_q * n_k / ELEMENTS_PER_CALL
                     for op in ("fwd", "dq", "dkv"):
+                        philox = calls * call_s[op] * 1e3
+                        bounds[("philox_" + op, shape)] = philox
                         bounds[(op + "_drop", shape)] = max(bounds[(op, shape)],
                                                             (philox, "operations"))
                 timed[("fwd", dtype, shape, 0.0)] = (kern, plain)
@@ -1314,9 +1387,12 @@ def main():
                 lib = best_ms(lambda: torch.nn.functional.dropout(x_, DROP, training=True))
                 libs[("fused_dropout", dtype, (r, c))] = lib
                 bounds[("fused_dropout", dtype, (r, c))] = roofline(0, 2 * nbytes(x_))
+                host = host_us(lambda: FusedDropout.apply(x_, kernel_seed, DROP))
+                timed[("fused_dropout_host_us", dtype, (r, c))] = host
                 print(f"  fused_dropout {str(dtype)[6:]:8s} [{r}, {c}]: {kern:.4f} ms "
                       f"({gbs:.0f} GB/s) plain {plain:.4f} ms (mask precomputed); F.dropout "
-                      f"{lib:.4f} ms; bound {bounds[('fused_dropout', dtype, (r, c))][0]:.4f} ms")
+                      f"{lib:.4f} ms; bound {bounds[('fused_dropout', dtype, (r, c))][0]:.4f} ms; "
+                      f"host {host:.1f} us a call (events, host work included)")
                 del x_, mult
         timed.update(time_fused_mlp(gen, bounds, libs))
         probe_timed = time_probes(probe_res, smi)
@@ -1372,6 +1448,7 @@ def main():
     # after the steps: a profiler session may slow the launches that follow it
     k1_rows(gen, kernel_seed, timed, libs, bounds, smi)
     bwd_rows(gen, kernel_seed, timed, libs, bounds, smi)
+    dropout_rows(gen, kernel_seed, timed, libs, bounds, smi)
 
     slice_shape = SHAPES[0]
     mlp_shape = MLP_SHAPES[0]

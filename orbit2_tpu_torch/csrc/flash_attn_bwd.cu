@@ -24,7 +24,7 @@
 // What bounds it on the H100: the backward does 2.5x the forward's matrix
 // work (five products of N_q x N_k x D per head, against two; seven as two
 // kernels, which both recompute s and dp), so the matrix units, and with
-// dropout the Philox calls (one per 4 scores in each kernel).
+// dropout the Philox calls (one per 8 scores in each kernel).
 //   * bf16, D = 64 and 128: flash_bwd_dq_tma_wgmma and
 //     flash_bwd_dkv_tma_wgmma of flash_bwd_hopper.cuh, K1's design (TMA
 //     ring, one producer warp, two consumer warpgroups on wgmma, dropout

@@ -31,7 +31,7 @@
 // the p of the value product is multiplied by the {0, 1/keep} mask of
 // csrc/kernel_prng.cuh at (seed, stream = batch*head, query, key), which the
 // backward kernels regenerate with their own tiling. The fp32 kernel fills a
-// byte tile of the mask in shared memory, one Philox call per 4 bytes.
+// byte tile of the mask in shared memory, one Philox call per 8 bytes.
 
 #include "flash_common.cuh"
 #include "flash_fwd_hopper.cuh"
@@ -221,7 +221,7 @@ int launch(int dtype, const Args& a, bool dropout) {
 // strides: {q_b, q_n, q_h, k_b, k_n, k_h, v_b, v_n, v_h} in elements; for
 // bf16 the base pointers must be 16-byte aligned and the strides multiples
 // of 8 (TMA's rule; the wrapper copies an operand that breaks it). dropout
-// != 0 drops attention probabilities: kept when the bits of (seed,
+// != 0 drops attention probabilities: kept when the 16 bits of (seed,
 // batch*head, query, key) are <= drop_threshold, then scaled by drop_scale.
 // Returns 0 on success, a cudaError_t code if the launch failed, -1 for a
 // dtype or head dim the kernel has no instance for, or -2 when the driver

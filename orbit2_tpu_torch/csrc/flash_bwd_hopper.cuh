@@ -17,7 +17,7 @@
 // head (s, dp, dq), K3 four (s^T, dp^T, dv, dk), against reading q, k, v
 // and do once (at (B8, N2048, H16, d64) 0.208 and 0.278 ms at 989 TFLOP/s);
 // with dropout each also regenerates the forward's mask, one 10-round
-// Philox call per 4 scores on the integer pipes, as K1 does.
+// Philox call per 8 scores on the integer pipes, as K1 does.
 //
 // Design. Both kernels have K1's shape: a block of three warpgroups, a
 // producer (24 registers a thread after setmaxnreg) of which one warp works,
@@ -28,7 +28,7 @@
 //     producer loads q and do once and streams the k and v tiles into a
 //     ring of stages behind full/empty mbarriers. A consumer warpgroup
 //     issues s = q k^T and dp = do v^T (wgmma, both operands K-major from
-//     shared memory), draws the dropout bits while they run (K1's keep_bits:
+//     shared memory), draws the dropout bits while they run (K1's drop_bits:
 //     the accumulator layout is the forward's), forms ds in registers,
 //     packs it to bf16 as the A operand of dq += ds k (wgmma RS form), with
 //     k read row-major through the transposed-B descriptor, as K1 reads v.
@@ -46,19 +46,20 @@
 //     next tile's beside the gradient products where the score
 //     accumulators leave too few registers for the Philox calls beside
 //     them (K3 at d 64), else the tile's own beside the score products.
-//   * K3's dropout bits (keep_bits_t): a Philox call covers 4 consecutive
-//     keys of one query, and consecutive keys are rows of s^T, held by lanes
-//     g, g+1, g+2, g+3 of one t. Each of those four lanes computes one of
-//     the four (query column, key quad) pairs they share, keeps its 4 bits,
-//     and two xor-shuffles of a word of such nibbles hand every lane all 16:
-//     one call per 4 scores, as in K1, and no keep tile.
+//   * K3's dropout bits (drop_bits_t): a Philox call covers 8 consecutive
+//     keys of one query, and consecutive keys are rows of s^T, held by the 8
+//     lanes g = 0..7 of one t. Those lanes share the 4 calls (2 query
+//     columns x 2 row halves) of each column group; each lane draws one
+//     call for half of the groups, and three exchanges of packed drop flags
+//     (lanes 4, 8 and 16 apart) hand every lane its own: one call per 8
+//     scores, as in K1, and no keep tile.
 //   * Rows past N (TMA's zero rows): K2 masks keys past N_k to p = 0; query
 //     rows past N_q and key rows past N_k are computed and not stored.
 //
 // Measured (PERF.md, chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): at
-// (B8, N2048, H16, d64) 0.38 ms (K2) and 0.52 ms (K3) of kernel time
-// without dropout, about half of their tensor-core bounds, and 0.89 and
-// 1.00 ms with dropout 0.1, where the Philox calls take ~0.5 ms of each.
+// (B8, N2048, H16, d64) 0.39 ms (K2) and 0.53 ms (K3) of kernel time
+// without dropout, about half of their tensor-core bounds, and 0.69 and
+// 0.79 ms with dropout 0.1, where the Philox calls take ~0.3 ms of each.
 //
 // Tiles and budgets (227 KB of shared memory and 64 K registers an SM; one
 // block an SM):
@@ -146,12 +147,12 @@ __device__ __forceinline__ void store_tile_rows(bf16* out, const float (&acc)[D 
 
 // K2: s (the scores of kv columns k0 ..) becomes ds = p (dp m - delta) scale,
 // with p = 0 past n_k, computed as p (dp (m scale) - delta_s): delta_s is
-// delta times scale, and m is 1 or the dropout multiplier of `keep`
-// (keep_bits' layout, as drop_scores reads it).
+// delta times scale, and m is 1 or the dropout multiplier of `dropped`
+// (drop_bits' layout, as drop_scores reads it).
 template <int BK, bool kDropout>
 __device__ __forceinline__ void dq_score_grads(float (&s)[BK / 2], const float (&dp)[BK / 2],
                                                const float (&lse)[2], const float (&delta_s)[2],
-                                               const uint32_t (&keep)[2][BK / 64], int k0, int t,
+                                               const uint32_t (&dropped)[BK / 64], int k0, int t,
                                                const BwdParams& prm) {
 #pragma unroll
   for (int e = 0; e < BK / 2; ++e) s[e] = s[e] * prm.scale_log2 - lse[(e >> 1) & 1];
@@ -160,45 +161,37 @@ __device__ __forceinline__ void dq_score_grads(float (&s)[BK / 2], const float (
 #pragma unroll
   for (int e = 0; e < BK / 2; ++e) {
     float m = kept;
-    if constexpr (kDropout) {
-      const int c = e / 4;
-      m = ((keep[(e >> 1) & 1][c / 8] >> (4 * (c % 8) + (e & 1))) & 1u) ? kept : 0.f;
-    }
+    if constexpr (kDropout) m = ((dropped[e / 32] >> (e % 32)) & 1u) ? 0.f : kept;
     s[e] = exp2_fast(s[e]) * (dp[e] * m - delta_s[(e >> 1) & 1]);
   }
 }
 
-// K3's dropout keep bits for the transposed tile: rows are the keys key_row
+// K3's dropout drop flags for the transposed tile: rows are the keys key_row
 // (= k0 + 64 wg + 16 warp + g) and key_row + 8, columns the queries
-// q0 + 8i + 2t + c. A Philox call covers keys 4j .. 4j + 3 of one query,
-// which lanes gg = g % 4 = 0..3 of one t hold as rows. Lane gg computes
-// the call of pair gg of the four (column c = gg % 2, row half r = gg / 2)
-// of each column group i, packs its 4 keep bits at nibble 4 gg of the
-// group's 16 bits (two groups a word), and two xor-shuffles (lanes 4 and 8
-// apart) give every lane of the quad all 16; each lane then shifts its own
-// bits (gg) down, so element e = 4i + 2r + c of the accumulator is kept when
-// bit 4 (e % 8) of keep[e / 8] is set, a shift known at compile time.
+// q0 + 8i + 2t + c. A Philox call covers keys 8j .. 8j + 7 of one query,
+// which the lanes g = 0..7 of one t hold as rows (word g / 2, half g % 2).
+// Lane g draws the call of query column c = g & 1, row half r = (g >> 1) & 1
+// for the column groups i of parity g >> 2 (BQ / 16 calls, packed 4 calls a
+// word), and three exchanges (lanes 4, 8 and 16 apart) transpose the flags:
+// element e = 4i + 2r + c of the accumulator is dropped when bit e % 32 of
+// dropped[e / 32] is set, a shift known at compile time.
 template <int BQ>
-__device__ __forceinline__ void keep_bits_t(uint32_t (&keep)[BQ / 16], int key_row, int q0, int g,
-                                            int t, int bh, const Dropout& drop) {
-  const int gg = g & 3;
-  const uint32_t quad = (uint32_t)((key_row - gg) / 4 + 2 * (gg >> 1));
-  const uint32_t col = (uint32_t)(q0 + 2 * t + (gg & 1));
+__device__ __forceinline__ void drop_bits_t(uint32_t (&dropped)[BQ / 64], int key_row, int q0,
+                                            int g, int t, int bh, const Dropout& drop) {
+  const uint32_t key8 = (uint32_t)((key_row - g) / 8 + ((g >> 1) & 1));
+  const uint32_t col = (uint32_t)(q0 + 8 * (g >> 2) + 2 * t + (g & 1));
+  const uint32_t addend = drop_addend(drop.threshold);
 #pragma unroll
-  for (int w = 0; w < BQ / 16; ++w) keep[w] = 0u;
+  for (int w = 0; w < BQ / 64; ++w) {
+    uint32_t acc = 0u;
 #pragma unroll
-  for (int i = 0; i < BQ / 8; ++i) {
-    const uint4 bits = dropout_bits4(drop.seed, (uint32_t)bh, col + 8 * i, quad);
-    const uint32_t th = drop.threshold;
-    const uint32_t nib = (uint32_t)(bits.x <= th) | ((uint32_t)(bits.y <= th) << 1) |
-                         ((uint32_t)(bits.z <= th) << 2) | ((uint32_t)(bits.w <= th) << 3);
-    keep[i / 2] |= nib << (16 * (i % 2) + 4 * gg);
-  }
-#pragma unroll
-  for (int w = 0; w < BQ / 16; ++w) {
-    keep[w] |= __shfl_xor_sync(0xffffffffu, keep[w], 4);
-    keep[w] |= __shfl_xor_sync(0xffffffffu, keep[w], 8);
-    keep[w] >>= gg;
+    for (int k = 3; k >= 0; --k) {  // call k of the word: column group 2 (4 w + k) + (g >> 2)
+      const uint32_t query = col + 16 * (4 * w + k);
+      acc = shift_in_drop8(acc, dropout_bits8(drop.seed, (uint32_t)bh, query, key8), addend);
+    }
+    acc = trade_flags<4, 1>(acc, g & 1);   // the query column, for the key's half
+    acc = trade_flags<8, 2>(acc, g & 2);   // the row half, for bit 0 of its word
+    dropped[w] = trade_flags<16, 4>(acc, g & 4);  // the group parity, for bit 1
   }
 }
 
@@ -207,7 +200,7 @@ __device__ __forceinline__ void keep_bits_t(uint32_t (&keep)[BQ / 16], int key_r
 // s^T becomes (p m)^T. `rows` is the stage's lse [BQ], then delta scale [BQ].
 template <int BQ, bool kDropout>
 __device__ __forceinline__ void dkv_score_grads(float (&st)[BQ / 2], float (&dpt)[BQ / 2],
-                                                const uint32_t (&keep)[BQ / 16],
+                                                const uint32_t (&dropped)[BQ / 64],
                                                 const float* rows, int t,
                                                 const BwdParams& prm) {
   const float* lse = rows;
@@ -217,7 +210,7 @@ __device__ __forceinline__ void dkv_score_grads(float (&st)[BQ / 2], float (&dpt
     const int col = 8 * (e / 4) + 2 * t + (e & 1);
     const float p = exp2_fast(st[e] * prm.scale_log2 - lse[col]);
     if constexpr (kDropout) {
-      const float m = ((keep[e / 8] >> (4 * (e & 7))) & 1u) ? prm.drop.scale : 0.f;
+      const float m = ((dropped[e / 32] >> (e % 32)) & 1u) ? 0.f : prm.drop.scale;
       dpt[e] = p * (dpt[e] * (m * prm.scale) - delta_s[col]);
       st[e] = p * m;
     } else {
@@ -309,7 +302,7 @@ flash_bwd_dq_tma_wgmma(const __grid_constant__ CUtensorMap q_map,
     float dp[BK / 2];
     float acc[D / 2];
     uint32_t ds[BK / 16][4];
-    uint32_t keep[2][BK / 64];  // kDropout: the tile's keep bits (keep_bits)
+    uint32_t dropped[BK / 64];  // kDropout: the tile's drop flags (drop_bits)
 #pragma unroll
     for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
 
@@ -322,11 +315,11 @@ flash_bwd_dq_tma_wgmma(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();
       issue_scores<D, BK>(s, q_rows, k_smem);
       issue_scores<D, BK>(dp, do_rows, k_smem + T::kKBytes);
-      if constexpr (kDropout) keep_bits<BK>(keep, row, i * BK, t, bh, prm.drop);
+      if constexpr (kDropout) drop_bits<BK>(dropped, row, i * BK, t, bh, prm.drop);
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
-      dq_score_grads<BK, kDropout>(s, dp, lse, delta_s, keep, i * BK, t, prm);
+      dq_score_grads<BK, kDropout>(s, dp, lse, delta_s, dropped, i * BK, t, prm);
       pack_p<BK>(ds, s);
       fence_regs(acc);
       fence_regs(ds);
@@ -435,7 +428,7 @@ flash_bwd_dkv_tma_wgmma(const __grid_constant__ CUtensorMap k_map,
     float dv[D / 2];
     uint32_t pf[BQ / 16][4];
     uint32_t dsf[BQ / 16][4];
-    uint32_t keep[BQ / 16];  // kDropout: the tile's keep bits (keep_bits_t)
+    uint32_t dropped[BQ / 64];  // kDropout: the tile's drop flags (drop_bits_t)
 #pragma unroll
     for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
 
@@ -449,11 +442,11 @@ flash_bwd_dkv_tma_wgmma(const __grid_constant__ CUtensorMap k_map,
       issue_scores<D, BQ>(st, k_rows, q_smem);                // s^T = k q^T
       issue_scores<D, BQ>(dpt, v_rows, q_smem + T::kQBytes);  // dp^T = v do^T
       if (kDropout && (!T::kDrawLate || i == 0))
-        keep_bits_t<BQ>(keep, key_row, i * BQ, g, t, bh, prm.drop);
+        drop_bits_t<BQ>(dropped, key_row, i * BQ, g, t, bh, prm.drop);
       wgmma_wait<0>();
       fence_regs(st);
       fence_regs(dpt);
-      dkv_score_grads<BQ, kDropout>(st, dpt, keep, rows + (i % S) * 2 * BQ, t, prm);
+      dkv_score_grads<BQ, kDropout>(st, dpt, dropped, rows + (i % S) * 2 * BQ, t, prm);
       pack_p<BQ>(pf, st);
       pack_p<BQ>(dsf, dpt);
       fence_regs(dv);
@@ -464,7 +457,7 @@ flash_bwd_dkv_tma_wgmma(const __grid_constant__ CUtensorMap k_map,
       issue_values<D, BQ>(dv, pf, q_smem + T::kQBytes);  // dv += (p m)^T do
       issue_values<D, BQ>(dk, dsf, q_smem);              // dk += ds^T q
       if (kDropout && T::kDrawLate && i + 1 < n_tiles)
-        keep_bits_t<BQ>(keep, key_row, (i + 1) * BQ, g, t, bh, prm.drop);
+        drop_bits_t<BQ>(dropped, key_row, (i + 1) * BQ, g, t, bh, prm.drop);
       wgmma_wait<0>();
       fence_regs(dv);
       fence_regs(dk);

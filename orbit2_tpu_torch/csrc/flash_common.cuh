@@ -101,31 +101,33 @@ __device__ __forceinline__ void load_f32_rows(float* dst, int ld, const float* b
 }
 
 // keep[r * ld + c] = 1 when score element (row0 + r, col0 + c) of `stream`
-// is kept, for a kRows x kCols tile (col0 and ld multiples of 4). One Philox
-// call fills 4 bytes.
+// is kept, else 0, for a kRows x kCols tile (col0 and kCols multiples of 8,
+// ld of 4). One Philox call fills 8 bytes.
 template <int kRows, int kCols, int kThreads>
 __device__ __forceinline__ void fill_keep_tile(uint8_t* keep, int ld, uint64_t seed,
                                                uint32_t stream, int row0, int col0,
-                                               uint32_t threshold) {
-  constexpr int kQuads = kCols / 4;
-  for (int idx = threadIdx.x; idx < kRows * kQuads; idx += kThreads) {
-    const int r = idx / kQuads;
-    const int q = idx % kQuads;
-    const uint4 b = dropout_bits4(seed, stream, (uint32_t)(row0 + r), (uint32_t)(col0 / 4 + q));
-    *reinterpret_cast<uint32_t*>(keep + r * ld + 4 * q) =
-        (uint32_t)(b.x <= threshold) | ((uint32_t)(b.y <= threshold) << 8) |
-        ((uint32_t)(b.z <= threshold) << 16) | ((uint32_t)(b.w <= threshold) << 24);
+                                               uint32_t t16) {
+  constexpr int kCalls = kCols / 8;
+  for (int idx = threadIdx.x; idx < kRows * kCalls; idx += kThreads) {
+    const int r = idx / kCalls;
+    const int q = idx % kCalls;
+    const uint32_t dropped = drop_flags8(seed, stream, (uint32_t)(row0 + r),
+                                         (uint32_t)(col0 / 8 + q), t16);
+    // bit i of a nibble to byte i: the multiplier's partial products land on
+    // distinct bits, so no carry mixes them
+    uint32_t* out = reinterpret_cast<uint32_t*>(keep + r * ld + 8 * q);
+    out[0] = ((dropped & 0xFu) * 0x00204081u & 0x01010101u) ^ 0x01010101u;
+    out[1] = ((dropped >> 4) * 0x00204081u & 0x01010101u) ^ 0x01010101u;
   }
 }
 
-// The dropout of one launch: element kept when its bits <= threshold, and
-// then multiplied by scale (= 1/keep).
+// The dropout of one launch: element kept when its 16 bits <= threshold
+// (t16, kernel_prng.cuh), and then multiplied by scale (= 1/keep).
 struct Dropout {
   uint64_t seed;
   uint32_t threshold;
   float scale;
 };
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

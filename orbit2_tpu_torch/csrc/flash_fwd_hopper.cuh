@@ -12,7 +12,7 @@
 // against reading q, k, v and writing o once (137.4 GFLOP against 134 MB at
 // (B8, N2048, H16, d64): 0.139 ms at 989 TFLOP/s, 0.040 ms at 3.35 TB/s), so
 // the matrix units; with dropout also the Philox bits, one 10-round call per
-// 4 scores on the integer pipes (134 M calls at that shape).
+// 8 scores on the integer pipes (67.1 M calls at that shape).
 //
 // Design. A block owns one (batch*head, 128-query tile) and has three
 // warpgroups:
@@ -34,17 +34,19 @@
 //     the previous tile's p v, so the softmax of one tile runs while the
 //     tensor cores work on the other's value product.
 //   * dropout bits are K4's (kernel_prng.cuh) at (seed, stream = b H + h,
-//     query row, key column / 4), generated in the accumulator layout: lanes
-//     t and t ^ 1 hold the two halves of one 4-column Philox quad in rows g
-//     and g + 8, so the even lane computes row g's quad, the odd lane row
-//     g + 8's, and one __shfl_xor_sync swaps the halves (one call per 4
-//     scores, no keep tile, no barrier). The bits do not depend on the
-//     scores, so they are drawn while the products run.
+//     query row, key column / 8), generated in the accumulator layout: the 4
+//     lanes of a row quad hold the 8 columns of one Philox call in rows g
+//     and g + 8, so each lane draws one of the quad's calls for half of the
+//     column groups, and two shuffles of packed drop flags hand every lane
+//     its own (drop_bits: one call per 8 scores, no keep tile, no barrier).
+//     The bits do not depend on the scores, so they are drawn while the
+//     products run.
 //
-// Measured on an H100 (PERF.md, chip_smoke.py): at (B8, N2048, H16, d64)
-// about 0.41 ms without dropout, level with SDPA's flash forward, and about
-// 0.88 ms with dropout, where the Philox calls (~55 integer instructions
-// each, over the SM's FMA and ALU pipes) bound it.
+// Measured (PERF.md, chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): at
+// (B8, N2048, H16, d64) about 0.41 ms without dropout, level with SDPA's
+// flash forward, and about 0.68 ms with dropout, where the Philox calls
+// (~8 integer instructions a dropped element, over the SM's FMA and ALU
+// pipes) take ~0.27 ms.
 //
 // Tiles and budgets (227 KB of shared memory and 64 K registers an SM; one
 // block an SM):
@@ -362,61 +364,71 @@ __device__ __forceinline__ void mask_tail(float (&s)[BK / 2], int k0, int n_k, i
   }
 }
 
-// The dropout's keep bits of rows q_row, q_row + 8 and kv columns k0 .. +BK
-// of this thread's accumulator elements: bit 4 (c % 8) + (e & 1) of
-// keep[e & 2 ? 1 : 0][c / 8] for element e of column group c = e / 4. They
-// are K4's bits: each column group of 8 holds one 4-column Philox quad in
-// lanes t, t ^ 1; the even lane computes row q_row's quad, the odd lane row
-// q_row + 8's, and one shuffle a word of 8 groups swaps the halves. They do
-// not depend on the scores, so they are drawn while the products run.
+// One exchange of a transpose of drop flags across lanes: the lane-index bit
+// kLaneXor trades places with bit log2(kShift) of the flags' positions.
+// `upper` is this lane's bit. The lane keeps its flags whose position bit
+// equals it, and takes from the partner lane the flags for it, rotated onto
+// the positions it does not keep: afterwards that position bit names the
+// lane a flag came from and the lane bit the lane it is for. One shuffle, a
+// rotate and a bit select.
+template <int kLaneXor, int kShift>
+__device__ __forceinline__ uint32_t trade_flags(uint32_t mine, bool upper) {
+  constexpr uint32_t kLow = kShift == 1 ? 0x55555555u : kShift == 2 ? 0x33333333u : 0x0F0F0F0Fu;
+  static_assert(kShift == 1 || kShift == 2 || kShift == 4, "flag positions are bytes");
+  const uint32_t keep = upper ? ~kLow : kLow;
+  const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, kLaneXor);
+  const uint32_t moved = __funnelshift_l(other, other, upper ? 32 - kShift : kShift);
+  return (mine & keep) | (moved & ~keep);
+}
+
+// The dropout's drop flags of rows q_row, q_row + 8 and kv columns k0 .. +BK
+// of this thread's accumulator elements: element e is dropped when bit e % 32
+// of dropped[e / 32] is set, a shift known at compile time. They are K4's
+// bits: a Philox call covers the 8 columns of one column group c (8c ..
+// 8c + 7) in one row, word t of it this lane's two columns, so the 4 lanes
+// of a row quad share the 2 calls (rows q_row, q_row + 8) of each group.
+// Lane t draws the calls of row q_row + 8 (t & 1) for the groups of parity
+// t >> 1 (BK / 16 calls, 8 flags each, packed 4 calls a word), and two
+// exchanges (lanes 1 and 2 apart) transpose the flags so each lane holds its
+// own. They do not depend on the scores, so they are drawn while the
+// products run.
 template <int BK>
-__device__ __forceinline__ void keep_bits(uint32_t (&keep)[2][BK / 64], int q_row, int k0, int t,
+__device__ __forceinline__ void drop_bits(uint32_t (&dropped)[BK / 64], int q_row, int k0, int t,
                                           int bh, const Dropout& drop) {
-  constexpr int kWords = BK / 64;
-  const bool odd = t & 1;
-  const uint32_t row = (uint32_t)(q_row + (odd ? 8 : 0));
-  const uint32_t col4 = (uint32_t)(k0 / 4 + (t >> 1));
-  uint32_t mine[kWords];
+  const uint32_t row = (uint32_t)(q_row + 8 * (t & 1));
+  const uint32_t col8 = (uint32_t)(k0 / 8 + (t >> 1));
+  const uint32_t addend = drop_addend(drop.threshold);
 #pragma unroll
-  for (int w = 0; w < kWords; ++w) mine[w] = 0u;
+  for (int w = 0; w < BK / 64; ++w) {
+    uint32_t acc = 0u;
 #pragma unroll
-  for (int c = 0; c < BK / 8; ++c) {
-    const uint4 bits = dropout_bits4(drop.seed, (uint32_t)bh, row, col4 + 2 * c);
-    const uint32_t th = drop.threshold;
-    mine[c / 8] |= ((uint32_t)(bits.x <= th) | ((uint32_t)(bits.y <= th) << 1) |
-                    ((uint32_t)(bits.z <= th) << 2) | ((uint32_t)(bits.w <= th) << 3))
-                   << (4 * (c % 8));
-  }
-#pragma unroll
-  for (int w = 0; w < kWords; ++w) {
-    const uint32_t other = __shfl_xor_sync(0xffffffffu, mine[w], 1);
-    keep[0][w] = (odd ? other : mine[w]) >> (odd ? 2 : 0);  // row q_row
-    keep[1][w] = (odd ? mine[w] : other) >> (odd ? 2 : 0);  // row q_row + 8
+    for (int k = 3; k >= 0; --k) {  // call k of the word: column group 2 (4 w + k) + (t >> 1)
+      acc = shift_in_drop8(acc, dropout_bits8(drop.seed, (uint32_t)bh, row, col8 + 8 * w + 2 * k),
+                           addend);
+    }
+    acc = trade_flags<1, 2>(acc, t & 1);  // the row half, for bit 0 of the word index
+    dropped[w] = trade_flags<2, 4>(acc, t & 2);  // the group parity, for bit 1
   }
 }
 
-// Multiplies s by the dropout's {0, 1/keep} of `keep` (keep_bits).
+// Multiplies s by the dropout's {0, 1/keep} of `dropped` (drop_bits).
 template <int BK>
-__device__ __forceinline__ void drop_scores(float (&s)[BK / 2], const uint32_t (&keep)[2][BK / 64],
+__device__ __forceinline__ void drop_scores(float (&s)[BK / 2], const uint32_t (&dropped)[BK / 64],
                                             float scale) {
 #pragma unroll
-  for (int e = 0; e < BK / 2; ++e) {
-    const int c = e / 4;
-    const uint32_t word = keep[(e >> 1) & 1][c / 8];
-    s[e] *= ((word >> (4 * (c % 8) + (e & 1))) & 1u) ? scale : 0.f;
-  }
+  for (int e = 0; e < BK / 2; ++e) s[e] *= ((dropped[e / 32] >> (e % 32)) & 1u) ? 0.f : scale;
 }
 
 // The variant's work between the two products, in place: s (the scores of
 // kv columns k0 ..) becomes the p of the value product. kFlash folds the
 // tile into the running max m and this thread's part of the row sums l,
 // sets alpha, the factor the accumulator must be rescaled by, and drops by
-// `keep` after the normalizer (kDropout); the probes
+// `dropped` after the normalizer (kDropout); the probes
 // subtract `shift` (S1b's 20, S1c's row max, S2's bound) and sum p into l.
 template <int BK, int kVariant, bool kDropout>
 __device__ __forceinline__ void probabilities(float (&s)[BK / 2], float (&m)[2], float (&l)[2],
                                               float (&alpha)[2], const float (&shift)[2],
-                                              const uint32_t (&keep)[2][BK / 64], int k0, int t,
+                                              const uint32_t (&dropped)[BK / 64], int k0, int t,
                                               const Params& prm) {
   if constexpr (kVariant == kFlash) {
     float m_tile[2] = {-INFINITY, -INFINITY};
@@ -439,7 +451,7 @@ __device__ __forceinline__ void probabilities(float (&s)[BK / 2], float (&m)[2],
       s[e] = exp2_fast(s[e] - m[(e >> 1) & 1]);
       l[(e >> 1) & 1] += s[e];  // the normalizer sums the undropped p
     }
-    if constexpr (kDropout) drop_scores<BK>(s, keep, prm.drop.scale);
+    if constexpr (kDropout) drop_scores<BK>(s, dropped, prm.drop.scale);
   } else if constexpr (kVariant == kMatmulOnly) {
     mask_tail<BK>(s, k0, prm.n_k, t, 0.f);
   } else {
@@ -542,7 +554,7 @@ flash_fwd_tma_wgmma(const __grid_constant__ CUtensorMap q_map,
     float m[2] = {-INFINITY, -INFINITY};  // kFlash: running row max (scaled)
     float l[2] = {0.f, 0.f};              // this thread's part of the row sums
     float alpha[2];
-    uint32_t keep[2][BK / 64];  // kDropout: the tile's keep bits (keep_bits)
+    uint32_t dropped[BK / 64];  // kDropout: the tile's drop flags (drop_bits)
     // what exp2 subtracts in the probes: S1b's fixed 20, S2's bound, S1c's row max
     float shift[2] = {20.f, 20.f};
     if constexpr (kVariant == kBoundShift) {
@@ -581,10 +593,10 @@ flash_fwd_tma_wgmma(const __grid_constant__ CUtensorMap q_map,
     fence_regs(s);
     wgmma_fence();
     issue_scores<D, BK>(s, q_rows, stage(i));
-    if constexpr (kDropout) keep_bits<BK>(keep, q0 + row0, 0, t, bh, prm.drop);
+    if constexpr (kDropout) drop_bits<BK>(dropped, q0 + row0, 0, t, bh, prm.drop);
     wgmma_wait<0>();
     fence_regs(s);
-    probabilities<BK, kVariant, kDropout>(s, m, l, alpha, shift, keep, 0, t, prm);
+    probabilities<BK, kVariant, kDropout>(s, m, l, alpha, shift, dropped, 0, t, prm);
     pack_p<BK>(p, s);
     // then each tile's scores and p run beside the previous tile's value
     // product on the tensor cores
@@ -596,10 +608,10 @@ flash_fwd_tma_wgmma(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();
       issue_scores<D, BK>(s, q_rows, stage(i + 1));
       issue_values<D, BK>(acc, p, stage(i) + T::kKBytes);
-      if constexpr (kDropout) keep_bits<BK>(keep, q0 + row0, it * BK, t, bh, prm.drop);
+      if constexpr (kDropout) drop_bits<BK>(dropped, q0 + row0, it * BK, t, bh, prm.drop);
       wgmma_wait<1>();  // the scores; the value product may still run
       fence_regs(s);
-      probabilities<BK, kVariant, kDropout>(s, m, l, alpha, shift, keep, it * BK, t, prm);
+      probabilities<BK, kVariant, kDropout>(s, m, l, alpha, shift, dropped, it * BK, t, prm);
       wgmma_wait<0>();
       fence_regs(acc);
       mbar_arrive(empty + 8 * (i % S));

@@ -26,9 +26,10 @@
 // Dropout (the kDrop instances; rate 0 compiles to kernels without it): the
 // multiplier of hidden element (t, f) is that of csrc/kernel_prng.cuh at
 // (seed1, stream 0, row t, col f) and of output element (t, n) at (seed2, 0,
-// t, n): exactly the bits the fused dropout (fused_dropout.cu) draws for the
-// unfused Mlp's two dropouts under the same seeds, and independent of tiles
-// (the TPU's 256-unit mask grid, :81-119, has no counterpart).
+// t, n), one Philox call per 8 columns: exactly the bits the fused dropout
+// (fused_dropout.cu) draws for the unfused Mlp's two dropouts under the same
+// seeds, and independent of tiles (the TPU's 256-unit mask grid, :81-119, has
+// no counterpart).
 //
 // What bounds it on the H100, and the design. The TPU kernels keep an fp32
 // [512, D2] accumulator in 16 MB of VMEM; an H100 block has at most 227 KB of
@@ -103,18 +104,20 @@ __device__ __forceinline__ float dgelu(float v) {
   return 0.5f * (1.f + erff(v * kInvSqrt2)) + v * expf(-0.5f * v * v) * kInvSqrt2Pi;
 }
 
+// The drop flags of columns 8 (col / 8) .. + 7 of `row` (bit c for column
+// 8 (col / 8) + c): one Philox call (kernel_prng.cuh).
+__device__ __forceinline__ uint32_t drop_flags_at(const Dropout& d, int row, int col) {
+  return orbit2::drop_flags8(d.seed, 0u, (uint32_t)row, (uint32_t)(col >> 3), d.threshold);
+}
+
 // The multipliers of elements (row, col) and (row, col + 1), col even.
 __device__ __forceinline__ float2 keep_pair(const Dropout& d, int row, int col) {
-  const uint4 b = orbit2::dropout_bits4(d.seed, 0u, (uint32_t)row, (uint32_t)(col >> 2));
-  const uint32_t lo = (col & 2) ? b.z : b.x;
-  const uint32_t hi = (col & 2) ? b.w : b.y;
-  return make_float2(lo <= d.threshold ? d.scale : 0.f, hi <= d.threshold ? d.scale : 0.f);
+  const uint32_t dropped = drop_flags_at(d, row, col) >> (col & 7);
+  return make_float2((dropped & 1u) ? 0.f : d.scale, (dropped & 2u) ? 0.f : d.scale);
 }
 
 __device__ __forceinline__ float keep_one(const Dropout& d, int row, int col) {
-  const uint4 b = orbit2::dropout_bits4(d.seed, 0u, (uint32_t)row, (uint32_t)(col >> 2));
-  const uint32_t w[4] = {b.x, b.y, b.z, b.w};
-  return w[col & 3] <= d.threshold ? d.scale : 0.f;
+  return ((drop_flags_at(d, row, col) >> (col & 7)) & 1u) ? 0.f : d.scale;
 }
 
 // Copies the [kRows, kCols] tile at (row0, col0) of a row-major global matrix
@@ -140,16 +143,11 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* __restrict__ 
     if (row0 + r < n_rows && col0 + c < n_cols) {
       chunk = *reinterpret_cast<const uint4*>(src + (int64_t)(row0 + r) * src_ld + col0 + c);
       if constexpr (kMask) {
+        // one call covers the chunk's kVec columns (8 bf16, or half a call's 8 fp32)
+        const uint32_t dropped = drop_flags_at(drop, row0 + r, col0 + c) >> ((col0 + c) & 7);
 #pragma unroll
-        for (int q = 0; q < kVec / 4; ++q) {
-          const uint4 b = orbit2::dropout_bits4(drop.seed, 0u, (uint32_t)(row0 + r),
-                                                (uint32_t)((col0 + c) / 4 + q));
-          const uint32_t bits[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            v[4 * q + e] = from_f32<T>(to_f32(v[4 * q + e]) *
-                                       (bits[e] <= drop.threshold ? drop.scale : 0.f));
-          }
+        for (int e = 0; e < kVec; ++e) {
+          v[e] = from_f32<T>(to_f32(v[e]) * (((dropped >> e) & 1u) ? 0.f : drop.scale));
         }
       }
     }

@@ -7,9 +7,10 @@ kernel (csrc/fused_dropout.cu) from a 64-bit seed drawn on the host, and the
 backward regenerates it from the same seed: nothing but the seed is saved.
 
 x is viewed as [rows, cols] with cols its last dim; the bits are those of
-csrc/kernel_prng.cuh at (seed, stream 0, row, col) and the product is taken in
-fp32 and rounded once to x's dtype. On a CPU tensor the wrapper computes the
-plain version; on a CUDA tensor it launches the kernel or raises.
+csrc/kernel_prng.cuh at (seed, stream 0, row, col), one Philox call per 8
+columns, and the product is taken in fp32 and rounded once to x's dtype. On
+a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -45,8 +46,8 @@ class FusedDropoutKernel(NvccKernel):
         out = torch.empty_like(x)
         cols = x.shape[-1]
         rows = x.numel() // cols if cols else 0
-        vec = (cols % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0
-               and out.data_ptr() % 16 == 0)
+        # the vector kernel: whole Philox calls of 8 columns, 16-byte vectors
+        vec = cols % 8 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
         self.launch(x.device, _DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(), rows, cols,
                     seed & 0xFFFFFFFFFFFFFFFF, keep_threshold(rate), 1.0 / (1.0 - rate),
                     int(vec))

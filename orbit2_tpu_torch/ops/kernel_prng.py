@@ -1,14 +1,19 @@
 """Dropout bits: the plain PyTorch version of csrc/kernel_prng.cuh.
 
-Counterpart of orbit2_tpu/ops/kernel_prng.py (`mask_bits`, `keep_mult`). The
-bits are Philox-4x32-10 of (col // 4, row, stream, 0) under the key
-(seed_lo, seed_hi): a pure function of the seed and an element's GLOBAL
-coordinates, so a forward and its backward regenerate the same mask whatever
-tiles they use. The CUDA kernels include csrc/kernel_prng.cuh; this module
-computes the same bits with integer torch ops on int64 tensors (32-bit
-products in 16-bit limbs, so nothing overflows), on whatever device its
-arguments live. It is what the CPU tests use and what the card holds the
-kernels against.
+Counterpart of orbit2_tpu/ops/kernel_prng.py (`mask_bits`, `keep_mult`). One
+Philox-4x32-10 call of counter (col // 8, row, stream, 0) under the key
+(seed_lo, seed_hi) gives 8 elements 16 bits each: element (row, col) takes
+the 16-bit half col % 2 of word (col % 8) // 2. The bits are a pure function
+of the seed and an element's GLOBAL coordinates, so a forward and its
+backward regenerate the same mask whatever tiles they use. An element is kept
+when its half <= keep_threshold(rate) = uint16(keep * (2^16 - 1)), the form of
+the JAX package's uint32(keep * (2^32 - 1)); the probability of keeping is
+(t16 + 1) / 2^16, within 2^-16 of keep.
+
+The CUDA kernels include csrc/kernel_prng.cuh; this module computes the same
+bits with integer torch ops on int64 tensors (32-bit products in 16-bit limbs,
+so nothing overflows), on whatever device its arguments live. It is what the
+CPU tests use and what the card holds the kernels against.
 
 The JAX package's interpret-mode hash is not ported: it XORs the block seed
 into a local index, so blocks whose seeds differ by a small step get masks
@@ -48,20 +53,31 @@ def philox4x32_10(c0, c1, c2, c3, seed: int):
 
 def dropout_bits(seed: int, stream: torch.Tensor, rows: torch.Tensor,
                  cols: torch.Tensor) -> torch.Tensor:
-    """uint32 bits (as int64) of every (stream, row, col) the broadcast of the
+    """16-bit bits (as int64) of every (stream, row, col) the broadcast of the
     three int64 index tensors names."""
     stream, rows, cols = torch.broadcast_tensors(stream, rows, cols)
-    words = philox4x32_10(cols >> 2, rows, stream, torch.zeros_like(cols), seed)
-    lane = cols & 3
+    words = philox4x32_10(cols >> 3, rows, stream, torch.zeros_like(cols), seed)
+    word = (cols & 7) >> 1
     out = words[3]
     for i in (2, 1, 0):
-        out = torch.where(lane == i, words[i], out)
-    return out
+        out = torch.where(word == i, words[i], out)
+    return (out >> ((cols & 1) << 4)) & 0xFFFF
+
+
+def _row_bits(seed: int, stream: torch.Tensor, rows: torch.Tensor, cols: int) -> torch.Tensor:
+    """dropout_bits of columns 0 .. cols - 1 of the broadcast (stream, rows),
+    one Philox call per 8 columns: [..., cols]."""
+    calls = torch.arange((cols + 7) // 8, device=rows.device, dtype=torch.int64)
+    stream, rows, calls = torch.broadcast_tensors(stream[..., None], rows[..., None], calls)
+    words = torch.stack(philox4x32_10(calls, rows, stream, torch.zeros_like(calls), seed), -1)
+    halves = torch.stack((words & 0xFFFF, words >> 16), -1)  # [..., calls, word, half]
+    return halves.flatten(-3)[..., :cols]
 
 
 def keep_threshold(rate: float) -> int:
-    """An element is kept when its bits <= this (orbit2_tpu kernel_prng.py:45)."""
-    return int((1.0 - rate) * 4294967295.0)
+    """An element is kept when its 16 bits <= this: uint16(keep * (2^16 - 1)),
+    the form of orbit2_tpu kernel_prng.py:45 at 16 bits."""
+    return int((1.0 - rate) * 65535.0)
 
 
 def keep_mult(seed: int, rows: int, cols: int, rate: float, streams: Optional[int] = None,
@@ -72,16 +88,16 @@ def keep_mult(seed: int, rows: int, cols: int, rate: float, streams: Optional[in
     ar = lambda *bounds: torch.arange(*bounds, device=device, dtype=torch.int64)
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32, device=device)
     zero = torch.zeros_like(scale)
-    row_ids, col_ids = ar(rows).view(-1, 1), ar(cols).view(1, -1)
+    threshold = keep_threshold(rate)
     if streams is None:
-        bits = dropout_bits(seed, ar(1).view(()), row_ids, col_ids)
-        return torch.where(bits <= keep_threshold(rate), scale, zero)
+        bits = _row_bits(seed, ar(1).view(()), ar(rows), cols)
+        return torch.where(bits <= threshold, scale, zero)
     out = torch.empty((streams, rows, cols), dtype=torch.float32, device=device)
     chunk = max(1, (1 << 24) // max(1, rows * cols))
     for s0 in range(0, streams, chunk):
         s1 = min(streams, s0 + chunk)
-        bits = dropout_bits(seed, ar(s0, s1).view(-1, 1, 1), row_ids, col_ids)
-        out[s0:s1] = torch.where(bits <= keep_threshold(rate), scale, zero)
+        bits = _row_bits(seed, ar(s0, s1).view(-1, 1), ar(rows).view(1, -1), cols)
+        out[s0:s1] = torch.where(bits <= threshold, scale, zero)
     return out
 
 

@@ -7,7 +7,10 @@ seeds of orbit2_tpu/ops/dropout.py:36), equals the JAX Pallas kernel
 the cases of tests/test_dropout.py on the port's own bits.
 
 CUDA (marker `cuda`, skipped without a card): the kernel equals the plain
-version bit for bit. Run without JAX's conftest on the chip machine:
+version bit for bit, forward and backward, on its vector path (rows of a
+multiple of 8 columns, 16-byte aligned: one Philox call a unit of 8) with
+a tail of units, and on its scalar path (odd and other column counts, an
+unaligned base). Run without JAX's conftest on the chip machine:
 `python -m pytest --noconftest -m cuda tests/test_torch_dropout.py`.
 """
 
@@ -141,8 +144,10 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("shape,offset", [((64, 1024), 0), ((21, 200), 0), ((3, 5, 7), 0),
-                                          ((16, 64), 1)],
-                         ids=["aligned", "ragged", "3d", "unaligned"])
+                                          ((16, 64), 1), ((5, 296), 0), ((9, 1001), 0),
+                                          ((7, 100), 0), ((4100, 24), 0)],
+                         ids=["aligned", "ragged", "3d", "unaligned", "vector_tail", "odd_cols",
+                              "not_multiple_of_8", "many_rows"])
 def test_kernel_matches_plain_bit_for_bit(cuda, dtype, shape, offset):
     n = int(np.prod(shape))
     flat = torch.randn(n + offset, generator=torch.Generator().manual_seed(0)).to(cuda, dtype)
@@ -154,6 +159,23 @@ def test_kernel_matches_plain_bit_for_bit(cuda, dtype, shape, offset):
     want = dropout_reference(x, keep_mult(2 ** 40 + 17, n // shape[-1], shape[-1], 0.1,
                                           device=cuda))
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [(64, 1024), (9, 1001)], ids=["vector", "scalar"])
+def test_kernel_backward_is_the_forward_mask(cuda, dtype, shape):
+    """The backward launches the same kernel on the gradient with the saved
+    seed: bit-equal to the plain version's gradient."""
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(shape, generator=gen).to(cuda, dtype).requires_grad_()
+    g = torch.randn(shape, generator=gen).to(cuda, dtype)
+    before = FUSED_DROPOUT.launches
+    FusedDropout.apply(x, 2 ** 33 + 5, 0.1).backward(g)
+    torch.cuda.synchronize()
+    assert FUSED_DROPOUT.launches == before + 2
+    mult = keep_mult(2 ** 33 + 5, shape[0], shape[1], 0.1, device=cuda)
+    assert torch.equal(x.grad, dropout_reference(g, mult))
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
 """Dropout bits of the PyTorch port (ops/kernel_prng.py, the plain version of
-csrc/kernel_prng.cuh): Philox-4x32-10 of global coordinates.
+csrc/kernel_prng.cuh): Philox-4x32-10 of global coordinates, one call per 8
+columns, 16 bits an element.
 
 Also documents why the JAX package's interpret-mode hash
 (orbit2_tpu/ops/kernel_prng.py:33-38) is not the port's generator: it XORs
@@ -47,8 +48,8 @@ def test_philox_known_answers():
 def test_bits_are_deterministic_and_independent_of_tiling():
     whole = bits(SEED, 3, range(40), range(70))
     assert torch.equal(whole, bits(SEED, 3, range(40), range(70)))
-    assert bool((whole >= 0).all() and (whole < 2 ** 32).all())
-    # any tiling, including tiles that start off a 4-column boundary
+    assert bool((whole >= 0).all() and (whole < 2 ** 16).all())
+    # any tiling, including tiles that start off an 8-column boundary
     for r0, r1 in ((0, 13), (13, 29), (29, 40)):
         for c0, c1 in ((0, 7), (7, 33), (33, 70)):
             assert torch.equal(bits(SEED, 3, range(r0, r1), range(c0, c1)), whole[r0:r1, c0:c1])
@@ -67,7 +68,63 @@ def test_keep_fraction_and_values(rate):
     n = mult.numel()
     frac = (mult > 0).double().mean().item()
     assert abs(frac - keep) < 4 * (keep * (1 - keep) / n) ** 0.5
-    assert keep_threshold(rate) == int(keep * 4294967295.0)
+    assert keep_threshold(rate) == int(keep * 65535.0)
+
+
+@pytest.mark.parametrize("col", range(16))
+def test_sixteen_bit_lanes_of_one_call(col):
+    """Element (row, col) is the 16-bit half col % 2 of word (col % 8) // 2 of
+    one Philox call of counter (col // 8, row, stream, 0): every position of
+    two calls, against a direct philox4x32_10 call."""
+    seed, stream, row = 0xFEDCBA9876543210, 11, 1234
+    words = philox4x32_10(*(torch.tensor([c], dtype=torch.int64)
+                            for c in (col // 8, row, stream, 0)), seed)
+    want = (int(words[(col % 8) // 2]) >> (16 * (col % 2))) & 0xFFFF
+    assert int(bits(seed, stream, [row], [col])[0, 0]) == want
+    # the row of keep_mult's bulk path agrees with the element-wise one
+    assert int(bits(seed, 0, [row], range(col + 1))[0, col]) == int(bits(seed, 0, [row], [col])[0, 0])
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.25, 0.5])
+def test_keep_probability_is_within_two_to_the_minus_16(rate):
+    """P(keep) = (t16 + 1) / 2^16 for uniform 16-bit halves."""
+    t16 = keep_threshold(rate)
+    assert 0 <= t16 < 2 ** 16 - 1
+    assert abs((t16 + 1) / 2 ** 16 - (1.0 - rate)) <= 2.0 ** -16
+    if rate == 0.5:
+        assert t16 == 32767 and (t16 + 1) / 2 ** 16 == 0.5
+
+
+@pytest.mark.parametrize("rate", [0.5, 0.1, 0.25, 1e-9, 0.999])
+def test_carry_compare_is_exact(rate):
+    """The kernels' compare (csrc/kernel_prng.cuh, shift_in_drop_*): a half h
+    brought to the top 16 bits of a word (shifted, or byte-permuted so the
+    other half sits below it) is dropped when adding (0xffff - t16) << 16
+    carries out of 32 bits. Exhaustively equal to h > t16 over all 2^16
+    halves, the half 0xffff and the rate-0.5 threshold included."""
+    t16 = keep_threshold(rate)
+    h = np.arange(2 ** 16, dtype=np.uint64)
+    for low in (0, 0xABCD, 0xFFFF):  # what sits below the half
+        carry = ((h << np.uint64(16)) + np.uint64(low) + np.uint64((0xFFFF - t16) << 16)) \
+            >> np.uint64(32)
+        np.testing.assert_array_equal(carry.astype(bool), h > t16)
+        assert bool(carry[0xFFFF]) and not bool(carry[t16])
+
+
+def test_halves_of_one_word_are_uncorrelated():
+    """On 2^20 elements at rate 0.1: the two halves of a word (columns 2j,
+    2j + 1) keep independently, and the kept fraction lies within 5 sigma."""
+    mult = keep_mult(SEED, 1024, 1024, 0.1)
+    kept = (mult > 0).double()
+    keep, n = 1.0 - 0.1, kept.numel()
+    p = (keep_threshold(0.1) + 1) / 2 ** 16
+    assert abs(kept.mean().item() - p) < 5 * (p * (1 - p) / n) ** 0.5
+    even, odd = kept[:, 0::2].flatten().numpy(), kept[:, 1::2].flatten().numpy()
+    r = np.corrcoef(even, odd)[0, 1]
+    assert abs(r) < 5 / np.sqrt(even.size), r
+    # nor the high half of one word and the low half of the next
+    r2 = np.corrcoef(kept[:, 1:-1:2].flatten().numpy(), kept[:, 2::2].flatten().numpy())[0, 1]
+    assert abs(r2) < 5 / np.sqrt(even.size), r2
 
 
 def test_streams_are_the_leading_dim():
@@ -86,16 +143,27 @@ def _tile_pairs(n_pairs, rng):
         yield (s, r, c), [(s, r, c + 64), (s, r + 64, c), (s + 1, r, c)][int(rng.integers(0, 3))]
 
 
+def _tile_bits(tiles):
+    """dropout_bits of the 64x64 tiles (stream, row0, col0), [len(tiles), 4096]."""
+    s, r, c = (torch.tensor(v, dtype=torch.int64) for v in zip(*tiles))
+    ar = torch.arange(64, dtype=torch.int64)
+    return dropout_bits(SEED, s.view(-1, 1, 1), (r.view(-1, 1) + ar).view(-1, 64, 1),
+                        (c.view(-1, 1) + ar).view(-1, 1, 64)).flatten(1)
+
+
 def test_neighbouring_tiles_are_not_permutations_and_counts_uncorrelated():
+    """4000 tile pairs: the correlation of their kept counts has a standard
+    error of 1/sqrt(4000) = 0.016, so |r| < 0.05 is a 3-sigma test."""
     rng = np.random.default_rng(0)
     thr = keep_threshold(0.1)
+    pairs = list(_tile_pairs(4000, rng))
     counts = []
-    for i, ((s, r, c), (s2, r2, c2)) in enumerate(_tile_pairs(1000, rng)):
-        a = bits(SEED, s, range(r, r + 64), range(c, c + 64)).flatten()
-        b = bits(SEED, s2, range(r2, r2 + 64), range(c2, c2 + 64)).flatten()
-        if i < 50:  # no permutation of any kind maps one tile's bits to the other's
-            assert not torch.equal(torch.sort(a).values, torch.sort(b).values)
-        counts.append(((a <= thr).sum().item(), (b <= thr).sum().item()))
+    for i in range(0, len(pairs), 500):
+        a, b = (_tile_bits([p[side] for p in pairs[i:i + 500]]) for side in (0, 1))
+        if i == 0:  # no permutation of any kind maps one tile's bits to the other's
+            for j in range(50):
+                assert not torch.equal(torch.sort(a[j]).values, torch.sort(b[j]).values)
+        counts += zip((a <= thr).sum(1).tolist(), (b <= thr).sum(1).tolist())
     r = np.corrcoef(np.asarray(counts, np.float64).T)[0, 1]
     assert abs(r) < 0.05, r
 

@@ -8,9 +8,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
   2. build   — nvcc-builds every kernel library from csrc/ (flash-attention
                forward, flash-attention backward, fused dropout, fused MLP,
                attention probes), all at once; cuobjdump -sass of the Hopper
-               kernels' instances (K1 bf16, the four probes, and the bf16 dq
-               and dk/dv kernels at d 64 and 128): each must issue HGMMA and
-               UTMALDG and touch no local memory; the integer instructions of
+               kernels' instances (K1 bf16, the four probes, the bf16 dq and
+               dk/dv kernels at d 64 and 128, and the fused MLP's bf16
+               backward: stage H and the dx and dW products): each must
+               issue HGMMA and UTMALDG and touch no local memory; the integer
+               instructions of
                one Philox call and of a dropped element, per pipe, from the
                SASS of K1's, K2's and K3's d64 dropout instances
   3. kernels — each kernel against its plain PyTorch version on the card:
@@ -24,8 +26,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
                the fused dropout bit for bit, forward and backward, at
                DROPOUT_SHAPES in both dtypes; the fused MLP's forward against
                its plain version and its dx and dW kernels against autograd
-               of it, at MLP_SHAPES, both dtypes, dropout 0 and 0.1, with the
-               zero pattern of the unfused chain (K5) under the same seeds
+               of it, at MLP_SHAPES, both dtypes, dropout 0 and 0.1, bit-equal
+               over two runs, with the zero pattern of the unfused chain (K5)
+               under the same seeds
      probes  — the four attention probes against their plain versions at
                PROBE_SHAPES (atol 1e-2 x the row's max|o| and rtol 1e-2, a
                tolerance that must fail the plain version without the last
@@ -55,7 +58,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
                K2 and K3 also by the profiler's kernel time alone, beside SDPA
                and their two bounds, tensor cores and their dropout's Philox
                calls; K5 also by its kernel time alone beside F.dropout's,
-               its bytes bound and its host time a call), each
+               its bytes bound and its host time a call; K6b alone, K6c alone,
+               the whole fused-MLP backward and the unfused chain's backward
+               by the kernel time of every kernel a call launches, beside
+               their events and their 3-, 4- and 5-product bounds), each
                kernel also against the one PyTorch call that computes its
                function where there is one (SDPA pinned to its flash backend,
                F.dropout), the fused MLP against the unfused bf16 chain and
@@ -173,11 +179,14 @@ ISSUE_LANES_PER_SM = 128
 # elements of one Philox call (csrc/kernel_prng.cuh: 8 columns, 16 bits each)
 ELEMENTS_PER_CALL = 8
 # the Hopper kernel templates (csrc/flash_fwd_hopper.cuh: K1 and the probes;
-# csrc/flash_bwd_hopper.cuh: K2 and K3), whose instances must issue wgmma
-# (HGMMA) and TMA loads (UTMALDG) and spill nothing: 6 of K1, 4 probes, and
-# 4 each of K2 and K3 (d 64 and 128, with and without dropout)
+# csrc/flash_bwd_hopper.cuh: K2 and K3; csrc/fused_mlp_hopper.cuh: the fused
+# MLP's bf16 backward), whose instances must issue wgmma (HGMMA) and TMA
+# loads (UTMALDG) and spill nothing: 6 of K1, 4 probes, 4 each of K2 and K3
+# (d 64 and 128, with and without dropout), stage H with and without dropout,
+# and the dx and dW products at output tiles of 128 and 256 columns
 HOPPER_FWD = "flash_fwd_tma_wgmma"
-HOPPER_KERNELS = {HOPPER_FWD: 10, "flash_bwd_dq_tma_wgmma": 4, "flash_bwd_dkv_tma_wgmma": 4}
+HOPPER_KERNELS = {HOPPER_FWD: 10, "flash_bwd_dq_tma_wgmma": 4, "flash_bwd_dkv_tma_wgmma": 4,
+                  "mlp_hidden_bwd_tma_wgmma": 2, "mlp_gemm_tma_wgmma": 4}
 # the d64 instances whose dropout SASS is counted, and the Philox calls a lane
 # makes per shuffle of drop flags in their draw: K1's and K2's drop_bits make
 # BK / 16 calls and 2 exchanges of BK / 64 words, K3's drop_bits_t BQ / 16
@@ -466,6 +475,7 @@ def time_fused_mlp(gen, bounds, libs):
         _, fb_chain = paired_ms(kern_fb, lambda: torch.autograd.grad(chain(leaves), leaves, do))
         dx = cuda_ms(lambda: FUSED_MLP_DX(*args[:4], do, 0.0, 0, 0))
         dw = cuda_ms(lambda: FUSED_MLP_DW(*args[:4], do, 0.0, 0, 0))
+        bwd = cuda_ms(lambda: fused_mlp_bwd(*args[:4], do))
         bwd_plain = cuda_ms(lambda: fused_mlp_bwd_reference(*args[:4], do))
         out_chain = chain(leaves)
         bwd_chain = best_ms(lambda: torch.autograd.grad(out_chain, leaves, do, retain_graph=True))
@@ -478,21 +488,28 @@ def time_fused_mlp(gen, bounds, libs):
               f"unfused chain {fwd_chain:.4f}; fwd + bwd {fb:.4f} ms ({3 * flops / fb / 1e9:.1f} "
               f"TFLOP/s of six products; dx {dx:.4f}, dW {dw:.4f}) plain {fb_plain:.4f} "
               f"(backward alone {bwd_plain:.4f}), unfused chain {fb_chain:.4f}")
-        # useful products: the forward's two; dx recomputes h_pre and takes dh
-        # and dx; dW recomputes h_pre and takes dh, dW1 and dW2
+        # useful products: the forward's two; dx alone takes h_pre, dh and dx
+        # (stage H and dx); dW alone h_pre, dh, dW1 and dW2; the backward all
+        # five, each once. Bytes: the inputs read once, the outputs written
+        # once (dx in the dtype; dW1, db1, dW2, db2 in fp32)
+        grads = 4 * (f * d + f + d2 * f + d2)
         bounds[("mlp_fwd", shape)] = roofline(flops, nbytes(*args) + 2 * t * d2)
         bounds[("mlp_dx", shape)] = roofline(2 * t * (d * f + f * d2 + f * d),
                                              nbytes(*args[:4], do, args[0]))
         bounds[("mlp_dw", shape)] = roofline(2 * t * (d * f + f * d2 + f * d + d2 * f),
-                                             nbytes(*args[:4], do, *args[1:]))
+                                             nbytes(*args[:4], do) + grads)
+        bounds[("mlp_bwd", shape)] = roofline(2 * t * (2 * d * f + 2 * f * d2 + f * d),
+                                              nbytes(*args[:4], do, args[0]) + grads)
         libs[("mlp_fwd_chain", shape)] = fwd_chain
         libs[("mlp_bwd_chain", shape)] = bwd_chain
-        print(f"    unfused chain backward alone {bwd_chain:.4f} ms; bounds fwd "
-              f"{bounds[('mlp_fwd', shape)][0]:.4f}, dx {bounds[('mlp_dx', shape)][0]:.4f}, dW "
-              f"{bounds[('mlp_dw', shape)][0]:.4f} ms")
+        print(f"    backward (fused_mlp_bwd) {bwd:.4f} ms; unfused chain backward alone "
+              f"{bwd_chain:.4f} ms; bounds fwd {bounds[('mlp_fwd', shape)][0]:.4f}, dx "
+              f"{bounds[('mlp_dx', shape)][0]:.4f}, dW {bounds[('mlp_dw', shape)][0]:.4f}, "
+              f"backward {bounds[('mlp_bwd', shape)][0]:.4f} ms")
         timed[("mlp_fwd", shape)] = (fwd, fwd_plain)
         timed[("mlp_dx", shape)] = (dx, bwd_plain)
         timed[("mlp_dw", shape)] = (dw, bwd_plain)
+        timed[("mlp_bwd", shape)] = (bwd, bwd_plain)
         del args, do, leaves, out_chain
         torch.cuda.empty_cache()
     return timed
@@ -652,27 +669,41 @@ def sdpa_ms(q, k, v, do):
     return out
 
 
-def kernel_ms(fn, iters=10, sessions=3):
-    """Device time of one call of fn (which launches one kernel) by
-    torch.profiler: the kernel's own time without the host's launch work,
-    the mean over the kernels the session recorded of `iters` calls after
-    warm-up. A session that records too few kernels (the profiler now and
-    then hands back an empty session) is run again, up to `sessions` times."""
+def kernel_ms(fn, iters=10, sessions=3, by_name=None):
+    """Device time of one call of fn by torch.profiler: the kernel time of
+    every kernel one call launches, without the host's launch work. Over a
+    session of `iters` calls after warm-up, each kernel name's mean time
+    times its launches a call (its count over iters, rounded), summed. A
+    session that records some kernel fewer than `iters` times (the profiler
+    now and then hands back an empty or partial session) is run again, up to
+    `sessions` times; the fullest is kept, and it must hold at least half of
+    the kernels. by_name, a dict, receives each kernel name's ms a call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    best = {}
     for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        ran = [e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        if iters // 2 <= len(ran):
+        ran = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                ran.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if sum(map(len, ran.values())) > sum(map(len, best.values())):
+            best = ran
+        if all(len(v) >= iters for v in ran.values()) and ran:
             break
-    check(iters // 2 <= len(ran) <= iters, f"profiled {len(ran)} kernels of {iters} calls")
-    return sum(ran) / len(ran) / 1e3
+    per_call = {name: max(1, round(len(v) / iters)) for name, v in best.items()}
+    got = sum(map(len, best.values()))
+    check(bool(best) and iters * sum(per_call.values()) // 2 <= got,
+          f"profiled {got} kernels of {iters} calls ({per_call})")
+    each = {name: sum(v) / len(v) * per_call[name] / 1e3 for name, v in best.items()}
+    if by_name is not None:
+        by_name.update(each)
+    return sum(each.values())
 
 
 def host_us(fn, n=200):
@@ -768,6 +799,57 @@ def bwd_rows(gen, seed, timed, libs, bounds, smi):
               f"dq {bounds[('philox_dq', shape)]:.4f}, dk/dv {bounds[('philox_dkv', shape)]:.4f}; "
               f"gpu: {smi}")
         del q, k, v, do
+        torch.cuda.empty_cache()
+
+
+def mlp_rows(gen, timed, libs, bounds, smi):
+    """The fused MLP's backward rows at the two 117M shapes, bf16, dropout 0:
+    K6b alone (stage H and dx), K6c alone (stage H, db2's partials, dW1 and
+    dW2), the whole backward (fused_mlp_bwd: stage H once) and the unfused
+    chain's backward (autograd of F.linear, GELU, F.linear), each by the
+    kernel time of every kernel one call launches, beside their event times
+    (phase 6) and bounds."""
+    import torch.nn.functional as F
+
+    from orbit2_tpu_torch.ops.fused_mlp import FUSED_MLP_DW, FUSED_MLP_DX, fused_mlp_bwd
+
+    for shape in MLP_SHAPES[:2]:
+        t, d, f, d2 = shape
+        args = mlp_inputs(shape, torch.bfloat16, gen)
+        do = torch.randn(t, d2, generator=gen, device="cuda").to(torch.bfloat16)
+        leaves = [a.detach().requires_grad_() for a in args]
+        out_chain = F.linear(F.gelu(F.linear(leaves[0], leaves[1], leaves[2])), leaves[3], leaves[4])
+        parts = {}
+        alone = {
+            "mlp_dx": kernel_ms(lambda: FUSED_MLP_DX(*args[:4], do, 0.0, 0, 0)),
+            "mlp_dw": kernel_ms(lambda: FUSED_MLP_DW(*args[:4], do, 0.0, 0, 0)),
+            "mlp_bwd": kernel_ms(lambda: fused_mlp_bwd(*args[:4], do), by_name=parts),
+            "chain": kernel_ms(lambda: torch.autograd.grad(out_chain, leaves, do,
+                                                           retain_graph=True)),
+        }
+        for name in ("mlp_dx", "mlp_dw", "mlp_bwd"):
+            timed[(name + "_kernel", shape)] = alone[name]
+        libs[("mlp_bwd_chain_kernel", shape)] = alone["chain"]
+        b = {name: bounds[(name, shape)][0] for name in ("mlp_dx", "mlp_dw", "mlp_bwd")}
+        print(f"  K6 backward bf16 [{t}, {d} -> {f} -> {d2}], kernel time: dx (K6b alone) "
+              f"{alone['mlp_dx']:.4f} ms (bound {b['mlp_dx']:.4f}, events "
+              f"{timed[('mlp_dx', shape)][0]:.4f}), dW (K6c alone) {alone['mlp_dw']:.4f} ms (bound "
+              f"{b['mlp_dw']:.4f}, events {timed[('mlp_dw', shape)][0]:.4f}), backward "
+              f"{alone['mlp_bwd']:.4f} ms (bound {b['mlp_bwd']:.4f}, {b['mlp_bwd'] / alone['mlp_bwd']:.3f}"
+              f" of it; events {timed[('mlp_bwd', shape)][0]:.4f}); unfused chain's backward "
+              f"{alone['chain']:.4f} ms (events {libs[('mlp_bwd_chain', shape)]:.4f}; backward / chain "
+              f"{alone['mlp_bwd'] / alone['chain']:.3f}); gpu: {smi}")
+        product = 2 * t * d * f  # one of the five products (D = D2 here)
+        for name, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
+            # stage H: h_pre and dh; the dx product (mlp_gemm<false, ..>); dW1
+            # and dW2 (mlp_gemm<true, ..>); db2's partials: none
+            products = (2 if "mlp_hidden" in name else
+                        (1 if "mlp_gemm_tma_wgmma<false" in name else 2) if "mlp_gemm" in name
+                        else 0)
+            rate = f", {products * product / ms / 1e9:.1f} TFLOP/s of its {products} products" \
+                if products and d == d2 else ""
+            print(f"    {name.split('(')[0]}: {ms:.4f} ms{rate}")
+        del args, do, leaves, out_chain
         torch.cuda.empty_cache()
 
 
@@ -1449,6 +1531,7 @@ def main():
     k1_rows(gen, kernel_seed, timed, libs, bounds, smi)
     bwd_rows(gen, kernel_seed, timed, libs, bounds, smi)
     dropout_rows(gen, kernel_seed, timed, libs, bounds, smi)
+    mlp_rows(gen, timed, libs, bounds, smi)
 
     slice_shape = SHAPES[0]
     mlp_shape = MLP_SHAPES[0]

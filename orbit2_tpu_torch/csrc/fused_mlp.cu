@@ -9,19 +9,17 @@
 // Layout: x [T, D] and the output gradient do [T, D2] row-major; the weights
 // as PyTorch's Linear stores them, W1 [F, D] and W2 [D2, F], read as stored
 // (no transposed copy per call); b1 [F], b2 [D2]. One dtype for all of them:
-// bf16 (products on mma.sync m16n8k16 tensor cores) or fp32 (products on FMAs
-// in the same accumulator layout, so every epilogue is shared). T is any
-// multiple of 8 (ragged T tiles are zero-filled and masked); D, F and D2 are
-// multiples of 128.
+// bf16 or fp32. T is any multiple of 8 (ragged T tiles are zero-filled and
+// masked); D, F and D2 are multiples of 128.
 //
 // Rounding points are the TPU kernels': fp32 accumulation; the hidden h
 // rounded to the input dtype before the second product (:139); + b2 and the
 // output mask in fp32, then one rounding (:144-147). Backward: do2 = do * m2
 // rounded to the dtype (:184-187); dh = do2 W2 (fp32) times m1; dpre = dh *
-// gelu'(h_pre) with h_pre recomputed; dx = dpre_r W1; dW2 = do2^T h_r; dW1 =
-// dpre_r^T x (r = rounded to the dtype); db1 = sum_t dpre and db2 = sum_t
-// do * m2 in fp32, unrounded. GELU and its derivative are evaluated in fp32
-// with CUDA's erff (the TPU's Abramowitz-Stegun erf, :57-65, is not carried).
+// gelu'(h_pre); dx = dpre_r W1; dW2 = do2^T h_r; dW1 = dpre_r^T x (r =
+// rounded to the dtype); db1 = sum_t dpre and db2 = sum_t do * m2 in fp32,
+// unrounded. GELU and its derivative are evaluated in fp32 with CUDA's erff
+// (the TPU's Abramowitz-Stegun erf, :57-65, is not carried).
 //
 // Dropout (the kDrop instances; rate 0 compiles to kernels without it): the
 // multiplier of hidden element (t, f) is that of csrc/kernel_prng.cuh at
@@ -31,31 +29,35 @@
 // seeds, and independent of tiles (the TPU's 256-unit mask grid, :81-119, has
 // no counterpart).
 //
-// What bounds it on the H100, and the design. The TPU kernels keep an fp32
-// [512, D2] accumulator in 16 MB of VMEM; an H100 block has at most 227 KB of
-// shared memory and 255 registers a thread. So every block owns one output
-// tile and recomputes what it needs:
-//   * forward: a (64 tokens, 256 output columns) tile; for each 64-wide
-//     hidden chunk it computes h = x W1[chunk]^T (streaming D through shared
-//     memory in 64-deep chunks), applies b1, GELU and m1, rounds h into shared
-//     memory and adds h W2[cols, chunk]^T to registers. x W1^T is recomputed
-//     D2/256 times.
-//   * dx: a (64 tokens, 256 columns of D) tile; per hidden chunk it recomputes
-//     h_pre (depth D) and dh = do2 W2 (depth D2, do masked and rounded as it is
-//     loaded), forms dpre in registers and adds dpre W1[chunk, cols].
-//   * dW: two kinds of block in one grid. A (128 rows of D2, 128 of F) block
-//     of dW2 recomputes h for each 64-token chunk and adds do2^T h; a (128 of
-//     F, 128 of D) block of dW1 recomputes h_pre and dh and adds dpre^T x.
-//     The F-column-0 blocks of the first kind also sum db2 and the D-column-0
-//     blocks of the second kind db1.
-// Every sum over T runs in a fixed order inside one block (no atomics), so
-// two runs give bit-equal gradients. The recomputation makes this first
-// kernel do several times the products of cuBLAS's plain chain; a design that
-// shares h across output tiles (wgmma, TMA-fed pipelines) is later work.
+// The kernels here, on mma.sync tensor cores (bf16) or FMAs (fp32) in the
+// same accumulator layout. The TPU kernels keep an fp32 [512, D2]
+// accumulator in 16 MB of VMEM; an H100 block has at most 227 KB of shared
+// memory and 255 registers a thread, so every block owns one output tile and
+// recomputes what it needs:
+//   * forward (bf16 and fp32): a (64 tokens, 256 output columns) tile; for
+//     each 64-wide hidden chunk it computes h = x W1[chunk]^T (streaming D
+//     through shared memory in 64-deep chunks), applies b1, GELU and m1,
+//     rounds h into shared memory and adds h W2[cols, chunk]^T to registers.
+//     x W1^T is recomputed D2/256 times.
+//   * dx (fp32): a (64 tokens, 256 columns of D) tile; per hidden chunk it
+//     recomputes h_pre (depth D) and dh = do2 W2 (depth D2, do masked and
+//     rounded as it is loaded), forms dpre in registers and adds
+//     dpre W1[chunk, cols].
+//   * dW (fp32): two kinds of block in one grid. A (128 rows of D2, 128 of
+//     F) block of dW2 recomputes h for each 64-token chunk and adds
+//     do2^T h; a (128 of F, 128 of D) block of dW1 recomputes h_pre and dh
+//     and adds dpre^T x. The F-column-0 blocks of the first kind also sum
+//     db2 and the D-column-0 blocks of the second kind db1.
+// The fp32 kernels are the parity dtype, not a speed path. The bf16 dx and
+// dW run on the Hopper kernels of fused_mlp_hopper.cuh instead: stage H
+// computes h_pre and dh once into a bf16 workspace, then dx, dW1 and dW2 are
+// plain-shaped TMA-fed wgmma products. Every sum over T runs in a fixed
+// order inside one block (no atomics), so two runs give bit-equal gradients.
 
 #include <type_traits>
 
 #include "flash_common.cuh"
+#include "fused_mlp_hopper.cuh"
 
 namespace {
 
@@ -68,9 +70,6 @@ constexpr int kBK = 64;        // depth of one streamed chunk
 constexpr int kBF = 64;        // hidden chunk of the forward and dx blocks
 constexpr int kBN = 256;       // output columns of a forward or dx block
 constexpr int kBW = 128;       // edge of a dW tile
-
-constexpr float kInvSqrt2 = 0.70710678118654752f;
-constexpr float kInvSqrt2Pi = 0.39894228040143268f;
 
 // Row stride of a shared tile of `cols` elements: 16 bytes of padding keeps
 // the fragment reads free of bank conflicts and rows 16-byte aligned.
@@ -98,11 +97,8 @@ __device__ __forceinline__ void store2(T* p, float lo, float hi) {
   }
 }
 
-__device__ __forceinline__ float gelu(float v) { return 0.5f * v * (1.f + erff(v * kInvSqrt2)); }
-
-__device__ __forceinline__ float dgelu(float v) {
-  return 0.5f * (1.f + erff(v * kInvSqrt2)) + v * expf(-0.5f * v * v) * kInvSqrt2Pi;
-}
+using orbit2::mlp::dgelu;
+using orbit2::mlp::gelu;
 
 // The drop flags of columns 8 (col / 8) .. + 7 of `row` (bit c for column
 // 8 (col / 8) + c): one Philox call (kernel_prng.cuh).
@@ -319,13 +315,14 @@ fused_mlp_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T*
   }
 }
 
-// ---- dx (K6b) -------------------------------------------------------------------
+// ---- dx (K6b), fp32 --------------------------------------------------------------
 
 template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 fused_mlp_dx_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
                     const T* __restrict__ w2, const T* __restrict__ dout, T* __restrict__ dx,
                     int tokens, int d, int f, int d2, Dropout drop1, Dropout drop2) {
+  static_assert(std::is_same<T, float>::value, "bf16 dx runs on fused_mlp_hopper.cuh");
   using S = FwdSmem<T>;  // the same four buffers: as, bs, dpre tile, W1^T tile
   constexpr int kNT1 = kBF / 16;
   constexpr int kNT2 = kBN / 16;
@@ -400,7 +397,7 @@ fused_mlp_dx_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* 
   }
 }
 
-// ---- dW (K6c) -------------------------------------------------------------------
+// ---- dW (K6c), fp32 --------------------------------------------------------------
 
 template <typename T>
 struct DwSmem {  // as [64][L_K]; bs [128][L_K]; ts1, ts2 [128][L_T]; red fp32 [4][128]
@@ -421,6 +418,7 @@ fused_mlp_dw_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* 
                     float* __restrict__ db1, float* __restrict__ dw2, float* __restrict__ db2,
                     int tokens, int d, int f, int d2, int blocks_a, Dropout drop1,
                     Dropout drop2) {
+  static_assert(std::is_same<T, float>::value, "bf16 dW runs on fused_mlp_hopper.cuh");
   using S = DwSmem<T>;
   constexpr int kNT1 = kBW / 16;  // a warp's share of a [64, 128] tile
   constexpr int kNT2 = kBW / 8;   // a warp's share of a [128, 128] tile: 16 rows, all columns
@@ -650,6 +648,24 @@ int make_args(Args* a, int dtype, const void* x, const void* w1, const void* b1,
   return 0;
 }
 
+// The bf16 backward's operands for fused_mlp_hopper.cuh.
+orbit2::mlp::BwdOperands bwd_operands(const Args& a, const void* dout, const void* dout2,
+                                      void* dpre, void* h, void* db1_part, void* db2_part) {
+  return orbit2::mlp::BwdOperands{
+      static_cast<const bf16*>(a.x),  static_cast<const bf16*>(a.w1),
+      static_cast<const bf16*>(a.b1), static_cast<const bf16*>(a.w2),
+      static_cast<const bf16*>(dout), static_cast<const bf16*>(dout2),
+      static_cast<bf16*>(dpre),       static_cast<bf16*>(h),
+      static_cast<float*>(db1_part),  static_cast<float*>(db2_part),
+      a.tokens, a.d, a.f, a.d2, a.drop1, a.drop2};
+}
+
+// Stage H of the bf16 backward (fused_mlp_hopper.cuh) into the workspace.
+int launch_hidden(const orbit2::mlp::BwdOperands& o, int dropout, cudaStream_t stream) {
+  return dropout ? orbit2::mlp::launch_hidden<true>(o, stream)
+                 : orbit2::mlp::launch_hidden<false>(o, stream);
+}
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes. dtype: 0 = float32, 1 = bfloat16
@@ -657,8 +673,13 @@ int make_args(Args* a, int dtype, const void* x, const void* w1, const void* b1,
 // w1 [f, d], b1 [f], w2 [d2, f], b2 [d2], dout [tokens, d2]. dropout != 0
 // applies the two masks (seed1 hidden, seed2 output; kept when the bits are
 // <= threshold, then scaled by `scale`). Return 0 on success, a cudaError_t
-// code if the launch failed, or -1 for a dtype or shape the kernels do not
-// take (tokens a multiple of 8, d/f/d2 multiples of 128).
+// code if the launch failed, -1 for a dtype or shape the kernels do not
+// take (tokens a multiple of 8, d/f/d2 multiples of 128), or -2
+// (kEncodeFailed) when the driver refuses a bf16 backward's tensor map.
+//
+// The backward entries take dout2, do2 = bf16(dout m2) (dout itself at rate
+// 0), for the bf16 products, and a bf16 workspace (fused_mlp_hopper.cuh);
+// the fp32 kernels mask dout themselves and ignore both.
 
 extern "C" int orbit2_fused_mlp_fwd(int dtype, const void* x, const void* w1, const void* b1,
                                     const void* w2, const void* b2, void* out, int64_t tokens,
@@ -676,10 +697,12 @@ extern "C" int orbit2_fused_mlp_fwd(int dtype, const void* x, const void* w1, co
   return dropout ? launch_fwd<float, true>(a, b2, out) : launch_fwd<float, false>(a, b2, out);
 }
 
-// dx [tokens, d] in the input dtype.
+// dx [tokens, d] in the input dtype. bf16: stage H into dpre [tokens, f]
+// unless have_dpre (dpre already holds stage H's dpre_r), then dx = dpre_r W1.
 extern "C" int orbit2_fused_mlp_dx(int dtype, const void* x, const void* w1, const void* b1,
-                                   const void* w2, const void* dout, void* dx, int64_t tokens,
-                                   int64_t d, int64_t f, int64_t d2, int dropout, uint64_t seed1,
+                                   const void* w2, const void* dout, const void* dout2, void* dx,
+                                   void* dpre, int have_dpre, int64_t tokens, int64_t d,
+                                   int64_t f, int64_t d2, int dropout, uint64_t seed1,
                                    uint64_t seed2, uint32_t threshold, float scale, void* stream) {
   Args a;
   if (make_args(&a, dtype, x, w1, b1, w2, tokens, d, f, d2, dropout, seed1, seed2, threshold,
@@ -687,17 +710,28 @@ extern "C" int orbit2_fused_mlp_dx(int dtype, const void* x, const void* w1, con
     return -1;
   }
   if (dtype == 1) {
-    return dropout ? launch_dx<bf16, true>(a, dout, dx) : launch_dx<bf16, false>(a, dout, dx);
+    const orbit2::mlp::BwdOperands o =
+        bwd_operands(a, dout, dout2, dpre, nullptr, nullptr, nullptr);
+    if (!have_dpre) {
+      const int err = launch_hidden(o, dropout, a.stream);
+      if (err) return err;
+    }
+    return orbit2::mlp::launch_dx(o, static_cast<bf16*>(dx), a.stream);
   }
   return dropout ? launch_dx<float, true>(a, dout, dx) : launch_dx<float, false>(a, dout, dx);
 }
 
-// dw1 [f, d], db1 [f], dw2 [d2, f], db2 [d2], all fp32.
+// dw1 [f, d], db1 [f], dw2 [d2, f], db2 [d2], all fp32. bf16: the workspace
+// dpre, h [tokens, f] bf16, db1_part [ceil(tokens / 128), f] and db2_part
+// [ceil(tokens / 64), d2] fp32; stage H, db2's partials, then the dW
+// products, which sum both biases' partials; dpre then holds dpre_r for
+// orbit2_fused_mlp_dx.
 extern "C" int orbit2_fused_mlp_dw(int dtype, const void* x, const void* w1, const void* b1,
-                                   const void* w2, const void* dout, void* dw1, void* db1,
-                                   void* dw2, void* db2, int64_t tokens, int64_t d, int64_t f,
-                                   int64_t d2, int dropout, uint64_t seed1, uint64_t seed2,
-                                   uint32_t threshold, float scale, void* stream) {
+                                   const void* w2, const void* dout, const void* dout2, void* dw1,
+                                   void* db1, void* dw2, void* db2, void* dpre, void* h,
+                                   void* db1_part, void* db2_part, int64_t tokens, int64_t d,
+                                   int64_t f, int64_t d2, int dropout, uint64_t seed1,
+                                   uint64_t seed2, uint32_t threshold, float scale, void* stream) {
   Args a;
   if (make_args(&a, dtype, x, w1, b1, w2, tokens, d, f, d2, dropout, seed1, seed2, threshold,
                 scale, stream)) {
@@ -706,8 +740,13 @@ extern "C" int orbit2_fused_mlp_dw(int dtype, const void* x, const void* w1, con
   float* o[4] = {static_cast<float*>(dw1), static_cast<float*>(db1), static_cast<float*>(dw2),
                  static_cast<float*>(db2)};
   if (dtype == 1) {
-    return dropout ? launch_dw<bf16, true>(a, dout, o[0], o[1], o[2], o[3])
-                   : launch_dw<bf16, false>(a, dout, o[0], o[1], o[2], o[3]);
+    const orbit2::mlp::BwdOperands ops = bwd_operands(a, dout, dout2, dpre, h, db1_part, db2_part);
+    int err = launch_hidden(ops, dropout, a.stream);
+    if (!err) {
+      err = dropout ? orbit2::mlp::launch_bias2<true>(ops, a.stream)
+                    : orbit2::mlp::launch_bias2<false>(ops, a.stream);
+    }
+    return err ? err : orbit2::mlp::launch_dw(ops, o[0], o[1], o[2], o[3], a.stream);
   }
   return dropout ? launch_dw<float, true>(a, dout, o[0], o[1], o[2], o[3])
                  : launch_dw<float, false>(a, dout, o[0], o[1], o[2], o[3]);

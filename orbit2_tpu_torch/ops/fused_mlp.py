@@ -3,10 +3,20 @@
 Counterpart of orbit2_tpu/ops/fused_mlp.py. `fused_mlp(x, w1, b1, w2, b2)`
 computes drop2(drop1(gelu_erf(x W1^T + b1)) W2^T + b2) over x [..., D] with
 the weights in the port's Linear layout (w1 [F, D], w2 [D2, F]), without
-storing the [T, F] hidden activation: csrc/fused_mlp.cu holds the forward
-(K6a), dx (K6b) and dW (K6c) kernels. `FusedMlp` is the autograd.Function; it
-saves x, w1, b1, w2 and the two dropout seeds, and its backward recomputes
-the hidden.
+storing the [T, F] hidden activation in the forward: csrc/fused_mlp.cu holds
+the forward (K6a), dx (K6b) and dW (K6c) kernels. `FusedMlp` is the
+autograd.Function; it saves x, w1, b1, w2 and the two dropout seeds.
+
+The bf16 backward (csrc/fused_mlp_hopper.cuh) runs in stages: stage H
+computes h_pre = x W1^T and dh = do2 W2 once per backward into a bf16
+workspace (h_r and dpre_r, [T, F] each, and per-128-token-tile partial sums
+of db1 and db2), then dx = dpre_r W1, dW1 = dpre_r^T x and dW2 = do2^T h_r.
+`mlp_bwd_plan` gives its tile plan and workspace, and
+`fused_mlp_bwd_staged` is its plain version, stage by stage. The workspace is
+what the unfused chain's autograd keeps for the same backward (GELU's and
+fc2's inputs, [T, F] each). At dropout > 0, do2 = bf16(do m2) comes from
+the fused dropout (ops/dropout.py), which draws the same bits. The fp32
+kernels recompute the hidden per output tile (the parity dtype).
 
 The two seeds come from the generator in the unfused Mlp's order (the hidden
 mask's first, then the output mask's). The mask of hidden element (t, f) is
@@ -31,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from orbit2_tpu_torch.ops._nvcc import NvccKernel, NvccLibrary
+from orbit2_tpu_torch.ops.dropout import FUSED_DROPOUT
 from orbit2_tpu_torch.ops.kernel_prng import draw_seed, keep_mult, keep_threshold
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -38,6 +49,35 @@ LIBRARY = NvccLibrary("fused_mlp.cu")  # all three kernels
 _DIMS = [ctypes.c_int64] * 4
 _DROPOUT_ARGS = [ctypes.c_int, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float]
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
+# tokens of a stage-H tile, and of a partial sum of db1 and db2
+# (csrc/fused_mlp_hopper.cuh kBlockRows)
+TOKEN_TILE = 128
+# the hidden columns of a stage-H tile and the output tile edge of dx and dW
+BLOCK_COLS = 128
+# tokens of a partial sum of db2 (csrc/fused_mlp_hopper.cuh kSumRows)
+BIAS2_ROWS = 64
+
+
+def mlp_bwd_plan(tokens: int, d: int, f: int, d2: int) -> dict:
+    """The bf16 backward's tile plan and workspace (csrc/fused_mlp_hopper.cuh):
+    the tiles of stage H (hidden-column tiles x token tiles of 128 x 128),
+    dx (token tiles x D / BN) and dW (the dW1 then the dW2 tiles of 128 x
+    BN), with BN 256 where the output widths allow it, else 128; the
+    workspace shapes (dpre_r and h_r bf16 [T, F]; the fp32 partial sums of
+    db1, one row a token tile, and of db2, one row a BIAS2_ROWS slice) and
+    its bytes."""
+    tiles = -(-tokens // TOKEN_TILE)
+    slices = -(-tokens // BIAS2_ROWS)
+    dx_bn = 256 if d % 256 == 0 else 128
+    dw_bn = 256 if d % 256 == 0 and f % 256 == 0 else 128
+    return {"token_tiles": tiles,
+            "hidden_tiles": (f // BLOCK_COLS, tiles),
+            "dx_tiles": tiles * (d // dx_bn),
+            "dw_tiles": (f // TOKEN_TILE) * (d // dw_bn) + (d2 // TOKEN_TILE) * (f // dw_bn),
+            "tile_cols": {"dx": dx_bn, "dw": dw_bn},
+            "workspace": {"dpre": (tokens, f), "h": (tokens, f), "db1_part": (tiles, f),
+                          "db2_part": (slices, d2)},
+            "workspace_bytes": 2 * 2 * tokens * f + 4 * (tiles * f + slices * d2)}
 
 
 def _dropout_args(rate: float, seed1: int, seed2: int):
@@ -93,39 +133,73 @@ class FusedMlpForwardKernel(NvccKernel):
         return out
 
 
+def _masked_do(do, rate: float, seed2: int):
+    """do2 of the bf16 backward's products: bf16(do m2) by the fused dropout
+    (K5), do itself at rate 0 or in fp32 (whose kernels mask do as they load
+    it)."""
+    if rate > 0.0 and do.dtype == torch.bfloat16:
+        return FUSED_DROPOUT(do, seed2, rate)
+    return do
+
+
 class FusedMlpDxKernel(NvccKernel):
-    """csrc/fused_mlp.cu, dx (K6b)."""
+    """csrc/fused_mlp.cu, dx (K6b). bf16: stage H (unless the caller hands
+    over `dpre`, stage H's dpre_r) and dx = dpre_r W1 on the Hopper kernels."""
 
     def __init__(self):
         super().__init__(LIBRARY, "orbit2_fused_mlp_dx",
-                         [ctypes.c_int] + [ctypes.c_void_p] * 6 + _DIMS + _DROPOUT_ARGS)
+                         [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] + _DIMS
+                         + _DROPOUT_ARGS)
 
-    def __call__(self, x, w1, b1, w2, do, rate: float, seed1: int, seed2: int) -> torch.Tensor:
+    def __call__(self, x, w1, b1, w2, do, rate: float, seed1: int, seed2: int,
+                 do2: Optional[torch.Tensor] = None,
+                 dpre: Optional[torch.Tensor] = None) -> torch.Tensor:
         x, w1, b1, w2, do = (_aligned(t) for t in (x, w1, b1, w2, do))
         tokens, d, f, d2 = _check_cuda(x, w1, b1, w2, do)
+        do2 = _aligned(_masked_do(do, rate, seed2) if do2 is None else do2)
+        have = dpre is not None
+        if have and (dpre.shape != (tokens, f) or dpre.dtype != torch.bfloat16
+                     or dpre.device != x.device or not dpre.is_contiguous()):
+            raise ValueError(f"dpre must be a contiguous bf16 [{tokens}, {f}] on {x.device}")
+        if not have and x.dtype == torch.bfloat16:
+            dpre = torch.empty((tokens, f), dtype=torch.bfloat16, device=x.device)
         dx = torch.empty((tokens, d), dtype=x.dtype, device=x.device)
         self.launch(x.device, _DTYPE_CODES[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                    w2.data_ptr(), do.data_ptr(), dx.data_ptr(), tokens, d, f, d2,
+                    w2.data_ptr(), do.data_ptr(), do2.data_ptr(), dx.data_ptr(),
+                    0 if dpre is None else dpre.data_ptr(), int(have), tokens, d, f, d2,
                     *_dropout_args(rate, seed1, seed2))
         return dx
 
 
 class FusedMlpDwKernel(NvccKernel):
-    """csrc/fused_mlp.cu, dW (K6c): (dw1, db1, dw2, db2) in fp32."""
+    """csrc/fused_mlp.cu, dW (K6c): (dw1, db1, dw2, db2) in fp32. bf16: stage H
+    into a workspace (mlp_bwd_plan), then dW1 and dW2 on the Hopper kernels;
+    with keep_dpre it also returns stage H's dpre_r, for FUSED_MLP_DX."""
 
     def __init__(self):
         super().__init__(LIBRARY, "orbit2_fused_mlp_dw",
-                         [ctypes.c_int] + [ctypes.c_void_p] * 9 + _DIMS + _DROPOUT_ARGS)
+                         [ctypes.c_int] + [ctypes.c_void_p] * 14 + _DIMS + _DROPOUT_ARGS)
 
-    def __call__(self, x, w1, b1, w2, do, rate: float, seed1: int, seed2: int):
+    def __call__(self, x, w1, b1, w2, do, rate: float, seed1: int, seed2: int,
+                 do2: Optional[torch.Tensor] = None, keep_dpre: bool = False):
         x, w1, b1, w2, do = (_aligned(t) for t in (x, w1, b1, w2, do))
         tokens, d, f, d2 = _check_cuda(x, w1, b1, w2, do)
+        do2 = _aligned(_masked_do(do, rate, seed2) if do2 is None else do2)
         kw = dict(dtype=torch.float32, device=x.device)
         dw1, db1 = torch.empty((f, d), **kw), torch.empty((f,), **kw)
         dw2, db2 = torch.empty((d2, f), **kw), torch.empty((d2,), **kw)
+        ws = {}
+        if x.dtype == torch.bfloat16:
+            for name, shape in mlp_bwd_plan(tokens, d, f, d2)["workspace"].items():
+                dtype = torch.float32 if name.endswith("_part") else torch.bfloat16
+                ws[name] = torch.empty(shape, dtype=dtype, device=x.device)
+        ptr = lambda name: ws[name].data_ptr() if ws else 0
         self.launch(x.device, _DTYPE_CODES[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                    w2.data_ptr(), do.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
-                    db2.data_ptr(), tokens, d, f, d2, *_dropout_args(rate, seed1, seed2))
+                    w2.data_ptr(), do.data_ptr(), do2.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+                    dw2.data_ptr(), db2.data_ptr(), ptr("dpre"), ptr("h"), ptr("db1_part"),
+                    ptr("db2_part"), tokens, d, f, d2, *_dropout_args(rate, seed1, seed2))
+        if keep_dpre:
+            return dw1, db1, dw2, db2, ws.get("dpre")
         return dw1, db1, dw2, db2
 
 
@@ -196,6 +270,58 @@ def fused_mlp_bwd_reference(x, w1, b1, w2, do, m1: Optional[torch.Tensor] = None
     return (dpre @ w1.float()).to(x.dtype), dpre.t() @ xf, db1, dw2, db2
 
 
+def _tile_sums(v: torch.Tensor) -> torch.Tensor:
+    """Column sums of v [T, C] over each TOKEN_TILE rows: [ceil(T / 128), C]."""
+    return torch.stack([chunk.sum(0) for chunk in v.split(TOKEN_TILE)])
+
+
+def _sum_in_order(parts: torch.Tensor) -> torch.Tensor:
+    """parts [n, C] summed over n in order, as the dW kernel sums them."""
+    out = parts[0].clone()
+    for p in parts[1:]:
+        out += p
+    return out
+
+
+def hidden_bwd_reference(x, w1, b1, w2, do, m1: Optional[torch.Tensor] = None,
+                         m2: Optional[torch.Tensor] = None, pad: bool = True):
+    """Plain version of stage H (csrc/fused_mlp_hopper.cuh): (dpre_r, h_r in
+    x's dtype [T', F]; db1_part [n, F] fp32, the column sums of dpre over
+    each token tile; do2 [T', D2] in x's dtype). With `pad`, x and do first
+    get zero rows up to a multiple of TOKEN_TILE, as TMA fills them (T' rows;
+    the masks get rows of ones), else T' = T."""
+    rnd = lambda t: t.to(x.dtype)
+    tokens = x.shape[0]
+    extra = (-tokens) % TOKEN_TILE if pad else 0
+    grow = lambda t, fill: torch.cat([t, t.new_full((extra, t.shape[1]), fill)]) if extra else t
+    xf, dof = grow(x.float(), 0.0), grow(do.float(), 0.0)
+    h_pre = xf @ w1.float().t() + b1.float()
+    h = F.gelu(h_pre)
+    do2 = rnd(dof if m2 is None else dof * grow(m2, 1.0))
+    dh = do2.float() @ w2.float()
+    if m1 is not None:
+        m1 = grow(m1, 1.0)
+        h = h * m1
+        dh = dh * m1
+    dpre = dh * _gelu_grad(h_pre)
+    return rnd(dpre), rnd(h), _tile_sums(dpre), do2
+
+
+def fused_mlp_bwd_staged(x, w1, b1, w2, do, m1: Optional[torch.Tensor] = None,
+                         m2: Optional[torch.Tensor] = None, pad: bool = True):
+    """The bf16 backward's stages in plain torch: stage H
+    (hidden_bwd_reference), then dx = dpre_r W1, dW1 = dpre_r^T x, dW2 =
+    do2^T h_r, db1 from stage H's partials in order and db2 = sum_t do m2
+    (fp32). The same five outputs as fused_mlp_bwd_reference."""
+    tokens = x.shape[0]
+    dpre, h, db1_part, do2 = hidden_bwd_reference(x, w1, b1, w2, do, m1, m2, pad)
+    xf = torch.cat([x.float(), x.new_zeros(dpre.shape[0] - tokens, x.shape[1]).float()])
+    dpre = dpre.float()
+    dx = (dpre @ w1.float()).to(x.dtype)[:tokens]
+    db2 = (do.float() if m2 is None else do.float() * m2).sum(0)
+    return (dx, dpre.t() @ xf, _sum_in_order(db1_part), do2.float().t() @ h.float(), db2)
+
+
 # ---- wrappers -------------------------------------------------------------------
 
 def _device_type(*tensors) -> str:
@@ -214,13 +340,18 @@ def fused_mlp_fwd(x, w1, b1, w2, b2, rate: float = 0.0, seed1: int = 0, seed2: i
 
 
 def fused_mlp_bwd(x, w1, b1, w2, do, rate: float = 0.0, seed1: int = 0, seed2: int = 0):
-    """(dx, dw1, db1, dw2, db2): the dx and dW kernels for CUDA tensors, the
+    """(dx, dw1, db1, dw2, db2): the dx and dW kernels for CUDA tensors (in
+    bf16 stage H runs once, in the dW call, and dx takes its dpre_r), the
     plain backward for CPU ones."""
     if _device_type(x, w1, b1, w2, do) == "cpu":
         masks = mlp_masks(rate, seed1, seed2, x.shape[0], w1.shape[0], w2.shape[0])
         return fused_mlp_bwd_reference(x, w1, b1, w2, do, *masks)
-    return (FUSED_MLP_DX(x, w1, b1, w2, do, rate, seed1, seed2),
-            *FUSED_MLP_DW(x, w1, b1, w2, do, rate, seed1, seed2))
+    # bf16: stage H once (in the dW call), its dpre_r handed on to dx
+    do2 = _masked_do(_aligned(do), rate, seed2)
+    dw1, db1, dw2, db2, dpre = FUSED_MLP_DW(x, w1, b1, w2, do, rate, seed1, seed2, do2=do2,
+                                            keep_dpre=True)
+    dx = FUSED_MLP_DX(x, w1, b1, w2, do, rate, seed1, seed2, do2=do2, dpre=dpre)
+    return dx, dw1, db1, dw2, db2
 
 
 class FusedMlp(torch.autograd.Function):
@@ -265,6 +396,7 @@ def fused_mlp(x, w1, b1, w2, b2, drop_rate: float = 0.0,
     return out.reshape(*shape[:-1], d2)
 
 
-__all__ = ["FUSED_MLP_FWD", "FUSED_MLP_DX", "FUSED_MLP_DW", "FusedMlp", "fused_mlp",
-           "fused_mlp_fwd", "fused_mlp_bwd", "fused_mlp_reference", "fused_mlp_bwd_reference",
+__all__ = ["FUSED_MLP_FWD", "FUSED_MLP_DX", "FUSED_MLP_DW", "FusedMlp", "TOKEN_TILE",
+           "fused_mlp", "fused_mlp_fwd", "fused_mlp_bwd", "fused_mlp_bwd_reference",
+           "fused_mlp_bwd_staged", "fused_mlp_reference", "hidden_bwd_reference", "mlp_bwd_plan",
            "mlp_masks"]

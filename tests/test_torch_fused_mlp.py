@@ -10,8 +10,13 @@ against the unfused chain, and `Mlp(use_fused=True)` / a tiny ResSlimViT
 against the JAX package on weights carried across by
 state_dict_from_jax_params.
 
+The bf16 backward's stages (csrc/fused_mlp_hopper.cuh) in plain torch:
+stage H and the three products against the one-shot plain backward, a
+ragged token count padded as TMA fills it, and the tile plan and workspace.
+
 CUDA (marker `cuda`, skipped without a card): each kernel against its plain
-version. Run without JAX's conftest on the chip machine:
+version; the backward's launches, repeats, ragged and odd shapes, a strided
+x and a second device. Run without JAX's conftest on the chip machine:
 `python -m pytest --noconftest -m cuda tests/test_torch_fused_mlp.py`.
 """
 
@@ -27,11 +32,15 @@ from orbit2_tpu_torch.ops.fused_mlp import (
     FUSED_MLP_DW,
     FUSED_MLP_DX,
     FUSED_MLP_FWD,
+    TOKEN_TILE,
     fused_mlp,
     fused_mlp_bwd,
     fused_mlp_bwd_reference,
+    fused_mlp_bwd_staged,
     fused_mlp_fwd,
     fused_mlp_reference,
+    hidden_bwd_reference,
+    mlp_bwd_plan,
     mlp_masks,
 )
 from orbit2_tpu_torch.ops.kernel_prng import draw_seed
@@ -216,6 +225,103 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     assert [k.launches for k in (FUSED_MLP_FWD, FUSED_MLP_DX, FUSED_MLP_DW)] == before
 
 
+# ---- the bf16 backward's stages, in plain torch ------------------------------------
+
+def stage_inputs(dtype, t=256, d=D, f=FH, d2=D2, seed=7):
+    """x, w1, b1, w2 (Linear layout) and do [t, d2] in `dtype`."""
+    x, w1, b1, w2, _ = to_port(*inputs(seed, t=t, d=d, f=f, d2=d2))
+    do = torch.from_numpy(np.random.default_rng(seed + 1).normal(size=(t, d2)).astype(np.float32))
+    return [a.to(dtype) for a in (x, w1, b1, w2, do)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25], ids=["nodrop", "drop"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_staged_backward_matches_the_plain_backward(dtype, rate):
+    """Stage H, then dx = dpre_r W1, dW1 = dpre_r^T x, dW2 = do2^T h_r and the
+    bias sums from their partials: the same five outputs as the one-shot plain
+    backward; dx, dW1 and dW2 equal, db1 and db2 within 1e-6 (their sums run
+    in another order)."""
+    x, w1, b1, w2, do = stage_inputs(dtype)
+    masks = mlp_masks(rate, 5, 6, x.shape[0], w1.shape[0], w2.shape[0])
+    want = fused_mlp_bwd_reference(x, w1, b1, w2, do, *masks)
+    got = fused_mlp_bwd_staged(x, w1, b1, w2, do, *masks)
+    for name, a, b in zip(GRAD_NAMES, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if name.startswith("db"):
+            torch.testing.assert_close(a, b, atol=1e-6 * b.abs().max().item(), rtol=1e-6, msg=name)
+        else:
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25], ids=["nodrop", "drop"])
+def test_stage_h_outputs(rate):
+    """Stage H's outputs: h_r = bf16(gelu(x W1^T + b1) m1), dpre_r =
+    bf16(do2 W2 m1 gelu'), do2 = bf16(do m2), and db1's partials, one row a
+    token tile of TOKEN_TILE rows, summing to the plain db1."""
+    x, w1, b1, w2, do = stage_inputs(torch.bfloat16, t=3 * TOKEN_TILE)
+    m1, m2 = mlp_masks(rate, 5, 6, x.shape[0], w1.shape[0], w2.shape[0])
+    dpre, h, db1_part, do2 = hidden_bwd_reference(x, w1, b1, w2, do, m1, m2)
+    h_pre = x.float() @ w1.float().t() + b1.float()
+    keep1 = 1.0 if m1 is None else m1
+    want_h = (F.gelu(h_pre) * keep1).bfloat16()
+    want_do2 = (do.float() * (1.0 if m2 is None else m2)).bfloat16()
+    assert torch.equal(h, want_h) and torch.equal(do2, want_do2)
+    g = 0.5 * (1 + torch.erf(h_pre / np.sqrt(2))) + h_pre * torch.exp(-0.5 * h_pre ** 2) / np.sqrt(2 * np.pi)
+    dpre32 = (want_do2.float() @ w2.float()) * keep1 * g
+    torch.testing.assert_close(dpre.float(), dpre32.bfloat16().float(), atol=1e-2, rtol=0)
+    assert db1_part.shape == (3, w1.shape[0])
+    torch.testing.assert_close(db1_part, dpre32.view(3, TOKEN_TILE, -1).sum(1), atol=1e-5,
+                               rtol=1e-5)
+    want_db1 = fused_mlp_bwd_reference(x, w1, b1, w2, do, m1, m2)[2]
+    torch.testing.assert_close(db1_part.sum(0), want_db1, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25], ids=["nodrop", "drop"])
+def test_ragged_tokens_padded_as_tma_fills_them(rate):
+    """136 tokens: x and do padded by zero rows to 256, as TMA fills a ragged
+    token tile, give the five outputs of the unpadded stages; h_r is not
+    zero in the padded rows (gelu(b1) m1), but do2 and dpre are."""
+    x, w1, b1, w2, do = stage_inputs(torch.bfloat16, t=136)
+    masks = mlp_masks(rate, 5, 6, 136, w1.shape[0], w2.shape[0])
+    padded = fused_mlp_bwd_staged(x, w1, b1, w2, do, *masks, pad=True)
+    exact = fused_mlp_bwd_staged(x, w1, b1, w2, do, *masks, pad=False)
+    for name, a, b in zip(GRAD_NAMES, padded, exact):
+        assert torch.equal(a, b), name
+    dpre, h, _, do2 = hidden_bwd_reference(x, w1, b1, w2, do, *masks, pad=True)
+    assert dpre.shape[0] == h.shape[0] == do2.shape[0] == 2 * TOKEN_TILE
+    assert h[136:].abs().sum() > 0
+    assert not dpre[136:].any() and not do2[136:].any()
+
+
+@pytest.mark.parametrize("shape", [(4096, 1024, 4096, 1024), (16384, 1024, 4096, 1024),
+                                   (4104, 1024, 4096, 1024), (512, 256, 640, 384)],
+                         ids=["117m", "117m_bench", "ragged", "odd"])
+def test_backward_tile_plan_and_workspace(shape):
+    """The plan the wrapper allocates by: dpre_r and h_r bf16 [T, F] (64 MiB at
+    4,096 tokens, 256 MiB at 16,384: what the unfused chain's autograd keeps
+    for GELU's and fc2's inputs), db1's partials one row a 128-token tile,
+    db2's one row a 64-token slice; 128 x 256 output tiles where the widths
+    allow."""
+    t, d, f, d2 = shape
+    plan = mlp_bwd_plan(t, d, f, d2)
+    tiles = -(-t // TOKEN_TILE)
+    assert plan["token_tiles"] == tiles
+    assert plan["workspace"] == {"dpre": (t, f), "h": (t, f), "db1_part": (tiles, f),
+                                 "db2_part": (-(-t // 64), d2)}
+    hidden = 2 * 2 * t * f
+    assert plan["workspace_bytes"] == hidden + 4 * (tiles * f + -(-t // 64) * d2)
+    if shape[0] == 4096:
+        assert hidden == 64 * 2 ** 20
+    if shape[0] == 16384:
+        assert hidden == 256 * 2 ** 20
+    assert plan["hidden_tiles"] == (f // 128, tiles)
+    bn = plan["tile_cols"]
+    assert bn == {"dx": 256 if d % 256 == 0 else 128,
+                  "dw": 256 if d % 256 == 0 and f % 256 == 0 else 128}
+    assert plan["dx_tiles"] == tiles * (d // bn["dx"])
+    assert plan["dw_tiles"] == (f // 128) * (d // bn["dw"]) + (d2 // 128) * (f // bn["dw"])
+
+
 # ---- the fused path in the model ------------------------------------------------
 
 def jax_model_pair(embed=128, depth=2, seed=0):
@@ -394,3 +500,73 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
         fused_mlp_fwd(x.bfloat16(), w1, b1, w2, b2)
     with pytest.raises(ValueError):
         fused_mlp_fwd(x[:60], w1, b1, w2, b2)
+
+
+def launches():
+    return [k.launches for k in (FUSED_MLP_DX, FUSED_MLP_DW, FUSED_DROPOUT)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["nodrop", "drop"])
+def test_backward_runs_stage_h_once_on_card(cuda, rate):
+    """One fused_mlp_bwd: K6b and K6c tick once each (stage H runs in the dW
+    call, dx takes its dpre_r), and the fused dropout makes do2 at rate > 0;
+    two runs are bit-equal, and dx from the handed-over dpre_r equals dx
+    alone."""
+    x, w1, b1, w2, _ = card_inputs((256, 256, 512, 256), torch.bfloat16, cuda)
+    do = torch.randn(256, 256, generator=torch.Generator().manual_seed(1)).to(cuda, torch.bfloat16)
+    before = launches()
+    got = fused_mlp_bwd(x, w1, b1, w2, do, rate, 11, 12)
+    torch.cuda.synchronize()
+    assert launches() == [before[0] + 1, before[1] + 1, before[2] + (1 if rate else 0)]
+    again = fused_mlp_bwd(x, w1, b1, w2, do, rate, 11, 12)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(FUSED_MLP_DX(x, w1, b1, w2, do, rate, 11, 12), got[0])
+    assert all(torch.equal(a, b) for a, b in zip(FUSED_MLP_DW(x, w1, b1, w2, do, rate, 11, 12),
+                                                 got[1:]))
+    masks = mlp_masks(rate, 11, 12, 256, 512, 256, device=cuda)
+    for name, a, b in zip(GRAD_NAMES, got, fused_mlp_bwd_staged(x, w1, b1, w2, do, *masks)):
+        close(a, b, torch.bfloat16, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["nodrop", "drop"])
+@pytest.mark.parametrize("shape", [(4104, 256, 512, 256), (136, 128, 256, 128),
+                                   (512, 256, 640, 384)], ids=["t4104", "t136", "f640_d2_384"])
+def test_backward_shapes_on_card(cuda, shape, rate):
+    """Ragged token tiles (4104, 136 tokens) and F, D2 not multiples of 256
+    (128-column output tiles), against the plain backward."""
+    x, w1, b1, w2, _ = card_inputs(shape, torch.bfloat16, cuda)
+    do = torch.randn(shape[0], shape[3], generator=torch.Generator().manual_seed(2)).to(
+        cuda, torch.bfloat16)
+    masks = mlp_masks(rate, 3, 4, shape[0], shape[2], shape[3], device=cuda)
+    got = fused_mlp_bwd(x, w1, b1, w2, do, rate, 3, 4)
+    for name, a, b in zip(GRAD_NAMES, got, fused_mlp_bwd_reference(x, w1, b1, w2, do, *masks)):
+        close(a, b, torch.bfloat16, name)
+
+
+@pytest.mark.cuda
+def test_backward_strided_x_on_card(cuda):
+    """A strided x (a column slice of a wider tensor) goes through a
+    contiguous copy: the same gradients as the contiguous x."""
+    x, w1, b1, w2, _ = card_inputs((136, 128, 256, 128), torch.bfloat16, cuda)
+    wide = torch.cat([x, x], dim=1)[:, 128:]
+    assert not wide.is_contiguous()
+    do = torch.randn(136, 128, generator=torch.Generator().manual_seed(3)).to(cuda, torch.bfloat16)
+    for a, b in zip(fused_mlp_bwd(wide, w1, b1, w2, do), fused_mlp_bwd(x, w1, b1, w2, do)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_backward_on_a_second_device(cuda):
+    """The shared-memory limit belongs to each device's context: the kernels
+    launch on a second card too."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", 1)
+    x, w1, b1, w2, _ = card_inputs((136, 128, 256, 128), torch.bfloat16, dev)
+    do = torch.randn(136, 128, generator=torch.Generator().manual_seed(4)).to(dev, torch.bfloat16)
+    got = fused_mlp_bwd(x, w1, b1, w2, do)
+    for name, a, b in zip(GRAD_NAMES, got, fused_mlp_bwd_reference(x, w1, b1, w2, do)):
+        assert a.device == dev, name
+        close(a, b, torch.bfloat16, name)

@@ -10,11 +10,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
                attention probes), all at once; cuobjdump -sass of the Hopper
                kernels' instances (K1 bf16, the four probes, the bf16 dq and
                dk/dv kernels at d 64 and 128, and the fused MLP's bf16
-               backward: stage H and the dx and dW products): each must
-               issue HGMMA and UTMALDG and touch no local memory; the integer
-               instructions of
-               one Philox call and of a dropped element, per pipe, from the
-               SASS of K1's, K2's and K3's d64 dropout instances
+               kernels: the forward's F1 and F2 products, stage H and the dx
+               and dW products): each must issue HGMMA and UTMALDG and touch
+               no local memory; the integer instructions of one Philox call
+               and of a dropped element, per pipe, from the SASS of K1's,
+               K2's and K3's d64 dropout instances
   3. kernels — each kernel against its plain PyTorch version on the card:
                the flash forward at SHAPES, bf16 and fp32, dropout 0 and 0.1;
                the dq and dk/dv kernels against autograd of the plain forward
@@ -28,7 +28,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
                its plain version and its dx and dW kernels against autograd
                of it, at MLP_SHAPES, both dtypes, dropout 0 and 0.1, bit-equal
                over two runs, with the zero pattern of the unfused chain (K5)
-               under the same seeds
+               under the same seeds; the forward's h_r (F1) within 1 bf16
+               ulp of stage H's at [4096, 1024 -> 4096 -> 1024]
      probes  — the four attention probes against their plain versions at
                PROBE_SHAPES (atol 1e-2 x the row's max|o| and rtol 1e-2, a
                tolerance that must fail the plain version without the last
@@ -58,18 +59,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
                K2 and K3 also by the profiler's kernel time alone, beside SDPA
                and their two bounds, tensor cores and their dropout's Philox
                calls; K5 also by its kernel time alone beside F.dropout's,
-               its bytes bound and its host time a call; K6b alone, K6c alone,
-               the whole fused-MLP backward and the unfused chain's backward
-               by the kernel time of every kernel a call launches, beside
-               their events and their 3-, 4- and 5-product bounds), each
-               kernel also against the one PyTorch call that computes its
-               function where there is one (SDPA pinned to its flash backend,
-               F.dropout), the fused MLP against the unfused bf16 chain and
+               its bytes bound and its host time a call; the fused-MLP
+               forward (F1 and F2) and the unfused chain's forward, K6b
+               alone, K6c alone, the whole fused-MLP backward and the
+               unfused chain's backward by the kernel time of every kernel a
+               call launches, beside their events and their 1-, 2-, 3-, 4-
+               and 5-product bounds), each kernel also against the one
+               PyTorch call that computes its function where there is one
+               (SDPA pinned to its flash backend, F.dropout), the fused MLP
+               against the unfused bf16 chain and
                the first two probes against their bmm pair; the probes'
                decomposition of the flash forward at (B8, N2048, H16, d64);
                the train step at the slice geometry and at bench.py's 117M
                geometry (64 x 128 input, 2,048 tokens), and the serving step
-               with and without the fused MLP
+               with and without the fused MLP, at the end also by the kernel
+               time of every kernel a step launches
 
 The second-to-last line is {"kernels": [...]}: for each kernel its launches
 on its path, max abs error, ms, plain ms, library ms (null where no single
@@ -180,13 +184,14 @@ ISSUE_LANES_PER_SM = 128
 ELEMENTS_PER_CALL = 8
 # the Hopper kernel templates (csrc/flash_fwd_hopper.cuh: K1 and the probes;
 # csrc/flash_bwd_hopper.cuh: K2 and K3; csrc/fused_mlp_hopper.cuh: the fused
-# MLP's bf16 backward), whose instances must issue wgmma (HGMMA) and TMA
+# MLP's bf16 kernels), whose instances must issue wgmma (HGMMA) and TMA
 # loads (UTMALDG) and spill nothing: 6 of K1, 4 probes, 4 each of K2 and K3
 # (d 64 and 128, with and without dropout), stage H with and without dropout,
-# and the dx and dW products at output tiles of 128 and 256 columns
+# and the products: dx and dW at output tiles of 128 and 256 columns, and
+# the forward's F1 and F2 at both tile widths, with and without dropout
 HOPPER_FWD = "flash_fwd_tma_wgmma"
 HOPPER_KERNELS = {HOPPER_FWD: 10, "flash_bwd_dq_tma_wgmma": 4, "flash_bwd_dkv_tma_wgmma": 4,
-                  "mlp_hidden_bwd_tma_wgmma": 2, "mlp_gemm_tma_wgmma": 4}
+                  "mlp_hidden_bwd_tma_wgmma": 2, "mlp_gemm_tma_wgmma": 12}
 # the d64 instances whose dropout SASS is counted, and the Philox calls a lane
 # makes per shuffle of drop flags in their draw: K1's and K2's drop_bits make
 # BK / 16 calls and 2 exchanges of BK / 64 words, K3's drop_bits_t BQ / 16
@@ -383,13 +388,21 @@ def close(got, want, rel, what, rows=False):
     return err
 
 
+def bf16_ulps(a, b):
+    """Per element, how many bf16 steps apart a and b are (+0 and -0 equal)."""
+    line = lambda v: (lambda i: torch.where(i < 0, -(i & 0x7FFF), i))(v.view(torch.int16).int())
+    return (line(a) - line(b)).abs()
+
+
 def check_fused_mlp(gen, kernel_seed, errs):
-    """The fused MLP's three kernels against their plain versions at MLP_SHAPES."""
+    """The fused MLP's three kernels against their plain versions at
+    MLP_SHAPES; at the first, the forward's h_r (F1) against stage H's."""
     import torch.nn.functional as F
 
     from orbit2_tpu_torch.ops.dropout import dropout
     from orbit2_tpu_torch.ops.fused_mlp import (
-        fused_mlp, fused_mlp_bwd, fused_mlp_fwd, fused_mlp_reference, mlp_masks)
+        FUSED_MLP_DW, FUSED_MLP_FWD, fused_mlp, fused_mlp_bwd, fused_mlp_fwd, fused_mlp_reference,
+        mlp_masks)
     from orbit2_tpu_torch.ops.kernel_prng import draw_seed
 
     s1, s2 = kernel_seed + 1, kernel_seed + 2
@@ -401,6 +414,7 @@ def check_fused_mlp(gen, kernel_seed, errs):
             for rate in (0.0, DROP):
                 m1, m2 = mlp_masks(rate, s1, s2, t, f, d2, device="cuda")
                 out = fused_mlp_fwd(x, w1, b1, w2, b2, rate, s1, s2)
+                out_again = fused_mlp_fwd(x, w1, b1, w2, b2, rate, s1, s2)
                 grads = fused_mlp_bwd(x, w1, b1, w2, do, rate, s1, s2)
                 again = fused_mlp_bwd(x, w1, b1, w2, do, rate, s1, s2)
                 want = fused_mlp_reference(x, w1, b1, w2, b2, m1, m2)
@@ -411,6 +425,7 @@ def check_fused_mlp(gen, kernel_seed, errs):
                 err = {"out": close(out, want, MLP_REL[dtype], f"{case} out")}
                 for name, got, leaf in zip(("dx", "dw1", "db1", "dw2", "db2"), grads, leaves):
                     err[name] = close(got, leaf.grad, MLP_REL[dtype], f"{case} {name}")
+                check(torch.equal(out, out_again), f"{case}: two forward runs differ")
                 check(all(torch.equal(a, b) for a, b in zip(grads, again)),
                       f"{case}: two backward runs differ")
                 line = "max abs err " + "  ".join(f"{k} {v:.3e}" for k, v in err.items())
@@ -435,11 +450,22 @@ def check_fused_mlp(gen, kernel_seed, errs):
                              f"{dropped.float().mean().item():.4f} dropped; exact zeros "
                              f"among kept: {stray[0]} fused, {stray[1]} unfused)")
                     del fused, h, chain, dropped
-                print(f"  {case}: {line}; bwd bit-equal over two runs")
+                if dtype == torch.bfloat16 and shape == MLP_SHAPES[0]:
+                    # the same accumulator through the same GELU in F1 and stage H;
+                    # their product tiles differ (128 x 256 and 128 x 128)
+                    _, h_fwd = FUSED_MLP_FWD(x, w1, b1, w2, b2, rate, s1, s2, keep_h=True)
+                    *_, h_bwd = FUSED_MLP_DW(x, w1, b1, w2, do, rate, s1, s2, keep_h=True)
+                    ulps = bf16_ulps(h_fwd, h_bwd)
+                    unequal, worst = int((ulps > 0).sum().item()), int(ulps.max().item())
+                    check(worst <= 1, f"{case}: h_r of F1 and of stage H {worst} bf16 ulp apart")
+                    line += (f"; h_r (F1) vs stage H's: {unequal} of {ulps.numel()} unequal, "
+                             f"at most {worst} ulp")
+                    del h_fwd, h_bwd, ulps
+                print(f"  {case}: {line}; fwd and bwd bit-equal over two runs")
                 errs[("mlp_fwd", dtype, shape, rate)] = err["out"]
                 errs[("mlp_dx", dtype, shape, rate)] = err["dx"]
                 errs[("mlp_dw", dtype, shape, rate)] = max(err[k] for k in ("dw1", "db1", "dw2", "db2"))
-                del out, grads, again, want, leaves, m1, m2
+                del out, out_again, grads, again, want, leaves, m1, m2
             del x, w1, b1, w2, b2, do
             torch.cuda.empty_cache()
 
@@ -479,13 +505,16 @@ def time_fused_mlp(gen, bounds, libs):
         bwd_plain = cuda_ms(lambda: fused_mlp_bwd_reference(*args[:4], do))
         out_chain = chain(leaves)
         bwd_chain = best_ms(lambda: torch.autograd.grad(out_chain, leaves, do, retain_graph=True))
+        with torch.no_grad():
+            host_fwd, host_chain = host_us(lambda: fused_mlp_fwd(*args)), host_us(lambda: chain(args))
         after = counts()
         check(all(after[n] > before[n] for n in ("fused_mlp_fwd", "fused_mlp_dx", "fused_mlp_dw")),
               "timing did not launch the fused MLP kernels")
         flops = 2 * t * (d * f + f * d2)  # the forward's two products
         print(f"  fused mlp bf16 [{t}, {d} -> {f} -> {d2}]: fwd {fwd:.4f} ms "
               f"({flops / fwd / 1e9:.1f} TFLOP/s of the two products) plain {fwd_plain:.4f}, "
-              f"unfused chain {fwd_chain:.4f}; fwd + bwd {fb:.4f} ms ({3 * flops / fb / 1e9:.1f} "
+              f"unfused chain {fwd_chain:.4f}; host {host_fwd:.1f} us a forward call (chain "
+              f"{host_chain:.1f}); fwd + bwd {fb:.4f} ms ({3 * flops / fb / 1e9:.1f} "
               f"TFLOP/s of six products; dx {dx:.4f}, dW {dw:.4f}) plain {fb_plain:.4f} "
               f"(backward alone {bwd_plain:.4f}), unfused chain {fb_chain:.4f}")
         # useful products: the forward's two; dx alone takes h_pre, dh and dx
@@ -494,6 +523,9 @@ def time_fused_mlp(gen, bounds, libs):
         # once (dx in the dtype; dW1, db1, dW2, db2 in fp32)
         grads = 4 * (f * d + f + d2 * f + d2)
         bounds[("mlp_fwd", shape)] = roofline(flops, nbytes(*args) + 2 * t * d2)
+        # F1 alone: x W1^T into h_r (written); F2 alone: h_r (read) W2^T
+        bounds[("mlp_f1", shape)] = roofline(2 * t * d * f, nbytes(*args[:3]) + 2 * t * f)
+        bounds[("mlp_f2", shape)] = roofline(2 * t * f * d2, 2 * t * f + nbytes(*args[3:]) + 2 * t * d2)
         bounds[("mlp_dx", shape)] = roofline(2 * t * (d * f + f * d2 + f * d),
                                              nbytes(*args[:4], do, args[0]))
         bounds[("mlp_dw", shape)] = roofline(2 * t * (d * f + f * d2 + f * d + d2 * f),
@@ -503,7 +535,8 @@ def time_fused_mlp(gen, bounds, libs):
         libs[("mlp_fwd_chain", shape)] = fwd_chain
         libs[("mlp_bwd_chain", shape)] = bwd_chain
         print(f"    backward (fused_mlp_bwd) {bwd:.4f} ms; unfused chain backward alone "
-              f"{bwd_chain:.4f} ms; bounds fwd {bounds[('mlp_fwd', shape)][0]:.4f}, dx "
+              f"{bwd_chain:.4f} ms; bounds fwd {bounds[('mlp_fwd', shape)][0]:.4f} (F1 "
+              f"{bounds[('mlp_f1', shape)][0]:.4f}, F2 {bounds[('mlp_f2', shape)][0]:.4f}), dx "
               f"{bounds[('mlp_dx', shape)][0]:.4f}, dW {bounds[('mlp_dw', shape)][0]:.4f}, "
               f"backward {bounds[('mlp_bwd', shape)][0]:.4f} ms")
         timed[("mlp_fwd", shape)] = (fwd, fwd_plain)
@@ -802,16 +835,35 @@ def bwd_rows(gen, seed, timed, libs, bounds, smi):
         torch.cuda.empty_cache()
 
 
+def mlp_part(name):
+    """(label, useful products) of a fused-MLP kernel by its profiler name:
+    csrc/fused_mlp_hopper.cuh's F1 and F2 (mlp_gemm_tma_wgmma<false, BN, 1 or
+    2, ..>), dx (<false, BN, 0, ..>), dW1 and dW2 (<true, ..>), stage H (h_pre
+    and dh), db2's partials (none)."""
+    import re
+
+    gemm = re.search(r"mlp_gemm_tma_wgmma<(true|false), (\d+), (\d)", name)
+    if gemm:
+        if gemm[1] == "true":
+            return "dW (dW1, dW2)", 2
+        return {"0": "dx", "1": "F1", "2": "F2"}[gemm[3]], 1
+    if "mlp_hidden" in name:
+        return "stage H", 2
+    return name.split("(")[0], 0
+
+
 def mlp_rows(gen, timed, libs, bounds, smi):
-    """The fused MLP's backward rows at the two 117M shapes, bf16, dropout 0:
-    K6b alone (stage H and dx), K6c alone (stage H, db2's partials, dW1 and
-    dW2), the whole backward (fused_mlp_bwd: stage H once) and the unfused
-    chain's backward (autograd of F.linear, GELU, F.linear), each by the
-    kernel time of every kernel one call launches, beside their event times
-    (phase 6) and bounds."""
+    """The fused MLP's rows at the two 117M shapes, bf16, dropout 0, each by
+    the kernel time of every kernel one call launches, beside their event
+    times (phase 6) and bounds: the forward (F1 and F2) and the unfused
+    chain's forward (F.linear, GELU, F.linear); K6b alone (stage H and dx),
+    K6c alone (stage H, db2's partials, dW1 and dW2), the whole backward
+    (fused_mlp_bwd: stage H once) and the unfused chain's backward
+    (autograd of the chain)."""
     import torch.nn.functional as F
 
-    from orbit2_tpu_torch.ops.fused_mlp import FUSED_MLP_DW, FUSED_MLP_DX, fused_mlp_bwd
+    from orbit2_tpu_torch.ops.fused_mlp import (
+        FUSED_MLP_DW, FUSED_MLP_DX, fused_mlp_bwd, fused_mlp_fwd)
 
     for shape in MLP_SHAPES[:2]:
         t, d, f, d2 = shape
@@ -819,18 +871,39 @@ def mlp_rows(gen, timed, libs, bounds, smi):
         do = torch.randn(t, d2, generator=gen, device="cuda").to(torch.bfloat16)
         leaves = [a.detach().requires_grad_() for a in args]
         out_chain = F.linear(F.gelu(F.linear(leaves[0], leaves[1], leaves[2])), leaves[3], leaves[4])
-        parts = {}
-        alone = {
+        fparts, parts = {}, {}
+        with torch.no_grad():
+            alone = {
+                "mlp_fwd": kernel_ms(lambda: fused_mlp_fwd(*args), by_name=fparts),
+                "fwd_chain": kernel_ms(lambda: F.linear(F.gelu(F.linear(*args[:3])), *args[3:])),
+            }
+        alone.update({
             "mlp_dx": kernel_ms(lambda: FUSED_MLP_DX(*args[:4], do, 0.0, 0, 0)),
             "mlp_dw": kernel_ms(lambda: FUSED_MLP_DW(*args[:4], do, 0.0, 0, 0)),
             "mlp_bwd": kernel_ms(lambda: fused_mlp_bwd(*args[:4], do), by_name=parts),
             "chain": kernel_ms(lambda: torch.autograd.grad(out_chain, leaves, do,
                                                            retain_graph=True)),
-        }
-        for name in ("mlp_dx", "mlp_dw", "mlp_bwd"):
+        })
+        for name in ("mlp_fwd", "mlp_dx", "mlp_dw", "mlp_bwd"):
             timed[(name + "_kernel", shape)] = alone[name]
+        libs[("mlp_fwd_chain_kernel", shape)] = alone["fwd_chain"]
         libs[("mlp_bwd_chain_kernel", shape)] = alone["chain"]
-        b = {name: bounds[(name, shape)][0] for name in ("mlp_dx", "mlp_dw", "mlp_bwd")}
+        b = {name: bounds[(name, shape)][0]
+             for name in ("mlp_fwd", "mlp_f1", "mlp_f2", "mlp_dx", "mlp_dw", "mlp_bwd")}
+        product = 2 * t * d * f  # one product (D = D2 here)
+        print(f"  K6a forward bf16 [{t}, {d} -> {f} -> {d2}], kernel time: "
+              f"{alone['mlp_fwd']:.4f} ms (bound {b['mlp_fwd']:.4f}, {b['mlp_fwd'] / alone['mlp_fwd']:.3f}"
+              f" of it; events {timed[('mlp_fwd', shape)][0]:.4f}); unfused chain's forward "
+              f"{alone['fwd_chain']:.4f} ms (events {libs[('mlp_fwd_chain', shape)]:.4f}; forward / "
+              f"chain {alone['mlp_fwd'] / alone['fwd_chain']:.3f}); gpu: {smi}")
+        for name, ms in sorted(fparts.items(), key=lambda kv: -kv[1]):
+            label, products = mlp_part(name)
+            bound = {"F1": b["mlp_f1"], "F2": b["mlp_f2"]}.get(label)
+            extra = (f", {products * product / ms / 1e9:.1f} TFLOP/s of its product, bound "
+                     f"{bound:.4f} ({bound / ms:.3f} of it)") if bound and d == d2 else ""
+            print(f"    {label}: {ms:.4f} ms{extra}")
+            if label in ("F1", "F2"):
+                timed[("mlp_" + label.lower() + "_kernel", shape)] = ms
         print(f"  K6 backward bf16 [{t}, {d} -> {f} -> {d2}], kernel time: dx (K6b alone) "
               f"{alone['mlp_dx']:.4f} ms (bound {b['mlp_dx']:.4f}, events "
               f"{timed[('mlp_dx', shape)][0]:.4f}), dW (K6c alone) {alone['mlp_dw']:.4f} ms (bound "
@@ -839,18 +912,23 @@ def mlp_rows(gen, timed, libs, bounds, smi):
               f" of it; events {timed[('mlp_bwd', shape)][0]:.4f}); unfused chain's backward "
               f"{alone['chain']:.4f} ms (events {libs[('mlp_bwd_chain', shape)]:.4f}; backward / chain "
               f"{alone['mlp_bwd'] / alone['chain']:.3f}); gpu: {smi}")
-        product = 2 * t * d * f  # one of the five products (D = D2 here)
         for name, ms in sorted(parts.items(), key=lambda kv: -kv[1]):
-            # stage H: h_pre and dh; the dx product (mlp_gemm<false, ..>); dW1
-            # and dW2 (mlp_gemm<true, ..>); db2's partials: none
-            products = (2 if "mlp_hidden" in name else
-                        (1 if "mlp_gemm_tma_wgmma<false" in name else 2) if "mlp_gemm" in name
-                        else 0)
+            label, products = mlp_part(name)
             rate = f", {products * product / ms / 1e9:.1f} TFLOP/s of its {products} products" \
                 if products and d == d2 else ""
-            print(f"    {name.split('(')[0]}: {ms:.4f} ms{rate}")
+            print(f"    {label}: {ms:.4f} ms{rate}")
         del args, do, leaves, out_chain
         torch.cuda.empty_cache()
+
+
+def serving_rows(step, fused_step, x, y, ms_off, ms_fused, smi):
+    """The serving eval step without and with use_fused by the kernel time of
+    every kernel one step launches, beside its events (phase 6): the share
+    of the step the device is busy."""
+    k_off, k_fused = kernel_ms(lambda: step(x, y)), kernel_ms(lambda: fused_step(x, y))
+    print(f"  serving eval step, batch {x.shape[0]}, kernel time: use_fused {k_fused:.4f} ms, "
+          f"off {k_off:.4f} ms (events {ms_fused:.3f} / {ms_off:.3f}, so the device is busy "
+          f"{k_fused / ms_fused:.3f} / {k_off / ms_off:.3f} of the step); gpu: {smi}")
 
 
 def cuda_kernel_names(fn):
@@ -1489,7 +1567,7 @@ def main():
               f"in turns); test() wall {test_s / args.batches:.4f} s per batch over "
               f"{args.batches} batches incl. loading and metrics, with use_fused "
               f"{fused_test_s / args.batches:.4f} s")
-        del fused_model, fused_step
+        serving = (step, fused_step, x, y, ms_batch, ms_fused)  # their kernel time: at the end
 
         tstep = train_step_of(trainer.model, cfg, in_vars, out_vars, mu_dtype=mu, nu_dtype=nu)
         g1, g2 = gens(13)
@@ -1532,6 +1610,8 @@ def main():
     bwd_rows(gen, kernel_seed, timed, libs, bounds, smi)
     dropout_rows(gen, kernel_seed, timed, libs, bounds, smi)
     mlp_rows(gen, timed, libs, bounds, smi)
+    serving_rows(*serving, smi)
+    del serving
 
     slice_shape = SHAPES[0]
     mlp_shape = MLP_SHAPES[0]

@@ -1,10 +1,13 @@
 // Fused transformer MLP for Hopper (sm_90a): out = drop2(drop1(gelu(x W1^T + b1)) W2^T + b2)
-// and its backward, without ever storing the [T, F] hidden activation.
+// and its backward.
 //
 // Replaces the Pallas TPU kernels of orbit2_tpu/ops/fused_mlp.py:
-//   * `_fwd_kernel` (:125, called at :154)  -> fused_mlp_fwd_kernel
-//   * `_dx_kernel`  (:177, called at :363)  -> fused_mlp_dx_kernel
-//   * `_dw_kernel`  (:209, called at :386)  -> fused_mlp_dw_kernel
+//   * `_fwd_kernel` (:125, called at :154)  -> bf16: F1 and F2 of
+//     fused_mlp_hopper.cuh; fp32: fused_mlp_fwd_kernel
+//   * `_dx_kernel`  (:177, called at :363)  -> bf16: stage H and dx of
+//     fused_mlp_hopper.cuh; fp32: fused_mlp_dx_kernel
+//   * `_dw_kernel`  (:209, called at :386)  -> bf16: stage H, db2's partials
+//     and dW of fused_mlp_hopper.cuh; fp32: fused_mlp_dw_kernel
 //
 // Layout: x [T, D] and the output gradient do [T, D2] row-major; the weights
 // as PyTorch's Linear stores them, W1 [F, D] and W2 [D2, F], read as stored
@@ -18,8 +21,9 @@
 // rounded to the dtype (:184-187); dh = do2 W2 (fp32) times m1; dpre = dh *
 // gelu'(h_pre); dx = dpre_r W1; dW2 = do2^T h_r; dW1 = dpre_r^T x (r =
 // rounded to the dtype); db1 = sum_t dpre and db2 = sum_t do * m2 in fp32,
-// unrounded. GELU and its derivative are evaluated in fp32 with CUDA's erff
-// (the TPU's Abramowitz-Stegun erf, :57-65, is not carried).
+// unrounded. GELU and its derivative are evaluated in fp32: by the TPU's
+// Abramowitz-Stegun erf (:57-65) in the bf16 kernels, by CUDA's erff in the
+// fp32 ones.
 //
 // Dropout (the kDrop instances; rate 0 compiles to kernels without it): the
 // multiplier of hidden element (t, f) is that of csrc/kernel_prng.cuh at
@@ -29,32 +33,28 @@
 // seeds, and independent of tiles (the TPU's 256-unit mask grid, :81-119, has
 // no counterpart).
 //
-// The kernels here, on mma.sync tensor cores (bf16) or FMAs (fp32) in the
-// same accumulator layout. The TPU kernels keep an fp32 [512, D2]
-// accumulator in 16 MB of VMEM; an H100 block has at most 227 KB of shared
-// memory and 255 registers a thread, so every block owns one output tile and
-// recomputes what it needs:
-//   * forward (bf16 and fp32): a (64 tokens, 256 output columns) tile; for
-//     each 64-wide hidden chunk it computes h = x W1[chunk]^T (streaming D
-//     through shared memory in 64-deep chunks), applies b1, GELU and m1,
-//     rounds h into shared memory and adds h W2[cols, chunk]^T to registers.
-//     x W1^T is recomputed D2/256 times.
-//   * dx (fp32): a (64 tokens, 256 columns of D) tile; per hidden chunk it
-//     recomputes h_pre (depth D) and dh = do2 W2 (depth D2, do masked and
-//     rounded as it is loaded), forms dpre in registers and adds
-//     dpre W1[chunk, cols].
-//   * dW (fp32): two kinds of block in one grid. A (128 rows of D2, 128 of
-//     F) block of dW2 recomputes h for each 64-token chunk and adds
-//     do2^T h; a (128 of F, 128 of D) block of dW1 recomputes h_pre and dh
-//     and adds dpre^T x. The F-column-0 blocks of the first kind also sum
-//     db2 and the D-column-0 blocks of the second kind db1.
-// The fp32 kernels are the parity dtype, not a speed path. The bf16 dx and
-// dW run on the Hopper kernels of fused_mlp_hopper.cuh instead: stage H
-// computes h_pre and dh once into a bf16 workspace, then dx, dW1 and dW2 are
-// plain-shaped TMA-fed wgmma products. Every sum over T runs in a fixed
-// order inside one block (no atomics), so two runs give bit-equal gradients.
-
-#include <type_traits>
+// The bf16 kernels are fused_mlp_hopper.cuh's: the forward writes the
+// hidden h_r once into a bf16 [T, F] workspace (F1) and multiplies it by W2
+// (F2); the backward's stage H computes h_pre and dh once into a bf16
+// workspace, then dx, dW1 and dW2 are plain-shaped TMA-fed wgmma products.
+// The fp32 kernels here are the parity dtype, not a speed path: FMAs in the
+// m16n8 accumulator layout, every block owning one output tile and
+// recomputing what it needs, so they store no [T, F] tensor:
+//   * forward: a (64 tokens, 256 output columns) tile; for each 64-wide
+//     hidden chunk it computes h = x W1[chunk]^T (streaming D through shared
+//     memory in 64-deep chunks), applies b1, GELU and m1, stores h into
+//     shared memory and adds h W2[cols, chunk]^T to registers. x W1^T is
+//     recomputed D2/256 times.
+//   * dx: a (64 tokens, 256 columns of D) tile; per hidden chunk it
+//     recomputes h_pre (depth D) and dh = do2 W2 (depth D2, do masked as it
+//     is loaded), forms dpre in registers and adds dpre W1[chunk, cols].
+//   * dW: two kinds of block in one grid. A (128 rows of D2, 128 of F) block
+//     of dW2 recomputes h for each 64-token chunk and adds do2^T h; a (128 of
+//     F, 128 of D) block of dW1 recomputes h_pre and dh and adds dpre^T x.
+//     The F-column-0 blocks of the first kind also sum db2 and the
+//     D-column-0 blocks of the second kind db1.
+// Every sum over T runs in a fixed order inside one block (no atomics), so
+// two runs give bit-equal gradients in both dtypes.
 
 #include "flash_common.cuh"
 #include "fused_mlp_hopper.cuh"
@@ -71,31 +71,9 @@ constexpr int kBF = 64;        // hidden chunk of the forward and dx blocks
 constexpr int kBN = 256;       // output columns of a forward or dx block
 constexpr int kBW = 128;       // edge of a dW tile
 
-// Row stride of a shared tile of `cols` elements: 16 bytes of padding keeps
-// the fragment reads free of bank conflicts and rows 16-byte aligned.
-template <typename T>
-__host__ __device__ constexpr int ld_of(int cols) {
-  return cols + 16 / (int)sizeof(T);
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16_rn(v); }
-
-// Stores two adjacent elements (p 2-element aligned).
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float lo, float hi) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    *reinterpret_cast<uint32_t*>(p) = orbit2::pack_bf16x2(lo, hi);
-  } else {
-    *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
-  }
-}
+// Row stride of a shared fp32 tile of `cols` elements: 16 bytes of padding
+// keeps the fragment reads free of bank conflicts and rows 16-byte aligned.
+__host__ __device__ constexpr int ld_of(int cols) { return cols + 4; }
 
 using orbit2::mlp::dgelu;
 using orbit2::mlp::gelu;
@@ -120,13 +98,12 @@ __device__ __forceinline__ float keep_one(const Dropout& d, int row, int col) {
 // (row stride src_ld) into shared memory, 16 bytes per step, zero-filling
 // rows at or past n_rows and columns at or past n_cols. dst is [kRows][ld],
 // or [kCols][ld] when kTrans (element (r, c) at dst[c * ld + r]). When kMask
-// each element is multiplied in fp32 by its multiplier at global (row, col)
-// and rounded once to T.
-template <typename T, int kRows, int kCols, bool kTrans, bool kMask>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* __restrict__ src, int64_t src_ld,
-                                          int row0, int col0, int n_rows, int n_cols,
-                                          const Dropout& drop) {
-  constexpr int kVec = 16 / (int)sizeof(T);
+// each element is multiplied by its multiplier at global (row, col).
+template <int kRows, int kCols, bool kTrans, bool kMask>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* __restrict__ src,
+                                          int64_t src_ld, int row0, int col0, int n_rows,
+                                          int n_cols, const Dropout& drop) {
+  constexpr int kVec = 4;
   constexpr int kChunks = kCols / kVec;
   for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
     // transposed: consecutive threads take consecutive rows, so their stores
@@ -134,64 +111,51 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* __restrict__ 
     // stores, kVec * ld elements apart, into one bank)
     const int r = kTrans ? idx % kRows : idx / kChunks;
     const int c = (kTrans ? idx / kRows : idx % kChunks) * kVec;
-    uint4 chunk = make_uint4(0u, 0u, 0u, 0u);
-    T* v = reinterpret_cast<T*>(&chunk);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < n_rows && col0 + c < n_cols) {
-      chunk = *reinterpret_cast<const uint4*>(src + (int64_t)(row0 + r) * src_ld + col0 + c);
+      v = *reinterpret_cast<const float4*>(src + (int64_t)(row0 + r) * src_ld + col0 + c);
       if constexpr (kMask) {
-        // one call covers the chunk's kVec columns (8 bf16, or half a call's 8 fp32)
+        // one call covers the chunk's 4 columns (half of a call's 8)
         const uint32_t dropped = drop_flags_at(drop, row0 + r, col0 + c) >> ((col0 + c) & 7);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-          v[e] = from_f32<T>(to_f32(v[e]) * (((dropped >> e) & 1u) ? 0.f : drop.scale));
-        }
+        v.x *= (dropped & 1u) ? 0.f : drop.scale;
+        v.y *= (dropped & 2u) ? 0.f : drop.scale;
+        v.z *= (dropped & 4u) ? 0.f : drop.scale;
+        v.w *= (dropped & 8u) ? 0.f : drop.scale;
       }
     }
     if constexpr (kTrans) {
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) dst[(c + i) * ld + r] = v[i];
+      dst[c * ld + r] = v.x;
+      dst[(c + 1) * ld + r] = v.y;
+      dst[(c + 2) * ld + r] = v.z;
+      dst[(c + 3) * ld + r] = v.w;
     } else {
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = chunk;
+      *reinterpret_cast<float4*>(dst + r * ld + c) = v;
     }
   }
 }
 
-// c[j] += A B_j^T over `depth` for one warp: A is the warp's 16 rows ([16][depth]
-// at a, row stride lda), B_j rows 8j..8j+7 of b ([kNT * 8][depth], stride ldb).
-// c[j] holds the m16n8 accumulator layout of flash_common.cuh's mma_16816:
-// rows g, g + 8 and columns 2t, 2t + 1 (g = lane / 4, t = lane % 4). bf16 runs
-// on the tensor cores; fp32 does the same sums with FMAs in the same layout.
-template <typename T, int kNT>
-__device__ __forceinline__ void warp_product(float (*c)[4], const T* a, int lda, const T* b, int ldb,
-                                             int depth) {
+// c[j] += A B_j^T over `depth` for one warp, by FMAs: A is the warp's 16
+// rows ([16][depth] at a, row stride lda), B_j rows 8j..8j+7 of b ([kNT *
+// 8][depth], stride ldb). c[j] holds the m16n8 accumulator layout of
+// flash_common.cuh's mma_16816: rows g, g + 8 and columns 2t, 2t + 1 (g =
+// lane / 4, t = lane % 4).
+template <int kNT>
+__device__ __forceinline__ void warp_product(float (*c)[4], const float* a, int lda, const float* b,
+                                             int ldb, int depth) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  if constexpr (std::is_same<T, bf16>::value) {
-    for (int kk = 0; kk < depth; kk += 16) {
-      const bf16* pa = a + g * lda + kk + 2 * t;
-      const uint32_t af[4] = {orbit2::ld32(pa), orbit2::ld32(pa + 8 * lda), orbit2::ld32(pa + 8),
-                              orbit2::ld32(pa + 8 * lda + 8)};
+  for (int k = 0; k < depth; ++k) {
+    const float a0 = a[g * lda + k];
+    const float a1 = a[(g + 8) * lda + k];
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const bf16* pb = b + (j * 8 + g) * ldb + kk + 2 * t;
-        const uint32_t bf[2] = {orbit2::ld32(pb), orbit2::ld32(pb + 8)};
-        orbit2::mma_16816(c[j], af, bf);
-      }
-    }
-  } else {
-    for (int k = 0; k < depth; ++k) {
-      const float a0 = a[g * lda + k];
-      const float a1 = a[(g + 8) * lda + k];
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const float b0 = b[(j * 8 + 2 * t) * ldb + k];
-        const float b1 = b[(j * 8 + 2 * t + 1) * ldb + k];
-        c[j][0] = fmaf(a0, b0, c[j][0]);
-        c[j][1] = fmaf(a0, b1, c[j][1]);
-        c[j][2] = fmaf(a1, b0, c[j][2]);
-        c[j][3] = fmaf(a1, b1, c[j][3]);
-      }
+    for (int j = 0; j < kNT; ++j) {
+      const float b0 = b[(j * 8 + 2 * t) * ldb + k];
+      const float b1 = b[(j * 8 + 2 * t + 1) * ldb + k];
+      c[j][0] = fmaf(a0, b0, c[j][0]);
+      c[j][1] = fmaf(a0, b1, c[j][1]);
+      c[j][2] = fmaf(a1, b0, c[j][2]);
+      c[j][3] = fmaf(a1, b1, c[j][3]);
     }
   }
 }
@@ -200,27 +164,27 @@ __device__ __forceinline__ void warp_product(float (*c)[4], const T* a, int lda,
 //   C(t, n) += sum_k A(t0 + t, k) B(n0 + n, k),  k < depth,
 // streaming k through shared memory (as: [64][ld_of(kBK)], bs: [kBRows][ld_of(kBK)])
 // in kBK-deep chunks. A(t, k) = a[t * lda + k], zero for t >= a_rows, times its
-// dropout multiplier (rounded to T) when kMaskA. B(n, k) = b[n * ldb + k], or
-// b[k * ldb + n] when kTransB; zero for n >= b_rows. The warp's share is rows
-// mrow..mrow+15 and columns ncol..ncol+8*kNT-1. Starts with a barrier, so the
-// caller's earlier reads of as/bs are complete before they are refilled.
-template <typename T, int kBRows, int kNT, bool kMaskA, bool kTransB>
-__device__ __forceinline__ void stream_product(float (*c)[4], T* as, T* bs, const T* __restrict__ a,
-                                               int64_t lda, int t0, int a_rows,
-                                               const T* __restrict__ b, int64_t ldb, int n0,
-                                               int b_rows, int depth, int mrow, int ncol,
+// dropout multiplier when kMaskA. B(n, k) = b[n * ldb + k], or b[k * ldb + n]
+// when kTransB; zero for n >= b_rows. The warp's share is rows mrow..mrow+15
+// and columns ncol..ncol+8*kNT-1. Starts with a barrier, so the caller's
+// earlier reads of as/bs are complete before they are refilled.
+template <int kBRows, int kNT, bool kMaskA, bool kTransB>
+__device__ __forceinline__ void stream_product(float (*c)[4], float* as, float* bs,
+                                               const float* __restrict__ a, int64_t lda, int t0,
+                                               int a_rows, const float* __restrict__ b, int64_t ldb,
+                                               int n0, int b_rows, int depth, int mrow, int ncol,
                                                const Dropout& drop_a) {
-  constexpr int L = ld_of<T>(kBK);
+  constexpr int L = ld_of(kBK);
   for (int k0 = 0; k0 < depth; k0 += kBK) {
     __syncthreads();
-    load_tile<T, kBT, kBK, false, kMaskA>(as, L, a, lda, t0, k0, a_rows, depth, drop_a);
+    load_tile<kBT, kBK, false, kMaskA>(as, L, a, lda, t0, k0, a_rows, depth, drop_a);
     if constexpr (kTransB) {
-      load_tile<T, kBK, kBRows, true, false>(bs, L, b, ldb, k0, n0, depth, b_rows, drop_a);
+      load_tile<kBK, kBRows, true, false>(bs, L, b, ldb, k0, n0, depth, b_rows, drop_a);
     } else {
-      load_tile<T, kBRows, kBK, false, false>(bs, L, b, ldb, n0, k0, b_rows, depth, drop_a);
+      load_tile<kBRows, kBK, false, false>(bs, L, b, ldb, n0, k0, b_rows, depth, drop_a);
     }
     __syncthreads();
-    warp_product<T, kNT>(c, as + mrow * L, L, bs + ncol * L, L, kBK);
+    warp_product<kNT>(c, as + mrow * L, L, bs + ncol * L, L, kBK);
   }
 }
 
@@ -230,28 +194,29 @@ __device__ __forceinline__ void zero(float (*c)[4]) {
   for (int j = 0; j < kNT; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
 }
 
-// ---- forward (K6a) ------------------------------------------------------------
+// ---- forward (K6a), fp32 -----------------------------------------------------------
 
-template <typename T>
 struct FwdSmem {  // as, bs [64][L_K]; hs [64][L_F]; w2s [kBN][L_F]
-  static constexpr int kLK = ld_of<T>(kBK);
-  static constexpr int kLF = ld_of<T>(kBF);
-  static constexpr size_t kBytes = sizeof(T) * ((size_t)(kBT + kBF) * kLK + (size_t)(kBT + kBN) * kLF);
+  static constexpr int kLK = ld_of(kBK);
+  static constexpr int kLF = ld_of(kBF);
+  static constexpr size_t kBytes =
+      sizeof(float) * ((size_t)(kBT + kBF) * kLK + (size_t)(kBT + kBN) * kLF);
 };
 
-template <typename T, bool kDrop>
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
-fused_mlp_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
-                     const T* __restrict__ w2, const T* __restrict__ b2, T* __restrict__ out,
-                     int tokens, int d, int f, int d2, Dropout drop1, Dropout drop2) {
-  using S = FwdSmem<T>;
+fused_mlp_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                     const float* __restrict__ b1, const float* __restrict__ w2,
+                     const float* __restrict__ b2, float* __restrict__ out, int tokens, int d,
+                     int f, int d2, Dropout drop1, Dropout drop2) {
+  using S = FwdSmem;
   constexpr int kNT1 = kBF / 16;  // n8 tiles of a warp's share of the hidden chunk
   constexpr int kNT2 = kBN / 16;  // n8 tiles of a warp's share of the output tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* as = reinterpret_cast<T*>(smem_raw);
-  T* bs = as + kBT * S::kLK;
-  T* hs = bs + kBF * S::kLK;
-  T* w2s = hs + kBT * S::kLF;
+  float* as = reinterpret_cast<float*>(smem_raw);
+  float* bs = as + kBT * S::kLK;
+  float* hs = bs + kBF * S::kLK;
+  float* w2s = hs + kBT * S::kLF;
 
   const int t0 = blockIdx.x * kBT;
   const int n0 = blockIdx.y * kBN;
@@ -267,14 +232,14 @@ fused_mlp_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T*
   for (int f0 = 0; f0 < f; f0 += kBF) {
     float h[kNT1][4];
     zero<kNT1>(h);
-    stream_product<T, kBF, kNT1, false, false>(h, as, bs, x, d, t0, tokens, w1, d, f0, f, d, mrow,
-                                               hcol, drop1);
-    // h = drop1(gelu(h + b1)), rounded to T, into hs
+    stream_product<kBF, kNT1, false, false>(h, as, bs, x, d, t0, tokens, w1, d, f0, f, d, mrow,
+                                            hcol, drop1);
+    // h = drop1(gelu(h + b1)) into hs
 #pragma unroll
     for (int j = 0; j < kNT1; ++j) {
       const int col = hcol + j * 8 + 2 * t;
-      const float bias0 = to_f32(b1[f0 + col]);
-      const float bias1 = to_f32(b1[f0 + col + 1]);
+      const float bias0 = b1[f0 + col];
+      const float bias1 = b1[f0 + col + 1];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = mrow + g + 8 * r;
@@ -285,20 +250,20 @@ fused_mlp_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T*
           v0 *= m.x;
           v1 *= m.y;
         }
-        store2<T>(hs + row * S::kLF + col, v0, v1);
+        *reinterpret_cast<float2*>(hs + row * S::kLF + col) = make_float2(v0, v1);
       }
     }
-    load_tile<T, kBN, kBF, false, false>(w2s, S::kLF, w2, f, n0, f0, d2, f, drop2);
+    load_tile<kBN, kBF, false, false>(w2s, S::kLF, w2, f, n0, f0, d2, f, drop2);
     __syncthreads();
-    warp_product<T, kNT2>(acc, hs + mrow * S::kLF, S::kLF, w2s + ocol * S::kLF, S::kLF, kBF);
+    warp_product<kNT2>(acc, hs + mrow * S::kLF, S::kLF, w2s + ocol * S::kLF, S::kLF, kBF);
   }
 
 #pragma unroll
   for (int j = 0; j < kNT2; ++j) {
     const int gn = n0 + ocol + j * 8 + 2 * t;
     if (gn >= d2) continue;
-    const float bias0 = to_f32(b2[gn]);
-    const float bias1 = to_f32(b2[gn + 1]);
+    const float bias0 = b2[gn];
+    const float bias1 = b2[gn + 1];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int gt = t0 + mrow + g + 8 * r;
@@ -310,27 +275,27 @@ fused_mlp_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T*
         v0 *= m.x;
         v1 *= m.y;
       }
-      store2<T>(out + (int64_t)gt * d2 + gn, v0, v1);
+      *reinterpret_cast<float2*>(out + (int64_t)gt * d2 + gn) = make_float2(v0, v1);
     }
   }
 }
 
 // ---- dx (K6b), fp32 --------------------------------------------------------------
 
-template <typename T, bool kDrop>
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
-fused_mlp_dx_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
-                    const T* __restrict__ w2, const T* __restrict__ dout, T* __restrict__ dx,
-                    int tokens, int d, int f, int d2, Dropout drop1, Dropout drop2) {
-  static_assert(std::is_same<T, float>::value, "bf16 dx runs on fused_mlp_hopper.cuh");
-  using S = FwdSmem<T>;  // the same four buffers: as, bs, dpre tile, W1^T tile
+fused_mlp_dx_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                    const float* __restrict__ b1, const float* __restrict__ w2,
+                    const float* __restrict__ dout, float* __restrict__ dx, int tokens, int d,
+                    int f, int d2, Dropout drop1, Dropout drop2) {
+  using S = FwdSmem;  // the same four buffers: as, bs, dpre tile, W1^T tile
   constexpr int kNT1 = kBF / 16;
   constexpr int kNT2 = kBN / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* as = reinterpret_cast<T*>(smem_raw);
-  T* bs = as + kBT * S::kLK;
-  T* ps = bs + kBF * S::kLK;
-  T* w1t = ps + kBT * S::kLF;
+  float* as = reinterpret_cast<float*>(smem_raw);
+  float* bs = as + kBT * S::kLK;
+  float* ps = bs + kBF * S::kLK;
+  float* w1t = ps + kBT * S::kLF;
 
   const int t0 = blockIdx.x * kBT;
   const int n0 = blockIdx.y * kBN;
@@ -346,23 +311,23 @@ fused_mlp_dx_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* 
   for (int f0 = 0; f0 < f; f0 += kBF) {
     float hp[kNT1][4];  // h_pre, then gelu'(h_pre)
     zero<kNT1>(hp);
-    stream_product<T, kBF, kNT1, false, false>(hp, as, bs, x, d, t0, tokens, w1, d, f0, f, d, mrow,
-                                               hcol, drop1);
+    stream_product<kBF, kNT1, false, false>(hp, as, bs, x, d, t0, tokens, w1, d, f0, f, d, mrow,
+                                            hcol, drop1);
 #pragma unroll
     for (int j = 0; j < kNT1; ++j) {
       const int col = f0 + hcol + j * 8 + 2 * t;
-      const float bias0 = to_f32(b1[col]);
-      const float bias1 = to_f32(b1[col + 1]);
+      const float bias0 = b1[col];
+      const float bias1 = b1[col + 1];
       hp[j][0] = dgelu(hp[j][0] + bias0);
       hp[j][1] = dgelu(hp[j][1] + bias1);
       hp[j][2] = dgelu(hp[j][2] + bias0);
       hp[j][3] = dgelu(hp[j][3] + bias1);
     }
-    // dh = do2 W2[:, chunk]: do masked and rounded as it is loaded
+    // dh = do2 W2[:, chunk]: do masked as it is loaded
     float dh[kNT1][4];
     zero<kNT1>(dh);
-    stream_product<T, kBF, kNT1, kDrop, true>(dh, as, bs, dout, d2, t0, tokens, w2, f, f0, f, d2,
-                                              mrow, hcol, drop2);
+    stream_product<kBF, kNT1, kDrop, true>(dh, as, bs, dout, d2, t0, tokens, w2, f, f0, f, d2,
+                                           mrow, hcol, drop2);
 #pragma unroll
     for (int j = 0; j < kNT1; ++j) {
       const int col = hcol + j * 8 + 2 * t;
@@ -376,13 +341,13 @@ fused_mlp_dx_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* 
           v0 *= m.x;
           v1 *= m.y;
         }
-        store2<T>(ps + row * S::kLF + col, v0, v1);
+        *reinterpret_cast<float2*>(ps + row * S::kLF + col) = make_float2(v0, v1);
       }
     }
     // W1[chunk, cols] as [cols][chunk]
-    load_tile<T, kBF, kBN, true, false>(w1t, S::kLF, w1, d, f0, n0, f, d, drop1);
+    load_tile<kBF, kBN, true, false>(w1t, S::kLF, w1, d, f0, n0, f, d, drop1);
     __syncthreads();
-    warp_product<T, kNT2>(acc, ps + mrow * S::kLF, S::kLF, w1t + ocol * S::kLF, S::kLF, kBF);
+    warp_product<kNT2>(acc, ps + mrow * S::kLF, S::kLF, w1t + ocol * S::kLF, S::kLF, kBF);
   }
 
 #pragma unroll
@@ -392,41 +357,43 @@ fused_mlp_dx_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int gt = t0 + mrow + g + 8 * r;
-      if (gt < tokens) store2<T>(dx + (int64_t)gt * d + gn, acc[j][2 * r], acc[j][2 * r + 1]);
+      if (gt < tokens) {
+        *reinterpret_cast<float2*>(dx + (int64_t)gt * d + gn) =
+            make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+      }
     }
   }
 }
 
 // ---- dW (K6c), fp32 --------------------------------------------------------------
 
-template <typename T>
-struct DwSmem {  // as [64][L_K]; bs [128][L_K]; ts1, ts2 [128][L_T]; red fp32 [4][128]
-  static constexpr int kLK = ld_of<T>(kBK);
-  static constexpr int kLT = ld_of<T>(kBT);
+struct DwSmem {  // as [64][L_K]; bs [128][L_K]; ts1, ts2 [128][L_T]; red [4][128]
+  static constexpr int kLK = ld_of(kBK);
+  static constexpr int kLT = ld_of(kBT);
   static constexpr size_t kTileBytes =
-      sizeof(T) * ((size_t)(kBT + kBW) * kLK + (size_t)2 * kBW * kLT);
+      sizeof(float) * ((size_t)(kBT + kBW) * kLK + (size_t)2 * kBW * kLT);
   static constexpr size_t kBytes = kTileBytes + sizeof(float) * 4 * kBW;
 };
 
 // Blocks [0, blocks_a): dW2 tiles (and db2 where the F tile is the first);
 // the rest: dW1 tiles (and db1 where the D tile is the first). dw1 [F, D],
-// dw2 [D2, F], db1 [F], db2 [D2], all fp32.
-template <typename T, bool kDrop>
+// dw2 [D2, F], db1 [F], db2 [D2].
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
-fused_mlp_dw_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
-                    const T* __restrict__ w2, const T* __restrict__ dout, float* __restrict__ dw1,
+fused_mlp_dw_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+                    const float* __restrict__ b1, const float* __restrict__ w2,
+                    const float* __restrict__ dout, float* __restrict__ dw1,
                     float* __restrict__ db1, float* __restrict__ dw2, float* __restrict__ db2,
                     int tokens, int d, int f, int d2, int blocks_a, Dropout drop1,
                     Dropout drop2) {
-  static_assert(std::is_same<T, float>::value, "bf16 dW runs on fused_mlp_hopper.cuh");
-  using S = DwSmem<T>;
+  using S = DwSmem;
   constexpr int kNT1 = kBW / 16;  // a warp's share of a [64, 128] tile
   constexpr int kNT2 = kBW / 8;   // a warp's share of a [128, 128] tile: 16 rows, all columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* as = reinterpret_cast<T*>(smem_raw);
-  T* bs = as + kBT * S::kLK;
-  T* ts1 = bs + kBW * S::kLK;
-  T* ts2 = ts1 + kBW * S::kLT;
+  float* as = reinterpret_cast<float*>(smem_raw);
+  float* bs = as + kBT * S::kLK;
+  float* ts1 = bs + kBW * S::kLK;
+  float* ts2 = ts1 + kBW * S::kLT;
   float* red = reinterpret_cast<float*>(smem_raw + S::kTileBytes);
 
   const int warp = threadIdx.x >> 5;
@@ -451,13 +418,13 @@ fused_mlp_dw_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* 
     for (int t0 = 0; t0 < tokens; t0 += kBT) {
       float h[kNT1][4];
       zero<kNT1>(h);
-      stream_product<T, kBW, kNT1, false, false>(h, as, bs, x, d, t0, tokens, w1, d, f0, f, d,
-                                                 mrow, hcol, drop1);
+      stream_product<kBW, kNT1, false, false>(h, as, bs, x, d, t0, tokens, w1, d, f0, f, d, mrow,
+                                              hcol, drop1);
 #pragma unroll
       for (int j = 0; j < kNT1; ++j) {
         const int c = hcol + j * 8 + 2 * t;
-        const float bias0 = to_f32(b1[f0 + c]);
-        const float bias1 = to_f32(b1[f0 + c + 1]);
+        const float bias0 = b1[f0 + c];
+        const float bias1 = b1[f0 + c + 1];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int row = mrow + g + 8 * r;
@@ -468,20 +435,20 @@ fused_mlp_dw_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* 
             v0 *= m.x;
             v1 *= m.y;
           }
-          ts1[c * S::kLT + row] = from_f32<T>(v0);  // h^T [f][t]
-          ts1[(c + 1) * S::kLT + row] = from_f32<T>(v1);
+          ts1[c * S::kLT + row] = v0;  // h^T [f][t]
+          ts1[(c + 1) * S::kLT + row] = v1;
         }
       }
-      load_tile<T, kBT, kBW, true, kDrop>(ts2, S::kLT, dout, d2, t0, n0, tokens, d2, drop2);
+      load_tile<kBT, kBW, true, kDrop>(ts2, S::kLT, dout, d2, t0, n0, tokens, d2, drop2);
       if (with_db2) {
         for (int r = half * (kBT / 2); r < (half + 1) * (kBT / 2) && t0 + r < tokens; ++r) {
-          float v = to_f32(dout[(int64_t)(t0 + r) * d2 + n0 + col]);
+          float v = dout[(int64_t)(t0 + r) * d2 + n0 + col];
           if constexpr (kDrop) v *= keep_one(drop2, t0 + r, n0 + col);
           db2_part += v;
         }
       }
       __syncthreads();
-      warp_product<T, kNT2>(acc, ts2 + prow * S::kLT, S::kLT, ts1, S::kLT, kBT);
+      warp_product<kNT2>(acc, ts2 + prow * S::kLT, S::kLT, ts1, S::kLT, kBT);
     }
 #pragma unroll
     for (int j = 0; j < kNT2; ++j) {
@@ -511,13 +478,13 @@ fused_mlp_dw_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* 
   for (int t0 = 0; t0 < tokens; t0 += kBT) {
     float hp[kNT1][4];  // h_pre, then gelu'(h_pre)
     zero<kNT1>(hp);
-    stream_product<T, kBW, kNT1, false, false>(hp, as, bs, x, d, t0, tokens, w1, d, f0, f, d, mrow,
-                                               hcol, drop1);
+    stream_product<kBW, kNT1, false, false>(hp, as, bs, x, d, t0, tokens, w1, d, f0, f, d, mrow,
+                                            hcol, drop1);
 #pragma unroll
     for (int j = 0; j < kNT1; ++j) {
       const int c = f0 + hcol + j * 8 + 2 * t;
-      const float bias0 = to_f32(b1[c]);
-      const float bias1 = to_f32(b1[c + 1]);
+      const float bias0 = b1[c];
+      const float bias1 = b1[c + 1];
       hp[j][0] = dgelu(hp[j][0] + bias0);
       hp[j][1] = dgelu(hp[j][1] + bias1);
       hp[j][2] = dgelu(hp[j][2] + bias0);
@@ -525,8 +492,8 @@ fused_mlp_dw_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* 
     }
     float dh[kNT1][4];
     zero<kNT1>(dh);
-    stream_product<T, kBW, kNT1, kDrop, true>(dh, as, bs, dout, d2, t0, tokens, w2, f, f0, f, d2,
-                                              mrow, hcol, drop2);
+    stream_product<kBW, kNT1, kDrop, true>(dh, as, bs, dout, d2, t0, tokens, w2, f, f0, f, d2,
+                                           mrow, hcol, drop2);
 #pragma unroll
     for (int j = 0; j < kNT1; ++j) {
       const int c = hcol + j * 8 + 2 * t;
@@ -542,13 +509,13 @@ fused_mlp_dw_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* 
         }
         db1_part[j][0] += v0;  // rows past T have do = 0, so dpre = 0
         db1_part[j][1] += v1;
-        ts1[c * S::kLT + row] = from_f32<T>(v0);  // dpre^T [f][t]
-        ts1[(c + 1) * S::kLT + row] = from_f32<T>(v1);
+        ts1[c * S::kLT + row] = v0;  // dpre^T [f][t]
+        ts1[(c + 1) * S::kLT + row] = v1;
       }
     }
-    load_tile<T, kBT, kBW, true, false>(ts2, S::kLT, x, d, t0, d0, tokens, d, drop1);  // x^T [d][t]
+    load_tile<kBT, kBW, true, false>(ts2, S::kLT, x, d, t0, d0, tokens, d, drop1);  // x^T [d][t]
     __syncthreads();
-    warp_product<T, kNT2>(acc, ts1 + prow * S::kLT, S::kLT, ts2, S::kLT, kBT);
+    warp_product<kNT2>(acc, ts1 + prow * S::kLT, S::kLT, ts2, S::kLT, kBT);
   }
 #pragma unroll
   for (int j = 0; j < kNT2; ++j) {
@@ -593,43 +560,46 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, bool kDrop>
+template <bool kDrop>
 int launch_fwd(const Args& a, const void* b2, void* out) {
-  const size_t smem = FwdSmem<T>::kBytes;
-  cudaError_t err = orbit2::allow_smem(fused_mlp_fwd_kernel<T, kDrop>, smem);
+  const size_t smem = FwdSmem::kBytes;
+  cudaError_t err = orbit2::allow_smem(fused_mlp_fwd_kernel<kDrop>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.tokens + kBT - 1) / kBT, (a.d2 + kBN - 1) / kBN);
-  fused_mlp_fwd_kernel<T, kDrop><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.w1), static_cast<const T*>(a.b1),
-      static_cast<const T*>(a.w2), static_cast<const T*>(b2), static_cast<T*>(out), a.tokens, a.d,
-      a.f, a.d2, a.drop1, a.drop2);
+  fused_mlp_fwd_kernel<kDrop><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.x), static_cast<const float*>(a.w1),
+      static_cast<const float*>(a.b1), static_cast<const float*>(a.w2),
+      static_cast<const float*>(b2), static_cast<float*>(out), a.tokens, a.d, a.f, a.d2, a.drop1,
+      a.drop2);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kDrop>
+template <bool kDrop>
 int launch_dx(const Args& a, const void* dout, void* dx) {
-  const size_t smem = FwdSmem<T>::kBytes;
-  cudaError_t err = orbit2::allow_smem(fused_mlp_dx_kernel<T, kDrop>, smem);
+  const size_t smem = FwdSmem::kBytes;
+  cudaError_t err = orbit2::allow_smem(fused_mlp_dx_kernel<kDrop>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.tokens + kBT - 1) / kBT, (a.d + kBN - 1) / kBN);
-  fused_mlp_dx_kernel<T, kDrop><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.w1), static_cast<const T*>(a.b1),
-      static_cast<const T*>(a.w2), static_cast<const T*>(dout), static_cast<T*>(dx), a.tokens,
-      a.d, a.f, a.d2, a.drop1, a.drop2);
+  fused_mlp_dx_kernel<kDrop><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.x), static_cast<const float*>(a.w1),
+      static_cast<const float*>(a.b1), static_cast<const float*>(a.w2),
+      static_cast<const float*>(dout), static_cast<float*>(dx), a.tokens, a.d, a.f, a.d2, a.drop1,
+      a.drop2);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kDrop>
+template <bool kDrop>
 int launch_dw(const Args& a, const void* dout, float* dw1, float* db1, float* dw2, float* db2) {
-  const size_t smem = DwSmem<T>::kBytes;
-  cudaError_t err = orbit2::allow_smem(fused_mlp_dw_kernel<T, kDrop>, smem);
+  const size_t smem = DwSmem::kBytes;
+  cudaError_t err = orbit2::allow_smem(fused_mlp_dw_kernel<kDrop>, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks_a = (a.d2 / kBW) * (a.f / kBW);
   const int blocks_b = (a.f / kBW) * (a.d / kBW);
-  fused_mlp_dw_kernel<T, kDrop><<<blocks_a + blocks_b, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.w1), static_cast<const T*>(a.b1),
-      static_cast<const T*>(a.w2), static_cast<const T*>(dout), dw1, db1, dw2, db2, a.tokens, a.d,
-      a.f, a.d2, blocks_a, a.drop1, a.drop2);
+  fused_mlp_dw_kernel<kDrop><<<blocks_a + blocks_b, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.x), static_cast<const float*>(a.w1),
+      static_cast<const float*>(a.b1), static_cast<const float*>(a.w2),
+      static_cast<const float*>(dout), dw1, db1, dw2, db2, a.tokens, a.d, a.f, a.d2, blocks_a,
+      a.drop1, a.drop2);
   return (int)cudaGetLastError();
 }
 
@@ -674,27 +644,36 @@ int launch_hidden(const orbit2::mlp::BwdOperands& o, int dropout, cudaStream_t s
 // applies the two masks (seed1 hidden, seed2 output; kept when the bits are
 // <= threshold, then scaled by `scale`). Return 0 on success, a cudaError_t
 // code if the launch failed, -1 for a dtype or shape the kernels do not
-// take (tokens a multiple of 8, d/f/d2 multiples of 128), or -2
-// (kEncodeFailed) when the driver refuses a bf16 backward's tensor map.
+// take (tokens a multiple of 8, d/f/d2 multiples of 128) or a missing bf16
+// workspace, or -2 (kEncodeFailed) when the driver refuses a bf16 kernel's
+// tensor map.
 //
-// The backward entries take dout2, do2 = bf16(dout m2) (dout itself at rate
-// 0), for the bf16 products, and a bf16 workspace (fused_mlp_hopper.cuh);
-// the fp32 kernels mask dout themselves and ignore both.
+// The bf16 entries take a bf16 workspace (fused_mlp_hopper.cuh); the
+// backward entries also take dout2, do2 = bf16(dout m2) (dout itself at
+// rate 0), for the bf16 products. The fp32 kernels need no workspace and
+// mask dout themselves.
 
+// out [tokens, d2] in the input dtype. bf16: F1 writes h_r into h [tokens,
+// f], then F2 writes out; fp32: h is not used.
 extern "C" int orbit2_fused_mlp_fwd(int dtype, const void* x, const void* w1, const void* b1,
-                                    const void* w2, const void* b2, void* out, int64_t tokens,
-                                    int64_t d, int64_t f, int64_t d2, int dropout, uint64_t seed1,
-                                    uint64_t seed2, uint32_t threshold, float scale,
-                                    void* stream) {
+                                    const void* w2, const void* b2, void* out, void* h,
+                                    int64_t tokens, int64_t d, int64_t f, int64_t d2, int dropout,
+                                    uint64_t seed1, uint64_t seed2, uint32_t threshold,
+                                    float scale, void* stream) {
   Args a;
   if (make_args(&a, dtype, x, w1, b1, w2, tokens, d, f, d2, dropout, seed1, seed2, threshold,
                 scale, stream)) {
     return -1;
   }
   if (dtype == 1) {
-    return dropout ? launch_fwd<bf16, true>(a, b2, out) : launch_fwd<bf16, false>(a, b2, out);
+    if (h == nullptr) return -1;
+    const orbit2::mlp::FwdOperands o{
+        static_cast<const bf16*>(x),  static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+        static_cast<const bf16*>(w2), static_cast<const bf16*>(b2), static_cast<bf16*>(h),
+        static_cast<bf16*>(out),      a.tokens, a.d, a.f, a.d2, a.drop1, a.drop2};
+    return orbit2::mlp::launch_fwd(o, dropout != 0, a.stream);
   }
-  return dropout ? launch_fwd<float, true>(a, b2, out) : launch_fwd<float, false>(a, b2, out);
+  return dropout ? launch_fwd<true>(a, b2, out) : launch_fwd<false>(a, b2, out);
 }
 
 // dx [tokens, d] in the input dtype. bf16: stage H into dpre [tokens, f]
@@ -718,7 +697,7 @@ extern "C" int orbit2_fused_mlp_dx(int dtype, const void* x, const void* w1, con
     }
     return orbit2::mlp::launch_dx(o, static_cast<bf16*>(dx), a.stream);
   }
-  return dropout ? launch_dx<float, true>(a, dout, dx) : launch_dx<float, false>(a, dout, dx);
+  return dropout ? launch_dx<true>(a, dout, dx) : launch_dx<false>(a, dout, dx);
 }
 
 // dw1 [f, d], db1 [f], dw2 [d2, f], db2 [d2], all fp32. bf16: the workspace
@@ -748,8 +727,8 @@ extern "C" int orbit2_fused_mlp_dw(int dtype, const void* x, const void* w1, con
     }
     return err ? err : orbit2::mlp::launch_dw(ops, o[0], o[1], o[2], o[3], a.stream);
   }
-  return dropout ? launch_dw<float, true>(a, dout, o[0], o[1], o[2], o[3])
-                 : launch_dw<float, false>(a, dout, o[0], o[1], o[2], o[3]);
+  return dropout ? launch_dw<true>(a, dout, o[0], o[1], o[2], o[3])
+                 : launch_dw<false>(a, dout, o[0], o[1], o[2], o[3]);
 }
 
 extern "C" const char* orbit2_cuda_error_string(int code) {

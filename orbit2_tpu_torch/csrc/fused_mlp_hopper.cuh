@@ -1,12 +1,15 @@
-// The bf16 backward of the fused MLP for Hopper (sm_90a): K6b (dx) and K6c
-// (dW1, db1, dW2, db2) of fused_mlp.cu, as TMA-fed, warp-specialised wgmma
-// kernels that compute every product once.
+// The bf16 fused MLP for Hopper (sm_90a): its forward, K6a, and its backward,
+// K6b (dx) and K6c (dW1, db1, dW2, db2), of fused_mlp.cu, as TMA-fed,
+// warp-specialised wgmma kernels that compute every product once.
 //
-// Replaces, for bf16, the Pallas TPU kernels `_dx_kernel` and `_dw_kernel`
-// (orbit2_tpu/ops/fused_mlp.py:177, :209; called at :363, :386). With x
-// [T, D], W1 [F, D], W2 [D2, F] (PyTorch's Linear layout), the output
-// gradient do [T, D2] and the masks m1 [T, F], m2 [T, D2] (1 at rate 0):
+// Replaces, for bf16, the Pallas TPU kernels `_fwd_kernel`, `_dx_kernel` and
+// `_dw_kernel` (orbit2_tpu/ops/fused_mlp.py:125, :177, :209; called at :154,
+// :363, :386). With x [T, D], W1 [F, D], W2 [D2, F] (PyTorch's Linear
+// layout), the output gradient do [T, D2] and the masks m1 [T, F], m2 [T, D2]
+// (1 at rate 0):
 //
+//   F1        h_r = bf16(gelu(x W1^T + b1) m1)  into a bf16 [T, F] workspace
+//   F2        out = bf16((h_r W2^T + b2) m2)    b2 and m2 in fp32, one rounding
 //   stage H   h_pre = x W1^T + b1, dh = do2 W2, with do2 = bf16(do m2);
 //             h_r = bf16(gelu(h_pre) m1), dpre = dh m1 gelu'(h_pre),
 //             dpre_r = bf16(dpre); db1's partials = the column sums of dpre
@@ -17,65 +20,80 @@
 //   dW1       = dpre_r^T x,  dW2 = do2^T h_r    sums over T
 //   db1, db2  = their partials summed over T in order
 //
-// The rounding points are those of the mma.sync kernels and of
-// ops/fused_mlp.py::fused_mlp_bwd_reference. do2 is made before stage H by
-// the fused dropout (K5, fused_dropout.cu), which draws m2's bits and rounds
-// the product once, as this backward's products need it; at rate 0 do2 is do.
-// GELU and its derivative come from one exponential (gelu_and_grad: the TPU
-// kernel's Abramowitz-Stegun erf), not from erff as in the forward.
+// The rounding points are the TPU kernels' (fp32 accumulation, h rounded to
+// bf16 before the second product, :136-147) and those of
+// ops/fused_mlp.py::fused_mlp_reference and fused_mlp_bwd_reference. do2 is
+// made before stage H by the fused dropout (K5, fused_dropout.cu), which
+// draws m2's bits and rounds the product once, as this backward's products
+// need it; at rate 0 do2 is do. GELU (and its derivative) come from one
+// exponential (normal_cdf: the TPU kernel's Abramowitz-Stegun erf), so F1's
+// h_r and stage H's are the same function of the same accumulator.
 //
-// The workspace. h_r and dpre_r are two bf16 [T, F] tensors that the wrapper
-// allocates for each backward (64 MB at [4096, 1024 -> 4096 -> 1024], 256 MB
-// at 16,384 tokens), plus the fp32 partials ([ceil(T / 128), F] and
-// [ceil(T / 64), D2]). That is what the unfused chain's autograd keeps for
-// the same backward (GELU's input and fc2's input, both [T, F]), so the fused
-// path never needs more memory than the path it replaces. The forward still
+// The workspace. The forward writes h_r once, a bf16 [T, F] tensor (32 MB
+// at [4096, 1024 -> 4096 -> 1024]) that lives only for the call: the TPU
+// kernel keeps the hidden in 16 MB of VMEM beside an fp32 [512, D2]
+// accumulator, but an H100 SM has 256 KB of registers and 227 KB of shared
+// memory, so a kernel that kept h on chip would recompute x W1^T for every
+// output tile (2.5x the useful flops at that shape). The unfused chain
+// stores the same tensor. The backward's h_r and dpre_r are two bf16 [T, F]
+// tensors that the wrapper allocates for each backward (64 MB at 4,096
+// tokens, 256 MB at 16,384), plus the fp32 partials ([ceil(T / 128), F] and
+// [ceil(T / 64), D2]): what the unfused chain's autograd keeps for the same
+// backward (GELU's input and fc2's input, both [T, F]). The forward still
 // saves only x, the weights and the seeds.
 //
-// What bounds it on the H100: five products of 2 T D F flops (at T = 4096,
-// D = D2 = 1024, F = 4096: 172 GFLOP, 0.174 ms at 989 TFLOP/s) against
-// about 2 T F bf16 of workspace written and read back (64 MB, 0.04 ms at
-// 3.35 TB/s): the tensor cores.
+// What bounds them on the H100: the tensor cores. The forward does two
+// products of 2 T D F flops (at T = 4096, D = D2 = 1024, F = 4096: 68.7
+// GFLOP, 0.069 ms at 989 TFLOP/s) against 2 T F bytes of workspace written
+// and read back (32 MB, 0.02 ms at 3.35 TB/s, and it fits in the 50 MB L2);
+// the backward five (172 GFLOP, 0.174 ms) against twice that workspace.
 //
-// Design. Every product kernel has K1's shape (flash_fwd_hopper.cuh) and is
+// Design. Every kernel has K1's shape (flash_fwd_hopper.cuh) and is
 // persistent (one block an SM walks over tiles, so the producer fills the
 // next tile's stages during a tile's epilogue): three warpgroups, a producer
 // of which one thread issues TMA loads of 2-D maps (128-byte swizzle) into a
 // ring of stages behind full/empty mbarriers, and two consumer warpgroups of
 // 64 rows each on wgmma with fp32 accumulators in registers; a stage is 64
 // deep.
+//   * the products, mlp_gemm_tma_wgmma: tiles of 128 rows x BN columns (BN
+//     256 where the output width allows, else 128), one m64nBN accumulator a
+//     consumer warpgroup, and an epilogue chosen at compile time:
+//       - F1 and F2: A (x, h_r) and B (W1, W2) both K-major as stored, B in
+//         one box of BN rows; the epilogue adds the bias in fp32, F1 the
+//         GELU, and applies the dropout multiplier (m1 or m2 drawn in the
+//         accumulator layout with K4's drop_bits, one Philox call per 8
+//         columns, while the tile's last products run), rounds to bf16 and
+//         stores through shared memory by TMA, clipped at T;
+//       - dx: A = dpre_r K-major, B = W1 N-major (the transposed-B
+//         descriptor); out through shared memory by TMA;
+//       - dW: one grid of both products; a tile of dW1 or dW2 loops over
+//         every token tile in order: A (dpre_r or do2) is M-major and B (x or
+//         h_r) N-major, the transpose bits of bf16 wgmma; fp32 results stored
+//         from registers. The tiles of output column 0 also sum the bias
+//         partials of their 128 rows in order. No atomics: the gradients are
+//         bit-equal from run to run.
 //   * stage H: a tile is 128 tokens x 128 hidden columns. The ring carries x
 //     and W1 (both K-major) for h_pre, then do2 (K-major) and W2 (N-major,
 //     through the transposed-B descriptor) for dh, 32 KB a stage, 4 stages;
-//     the epilogue runs in registers (m1's bits drawn in the accumulator
-//     layout with K4's drop_bits, one Philox call per 8 columns, while h_pre's
-//     last products run), writes h_r and dpre_r through two shared-memory
-//     tiles by TMA stores that clip at T, and db1's partials in a fixed order
+//     the epilogue runs in registers (m1's bits drawn while h_pre's last
+//     products run), writes h_r and dpre_r through two shared-memory tiles
+//     by TMA stores that clip at T, and db1's partials in a fixed order
 //     (two rows, an xor tree over a column quad, the 8 warps in order).
-//   * dx: tiles of 128 tokens x 256 columns of D (128 where D % 256 != 0);
-//     A = dpre_r K-major, B = W1 N-major; out through shared memory by TMA.
-//   * dW: one grid of both products; a tile is 128 x 256 (or 128) of dW1 or
-//     dW2 and loops over every token tile in order: A (dpre_r or do2) is
-//     M-major and B (x or h_r) N-major, the transpose bits of bf16 wgmma; fp32
-//     results stored from registers. The tiles of output column 0 also sum
-//     the bias partials of their 128 rows in order. No atomics: the gradients
-//     are bit-equal from run to run.
 //   * db2: a warp reads 512 contiguous bytes of a row of do (a lane: one
 //     Philox call's 8 columns), 8 warps sum a 64-token slice in order.
-//   * Rows past T: TMA zero-fills x, do and the workspace there, so h_r =
-//     gelu(b1) m1 in those rows of stage H's tile but do2, dh and dpre are 0;
-//     every sum over T pairs h with do2 or dpre with x, so they add nothing,
-//     and the workspace's stores clip at T.
+//   * Rows past T: TMA zero-fills x, h_r, do and the workspace there, so F1
+//     and stage H hold gelu(b1) m1 in those rows of their tiles, but do2, dh
+//     and dpre are 0; nothing of the forward sums over T, every sum over T
+//     of the backward pairs h with do2 or dpre with x, so they add nothing,
+//     and every store clips at T.
 //
 // Budgets (227 KB of shared memory and 64 K registers an SM; one block an
-// SM): stage H 4 x 32 KB + 64 KB of output tiles + 4 KB of column sums; dx
-// 3 x 48 KB + 64 KB (128 x 256 tiles); dW 4 x 48 KB; consumers 240 registers
-// (stage H: two m64n128 accumulators; the products: one m64n256), the
-// producer 24.
+// SM): stage H 4 x 32 KB + 64 KB of output tiles + 4 KB of column sums; F1,
+// F2 and dx 3 x 48 KB + 64 KB (128 x 256 tiles) or 4 x 32 KB + 32 KB; dW
+// 4 x 48 KB; consumers 240 registers (stage H: two m64n128 accumulators; the
+// products: one m64n256), the producer 24.
 
 #pragma once
-
-#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -102,21 +120,31 @@ __device__ __forceinline__ float dgelu(float v) {
   return 0.5f * (1.f + erff(v * kInvSqrt2)) + v * expf(-0.5f * v * v) * kInvSqrt2Pi;
 }
 
-// gelu(v) = v Phi(v) and gelu'(v) = Phi(v) + v phi(v) (Phi, phi: the normal
-// cdf and density) from one exponential: erf by Abramowitz-Stegun 7.1.26
-// (|error| <= 1.5e-7), the TPU kernel's _erf (orbit2_tpu/ops/fused_mlp.py:
-// 57-65), whose exp(-a^2) at a = |v| / sqrt 2 is the density's exp(-v^2 / 2).
-// One reciprocal and one exp2 on the special-function unit, ~16 FMA-pipe
-// instructions; gelu() and dgelu() above (erff, expf) stay the forward's and
-// the fp32 kernels'.
-__device__ __forceinline__ void gelu_and_grad(float v, float& g, float& dg) {
+// Phi(v), the normal cdf, and e = exp(-v^2 / 2) from one exponential: erf
+// by Abramowitz-Stegun 7.1.26 (|error| <= 1.5e-7), the TPU kernel's _erf
+// (orbit2_tpu/ops/fused_mlp.py:57-65), whose exp(-a^2) at a = |v| / sqrt 2
+// is the density's exponential. One reciprocal and one exp2 on the
+// special-function unit, ~16 FMA-pipe instructions with gelu'; gelu() and
+// dgelu() above (erff, expf) stay the fp32 kernels'.
+__device__ __forceinline__ float normal_cdf(float v, float& e) {
   const float a = fabsf(v) * kInvSqrt2;
   const float t = __fdividef(1.f, 1.f + 0.3275911f * a);
   const float poly =
       t * (0.254829592f +
            t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  const float e = __expf(-a * a);
-  const float phi = 0.5f + copysignf(0.5f - 0.5f * poly * e, v);  // 0.5 (1 + erf(v / sqrt 2))
+  e = __expf(-a * a);
+  return 0.5f + copysignf(0.5f - 0.5f * poly * e, v);  // 0.5 (1 + erf(v / sqrt 2))
+}
+
+// gelu(v) = v Phi(v) (F1) and, for stage H, gelu'(v) = Phi(v) + v phi(v).
+__device__ __forceinline__ float gelu_as(float v) {
+  float e;
+  return v * normal_cdf(v, e);
+}
+
+__device__ __forceinline__ void gelu_and_grad(float v, float& g, float& dg) {
+  float e;
+  const float phi = normal_cdf(v, e);
   g = v * phi;
   dg = phi + v * e * kInvSqrt2Pi;
 }
@@ -474,16 +502,24 @@ mlp_bias2_partials(const bf16* __restrict__ dout, float* __restrict__ part, int 
   }
 }
 
-// ---- the products: dx, and dW1 with dW2 ----------------------------------------
+// ---- the products: F1 and F2, dx, and dW1 with dW2 ------------------------------
 
-// out (+)= A B over depth k for an m x n output: A [m, k] K-major (dx) or
-// read as the M-major [k, m] (dW: A^T of a [T, m] tensor); B the N-major
-// [k, n]. A dW problem also sums its bias gradient's partials
-// (part [n_part, m], over the token tiles in order) into bias_grad [m], in
-// the tiles of output column 0.
+// What a product does with its fp32 tile before it stores it.
+enum Epilogue : int {
+  kPlain = 0,   // dx (bf16 through shared memory) or dW (fp32 from registers)
+  kHidden = 1,  // F1: bf16(gelu(acc + b1) m1)
+  kOutput = 2,  // F2: bf16((acc + b2) m2)
+};
+
+// out (+)= A B over depth k for an m x n output: A [m, k] K-major (F1, F2,
+// dx) or read as the M-major [k, m] (dW: A^T of a [T, m] tensor); B the
+// K-major [n, k] (F1, F2: a weight as stored) or the N-major [k, n] (dx,
+// dW). A dW problem also sums its bias gradient's partials (part [n_part,
+// m], over the token tiles in order) into bias_grad [m], in the tiles of
+// output column 0.
 struct GemmProblem {
   int m, n, k;
-  void* out;  // [m, n]: dW fp32, dx bf16
+  void* out;  // [m, n]: dW fp32, the others bf16
   const float* part;
   float* bias_grad;
   int n_part;
@@ -493,25 +529,59 @@ struct GemmParams {
   GemmProblem prob[2];
   int tiles0;  // tiles of prob[0]; prob[1]'s follow
   int tiles;
+  const bf16* bias;  // F1, F2: [n], added in fp32
+  Dropout drop;      // F1, F2 with kDrop: the output's mask
 };
 
-// A stage: A 16 KB and B 64 rows x BN; dx stages its two 64 x BN output tiles.
+// A stage: A 16 KB and B 64 k x BN; F1, F2 and dx stage their two 64 x BN
+// output tiles.
 template <bool kTransA, int BN>
 using GemmLayout = Layout<BN == 256 && !kTransA ? 3 : 4, kHalf + BN * 128,
                           kTransA ? 0 : 2 * BN * 128, 0>;
 
+// F1's and F2's epilogue on a warpgroup's m64nBN tile, packed into bf16
+// pairs as pack_pairs packs them: + the bias of the tile's columns in fp32,
+// the GELU (F1), the dropout multiplier (kDrop: bit e % 32 of dropped[e /
+// 32], drop_bits's layout), one rounding. The bias is read a column pair at
+// a time beside the arithmetic that uses it. acc is only read: no group of
+// it is pending, and ptxas sees no write to it.
+template <int kEpi, bool kDrop, int BN>
+__device__ __forceinline__ void bias_act_mask(uint32_t (&pairs)[BN / 4], const float (&acc)[BN / 2],
+                                              const bf16* bias, int t,
+                                              const uint32_t (&dropped)[BN / 64], float scale) {
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {  // columns 8 j + 2 t and + 1 of rows row and row + 8
+    const uint32_t pair = *reinterpret_cast<const uint32_t*>(bias + 8 * j + 2 * t);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * j + 2 * h + c;
+        v[c] = acc[e] + __uint_as_float(c ? (pair & 0xFFFF0000u) : (pair << 16));
+        if constexpr (kEpi == kHidden) v[c] = gelu_as(v[c]);
+        if constexpr (kDrop) v[c] *= ((dropped[e / 32] >> (e % 32)) & 1u) ? 0.f : scale;
+      }
+      pairs[2 * j + h] = pack_bf16x2(v[0], v[1]);
+    }
+  }
+}
+
 // Persistent over the tiles of 128 x BN of both problems (output column tile
-// fastest). kTransA false: dx, one problem, A's map in boxes of 128 rows, B's
-// in 64, the bf16 result through out_map (boxes of 64 rows). kTransA true:
-// dW, two problems, every map in boxes of 64 rows, fp32 results stored
-// directly.
-template <bool kTransA, int BN>
+// fastest). kTransA false: F1, F2 or dx, one problem, A's map in boxes of 128
+// rows, B's in BN rows (K-major, F1 and F2) or 64 (N-major, dx), the bf16
+// result through out_map (boxes of 64 rows). kTransA true: dW, two
+// problems, every map in boxes of 64 rows, fp32 results stored directly.
+template <bool kTransA, int BN, int kEpi = kPlain, bool kDrop = false>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_gemm_tma_wgmma(const __grid_constant__ CUtensorMap a0_map,
                    const __grid_constant__ CUtensorMap b0_map,
                    const __grid_constant__ CUtensorMap a1_map,
                    const __grid_constant__ CUtensorMap b1_map,
                    const __grid_constant__ CUtensorMap out_map, const GemmParams p) {
+  static_assert(kEpi == kPlain || !kTransA, "F1 and F2 take A K-major");
+  static_assert(kEpi != kPlain || !kDrop, "dx and dW have no dropout epilogue");
+  constexpr bool kTransB = kEpi == kPlain;  // dx, dW: B N-major; F1, F2: the weights as stored
   using L = GemmLayout<kTransA, BN>;
   extern __shared__ unsigned char smem_raw[];
   const Ring<L> ring{(smem_u32(smem_raw) + 1023u) & ~1023u};
@@ -538,9 +608,13 @@ mlp_gemm_tma_wgmma(const __grid_constant__ CUtensorMap a0_map,
           } else {
             tma_load_2d(st, a_map, ring.full(i), k0, m0);
           }
+          if constexpr (kTransB) {
 #pragma unroll
-          for (int j = 0; j < BN / 64; ++j)
-            tma_load_2d(st + kHalf + j * kSlabBytes, b_map, ring.full(i), n0 + 64 * j, k0);
+            for (int j = 0; j < BN / 64; ++j)
+              tma_load_2d(st + kHalf + j * kSlabBytes, b_map, ring.full(i), n0 + 64 * j, k0);
+          } else {
+            tma_load_2d(st + kHalf, b_map, ring.full(i), k0, n0);  // BN rows of 64 k
+          }
         }
       }
     }
@@ -567,7 +641,9 @@ mlp_gemm_tma_wgmma(const __grid_constant__ CUtensorMap a0_map,
     const int steps = (pr.k + kDepth - 1) / kDepth;
     // A's rows of this warpgroup: its M-major slab, or rows 64 wg.. of the K-major tile
     for (int k = 0; k < steps; ++k)
-      consume_step<BN, kTransA, true>(acc, ring, i + k, i, i, wg * kSlabBytes, kHalf);
+      consume_step<BN, kTransA, kTransB>(acc, ring, i + k, i, i, wg * kSlabBytes, kHalf);
+    uint32_t dropped[BN / 64];  // kDrop: the tile's drop flags, drawn while its last group runs
+    if constexpr (kDrop) drop_bits<BN>(dropped, m0 + 64 * wg + row, n0, t, 0, p.drop);
     wgmma_wait<0>();
     fence_regs(acc);
     i += steps;
@@ -575,7 +651,11 @@ mlp_gemm_tma_wgmma(const __grid_constant__ CUtensorMap a0_map,
 
     if constexpr (!kTransA) {
       uint32_t pairs[BN / 4];
-      pack_pairs<BN>(pairs, acc);
+      if constexpr (kEpi == kPlain) {
+        pack_pairs<BN>(pairs, acc);
+      } else {
+        bias_act_mask<kEpi, kDrop, BN>(pairs, acc, p.bias + n0, t, dropped, p.drop.scale);
+      }
       reclaim_staging(wg);
       stage_tile<BN>(staging, pairs, row, t);
       store_tile<BN>(&out_map, staging, n0, m0 + 64 * wg, wg, m0 + 64 * wg < pr.m);
@@ -600,6 +680,81 @@ mlp_gemm_tma_wgmma(const __grid_constant__ CUtensorMap a0_map,
 
 // ---- host side --------------------------------------------------------------------
 
+inline int token_tiles(int tokens) { return (tokens + kBlockRows - 1) / kBlockRows; }
+
+// The persistent grids' size: one block an SM of the current device.
+inline int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0)
+    return 1;
+  return n;
+}
+
+// Launches a product kernel. Returns 0 or a cudaError_t code.
+template <bool kTransA, int BN, int kEpi = kPlain, bool kDrop = false>
+int launch_gemm(const CUtensorMap* maps, const GemmParams& prm, cudaStream_t stream) {
+  const auto kernel = mlp_gemm_tma_wgmma<kTransA, BN, kEpi, kDrop>;
+  const size_t smem = GemmLayout<kTransA, BN>::kBytes;
+  const cudaError_t allowed = allow_smem(kernel, smem);
+  if (allowed != cudaSuccess) return (int)allowed;
+  const int grid = prm.tiles < sm_count() ? prm.tiles : sm_count();
+  kernel<<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4], prm);
+  return (int)cudaGetLastError();
+}
+
+// ---- the forward ---------------------------------------------------------------
+
+struct FwdOperands {
+  const bf16* x;   // [T, D]
+  const bf16* w1;  // [F, D]
+  const bf16* b1;  // [F]
+  const bf16* w2;  // [D2, F]
+  const bf16* b2;  // [D2]
+  bf16* h;         // workspace [T, F]: h_r
+  bf16* out;       // [T, D2]
+  int tokens, d, f, d2;
+  Dropout drop1, drop2;
+};
+
+// One of the forward's products, out = epi(A B^T) with A [T, k] and B [n, k]
+// both K-major, into out [T, n]: tiles of 128 x 256 where n allows.
+template <int kEpi>
+int launch_fwd_product(const bf16* a, const bf16* b, const bf16* bias, bf16* out, int tokens,
+                       int n, int k, const Dropout& drop, bool dropout, cudaStream_t stream) {
+  const int bn = n % 256 == 0 ? 256 : 128;
+  CUtensorMap maps[5];
+  const bool ok = encode_map_2d(&maps[0], a, tokens, k, k, kBlockRows) &&
+                  encode_map_2d(&maps[1], b, n, k, k, bn) &&
+                  encode_map_2d(&maps[4], out, tokens, n, n, 64);
+  if (!ok) return kEncodeFailed;
+  maps[2] = maps[0];
+  maps[3] = maps[1];
+  GemmParams prm{};
+  prm.prob[0] = GemmProblem{tokens, n, k, out, nullptr, nullptr, 0};
+  prm.tiles0 = prm.tiles = token_tiles(tokens) * (n / bn);
+  prm.bias = bias;
+  prm.drop = drop;
+  if (bn == 256) {
+    return dropout ? launch_gemm<false, 256, kEpi, true>(maps, prm, stream)
+                   : launch_gemm<false, 256, kEpi, false>(maps, prm, stream);
+  }
+  return dropout ? launch_gemm<false, 128, kEpi, true>(maps, prm, stream)
+                 : launch_gemm<false, 128, kEpi, false>(maps, prm, stream);
+}
+
+// F1, h_r = bf16(gelu(x W1^T + b1) m1) into the workspace, then F2, out =
+// bf16((h_r W2^T + b2) m2), on the same stream.
+inline int launch_fwd(const FwdOperands& o, bool dropout, cudaStream_t stream) {
+  const int err = launch_fwd_product<kHidden>(o.x, o.w1, o.b1, o.h, o.tokens, o.f, o.d, o.drop1,
+                                              dropout, stream);
+  if (err) return err;
+  return launch_fwd_product<kOutput>(o.h, o.w2, o.b2, o.out, o.tokens, o.d2, o.f, o.drop2,
+                                     dropout, stream);
+}
+
+// ---- the backward --------------------------------------------------------------
+
 struct BwdOperands {
   const bf16* x;      // [T, D]
   const bf16* w1;     // [F, D]
@@ -614,17 +769,6 @@ struct BwdOperands {
   int tokens, d, f, d2;
   Dropout drop1, drop2;
 };
-
-inline int token_tiles(int tokens) { return (tokens + kBlockRows - 1) / kBlockRows; }
-
-// The persistent grids' size: one block an SM of the current device.
-inline int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0)
-    return 1;
-  return n;
-}
 
 // Launches stage H. Returns 0, a cudaError_t code, or kEncodeFailed.
 template <bool kDrop>
@@ -648,17 +792,6 @@ int launch_hidden(const BwdOperands& o, cudaStream_t stream) {
   const int grid = tiles < sm_count() ? tiles : sm_count();
   kernel<<<grid, kThreads, HiddenLayout::kBytes, stream>>>(maps[0], maps[1], maps[2], maps[3],
                                                            maps[4], maps[5], prm);
-  return (int)cudaGetLastError();
-}
-
-template <bool kTransA, int BN>
-int launch_gemm(const CUtensorMap* maps, const GemmParams& prm, cudaStream_t stream) {
-  const auto kernel = mlp_gemm_tma_wgmma<kTransA, BN>;
-  const size_t smem = GemmLayout<kTransA, BN>::kBytes;
-  const cudaError_t allowed = allow_smem(kernel, smem);
-  if (allowed != cudaSuccess) return (int)allowed;
-  const int grid = prm.tiles < sm_count() ? prm.tiles : sm_count();
-  kernel<<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4], prm);
   return (int)cudaGetLastError();
 }
 

@@ -106,12 +106,12 @@ class Mlp(nn.Module):
     (reference mlp.py:22-73); both dropouts are the fused kernel.
 
     `use_fused` (JAX blocks.py:151, :174-183) sends an eval-mode, erf-GELU
-    forward through ops/fused_mlp.py (the K6 kernels, which never store the
-    hidden), on the weights cast to x's dtype; where that declines on shape
-    the plain chain runs. The parameters stay fc1/fc2 either way, so weights
-    load the same. Off by default, as in the JAX package, whose measurements
-    on a TPU found the fused kernel slower at model level (blocks.py:128-137;
-    a TPU finding, not one about this port)."""
+    forward through ops/fused_mlp.py (the K6 kernels, which save no hidden
+    for the backward), on the weights cast to x's dtype; where that declines
+    on shape the plain chain runs. The parameters stay fc1/fc2 either way, so
+    weights load the same. Off by default, as in the JAX package, whose
+    measurements on a TPU found the fused kernel slower at model level
+    (blocks.py:128-137; a TPU finding, not one about this port)."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: Optional[int] = None, drop: float = 0.0, use_bias: bool = True,

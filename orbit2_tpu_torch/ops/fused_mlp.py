@@ -2,21 +2,27 @@
 
 Counterpart of orbit2_tpu/ops/fused_mlp.py. `fused_mlp(x, w1, b1, w2, b2)`
 computes drop2(drop1(gelu_erf(x W1^T + b1)) W2^T + b2) over x [..., D] with
-the weights in the port's Linear layout (w1 [F, D], w2 [D2, F]), without
-storing the [T, F] hidden activation in the forward: csrc/fused_mlp.cu holds
-the forward (K6a), dx (K6b) and dW (K6c) kernels. `FusedMlp` is the
-autograd.Function; it saves x, w1, b1, w2 and the two dropout seeds.
+the weights in the port's Linear layout (w1 [F, D], w2 [D2, F]):
+csrc/fused_mlp.cu holds the forward (K6a), dx (K6b) and dW (K6c) entries.
+`FusedMlp` is the autograd.Function; it saves x, w1, b1, w2 and the two
+dropout seeds, never the hidden activation.
 
-The bf16 backward (csrc/fused_mlp_hopper.cuh) runs in stages: stage H
-computes h_pre = x W1^T and dh = do2 W2 once per backward into a bf16
+The bf16 kernels (csrc/fused_mlp_hopper.cuh) run in stages over bf16
+workspaces that live only for the call. The forward: F1 writes h_r =
+bf16(gelu(x W1^T + b1) m1) once into a [T, F] workspace, F2 computes
+bf16((h_r W2^T + b2) m2); `mlp_fwd_plan` gives their tiles and workspace,
+and `fused_mlp_fwd_staged` is their plain version. The TPU kernel keeps the
+hidden in VMEM; the unfused chain stores the same [T, F] tensor. The
+backward: stage H computes h_pre = x W1^T and dh = do2 W2 once into a
 workspace (h_r and dpre_r, [T, F] each, and per-128-token-tile partial sums
 of db1 and db2), then dx = dpre_r W1, dW1 = dpre_r^T x and dW2 = do2^T h_r.
 `mlp_bwd_plan` gives its tile plan and workspace, and
-`fused_mlp_bwd_staged` is its plain version, stage by stage. The workspace is
-what the unfused chain's autograd keeps for the same backward (GELU's and
-fc2's inputs, [T, F] each). At dropout > 0, do2 = bf16(do m2) comes from
+`fused_mlp_bwd_staged` is its plain version, stage by stage. That workspace
+is what the unfused chain's autograd keeps for the same backward (GELU's
+and fc2's inputs, [T, F] each). At dropout > 0, do2 = bf16(do m2) comes from
 the fused dropout (ops/dropout.py), which draws the same bits. The fp32
-kernels recompute the hidden per output tile (the parity dtype).
+kernels recompute the hidden per output tile and store no [T, F] tensor
+(the parity dtype).
 
 The two seeds come from the generator in the unfused Mlp's order (the hidden
 mask's first, then the output mask's). The mask of hidden element (t, f) is
@@ -58,6 +64,26 @@ BLOCK_COLS = 128
 BIAS2_ROWS = 64
 
 
+def _tile_cols(n: int) -> int:
+    """Output columns of a product tile: 256 where the width allows, else 128."""
+    return 256 if n % 256 == 0 else 128
+
+
+def mlp_fwd_plan(tokens: int, d: int, f: int, d2: int) -> dict:
+    """The bf16 forward's tile plan and workspace (csrc/fused_mlp_hopper.cuh):
+    F1's tiles (token tiles x F / BN) and F2's (token tiles x D2 / BN), tiles
+    of 128 tokens x BN columns with BN 256 where the output width allows it,
+    else 128; the workspace (h_r, bf16 [T, F]) and its bytes."""
+    tiles = -(-tokens // TOKEN_TILE)
+    bn1, bn2 = _tile_cols(f), _tile_cols(d2)
+    return {"token_tiles": tiles,
+            "hidden_tiles": tiles * (f // bn1),
+            "out_tiles": tiles * (d2 // bn2),
+            "tile_cols": {"hidden": bn1, "out": bn2},
+            "workspace": {"h": (tokens, f)},
+            "workspace_bytes": 2 * tokens * f}
+
+
 def mlp_bwd_plan(tokens: int, d: int, f: int, d2: int) -> dict:
     """The bf16 backward's tile plan and workspace (csrc/fused_mlp_hopper.cuh):
     the tiles of stage H (hidden-column tiles x token tiles of 128 x 128),
@@ -68,7 +94,7 @@ def mlp_bwd_plan(tokens: int, d: int, f: int, d2: int) -> dict:
     its bytes."""
     tiles = -(-tokens // TOKEN_TILE)
     slices = -(-tokens // BIAS2_ROWS)
-    dx_bn = 256 if d % 256 == 0 else 128
+    dx_bn = _tile_cols(d)
     dw_bn = 256 if d % 256 == 0 and f % 256 == 0 else 128
     return {"token_tiles": tiles,
             "hidden_tiles": (f // BLOCK_COLS, tiles),
@@ -115,22 +141,28 @@ def _check_cuda(x, w1, b1, w2, other) -> Tuple[int, int, int, int]:
 
 
 class FusedMlpForwardKernel(NvccKernel):
-    """csrc/fused_mlp.cu, forward (K6a): the dropped output of x."""
+    """csrc/fused_mlp.cu, forward (K6a): the dropped output of x. bf16: F1
+    into a workspace h_r (mlp_fwd_plan), then F2, on the Hopper kernels; with
+    keep_h it also returns h_r."""
 
     def __init__(self):
         super().__init__(LIBRARY, "orbit2_fused_mlp_fwd",
-                         [ctypes.c_int] + [ctypes.c_void_p] * 6 + _DIMS + _DROPOUT_ARGS)
+                         [ctypes.c_int] + [ctypes.c_void_p] * 7 + _DIMS + _DROPOUT_ARGS)
 
-    def __call__(self, x, w1, b1, w2, b2, rate: float, seed1: int, seed2: int) -> torch.Tensor:
+    def __call__(self, x, w1, b1, w2, b2, rate: float, seed1: int, seed2: int,
+                 keep_h: bool = False):
         x, w1, b1, w2, b2 = (_aligned(t) for t in (x, w1, b1, w2, b2))
         tokens, d, f, d2 = _check_cuda(x, w1, b1, w2, b2)
         if tuple(b2.shape) != (d2,):
             raise ValueError(f"b2 {tuple(b2.shape)} is not [{d2}]")
         out = torch.empty((tokens, d2), dtype=x.dtype, device=x.device)
+        h = None  # the bf16 workspace h_r (mlp_fwd_plan); the fp32 kernel needs none
+        if x.dtype == torch.bfloat16:
+            h = torch.empty((tokens, f), dtype=x.dtype, device=x.device)
         self.launch(x.device, _DTYPE_CODES[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                    w2.data_ptr(), b2.data_ptr(), out.data_ptr(), tokens, d, f, d2,
-                    *_dropout_args(rate, seed1, seed2))
-        return out
+                    w2.data_ptr(), b2.data_ptr(), out.data_ptr(), 0 if h is None else h.data_ptr(),
+                    tokens, d, f, d2, *_dropout_args(rate, seed1, seed2))
+        return (out, h) if keep_h else out
 
 
 def _masked_do(do, rate: float, seed2: int):
@@ -174,14 +206,16 @@ class FusedMlpDxKernel(NvccKernel):
 class FusedMlpDwKernel(NvccKernel):
     """csrc/fused_mlp.cu, dW (K6c): (dw1, db1, dw2, db2) in fp32. bf16: stage H
     into a workspace (mlp_bwd_plan), then dW1 and dW2 on the Hopper kernels;
-    with keep_dpre it also returns stage H's dpre_r, for FUSED_MLP_DX."""
+    with keep_dpre it also returns stage H's dpre_r, for FUSED_MLP_DX, and
+    with keep_h stage H's h_r after it."""
 
     def __init__(self):
         super().__init__(LIBRARY, "orbit2_fused_mlp_dw",
                          [ctypes.c_int] + [ctypes.c_void_p] * 14 + _DIMS + _DROPOUT_ARGS)
 
     def __call__(self, x, w1, b1, w2, do, rate: float, seed1: int, seed2: int,
-                 do2: Optional[torch.Tensor] = None, keep_dpre: bool = False):
+                 do2: Optional[torch.Tensor] = None, keep_dpre: bool = False,
+                 keep_h: bool = False):
         x, w1, b1, w2, do = (_aligned(t) for t in (x, w1, b1, w2, do))
         tokens, d, f, d2 = _check_cuda(x, w1, b1, w2, do)
         do2 = _aligned(_masked_do(do, rate, seed2) if do2 is None else do2)
@@ -198,9 +232,8 @@ class FusedMlpDwKernel(NvccKernel):
                     w2.data_ptr(), do.data_ptr(), do2.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
                     dw2.data_ptr(), db2.data_ptr(), ptr("dpre"), ptr("h"), ptr("db1_part"),
                     ptr("db2_part"), tokens, d, f, d2, *_dropout_args(rate, seed1, seed2))
-        if keep_dpre:
-            return dw1, db1, dw2, db2, ws.get("dpre")
-        return dw1, db1, dw2, db2
+        kept = [ws.get(name) for name, keep in (("dpre", keep_dpre), ("h", keep_h)) if keep]
+        return (dw1, db1, dw2, db2, *kept)
 
 
 FUSED_MLP_FWD = FusedMlpForwardKernel()
@@ -240,6 +273,31 @@ def fused_mlp_reference(x, w1, b1, w2, b2, m1: Optional[torch.Tensor] = None,
     if m2 is not None:
         out = out * m2
     return out.to(x.dtype).reshape(*shape[:-1], w2.shape[0])
+
+
+def _grow_rows(t: torch.Tensor, extra: int, fill: float) -> torch.Tensor:
+    """t [n, C] with `extra` rows of `fill` appended."""
+    return torch.cat([t, t.new_full((extra, t.shape[1]), fill)]) if extra else t
+
+
+def fused_mlp_fwd_staged(x, w1, b1, w2, b2, m1: Optional[torch.Tensor] = None,
+                         m2: Optional[torch.Tensor] = None, pad: bool = True):
+    """The bf16 forward's stages in plain torch, for x [T, D]: F1, h_r =
+    gelu(x W1^T + b1) m1 rounded to x's dtype [T', F], then F2, out =
+    (h_r W2^T + b2) m2 in fp32 rounded once, of which the first T rows are
+    returned with h_r: (out [T, D2], h_r). With `pad`, x first gets zero
+    rows up to a multiple of TOKEN_TILE, as TMA fills them (T' rows; the
+    masks get rows of ones), else T' = T."""
+    tokens = x.shape[0]
+    extra = (-tokens) % TOKEN_TILE if pad else 0
+    h = F.gelu(_grow_rows(x.float(), extra, 0.0) @ w1.float().t() + b1.float())
+    if m1 is not None:
+        h = h * _grow_rows(m1, extra, 1.0)
+    h = h.to(x.dtype)
+    out = h.float() @ w2.float().t() + b2.float()
+    if m2 is not None:
+        out = out * _grow_rows(m2, extra, 1.0)
+    return out.to(x.dtype)[:tokens], h
 
 
 def fused_mlp_bwd_reference(x, w1, b1, w2, do, m1: Optional[torch.Tensor] = None,
@@ -293,7 +351,7 @@ def hidden_bwd_reference(x, w1, b1, w2, do, m1: Optional[torch.Tensor] = None,
     rnd = lambda t: t.to(x.dtype)
     tokens = x.shape[0]
     extra = (-tokens) % TOKEN_TILE if pad else 0
-    grow = lambda t, fill: torch.cat([t, t.new_full((extra, t.shape[1]), fill)]) if extra else t
+    grow = lambda t, fill: _grow_rows(t, extra, fill)
     xf, dof = grow(x.float(), 0.0), grow(do.float(), 0.0)
     h_pre = xf @ w1.float().t() + b1.float()
     h = F.gelu(h_pre)
@@ -356,7 +414,8 @@ def fused_mlp_bwd(x, w1, b1, w2, do, rate: float = 0.0, seed1: int = 0, seed2: i
 
 class FusedMlp(torch.autograd.Function):
     """drop2(drop1(gelu(x W1^T + b1)) W2^T + b2) over x [T, D]; saves x, w1,
-    b1, w2 and the seeds, and recomputes the hidden in the backward."""
+    b1, w2 and the seeds, and recomputes the hidden in the backward (the bf16
+    forward's h_r workspace lives only for its call)."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, rate: float, seed1: int, seed2: int):
@@ -375,11 +434,11 @@ class FusedMlp(torch.autograd.Function):
 
 def fused_mlp(x, w1, b1, w2, b2, drop_rate: float = 0.0,
               generator: Optional[torch.Generator] = None) -> Optional[torch.Tensor]:
-    """drop(gelu(x w1^T + b1) w2^T + b2) with the hidden never stored.
-    x [..., D]; w1 [F, D]; b1 [F]; w2 [D2, F]; b2 [D2]. Returns None where the
-    JAX function declines on shape (a missing bias, tokens % 8, D, F or
-    D2 % 128); with drop_rate > 0 the two seeds are drawn from `generator`
-    (the hidden mask's first), which must then be given."""
+    """drop(gelu(x w1^T + b1) w2^T + b2), the hidden never saved for the
+    backward. x [..., D]; w1 [F, D]; b1 [F]; w2 [D2, F]; b2 [D2]. Returns
+    None where the JAX function declines on shape (a missing bias, tokens %
+    8, D, F or D2 % 128); with drop_rate > 0 the two seeds are drawn from
+    `generator` (the hidden mask's first), which must then be given."""
     if b1 is None or b2 is None:
         return None
     if drop_rate > 0.0 and generator is None:
@@ -398,5 +457,5 @@ def fused_mlp(x, w1, b1, w2, b2, drop_rate: float = 0.0,
 
 __all__ = ["FUSED_MLP_FWD", "FUSED_MLP_DX", "FUSED_MLP_DW", "FusedMlp", "TOKEN_TILE",
            "fused_mlp", "fused_mlp_fwd", "fused_mlp_bwd", "fused_mlp_bwd_reference",
-           "fused_mlp_bwd_staged", "fused_mlp_reference", "hidden_bwd_reference", "mlp_bwd_plan",
-           "mlp_masks"]
+           "fused_mlp_bwd_staged", "fused_mlp_fwd_staged", "fused_mlp_reference",
+           "hidden_bwd_reference", "mlp_bwd_plan", "mlp_fwd_plan", "mlp_masks"]

@@ -10,13 +10,16 @@ against the unfused chain, and `Mlp(use_fused=True)` / a tiny ResSlimViT
 against the JAX package on weights carried across by
 state_dict_from_jax_params.
 
-The bf16 backward's stages (csrc/fused_mlp_hopper.cuh) in plain torch:
-stage H and the three products against the one-shot plain backward, a
-ragged token count padded as TMA fills it, and the tile plan and workspace.
+The bf16 kernels' stages (csrc/fused_mlp_hopper.cuh) in plain torch: the
+forward's F1 and F2 against the one-shot plain forward and the JAX kernel,
+its h_r against stage H's; stage H and the three products of the backward
+against the one-shot plain backward; ragged token counts padded as TMA
+fills them, and the tile plans and workspaces.
 
 CUDA (marker `cuda`, skipped without a card): each kernel against its plain
-version; the backward's launches, repeats, ragged and odd shapes, a strided
-x and a second device. Run without JAX's conftest on the chip machine:
+version; the forward's and the backward's launches, repeats, ragged and odd
+shapes, strided inputs and a second device; the forward's h_r against stage
+H's. Run without JAX's conftest on the chip machine:
 `python -m pytest --noconftest -m cuda tests/test_torch_fused_mlp.py`.
 """
 
@@ -38,9 +41,11 @@ from orbit2_tpu_torch.ops.fused_mlp import (
     fused_mlp_bwd_reference,
     fused_mlp_bwd_staged,
     fused_mlp_fwd,
+    fused_mlp_fwd_staged,
     fused_mlp_reference,
     hidden_bwd_reference,
     mlp_bwd_plan,
+    mlp_fwd_plan,
     mlp_masks,
 )
 from orbit2_tpu_torch.ops.kernel_prng import draw_seed
@@ -322,6 +327,90 @@ def test_backward_tile_plan_and_workspace(shape):
     assert plan["dw_tiles"] == (f // 128) * (d // bn["dw"]) + (d2 // 128) * (f // bn["dw"])
 
 
+# ---- the bf16 forward's stages, in plain torch -------------------------------------
+
+# chip_smoke.py's MLP_SHAPES: the 117M serving slice, bench.py's 117M geometry,
+# a ragged token count, a small case, F != 4 D with a partial D2 tile
+SMOKE_MLP_SHAPES = [(4096, 1024, 4096, 1024), (16384, 1024, 4096, 1024), (4104, 1024, 4096, 1024),
+                    (64, 128, 256, 128), (512, 256, 640, 384)]
+
+
+@pytest.mark.parametrize("shape", SMOKE_MLP_SHAPES,
+                         ids=["117m", "117m_bench", "ragged", "small", "odd"])
+def test_forward_tile_plan_and_workspace(shape):
+    """F1's tiles (token tiles x F / BN) and F2's (token tiles x D2 / BN), BN
+    256 where the output width allows, and the one bf16 [T, F] workspace h_r
+    (32 MiB at 4,096 tokens: what the unfused chain stores)."""
+    t, d, f, d2 = shape
+    plan = mlp_fwd_plan(t, d, f, d2)
+    tiles = -(-t // TOKEN_TILE)
+    bn1, bn2 = (256 if f % 256 == 0 else 128), (256 if d2 % 256 == 0 else 128)
+    assert plan["token_tiles"] == tiles
+    assert plan["tile_cols"] == {"hidden": bn1, "out": bn2}
+    assert plan["hidden_tiles"] == tiles * (f // bn1) and plan["out_tiles"] == tiles * (d2 // bn2)
+    assert plan["workspace"] == {"h": (t, f)} and plan["workspace_bytes"] == 2 * t * f
+    if t == 4096:
+        assert plan["workspace_bytes"] == 32 * 2 ** 20
+        assert (plan["hidden_tiles"], plan["out_tiles"]) == (512, 128)
+
+
+@pytest.mark.parametrize("tokens", [256, 136], ids=["t256", "t136_ragged"])
+@pytest.mark.parametrize("rate", [0.0, 0.25], ids=["nodrop", "drop"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_staged_forward_matches_the_plain_forward(dtype, rate, tokens):
+    """F1 (h_r = gelu(x W1^T + b1) m1, rounded) then F2 ((h_r W2^T + b2) m2,
+    rounded once), x padded by zero rows to a multiple of TOKEN_TILE as TMA
+    fills it: the one-shot plain forward, equal; h_r of the padded rows is
+    gelu(b1) m1, and unpadded the same stages give the same rows."""
+    x, w1, b1, w2, _ = stage_inputs(dtype, t=tokens)
+    b2 = torch.from_numpy(inputs(8, d2=D2)[4]).to(dtype)
+    masks = mlp_masks(rate, 5, 6, tokens, w1.shape[0], w2.shape[0])
+    want = fused_mlp_reference(x, w1, b1, w2, b2, *masks)
+    out, h = fused_mlp_fwd_staged(x, w1, b1, w2, b2, *masks)
+    assert out.dtype == want.dtype and torch.equal(out, want)
+    assert h.shape == (-(-tokens // TOKEN_TILE) * TOKEN_TILE, w1.shape[0]) and h.dtype == dtype
+    exact_out, exact_h = fused_mlp_fwd_staged(x, w1, b1, w2, b2, *masks, pad=False)
+    assert torch.equal(exact_out, out) and torch.equal(exact_h, h[:tokens])
+    if tokens % TOKEN_TILE:
+        assert torch.equal(h[tokens:], F.gelu(b1.float()).to(dtype).expand_as(h[tokens:]))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25], ids=["nodrop", "drop"])
+def test_forward_hidden_is_stage_hs(rate):
+    """The forward's h_r is stage H's on the same inputs and seeds (a ragged
+    136 tokens, padded as TMA fills both)."""
+    x, w1, b1, w2, do = stage_inputs(torch.bfloat16, t=136)
+    b2 = torch.zeros(w2.shape[0], dtype=torch.bfloat16)
+    masks = mlp_masks(rate, 5, 6, 136, w1.shape[0], w2.shape[0])
+    _, h = fused_mlp_fwd_staged(x, w1, b1, w2, b2, *masks)
+    assert torch.equal(h, hidden_bwd_reference(x, w1, b1, w2, do, *masks)[1])
+
+
+@pytest.mark.parametrize("path, rate", [("fused_mlp_fwd", 0.0), ("staged", 0.0), ("staged", 0.25)],
+                         ids=["fused_mlp_fwd", "staged", "staged_jax_masks"])
+def test_forward_paths_match_jax_kernel(path, rate):
+    """fused_mlp_fwd on CPU tensors and the staged forward against the JAX
+    kernel in interpret mode at fp32 (atol 1e-5); the staged forward also
+    with dropout on the JAX kernel's own multipliers."""
+    import jax
+    import jax.numpy as jnp
+
+    args = inputs(9)
+    kw, masks = {}, (None, None)
+    if rate:
+        kw = dict(drop_rate=rate, rng=jax.random.PRNGKey(3))
+        seed = np.asarray(jax.random.randint(kw["rng"], (2,), -2 ** 31, 2 ** 31 - 1,
+                                             dtype=jnp.int32))
+        masks = jax_masks(seed, rate)
+    want = np.asarray(jax_fused(args, **kw))
+    x, w1, b1, w2, b2 = to_port(*args)
+    if path == "staged":
+        got = fused_mlp_fwd_staged(x, w1, b1, w2, b2, *masks)[0]
+    else:
+        got = fused_mlp_fwd(x, w1, b1, w2, b2)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
 # ---- the fused path in the model ------------------------------------------------
 
 def jax_model_pair(embed=128, depth=2, seed=0):
@@ -570,3 +659,98 @@ def test_backward_on_a_second_device(cuda):
     for name, a, b in zip(GRAD_NAMES, got, fused_mlp_bwd_reference(x, w1, b1, w2, do)):
         assert a.device == dev, name
         close(a, b, torch.bfloat16, name)
+
+
+# ---- the bf16 forward on the card: F1 and F2 -----------------------------------
+
+def bf16_ulps(a, b):
+    """Per element, how many bf16 steps apart a and b are (0 = equal; +0 and
+    -0 are equal)."""
+    line = lambda v: (lambda i: torch.where(i < 0, -(i & 0x7FFF), i))(v.view(torch.int16).int())
+    return (line(a) - line(b)).abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["nodrop", "drop"])
+@pytest.mark.parametrize("shape", CARD_SHAPES + [(4104, 256, 512, 256), (136, 128, 256, 128),
+                                                 "strided"],
+                         ids=["small", "ragged", "d2_gt_d", "t4104", "t136", "strided_b1"])
+def test_forward_matches_plain_on_card(cuda, shape, rate):
+    """The bf16 forward (F1 then F2, one launch count) against its plain
+    version, both dropout instances, at 128- and 256-column tiles, ragged
+    token tiles and a strided [1, N, D] input (a contiguous copy); the zero
+    pattern is the output mask's and two runs are bit-equal."""
+    strided = shape == "strided"
+    x, w1, b1, w2, b2 = card_inputs((64, 128, 256, 128) if strided else shape, torch.bfloat16, cuda)
+    if strided:
+        x = torch.cat([x, x], dim=1).view(1, 64, 256)[..., 128:].reshape(64, 128)
+    t, f, d2 = x.shape[0], w1.shape[0], w2.shape[0]
+    masks = mlp_masks(rate, 11, 12, t, f, d2, device=cuda)
+    before = FUSED_MLP_FWD.launches
+    out = fused_mlp_fwd(x, w1, b1, w2, b2, rate, 11, 12)
+    again = fused_mlp_fwd(x, w1, b1, w2, b2, rate, 11, 12)
+    torch.cuda.synchronize()
+    assert FUSED_MLP_FWD.launches == before + 2
+    assert out.dtype == torch.bfloat16 and out.shape == (t, d2)
+    close(out, fused_mlp_reference(x, w1, b1, w2, b2, *masks), torch.bfloat16, "out")
+    assert torch.equal(out, again), "two forward runs differ"
+    if rate:
+        assert torch.equal(out == 0, masks[1] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["nodrop", "drop"])
+@pytest.mark.parametrize("shape", [(4104, 256, 512, 256), (136, 128, 640, 384)],
+                         ids=["t4104", "t136_f640"])
+def test_forward_hidden_is_stage_hs_on_card(cuda, shape, rate):
+    """F1's h_r (keep_h) against stage H's h_r (FUSED_MLP_DW's keep_h) on the
+    same inputs and seeds: the same accumulator through the same GELU, so
+    within 1 bf16 ulp (the products' tiles differ); the count of unequal
+    elements is printed."""
+    x, w1, b1, w2, b2 = card_inputs(shape, torch.bfloat16, cuda)
+    do = torch.randn(shape[0], shape[3], generator=torch.Generator().manual_seed(5)).to(
+        cuda, torch.bfloat16)
+    _, h = FUSED_MLP_FWD(x, w1, b1, w2, b2, rate, 11, 12, keep_h=True)
+    *_, h_stage = FUSED_MLP_DW(x, w1, b1, w2, do, rate, 11, 12, keep_h=True)
+    torch.cuda.synchronize()
+    ulps = bf16_ulps(h, h_stage)
+    print(f"h_r vs stage H's at {shape} drop {rate}: {int((ulps > 0).sum())} of {h.numel()} "
+          f"unequal, at most {int(ulps.max())} ulp")
+    assert h.shape == h_stage.shape == (shape[0], shape[2]) and int(ulps.max()) <= 1
+
+
+@pytest.mark.cuda
+def test_forward_on_a_second_device(cuda):
+    """F1 and F2 raise their shared-memory limit in each device's context:
+    they launch on a second card too."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", 1)
+    x, w1, b1, w2, b2 = card_inputs((136, 128, 256, 256), torch.bfloat16, dev)
+    out = fused_mlp_fwd(x, w1, b1, w2, b2, 0.1, 3, 4)
+    assert out.device == dev
+    masks = mlp_masks(0.1, 3, 4, 136, 256, 256, device=dev)
+    close(out, fused_mlp_reference(x, w1, b1, w2, b2, *masks), torch.bfloat16, "out")
+
+
+@pytest.mark.cuda
+def test_bf16_forward_raises_on_what_it_does_not_take(cuda):
+    """Shapes off the kernels' grid, mixed dtypes and devices raise before a
+    launch; the C entry refuses a bf16 call without its workspace."""
+    x, w1, b1, w2, b2 = card_inputs((64, 128, 256, 128), torch.bfloat16, cuda)
+    before = FUSED_MLP_FWD.launches
+    with pytest.raises(ValueError):
+        fused_mlp_fwd(x[:60], w1, b1, w2, b2)  # tokens % 8
+    with pytest.raises(ValueError):
+        fused_mlp_fwd(x[:, :120], w1[:, :120], b1, w2, b2)  # D % 128
+    with pytest.raises(ValueError):
+        fused_mlp_fwd(x, w1, b1, w2, b2[:64])  # b2 is not [D2]
+    with pytest.raises(TypeError):
+        fused_mlp_fwd(x, w1.float(), b1, w2, b2)
+    with pytest.raises(ValueError):
+        fused_mlp_fwd(x, w1, b1, w2, b2.cpu())
+    out = torch.empty(64, 128, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(RuntimeError, match="no kernel instance"):
+        FUSED_MLP_FWD.launch(cuda, 1, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                             b2.data_ptr(), out.data_ptr(), 0, 64, 128, 256, 128, 0, 0, 0, 0, 0.0)
+    assert FUSED_MLP_FWD.launches == before

@@ -55,6 +55,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
                one seeded bf16 step on the kernels against the same step on
                the plain versions, and one seeded fp32 step on the card against
                the CPU
+  5b. serve1b — the tiled 1B serving path at the full width of
+               configs/interm_1b.yaml (embed 3072, depth 8, 24 heads, d 128,
+               gelu tanh, bf16; its mesh cut to the card) on a synthetic
+               252 x 504 -> 1,008 x 2,016 PRISM set made from --seed: the
+               config's div 4 / overlap 3 tiles (66 x 132, 2,178 tokens),
+               batch 16. K1 at the path's shapes (B16 and B1, N 2,178, H24,
+               d128; B16 also with dropout 0.1) and K5 at the ensemble's
+               [34,848, 3,072 | 12,288] against their plain versions;
+               Evaluator.test over 2 batches in bf16 and with
+               quant="w8a8", each with exactly depth x batches K1 launches
+               and nothing else; one batch against the plain attention (the
+               prediction at the bf16 tolerance, the trunk's output within
+               relative Frobenius error 0.02) and the w8a8 prediction and
+               trunk output against bf16 (<= 0.05); a bf16 test() after the
+               w8a8 one reproduces the first's metrics; torch._int_mm on the
+               card against the CPU (int32 equal) and w8a8_matmul (1 bf16
+               ulp); stitched inference of field 0 in bf16, w8a8 and on the
+               plain attention ([3, 1008, 2016], each tile's core its own
+               prediction, depth x 16 K1 launches, the tiles' trunk outputs
+               held as the batch's); an MC-dropout ensemble of 4 samples (K1
+               with dropout and K5, exact launches; samples differ pairwise,
+               the same seed repeats them bit for bit)
   6. times   — kernel vs plain (CUDA events, median of 20 after warm-up; K1,
                K2 and K3 also by the profiler's kernel time alone, beside SDPA
                and their two bounds, tensor cores and their dropout's Philox
@@ -73,7 +95,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
                the train step at the slice geometry and at bench.py's 117M
                geometry (64 x 128 input, 2,048 tokens), and the serving step
                with and without the fused MLP, at the end also by the kernel
-               time of every kernel a step launches
+               time of every kernel a step launches; then the tiled 1B
+               serving steps (bf16 and w8a8) by events and kernel time (by
+               kind of kernel: the w8a8 step's quantization and rescale are
+               its other kernels less the bf16 step's), their
+               peak memory and the stitched field's wall time, K1's rows at
+               (B16, N2178, H24, d128) with and without dropout beside SDPA,
+               and the w8a8 route's parts (quantization, torch._int_mm,
+               rescale) beside bf16 F.linear at the trunk's four products, on
+               the line {"serving_1b": {...}}
 
 The second-to-last line is {"kernels": [...]}: for each kernel its launches
 on its path, max abs error, ms, plain ms, library ms (null where no single
@@ -106,6 +136,30 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "interm_117m.yaml"
+# the tiled 1B serving phase: configs/interm_1b.yaml's PRISM key (7 -> 3
+# variables) on a synthetic test split of FIELDS_1B fields at LOW_1B -> 4x;
+# the config's div 4 / overlap 3 cut 66 x 132 tiles (33 x 66 = 2,178 tokens),
+# served BATCH_1B tiles a batch
+CONFIG_1B = ROOT / "configs" / "interm_1b.yaml"
+LOW_1B = (252, 504)
+FIELDS_1B = 3
+BATCH_1B = 16
+BATCHES_1B = 2
+MC_SAMPLES = 4
+# the w8a8 prediction against the bf16 one on the same batch, and the trunk's
+# output alone (the prediction adds the unquantized CNN residual path, which
+# at random weights dominates it): relative Frobenius error
+W8A8_REL = 5e-2
+# the bf16 1B trunk's output (its final norm's, [B, N, D]) on the kernels
+# against the same trunk on the plain attention, for a batch and for the
+# stitched tiles: relative Frobenius error. Both round p to bf16 before the
+# value product; rounding that differs passes through 8 blocks. The
+# prediction adds the CNN residual path, which at random weights dominates
+# it (the trunk is ~5% of it), so the trunk is held apart
+TRUNK_BF16_REL = 2e-2
+# torch._int_mm on the card against the CPU: [M, K] x [K, N], the 1B qkv
+# product's K and N
+INT8_CHECK = (4096, 3072, 9216)
 
 # (B, N_q, N_k, H, D): the slice, the 117M bench shape, the 1B serving shape,
 # a ragged N over many kv tiles at the widest head, N_q != N_k, and one query
@@ -170,9 +224,11 @@ PROBE_SHAPES = [(128, 2048), (4, 192)]
 PROBE_REL = 1e-2
 # the bound shift against the fp32 softmax: bf16 p and o
 PROBE_SOFTMAX_ATOL = 1e-2
-# H100 SXM peaks (dense bf16 tensor cores, HBM3) for the kernels' bounds
+# H100 SXM peaks (dense bf16 tensor cores, HBM3) for the kernels' bounds,
+# and the dense int8 tensor-core rate for the w8a8 products'
 PEAK_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT8_OPS = 1979e12
 # Integer instructions on an SM (Hopper): IMAD and its forms issue to the FMA
 # pipe, the other integer opcodes (LOP3, IADD3, SHF, ISETP, ...) to the ALU
 # pipe, 64 lanes each, and the SM issues at most 4 warp instructions (128
@@ -237,10 +293,11 @@ def best_ms(fn):
     return min(cuda_ms(fn), cuda_ms(fn))
 
 
-def paired_ms(kernel, plain):
+def paired_ms(kernel, plain, iters=20):
     """(kernel ms, plain ms): each timed twice in turns (plain, kernel,
     kernel, plain), the better of its two medians."""
-    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
+    p1, k1 = cuda_ms(plain, iters), cuda_ms(kernel, iters)
+    k2, p2 = cuda_ms(kernel, iters), cuda_ms(plain, iters)
     return min(k1, k2), min(p1, p2)
 
 
@@ -278,10 +335,12 @@ def counts():
     return {name: k.launches for name, k in kernels().items()}
 
 
-def write_dataset(root: Path, in_vars, out_vars, seed: int, n_files=2, t=16):
-    """The tests/conftest.py layout at ERA5 5.625 deg (32 x 64) -> 1.40625 deg
-    (128 x 256): per-split (train, val, test) npz shards of [T, 1, H, W]
-    arrays, normalize mean/std, lat/lon and per-split climatology."""
+def write_dataset(root: Path, in_vars, out_vars, seed: int, n_files=2, t=16, low=(32, 64),
+                  mag=4, shards=("train", "val", "test")):
+    """The tests/conftest.py layout, by default at ERA5 5.625 deg (32 x 64) ->
+    1.40625 deg (128 x 256): npz shards of [T, 1, H, W] arrays at `low` and
+    `mag` x finer for the splits in `shards`, normalize mean/std, lat/lon and
+    every split's climatology."""
     rng = np.random.default_rng(seed)
 
     def field(v, h, w):
@@ -291,12 +350,12 @@ def write_dataset(root: Path, in_vars, out_vars, seed: int, n_files=2, t=16):
             return rng.integers(0, 2, size=(t, 1, h, w)).astype(np.float64)
         return rng.normal(280, 10, size=(t, 1, h, w))
 
-    for base, (h, w), variables in ((root / "low", (32, 64), in_vars),
-                                    (root / "high", (128, 256), out_vars)):
+    for base, (h, w), variables in ((root / "low", low, in_vars),
+                                    (root / "high", (low[0] * mag, low[1] * mag), out_vars)):
         for split in ("train", "val", "test"):
             d = base / split
             d.mkdir(parents=True)
-            for i in range(n_files):
+            for i in range(n_files if split in shards else 0):
                 np.savez(d / f"shard_{i}.npz",
                          **{v: field(v, h, w).astype(np.float32) for v in variables})
             np.savez(d / "climatology.npz",
@@ -309,23 +368,34 @@ def write_dataset(root: Path, in_vars, out_vars, seed: int, n_files=2, t=16):
     return str(root / "low"), str(root / "high")
 
 
-def slice_config(root: Path, seed: int):
-    """configs/interm_117m.yaml with its data dirs on a synthetic dataset of
-    its variables written under `root`, and its mesh (fsdp 4 x simple_ddp 4)
-    cut to the one card."""
+def slice_config(root: Path, seed: int, config=CONFIG, trainer=None, model=None, **dataset):
+    """`config` (configs/interm_117m.yaml) with its first data key on a
+    synthetic dataset of its variables written under `root` (write_dataset's
+    `dataset` arguments), its mesh (117M: fsdp 4 x simple_ddp 4) cut to the
+    one card, and its trainer and model keys updated from `trainer`, `model`."""
     import yaml
 
     from orbit2_tpu_torch.config import load_config
 
-    raw = yaml.safe_load(CONFIG.read_text())
+    raw = yaml.safe_load(config.read_text())
     data = raw["data"]
     key = next(iter(data["low_res_dir"]))
     low, high = write_dataset(root, data["dict_in_variables"][key],
-                              data["dict_out_variables"][key], seed)
+                              data["dict_out_variables"][key], seed, **dataset)
     data["low_res_dir"] = {key: low}
     data["high_res_dir"] = {key: high}
     raw["parallelism"] = {"fsdp": 1, "simple_ddp": 1, "tensor_par": 1, "seq_par": 1}
+    raw["trainer"].update(trainer or {})
+    raw["model"].update(model or {})
     return load_config(raw)
+
+
+def config_1b(root: Path, seed: int, low=LOW_1B, **model):
+    """configs/interm_1b.yaml with its mesh (fsdp 8 x simple_ddp 4 x
+    tensor_par 4) cut to the one card, batch BATCH_1B tiles, and PRISM's
+    variables on a synthetic test split of FIELDS_1B fields at `low`."""
+    return slice_config(root, seed, CONFIG_1B, trainer={"batch_size": BATCH_1B}, model=model,
+                        n_files=1, t=FIELDS_1B, low=low, shards=("test",))
 
 
 def set_attention_impl(model, impl):
@@ -546,6 +616,49 @@ def time_fused_mlp(gen, bounds, libs):
         del args, do, leaves, out_chain
         torch.cuda.empty_cache()
     return timed
+
+
+def check_forward(q, k, v, rate, seed, case):
+    """K1 against its plain version on the same inputs and dropout multiplier:
+    o within atol=rtol O_TOL, lse within LSE_ATOL. Returns (o, lse, the
+    multiplier, max|do|)."""
+    from orbit2_tpu_torch.ops.flash_attention import (
+        attention_mult, flash_attention_fwd, flash_attention_reference)
+
+    mult = attention_mult(q, k, rate, seed)
+    o, lse = flash_attention_fwd(q, k, v, None, rate, seed)
+    want_o, want_lse = flash_attention_reference(q, k, v, None, mult)
+    torch.cuda.synchronize()
+    diff = (o.float() - want_o.float()).abs()
+    err_o, err_lse = diff.max().item(), (lse - want_lse).abs().max().item()
+    tol = O_TOL[q.dtype]
+    ok_o = bool((diff <= tol + tol * want_o.float().abs()).all())
+    print(f"  fwd {case}: max|do| {err_o:.3e} (atol=rtol={tol:g})  max|dlse| {err_lse:.3e} "
+          f"(atol {LSE_ATOL:g})")
+    check(ok_o and err_lse <= LSE_ATOL, f"flash forward disagrees with plain at {case}")
+    return o, lse, mult, err_o
+
+
+def check_dropout(r, c, dtype, rate, gen, seed):
+    """K5 at [r, c] against its plain version: forward and backward bit-equal
+    under the same mask, and the share kept within 4 sigma of 1 - rate."""
+    from orbit2_tpu_torch.ops.dropout import FusedDropout, dropout_reference
+    from orbit2_tpu_torch.ops.kernel_prng import keep_mult, keep_threshold
+
+    x = torch.randn(r, c, generator=gen, device="cuda").to(dtype).requires_grad_()
+    g = torch.randn(r, c, generator=gen, device="cuda").to(dtype)
+    out = FusedDropout.apply(x, seed + r, rate)
+    out.backward(g)
+    mult = keep_mult(seed + r, r, c, rate, device="cuda")
+    same_fwd = torch.equal(out, dropout_reference(x.detach(), mult))
+    same_bwd = torch.equal(x.grad, dropout_reference(g, mult))
+    kept = (mult > 0).float().mean().item()
+    print(f"  fused_dropout {str(dtype)[6:]:8s} [{r}, {c}]: fwd bit-equal {same_fwd}, "
+          f"bwd bit-equal {same_bwd}, kept {kept:.4f}")
+    check(same_fwd and same_bwd, f"fused dropout differs from plain at [{r}, {c}] {dtype}")
+    p_keep = (keep_threshold(rate) + 1) / 2 ** 16  # within 2^-16 of 1 - rate
+    check(abs(kept - p_keep) < 4 * math.sqrt(p_keep * (1 - p_keep) / (r * c)),
+          f"fused dropout kept {kept} of [{r}, {c}]")
 
 
 def check_backward(q, k, v, o, lse, do, mult, rate, seed, case):
@@ -1074,6 +1187,423 @@ def time_probes(res, smi):
     return timed
 
 
+def check_int8_product(seed):
+    """torch._int_mm on the card against the CPU at [4096, 3072] x [3072,
+    9216], the 1B qkv product's K and N: the int32 accumulators equal; the
+    weight and row quantizations on the card equal the CPU's (the w8a8 twin
+    quantizes its weights on the card); w8a8_matmul's bf16 output within 1
+    bf16 ulp of the CPU's. Returns the largest ulp distance."""
+    from orbit2_tpu_torch.ops.quant import (
+        int8_matmul, quantize_rows, quantize_weight, w8a8_matmul)
+
+    gen = torch.Generator().manual_seed(seed)
+    m, k, n = INT8_CHECK
+    xq = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8)
+    acc = int8_matmul(xq.cuda(), wq.cuda()).cpu()
+    check(torch.equal(acc, int8_matmul(xq, wq)), "torch._int_mm on the card differs from the CPU")
+    x = torch.randn(m, k, generator=gen).bfloat16()
+    w = torch.randn(n, k, generator=gen) * k ** -0.5
+    wq, ws = quantize_weight(w)
+    b = torch.randn(n, generator=gen) * 0.1
+    for name, fn, arg in (("weight", quantize_weight, w), ("row", quantize_rows, x)):
+        same = all(torch.equal(a.cpu(), c) for a, c in zip(fn(arg.cuda()), fn(arg)))
+        check(same, f"the {name} quantization on the card differs from the CPU's")
+    got = w8a8_matmul(x.cuda(), wq.cuda(), ws.cuda(), b.cuda()).cpu()
+    ulps = bf16_ulps(got, w8a8_matmul(x, wq, ws, b)).max().item()
+    print(f"  int8 product [{m}, {k}] x [{k}, {n}]: int32 accumulators, int8 weights, rows and "
+          f"their scales on the card equal the CPU's; w8a8_matmul bf16 output within {ulps} "
+          f"bf16 ulp of the CPU's (bound 1)")
+    check(ulps <= 1, f"w8a8_matmul on the card is {ulps} bf16 ulps from the CPU")
+    return ulps
+
+
+@contextlib.contextmanager
+def trunk_outputs(model):
+    """Collects, in fp32, the trunk's output (its final norm's) of every
+    forward of `model` inside the block."""
+    got = []
+    handle = model.norm.register_forward_hook(lambda mod, args, out: got.append(out.float()))
+    try:
+        yield got
+    finally:
+        handle.remove()
+
+
+def rel_frob(got, want):
+    return ((got - want).norm() / want.norm()).item()
+
+
+def stitch_field(model, x_full, div, overlap, mag, in_vars, out_vars):
+    """stitched_inference of one field [C, H, W] through `model`, one tile at
+    a time: (field [C_out, H mag, W mag], wall seconds). Each tile's core in
+    the field must be that tile's own prediction: its block of the div x div
+    grid less the halo widths on the sides it shares with a neighbour, which
+    neighbours' halos may overwrite."""
+    from orbit2_tpu_torch.data.reader import halo_lrtb, tile_slices
+    from orbit2_tpu_torch.utils.visualize import model_forward_fn, stitched_inference
+
+    fwd = model_forward_fn(model, in_vars, out_vars)
+    preds = []
+
+    def recorded(tile):
+        preds.append(fwd(tile))
+        return preds[-1]
+
+    t0 = time.perf_counter()
+    out = stitched_inference(recorded, x_full, div, overlap, mag)
+    seconds = time.perf_counter() - t0
+    left, right, top, bottom = halo_lrtb(overlap)
+    _, h, w = x_full.shape
+    bh, bw = h * mag // div, w * mag // div
+    hy, hx = (top + bottom) * mag, (left + right) * mag
+    for t, pred in zip(tile_slices(div, overlap, h, w, h * mag, w * mag), preds):
+        y0 = t.vindex * bh + (t.vindex > 0) * hy
+        y1 = (t.vindex + 1) * bh - (t.vindex < div - 1) * hy
+        x0 = t.hindex * bw + (t.hindex > 0) * hx
+        x1 = (t.hindex + 1) * bw - (t.hindex < div - 1) * hx
+        core = pred[0, :, y0 - t.yo[0]:y1 - t.yo[0], x0 - t.xo[0]:x1 - t.xo[0]]
+        check(core.size > 0 and np.array_equal(out[:, y0:y1, x0:x1], core),
+              f"the stitched field's core of tile ({t.vindex}, {t.hindex}) is not its prediction")
+    check(len(preds) == div * div, f"{len(preds)} tiles stitched")
+    return out, seconds
+
+
+def serve1b(cfg, seed):
+    """Phase serve1b: the tiled 1B serving path. Its kernels at its own
+    shapes against their plain versions (K1 at the batch's and a stitched
+    tile's shape, and with the ensemble's dropout; K5 at the ensemble's
+    [rows, cols]); Evaluator.test in bf16 and with w8a8 (exact K1 launches,
+    finite metrics, the prediction and the trunk's output against the plain
+    attention and the w8a8 ones against bf16, the fp model restored), the
+    int8 product against the CPU, stitched inference of field 0 (bf16, w8a8,
+    plain attention; exact K1 launches; the tiles' trunk outputs as the
+    batch's), and an MC-dropout ensemble (K1 with dropout and K5, exact
+    launches; seeded). Returns what phase 6 times."""
+    from orbit2_tpu_torch.evaluate import Evaluator, make_data_module
+    from orbit2_tpu_torch.utils.mc_dropout import get_monte_carlo_predictions
+
+    m = cfg.model
+    div, overlap, mag = cfg.tiling.effective_div, cfg.tiling.effective_overlap, m.superres_mag
+    tt = time.perf_counter()
+    ev = Evaluator(cfg, "cuda")
+    build_s = time.perf_counter() - tt
+    dm = ev.data_module
+    in_vars, out_vars = dm.get_data_variables()
+    in_shape, out_shape = dm.get_data_dims()
+    tokens = (in_shape[2] // m.patch_size) * (in_shape[3] // m.patch_size)
+    n_params = sum(t.numel() for t in ev.model.parameters())
+    print(f"  config {CONFIG_1B.name}: embed {m.embed_dim} depth {m.depth} heads {m.num_heads} "
+          f"(d {m.embed_dim // m.num_heads}) decoder {m.decoder_depth} mlp_ratio {m.mlp_ratio} "
+          f"gelu {m.gelu_approx} {cfg.trainer.data_type}, {n_params / 1e9:.3f} B parameters drawn "
+          f"from trainer.seed on the host and moved in {build_s:.1f} s; tiling div {div} overlap "
+          f"{overlap}: tiles {tuple(in_shape[2:])} -> {tuple(out_shape[2:])}, {tokens} tokens, "
+          f"batch {in_shape[0]} tiles")
+    # the path's kernels at its shapes: K1 on a batch and on one stitched
+    # tile, and with the ensemble's dropout; K5 at the ensemble's pos_drop /
+    # proj / fc2 and fc1 widths
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kseed = 2 ** 40 + seed
+    h, d = m.num_heads, m.embed_dim // m.num_heads
+    for b, rate in ((in_shape[0], 0.0), (in_shape[0], m.drop_rate), (1, 0.0)):
+        q, k, v = make_qkv(b, tokens, tokens, h, d, torch.bfloat16, gen)
+        check_forward(q, k, v, rate, kseed, f"bf16 drop {rate:g} B{b} N{tokens} H{h} d{d}")
+        del q, k, v
+    for c in (m.embed_dim, int(m.embed_dim * m.mlp_ratio)):
+        check_dropout(in_shape[0] * tokens, c, torch.bfloat16, m.drop_rate, gen, kseed)
+    torch.cuda.empty_cache()
+
+    batches = BATCHES_1B
+    want_k1 = only(flash_attn_fwd=m.depth * batches)
+
+    def serve(quant):
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = ev.test(max_batches=batches, quant=quant)
+        torch.cuda.synchronize()
+        seconds, launched = time.perf_counter() - t0, counts()
+        print(f"  test(max_batches={batches}, quant={quant!r}) {seconds:.3f} s; launches {launched}")
+        check(len(metrics) == 12 and all(np.isfinite(v) for v in metrics.values()),
+              f"{quant} tiled metrics missing or not finite")
+        check(launched == want_k1, f"{quant} tiled serving launches {launched}, want "
+              f"flash_attn_fwd = depth x batches = {m.depth * batches} and nothing else")
+        return metrics, seconds
+
+    metrics, test_s = serve("none")
+    for key, val in metrics.items():
+        print(f"    {key} {val:.6f}")
+
+    # the host's share of test(): the loader alone over the same batches
+    loader = iter(dm.test_dataloader())
+    t0 = time.perf_counter()
+    batch = next(loader)
+    for _ in range(batches - 1):
+        next(loader)
+    data_s = (time.perf_counter() - t0) / batches
+    loader.close()
+    print(f"  the test loader alone: {data_s:.3f} s a batch of {in_shape[0]} tiles "
+          f"(test() {test_s / batches:.3f} s a batch)")
+    x = torch.from_numpy(batch[0]).cuda()
+    y = torch.from_numpy(batch[1]).cuda()
+    with torch.no_grad(), trunk_outputs(ev.model) as trunks:
+        pred = ev.model(x, in_vars, out_vars).float()
+        set_attention_impl(ev.model, "xla")
+        pred_plain = ev.model(x, in_vars, out_vars).float()
+        set_attention_impl(ev.model, m.attention_impl)
+        torch.cuda.synchronize()
+    trunk, trunk_plain = trunks
+    want_shape = (x.shape[0], len(out_vars)) + tuple(out_shape[2:])
+    check(tuple(pred.shape) == want_shape and bool(pred.isfinite().all()),
+          f"bad 1B prediction {tuple(pred.shape)}, want {want_shape}")
+    rel_plain = rel_frob(trunk, trunk_plain)
+    print(f"  bf16 prediction of one batch, kernel vs plain attention: max|d| "
+          f"{(pred - pred_plain).abs().max().item():.3e} (max|pred| "
+          f"{pred_plain.abs().max().item():.3e}; atol=rtol={PRED_BF16_TOL:g}); the trunk's "
+          f"output: relative Frobenius error {rel_plain:.4e} (bound {TRUNK_BF16_REL:g})")
+    torch.testing.assert_close(pred, pred_plain, atol=PRED_BF16_TOL, rtol=PRED_BF16_TOL)
+    check(rel_plain <= TRUNK_BF16_REL, f"the 1B trunk on the kernels is {rel_plain} off the "
+          f"same trunk on the plain attention")
+    del pred_plain, trunk_plain, trunks
+
+    metrics_q, test_q_s = serve("w8a8")
+    qmodel = ev.serving_model("w8a8")
+    with torch.no_grad(), trunk_outputs(qmodel) as trunks:
+        pred_q = qmodel(x, in_vars, out_vars).float()
+    rel = rel_frob(pred_q, pred)
+    rel_trunk = rel_frob(trunks[0], trunk)
+    del trunk, trunks
+    print(f"  w8a8 prediction of the same batch against bf16: relative Frobenius error "
+          f"{rel:.4e} (bound {W8A8_REL:g}), of the trunk's output alone {rel_trunk:.4e}; "
+          f"metrics " + ", ".join(
+              f"{k.split('/')[1]} {metrics_q[k]:.6f} (bf16 {metrics[k]:.6f})"
+              for k in metrics if k.endswith("aggregate")))
+    check(0.0 < rel <= W8A8_REL and 0.0 < rel_trunk <= W8A8_REL
+          and bool(pred_q.isfinite().all()),
+          f"w8a8 prediction off the bf16 one by {rel}, its trunk's output by {rel_trunk}")
+    again, _ = serve("none")
+    check(again == metrics, f"bf16 metrics after w8a8 serving changed: {again} vs {metrics}")
+    print("  bf16 test() after the w8a8 one reproduces the first one's metrics exactly")
+    del pred, pred_q
+    check_int8_product(seed)
+
+    dm_vis = make_data_module(cfg, ev.data_key, 1, 0, "test")
+    sample, _, names, _ = next(iter(dm_vis.data_test))
+    x_full = np.stack([sample[k] for k in names])
+    stitched, tile_trunks = {}, {}
+    for label, model in (("bf16", ev.model), ("w8a8", qmodel), ("plain", ev.model)):
+        if label == "plain":
+            set_attention_impl(ev.model, "xla")
+        reset_counts()
+        with trunk_outputs(model) as trunks:
+            out, seconds = stitch_field(model, x_full, div, overlap, mag, in_vars, out_vars)
+        launched = counts()
+        tile_trunks[label] = torch.cat(trunks)
+        set_attention_impl(ev.model, m.attention_impl)
+        want = (len(out_vars), x_full.shape[1] * mag, x_full.shape[2] * mag)
+        print(f"  stitched field 0, {label}: {x_full.shape} -> {out.shape} from {div * div} tiles "
+              f"in {seconds:.3f} s; launches {launched}")
+        check(out.shape == want and bool(np.isfinite(out).all()),
+              f"{label} stitched field {out.shape}, want {want}, or not finite")
+        k1 = 0 if label == "plain" else m.depth * div * div
+        check(launched == only(flash_attn_fwd=k1), f"{label} stitching launched {launched}")
+        stitched[label] = (out, seconds)
+    rel_stitch = (np.linalg.norm(stitched["w8a8"][0] - stitched["bf16"][0])
+                  / np.linalg.norm(stitched["bf16"][0]))
+    rel_tiles = rel_frob(tile_trunks["bf16"], tile_trunks["plain"])
+    rel_tiles_q = rel_frob(tile_trunks["w8a8"], tile_trunks["bf16"])
+    del tile_trunks
+    print(f"  stitched bf16 vs plain attention: max|d| "
+          f"{np.abs(stitched['bf16'][0] - stitched['plain'][0]).max():.3e} (atol=rtol="
+          f"{PRED_BF16_TOL:g}), the tiles' trunk outputs' relative Frobenius error "
+          f"{rel_tiles:.4e} (bound {TRUNK_BF16_REL:g}); w8a8 vs bf16: relative Frobenius error "
+          f"{rel_stitch:.4e}, of the tiles' trunk outputs {rel_tiles_q:.4e} (bound {W8A8_REL:g})")
+    torch.testing.assert_close(torch.from_numpy(stitched["bf16"][0]),
+                               torch.from_numpy(stitched["plain"][0]),
+                               atol=PRED_BF16_TOL, rtol=PRED_BF16_TOL)
+    check(rel_tiles <= TRUNK_BF16_REL, f"the stitched tiles' trunk on the kernels is "
+          f"{rel_tiles} off the same trunk on the plain attention")
+    check(rel_stitch <= W8A8_REL and 0.0 < rel_tiles_q <= W8A8_REL,
+          f"w8a8 stitched field off the bf16 one by {rel_stitch}, its tiles' trunk by {rel_tiles_q}")
+
+    reset_counts()
+    ens = get_monte_carlo_predictions(ev.model, x, in_vars, out_vars, MC_SAMPLES,
+                                      torch.Generator().manual_seed(seed))
+    torch.cuda.synchronize()
+    mc_counts = counts()
+    again = get_monte_carlo_predictions(ev.model, x, in_vars, out_vars, MC_SAMPLES,
+                                        torch.Generator().manual_seed(seed))
+    spread = ens.float().std(dim=0).mean().item()
+    print(f"  MC dropout, {MC_SAMPLES} samples of one batch at drop_rate {m.drop_rate}: "
+          f"{tuple(ens.shape)}, mean member std {spread:.4e}; launches {mc_counts}")
+    check(tuple(ens.shape) == (MC_SAMPLES,) + want_shape and bool(ens.isfinite().all()),
+          f"bad MC ensemble {tuple(ens.shape)}")
+    check(mc_counts == only(flash_attn_fwd=MC_SAMPLES * m.depth,
+                            fused_dropout=MC_SAMPLES * (1 + 3 * m.depth)),
+          f"MC dropout launches {mc_counts}, want flash_attn_fwd = samples x depth = "
+          f"{MC_SAMPLES * m.depth} and fused_dropout = samples x (1 + 3 depth) = "
+          f"{MC_SAMPLES * (1 + 3 * m.depth)}")
+    check(all(not torch.equal(ens[i], ens[j])
+              for i in range(MC_SAMPLES) for j in range(i + 1, MC_SAMPLES)),
+          "two MC-dropout samples are equal")
+    check(torch.equal(ens, again), "the same seed gave other MC-dropout samples")
+    print("  MC-dropout samples differ pairwise; the same seed gives them bit for bit")
+    del ens, again
+    return {"ev": ev, "qmodel": qmodel, "x": x, "y": y, "in_vars": in_vars,
+            "out_vars": out_vars, "x_full": x_full, "tokens": tokens, "test_s": test_s,
+            "test_q_s": test_q_s, "data_s": data_s}
+
+
+def step_kinds(by_name):
+    """A step's kernel ms by kind, from its kernel names: int8 products
+    (CUTLASS s8 GEMMs), other products (bf16 GEMMs and convolutions), K1,
+    and the other kernels (elementwise, copies, reductions, norms)."""
+    kinds = dict.fromkeys(("int8_products", "products", "k1", "other"), 0.0)
+    for name, t in by_name.items():
+        if "flash_fwd" in name:
+            kinds["k1"] += t
+        elif "gemm_s8" in name or "imma" in name:
+            kinds["int8_products"] += t
+        elif any(tag in name for tag in ("gemm", "nvjet", "xmma", "cutlass", "conv")):
+            kinds["products"] += t
+        else:
+            kinds["other"] += t
+    return kinds
+
+
+def serving_1b_times(s, gen, seed, call_s, smi):
+    """Phase 6 for the tiled 1B path: the bf16 and w8a8 serving steps by
+    events and by the kernel time of every kernel a step launches (the
+    device's busy share), their peak memory, the stitched field's wall time,
+    K1's rows at the path's shape and the w8a8 route's parts at the trunk's
+    four products. Prints them, and returns them for the {"serving_1b"} line."""
+    import torch.nn.functional as F
+
+    from orbit2_tpu_torch.ops.flash_attention import (
+        attention_flops, attention_mult, flash_attention_fwd, flash_attention_reference)
+    from orbit2_tpu_torch.ops.quant import (
+        int8_matmul, quantize_rows, quantize_weight, rescale, w8a8_matmul)
+    from orbit2_tpu_torch.training.train import make_eval_step
+
+    ev, x, y = s["ev"], s["x"], s["y"]
+    m = ev.cfg.model
+    cfg = ev.cfg
+    div, overlap = cfg.tiling.effective_div, cfg.tiling.effective_overlap
+    steps = {"bf16": make_eval_step(ev.model, s["in_vars"], s["out_vars"]),
+             "w8a8": make_eval_step(s["qmodel"], s["in_vars"], s["out_vars"])}
+    t0 = time.perf_counter()
+    ms = dict(zip(("w8a8", "bf16"), paired_ms(lambda: steps["w8a8"](x, y),
+                                              lambda: steps["bf16"](x, y), iters=5)))
+    out = {"gpu": smi, "batch_tiles": x.shape[0], "tokens_per_tile": s["tokens"],
+           "loader_s_per_batch": s["data_s"]}
+    for label, step in steps.items():
+        by_name = {}
+        kern = kernel_ms(lambda: step(x, y), iters=5, by_name=by_name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(x, y)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        _, wall = stitch_field(s["qmodel"] if label == "w8a8" else ev.model, s["x_full"], div,
+                               overlap, m.superres_mag, s["in_vars"], s["out_vars"])
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        out[label] = {"step_ms": ms[label], "kernel_ms": kern, "busy": kern / ms[label],
+                      "peak_gib": peak / 2 ** 30, "step_gib": (peak - base) / 2 ** 30,
+                      "stitch_s": wall, "test_s_per_batch": s["test_s" if label == "bf16"
+                                                               else "test_q_s"] / BATCHES_1B,
+                      "by_kind": step_kinds(by_name),
+                      "kernels": {name[:80]: t for name, t in top}}
+        print(f"  serving 1B {label} step, batch {x.shape[0]} tiles of {s['tokens']} tokens: "
+              f"{ms[label]:.3f} ms by events (the better of two medians of 5, in turns), "
+              f"kernel time {kern:.3f} ms (busy {kern / ms[label]:.3f}); peak memory "
+              f"{peak / 2 ** 30:.2f} GiB ({(peak - base) / 2 ** 30:.2f} the step's own); "
+              f"stitched field {wall:.3f} s; gpu: {smi}")
+        print("    by kind: " + ", ".join(f"{kind} {t:.3f} ms"
+                                         for kind, t in out[label]["by_kind"].items()))
+        for name, t in top:
+            print(f"    {t:9.4f} ms  {name[:110]}")
+
+    seconds = {"steps": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    b, n, h, d = x.shape[0], s["tokens"], m.num_heads, m.embed_dim // m.num_heads
+    q, k, v = make_qkv(b, n, n, h, d, torch.bfloat16, gen)
+    leaves = [t.transpose(1, 2) for t in (q, k, v)]
+    bound = roofline(attention_flops(b, n, n, h, d), nbytes(q, k, v, q) + 4 * b * h * n)
+    philox = b * h * n * n / ELEMENTS_PER_CALL * call_s["fwd"] * 1e3
+    out["k1"] = []
+    for rate in (0.0, DROP):
+        fn = lambda: flash_attention_fwd(q, k, v, None, rate, seed)
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION), torch.no_grad():
+            lib = best_ms(lambda: F.scaled_dot_product_attention(*leaves, dropout_p=rate))
+        # the plain version holds [B H, N, N] fp32 scores (7.3 GB here): a few calls
+        mult = attention_mult(q, k, rate, seed)
+        plain = cuda_ms(lambda: flash_attention_reference(q, k, v, None, mult), iters=5,
+                        warmup=1)
+        del mult
+        torch.cuda.empty_cache()
+        row_bound = bound if rate == 0.0 else max(bound, (philox, "operations"))
+        row = {"shape": [b, n, h, d], "dropout": rate, "launches_per_batch": m.depth,
+               "ms": cuda_ms(fn), "kernel_ms": kernel_ms(fn), "plain_ms": plain, "sdpa_ms": lib,
+               "bound_ms": row_bound[0], "bound_by": row_bound[1]}
+        out["k1"].append(row)
+        print(f"  K1 bf16 B{b} N{n} H{h} d{d} drop {rate:g}: {row['ms']:.4f} ms (kernel alone "
+              f"{row['kernel_ms']:.4f}), plain {plain:.4f}, SDPA (flash) {lib:.4f}; bound "
+              f"{row_bound[0]:.4f} ({row_bound[1]}); {m.depth} launches a batch; gpu: {smi}")
+    del q, k, v, leaves
+    seconds["k1"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    rows, dim, hidden = b * n, m.embed_dim, int(m.embed_dim * m.mlp_ratio)
+    out["w8a8_route"] = []
+    # the trunk's four products, [K -> N]: qkv, proj, fc1, fc2
+    for kk, nn in ((dim, 3 * dim), (dim, dim), (dim, hidden), (hidden, dim)):
+        xb = torch.randn(rows, kk, generator=gen, device=gen.device).to(torch.bfloat16)
+        w = torch.randn(nn, kk, generator=gen, device=gen.device) * kk ** -0.5
+        bias = torch.randn(nn, generator=gen, device=gen.device) * 0.1
+        wq, ws = quantize_weight(w)
+        wb, bb = w.to(torch.bfloat16), bias.to(torch.bfloat16)
+        xq, xs = quantize_rows(xb)
+        acc = int8_matmul(xq, wq)
+        ops = 2 * rows * kk * nn
+        int8 = lambda moved: max((ops / PEAK_INT8_OPS * 1e3, "operations"),
+                                 (moved / PEAK_BYTES_PER_S * 1e3, "bytes"))
+        parts = {
+            "quant": (lambda: quantize_rows(xb), roofline(0, 3 * rows * kk + 4 * rows)),
+            "int_mm": (lambda: int8_matmul(xq, wq), int8(rows * kk + nn * kk + 4 * rows * nn)),
+            "rescale": (lambda: rescale(acc, xs, ws, bias, torch.bfloat16),
+                        roofline(0, 6 * rows * nn + 4 * rows + 8 * nn)),
+            "w8a8_matmul": (lambda: w8a8_matmul(xb, wq, ws, bias),
+                            int8(2 * rows * kk + nn * kk + 8 * nn + 2 * rows * nn)),
+            "bf16_linear": (lambda: F.linear(xb, wb, bb),
+                            roofline(ops, 2 * (rows * kk + nn * kk + nn + rows * nn))),
+        }
+        row = {"m": rows, "k": kk, "n": nn}
+        for name, (fn, (bound_ms, bound_by)) in parts.items():
+            row[name] = {"ms": cuda_ms(fn, iters=10), "kernel_ms": kernel_ms(fn, iters=5),
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+        out["w8a8_route"].append(row)
+        print(f"  w8a8 route [{rows}, {kk}] x [{kk}, {nn}]: " + "; ".join(
+            f"{name} {r['ms']:.4f} ms (kernel {r['kernel_ms']:.4f}, bound {r['bound_ms']:.4f} "
+            f"{r['bound_by']})" for name, r in row.items() if isinstance(r, dict))
+            + f"; gpu: {smi}")
+        del xb, w, bias, wq, ws, wb, bb, xq, xs, acc
+        torch.cuda.empty_cache()
+    seconds["w8a8_route"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    print("  serving 1B times took " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+    # the two steps run the same elementwise work but for the trunk's w8a8
+    # quantization and rescale passes (bf16 F.linear adds its bias in the
+    # product's epilogue): the difference of their "other" kernels
+    quant_rescale = out["w8a8"]["by_kind"]["other"] - out["bf16"]["by_kind"]["other"]
+    out["w8a8"]["quant_rescale_ms"] = quant_rescale
+    out["w8a8"]["quant_rescale_share"] = quant_rescale / out["w8a8"]["kernel_ms"]
+    print(f"  w8a8 step, by the two steps' profiles: the quantization and rescale passes of its "
+          f"{4 * m.depth} trunk products take {quant_rescale:.3f} ms of its "
+          f"{out['w8a8']['kernel_ms']:.3f} ms of kernel time "
+          f"({out['w8a8']['quant_rescale_share']:.3f}; its other kernels less the bf16 step's)")
+    return out
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Routes the model's kernel calls to the kernels' plain PyTorch versions
@@ -1139,7 +1669,7 @@ def main():
         FLASH_BWD_DKV, FLASH_BWD_DQ, HEAD_DIMS, attention_delta, attention_flops, attention_mult,
         flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd,
         flash_attention_reference, tile_edge_lengths)
-    from orbit2_tpu_torch.ops.kernel_prng import keep_mult, keep_threshold
+    from orbit2_tpu_torch.ops.kernel_prng import keep_mult
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1187,23 +1717,9 @@ def main():
             q, k, v = make_qkv(b, n_q, n_k, h, d, dtype, gen)
             do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
             for rate in (0.0, DROP):
-                mult = attention_mult(q, k, rate, kernel_seed)
-                o, lse = flash_attention_fwd(q, k, v, None, rate, kernel_seed)
-                want_o, want_lse = flash_attention_reference(q, k, v, None, mult)
-                torch.cuda.synchronize()
-                err_o = (o.float() - want_o.float()).abs().max().item()
-                err_lse = (lse - want_lse).abs().max().item()
-                tol = O_TOL[dtype]
-                ok_o = bool(((o.float() - want_o.float()).abs()
-                             <= tol + tol * want_o.float().abs()).all())
-                print(f"  fwd {str(dtype)[6:]:8s} drop {rate:g} B{b} Nq{n_q} Nk{n_k} H{h} d{d}: "
-                      f"max|do| {err_o:.3e} (atol=rtol={tol:g})  max|dlse| {err_lse:.3e} "
-                      f"(atol {LSE_ATOL:g})")
-                check(ok_o and err_lse <= LSE_ATOL,
-                      f"flash forward disagrees with plain at {shape} {dtype} drop {rate}")
-                errs[("fwd", dtype, shape, rate)] = err_o
-
                 case = f"{str(dtype)[6:]:8s} drop {rate:g} B{b} Nq{n_q} Nk{n_k} H{h} d{d}"
+                o, lse, mult, errs[("fwd", dtype, shape, rate)] = check_forward(
+                    q, k, v, rate, kernel_seed, case)
                 err, line = check_backward(q, k, v, o, lse, do, mult, rate, kernel_seed, case)
                 print(f"  bwd {case}: {line}")
                 for name in ("dq", "dk", "dv"):
@@ -1231,20 +1747,7 @@ def main():
               + "; bit-equal over two runs")
     for dtype in (torch.bfloat16, torch.float32):
         for r, c in DROPOUT_SHAPES:
-            x = torch.randn(r, c, generator=gen, device="cuda").to(dtype).requires_grad_()
-            g = torch.randn(r, c, generator=gen, device="cuda").to(dtype)
-            out = FusedDropout.apply(x, kernel_seed + r, DROP)
-            out.backward(g)
-            mult = keep_mult(kernel_seed + r, r, c, DROP, device="cuda")
-            same_fwd = torch.equal(out, dropout_reference(x.detach(), mult))
-            same_bwd = torch.equal(x.grad, dropout_reference(g, mult))
-            kept = (mult > 0).float().mean().item()
-            print(f"  fused_dropout {str(dtype)[6:]:8s} [{r}, {c}]: fwd bit-equal {same_fwd}, "
-                  f"bwd bit-equal {same_bwd}, kept {kept:.4f}")
-            check(same_fwd and same_bwd, f"fused dropout differs from plain at [{r}, {c}] {dtype}")
-            p_keep = (keep_threshold(DROP) + 1) / 2 ** 16  # within 2^-16 of 1 - DROP
-            check(abs(kept - p_keep) < 4 * math.sqrt(p_keep * (1 - p_keep) / (r * c)),
-                  f"fused dropout kept {kept} of [{r}, {c}]")
+            check_dropout(r, c, dtype, DROP, gen, kernel_seed)
     errs[("fused_dropout",)] = 0.0
     torch.cuda.synchronize()
     check_fused_mlp(gen, kernel_seed, errs)
@@ -1469,6 +1972,10 @@ def main():
                                        rtol=TRAIN_FP32_TOL, msg=k)
         del results, g_gpu, g_cpu
 
+        # 5b. the tiled 1B serving path
+        phase("serve1b")
+        s1b = serve1b(config_1b(Path(tmp) / "1b", args.seed), args.seed)
+
         # 6. times
         phase("times")
         print(f"gpu: {smi}")
@@ -1612,6 +2119,9 @@ def main():
     mlp_rows(gen, timed, libs, bounds, smi)
     serving_rows(*serving, smi)
     del serving
+    serving_1b = serving_1b_times(s1b, gen, kernel_seed, call_s, smi)
+    del s1b
+    print(json.dumps({"serving_1b": serving_1b}))
 
     slice_shape = SHAPES[0]
     mlp_shape = MLP_SHAPES[0]

@@ -5,11 +5,14 @@ of examples/evaluate.py: a deterministic ResSlimViT forward on every test
 batch, clip, denormalize, then rmse / pearson / mean_bias per output variable,
 averaged over samples into the same `test/<metric>:<var>` dict.
 
-Usage: python -m orbit2_tpu_torch.evaluate configs/interm_117m.yaml \
-           [--torch-npz PATH] [--max-batches N] [--device cuda]
+Usage: python -m orbit2_tpu_torch.evaluate configs/interm_1b.yaml \
+           [--torch-npz PATH] [--max-batches N] [--quant {none,w8a8}] [--device cuda]
 
-Device meshes, w8a8 serving, TILES tiling (div > 1) and Orbax checkpoints are
-not ported: a config that asks for one raises.
+A config with `tiling.do_tiling` serves its TILES tiles (div x div halo tiles
+of each field, the JAX Trainer.test's batches; metrics per tile), after the
+JAX Trainer's tiling check (trainer.py:167-186). `--quant w8a8` serves through
+the int8 trunk (utils/quantize.py), quantized from the fp32 weights. Device meshes and Orbax checkpoints are not ported: a config that asks
+for one raises.
 """
 
 from __future__ import annotations
@@ -24,9 +27,11 @@ import torch
 
 from orbit2_tpu_torch.config import Config, load_config
 from orbit2_tpu_torch.data.itermodule import IterDataModule
+from orbit2_tpu_torch.models.components.blocks import QUANT_MODES
 from orbit2_tpu_torch.training.checkpoint import load_state_npz
 from orbit2_tpu_torch.training.train import evaluate_batch, make_eval_step
-from orbit2_tpu_torch.utils.loaders import load_downscaling_module
+from orbit2_tpu_torch.utils.loaders import load_architecture, load_downscaling_module
+from orbit2_tpu_torch.utils.quantize import fp32_sources, w8a8_twin
 
 log = logging.getLogger("orbit2_tpu_torch")
 
@@ -52,16 +57,50 @@ def check_scope(cfg: Config) -> None:
         raise NotImplementedError(
             "device meshes are not ported: the evaluator runs on one device — set every "
             "parallelism size to 1 and auto to false")
-    if cfg.tiling.effective_div > 1:
-        raise NotImplementedError("TILES tiling (div > 1) is not ported: set do_tiling false")
+
+
+def check_tiling(cfg: Config, data_module: IterDataModule) -> None:
+    """Tile dims must divide by patch_size (JAX Trainer._check_tiling; the
+    reference aborts with an increase-the-overlap instruction). Its other
+    check, tiling for downscaling only, is check_scope's refusal of every
+    other task."""
+    if cfg.tiling.effective_div <= 1:
+        return
+    in_shape, _ = data_module.get_data_dims()
+    _, h, w = in_shape[1:]
+    p = cfg.model.patch_size
+    if h % p or w % p:
+        raise ValueError(
+            f"tile shape ({h}, {w}) is not divisible by patch_size {p}; "
+            f"increase tiling.overlap by {h % p or w % p} "
+            "(see reference TILES divisibility rule)")
+
+
+def make_data_module(cfg: Config, data_key: str, div: int, overlap: int,
+                     stage: Optional[str] = None) -> IterDataModule:
+    """The one-device data module of `data_key` at tiling (div, overlap),
+    set up for `stage` (None: every split)."""
+    c = cfg
+    dm = IterDataModule(
+        "downscaling", c.data.low_res_dir[data_key], c.data.high_res_dir[data_key],
+        c.data.dict_in_variables[data_key], out_vars=c.data.dict_out_variables[data_key],
+        subsample=1, batch_size=c.trainer.batch_size, buffer_size=c.trainer.buffer_size,
+        num_workers=c.trainer.num_workers, drop_last=True, div=div, overlap=overlap,
+        seed=c.trainer.data_seed if c.trainer.data_seed is not None else c.trainer.seed)
+    dm.setup(stage)
+    return dm
 
 
 class Evaluator:
-    """Builds the data module and model of `config` on `device` (the card
-    unless the caller asks for "cpu"); `test()`
-    evaluates the test split. `state_dict` (reference layout, e.g. from
-    training/checkpoint.py::state_dict_from_jax_params) is loaded strictly;
-    without one the weights are drawn from `config.trainer.seed`."""
+    """Builds the data module (tiled as the config says) and model of
+    `config` on `device` (the card unless the caller asks for "cpu");
+    `test()` evaluates the test split. `state_dict` (reference layout, e.g.
+    from training/checkpoint.py::state_dict_from_jax_params) is loaded
+    strictly; without one the weights are drawn from `config.trainer.seed`.
+    w8a8 serving quantizes from the fp32 weights, as the JAX Trainer does
+    from its fp32 params: the host keeps the fp32 tensors the int8 trunk
+    takes (its Linears' weights and biases) until the first w8a8 request
+    builds the twin, which then serves every later one."""
 
     def __init__(self, config: Config, device="cuda",
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
@@ -70,30 +109,53 @@ class Evaluator:
         check_scope(c)
         self.device = torch.device(device)
         self.data_key = data_key or next(iter(c.data.low_res_dir))
-        self.data_module = dm = IterDataModule(
-            "downscaling", c.data.low_res_dir[self.data_key],
-            c.data.high_res_dir[self.data_key], c.data.dict_in_variables[self.data_key],
-            out_vars=c.data.dict_out_variables[self.data_key], subsample=1,
-            batch_size=c.trainer.batch_size, buffer_size=c.trainer.buffer_size,
-            num_workers=c.trainer.num_workers, drop_last=True, div=1, overlap=0,
-            seed=c.trainer.data_seed if c.trainer.data_seed is not None else c.trainer.seed)
-        dm.setup("test")
+        self.data_module = dm = make_data_module(
+            c, self.data_key, c.tiling.effective_div, c.tiling.effective_overlap, "test")
+        check_tiling(c, dm)
         (self.model, _, _, self.test_losses, _, _,
          self.test_transforms) = load_downscaling_module(dm, c.model.preset, model_kwargs(c))
-        in_shape, _ = dm.get_data_dims()
-        in_vars, out_vars = dm.get_data_variables()
-        self.model.for_phase(spatial_resolution=c.data.spatial_resolution[self.data_key],
-                             img_size=tuple(in_shape[-2:]), in_channels=len(in_vars),
-                             out_channels=len(out_vars))
+        self._phase(self.model)
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
+        fp32 = self.model.state_dict()  # the host tensors themselves, no copy
+        self._fp32_sources = {k: fp32[k] for k in fp32_sources(self._architecture("w8a8"))}
+        self._twins: Dict[str, torch.nn.Module] = {}
         # serving holds the parameters in the compute dtype: no per-use casts
         self.model.to(self.device, self.model.dtype).eval()
 
-    def test(self, max_batches: Optional[int] = None) -> Dict[str, float]:
+    def _architecture(self, quant: str) -> torch.nn.Module:
+        """The config's model under `quant`, on the meta device: nothing drawn."""
+        with torch.device("meta"):
+            model = load_architecture(self.data_module, self.cfg.model.preset,
+                                      **dict(model_kwargs(self.cfg), generator=None, quant=quant))
+        return self._phase(model)
+
+    def _phase(self, model):
+        in_shape, _ = self.data_module.get_data_dims()
+        in_vars, out_vars = self.data_module.get_data_variables()
+        return model.for_phase(
+            spatial_resolution=self.cfg.data.spatial_resolution[self.data_key],
+            img_size=tuple(in_shape[-2:]), in_channels=len(in_vars), out_channels=len(out_vars))
+
+    def serving_model(self, quant: str = "none") -> torch.nn.Module:
+        """The model served under `quant`: the fp model itself, or its int8
+        twin ("w8a8"), quantized on the device from the fp32 weights at the
+        first request."""
+        if quant == "none":
+            return self.model
+        if quant not in self._twins:
+            state = {**self.model.state_dict(), **self._fp32_sources}
+            self._twins[quant] = w8a8_twin(self._architecture(quant), state, self.device)
+            self._fp32_sources = {}  # the twin holds all it took from them
+        return self._twins[quant]
+
+    def test(self, max_batches: Optional[int] = None, quant: str = "none") -> Dict[str, float]:
+        """Metrics over the test split. quant="w8a8" serves the int8 twin
+        (JAX Trainer.test(quant=...)); the fp model is untouched, so later
+        calls serve in fp again."""
         dm = self.data_module
         in_vars, out_vars = dm.get_data_variables()
-        step = make_eval_step(self.model, in_vars, out_vars)
+        step = make_eval_step(self.serving_model(quant), in_vars, out_vars)
         agg: Dict[str, float] = {}
         n = 0
         loader = iter(dm.test_dataloader())
@@ -120,6 +182,8 @@ def main(argv=None):
                    help="reference-layout state_dict saved as an npz of numpy arrays")
     p.add_argument("--max-batches", type=int, default=None)
     p.add_argument("--data-key", default=None)
+    p.add_argument("--quant", default="none", choices=QUANT_MODES,
+                   help="w8a8: serve through the int8 trunk (ops/quant.py)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
@@ -130,7 +194,7 @@ def main(argv=None):
     else:
         log.warning("no --torch-npz: evaluating weights drawn from trainer.seed")
     ev = Evaluator(cfg, args.device, state_dict=state_dict, data_key=args.data_key)
-    means = ev.test(max_batches=args.max_batches)
+    means = ev.test(max_batches=args.max_batches, quant=args.quant)
     print(json.dumps({k: round(float(v), 6) for k, v in means.items()}, indent=2))
 
 

@@ -15,6 +15,11 @@ from a `dropout` generator and DropPath its masks from a separate
 `drop_path` generator (the JAX package's two rng streams, train.py:98).
 Without a drop_path generator DropPath is inert, as in the JAX package
 (blocks.py:39-49); dropout in training without a generator raises.
+
+w8a8 serving (`quant="w8a8"`, JAX blocks.py:96-122, :147-168, :210-248):
+`Mlp` and `Attention` hold `QLinear`s at qkv, proj, fc1 and fc2, whose int8
+products run through ops/quant.py; attention itself stays on the flash
+kernel. Serving only: in training mode they raise ValueError.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from torch import nn
 from orbit2_tpu_torch.ops.attention import dot_product_attention
 from orbit2_tpu_torch.ops.dropout import dropout
 from orbit2_tpu_torch.ops.fused_mlp import fused_mlp
+from orbit2_tpu_torch.ops.quant import w8a8_matmul
 
 Generator = Optional[torch.Generator]
 
@@ -37,7 +43,9 @@ def trunc_normal_(t: torch.Tensor, generator: Optional[torch.Generator], std: fl
     return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
-def init_linear_(m: nn.Linear, generator: Optional[torch.Generator]) -> None:
+def init_linear_(m: nn.Module, generator: Optional[torch.Generator]) -> None:
+    if isinstance(m, QLinear):
+        return  # serving buffers, filled from trained weights (utils/quantize.py)
     trunc_normal_(m.weight, generator)
     if m.bias is not None:
         nn.init.zeros_(m.bias)
@@ -52,6 +60,50 @@ class Linear(nn.Linear):
 
     def forward(self, x):
         return F.linear(x, _cast(self.weight, x.dtype), _cast(self.bias, x.dtype))
+
+
+class QLinear(nn.Module):
+    """w8a8 serving twin of a Linear (JAX QDense, blocks.py:96-122): buffers
+    weight_q (int8 [out, in]), weight_scale (fp32 [out]) and bias (fp32
+    [out]), initialised as QDense's (zeros, ones, zeros), under the module
+    path of the Linear it replaces, so
+    utils/quantize.py maps a trained state dict onto it key for key. The
+    scale and the bias stay fp32 through a cast of the model's dtype
+    (`_apply`): the rescale adds the bias in fp32 before its one cast to the
+    input's dtype."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer("weight_q", torch.zeros(out_features, in_features, dtype=torch.int8))
+        self.register_buffer("weight_scale", torch.ones(out_features))
+        self.register_buffer("bias", torch.zeros(out_features) if bias else None)
+
+    def _apply(self, fn, recurse=True):
+        for name, t in self._buffers.items():
+            if t is not None:
+                moved = fn(t)
+                # a dtype cast keeps only its move: int8 and fp32 stay as they are
+                self._buffers[name] = moved if moved.dtype == t.dtype else t.to(moved.device)
+        return self
+
+    def forward(self, x):
+        return w8a8_matmul(x, self.weight_q, self.weight_scale, self.bias)
+
+
+QUANT_MODES = ("none", "w8a8")
+
+
+def _linear_class(quant: str):
+    if quant not in QUANT_MODES:
+        raise ValueError(f"unknown quant mode {quant!r} (none | w8a8)")
+    return QLinear if quant == "w8a8" else Linear
+
+
+def _serving_only(training: bool) -> None:
+    if training:
+        raise ValueError("w8a8 quantization is serving-only: the rounded int8 path is "
+                         "piecewise-constant and carries zero gradient")
 
 
 class LayerNorm(nn.LayerNorm):
@@ -111,23 +163,31 @@ class Mlp(nn.Module):
     on shape the plain chain runs. The parameters stay fc1/fc2 either way, so
     weights load the same. Off by default, as in the JAX package, whose
     measurements on a TPU found the fused kernel slower at model level
-    (blocks.py:128-137; a TPU finding, not one about this port)."""
+    (blocks.py:128-137; a TPU finding, not one about this port).
+
+    quant="w8a8": fc1 and fc2 are QLinears, and the forward is fc1 -> GELU ->
+    fc2 without dropout or the fused kernel (JAX blocks.py:157-168)."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: Optional[int] = None, drop: float = 0.0, use_bias: bool = True,
-                 gelu_tanh: bool = False, use_fused: bool = False):
+                 gelu_tanh: bool = False, use_fused: bool = False, quant: str = "none"):
         super().__init__()
-        self.fc1 = Linear(in_features, hidden_features, bias=use_bias)
-        self.fc2 = Linear(hidden_features, out_features or in_features, bias=use_bias)
+        lin = _linear_class(quant)
+        self.fc1 = lin(in_features, hidden_features, bias=use_bias)
+        self.fc2 = lin(hidden_features, out_features or in_features, bias=use_bias)
         self.drop = drop
         self.approximate = "tanh" if gelu_tanh else "none"
         self.use_fused = use_fused
+        self.quant = quant
 
     def reset_parameters(self, generator=None):
         init_linear_(self.fc1, generator)
         init_linear_(self.fc2, generator)
 
     def forward(self, x, generator: Generator = None):
+        if self.quant == "w8a8":
+            _serving_only(self.training)
+            return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
         if self.use_fused and not self.training and self.approximate == "none":
             out = fused_mlp(x, _cast(self.fc1.weight, x.dtype), _cast(self.fc1.bias, x.dtype),
                             _cast(self.fc2.weight, x.dtype), _cast(self.fc2.bias, x.dtype))
@@ -141,27 +201,32 @@ class Mlp(nn.Module):
 class Attention(nn.Module):
     """Self attention with a selectable kernel (reference attention.py:12-87):
     probability dropout `attn_drop` inside the attention op, `proj_drop` on
-    the projection."""
+    the projection. quant="w8a8" makes qkv and proj QLinears (JAX
+    blocks.py:210-248); the attention op is the same."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
                  qk_norm: bool = False, proj_bias: bool = True, attn_drop: float = 0.0,
-                 proj_drop: float = 0.0, attention_impl: str = "xla"):
+                 proj_drop: float = 0.0, attention_impl: str = "xla", quant: str = "none"):
         super().__init__()
+        lin = _linear_class(quant)
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
-        self.qkv = Linear(dim, dim * 3, bias=qkv_bias)
+        self.qkv = lin(dim, dim * 3, bias=qkv_bias)
         self.q_norm = LayerNorm(self.head_dim, eps=1e-5) if qk_norm else None
         self.k_norm = LayerNorm(self.head_dim, eps=1e-5) if qk_norm else None
-        self.proj = Linear(dim, dim, bias=proj_bias)
+        self.proj = lin(dim, dim, bias=proj_bias)
         self.attn_drop = attn_drop
         self.proj_drop = proj_drop
         self.attention_impl = attention_impl
+        self.quant = quant
 
     def reset_parameters(self, generator=None):
         init_linear_(self.qkv, generator)
         init_linear_(self.proj, generator)
 
     def forward(self, x, generator: Generator = None):
+        if self.quant == "w8a8":
+            _serving_only(self.training)
         B, N, C = x.shape
         # q, k, v stay strided views of the packed projection: the kernels
         # read them through their strides, no copy
@@ -234,16 +299,16 @@ class Block(nn.Module):
                  qkv_bias: bool = False, qk_norm: bool = False, proj_bias: bool = True,
                  proj_drop: float = 0.0, attn_drop: float = 0.0,
                  init_values: Optional[float] = None, drop_path: float = 0.0,
-                 attention_impl: str = "xla", gelu_tanh: bool = False):
+                 attention_impl: str = "xla", gelu_tanh: bool = False, quant: str = "none"):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn = Attention(dim, num_heads, qkv_bias, qk_norm, proj_bias, attn_drop,
-                              proj_drop, attention_impl)
+                              proj_drop, attention_impl, quant)
         self.ls1 = LayerScale(dim, init_values) if init_values else nn.Identity()
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=proj_drop, use_bias=proj_bias,
-                       gelu_tanh=gelu_tanh)
+                       gelu_tanh=gelu_tanh, quant=quant)
         self.ls2 = LayerScale(dim, init_values) if init_values else nn.Identity()
         self.drop_path2 = DropPath(drop_path)
 

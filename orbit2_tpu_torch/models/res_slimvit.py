@@ -19,7 +19,11 @@ linspace(0, drop_path, depth). The parameters are created in fp32 (the JAX
 module's param_dtype; masters when training) and the forward computes in
 `dtype`: x is cast to it on entry and every layer casts its weights to it
 at use, a no-op once the parameters are in `dtype` (as for serving). Mixture-of-experts,
-pipeline and sequence sharding, w8a8 and remat raise.
+pipeline and sequence sharding and remat raise.
+
+`quant="w8a8"` builds every trunk Block's qkv, proj, fc1 and fc2 as a QLinear
+(JAX res_slimvit.py:327), for serving only; utils/quantize.py::w8a8_twin
+fills such a model from a trained one's state dict.
 """
 
 from __future__ import annotations
@@ -91,8 +95,6 @@ class ResSlimViT(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if quant != "none":
-            raise NotImplementedError(f"quant={quant!r}: w8a8 serving is not ported yet")
         if moe_experts:
             raise NotImplementedError("moe_experts > 0: the MoE trunk is not ported yet")
         if pipeline_stages > 1 or seq_shard:
@@ -130,7 +132,7 @@ class ResSlimViT(nn.Module):
         self.blocks = nn.ModuleList(
             Block(D, num_heads, mlp_ratio, qkv_bias=True, proj_drop=drop_rate,
                   attn_drop=drop_rate, drop_path=float(dpr[i]), attention_impl=attention_impl,
-                  gelu_tanh=gelu_approx == "tanh")
+                  gelu_tanh=gelu_approx == "tanh", quant=quant)
             for i in range(depth))
         self.norm = LayerNorm(D, eps=1e-5)
         head = []

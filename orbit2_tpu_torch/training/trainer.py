@@ -32,7 +32,7 @@ import torch
 
 from orbit2_tpu_torch.config import Config
 from orbit2_tpu_torch.data.itermodule import IterDataModule
-from orbit2_tpu_torch.evaluate import check_scope, model_kwargs
+from orbit2_tpu_torch.evaluate import check_scope, make_data_module, model_kwargs
 from orbit2_tpu_torch.training.optim import make_lr_scheduler, make_optimizer, set_learning_rate
 from orbit2_tpu_torch.training.train import make_train_step
 from orbit2_tpu_torch.utils.loaders import load_downscaling_module
@@ -57,6 +57,9 @@ class Trainer:
                  checkpoint_dir: Optional[str] = None, run_validation: bool = False):
         self.cfg = c = config.validate()
         check_scope(c)
+        if c.tiling.effective_div > 1:
+            raise NotImplementedError(
+                "training on TILES tiles (div > 1) is not ported yet: set do_tiling false")
         if checkpoint_dir is not None or c.trainer.checkpoint:
             raise NotImplementedError("checkpoint save/resume is not ported yet")
         if run_validation:
@@ -70,17 +73,6 @@ class Trainer:
         self.lr_schedule = None
         self.history: list = []
         self._data_modules: Dict[str, IterDataModule] = {}
-
-    def _make_data_module(self, data_key: str) -> IterDataModule:
-        c = self.cfg
-        dm = IterDataModule(
-            "downscaling", c.data.low_res_dir[data_key], c.data.high_res_dir[data_key],
-            c.data.dict_in_variables[data_key], out_vars=c.data.dict_out_variables[data_key],
-            subsample=1, batch_size=c.trainer.batch_size, buffer_size=c.trainer.buffer_size,
-            num_workers=c.trainer.num_workers, drop_last=True, div=1, overlap=0,
-            seed=c.trainer.data_seed if c.trainer.data_seed is not None else c.trainer.seed)
-        dm.setup()
-        return dm
 
     def _build_model(self, dm: IterDataModule) -> None:
         c = self.cfg
@@ -126,7 +118,7 @@ class Trainer:
             for data_key in c.data.low_res_dir:
                 dm = self._data_modules.get(data_key)
                 if dm is None:
-                    dm = self._data_modules[data_key] = self._make_data_module(data_key)
+                    dm = self._data_modules[data_key] = make_data_module(c, data_key, 1, 0)
                 if self.model is None:
                     self._build_model(dm)
                     self.optimizer = make_optimizer("adamw", {

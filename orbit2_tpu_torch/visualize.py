@@ -1,0 +1,62 @@
+"""Stitched full-field inference on one device (counterpart of
+examples/visualize.py): the model's TILES tiles stitched back into one full
+test field, denormalized, dumped as npy per output variable, with PSNR/SSIM.
+
+Usage: python -m orbit2_tpu_torch.visualize configs/interm_1b.yaml \
+           [--torch-npz PATH] [--index N] [--out-dir DIR] [--quant {none,w8a8}] \
+           [--device cuda]
+
+Two data modules, as in the reference (examples/visualize.py:341-378): the
+Evaluator's tiled one gives the model its per-tile geometry, and an untiled
+one (div 1, overlap 0) locates the full sample that is stitched. Weights come
+from --torch-npz (loaded strictly) or are drawn from trainer.seed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+
+from orbit2_tpu_torch.config import load_config
+from orbit2_tpu_torch.evaluate import Evaluator, make_data_module
+from orbit2_tpu_torch.models.components.blocks import QUANT_MODES
+from orbit2_tpu_torch.training.checkpoint import load_state_npz
+from orbit2_tpu_torch.utils.visualize import model_forward_fn, visualize_at_index
+
+log = logging.getLogger("orbit2_tpu_torch")
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO)
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("config")
+    p.add_argument("--torch-npz", default=None,
+                   help="reference-layout state_dict saved as an npz of numpy arrays")
+    p.add_argument("--index", type=int, default=0)
+    p.add_argument("--out-dir", default="visualizations")
+    p.add_argument("--data-key", default=None)
+    p.add_argument("--quant", default="none", choices=QUANT_MODES,
+                   help="w8a8: stitch through the int8 trunk (ops/quant.py)")
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+
+    cfg = load_config(args.config)
+    state_dict = load_state_npz(args.torch_npz) if args.torch_npz else None
+    if state_dict is None:
+        log.warning("no --torch-npz: visualizing weights drawn from trainer.seed")
+    ev = Evaluator(cfg, args.device, state_dict=state_dict, data_key=args.data_key)
+    div, overlap = cfg.tiling.effective_div, cfg.tiling.effective_overlap
+    dm_vis = ev.data_module if div == 1 else make_data_module(cfg, ev.data_key, 1, 0, "test")
+    in_vars, out_vars = ev.data_module.get_data_variables()
+    fwd = model_forward_fn(ev.serving_model(args.quant), in_vars, out_vars)
+    res = visualize_at_index(fwd, dm_vis, index=args.index, div=div, overlap=overlap,
+                             mag=cfg.model.superres_mag, out_dir=args.out_dir)
+    for var, m in res["metrics"].items():
+        log.info("%s: PSNR=%.2f SSIM=%.4f", var, m["psnr"], m["ssim"])
+    print(json.dumps(res["metrics"]))
+    return res
+
+
+if __name__ == "__main__":
+    main()

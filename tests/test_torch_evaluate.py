@@ -84,8 +84,8 @@ def test_evaluator_cli_prints_metrics(synth_dataset, tmp_path, capsys):
 
 @pytest.mark.parametrize("override,section", [
     ({"fsdp": 2}, "parallelism"),
-    ({"do_tiling": True, "div": 2}, "tiling"),
-], ids=["mesh", "tiling"])
+    ({"moe_experts": 2, "moe_every": 1}, "model"),
+], ids=["mesh", "moe"])
 def test_evaluator_rejects_unported_configs(synth_dataset, override, section):
     raw = tiny_raw(synth_dataset)
     raw[section].update(override)

@@ -19,6 +19,7 @@ MODULES = [
     "orbit2_tpu_torch.ops.fused_mlp",
     "orbit2_tpu_torch.ops.kernel_prng",
     "orbit2_tpu_torch.ops.pos_embed",
+    "orbit2_tpu_torch.ops.quant",
     "orbit2_tpu_torch.models",
     "orbit2_tpu_torch.metrics",
     "orbit2_tpu_torch.transforms",
@@ -26,9 +27,15 @@ MODULES = [
     "orbit2_tpu_torch.training.optim",
     "orbit2_tpu_torch.training.train",
     "orbit2_tpu_torch.training.trainer",
+    "orbit2_tpu_torch.utils.image_metrics",
+    "orbit2_tpu_torch.utils.inference",
     "orbit2_tpu_torch.utils.loaders",
+    "orbit2_tpu_torch.utils.mc_dropout",
+    "orbit2_tpu_torch.utils.quantize",
+    "orbit2_tpu_torch.utils.visualize",
     "orbit2_tpu_torch.evaluate",
     "orbit2_tpu_torch.train",
+    "orbit2_tpu_torch.visualize",
     "orbit2_tpu_torch.scripts.bench_attn2",
 ]
 

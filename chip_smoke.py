@@ -77,6 +77,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
                held as the batch's); an MC-dropout ensemble of 4 samples (K1
                with dropout and K5, exact launches; samples differ pairwise,
                the same seed repeats them bit for bit)
+  5c. train1b — the tiled 1B training path: Trainer.fit on the same config
+               and geometry (a synthetic train split of 4 fields, 64 tiles),
+               batch 32 tiles, bf16 compute, fp32 masters, bf16 Adam moments,
+               dropout and drop-path 0.1, the config's remat (full), from
+               serve1b's weights, 2 epochs x 2 steps: exact launch counts
+               (remat_launches), finite losses, moved parameters; one step
+               at 4 tiles with remat full, dots and none under
+               torch.use_deterministic_algorithms, its loss, every gradient
+               and both generators' states bit for bit; K1, K2 and K3 at
+               the path's shape (B32 and B4, N 2,178, H24, d128, dropout
+               0.1) against their plain versions (at B32 on its first and
+               last batch elements), K5 at [69,696, 3,072 | 12,288] bit for
+               bit; the step's time by events, its kernel time by kind, peak
+               memory, tiles/s and MFU (and the hardware's flops with the
+               recomputation) against 989 TFLOP/s
   6. times   — kernel vs plain (CUDA events, median of 20 after warm-up; K1,
                K2 and K3 also by the profiler's kernel time alone, beside SDPA
                and their two bounds, tensor cores and their dropout's Philox
@@ -103,7 +118,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
                (B16, N2178, H24, d128) with and without dropout beside SDPA,
                and the w8a8 route's parts (quantization, torch._int_mm,
                rescale) beside bf16 F.linear at the trunk's four products, on
-               the line {"serving_1b": {...}}
+               the line {"serving_1b": {...}}; then the 1B training path's
+               K1, K2, K3 (B32, N 2,178, H24, d128, dropout 0.1) and K5 rows
+               beside their plain versions (over the whole batch, four
+               batch elements at a time), SDPA / F.dropout and their bounds,
+               with the train step's numbers, on the line {"train_1b": {...}}
 
 The second-to-last line is {"kernels": [...]}: for each kernel its launches
 on its path, max abs error, ms, plain ms, library ms (null where no single
@@ -122,6 +141,7 @@ import contextlib
 import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -131,8 +151,13 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
-import torch
-from torch.nn.attention import SDPBackend, sdpa_kernel
+
+# torch.use_deterministic_algorithms (phase train1b) needs cuBLAS's workspace
+# fixed before the first product: 8 buffers of 4 MiB, 32 MiB in all
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
+from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "interm_117m.yaml"
@@ -158,8 +183,20 @@ W8A8_REL = 5e-2
 # it (the trunk is ~5% of it), so the trunk is held apart
 TRUNK_BF16_REL = 2e-2
 # torch._int_mm on the card against the CPU: [M, K] x [K, N], the 1B qkv
-# product's K and N
+# product's K and N; then K and N off the multiple of 8 the card's product
+# takes (padded by ops/quant.py::pad_operands), at more and fewer than 17 rows
 INT8_CHECK = (4096, 3072, 9216)
+INT8_UNALIGNED = ((32, 12, 6), (3, 12, 6), (4096, 3070, 9214))
+# the 1B training phase (train1b): the same tiles on a synthetic train split of
+# FIELDS_TRAIN_1B fields (16 tiles each), the config's batch of 32 tiles in
+# GRAD_ACCUM_1B microbatches under the config's full remat, 2 epochs of
+# TRAIN_STEPS_1B steps; one step at MICRO_1B tiles with remat full, dots and
+# none, bit for bit
+BATCH_TRAIN_1B = 32
+GRAD_ACCUM_1B = 1
+FIELDS_TRAIN_1B = 4
+TRAIN_STEPS_1B = 2
+MICRO_1B = 4
 
 # (B, N_q, N_k, H, D): the slice, the 117M bench shape, the 1B serving shape,
 # a ragged N over many kv tiles at the widest head, N_q != N_k, and one query
@@ -390,12 +427,14 @@ def slice_config(root: Path, seed: int, config=CONFIG, trainer=None, model=None,
     return load_config(raw)
 
 
-def config_1b(root: Path, seed: int, low=LOW_1B, **model):
+def config_1b(root: Path, seed: int, low=LOW_1B, trainer=None, n_files=1, t=FIELDS_1B,
+              shards=("test",), **model):
     """configs/interm_1b.yaml with its mesh (fsdp 8 x simple_ddp 4 x
-    tensor_par 4) cut to the one card, batch BATCH_1B tiles, and PRISM's
-    variables on a synthetic test split of FIELDS_1B fields at `low`."""
-    return slice_config(root, seed, CONFIG_1B, trainer={"batch_size": BATCH_1B}, model=model,
-                        n_files=1, t=FIELDS_1B, low=low, shards=("test",))
+    tensor_par 4) cut to the one card, batch BATCH_1B tiles (or what
+    `trainer` says), and PRISM's variables on a synthetic split (`shards`) of
+    n_files x t fields at `low`."""
+    return slice_config(root, seed, CONFIG_1B, trainer={"batch_size": BATCH_1B, **(trainer or {})},
+                        model=model, n_files=n_files, t=t, low=low, shards=shards)
 
 
 def set_attention_impl(model, impl):
@@ -628,15 +667,21 @@ def check_forward(q, k, v, rate, seed, case):
     mult = attention_mult(q, k, rate, seed)
     o, lse = flash_attention_fwd(q, k, v, None, rate, seed)
     want_o, want_lse = flash_attention_reference(q, k, v, None, mult)
+    return o, lse, mult, hold_forward(o, lse, want_o, want_lse, case)
+
+
+def hold_forward(o, lse, want_o, want_lse, case):
+    """K1's (o, lse) against the plain version's: o within atol=rtol O_TOL,
+    lse within LSE_ATOL. Returns max|do|."""
     torch.cuda.synchronize()
     diff = (o.float() - want_o.float()).abs()
     err_o, err_lse = diff.max().item(), (lse - want_lse).abs().max().item()
-    tol = O_TOL[q.dtype]
+    tol = O_TOL[o.dtype]
     ok_o = bool((diff <= tol + tol * want_o.float().abs()).all())
     print(f"  fwd {case}: max|do| {err_o:.3e} (atol=rtol={tol:g})  max|dlse| {err_lse:.3e} "
           f"(atol {LSE_ATOL:g})")
     check(ok_o and err_lse <= LSE_ATOL, f"flash forward disagrees with plain at {case}")
-    return o, lse, mult, err_o
+    return err_o
 
 
 def check_dropout(r, c, dtype, rate, gen, seed):
@@ -669,15 +714,31 @@ def check_backward(q, k, v, o, lse, do, mult, rate, seed, case):
     two runs bit-equal. Returns ({name: max abs error}, a line to print)."""
     from orbit2_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_reference
 
-    dtype, d = q.dtype, q.shape[-1]
+    d = q.shape[-1]
     got = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, rate, seed)
     again = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, rate, seed)
+    err, line = hold_grads(got, plain_grads(q, k, v, do, mult), case)
+    for name, g, g2 in zip(("dq", "dk", "dv"), got, again):
+        check(torch.equal(g, g2), f"{name}: two backward runs differ at {case}")
+    return err, line + "; bit-equal over two runs"
+
+
+def plain_grads(q, k, v, do, mult):
+    """(dq, dk, dv) of autograd of the plain forward under `mult`, fp32."""
+    from orbit2_tpu_torch.ops.flash_attention import flash_attention_reference
+
     qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
     flash_attention_reference(qf, kf, vf, None, mult)[0].backward(do.float())
+    return qf.grad, kf.grad, vf.grad
+
+
+def hold_grads(got, refs, case):
+    """(dq, dk, dv) of the kernels against the plain ones (check_backward's
+    tolerances). Returns ({name: max abs error}, a line to print)."""
     torch.cuda.synchronize()
+    dtype = got[0].dtype
     err, line = {}, []
-    refs = (qf.grad, kf.grad, vf.grad)
-    for name, g, want, g2 in zip(("dq", "dk", "dv"), got, refs, again):
+    for name, g, want in zip(("dq", "dk", "dv"), got, refs):
         check(g.dtype == dtype, f"{name} is {g.dtype}, want {dtype}")
         scale = want.abs().max().item()
         if scale == 0.0:
@@ -693,9 +754,39 @@ def check_backward(q, k, v, o, lse, do, mult, rate, seed, case):
         err[name] = diff.max().item()
         check(bool((diff <= atol + rtol * want.abs()).all()),
               f"{name} kernel disagrees with plain at {case}")
-        check(torch.equal(g, g2), f"{name}: two backward runs differ at {case}")
         line.append(f"max|d{name}| {err[name]:.3e} (max|{name}| {scale:.3e})")
-    return err, "  ".join(line) + "; bit-equal over two runs"
+    return err, "  ".join(line)
+
+
+def check_batch_rows(q, k, v, do, rate, seed, rows, case):
+    """K1, K2 and K3 launched on the whole batch of q, k, v, held on the batch
+    elements `rows` against their plain versions on those elements alone,
+    each under the dropout multiplier of its own streams (b H .. b H + H - 1):
+    o and lse as check_forward, dq, dk and dv as check_backward. The plain
+    versions of a whole large batch would not fit beside the model. Returns
+    {name: max abs error}."""
+    from orbit2_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd, flash_attention_reference)
+    from orbit2_tpu_torch.ops.kernel_prng import keep_mult
+
+    _, n_q, h, d = q.shape
+    o, lse = flash_attention_fwd(q, k, v, None, rate, seed)
+    got = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, rate, seed)
+    err = {}
+    for b in rows:
+        one = slice(b, b + 1)
+        mult = (keep_mult(seed, n_q, k.shape[1], rate, streams=h, device=q.device,
+                          first_stream=b * h) if rate > 0.0 else None)
+        want_o, want_lse = flash_attention_reference(q[one], k[one], v[one], None, mult)
+        where = f"{case}, batch element {b}"
+        err[("fwd", b)] = hold_forward(o[one], lse[b * h:(b + 1) * h], want_o, want_lse, where)
+        e, line = hold_grads([g[one] for g in got], plain_grads(q[one], k[one], v[one], do[one],
+                                                              mult), where)
+        print(f"  bwd {where}: {line}")
+        err.update(((name, b), val) for name, val in e.items())
+        del mult, want_o, want_lse
+    return {name: max(val for (n, _), val in err.items() if n == name)
+            for name in ("fwd", "dq", "dk", "dv")}
 
 
 def sass_check(libraries):
@@ -1189,19 +1280,24 @@ def time_probes(res, smi):
 
 def check_int8_product(seed):
     """torch._int_mm on the card against the CPU at [4096, 3072] x [3072,
-    9216], the 1B qkv product's K and N: the int32 accumulators equal; the
-    weight and row quantizations on the card equal the CPU's (the w8a8 twin
-    quantizes its weights on the card); w8a8_matmul's bf16 output within 1
-    bf16 ulp of the CPU's. Returns the largest ulp distance."""
+    9216], the 1B qkv product's K and N, and at INT8_UNALIGNED: the int32
+    accumulators equal; the weight and row quantizations on the card equal
+    the CPU's (the w8a8 twin quantizes its weights on the card);
+    w8a8_matmul's bf16 output within 1 bf16 ulp of the CPU's. Returns the
+    largest ulp distance."""
     from orbit2_tpu_torch.ops.quant import (
         int8_matmul, quantize_rows, quantize_weight, w8a8_matmul)
 
     gen = torch.Generator().manual_seed(seed)
+    for m, k, n in (INT8_CHECK,) + INT8_UNALIGNED:
+        xq = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8)
+        acc = int8_matmul(xq.cuda(), wq.cuda()).cpu()
+        check(acc.shape == (m, n) and torch.equal(acc, int8_matmul(xq, wq)),
+              f"the int8 product [{m}, {k}] x [{k}, {n}] on the card differs from the CPU's")
+    print(f"  int8 products {[INT8_CHECK, *INT8_UNALIGNED]} ([M, K, N]): the card's int32 "
+          f"accumulators equal the CPU's")
     m, k, n = INT8_CHECK
-    xq = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
-    wq = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8)
-    acc = int8_matmul(xq.cuda(), wq.cuda()).cpu()
-    check(torch.equal(acc, int8_matmul(xq, wq)), "torch._int_mm on the card differs from the CPU")
     x = torch.randn(m, k, generator=gen).bfloat16()
     w = torch.randn(n, k, generator=gen) * k ** -0.5
     wq, ws = quantize_weight(w)
@@ -1453,6 +1549,198 @@ def serve1b(cfg, seed):
             "test_q_s": test_q_s, "data_s": data_s}
 
 
+def remat_launches(depth, remat=True):
+    """Kernel launches of one train microbatch of the ResSlimViT: K1 once a
+    Block, and again in each Block's recomputation under remat (both
+    policies: the kernels are no products); K2 and K3 once a Block; K5 at
+    pos_drop and three sites a Block, forward and backward, and again in the
+    recomputation but for Block 0's last: its drop-path rate is 0, so nothing
+    after its fc2 is saved and the recomputation stops there
+    (torch.utils.checkpoint's early stop; tests/test_torch_remat.py)."""
+    again = int(remat)
+    return dict(flash_attn_fwd=(1 + again) * depth, flash_attn_bwd_dq=depth,
+                flash_attn_bwd_dkv=depth,
+                fused_dropout=2 * (1 + 3 * depth) + again * (3 * depth - 1))
+
+
+def train_flops(model, tokens, b, n, h, d):
+    """(model flops, hardware flops) of one train step over `tokens` tokens:
+    6 x parameters x tokens, plus attention's two forward products and the
+    backward's four (3 x attention_flops) a Block; the hardware's also count
+    each Block's forward again (full remat: 2 x its parameters x tokens, K1
+    again) and the backward kernels' recomputed scores (K2: 3 products, K3:
+    4, so 3.5 x attention_flops against the model's 2)."""
+    from orbit2_tpu_torch.ops.flash_attention import attention_flops
+
+    params = sum(p.numel() for p in model.parameters())
+    block_params = sum(p.numel() for p in model.blocks.parameters())
+    depth = len(model.blocks)
+    att = attention_flops(b, n, n, h, d)
+    model_flops = 6 * params * tokens + 3 * depth * att
+    hardware = 6 * params * tokens + 2 * block_params * tokens + depth * (1 + 1 + 3.5) * att
+    return model_flops, hardware
+
+
+def train1b(s1b, root, seed):
+    """Phase train1b: Trainer.fit on configs/interm_1b.yaml at full width on
+    the config's TILES tiles, batch 32, full remat, from serve1b's weights
+    (fp32 masters of them: nothing drawn again). Exact launch counts, finite
+    losses, moved parameters; one step at MICRO_1B tiles with remat full,
+    dots and none under torch.use_deterministic_algorithms, bit for bit
+    (losses, every gradient, the generators); K1, K2 and K3 at the path's
+    shape against their plain versions (the fit's microbatch on two of its
+    batch elements, and MICRO_1B whole); the step time by events, its
+    kernel time by kind, peak memory and MFU. Returns what phase 6 times."""
+    import types
+
+    from orbit2_tpu_torch.training.train import make_train_step
+    from orbit2_tpu_torch.training.trainer import Trainer
+
+    ev = s1b["ev"]
+    cfg = config_1b(root, seed, trainer={"batch_size": BATCH_TRAIN_1B,
+                                         "grad_accum": GRAD_ACCUM_1B},
+                    n_files=FIELDS_TRAIN_1B, t=1, shards=("train",))
+    m, tc = cfg.model, cfg.trainer
+    depth, h, d = m.depth, m.num_heads, m.embed_dim // m.num_heads
+    micro = tc.batch_size // tc.grad_accum
+    print(f"  config {CONFIG_1B.name}: embed {m.embed_dim} depth {depth} heads {h} (d {d}) "
+          f"gelu {m.gelu_approx}, {tc.data_type} compute, fp32 masters, adam mu "
+          f"{tc.adam_mu_dtype} nu {tc.adam_nu_dtype}, drop_rate {m.drop_rate} drop_path "
+          f"{m.drop_path}, remat {tc.remat} policy {tc.remat_policy}; batch {tc.batch_size} tiles "
+          f"in grad_accum {tc.grad_accum} microbatches of {micro}; 2 epochs x {TRAIN_STEPS_1B} "
+          f"steps on a synthetic train split of {FIELDS_TRAIN_1B} fields")
+    check(tc.remat and tc.remat_policy == "full" and cfg.tiling.effective_div == 4,
+          "interm_1b.yaml no longer trains with full remat on div 4 tiles")
+    steps = 2 * TRAIN_STEPS_1B
+    init = ev.model.state_dict()  # serve1b's bf16 weights, on the card
+    reset_counts()
+    tt = time.perf_counter()
+    trainer = Trainer(cfg, "cuda", state_dict=init)
+    history = trainer.fit(max_epochs=2, max_steps_per_epoch=TRAIN_STEPS_1B)
+    torch.cuda.synchronize()
+    fit_s, launched = time.perf_counter() - tt, counts()
+    for rec in history:
+        print(f"    {json.dumps(rec)}")
+    want = only(**{k: v * steps * tc.grad_accum for k, v in remat_launches(depth).items()})
+    print(f"  fit {fit_s:.3f} s (model build from the state dict included); launches {launched}")
+    check(sum(r["batches"] for r in history) == steps, f"fit took {history}")
+    check(all(np.isfinite(r["loss"]) for r in history), "a 1B train loss is not finite")
+    check(launched == want, f"1B train launches {launched}, want {want}")
+    model = trainer.model
+    params = dict(model.named_parameters())
+    fed = {k for k, p in params.items() if p.grad is not None}
+    still = [k for k in fed if torch.equal(params[k].detach(), init[k].float())]
+    print(f"  parameters moved: {len(fed) - len(still)} of the {len(fed)} the loss reaches "
+          f"({len(params) - len(fed)} more are token embeddings of default variables the phase "
+          f"does not feed: zero gradient), all fp32 masters "
+          f"{all(p.dtype == torch.float32 for p in params.values())}")
+    check(not still and all(p.dtype == torch.float32 for p in params.values()),
+          f"1B parameters did not move or are not fp32 masters: {still}")
+    del init
+
+    tdm = trainer._data_modules[next(iter(cfg.data.low_res_dir))]
+    in_vars, out_vars = tdm.get_data_variables()
+    in_shape, _ = tdm.get_data_dims()
+    tokens = (in_shape[2] // m.patch_size) * (in_shape[3] // m.patch_size)
+    loader = iter(tdm.train_dataloader())
+    batch = next(loader)
+    loader.close()
+    xb = torch.from_numpy(batch[0]).to(torch.bfloat16).cuda()
+    yb = torch.from_numpy(batch[1]).to(torch.bfloat16).cuda()
+
+    # remat full and dots against none, one microbatch, bit for bit
+    no_update = types.SimpleNamespace(step=lambda: None)
+    grad_step = make_train_step(model, trainer.train_loss, cfg.data.var_weights, no_update,
+                                in_vars, out_vars)
+    first = None
+    torch.use_deterministic_algorithms(True)
+    try:
+        for remat, policy in ((True, "full"), (True, "dots"), (False, "full")):
+            model.remat, model.remat_policy = remat, policy
+            g1, g2 = gens(seed + 23)
+            reset_counts()
+            loss = grad_step(xb[:MICRO_1B], yb[:MICRO_1B], g1, g2)
+            torch.cuda.synchronize()
+            run = (loss, {k: p.grad for k, p in params.items() if p.grad is not None},
+                   (g1.get_state(), g2.get_state()))
+            label = policy if remat else "none"
+            print(f"  deterministic step at {MICRO_1B} tiles, remat {label}: loss "
+                  f"{loss.item():.7f}; launches {counts()}")
+            check(counts() == only(**remat_launches(depth, remat)),
+                  f"remat {label} step launched {counts()}")
+            if first is None:
+                first = run
+                continue
+            same = (torch.equal(run[0], first[0]) and run[1].keys() == first[1].keys()
+                    and all(torch.equal(run[1][k], first[1][k]) for k in first[1])
+                    and all(torch.equal(a, b) for a, b in zip(run[2], first[2])))
+            check(same, f"remat {label} differs from remat full: loss {run[0].item()!r} vs "
+                  f"{first[0].item()!r}")
+            del run
+    finally:
+        torch.use_deterministic_algorithms(False)
+        model.remat, model.remat_policy = tc.remat, tc.remat_policy
+    print(f"  remat full, dots and none: losses, all {len(first[1])} gradients and both "
+          f"generators' states equal bit for bit")
+    del first
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # the path's attention kernels at its own shape, with its dropout
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kseed = 2 ** 41 + seed
+    errs = {}
+    for b in (micro, MICRO_1B):
+        q, k, v = make_qkv(b, tokens, tokens, h, d, torch.bfloat16, gen)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        case = f"bf16 drop {m.drop_rate:g} B{b} N{tokens} H{h} d{d}"
+        errs[b] = check_batch_rows(q, k, v, do, m.drop_rate, kseed, sorted({0, b - 1}), case)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    for c in (m.embed_dim, int(m.embed_dim * m.mlp_ratio)):
+        check_dropout(micro * tokens, c, torch.bfloat16, m.drop_rate, gen, kseed)
+    torch.cuda.empty_cache()
+
+    # the step's time, memory and MFU
+    tstep = make_train_step(model, trainer.train_loss, cfg.data.var_weights, trainer.optimizer,
+                            in_vars, out_vars, grad_accum=tc.grad_accum)
+    g1, g2 = gens(seed + 29)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = cuda_ms(lambda: tstep(xb, yb, g1, g2), iters=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    by_name = {}
+    kern = kernel_ms(lambda: tstep(xb, yb, g1, g2), iters=2, by_name=by_name)
+    model_flops, hw_flops = train_flops(model, xb.shape[0] * tokens, xb.shape[0], tokens, h, d)
+    out = {"batch_tiles": xb.shape[0], "tokens_per_tile": tokens, "grad_accum": tc.grad_accum,
+           "remat": tc.remat_policy, "step_ms": ms, "kernel_ms": kern, "busy": kern / ms,
+           "tiles_per_s": xb.shape[0] / ms * 1e3, "peak_gib": peak / 2 ** 30,
+           "step_gib": (peak - base) / 2 ** 30, "model_tflop": model_flops / 1e12,
+           "hardware_tflop": hw_flops / 1e12, "mfu": model_flops / (ms * 1e-3) / PEAK_FLOPS,
+           "hfu": hw_flops / (ms * 1e-3) / PEAK_FLOPS, "fit_s": fit_s,
+           "by_kind": step_kinds(by_name), "losses": [r["loss"] for r in history],
+           "kernels": {name[:80]: t for name, t in
+                       sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}}
+    print(f"  1B train step, batch {xb.shape[0]} tiles of {tokens} tokens, grad_accum "
+          f"{tc.grad_accum}, remat {tc.remat_policy}: {ms:.3f} ms by events (median of 5 after a "
+          f"warm-up), {out['tiles_per_s']:.2f} tiles/s; kernel time {kern:.3f} ms (busy "
+          f"{out['busy']:.3f}); peak memory {out['peak_gib']:.2f} GiB "
+          f"({out['step_gib']:.2f} the step's own); model {out['model_tflop']:.1f} TFLOP a step "
+          f"(6 x params x tokens + attention), MFU {out['mfu']:.4f}; hardware "
+          f"{out['hardware_tflop']:.1f} TFLOP (with the recomputation), {out['hfu']:.4f} of "
+          f"{PEAK_FLOPS / 1e12:.0f} TFLOP/s")
+    print("    by kind: " + ", ".join(f"{kind} {t:.3f} ms" for kind, t in out["by_kind"].items()))
+    for name, t in out["kernels"].items():
+        print(f"    {t:9.4f} ms  {name}")
+    del trainer, model, params, tstep, grad_step, xb, yb
+    torch.cuda.empty_cache()
+    return {"out": out, "launched": launched, "errs": errs, "shape": (micro, tokens, h, d),
+            "rate": m.drop_rate, "depth": depth,
+            "width": (m.embed_dim, int(m.embed_dim * m.mlp_ratio)),
+            "steps": steps * tc.grad_accum}
+
+
 def step_kinds(by_name):
     """A step's kernel ms by kind, from its kernel names: int8 products
     (CUTLASS s8 GEMMs), other products (bf16 GEMMs and convolutions), K1,
@@ -1602,6 +1890,101 @@ def serving_1b_times(s, gen, seed, call_s, smi):
           f"{out['w8a8']['kernel_ms']:.3f} ms of kernel time "
           f"({out['w8a8']['quant_rescale_share']:.3f}; its other kernels less the bf16 step's)")
     return out
+
+
+def train_1b_times(t1b, gen, seed, call_s, smi):
+    """Phase 6 for the 1B training path: K1 (with the path's dropout), K2, K3
+    at the fit's attention shape and K5 at its [tokens, width] and
+    [tokens, 4 width], bf16, each by events and by its kernel time alone,
+    beside its plain version (over the same inputs, a few batch elements at a
+    time, each under its own streams' multiplier, made before the timing: the
+    whole batch's [B H, N, N] fp32 tensors would not fit), its library call
+    (SDPA's flash backend, its whole backward for K2 and K3; F.dropout) and
+    its bound. Returns the rows by kernel name."""
+    import torch.nn.functional as F
+
+    from orbit2_tpu_torch.ops.dropout import FusedDropout, dropout_reference
+    from orbit2_tpu_torch.ops.flash_attention import (
+        FLASH_BWD_DKV, FLASH_BWD_DQ, attention_delta, attention_flops,
+        flash_attention_bwd_reference, flash_attention_fwd, flash_attention_reference)
+    from orbit2_tpu_torch.ops.kernel_prng import keep_mult
+
+    b, n, h, d = t1b["shape"]
+    rate = t1b["rate"]
+    q, k, v = make_qkv(b, n, n, h, d, torch.bfloat16, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    o, lse = flash_attention_fwd(q, k, v, None, rate, seed)
+    delta = attention_delta(o, do)
+    chunk = MICRO_1B
+    parts = [slice(i, min(b, i + chunk)) for i in range(0, b, chunk)]
+    mults = [keep_mult(seed, n, n, rate, streams=(sl.stop - sl.start) * h, device="cuda",
+                       first_stream=sl.start * h) for sl in parts]
+
+    def plain_fwd():
+        for sl, mult in zip(parts, mults):
+            flash_attention_reference(q[sl], k[sl], v[sl], None, mult)
+
+    def plain_bwd():
+        for sl, mult in zip(parts, mults):
+            flash_attention_bwd_reference(q[sl], k[sl], v[sl], o[sl], lse[sl.start * h:sl.stop * h],
+                                          do[sl], d ** -0.5, mult)
+
+    att = attention_flops(b, n, n, h, d)
+    rows_f32 = 4 * b * h * n
+    calls = b * h * n * n / ELEMENTS_PER_CALL
+    check(rate == DROP, f"the 1B dropout rate {rate} is not the SDPA rows' {DROP}")
+    lib = sdpa_ms(q, k, v, do)
+    kernels_ = {
+        "flash_attn_fwd": (lambda: flash_attention_fwd(q, k, v, None, rate, seed), plain_fwd,
+                           lib["fwd"][DROP],
+                           roofline(att, nbytes(q, k, v, q) + rows_f32), "fwd"),
+        "flash_attn_bwd_dq": (lambda: FLASH_BWD_DQ(q, k, v, do, lse, delta, d ** -0.5, rate, seed),
+                              plain_bwd, lib["bwd"],
+                              roofline(1.5 * att, nbytes(q, k, v, do, q) + 2 * rows_f32), "dq"),
+        "flash_attn_bwd_dkv": (lambda: FLASH_BWD_DKV(q, k, v, do, lse, delta, d ** -0.5, rate,
+                                                     seed), plain_bwd, lib["bwd"],
+                               roofline(2 * att, nbytes(q, k, v, do, k, v) + 2 * rows_f32), "dkv"),
+    }
+    rows = {}
+    plain_ms = {}
+    for name, (fn, plain, library, bound, op) in kernels_.items():
+        if plain not in plain_ms:
+            plain_ms[plain] = cuda_ms(plain, iters=3, warmup=1)
+        bound = max(bound, (calls * call_s[op] * 1e3, "operations"))
+        rows[name] = {"shape": [b, n, h, d], "dropout": rate, "ms": cuda_ms(fn),
+                      "kernel_ms": kernel_ms(fn), "plain_ms": plain_ms[plain],
+                      "library_ms": library, "bound_ms": bound[0], "bound_by": bound[1],
+                      "launches_per_step": t1b["launched"][name] // t1b["steps"]}
+    del q, k, v, do, o, lse, delta, mults
+    torch.cuda.empty_cache()
+    tokens = b * n
+    for width in t1b["width"]:
+        x = torch.randn(tokens, width, generator=gen, device="cuda").to(torch.bfloat16)
+        mult = keep_mult(seed, tokens, width, rate, device="cuda")
+        fn = lambda: FusedDropout.apply(x, seed, rate)
+        bound = roofline(0, 2 * nbytes(x))
+        # the last width (the Mlp hidden) keys the kernels line's K5 row; the
+        # launches are K5's at both widths
+        rows["fused_dropout"] = {
+            "shape": [tokens, width], "dropout": rate, "ms": cuda_ms(fn),
+            "kernel_ms": kernel_ms(fn), "plain_ms": cuda_ms(lambda: dropout_reference(x, mult)),
+            "library_ms": best_ms(lambda: F.dropout(x, rate, training=True)),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "launches_per_step": t1b["launched"]["fused_dropout"] // t1b["steps"]}
+        r = rows["fused_dropout"]
+        print(f"  train 1B fused_dropout bf16 [{tokens}, {width}]: {r['ms']:.4f} ms (kernel alone "
+              f"{r['kernel_ms']:.4f}), plain {r['plain_ms']:.4f}, F.dropout {r['library_ms']:.4f}; "
+              f"bound {r['bound_ms']:.4f} ({r['bound_by']}); gpu: {smi}")
+        del x, mult
+    torch.cuda.empty_cache()
+    for name, r in rows.items():
+        if name == "fused_dropout":
+            continue  # printed above, at both widths
+        print(f"  train 1B {name} bf16 {r['shape']} drop {r['dropout']:g}: {r['ms']:.4f} ms "
+              f"(kernel alone {r['kernel_ms']:.4f}), plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']:.4f}; bound {r['bound_ms']:.4f} ({r['bound_by']}); "
+              f"{r['launches_per_step']} launches a step; gpu: {smi}")
+    return rows
 
 
 @contextlib.contextmanager
@@ -1976,6 +2359,10 @@ def main():
         phase("serve1b")
         s1b = serve1b(config_1b(Path(tmp) / "1b", args.seed), args.seed)
 
+        # 5c. the tiled 1B training path
+        phase("train1b")
+        t1b = train1b(s1b, Path(tmp) / "1b_train", args.seed)
+
         # 6. times
         phase("times")
         print(f"gpu: {smi}")
@@ -2122,6 +2509,8 @@ def main():
     serving_1b = serving_1b_times(s1b, gen, kernel_seed, call_s, smi)
     del s1b
     print(json.dumps({"serving_1b": serving_1b}))
+    train_1b = train_1b_times(t1b, gen, kernel_seed, call_s, smi)
+    print(json.dumps({"train_1b": {"gpu": smi, "step": t1b["out"], "kernels": train_1b}}))
 
     slice_shape = SHAPES[0]
     mlp_shape = MLP_SHAPES[0]
@@ -2142,6 +2531,15 @@ def main():
         return entry(name, "attn_probes.cu", f"scripts/bench_attn2.py:{line}",
                      errs[(name, PROBE_SHAPES[0])], ms, bound, library, probe_counts, chain)
 
+    def train1b_entry(name, source, replaces, err):
+        r = train_1b[name]
+        return {"name": name, "route": "cuda", "source": f"orbit2_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": t1b["launched"][name], "max_abs_err": err,
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"], "path": "train1b",
+                "shape": r["shape"]}
+
+    t1b_errs = t1b["errs"][t1b["shape"][0]]
     drop_shape = DROPOUT_SHAPES[1]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - START:.1f} s")
     print(json.dumps({"kernels": [
@@ -2175,6 +2573,14 @@ def main():
         probe_entry("probe_exp_noreduce", 56),
         probe_entry("probe_full_softmax", 66),
         probe_entry("probe_bound_shift", 78),
+        # the tiled 1B training path's kernels at its shapes (phase train1b)
+        train1b_entry("flash_attn_fwd", "flash_attn_fwd.cu",
+                      "orbit2_tpu/ops/flash_attention.py:150", t1b_errs["fwd"]),
+        train1b_entry("flash_attn_bwd_dq", "flash_attn_bwd.cu",
+                      "orbit2_tpu/ops/flash_attention.py:287", t1b_errs["dq"]),
+        train1b_entry("flash_attn_bwd_dkv", "flash_attn_bwd.cu",
+                      "orbit2_tpu/ops/flash_attention.py:328", max(t1b_errs["dk"], t1b_errs["dv"])),
+        train1b_entry("fused_dropout", "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39", 0.0),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,16 @@ linspace(0, drop_path, depth). The parameters are created in fp32 (the JAX
 module's param_dtype; masters when training) and the forward computes in
 `dtype`: x is cast to it on entry and every layer casts its weights to it
 at use, a no-op once the parameters are in `dtype` (as for serving). Mixture-of-experts,
-pipeline and sequence sharding and remat raise.
+pipeline and sequence sharding raise.
+
+`remat` recomputes each Block's activations in the backward (JAX
+res_slimvit.py:312-316, `nn.remat(Block)`): `remat_policy="full"` keeps only
+the Block's input, "dots" also the outputs of its matrix products (JAX
+`checkpoint_dots`); the variable aggregation, embedding and head are not
+recomputed, as in JAX. The flash and dropout kernels are no products, so
+both policies run them again. The recomputation draws the dropout seeds and
+DropPath masks of the first run again (remat_block), so remat changes no
+value: outputs, gradients and the generators' states equal those without it.
 
 `quant="w8a8"` builds every trunk Block's qkv, proj, fc1 and fc2 as a QLinear
 (JAX res_slimvit.py:327), for serving only; utils/quantize.py::w8a8_twin
@@ -28,12 +37,15 @@ fills such a model from a trained one's state dict.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    checkpoint, create_selective_checkpoint_contexts, noop_context_fn)
 
 from orbit2_tpu_torch.models.components.blocks import (
     Block,
@@ -55,6 +67,40 @@ from orbit2_tpu_torch.registry import register_model
 # static surface channels appended to the residual path input
 # (reference find_var_index, res_slimvit.py:302-310)
 RESIDUAL_STATIC_VARS = ("land_sea_mask", "orography", "lattitude", "landcover")
+
+
+REMAT_POLICIES = ("full", "dots")
+# the ops F.linear and einsum lower to, whose outputs "dots" keeps
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.baddbmm.default]
+
+
+def remat_block(block, x, dropout_gen: Generator, drop_path_gen: Generator, policy: str):
+    """block(x, dropout_gen, drop_path_gen) under non-reentrant activation
+    checkpointing: the backward recomputes what `policy` did not keep. The
+    Block draws its dropout seeds and DropPath masks from the two host
+    generators as it runs, and checkpointing restores only the global RNGs;
+    so the states of both generators are taken when the Block first runs,
+    and the recomputation draws from fresh generators at those states. It
+    gets the first run's masks, and the caller's generators move once, as
+    without remat."""
+    gens = (dropout_gen, drop_path_gen)
+    states = [None if g is None else (g.device, g.get_state()) for g in gens]
+    first = True
+
+    def run(x):
+        nonlocal first
+        if first:
+            first = False
+            return block(x, *gens)
+        replay = [None if st is None else torch.Generator(st[0]).set_state(st[1])
+                  for st in states]
+        return block(x, *replay)
+
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _DOTS)
+                  if policy == "dots" else noop_context_fn)
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=context_fn)
 
 
 def find_var_index(in_variables: Sequence[str], out_variables: Sequence[str]):
@@ -91,7 +137,7 @@ class ResSlimViT(nn.Module):
                  spatial_resolution: float = 0.0, attention_impl: str = "xla",
                  gelu_approx: str = "exact", quant: str = "none", moe_experts: int = 0,
                  pipeline_stages: int = 1, seq_shard: bool = False, remat: bool = False,
-                 base_img_size: Optional[Tuple[int, int]] = None,
+                 remat_policy: str = "full", base_img_size: Optional[Tuple[int, int]] = None,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -100,8 +146,8 @@ class ResSlimViT(nn.Module):
         if pipeline_stages > 1 or seq_shard:
             raise NotImplementedError(
                 "pipeline_stages > 1 / seq_shard: the parallel trunks are not ported yet")
-        if remat:
-            raise NotImplementedError("remat: activation recomputation is not ported yet")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {remat_policy!r} (full | dots)")
         if gelu_approx not in ("exact", "tanh"):
             raise ValueError(f"unknown gelu_approx {gelu_approx!r}")
         self.default_vars = tuple(default_vars)
@@ -112,6 +158,7 @@ class ResSlimViT(nn.Module):
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.drop_rate = drop_rate
+        self.remat, self.remat_policy = remat, remat_policy
         self.dtype = dtype
         self.spatial_resolution = spatial_resolution
         self.base_img_size = tuple(base_img_size or img_size)
@@ -218,8 +265,12 @@ class ResSlimViT(nn.Module):
         res = torch.tensor([[self.spatial_resolution]], dtype=x.dtype, device=x.device)
         tokens = tokens + self.spatial_embed(res)
         tokens = dropout(tokens, self.drop_rate, self.training, dropout_gen)  # pos_drop
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            tokens = blk(tokens, dropout_gen, drop_path_gen)
+            if remat:
+                tokens = remat_block(blk, tokens, dropout_gen, drop_path_gen, self.remat_policy)
+            else:
+                tokens = blk(tokens, dropout_gen, drop_path_gen)
         return self.norm(tokens)
 
     def _unpatchify(self, y, H, W):

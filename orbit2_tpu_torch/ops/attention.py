@@ -3,7 +3,10 @@
   * "auto" / "pallas" — flash attention (ops/flash_attention.py): the
     hand-written CUDA kernels for bf16 or fp32 CUDA tensors (any N >= 1;
     ragged tails are masked in the kernel), their plain versions for CPU
-    tensors; attention-probability dropout runs inside the kernels.
+    tensors; attention-probability dropout runs inside the kernels. Shapes
+    the kernels do not take (`flash_supported`: a head dim outside
+    HEAD_DIMS, another dtype, B*H past the grid) go to the "xla" path on
+    every device, as the JAX dispatcher falls back to XLA.
   * "xla" / "naive"   — plain softmax attention, the JAX `_sdpa` math:
     probabilities in fp32, cast to the input dtype, dropped, then the value
     product.
@@ -20,7 +23,8 @@ from typing import Optional
 
 import torch
 
-from orbit2_tpu_torch.ops.flash_attention import attention_mult, flash_attention
+from orbit2_tpu_torch.ops.flash_attention import (
+    attention_mult, flash_attention, flash_supported)
 from orbit2_tpu_torch.ops.kernel_prng import draw_seed
 
 
@@ -44,7 +48,9 @@ def dot_product_attention(q, k, v, impl: str = "xla", scale: Optional[float] = N
             raise ValueError("attention dropout needs a generator")
         seed = draw_seed(generator)
     if impl in ("auto", "pallas"):
-        return flash_attention(q, k, v, sm_scale=scale, dropout_rate=dropout_rate, seed=seed)
+        if flash_supported(q, k, v):
+            return flash_attention(q, k, v, sm_scale=scale, dropout_rate=dropout_rate, seed=seed)
+        impl = "xla"
     if impl in ("xla", "naive"):
         return _sdpa(q, k, v, scale, dropout_rate, seed)
     raise ValueError(f"unknown attention impl {impl!r}")

@@ -31,6 +31,17 @@ from orbit2_tpu_torch.ops.kernel_prng import keep_mult, keep_threshold
 LOG2E = 1.4426950408889634
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_GRID_Y = 65535  # the kernels' grid takes B*H in its y dim
+
+
+def flash_supported(q, k, v) -> bool:
+    """Whether the kernels take these shapes and dtypes (the dispatcher's
+    static check, as the JAX package's flash_supported): a head dim in
+    HEAD_DIMS, bf16 or fp32 of one dtype, B*H within the grid's y dim."""
+    return (q.shape[-1] in HEAD_DIMS and q.dtype in _DTYPE_CODES
+            and k.dtype == v.dtype == q.dtype and q.shape[0] * q.shape[2] <= MAX_GRID_Y)
+
+
 _DROPOUT_ARGS = [ctypes.c_int, ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float]
 
 
@@ -200,8 +211,8 @@ def _check_cuda_inputs(q, k, v, do=None) -> None:
         raise ValueError(f"flash attention supports head dims {HEAD_DIMS}, got {d}")
     if n_q < 1 or k.shape[1] < 1:
         raise ValueError("flash attention needs N_q >= 1 and N_k >= 1")
-    if b * h > 65535:
-        raise ValueError(f"B*H = {b * h} exceeds the grid's 65535 limit")
+    if b * h > MAX_GRID_Y:
+        raise ValueError(f"B*H = {b * h} exceeds the grid's {MAX_GRID_Y} limit")
     for name, t in zip(("q", "k", "v", "do"), ts):
         if t.stride(-1) != 1:
             raise ValueError(f"flash attention: {name} must be contiguous in its last dim")
@@ -339,5 +350,5 @@ def attention_flops(b: int, n_q: int, n_k: int, h: int, d: int) -> int:
 __all__ = ["FLASH_FWD", "FLASH_BWD_DQ", "FLASH_BWD_DKV", "FlashAttention", "flash_attention",
            "flash_attention_fwd", "flash_attention_bwd", "flash_attention_reference",
            "flash_attention_bwd_reference", "attention_delta", "attention_mult",
-           "attention_flops", "kernel_operands", "tile_edge_lengths", "tma_layout",
-           "tma_operands", "BWD_TILES", "LOG2E", "HEAD_DIMS"]
+           "attention_flops", "flash_supported", "kernel_operands", "tile_edge_lengths",
+           "tma_layout", "tma_operands", "BWD_TILES", "LOG2E", "HEAD_DIMS", "MAX_GRID_Y"]

@@ -81,10 +81,11 @@ def keep_threshold(rate: float) -> int:
 
 
 def keep_mult(seed: int, rows: int, cols: int, rate: float, streams: Optional[int] = None,
-              device=None) -> torch.Tensor:
+              device=None, first_stream: int = 0) -> torch.Tensor:
     """fp32 multiplier in {0, 1/keep}: [rows, cols] of stream 0, or
-    [streams, rows, cols] of streams 0 .. streams - 1 (made a few streams at
-    a time, so the int64 intermediates stay small)."""
+    [streams, rows, cols] of streams first_stream .. first_stream + streams
+    - 1 (made a few streams at a time, so the int64 intermediates stay
+    small)."""
     ar = lambda *bounds: torch.arange(*bounds, device=device, dtype=torch.int64)
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32, device=device)
     zero = torch.zeros_like(scale)
@@ -96,7 +97,8 @@ def keep_mult(seed: int, rows: int, cols: int, rate: float, streams: Optional[in
     chunk = max(1, (1 << 24) // max(1, rows * cols))
     for s0 in range(0, streams, chunk):
         s1 = min(streams, s0 + chunk)
-        bits = _row_bits(seed, ar(s0, s1).view(-1, 1), ar(rows).view(1, -1), cols)
+        bits = _row_bits(seed, ar(first_stream + s0, first_stream + s1).view(-1, 1),
+                         ar(rows).view(1, -1), cols)
         out[s0:s1] = torch.where(bits <= threshold, scale, zero)
     return out
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 WEIGHT_FLOOR = 1e-8
 ACTIVATION_FLOOR = 1e-6
@@ -55,21 +56,31 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.round(xf / scale).clamp_(-QMAX, QMAX).to(torch.int8), scale
 
 
-def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """xq [M, K] int8 times wq [N, K] int8 transposed: the int32 [M, N]
-    accumulators (exact: 127^2 K < 2^31 for K < 133,000). Fewer than
-    MIN_ROWS rows are padded with zero rows, which are independent; a K or N
-    off the multiple of 8 raises, there is no float fallback."""
+def pad_operands(xq: torch.Tensor, wq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xq [M, K] and wq [N, K] padded with zeros to what torch._int_mm takes
+    on CUDA: at least MIN_ROWS rows, K and N multiples of ALIGN. Zero rows
+    are independent and zero columns of K add nothing, so the first [M, N]
+    accumulators of the padded product are the product's, exactly."""
     m, k = xq.shape
     n = wq.shape[0]
-    if k % ALIGN or n % ALIGN:
-        raise ValueError(f"int8 product [{m}, {k}] x [{k}, {n}]: K and N must be multiples "
-                         f"of {ALIGN}")
-    if m < MIN_ROWS:
-        padded = xq.new_zeros(MIN_ROWS, k)
-        padded[:m] = xq
-        return torch._int_mm(padded, wq.t())[:m]
-    return torch._int_mm(xq, wq.t())
+    k_pad, m_pad, n_pad = -k % ALIGN, max(0, MIN_ROWS - m), -n % ALIGN
+    if k_pad or m_pad:
+        xq = F.pad(xq, (0, k_pad, 0, m_pad))
+    if k_pad or n_pad:
+        wq = F.pad(wq, (0, k_pad, 0, n_pad))
+    return xq, wq
+
+
+def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """xq [M, K] int8 times wq [N, K] int8 transposed: the int32 [M, N]
+    accumulators (exact: 127^2 K < 2^31 for K < 133,000), of any M, K and N.
+    On CUDA the operands go in padded (pad_operands) and the product comes
+    back sliced; the CPU's torch._int_mm takes them as they are."""
+    m, n = xq.shape[0], wq.shape[0]
+    if xq.device.type == "cpu":
+        return torch._int_mm(xq, wq.t())
+    xp, wp = pad_operands(xq, wq)
+    return torch._int_mm(xp, wp.t())[:m, :n]
 
 
 def rescale(acc: torch.Tensor, x_scale: torch.Tensor, w_scale: torch.Tensor,

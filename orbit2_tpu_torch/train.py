@@ -4,9 +4,10 @@ examples/train.py.
 Usage: python -m orbit2_tpu_torch.train configs/interm_117m.yaml \
            [--torch-npz PATH] [--max-epochs N] [--max-steps-per-epoch N] [--device cuda]
 
-Prints one JSON history record per epoch. Checkpoint save/resume, validation
-during fit, device meshes, remat and TILES tiling are not ported: a config
-that asks for one raises.
+Prints one JSON history record per epoch. Trains on TILES tiles where the
+config sets `tiling.do_tiling`, with per-Block recomputation where it sets
+`trainer.remat`. Checkpoint save/resume, validation during fit and device
+meshes are not ported: a config that asks for one raises.
 """
 
 from __future__ import annotations

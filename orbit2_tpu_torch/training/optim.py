@@ -71,10 +71,12 @@ class AdamW:
 
     @torch.no_grad()
     def step(self) -> None:
-        params = [p for p in self.params if p.grad is not None]
-        if len(params) != len(self.params):
-            raise RuntimeError("AdamW.step: every parameter needs a gradient")
-        grads = [p.grad.float() for p in params]
+        params = self.params
+        # a parameter the loss does not reach (the token embedding of a
+        # default variable the phase does not feed) has a zero gradient, as
+        # in optax: its moments decay and weight decay still moves it
+        grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None else p.grad.float()
+                 for p in params]
         self.count += 1
         b1, b2 = self.b1, self.b2
         one = np.float32(1.0)

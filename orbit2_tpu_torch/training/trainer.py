@@ -17,9 +17,15 @@ the JAX package's separate drop_path stream. Both are host-side, so a step on
 the card and the same step on the CPU see the same masks and no draw waits
 for the device.
 
+A config with `tiling.do_tiling` trains on its TILES tiles (div x div halo
+tiles of each field, the JAX Trainer's train batches), after the JAX
+Trainer's tile check (trainer.py:129-186); `trainer.remat` and
+`trainer.remat_policy` recompute each Block's activations in the backward
+(models/res_slimvit.py::remat_block), which changes no value.
+
 Not ported, and raising NotImplementedError when configured: checkpoint
 save/resume (`trainer.checkpoint`, a checkpoint_dir), validation during fit,
-device meshes, remat, TILES tiling (div > 1), MoE and pipeline trunks.
+device meshes, MoE and pipeline trunks.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import torch
 
 from orbit2_tpu_torch.config import Config
 from orbit2_tpu_torch.data.itermodule import IterDataModule
-from orbit2_tpu_torch.evaluate import check_scope, make_data_module, model_kwargs
+from orbit2_tpu_torch.evaluate import check_scope, check_tiling, make_data_module, model_kwargs
 from orbit2_tpu_torch.training.optim import make_lr_scheduler, make_optimizer, set_learning_rate
 from orbit2_tpu_torch.training.train import make_train_step
 from orbit2_tpu_torch.utils.loaders import load_downscaling_module
@@ -49,7 +55,8 @@ class Trainer:
     (the card unless the caller asks for "cpu").
     `state_dict` (reference layout, e.g. from
     training/checkpoint.py::state_dict_from_jax_params) is loaded strictly
-    as the initial parameters; without one they are drawn from
+    as the initial parameters (the model is then built on the meta device
+    and nothing is drawn); without one they are drawn from
     `config.trainer.seed`."""
 
     def __init__(self, config: Config, device="cuda",
@@ -57,9 +64,6 @@ class Trainer:
                  checkpoint_dir: Optional[str] = None, run_validation: bool = False):
         self.cfg = c = config.validate()
         check_scope(c)
-        if c.tiling.effective_div > 1:
-            raise NotImplementedError(
-                "training on TILES tiles (div > 1) is not ported yet: set do_tiling false")
         if checkpoint_dir is not None or c.trainer.checkpoint:
             raise NotImplementedError("checkpoint save/resume is not ported yet")
         if run_validation:
@@ -76,12 +80,19 @@ class Trainer:
 
     def _build_model(self, dm: IterDataModule) -> None:
         c = self.cfg
-        (self.model, self.train_loss, _, _, _, _, _) = load_downscaling_module(
-            dm, c.model.preset, dict(model_kwargs(c), remat=c.trainer.remat),
-            train_loss=c.trainer.train_loss)
-        if self.state_dict is not None:
+        kwargs = dict(model_kwargs(c), remat=c.trainer.remat,
+                      remat_policy=c.trainer.remat_policy)
+        if self.state_dict is None:
+            (self.model, self.train_loss, _, _, _, _, _) = load_downscaling_module(
+                dm, c.model.preset, kwargs, train_loss=c.trainer.train_loss)
+            self.model.to(self.device)
+        else:
+            with torch.device("meta"):
+                (self.model, self.train_loss, _, _, _, _, _) = load_downscaling_module(
+                    dm, c.model.preset, dict(kwargs, generator=None),
+                    train_loss=c.trainer.train_loss)
+            self.model.to_empty(device=self.device)
             self.model.load_state_dict(self.state_dict, strict=True)
-        self.model.to(self.device)
         n = sum(p.numel() for p in self.model.parameters())
         log.info("initialized %.2fM params on %s", n / 1e6, self.device)
 
@@ -118,7 +129,10 @@ class Trainer:
             for data_key in c.data.low_res_dir:
                 dm = self._data_modules.get(data_key)
                 if dm is None:
-                    dm = self._data_modules[data_key] = make_data_module(c, data_key, 1, 0)
+                    dm = make_data_module(c, data_key, c.tiling.effective_div,
+                                          c.tiling.effective_overlap)
+                    check_tiling(c, dm)
+                    self._data_modules[data_key] = dm
                 if self.model is None:
                     self._build_model(dm)
                     self.optimizer = make_optimizer("adamw", {

@@ -24,17 +24,21 @@ from orbit2_tpu_torch.ops.flash_attention import (
     FLASH_BWD_DKV,
     FLASH_BWD_DQ,
     FLASH_FWD,
+    HEAD_DIMS,
     attention_mult,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_reference,
     flash_attention_fwd,
     flash_attention_reference,
+    flash_supported,
     kernel_operands,
     tile_edge_lengths,
     tma_layout,
     tma_operands,
 )
+from orbit2_tpu_torch.ops.attention import _sdpa, dot_product_attention
+from orbit2_tpu_torch.ops.kernel_prng import draw_seed
 
 
 def make_qkv(b, n_q, n_k, h, d, seed=0):
@@ -115,6 +119,48 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     assert FLASH_FWD.launches == before
     torch.testing.assert_close(o, want_o, atol=0, rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("d,taken", [(32, False), (96, False), (64, True), (128, True),
+                                     (256, True), (512, False)])
+def test_flash_supported_takes_the_kernels_head_dims(d, taken):
+    """The dispatcher's static check (JAX flash_supported,
+    orbit2_tpu/ops/flash_attention.py:52-61): only the kernels' head dims."""
+    q = torch.empty(2, 8, 3, d, device="meta", dtype=torch.bfloat16)
+    assert flash_supported(q, q, q) is taken
+
+
+def test_flash_supported_declines_other_dtypes_and_wide_grids():
+    mk = lambda b, h, dtype=torch.bfloat16: torch.empty(b, 4, h, 64, device="meta", dtype=dtype)
+    fp32, fp16 = mk(2, 3, torch.float32), mk(2, 3, torch.float16)
+    assert flash_supported(fp32, fp32, fp32)
+    assert not flash_supported(fp16, fp16, fp16)
+    assert not flash_supported(mk(2, 3), mk(2, 3, torch.float32), mk(2, 3))
+    assert flash_supported(mk(5, 13107), mk(5, 13107), mk(5, 13107))  # B*H = 65535
+    assert not flash_supported(mk(4, 16384), mk(4, 16384), mk(4, 16384))  # B*H = 65536
+
+
+def dispatch_case(d, device="cpu", dtype=torch.float32, rate=0.1):
+    """(dot_product_attention(impl="auto") and the path it should take, its
+    o of the same inputs and seed) at head dim d."""
+    q, k, v = (torch.from_numpy(a).to(device, dtype).requires_grad_()
+               for a in make_qkv(2, 40, 40, 3, d, seed=7))
+    got = dot_product_attention(q, k, v, impl="auto", dropout_rate=rate,
+                                generator=torch.Generator().manual_seed(5))
+    seed = draw_seed(torch.Generator().manual_seed(5))
+    if d in HEAD_DIMS:
+        want = flash_attention(q, k, v, d ** -0.5, rate, seed)
+    else:
+        want = _sdpa(q, k, v, d ** -0.5, rate, seed)
+    return got, want
+
+
+@pytest.mark.parametrize("d", [32, 96, 64])
+def test_auto_dispatch_sends_declined_head_dims_to_the_plain_attention(d):
+    """impl="auto" at d 32 and 96 takes the "xla" path (the JAX dispatcher's
+    XLA fallback), the same function on the same seed; d 64 stays on flash."""
+    got, want = dispatch_case(d)
+    assert torch.equal(got, want)
 
 
 def torch_grads(q, k, v, do, fn):
@@ -483,6 +529,20 @@ def test_kernel_raises_on_what_it_does_not_take(cuda):
     q = torch.zeros(1, 8, 1, 96, device=cuda)
     with pytest.raises(ValueError):
         flash_attention_fwd(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 96])
+def test_auto_dispatch_declines_to_the_plain_attention_on_card(cuda, d):
+    """Head dims the kernels do not take: impl="auto" on the card equals the
+    "xla" path (_sdpa) on the same seed, forward and backward, and launches
+    no flash kernel."""
+    before = FLASH_FWD.launches, FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches
+    got, want = dispatch_case(d, cuda, torch.bfloat16)
+    got.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (FLASH_FWD.launches, FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches) == before
+    assert torch.equal(got, want)
 
 
 def grad_tol(dtype, *grads):

@@ -134,6 +134,13 @@ def test_streams_are_the_leading_dim():
         assert torch.equal(m[s], want)
 
 
+def test_streams_from_a_first_stream_are_a_slice_of_all():
+    """keep_mult(first_stream=f) gives streams f .. f + streams - 1: the
+    multiplier of one batch element's heads without the batch's."""
+    whole = keep_mult(SEED, 16, 24, 0.25, streams=7)
+    assert torch.equal(keep_mult(SEED, 16, 24, 0.25, streams=3, first_stream=4), whole[4:])
+
+
 def _tile_pairs(n_pairs, rng):
     """Random 64x64 tiles and their neighbours one tile to the right, one tile
     down and one stream on."""

@@ -16,7 +16,6 @@ from orbit2_tpu.training.optim import linear_warmup_cosine_annealing as jax_sche
 from orbit2_tpu.training.optim import make_optimizer as jax_make_optimizer
 from orbit2_tpu.training.optim import set_learning_rate as jax_set_lr
 from orbit2_tpu_torch.training.optim import (
-    AdamW,
     make_lr_scheduler,
     make_optimizer,
     set_learning_rate,
@@ -67,11 +66,30 @@ def test_adamw_matches_optax_five_steps(mu_dtype, nu_dtype):
 
 
 def test_step_needs_every_gradient():
-    a, b = torch.zeros(2, requires_grad=True), torch.zeros(3, requires_grad=True)
-    opt = AdamW([a, b], lr=1e-3)
-    a.grad = torch.ones(2)
-    with pytest.raises(RuntimeError):
+    """Every parameter gets a gradient in the step: one the loss did not
+    reach (its .grad is None) takes a zero gradient, as optax does with the
+    zeros JAX's grad gives it, so its moments decay and weight decay still
+    moves it."""
+    rng = np.random.default_rng(1)
+    params = {k: rng.normal(size=s).astype(np.float32) for k, s in SHAPES.items()}
+    hp = dict(HP, weight_decay=0.5)
+    tx = jax_make_optimizer("adamw", hp)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    state = tx.init(jp)
+    tp = {k: torch.from_numpy(v.copy()).requires_grad_() for k, v in params.items()}
+    opt = make_optimizer("adamw", hp, list(tp.values()))
+    for step in range(3):
+        grads = {k: rng.normal(size=s).astype(np.float32) for k, s in SHAPES.items()}
+        grads["b"] = np.zeros_like(grads["b"]) if step else grads["b"]
+        updates, state = tx.update({k: jnp.asarray(g) for k, g in grads.items()}, state, jp)
+        jp = optax.apply_updates(jp, updates)
+        for k, p in tp.items():
+            p.grad = None if k == "b" and step else torch.from_numpy(grads[k])
         opt.step()
+    for k, p in tp.items():
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7,
+                                   err_msg=k)
+    assert not np.array_equal(tp["b"].detach().numpy(), params["b"])
 
 
 def test_warmup_cosine_matches_jax_every_epoch():

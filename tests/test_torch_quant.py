@@ -18,7 +18,8 @@ from orbit2_tpu.ops import quant as jq
 from orbit2_tpu.utils.quantize import quantize_params
 from orbit2_tpu_torch.models import ResSlimViT
 from orbit2_tpu_torch.models.components.blocks import QLinear
-from orbit2_tpu_torch.ops.quant import int8_matmul, quantize_rows, quantize_weight, w8a8_matmul
+from orbit2_tpu_torch.ops.quant import (
+    int8_matmul, pad_operands, quantize_rows, quantize_weight, w8a8_matmul)
 from orbit2_tpu_torch.training.checkpoint import state_dict_from_jax_params
 from orbit2_tpu_torch.utils.quantize import quantize_state_dict, w8a8_twin
 
@@ -84,10 +85,39 @@ def test_w8a8_matmul_matches_jax(shape, dtype):
         assert ulps.max().item() <= 1
 
 
-def test_int8_product_refuses_unaligned_shapes():
-    xq = torch.zeros(32, 12, dtype=torch.int8)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        int8_matmul(xq, torch.zeros(16, 12, dtype=torch.int8))
+def _int8_operands(m, k, n, seed=0):
+    rng = np.random.default_rng(seed)
+    xq = rng.integers(-127, 128, size=(m, k)).astype(np.int8)
+    wq = rng.integers(-127, 128, size=(k, n)).astype(np.int8)  # JAX layout [K, N]
+    return xq, wq
+
+
+@pytest.mark.parametrize("m,k,n", [(32, 12, 6), (3, 12, 6), (17, 20, 9)],
+                         ids=["k12-n6", "rows3-k12-n6", "k20-n9"])
+def test_int8_product_takes_any_k_and_n_like_jax(m, k, n):
+    """JAX's int8 dot_general takes any K and N (orbit2_tpu/ops/quant.py:
+    49-75); so does int8_matmul, with int32 accumulators equal to JAX's. The
+    operands the card's product takes (pad_operands: K and N to multiples of
+    8, at least 17 rows) give the same accumulators on the CPU."""
+    xq, wq = _int8_operands(m, k, n)
+    want = np.asarray(jax.lax.dot_general(jnp.asarray(xq), jnp.asarray(wq),
+                                          (((1,), (0,)), ((), ())),
+                                          preferred_element_type=jnp.int32))
+    txq, twq = torch.from_numpy(xq), torch.from_numpy(wq.T.copy())
+    got = int8_matmul(txq, twq)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
+    np.testing.assert_array_equal(got.numpy(), want)
+    xp, wp = pad_operands(txq, twq)
+    assert xp.shape[0] >= 17 and xp.shape[1] % 8 == 0 and wp.shape[0] % 8 == 0
+    assert xp.shape[1] == wp.shape[1] and (xp.shape[1] - k) < 8 and (wp.shape[0] - n) < 8
+    np.testing.assert_array_equal(torch._int_mm(xp, wp.t())[:m, :n].numpy(), want)
+
+
+def test_pad_operands_leaves_aligned_operands_as_they_are():
+    xq, wq = (torch.from_numpy(a) for a in _int8_operands(32, 16, 8))
+    wq = wq.t().contiguous()
+    xp, wp = pad_operands(xq, wq)
+    assert xp is xq and wp is wq
 
 
 def test_w8a8_matmul_close_to_fp():

@@ -112,8 +112,8 @@ def test_train_mode_forward_raises():
 
 
 @pytest.mark.parametrize("kwargs", [dict(moe_experts=4), dict(pipeline_stages=2),
-                                    dict(seq_shard=True), dict(remat=True)],
-                         ids=["moe", "pipeline", "seq_shard", "remat"])
+                                    dict(seq_shard=True)],
+                         ids=["moe", "pipeline", "seq_shard"])
 def test_unported_trunks_raise(kwargs):
     with pytest.raises(NotImplementedError):
         ResSlimViT(DEFAULT_VARS, (8, 16), 7, 3, embed_dim=32, depth=2, decoder_depth=1,

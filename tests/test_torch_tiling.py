@@ -1,7 +1,7 @@
 """TILES tiling on the port's serving path: `Evaluator.test` on the div x div
 halo tiles of a 32 x 64 synthetic set against the JAX `Trainer.test` on the
-same tiles and weights (fp32: metrics rtol 1e-4; w8a8: rtol 1e-3), the JAX
-Trainer's tile check, and the refusal that stays in the port's Trainer.
+same tiles and weights (fp32: metrics rtol 1e-4; w8a8: rtol 1e-3), and the
+JAX Trainer's tile check in the Evaluator and in Trainer.fit.
 
 The weights are the JAX Trainer's, perturbed by noise of std 0.3: at their
 init scale the trunk moves the metrics by ~1e-6 (the CNN residual path
@@ -120,9 +120,17 @@ def test_tile_check_matches_jax(synth_32x64, tmp_path):
     assert str(got.value) == str(want.value)
 
 
-def test_trainer_still_refuses_tiles(synth_32x64):
-    with pytest.raises(NotImplementedError, match="TILES"):
-        Trainer(load_config(tiled_raw(synth_32x64, 2, 2)), "cpu")
+def test_trainer_tile_check_matches_jax(synth_32x64, tmp_path):
+    """Trainer.fit on 17 x 34 tiles: both packages refuse before the first
+    step with the same hint (tests/test_training.py::
+    test_trainer_tiling_divisibility_error)."""
+    raw = tiled_raw(synth_32x64, 2, 1)
+    with pytest.raises(ValueError) as want:
+        JaxTrainer(jax_load_config(raw), checkpoint_dir=str(tmp_path / "ck")).fit(
+            max_epochs=1, max_steps_per_epoch=1)
+    with pytest.raises(ValueError, match="increase tiling.overlap by 1") as got:
+        Trainer(load_config(raw), "cpu").fit(max_epochs=1, max_steps_per_epoch=1)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("quant", ["none", "w8a8"])

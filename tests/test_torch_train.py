@@ -30,6 +30,8 @@ from orbit2_tpu.training.train import clip_replace_constant as jax_clip
 from orbit2_tpu.training.train import make_train_step as jax_make_train_step
 from orbit2_tpu.training.trainer import Trainer as JaxTrainer
 from orbit2_tpu_torch.config import load_config
+from orbit2_tpu_torch.data.reader import tile_shapes
+from orbit2_tpu_torch.evaluate import make_data_module, model_kwargs
 from orbit2_tpu_torch.metrics.metrics import METRICS_REGISTRY
 from orbit2_tpu_torch.models import ResSlimViT
 from orbit2_tpu_torch.train import main
@@ -37,6 +39,7 @@ from orbit2_tpu_torch.training.checkpoint import state_dict_from_jax_params
 from orbit2_tpu_torch.training.optim import make_optimizer
 from orbit2_tpu_torch.training.train import make_train_step
 from orbit2_tpu_torch.training.trainer import Trainer
+from orbit2_tpu_torch.utils.loaders import load_architecture
 
 DEFAULT_VARS = (
     "land_sea_mask", "orography", "lattitude", "landcover",
@@ -207,6 +210,77 @@ def test_trainer_fit_matches_jax_trainer(synth_dataset, tmp_path):
         assert r["h2d_bytes"] == 3 * 4 * (7 * 16 * 32 + 3 * 64 * 128) * 4
 
 
+def fit_both(raw, tmp_path, max_epochs=2, max_steps=3):
+    """(port Trainer.fit, JAX Trainer.fit) of `raw` from the JAX Trainer's
+    initial parameters."""
+    jt = JaxTrainer(jax_load_config(raw), checkpoint_dir=str(tmp_path / "ck"))
+    jt.test(max_batches=0)  # builds the model and draws the initial parameters
+    init = state_dict_from_jax_params(jax.tree.map(np.asarray, jt.params), patch_size=2)
+    want = jt.fit(max_epochs=max_epochs, max_steps_per_epoch=max_steps)
+    trainer = Trainer(load_config(raw), "cpu", state_dict=init)
+    return trainer, trainer.fit(max_epochs=max_epochs, max_steps_per_epoch=max_steps), want
+
+
+def test_tiled_trainer_fit_with_remat_matches_jax_trainer(synth_dataset, tmp_path):
+    """Training on div 2 / overlap 2 TILES tiles with per-Block remat, the
+    counterpart of tests/test_training.py::test_trainer_with_tiling, against
+    JAX Trainer.fit on the same config: the same tile batches, per-epoch
+    losses within rtol 2e-4. Whole epochs: where an epoch stops early, how
+    far the loader's thread read ahead (and so the next epoch's shuffle)
+    depends on timing, in both packages."""
+    raw = tiny_raw(synth_dataset)
+    raw["tiling"] = {"do_tiling": True, "div": 2, "overlap": 2}
+    raw["trainer"]["remat"] = True
+    trainer, got, want = fit_both(raw, tmp_path, max_steps=None)
+    assert trainer.model.remat and trainer.model.remat_policy == "full"
+    (h, w), (oh, ow) = tile_shapes(2, 2, 16, 32, 64, 128)
+    in_shape, out_shape = trainer._data_modules["SYNTH"].get_data_dims()
+    assert tuple(in_shape[2:]) == (h, w) and tuple(out_shape[2:]) == (oh, ow)
+    # 16 fields of 4 tiles, 4 tiles a batch
+    assert [r["batches"] for r in got] == [16, 16] and all(np.isfinite(r["loss"]) for r in got)
+    assert [r["lr"] for r in got] == [r["lr"] for r in want]
+    np.testing.assert_allclose([r["loss"] for r in got], [r["loss"] for r in want], rtol=2e-4)
+    for r in got:
+        assert r["h2d_bytes"] == 16 * 4 * (7 * h * w + 3 * oh * ow) * 4
+
+
+def test_trainer_fit_with_unfed_default_vars_matches_jax_trainer(synth_dataset, tmp_path):
+    """default_vars beyond the phase's in-variables (as in interm_1b.yaml:
+    23 defaults, 7 PRISM inputs): their token embeddings get no gradient.
+    optax treats it as zero (weight decay still moves them); so does the
+    port's AdamW, which used to refuse the step."""
+    raw = tiny_raw(synth_dataset)
+    raw["data"]["default_vars"] = list(synth_dataset["in_vars"]) + ["10m_u_component_of_wind"]
+    raw["model"]["weight_decay"] = 0.5  # a decay the unfed weights show in fp32
+    trainer, got, want = fit_both(raw, tmp_path, max_steps=2)
+    np.testing.assert_allclose([r["loss"] for r in got], [r["loss"] for r in want], rtol=2e-4)
+    unfed = trainer.model.token_embeds[7].proj.weight
+    assert unfed.grad is None
+    init = trainer.state_dict["token_embeds.7.proj.weight"]
+    assert not torch.equal(unfed.detach(), init)
+
+
+def test_trainer_builds_from_a_state_dict_without_drawing(synth_dataset, monkeypatch):
+    """Given a state dict (here bf16, as a serving model holds it), the
+    Trainer builds its model on the meta device, draws no initial weights
+    (the 1B config's take seconds to draw on the host), and trains fp32
+    masters filled from it."""
+    raw = tiny_raw(synth_dataset)
+    cfg = load_config(raw)
+    dm = make_data_module(cfg, "SYNTH", 1, 0)
+    state = {k: v.bfloat16() for k, v in load_architecture(
+        dm, "res_slimvit", **model_kwargs(cfg)).state_dict().items()}
+    drawn_on = []
+    reset = ResSlimViT.reset_parameters
+    monkeypatch.setattr(ResSlimViT, "reset_parameters", lambda self, generator=None: (
+        drawn_on.append(self.var_embed.device.type), reset(self, generator))[1])
+    trainer = Trainer(cfg, "cpu", state_dict=state)
+    trainer.fit(max_epochs=1, max_steps_per_epoch=1)
+    assert drawn_on == ["meta"]
+    assert all(p.dtype == torch.float32 and p.device.type == "cpu"
+               for p in trainer.model.parameters())
+
+
 def test_train_cli_runs_on_cpu(synth_dataset, tmp_path, capsys):
     path = tmp_path / "tiny.yaml"
     path.write_text(yaml.safe_dump(tiny_raw(synth_dataset)))
@@ -218,11 +292,10 @@ def test_train_cli_runs_on_cpu(synth_dataset, tmp_path, capsys):
 
 @pytest.mark.parametrize("override,section,kwargs", [
     ({"fsdp": 2}, "parallelism", {}),
-    ({"remat": True}, "trainer", {}),
     ({"checkpoint": "ck/epoch_0"}, "trainer", {}),
     ({}, "trainer", {"checkpoint_dir": "ck"}),
     ({}, "trainer", {"run_validation": True}),
-], ids=["mesh", "remat", "resume", "save", "validation"])
+], ids=["mesh", "resume", "save", "validation"])
 def test_trainer_rejects_what_is_not_ported(synth_dataset, override, section, kwargs):
     raw = tiny_raw(synth_dataset)
     raw[section].update(override)

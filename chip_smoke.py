@@ -92,6 +92,33 @@ Phases, each of which raises (and so exits non-zero) on failure:
                bit; the step's time by events, its kernel time by kind, peak
                memory, tiles/s and MFU (and the hardware's flops with the
                recomputation) against 989 TFLOP/s
+  5d. resume1b — checkpoints, resume, validation and fine-tuning on the same
+               config, tiles, batch and weights (synthetic train and val
+               splits of 5 fields; the val split's 80 tiles end in a partial
+               batch): Trainer A fits 2 epochs x 2 steps with a checkpoint
+               directory, keep_last_checkpoints 1 and validation after each
+               epoch (only epoch_1 is left; finite val means over 80 tiles,
+               K1 depth x 3 launches a validation and nothing else; the
+               saves', writes' and validations' seconds, the bytes on disk
+               against the reckoning, the free disk checked first);
+               restore_checkpoint of epoch_1 equals A's parameters, mu, nu,
+               count, lr and epoch bit for bit (timed, read and moved to the
+               card); Trainer B resumes from the directory with async
+               checkpoints and fits epochs 2 and 3: its history starts at
+               epoch 2, and the epoch_2 written while epoch 3 trains equals
+               B's state at its save (how long the host copy blocked, the
+               write, its overlap with epoch 3); two resumes from epoch_1 at
+               4 tiles under torch.use_deterministic_algorithms give the same
+               losses bit for bit; `python -m orbit2_tpu_torch.finetune`'s
+               main from epoch_1 on div 3 / overlap 2 tiles (86 x 172, 3,698
+               tokens, batch 8) resizes pos_embed and drops nothing; exact
+               launch counts of the phase (K1, K2, K3, K5) and of the
+               fine-tune; K1, K2 and K3 at the fine-tune's shape (B8, N3698,
+               H24, d128, dropout 0.1) against their plain versions on its
+               first and last batch elements, K5 at its [29,584, 3,072 |
+               12,288] bit for bit, and the validation's K1 without dropout
+               at (B32, N2178, H24, d128) on its first and last batch
+               elements (the 16-tile tail's shape is serve1b's)
   6. times   — kernel vs plain (CUDA events, median of 20 after warm-up; K1,
                K2 and K3 also by the profiler's kernel time alone, beside SDPA
                and their two bounds, tensor cores and their dropout's Philox
@@ -122,7 +149,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
                K1, K2, K3 (B32, N 2,178, H24, d128, dropout 0.1) and K5 rows
                beside their plain versions (over the whole batch, four
                batch elements at a time), SDPA / F.dropout and their bounds,
-               with the train step's numbers, on the line {"train_1b": {...}}
+               with the train step's numbers, on the line {"train_1b": {...}};
+               then K1, K2, K3 and K5 at the fine-tune's shapes the same way
+               (plain versions two batch elements at a time) and the
+               validation's K1 at (B32, N2178) without dropout beside SDPA,
+               with resume1b's numbers, on the line {"resume_1b": {...}}
 
 The second-to-last line is {"kernels": [...]}: for each kernel its launches
 on its path, max abs error, ms, plain ms, library ms (null where no single
@@ -197,6 +228,16 @@ GRAD_ACCUM_1B = 1
 FIELDS_TRAIN_1B = 4
 TRAIN_STEPS_1B = 2
 MICRO_1B = 4
+# the 1B checkpoint phase (resume1b): the same tiles and batch on synthetic
+# train and val splits of FIELDS_RESUME_1B fields each (the val split's 80
+# tiles: two full 32-tile batches and a partial one of 16), RESUME_STEPS_1B
+# steps an epoch; the fine-tune on FT_DIV / FT_OVERLAP tiles (86 x 172, 3,698
+# tokens: pos_embed resized from 33 x 66 to 43 x 86) at FT_BATCH tiles, a cut
+# of the config's 32 that keeps the phase short
+FIELDS_RESUME_1B = 5
+RESUME_STEPS_1B = 2
+FT_DIV, FT_OVERLAP = 3, 2
+FT_BATCH = 8
 
 # (B, N_q, N_k, H, D): the slice, the 117M bench shape, the 1B serving shape,
 # a ragged N over many kv tiles at the widest head, N_q != N_k, and one query
@@ -762,16 +803,17 @@ def check_batch_rows(q, k, v, do, rate, seed, rows, case):
     """K1, K2 and K3 launched on the whole batch of q, k, v, held on the batch
     elements `rows` against their plain versions on those elements alone,
     each under the dropout multiplier of its own streams (b H .. b H + H - 1):
-    o and lse as check_forward, dq, dk and dv as check_backward. The plain
-    versions of a whole large batch would not fit beside the model. Returns
-    {name: max abs error}."""
+    o and lse as check_forward, dq, dk and dv as check_backward; K1 alone
+    where do is None (a path that runs no backward). The plain versions of a
+    whole large batch would not fit beside the model. Returns {name: max abs
+    error}."""
     from orbit2_tpu_torch.ops.flash_attention import (
         flash_attention_bwd, flash_attention_fwd, flash_attention_reference)
     from orbit2_tpu_torch.ops.kernel_prng import keep_mult
 
     _, n_q, h, d = q.shape
     o, lse = flash_attention_fwd(q, k, v, None, rate, seed)
-    got = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, rate, seed)
+    got = None if do is None else flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, rate, seed)
     err = {}
     for b in rows:
         one = slice(b, b + 1)
@@ -780,13 +822,14 @@ def check_batch_rows(q, k, v, do, rate, seed, rows, case):
         want_o, want_lse = flash_attention_reference(q[one], k[one], v[one], None, mult)
         where = f"{case}, batch element {b}"
         err[("fwd", b)] = hold_forward(o[one], lse[b * h:(b + 1) * h], want_o, want_lse, where)
-        e, line = hold_grads([g[one] for g in got], plain_grads(q[one], k[one], v[one], do[one],
-                                                              mult), where)
-        print(f"  bwd {where}: {line}")
-        err.update(((name, b), val) for name, val in e.items())
+        if got is not None:
+            e, line = hold_grads([g[one] for g in got], plain_grads(q[one], k[one], v[one],
+                                                                  do[one], mult), where)
+            print(f"  bwd {where}: {line}")
+            err.update(((name, b), val) for name, val in e.items())
         del mult, want_o, want_lse
     return {name: max(val for (n, _), val in err.items() if n == name)
-            for name in ("fwd", "dq", "dk", "dv")}
+            for name in ("fwd",) + (() if got is None else ("dq", "dk", "dv"))}
 
 
 def sass_check(libraries):
@@ -1741,6 +1784,322 @@ def train1b(s1b, root, seed):
             "steps": steps * tc.grad_accum}
 
 
+def flat_state(state):
+    """A {"model", "optimizer"} state as ({"model/<name>" and
+    "optimizer/<mu|nu>/<name>": tensor}, {"count", "lr"})."""
+    opt = state["optimizer"]
+    flat = {f"model/{k}": v for k, v in state["model"].items()}
+    flat.update((f"optimizer/{m}/{k}", v) for m in ("mu", "nu") for k, v in opt[m].items())
+    return flat, {"count": opt["count"], "lr": opt["lr"]}
+
+
+def trainer_state(trainer):
+    return flat_state({"model": trainer.model.state_dict(),
+                       "optimizer": trainer.optimizer.state_dict()})
+
+
+def same_state(saved, live, what):
+    """Every tensor of the checkpoint `saved` equal bit for bit to `live`'s
+    (on the card), and the scalars equal."""
+    (got, got_scalars), (want, want_scalars) = saved, live
+    check(got.keys() == want.keys(), f"{what}: keys differ: {sorted(got.keys() ^ want.keys())[:4]}")
+    for k, v in want.items():
+        g = got[k]
+        check(g.dtype == v.dtype and g.shape == v.shape
+              and torch.equal(g.to(v.device, non_blocking=True), v), f"{what}: {k} differs")
+    check(got_scalars == want_scalars, f"{what}: {got_scalars} vs {want_scalars}")
+
+
+def resume1b(s1b, root, seed):
+    """Phase resume1b: checkpoints, resume, validation and fine-tuning of
+    configs/interm_1b.yaml at full width on its tiles (batch 32, full remat,
+    bf16 moments), from serve1b's weights. Trainer A fits 2 epochs with a
+    checkpoint directory, keep_last_checkpoints 1 and validation after each
+    epoch (timed, with its launches: K1 depth x val batches, nothing else);
+    restore_checkpoint of its epoch_1 equals its state bit for bit; Trainer B
+    resumes from the directory with async checkpoints and fits epochs 2 and 3
+    (epoch 3's steps run while epoch_2 is written), and the epoch_2 on disk
+    equals B's state at its save; two resumes from epoch_1 at MICRO_1B tiles
+    under torch.use_deterministic_algorithms give the same losses bit for
+    bit; orbit2_tpu_torch.finetune from epoch_1 on FT_DIV tiles resizes
+    pos_embed. Exact launch counts over the phase; K1 at the fine-tune's
+    shape against its plain version. Returns what phase 6 times."""
+    import dataclasses
+    import shutil
+
+    import yaml
+
+    from orbit2_tpu_torch import finetune
+    from orbit2_tpu_torch.data.reader import tile_shapes
+    from orbit2_tpu_torch.training import checkpoint as ck
+    from orbit2_tpu_torch.training.train import make_eval_step
+    from orbit2_tpu_torch.training.trainer import Trainer
+
+    ev = s1b["ev"]
+    cfg = config_1b(root, seed, trainer={"batch_size": BATCH_TRAIN_1B,
+                                         "grad_accum": GRAD_ACCUM_1B},
+                    n_files=1, t=FIELDS_RESUME_1B, shards=("train", "val"))
+    m, tc = cfg.model, cfg.trainer
+    depth, h, d = m.depth, m.num_heads, m.embed_dim // m.num_heads
+    tiles = cfg.tiling.effective_div ** 2  # a field's
+    val_batches = -(-FIELDS_RESUME_1B * tiles // BATCH_TRAIN_1B)
+    n_params = sum(p.numel() for p in ev.model.parameters())
+    moment_bytes = sum(torch.finfo(getattr(torch, dt or "float32")).bits // 8
+                       for dt in (tc.adam_mu_dtype, tc.adam_nu_dtype))
+    reckoned = n_params * (4 + moment_bytes)
+    ck_root = Path(tempfile.mkdtemp(prefix="checkpoints", dir=root))
+    ck_dir, ft_dir = ck_root / "climate", ck_root / "finetune"
+    free = shutil.disk_usage(ck_root).free
+    # at most three checkpoints lie on the disk at once (B's epoch_1..epoch_3)
+    print(f"  {n_params / 1e9:.4f} B parameters: a checkpoint is reckoned at {reckoned / 1e9:.3f} "
+          f"GB (fp32 masters, mu {tc.adam_mu_dtype}, nu {tc.adam_nu_dtype}); {free / 1e9:.1f} GB "
+          f"free under {ck_root}")
+    check(free > 3.2 * reckoned, f"{free / 1e9:.1f} GB free on the disk, the phase needs "
+                                 f"{3.2 * reckoned / 1e9:.1f} (three checkpoints)")
+    writes, epochs, saves, validations = [], [], [], []
+    write = ck._write
+
+    def timed_write(path, state):
+        t0 = time.perf_counter()
+        write(path, state)
+        writes.append((os.path.basename(path), t0, time.perf_counter()))
+
+    def instrument(trainer):
+        save, validate, epoch = trainer._save, trainer.validate, trainer._epoch
+
+        def timed_save(e):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save(e)
+            saves.append((e, time.perf_counter() - t0))
+
+        def timed_validate(*a):
+            torch.cuda.synchronize()
+            before, t0 = counts(), time.perf_counter()
+            out = validate(*a)
+            torch.cuda.synchronize()
+            validations.append((time.perf_counter() - t0,
+                                {k: v - before[k] for k, v in counts().items()}))
+            return out
+
+        def timed_epoch(e, *a):
+            t0 = time.perf_counter()
+            out = epoch(e, *a)
+            epochs.append((e, t0, time.perf_counter()))
+            return out
+
+        trainer._save, trainer.validate, trainer._epoch = timed_save, timed_validate, timed_epoch
+        return trainer
+
+    out = {"checkpoint_bytes_reckoned": reckoned, "parameters": n_params}
+    ck._write = timed_write
+    try:
+        init = ev.model.state_dict()  # serve1b's bf16 weights, on the card
+        reset_counts()  # the phase's main path: A, B, the two resumes, the fine-tune
+        tt = time.perf_counter()
+        a = instrument(Trainer(cfg, "cuda", state_dict=init, checkpoint_dir=str(ck_dir),
+                               run_validation=True, keep_last_checkpoints=1))
+        hist_a = a.fit(max_epochs=2, max_steps_per_epoch=RESUME_STEPS_1B)
+        torch.cuda.synchronize()
+        out["fit_a_s"] = time.perf_counter() - tt
+        del init
+        for rec in hist_a:
+            print(f"    A {json.dumps(rec)}")
+        listing = sorted(os.listdir(ck_dir))
+        on_disk = os.path.getsize(ck_dir / "epoch_1" / ck.CHECKPOINT_FILE)
+        val = a.last_validation
+        out.update(checkpoint_bytes=on_disk, sync_save_s=[t for _, t in saves],
+                   sync_write_s=[t1 - t0 for _, t0, t1 in writes],
+                   validation_s=[t for t, _ in validations], validation=val,
+                   validation_launches=[c for _, c in validations],
+                   losses_a=[r["loss"] for r in hist_a])
+        print(f"  A: fit {out['fit_a_s']:.1f} s; saves {[f'{t:.2f}' for t in out['sync_save_s']]} s "
+              f"(writes {[f'{t:.2f}' for t in out['sync_write_s']]} s), {on_disk} bytes on disk "
+              f"({on_disk / reckoned:.4f} of the reckoning); after the prune {listing}; "
+              f"validations {[f'{t:.2f}' for t in out['validation_s']]} s over {val['samples']} "
+              f"tiles ({val_batches} batches), launches {validations[-1][1]}")
+        check(listing == ["epoch_1"], f"keep_last_checkpoints 1 left {listing}")
+        check(on_disk >= reckoned, f"the checkpoint holds {on_disk} bytes, under {reckoned}")
+        check(val["samples"] == FIELDS_RESUME_1B * tiles and len(val["means"]) == 16
+              and all(np.isfinite(v) for v in val["means"].values()),
+              f"validation {val}")
+        check(all(c == only(flash_attn_fwd=depth * val_batches) for _, c in validations),
+              f"validation launches {[c for _, c in validations]}, want K1 {depth} x {val_batches}")
+        check(all(np.isfinite(r["loss"]) for r in hist_a), "a 1B train loss is not finite")
+        # a validation batch's device time, full and the tail (fp32 masters
+        # cast per use, as the validation runs them); its launches are taken
+        # off the phase's count below
+        timing_from = counts()
+        vdm = a.data_module(next(iter(cfg.data.low_res_dir)))
+        in_vars, out_vars = vdm.get_data_variables()
+        val_shape, _ = vdm.get_data_dims()
+        tokens = (val_shape[2] // m.patch_size) * (val_shape[3] // m.patch_size)
+        step = make_eval_step(a.model, in_vars, out_vars)
+        val_batches_seen = list(vdm.val_dataloader())
+        for name, batch in (("val_batch_ms", val_batches_seen[0]),
+                            ("val_tail_ms", val_batches_seen[-1])):
+            xv, yv = (torch.from_numpy(t).cuda() for t in batch[:2])
+            out[name] = cuda_ms(lambda: step(xv, yv), iters=5, warmup=1)
+        out["val_tail_tiles"] = int(val_batches_seen[-1][0].shape[0])
+        print(f"  validation eval step (forward + clip, fp32 masters cast per use): a "
+              f"{BATCH_TRAIN_1B}-tile batch {out['val_batch_ms']:.3f} ms, the "
+              f"{out['val_tail_tiles']}-tile tail {out['val_tail_ms']:.3f} ms (events, median of 5)")
+        del vdm, step, val_batches_seen, xv, yv
+        timing = {k: v - timing_from[k] for k, v in counts().items()}
+
+        # the restore, bit for bit
+        torch.cuda.synchronize()
+        tt = time.perf_counter()
+        restored = ck.restore_checkpoint(str(ck_dir / "epoch_1"))
+        flat, scalars = flat_state(restored)
+        on_card = {k: v.to("cuda", non_blocking=True) for k, v in flat.items()}
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - tt
+        same_state((on_card, scalars), trainer_state(a), "restored epoch_1 against trainer A")
+        check(restored["epoch"] == 1, f"restored epoch {restored['epoch']}")
+        print(f"  restore of epoch_1 (read and moved to the card) {out['restore_s']:.2f} s: every "
+              f"parameter, mu, nu, count {scalars['count']}, lr {scalars['lr']!r} and epoch "
+              f"{restored['epoch']} equal to trainer A's bit for bit")
+        del a, restored, flat, on_card
+        torch.cuda.empty_cache()
+
+        # resume with async saves: epoch_2 is written while epoch 3 trains
+        b = instrument(Trainer(cfg, "cuda", checkpoint_dir=str(ck_dir), async_checkpoints=True))
+        snap = {}
+        saved_at = b._save
+
+        def save_and_snapshot(e):
+            saved_at(e)
+            if e == 2:  # B's state at its save, on the card: the next steps move the model
+                flat_b, scalars_b = trainer_state(b)
+                snap["state"] = ({k: v.detach().clone() for k, v in flat_b.items()}, scalars_b)
+
+        b._save = save_and_snapshot
+        n_writes = len(writes)
+        tt = time.perf_counter()
+        hist_b = b.fit(max_epochs=4, max_steps_per_epoch=RESUME_STEPS_1B)
+        torch.cuda.synchronize()
+        out["fit_b_s"] = time.perf_counter() - tt
+        for rec in hist_b:
+            print(f"    B {json.dumps(rec)}")
+        check([r["epoch"] for r in hist_b] == [2, 3], f"B resumed at {[r['epoch'] for r in hist_b]}")
+        check(all(np.isfinite(r["loss"]) for r in hist_b), "a resumed 1B loss is not finite")
+        b_writes = {name: (t0, t1) for name, t0, t1 in writes[n_writes:]}
+        e3 = next((t0, t1) for e, t0, t1 in epochs if e == 3)
+        w2 = b_writes["epoch_2"]
+        overlap = max(0.0, min(w2[1], e3[1]) - max(w2[0], e3[0]))
+        out.update(async_save_s=[t for e, t in saves if e >= 2],
+                   async_write_s={k: t1 - t0 for k, (t0, t1) in b_writes.items()},
+                   epoch3_s=e3[1] - e3[0], async_overlap_s=overlap,
+                   losses_b=[r["loss"] for r in hist_b])
+        same_state(flat_state(ck.restore_checkpoint(str(ck_dir / "epoch_2"))), snap["state"],
+                   "epoch_2 written asynchronously against B's state at its save")
+        print(f"  B: resumed at epoch 2 from epoch_1, fit {out['fit_b_s']:.1f} s; the async saves "
+              f"returned in {[f'{t:.2f}' for t in out['async_save_s']]} s (host copies), their "
+              f"writes took {[f'{t:.2f}' for t in out['async_write_s'].values()]} s; epoch 3 "
+              f"({out['epoch3_s']:.2f} s) overlapped epoch_2's write for {overlap:.2f} s; epoch_2 "
+              f"on disk equals B's state at its save bit for bit")
+        del b, snap
+        torch.cuda.empty_cache()
+        for name in ("epoch_2", "epoch_3"):
+            shutil.rmtree(ck_dir / name)
+
+        # two resumes from epoch_1 at MICRO_1B tiles, deterministic
+        micro = copy.deepcopy(cfg)
+        micro.trainer.batch_size = MICRO_1B
+        micro.trainer.checkpoint = str(ck_dir / "epoch_1")
+        runs = []
+        torch.use_deterministic_algorithms(True)
+        try:
+            for _ in range(2):
+                tt = time.perf_counter()
+                c = Trainer(micro, "cuda")
+                hist = c.fit(max_epochs=3, max_steps_per_epoch=RESUME_STEPS_1B)
+                torch.cuda.synchronize()
+                runs.append(([r["loss"] for r in hist], [r["epoch"] for r in hist],
+                             time.perf_counter() - tt))
+                del c
+                torch.cuda.empty_cache()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out["deterministic_losses"] = runs[0][0]
+        out["resume_s"] = [r[2] for r in runs]
+        print(f"  two resumes from epoch_1 at {MICRO_1B} tiles, deterministic: epochs {runs[0][1]} "
+              f"losses {runs[0][0]!r} and {runs[1][0]!r} ({[f'{r[2]:.1f}' for r in runs]} s)")
+        check(runs[0][1] == runs[1][1] == [2] and runs[0][0] == runs[1][0]
+              and all(np.isfinite(runs[0][0])), "the two resumes differ")
+
+        # the fine-tune on another tile geometry
+        raw = dataclasses.asdict(cfg)
+        raw["tiling"].update(div=FT_DIV, overlap=FT_OVERLAP)
+        raw["trainer"].update(batch_size=FT_BATCH, checkpoint=None)
+        ft_yaml = ck_root / "finetune.yaml"
+        ft_yaml.write_text(yaml.safe_dump(raw))
+        before = counts()
+        tt = time.perf_counter()
+        ft = finetune.main([str(ft_yaml), "--pretrain", str(ck_dir / "epoch_1"), "--loss",
+                            tc.train_loss, "--max-epochs", "1", "--max-steps-per-epoch",
+                            str(RESUME_STEPS_1B), "--checkpoint-dir", str(ft_dir),
+                            "--device", "cuda"])
+        torch.cuda.synchronize()
+        out["finetune_s"] = time.perf_counter() - tt
+        launched = {k: v - timing[k] for k, v in counts().items()}
+        ft_launched = {k: v - before[k] for k, v in counts().items()}
+        rep = ft["pretrain"]
+        (fh, fw), _ = tile_shapes(FT_DIV, FT_OVERLAP, *LOW_1B, *(4 * x for x in LOW_1B))
+        ft_tokens = (fh // m.patch_size) * (fw // m.patch_size)
+        out.update(finetune_tokens=ft_tokens, finetune_tile=[fh, fw], finetune_batch=FT_BATCH,
+                   finetune_losses=[r["loss"] for r in ft["history"]],
+                   pretrain={k: len(v) for k, v in rep.items()}, resized=rep["resized"])
+        print(f"  fine-tune from epoch_1 on div {FT_DIV} overlap {FT_OVERLAP} tiles {fh} x {fw} "
+              f"({ft_tokens} tokens, batch {FT_BATCH}): {out['finetune_s']:.1f} s; pretrain "
+              f"import {len(rep['used'])} used, {len(rep['dropped'])} dropped, resized "
+              f"{rep['resized']}; losses {out['finetune_losses']}; launches {ft_launched}")
+        check(rep["resized"] == ["pos_embed"] and rep["used"] and not rep["dropped"],
+              f"pretrain import {rep}")
+        check(all(np.isfinite(out["finetune_losses"])), "a fine-tune loss is not finite")
+        check(sorted(os.listdir(ft_dir)) == ["epoch_0"], f"the fine-tune saved {os.listdir(ft_dir)}")
+    finally:
+        ck._write = write
+        shutil.rmtree(ck_root, ignore_errors=True)
+
+    # the phase's launches: 2 x 2 steps of A, of B, 2 x 1 x 2 of the resumes
+    # and 2 of the fine-tune, all under remat; A's validations
+    steps = (2 + 2 + 2 + 1) * RESUME_STEPS_1B
+    want = only(**{k: v * steps * tc.grad_accum for k, v in remat_launches(depth).items()})
+    want["flash_attn_fwd"] += 2 * depth * val_batches
+    print(f"  phase launches {launched}")
+    check(launched == want, f"resume1b launches {launched}, want {want}")
+    check(ft_launched == only(**{k: v * RESUME_STEPS_1B for k, v in remat_launches(depth).items()}),
+          f"fine-tune launches {ft_launched}")
+
+    # the shapes this phase adds, against their plain versions: K1, K2, K3
+    # and K5 at the fine-tune's, and the validation's K1 (no dropout) at a
+    # full val batch (its 16-tile tail is serve1b's shape, held there)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kseed = 2 ** 42 + seed
+    q, k, v = make_qkv(FT_BATCH, ft_tokens, ft_tokens, h, d, torch.bfloat16, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    errs = check_batch_rows(q, k, v, do, m.drop_rate, kseed, [0, FT_BATCH - 1],
+                            f"bf16 drop {m.drop_rate:g} B{FT_BATCH} N{ft_tokens} H{h} d{d}")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    width = (m.embed_dim, int(m.embed_dim * m.mlp_ratio))
+    for c in width:
+        check_dropout(FT_BATCH * ft_tokens, c, torch.bfloat16, m.drop_rate, gen, kseed)
+    torch.cuda.empty_cache()
+    q, k, v = make_qkv(BATCH_TRAIN_1B, tokens, tokens, h, d, torch.bfloat16, gen)
+    val_err = check_batch_rows(q, k, v, None, 0.0, kseed, [0, BATCH_TRAIN_1B - 1],
+                               f"bf16 B{BATCH_TRAIN_1B} N{tokens} H{h} d{d} (validation)")["fwd"]
+    del q, k, v
+    torch.cuda.empty_cache()
+    val_launches = sum(c["flash_attn_fwd"] for c in out["validation_launches"])
+    return {"out": out, "launched": launched, "errs": errs, "val_err": val_err,
+            "finetune": {"shape": (FT_BATCH, ft_tokens, h, d), "rate": m.drop_rate,
+                         "launched": ft_launched, "steps": RESUME_STEPS_1B * tc.grad_accum,
+                         "width": width},
+            "validation": {"shape": (BATCH_TRAIN_1B, tokens, h, d), "launches": val_launches}}
+
 def step_kinds(by_name):
     """A step's kernel ms by kind, from its kernel names: int8 products
     (CUTLASS s8 GEMMs), other products (bf16 GEMMs and convolutions), K1,
@@ -1892,15 +2251,16 @@ def serving_1b_times(s, gen, seed, call_s, smi):
     return out
 
 
-def train_1b_times(t1b, gen, seed, call_s, smi):
-    """Phase 6 for the 1B training path: K1 (with the path's dropout), K2, K3
-    at the fit's attention shape and K5 at its [tokens, width] and
-    [tokens, 4 width], bf16, each by events and by its kernel time alone,
-    beside its plain version (over the same inputs, a few batch elements at a
-    time, each under its own streams' multiplier, made before the timing: the
-    whole batch's [B H, N, N] fp32 tensors would not fit), its library call
-    (SDPA's flash backend, its whole backward for K2 and K3; F.dropout) and
-    its bound. Returns the rows by kernel name."""
+def train_1b_times(t1b, gen, seed, call_s, smi, label="train 1B", chunk=MICRO_1B):
+    """Phase 6 for a 1B training path (train1b's fit, resume1b's fine-tune):
+    K1 (with the path's dropout), K2, K3 at its attention shape and K5 at its
+    [tokens, width] and [tokens, 4 width], bf16, each by events and by its
+    kernel time alone, beside its plain version (over the same inputs,
+    `chunk` batch elements at a time, each under its own streams'
+    multiplier, made before the timing: the whole batch's [B H, N, N] fp32
+    tensors would not fit), its library call (SDPA's flash backend, its
+    whole backward for K2 and K3; F.dropout) and its bound. Returns the rows
+    by kernel name."""
     import torch.nn.functional as F
 
     from orbit2_tpu_torch.ops.dropout import FusedDropout, dropout_reference
@@ -1915,7 +2275,6 @@ def train_1b_times(t1b, gen, seed, call_s, smi):
     do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
     o, lse = flash_attention_fwd(q, k, v, None, rate, seed)
     delta = attention_delta(o, do)
-    chunk = MICRO_1B
     parts = [slice(i, min(b, i + chunk)) for i in range(0, b, chunk)]
     mults = [keep_mult(seed, n, n, rate, streams=(sl.stop - sl.start) * h, device="cuda",
                        first_stream=sl.start * h) for sl in parts]
@@ -1972,7 +2331,7 @@ def train_1b_times(t1b, gen, seed, call_s, smi):
             "bound_ms": bound[0], "bound_by": bound[1],
             "launches_per_step": t1b["launched"]["fused_dropout"] // t1b["steps"]}
         r = rows["fused_dropout"]
-        print(f"  train 1B fused_dropout bf16 [{tokens}, {width}]: {r['ms']:.4f} ms (kernel alone "
+        print(f"  {label} fused_dropout bf16 [{tokens}, {width}]: {r['ms']:.4f} ms (kernel alone "
               f"{r['kernel_ms']:.4f}), plain {r['plain_ms']:.4f}, F.dropout {r['library_ms']:.4f}; "
               f"bound {r['bound_ms']:.4f} ({r['bound_by']}); gpu: {smi}")
         del x, mult
@@ -1980,12 +2339,51 @@ def train_1b_times(t1b, gen, seed, call_s, smi):
     for name, r in rows.items():
         if name == "fused_dropout":
             continue  # printed above, at both widths
-        print(f"  train 1B {name} bf16 {r['shape']} drop {r['dropout']:g}: {r['ms']:.4f} ms "
+        print(f"  {label} {name} bf16 {r['shape']} drop {r['dropout']:g}: {r['ms']:.4f} ms "
               f"(kernel alone {r['kernel_ms']:.4f}), plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}; bound {r['bound_ms']:.4f} ({r['bound_by']}); "
               f"{r['launches_per_step']} launches a step; gpu: {smi}")
     return rows
 
+
+def resume_1b_times(r1b, gen, seed, call_s, smi):
+    """Phase 6 for resume1b: K1, K2, K3 and K5 at the fine-tune's shapes, as
+    train_1b_times times them at the fit's (the plain versions two batch
+    elements at a time: the fine-tune's tiles are larger), and the
+    validation's K1 without dropout at a full val batch, by events and by
+    its kernel time alone, beside its plain version (MICRO_1B batch elements
+    at a time), SDPA's flash forward and its bound. Returns the rows by
+    kernel name, the validation's K1 under "validation"."""
+    import torch.nn.functional as F
+
+    from orbit2_tpu_torch.ops.flash_attention import (
+        attention_flops, flash_attention_fwd, flash_attention_reference)
+
+    rows = train_1b_times(r1b["finetune"], gen, seed, call_s, smi, label="fine-tune 1B", chunk=2)
+    b, n, h, d = r1b["validation"]["shape"]
+    q, k, v = make_qkv(b, n, n, h, d, torch.bfloat16, gen)
+    leaves = [t.transpose(1, 2) for t in (q, k, v)]
+    parts = [slice(i, min(b, i + MICRO_1B)) for i in range(0, b, MICRO_1B)]
+
+    def plain():
+        for sl in parts:
+            flash_attention_reference(q[sl], k[sl], v[sl], None, None)
+
+    fn = lambda: flash_attention_fwd(q, k, v, None, 0.0, seed)
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION), torch.no_grad():
+        library = best_ms(lambda: F.scaled_dot_product_attention(*leaves))
+    bound = roofline(attention_flops(b, n, n, h, d), nbytes(q, k, v, q) + 4 * b * h * n)
+    row = {"shape": [b, n, h, d], "dropout": 0.0, "ms": cuda_ms(fn), "kernel_ms": kernel_ms(fn),
+           "plain_ms": cuda_ms(plain, iters=3, warmup=1), "library_ms": library,
+           "bound_ms": bound[0], "bound_by": bound[1], "launches": r1b["validation"]["launches"]}
+    print(f"  validation 1B flash_attn_fwd bf16 {row['shape']}: {row['ms']:.4f} ms (kernel alone "
+          f"{row['kernel_ms']:.4f}), plain {row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}; "
+          f"bound {row['bound_ms']:.4f} ({row['bound_by']}); {row['launches']} launches in the "
+          f"phase's validations; gpu: {smi}")
+    del q, k, v, leaves
+    torch.cuda.empty_cache()
+    rows["validation"] = row
+    return rows
 
 @contextlib.contextmanager
 def plain_versions():
@@ -2026,7 +2424,7 @@ def train_step_of(model, cfg, in_vars, out_vars, grad_accum=1, mu_dtype=None, nu
     m = cfg.model
     opt = make_optimizer("adamw", {"lr": m.lr, "weight_decay": m.weight_decay,
                                    "betas": (m.beta_1, m.beta_2), "mu_dtype": mu_dtype,
-                                   "nu_dtype": nu_dtype}, model.parameters())
+                                   "nu_dtype": nu_dtype}, model.named_parameters())
     loss = METRICS_REGISTRY[cfg.trainer.train_loss](aggregate_only=True)
     return make_train_step(model, loss, cfg.data.var_weights, opt, in_vars, out_vars, grad_accum)
 
@@ -2363,6 +2761,10 @@ def main():
         phase("train1b")
         t1b = train1b(s1b, Path(tmp) / "1b_train", args.seed)
 
+        # 5d. checkpoints, resume, validation and fine-tuning at 1B
+        phase("resume1b")
+        r1b = resume1b(s1b, Path(tmp) / "1b_resume", args.seed)
+
         # 6. times
         phase("times")
         print(f"gpu: {smi}")
@@ -2511,6 +2913,11 @@ def main():
     print(json.dumps({"serving_1b": serving_1b}))
     train_1b = train_1b_times(t1b, gen, kernel_seed, call_s, smi)
     print(json.dumps({"train_1b": {"gpu": smi, "step": t1b["out"], "kernels": train_1b}}))
+    resume_1b = resume_1b_times(r1b, gen, kernel_seed, call_s, smi)
+    print(json.dumps({"resume_1b": {"gpu": smi, **r1b["out"], "launches": r1b["launched"],
+                                    "finetune_launches": r1b["finetune"]["launched"],
+                                    "errors": r1b["errs"], "validation_k1_error": r1b["val_err"],
+                                    "kernels": resume_1b}}))
 
     slice_shape = SHAPES[0]
     mlp_shape = MLP_SHAPES[0]
@@ -2531,15 +2938,25 @@ def main():
         return entry(name, "attn_probes.cu", f"scripts/bench_attn2.py:{line}",
                      errs[(name, PROBE_SHAPES[0])], ms, bound, library, probe_counts, chain)
 
-    def train1b_entry(name, source, replaces, err):
-        r = train_1b[name]
+    def path_entry(rows, key, launched, path, name, source, replaces, err):
+        r = rows[key]
         return {"name": name, "route": "cuda", "source": f"orbit2_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": t1b["launched"][name], "max_abs_err": err,
+                "replaces": replaces, "launches": launched, "max_abs_err": err,
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"], "path": "train1b",
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"], "path": path,
                 "shape": r["shape"]}
 
+    def train1b_entry(name, source, replaces, err):
+        return path_entry(train_1b, name, t1b["launched"][name], "train1b", name, source,
+                          replaces, err)
+
+    def resume1b_entry(name, source, replaces, err):
+        # launches: the fine-tune's, the phase's run at this shape
+        return path_entry(resume_1b, name, r1b["finetune"]["launched"][name], "resume1b", name,
+                          source, replaces, err)
+
     t1b_errs = t1b["errs"][t1b["shape"][0]]
+    r1b_errs = r1b["errs"]
     drop_shape = DROPOUT_SHAPES[1]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - START:.1f} s")
     print(json.dumps({"kernels": [
@@ -2581,6 +2998,17 @@ def main():
         train1b_entry("flash_attn_bwd_dkv", "flash_attn_bwd.cu",
                       "orbit2_tpu/ops/flash_attention.py:328", max(t1b_errs["dk"], t1b_errs["dv"])),
         train1b_entry("fused_dropout", "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39", 0.0),
+        # the 1B fine-tune's shapes, and the validation's K1 (phase resume1b)
+        resume1b_entry("flash_attn_fwd", "flash_attn_fwd.cu",
+                       "orbit2_tpu/ops/flash_attention.py:150", r1b_errs["fwd"]),
+        resume1b_entry("flash_attn_bwd_dq", "flash_attn_bwd.cu",
+                       "orbit2_tpu/ops/flash_attention.py:287", r1b_errs["dq"]),
+        resume1b_entry("flash_attn_bwd_dkv", "flash_attn_bwd.cu",
+                       "orbit2_tpu/ops/flash_attention.py:328", max(r1b_errs["dk"], r1b_errs["dv"])),
+        resume1b_entry("fused_dropout", "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39", 0.0),
+        path_entry(resume_1b, "validation", resume_1b["validation"]["launches"],
+                   "resume1b validation", "flash_attn_fwd", "flash_attn_fwd.cu",
+                   "orbit2_tpu/ops/flash_attention.py:150", r1b["val_err"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,29 +6,41 @@ batch, clip, denormalize, then rmse / pearson / mean_bias per output variable,
 averaged over samples into the same `test/<metric>:<var>` dict.
 
 Usage: python -m orbit2_tpu_torch.evaluate configs/interm_1b.yaml \
-           [--torch-npz PATH] [--max-batches N] [--quant {none,w8a8}] [--device cuda]
+           [--checkpoint DIR | --torch-npz PATH] [--max-batches N] \
+           [--quant {none,w8a8}] [--device cuda]
 
-A config with `tiling.do_tiling` serves its TILES tiles (div x div halo tiles
-of each field, the JAX Trainer.test's batches; metrics per tile), after the
-JAX Trainer's tiling check (trainer.py:167-186). `--quant w8a8` serves through
-the int8 trunk (utils/quantize.py), quantized from the fp32 weights. Device meshes and Orbax checkpoints are not ported: a config that asks
-for one raises.
+The weights, as the JAX drivers find them (examples/evaluate.py:41-63,
+examples/visualize.py:52-64): a reference-layout --torch-npz, else a port
+checkpoint from --checkpoint, then `trainer.checkpoint`, then the newest
+`epoch_N` under checkpoints/climate (an Orbax `epoch_N` of the JAX package is
+skipped); the Evaluator merges either into the config's model by
+`load_pretrained_params`, so one from another grid has its pos_embed resized
+(keys the source lacks are drawn). Without any, the drawn weights are
+served. A config with `tiling.do_tiling` serves its TILES tiles (div x div
+halo tiles of each field, the JAX Trainer.test's batches; metrics per tile),
+after the JAX Trainer's tiling check (trainer.py:167-186). `--quant w8a8`
+serves through the int8 trunk (utils/quantize.py), quantized from the fp32
+weights. Device meshes and Orbax checkpoints are not ported: a config that
+asks for a mesh raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import logging
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
 from orbit2_tpu_torch.config import Config, load_config
 from orbit2_tpu_torch.data.itermodule import IterDataModule
 from orbit2_tpu_torch.models.components.blocks import QUANT_MODES
-from orbit2_tpu_torch.training.checkpoint import load_state_npz
+from orbit2_tpu_torch.training.checkpoint import (
+    DEFAULT_CHECKPOINT_DIR, latest_port_checkpoint, load_pretrained_params, load_state_npz,
+    restore_checkpoint)
 from orbit2_tpu_torch.training.train import evaluate_batch, make_eval_step
 from orbit2_tpu_torch.utils.loaders import load_architecture, load_downscaling_module
 from orbit2_tpu_torch.utils.quantize import fp32_sources, w8a8_twin
@@ -91,12 +103,50 @@ def make_data_module(cfg: Config, data_key: str, div: int, overlap: int,
     return dm
 
 
+def merge_weights(cfg: Config, data_module: IterDataModule, meta_model: torch.nn.Module,
+                  state_dict: Mapping[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """`state_dict` (reference layout, perhaps of another grid) merged over
+    `meta_model`'s, a meta-device build of the config's model, by
+    load_pretrained_params at the tiles of `data_module`; only where keys
+    are left unfilled is the config's model drawn, to fill them, as the JAX
+    drivers merge into drawn weights. Returns (merged, the import report)."""
+    in_shape, _ = data_module.get_data_dims()
+    merged, report = load_pretrained_params(meta_model.state_dict(), state_dict,
+                                            cfg.model.patch_size, img_size=tuple(in_shape[2:]))
+    lacking = [k for k, v in merged.items() if v.is_meta]
+    log.info("weights: %d used / %d dropped / %d resized / %d drawn", len(report["used"]),
+             len(report["dropped"]), len(report["resized"]), len(lacking))
+    if lacking:
+        drawn = load_architecture(data_module, cfg.model.preset, **model_kwargs(cfg)).state_dict()
+        merged.update((k, drawn[k]) for k in lacking)
+    return merged, report
+
+
+def serving_weights(cfg: Config, checkpoint: Optional[str] = None,
+                    torch_npz: Optional[str] = None) -> Optional[Dict[str, torch.Tensor]]:
+    """The serving CLIs' weights (module docstring), as they lie in the
+    source, for the Evaluator to merge: `torch_npz`, else the model of
+    `checkpoint`, `trainer.checkpoint` or the newest port checkpoint under
+    checkpoints/climate. None where there is nothing to load."""
+    if torch_npz:
+        return load_state_npz(torch_npz)
+    source = checkpoint or cfg.trainer.checkpoint or latest_port_checkpoint(DEFAULT_CHECKPOINT_DIR)
+    if not source:
+        return None
+    state = restore_checkpoint(source)
+    log.info("checkpoint %s (epoch %s)", source, state.get("epoch"))
+    return state["model"]
+
+
 class Evaluator:
     """Builds the data module (tiled as the config says) and model of
     `config` on `device` (the card unless the caller asks for "cpu");
     `test()` evaluates the test split. `state_dict` (reference layout, e.g.
-    from training/checkpoint.py::state_dict_from_jax_params) is loaded
-    strictly; without one the weights are drawn from `config.trainer.seed`.
+    from training/checkpoint.py::state_dict_from_jax_params or
+    `serving_weights`, perhaps of another grid) is merged into a model
+    built on the meta device by `merge_weights` (pos_embed resized to the
+    tiles' grid; the model drawn from `config.trainer.seed` only where keys
+    are left unfilled). Without a state dict the weights are drawn.
     w8a8 serving quantizes from the fp32 weights, as the JAX Trainer does
     from its fp32 params: the host keeps the fp32 tensors the int8 trunk
     takes (its Linears' weights and biases) until the first w8a8 request
@@ -112,11 +162,15 @@ class Evaluator:
         self.data_module = dm = make_data_module(
             c, self.data_key, c.tiling.effective_div, c.tiling.effective_overlap, "test")
         check_tiling(c, dm)
-        (self.model, _, _, self.test_losses, _, _,
-         self.test_transforms) = load_downscaling_module(dm, c.model.preset, model_kwargs(c))
+        kwargs = model_kwargs(c) if state_dict is None else dict(model_kwargs(c), generator=None)
+        with torch.device("meta") if state_dict is not None else contextlib.nullcontext():
+            (self.model, _, _, self.test_losses, _, _,
+             self.test_transforms) = load_downscaling_module(dm, c.model.preset, kwargs)
         self._phase(self.model)
         if state_dict is not None:
-            self.model.load_state_dict(state_dict, strict=True)
+            merged, _ = merge_weights(c, dm, self.model, state_dict)
+            self.model.to_empty(device="cpu")
+            self.model.load_state_dict(merged, strict=True)
         fp32 = self.model.state_dict()  # the host tensors themselves, no copy
         self._fp32_sources = {k: fp32[k] for k in fp32_sources(self._architecture("w8a8"))}
         self._twins: Dict[str, torch.nn.Module] = {}
@@ -178,6 +232,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("config")
+    p.add_argument("--checkpoint", default=None, help="a port checkpoint directory (epoch_N)")
     p.add_argument("--torch-npz", default=None,
                    help="reference-layout state_dict saved as an npz of numpy arrays")
     p.add_argument("--max-batches", type=int, default=None)
@@ -188,11 +243,9 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     cfg = load_config(args.config)
-    state_dict = None
-    if args.torch_npz:
-        state_dict = load_state_npz(args.torch_npz)
-    else:
-        log.warning("no --torch-npz: evaluating weights drawn from trainer.seed")
+    state_dict = serving_weights(cfg, args.checkpoint, args.torch_npz)
+    if state_dict is None:
+        log.warning("no checkpoint: evaluating weights drawn from trainer.seed")
     ev = Evaluator(cfg, args.device, state_dict=state_dict, data_key=args.data_key)
     means = ev.test(max_batches=args.max_batches, quant=args.quant)
     print(json.dumps({k: round(float(v), 6) for k, v in means.items()}, indent=2))

@@ -84,3 +84,13 @@ def interpolate_pos_embed_on_the_fly(
     resized = torch.einsum("Hh,hwd->Hwd", wh, grid)
     resized = torch.einsum("Ww,hwd->hWd", ww, resized)
     return resized.reshape(1, new_h * new_w, embedding_size)
+
+
+def interpolate_pos_embed_checkpoint(pos_embed, patch_size: int, new_size: Tuple[int, int]):
+    """Checkpoint-import-time resize (JAX orbit2_tpu/ops/pos_embed.py:94-99,
+    reference pos_embed.py:75-101): a numpy [1, L, D] comes back as numpy, a
+    tensor as a tensor of its dtype and device."""
+    if isinstance(pos_embed, np.ndarray):
+        return interpolate_pos_embed_on_the_fly(
+            torch.from_numpy(pos_embed), patch_size, new_size).numpy()
+    return interpolate_pos_embed_on_the_fly(pos_embed, patch_size, new_size)

@@ -1,4 +1,27 @@
-"""Weights across the two packages.
+"""Checkpoints and weights across the two packages.
+
+Checkpoints (counterparts of orbit2_tpu/training/checkpoint.py:41-204), in
+the port's own format: `epoch_{e}/` is a directory holding one `torch.save`
+file (CHECKPOINT_FILE) of {"model": state_dict, "optimizer": AdamW state,
+"epoch": e}, every tensor on the host, read back with `torch.load(...,
+weights_only=True)`. The port imports no JAX, so it cannot read an Orbax
+checkpoint of the JAX package: a JAX run reaches the port through
+`export_torch_state_dict`'s reference-layout npz (`load_state_npz`).
+  * `save_checkpoint` copies CUDA tensors into pinned host buffers (one
+    synchronisation), writes into a hidden temporary sibling and renames it
+    into place, so a reader never sees half a checkpoint (Orbax commits by
+    rename too). `async_save=True` copies every tensor to the host before
+    it returns and writes in a background thread, so the training that goes
+    on cannot change what is written; `wait_for_async_saves` joins the
+    writer. Saves run one at a time, as Orbax's do.
+  * `restore_checkpoint(path, template)` casts each tensor to the
+    template's dtype, as Orbax casts to its template: an fp32-moment
+    checkpoint resumes under bf16 moments, and the reverse.
+  * `latest_checkpoint` and `prune_checkpoints` take JAX's names and cut-off;
+    `latest_port_checkpoint`, which the Trainer and the CLIs search with,
+    skips an epoch directory of the JAX package's Orbax format.
+  * `load_pretrained_params` is the reference's fine-tune filter on the
+    port's reference-layout state dicts.
 
 `state_dict_from_jax_params` is the numpy-only counterpart of
 orbit2_tpu/training/checkpoint.py::export_torch_state_dict: it maps the JAX
@@ -12,10 +35,250 @@ optimizer moments.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import logging
+import os
+import shutil
+import tempfile
+import threading
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from orbit2_tpu_torch.ops.pos_embed import interpolate_pos_embed_checkpoint
+
+log = logging.getLogger("orbit2_tpu_torch")
+
+CHECKPOINT_FILE = "state.pt"
+# where the CLIs save and look for checkpoints, as the JAX drivers do
+# through the JAX Trainer's default (orbit2_tpu/training/trainer.py:30)
+DEFAULT_CHECKPOINT_DIR = os.path.join("checkpoints", "climate")
+# the pipelined trunk's stacked block layout (JAX parallel/pipeline.py)
+STACKED_PREFIX = "blocks_stacked"
+
+
+def _map_tensors(obj, fn):
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, Mapping):
+        return {k: _map_tensors(v, fn) for k, v in obj.items()}
+    return obj
+
+
+def _host_copy(state, own: bool):
+    """`state` with every tensor on the host: device tensors copied into
+    pinned buffers by non-blocking copies, followed by one synchronisation
+    of each device (the buffers return to PyTorch's pinned-memory cache once
+    written, for the next save); host tensors as they are, or cloned with
+    own=True, for a write that runs while training goes on."""
+    devices = set()
+
+    def copy(t):
+        t = t.detach()
+        if t.device.type == "cpu":
+            return t.clone() if own else t
+        devices.add(t.device)
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out.copy_(t, non_blocking=True)
+        return out
+
+    host = _map_tensors(state, copy)
+    for device in devices:
+        torch.cuda.synchronize(device)
+    return host
+
+
+def _write(path: str, host_state) -> None:
+    """torch.save into a hidden temporary sibling, then renamed into place.
+    An existing checkpoint at `path` is renamed aside first and removed after,
+    so `path` holds either the old checkpoint, none, or the new one."""
+    parent, name = os.path.split(path)
+    os.makedirs(parent, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=f".{name}.", dir=parent)
+    old = None
+    try:
+        torch.save(host_state, os.path.join(tmp, CHECKPOINT_FILE))
+        if os.path.exists(path):
+            old = tempfile.mkdtemp(prefix=f".{name}.old.", dir=parent)
+            os.replace(path, old)  # onto an empty directory
+        os.replace(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    if old is not None:
+        shutil.rmtree(old)
+
+
+class AsyncWriter:
+    """One background checkpoint write at a time. `submit` first waits for
+    the previous write, which bounds the host copies held to one checkpoint;
+    `wait` joins the writer and raises what it raised. Driven from one
+    training thread."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def submit(self, path: str, host_state) -> None:
+        self.wait()
+        held = [host_state]
+
+        def run():
+            try:
+                _write(path, held.pop())  # the host copies go once written
+            except BaseException as e:  # re-raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, name=f"checkpoint {path}")
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
+
+
+_WRITER = AsyncWriter()
+
+
+def save_checkpoint(path: str, state: Dict[str, Any], async_save: bool = False) -> None:
+    """Writes `state` (nested dicts of tensors and numbers) to the directory
+    `path` (JAX checkpoint.py:41-60). With async_save the host copies are
+    made before this returns and written by a background thread."""
+    path = os.path.abspath(path)
+    if async_save:
+        _WRITER.submit(path, _host_copy(state, own=True))
+    else:
+        _WRITER.wait()  # saves run one at a time
+        _write(path, _host_copy(state, own=False))
+
+
+def wait_for_async_saves() -> None:
+    """Joins the background writer (JAX checkpoint.py:63-65)."""
+    _WRITER.wait()
+
+
+def _cast_like(state, template, where: str):
+    if isinstance(state, Mapping) and isinstance(template, Mapping):
+        return {k: _cast_like(v, template[k], f"{where}/{k}") if k in template else v
+                for k, v in state.items()}
+    if isinstance(state, torch.Tensor) and isinstance(template, torch.Tensor):
+        if state.shape != template.shape:
+            raise ValueError(f"checkpoint {where}: shape {tuple(state.shape)}, the template's "
+                             f"{tuple(template.shape)}")
+        return state.to(template.dtype)
+    return state
+
+
+def restore_checkpoint(path: str, template: Optional[Dict[str, Any]] = None):
+    """The state saved at `path`, its tensors on the host (memory-mapped:
+    what the caller does not touch is not read). With a template, each
+    tensor is cast to the dtype of the template's tensor at the same place
+    and must have its shape (JAX checkpoint.py:96-102)."""
+    state = torch.load(os.path.join(os.path.abspath(path), CHECKPOINT_FILE), map_location="cpu",
+                       weights_only=True, mmap=True)
+    return state if template is None else _cast_like(state, template, path)
+
+
+def _epochs(directory: str, prefix: str) -> List[Tuple[int, str]]:
+    epochs = []
+    for name in os.listdir(directory):
+        if name.startswith(prefix):
+            try:
+                epochs.append((int(name[len(prefix):]), name))
+            except ValueError:
+                continue
+    return epochs
+
+
+def latest_checkpoint(directory: str, prefix: str = "epoch_") -> Optional[str]:
+    """The checkpoint of the highest epoch under `directory`, None if there
+    is none (JAX checkpoint.py:105-117)."""
+    if not os.path.isdir(directory):
+        return None
+    best, best_e = None, -1
+    for e, name in _epochs(directory, prefix):
+        if e > best_e:
+            best, best_e = os.path.join(directory, name), e
+    return best
+
+
+def latest_port_checkpoint(directory: str, prefix: str = "epoch_") -> Optional[str]:
+    """The newest epoch checkpoint under `directory` that holds
+    CHECKPOINT_FILE, None if there is none. An epoch directory without it
+    (an Orbax checkpoint of the JAX package: the two share the default
+    directory and the names) is skipped with a log line."""
+    if not os.path.isdir(directory):
+        return None
+    for _, name in sorted(_epochs(directory, prefix), reverse=True):
+        path = os.path.join(directory, name)
+        if os.path.isfile(os.path.join(path, CHECKPOINT_FILE)):
+            return path
+        log.warning("skipping %s: it holds no %s (not a checkpoint of this package)", path,
+                    CHECKPOINT_FILE)
+    return None
+
+
+def prune_checkpoints(directory: str, keep_last: int, prefix: str = "epoch_",
+                      current_epoch: Optional[int] = None) -> None:
+    """Keeps the newest `keep_last` epoch checkpoints (JAX checkpoint.py:
+    68-93). Given `current_epoch`, the cut-off is by epoch number (delete
+    <= current_epoch - keep_last), since an asynchronous save of the newest
+    may not be committed yet; saves run one at a time, so what lies at or
+    below the cut-off is written."""
+    if not os.path.isdir(directory) or keep_last <= 0:
+        return
+    epochs = _epochs(directory, prefix)
+    if current_epoch is not None:
+        doomed = [n for e, n in epochs if e <= current_epoch - keep_last]
+    else:
+        doomed = [n for _, n in sorted(epochs)[:-keep_last]]
+    for name in doomed:
+        shutil.rmtree(os.path.join(directory, name), ignore_errors=True)
+
+
+def load_pretrained_params(state_dict: Mapping[str, torch.Tensor], pretrained: Mapping[str, Any],
+                           patch_size: int, img_size=None, strict: bool = False):
+    """Fine-tune import with the reference's filter (JAX checkpoint.py:
+    120-204, reference intermediate_downscaling.py:116-153), on
+    reference-layout state dicts: a key of `pretrained` missing from
+    `state_dict` is dropped; a key of another shape is dropped, except
+    `pos_embed`, which is resized bicubically to `img_size`'s token grid;
+    strict=True raises on a shape mismatch. The merged values take the
+    target's dtype. Returns (merged state dict, {"used": [key], "dropped":
+    [(reason, key)], "resized": [key]}).
+
+    The JAX version also converts between the per-block and the pipelined
+    (stacked) trunk layouts; the port has no pipelined trunk yet, so a
+    stacked state dict raises NotImplementedError."""
+    stacked = [k for k in (*state_dict, *pretrained) if k.startswith(STACKED_PREFIX)]
+    if stacked:
+        raise NotImplementedError(
+            f"{stacked[0]!r}: the pipelined trunk's stacked layout is not ported yet")
+    used, dropped, resized = [], [], []
+    merged = dict(state_dict)
+    for key, val in pretrained.items():
+        if key not in state_dict:
+            dropped.append(("missing", key))
+            continue
+        want = state_dict[key]
+        val = torch.as_tensor(val)
+        if tuple(val.shape) == tuple(want.shape):
+            merged[key] = val.to(want.dtype)
+            used.append(key)
+        elif key.rsplit(".", 1)[-1] == "pos_embed" and img_size is not None:
+            merged[key] = interpolate_pos_embed_checkpoint(val, patch_size,
+                                                           tuple(img_size)).to(want.dtype)
+            resized.append(key)
+        else:
+            dropped.append(("shape", key))
+            if strict:
+                raise ValueError(f"shape mismatch for {key}: {tuple(val.shape)} vs "
+                                 f"{tuple(want.shape)}")
+    return merged, {"used": used, "dropped": dropped, "resized": resized}
 
 
 def load_state_npz(path: str) -> Dict[str, torch.Tensor]:

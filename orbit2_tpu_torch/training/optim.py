@@ -18,12 +18,18 @@ orbit2_tpu/training/optim.py).
     the device.
 torch.optim.AdamW is not used: it cannot keep bf16 moments beside fp32
 parameters. The step runs as torch._foreach_* ops over the parameter list.
+
+`state_dict()` / `load_state_dict()` carry `count`, `lr` and the moments
+keyed by parameter name (AdamW is built from `named_parameters()`); a load
+casts each moment to this optimizer's storage dtype, as Orbax casts to the
+template on a JAX restore, so a checkpoint with fp32 moments resumes under
+bf16 moments and the reverse.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Iterable, Tuple
 
 import numpy as np
 import torch
@@ -48,13 +54,17 @@ def _pow_f32(base: np.float32, n: int) -> np.float32:
 
 
 class AdamW:
-    """AdamW over `params` (tensors whose .grad the step reads). mu_dtype /
-    nu_dtype: storage dtype of the moments, None for the parameter's."""
+    """AdamW over `named_params`, (name, tensor) pairs as `named_parameters()`
+    gives them: the step reads each tensor's .grad, the state is keyed by
+    the names. mu_dtype / nu_dtype: storage dtype of the moments, None for
+    the parameter's."""
 
-    def __init__(self, params: Sequence[torch.Tensor], lr: float, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
-                 mu_dtype=None, nu_dtype=None):
-        self.params = [p for p in params if p.requires_grad]
+    def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], lr: float,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 0.0, mu_dtype=None, nu_dtype=None):
+        pairs = [(n, p) for n, p in named_params if p.requires_grad]
+        self.names = [n for n, _ in pairs]
+        self.params = [p for _, p in pairs]
         self.b1, self.b2 = np.float32(b1), np.float32(b2)
         self.eps = _f32(eps)
         self.weight_decay = _f32(weight_decay)
@@ -68,6 +78,30 @@ class AdamW:
 
     def set_learning_rate(self, lr: float) -> None:
         self.lr = _f32(lr)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """{"count", "lr", "mu": {name: moment}, "nu": {name: moment}}: the
+        live moments, not copies."""
+        return {"count": self.count, "lr": self.lr, "mu": dict(zip(self.names, self.mu)),
+                "nu": dict(zip(self.names, self.nu))}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Copies `state` (state_dict's layout) in, each moment cast to its
+        storage dtype here and moved to its parameter's device."""
+        for key, mine in (("mu", self.mu), ("nu", self.nu)):
+            got = state[key]
+            missing, extra = set(self.names) - set(got), set(got) - set(self.names)
+            if missing or extra:
+                raise KeyError(f"optimizer state {key}: missing {sorted(missing)}, unexpected "
+                               f"{sorted(extra)}")
+            for name, m in zip(self.names, mine):
+                if got[name].shape != m.shape:
+                    raise ValueError(f"optimizer state {key}/{name}: shape "
+                                     f"{tuple(got[name].shape)}, the parameter's {tuple(m.shape)}")
+                m.copy_(got[name])
+        self.count = int(state["count"])
+        self.lr = _f32(state["lr"])
 
     @torch.no_grad()
     def step(self) -> None:
@@ -101,13 +135,14 @@ class AdamW:
         torch._foreach_copy_(self.nu, nu)
 
 
-def make_optimizer(name: str, hyperparams: Dict[str, Any], params) -> AdamW:
-    """reference load_optimizer (loaders.py:390-406); "adamw" only. The
-    learning rate is changed per epoch with `set_learning_rate`."""
+def make_optimizer(name: str, hyperparams: Dict[str, Any], named_params) -> AdamW:
+    """reference load_optimizer (loaders.py:390-406); "adamw" only, over
+    `named_params` (a model's `named_parameters()`). The learning rate is
+    changed per epoch with `set_learning_rate`."""
     if name != "adamw":
         raise NotImplementedError(f"optimizer {name!r} is not ported: only adamw")
     b1, b2 = hyperparams.get("betas", (0.9, 0.999))
-    return AdamW(params, lr=float(hyperparams.get("lr", 1e-3)), b1=float(b1), b2=float(b2),
+    return AdamW(named_params, lr=float(hyperparams.get("lr", 1e-3)), b1=float(b1), b2=float(b2),
                  weight_decay=float(hyperparams.get("weight_decay", 0.0)),
                  mu_dtype=hyperparams.get("mu_dtype"), nu_dtype=hyperparams.get("nu_dtype"))
 

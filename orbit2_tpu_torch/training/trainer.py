@@ -1,5 +1,5 @@
 """Trainer.fit on one device (counterpart of orbit2_tpu/training/trainer.py:
-29-65, 188-323, 370-585; the reference's main() loop,
+29-65, 188-323, 370-619, 859-872; the reference's main() loop,
 examples/intermediate_downscaling.py:379-832).
 
 The loop is the JAX Trainer's: the curriculum over `data.low_res_dir` keys
@@ -10,12 +10,31 @@ and losses kept on the device with one readback fence per 32 steps and one at
 the end of the epoch. Each epoch appends a history record {epoch, data_key,
 loss, batches, seconds, lr, data_wait_s, fence_wait_s, h2d_bytes}.
 
+Checkpoints (training/checkpoint.py): with a `checkpoint_dir`, each epoch is
+saved after its record as `epoch_{e}` (model, optimizer, epoch; in a
+background thread with `async_checkpoints`), and then all but the newest
+`keep_last_checkpoints` are pruned (0 keeps all). The first fit resumes from
+`trainer.checkpoint`, else from the newest `epoch_N` in `checkpoint_dir`:
+model, optimizer and epoch are restored and training goes on at epoch + 1
+(an `epoch_N` of the JAX package's Orbax format is skipped with a log line).
+A checkpoint found there wins over a `state_dict` passed in, as JAX's
+restore overwrites pre-seeded parameters. Without a `checkpoint_dir` nothing
+is saved and no directory is searched (`trainer.checkpoint` still resumes):
+the JAX Trainer defaults to "checkpoints/climate", the port's CLIs do.
+
+With `run_validation`, each epoch is validated after its save (JAX
+Trainer.validate): the eval step over the phase's val split, partial tail
+batch included, into sample-weighted means kept as `last_validation` =
+{"means", "samples"} and logged.
+
 Randomness: the dropout sites draw their seeds from a CPU generator seeded
 with trainer.seed + 17 (the JAX Trainer's dropout key, trainer.py:393), and
 DropPath its masks from a second CPU generator seeded with trainer.seed + 18,
 the JAX package's separate drop_path stream. Both are host-side, so a step on
 the card and the same step on the CPU see the same masks and no draw waits
-for the device.
+for the device. Both start afresh at each fit, on a resume too, as JAX's key
+does: a resumed run is the JAX Trainer's resumed run, not the uninterrupted
+one.
 
 A config with `tiling.do_tiling` trains on its TILES tiles (div x div halo
 tiles of each field, the JAX Trainer's train batches), after the JAX
@@ -23,14 +42,15 @@ Trainer's tile check (trainer.py:129-186); `trainer.remat` and
 `trainer.remat_policy` recompute each Block's activations in the backward
 (models/res_slimvit.py::remat_block), which changes no value.
 
-Not ported, and raising NotImplementedError when configured: checkpoint
-save/resume (`trainer.checkpoint`, a checkpoint_dir), validation during fit,
-device meshes, MoE and pipeline trunks.
+Not ported, and raising NotImplementedError when configured: device meshes,
+MoE and pipeline trunks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
 import time
 from typing import Dict, Mapping, Optional
 
@@ -39,8 +59,11 @@ import torch
 from orbit2_tpu_torch.config import Config
 from orbit2_tpu_torch.data.itermodule import IterDataModule
 from orbit2_tpu_torch.evaluate import check_scope, check_tiling, make_data_module, model_kwargs
+from orbit2_tpu_torch.training.checkpoint import (
+    latest_port_checkpoint, prune_checkpoints, restore_checkpoint, save_checkpoint,
+    wait_for_async_saves)
 from orbit2_tpu_torch.training.optim import make_lr_scheduler, make_optimizer, set_learning_rate
-from orbit2_tpu_torch.training.train import make_train_step
+from orbit2_tpu_torch.training.train import evaluate_batch, make_eval_step, make_train_step
 from orbit2_tpu_torch.utils.loaders import load_downscaling_module
 
 log = logging.getLogger("orbit2_tpu_torch")
@@ -57,44 +80,90 @@ class Trainer:
     training/checkpoint.py::state_dict_from_jax_params) is loaded strictly
     as the initial parameters (the model is then built on the meta device
     and nothing is drawn); without one they are drawn from
-    `config.trainer.seed`."""
+    `config.trainer.seed`. The module docstring says what `checkpoint_dir`,
+    `keep_last_checkpoints`, `async_checkpoints` and `run_validation` do."""
 
     def __init__(self, config: Config, device="cuda",
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                 checkpoint_dir: Optional[str] = None, run_validation: bool = False):
+                 checkpoint_dir: Optional[str] = None, run_validation: bool = False,
+                 keep_last_checkpoints: int = 0, async_checkpoints: bool = False):
         self.cfg = c = config.validate()
         check_scope(c)
-        if checkpoint_dir is not None or c.trainer.checkpoint:
-            raise NotImplementedError("checkpoint save/resume is not ported yet")
-        if run_validation:
-            raise NotImplementedError("validation during fit is not ported yet")
         if c.model.moe_experts or c.parallelism.pipeline > 1:
             raise NotImplementedError("MoE and pipeline trunks are not ported yet")
         self.device = torch.device(device)
         self.state_dict = state_dict
+        self.checkpoint_dir = checkpoint_dir
+        self.run_validation = run_validation
+        self.keep_last_checkpoints = keep_last_checkpoints
+        self.async_checkpoints = async_checkpoints
         self.model = None
         self.optimizer = None
         self.lr_schedule = None
         self.history: list = []
+        self.last_validation: Optional[dict] = None
         self._data_modules: Dict[str, IterDataModule] = {}
 
-    def _build_model(self, dm: IterDataModule) -> None:
+    def data_module(self, data_key: str) -> IterDataModule:
+        """The phase's data module at the config's tiling, every split set
+        up, tile-checked; made once per data key."""
+        dm = self._data_modules.get(data_key)
+        if dm is None:
+            c = self.cfg
+            dm = make_data_module(c, data_key, c.tiling.effective_div, c.tiling.effective_overlap)
+            check_tiling(c, dm)
+            self._data_modules[data_key] = dm
+        return dm
+
+    def build_model(self, dm: IterDataModule, state_dict=None) -> None:
+        """The config's model on the device, with its train and val losses:
+        drawn from trainer.seed, or, given a `state_dict`, built on the meta
+        device (nothing drawn) and filled strictly from it."""
         c = self.cfg
         kwargs = dict(model_kwargs(c), remat=c.trainer.remat,
                       remat_policy=c.trainer.remat_policy)
-        if self.state_dict is None:
-            (self.model, self.train_loss, _, _, _, _, _) = load_downscaling_module(
-                dm, c.model.preset, kwargs, train_loss=c.trainer.train_loss)
-            self.model.to(self.device)
-        else:
-            with torch.device("meta"):
-                (self.model, self.train_loss, _, _, _, _, _) = load_downscaling_module(
-                    dm, c.model.preset, dict(kwargs, generator=None),
-                    train_loss=c.trainer.train_loss)
+        meta = state_dict is not None
+        with torch.device("meta") if meta else contextlib.nullcontext():
+            (self.model, self.train_loss, self.val_losses, _, _, self.val_transforms,
+             _) = load_downscaling_module(dm, c.model.preset,
+                                          dict(kwargs, generator=None) if meta else kwargs,
+                                          train_loss=c.trainer.train_loss)
+        if meta:
             self.model.to_empty(device=self.device)
-            self.model.load_state_dict(self.state_dict, strict=True)
+            self.model.load_state_dict(state_dict, strict=True)
+        else:
+            self.model.to(self.device)
         n = sum(p.numel() for p in self.model.parameters())
         log.info("initialized %.2fM params on %s", n / 1e6, self.device)
+
+    def _start(self, dm: IterDataModule) -> int:
+        """Builds the model (unless the caller has) and the optimizer, and
+        resumes them and the epoch from `trainer.checkpoint` or the newest
+        checkpoint of checkpoint_dir, where there is one. Returns the first
+        epoch to train."""
+        c = self.cfg
+        path = c.trainer.checkpoint or (latest_port_checkpoint(self.checkpoint_dir)
+                                        if self.checkpoint_dir is not None else None)
+        if path and not os.path.exists(path):
+            log.warning("checkpoint %s does not exist: training from the start", path)
+            path = None
+        # the loads below cast to the model's and the moments' dtypes
+        state = restore_checkpoint(path) if path else None
+        if self.model is None:
+            self.build_model(dm, state["model"] if state else self.state_dict)
+        elif state:
+            self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer = make_optimizer("adamw", {
+            "lr": c.model.lr, "weight_decay": c.model.weight_decay,
+            "betas": (c.model.beta_1, c.model.beta_2),
+            "mu_dtype": c.trainer.adam_mu_dtype, "nu_dtype": c.trainer.adam_nu_dtype,
+        }, self.model.named_parameters())
+        if state is None:
+            return 0
+        self.optimizer.load_state_dict(state["optimizer"])
+        epoch = int(state["epoch"]) + 1
+        log.info("resumed from %s at epoch %d", path, epoch)
+        return epoch
 
     def _phase(self, dm: IterDataModule, data_key: str) -> None:
         in_shape, _ = dm.get_data_dims()
@@ -127,20 +196,9 @@ class Trainer:
         epoch_start = 0
         while epoch_start < max_epochs:
             for data_key in c.data.low_res_dir:
-                dm = self._data_modules.get(data_key)
-                if dm is None:
-                    dm = make_data_module(c, data_key, c.tiling.effective_div,
-                                          c.tiling.effective_overlap)
-                    check_tiling(c, dm)
-                    self._data_modules[data_key] = dm
-                if self.model is None:
-                    self._build_model(dm)
-                    self.optimizer = make_optimizer("adamw", {
-                        "lr": c.model.lr, "weight_decay": c.model.weight_decay,
-                        "betas": (c.model.beta_1, c.model.beta_2),
-                        "mu_dtype": c.trainer.adam_mu_dtype,
-                        "nu_dtype": c.trainer.adam_nu_dtype,
-                    }, self.model.parameters())
+                dm = self.data_module(data_key)
+                if self.optimizer is None:
+                    epoch_start = self._start(dm)
                 self._phase(dm, data_key)
                 in_vars, out_vars = dm.get_data_variables()
                 if data_key not in steps:
@@ -156,10 +214,51 @@ class Trainer:
                         epoch, data_key, dm, train_step, dropout_gen, drop_path_gen,
                         stage_dtype, max_steps_per_epoch))
                     log.info("epoch %d %s: %s", epoch, data_key, self.history[-1])
+                    if self.checkpoint_dir is not None:
+                        self._save(epoch)
+                    if self.run_validation:
+                        self.validate(dm, in_vars, out_vars, epoch)
                 epoch_start = epoch_end
                 if epoch_start >= max_epochs:
                     break
+        wait_for_async_saves()
         return self.history
+
+    def _save(self, epoch: int) -> None:
+        """Saves epoch_{epoch}, then prunes to the newest keep_last_checkpoints
+        (JAX trainer.py:859-872)."""
+        path = os.path.join(self.checkpoint_dir, f"epoch_{epoch}")
+        save_checkpoint(path, {"model": self.model.state_dict(),
+                               "optimizer": self.optimizer.state_dict(), "epoch": epoch},
+                        async_save=self.async_checkpoints)
+        if self.keep_last_checkpoints:
+            prune_checkpoints(self.checkpoint_dir, self.keep_last_checkpoints,
+                              current_epoch=epoch)
+
+    def validate(self, dm: IterDataModule, in_vars, out_vars, epoch: int) -> Dict[str, float]:
+        """The val losses over `dm`'s val split, sample-weighted (JAX
+        trainer.py:587-619). JAX pads a partial tail batch to the static
+        batch size and slices the padding off again; eager PyTorch takes it
+        as it is. Sets `last_validation` = {"means", "samples"}."""
+        step = make_eval_step(self.model, in_vars, out_vars)
+        agg: Dict[str, float] = {}
+        n = 0
+        loader = iter(dm.val_dataloader())
+        try:
+            for batch in loader:
+                x, y = self._put(batch[0], None), self._put(batch[1], None)
+                losses = evaluate_batch(step(x, y), y, "val", self.val_losses,
+                                        self.val_transforms, out_vars)
+                values = torch.stack(list(losses.values())).tolist()  # one sync per batch
+                for k, v in zip(losses, values):
+                    agg[k] = agg.get(k, 0.0) + v * x.shape[0]
+                n += x.shape[0]
+        finally:
+            loader.close()
+        means = {k: v / max(1, n) for k, v in agg.items()}
+        log.info("validation epoch %d: %s", epoch, means)
+        self.last_validation = {"means": means, "samples": n}
+        return means
 
     def _epoch(self, epoch, data_key, dm, train_step, dropout_gen, drop_path_gen, stage_dtype,
                max_steps) -> dict:

@@ -3,13 +3,15 @@ examples/visualize.py): the model's TILES tiles stitched back into one full
 test field, denormalized, dumped as npy per output variable, with PSNR/SSIM.
 
 Usage: python -m orbit2_tpu_torch.visualize configs/interm_1b.yaml \
-           [--torch-npz PATH] [--index N] [--out-dir DIR] [--quant {none,w8a8}] \
-           [--device cuda]
+           [--checkpoint DIR | --torch-npz PATH] [--index N] [--out-dir DIR] \
+           [--quant {none,w8a8}] [--device cuda]
 
 Two data modules, as in the reference (examples/visualize.py:341-378): the
 Evaluator's tiled one gives the model its per-tile geometry, and an untiled
-one (div 1, overlap 0) locates the full sample that is stitched. Weights come
-from --torch-npz (loaded strictly) or are drawn from trainer.seed.
+one (div 1, overlap 0) locates the full sample that is stitched. The weights
+are found and merged as the evaluate CLI's are (evaluate.py::serving_weights:
+--torch-npz, --checkpoint, `trainer.checkpoint`, the newest `epoch_N` under
+checkpoints/climate, merged by the Evaluator), else drawn from trainer.seed.
 """
 
 from __future__ import annotations
@@ -19,9 +21,8 @@ import json
 import logging
 
 from orbit2_tpu_torch.config import load_config
-from orbit2_tpu_torch.evaluate import Evaluator, make_data_module
+from orbit2_tpu_torch.evaluate import Evaluator, make_data_module, serving_weights
 from orbit2_tpu_torch.models.components.blocks import QUANT_MODES
-from orbit2_tpu_torch.training.checkpoint import load_state_npz
 from orbit2_tpu_torch.utils.visualize import model_forward_fn, visualize_at_index
 
 log = logging.getLogger("orbit2_tpu_torch")
@@ -31,6 +32,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("config")
+    p.add_argument("--checkpoint", default=None, help="a port checkpoint directory (epoch_N)")
     p.add_argument("--torch-npz", default=None,
                    help="reference-layout state_dict saved as an npz of numpy arrays")
     p.add_argument("--index", type=int, default=0)
@@ -42,9 +44,9 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     cfg = load_config(args.config)
-    state_dict = load_state_npz(args.torch_npz) if args.torch_npz else None
+    state_dict = serving_weights(cfg, args.checkpoint, args.torch_npz)
     if state_dict is None:
-        log.warning("no --torch-npz: visualizing weights drawn from trainer.seed")
+        log.warning("no checkpoint: visualizing weights drawn from trainer.seed")
     ev = Evaluator(cfg, args.device, state_dict=state_dict, data_key=args.data_key)
     div, overlap = cfg.tiling.effective_div, cfg.tiling.effective_overlap
     dm_vis = ev.data_module if div == 1 else make_data_module(cfg, ev.data_key, 1, 0, "test")

@@ -70,11 +70,12 @@ def test_state_dict_equals_export_of_trainer_params(synth_dataset, tmp_path):
         np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
 
 
-def test_evaluator_cli_prints_metrics(synth_dataset, tmp_path, capsys):
+def test_evaluator_cli_prints_metrics(synth_dataset, tmp_path, monkeypatch, capsys):
     import json
 
     import yaml
 
+    monkeypatch.chdir(tmp_path)  # the CLI searches checkpoints/climate under it
     path = tmp_path / "tiny.yaml"
     path.write_text(yaml.safe_dump(tiny_raw(synth_dataset)))
     main([str(path), "--max-batches", "1", "--device", "cpu"])

@@ -41,7 +41,7 @@ def test_adamw_matches_optax_five_steps(mu_dtype, nu_dtype):
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     state = tx.init(jp)
     tp = {k: torch.from_numpy(v.copy()).requires_grad_() for k, v in params.items()}
-    opt = make_optimizer("adamw", hp, list(tp.values()))
+    opt = make_optimizer("adamw", hp, tp.items())
     moment_tol = 1e-6 if mu_dtype is None else 1e-5
     for step in range(5):
         lr = 2e-3 * (step + 1) / 5  # the per-epoch lr path
@@ -77,7 +77,7 @@ def test_step_needs_every_gradient():
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     state = tx.init(jp)
     tp = {k: torch.from_numpy(v.copy()).requires_grad_() for k, v in params.items()}
-    opt = make_optimizer("adamw", hp, list(tp.values()))
+    opt = make_optimizer("adamw", hp, tp.items())
     for step in range(3):
         grads = {k: rng.normal(size=s).astype(np.float32) for k, s in SHAPES.items()}
         grads["b"] = np.zeros_like(grads["b"]) if step else grads["b"]

@@ -34,6 +34,7 @@ MODULES = [
     "orbit2_tpu_torch.utils.quantize",
     "orbit2_tpu_torch.utils.visualize",
     "orbit2_tpu_torch.evaluate",
+    "orbit2_tpu_torch.finetune",
     "orbit2_tpu_torch.train",
     "orbit2_tpu_torch.visualize",
     "orbit2_tpu_torch.scripts.bench_attn2",

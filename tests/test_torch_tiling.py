@@ -134,7 +134,8 @@ def test_trainer_tile_check_matches_jax(synth_32x64, tmp_path):
 
 
 @pytest.mark.parametrize("quant", ["none", "w8a8"])
-def test_evaluate_cli_serves_tiles_in_bf16(synth_32x64, tmp_path, capsys, quant):
+def test_evaluate_cli_serves_tiles_in_bf16(synth_32x64, tmp_path, monkeypatch, capsys, quant):
+    monkeypatch.chdir(tmp_path)  # the CLI searches checkpoints/climate under it
     path = tmp_path / "tiled.yaml"
     path.write_text(yaml.safe_dump(tiled_raw(synth_32x64, 4, 2, data_type="bfloat16")))
     main([str(path), "--max-batches", "2", "--quant", quant, "--device", "cpu"])
@@ -142,10 +143,11 @@ def test_evaluate_cli_serves_tiles_in_bf16(synth_32x64, tmp_path, capsys, quant)
     assert len(out) == 12 and all(np.isfinite(v) for v in out.values())
 
 
-def test_evaluate_cli_w8a8_metrics_close_to_fp(synth_32x64, tmp_path, capsys):
+def test_evaluate_cli_w8a8_metrics_close_to_fp(synth_32x64, tmp_path, monkeypatch, capsys):
     """`--quant w8a8` serves the same weights through the int8 trunk: the
     metrics stay finite and every rmse within 5% of the fp one (the
     counterpart of tests/test_drivers.py::test_evaluate_driver_w8a8_quantized_serving)."""
+    monkeypatch.chdir(tmp_path)
     path = tmp_path / "tiled.yaml"
     path.write_text(yaml.safe_dump(tiled_raw(synth_32x64, 2, 2)))
     runs = {}

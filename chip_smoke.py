@@ -155,6 +155,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
                validation's K1 at (B32, N2178) without dropout beside SDPA,
                with resume1b's numbers, on the line {"resume_1b": {...}}
 
+  7. serve10b — configs/interm_10b.yaml served at full width and depth
+               (embed 8192, depth 11, 32 heads, d 256, MLP 32,768, gelu
+               tanh, bf16, 9,408,639,363 parameters; its mesh cut to the
+               card) on a synthetic ERA5 1.0 deg test split (ERA5_2: 180 x 360
+               -> 720 x 1,440, ERA5_1's 23 -> 3 variables; the config's 5.625
+               deg grid cuts odd tiles): div 4 / overlap 3 tiles of 48 x 96
+               (1,152 tokens), batch 16. The Evaluator built for bf16 alone
+               (build seconds, host resident peak, card peak; no fp32 tensor
+               kept), K1 at (B16, N1152, H32, d256) with and without dropout
+               on its first and last batch elements and K5 bit for bit at
+               [18,432, 8,192 | 32,768] against their plain versions;
+               test() over 2 batches (exactly depth x batches K1 launches),
+               the trunk on the kernels within 0.02 of the plain attention's,
+               the stitched 720 x 1,440 field (depth x 16 K1 launches), an MC
+               ensemble of 2 samples (exact K1 and K5 launches; seeded); the
+               bf16 step by events and kernel time by kind, peak memory; K1's
+               and K5's rows beside plain, SDPA / F.dropout and bounds. Then
+               the Evaluator built for w8a8 (the twin quantized on the card
+               as the model is filled): its bf16 prediction equal to the
+               first's bit for bit, test() in w8a8, the prediction, trunk and
+               stitched field within 0.05 of bf16, its step timed; the line
+               {"serving_10b": {...}}
+
 The second-to-last line is {"kernels": [...]}: for each kernel its launches
 on its path, max abs error, ms, plain ms, library ms (null where no single
 PyTorch call computes its function; then `chain_ms`, where timed, is the
@@ -238,6 +261,32 @@ FIELDS_RESUME_1B = 5
 RESUME_STEPS_1B = 2
 FT_DIV, FT_OVERLAP = 3, 2
 FT_BATCH = 8
+
+# the 10B serving phase (serve10b): configs/interm_10b.yaml at full width and
+# depth, its mesh cut to the card; ERA5_1's 23 -> 3 variables on a synthetic
+# ERA5 1.0 deg test split (the config's ERA5_2 key: 180 x 360 -> 720 x 1440)
+# of FIELDS_10B fields, since the config's own 5.625 deg grid cuts 11 x 22
+# tiles, odd for patch 2; the config's div 4 / overlap 3 cut 48 x 96 tiles (24
+# x 48 = 1,152 tokens), BATCH_10B tiles a batch (the config's 32 cut to 16)
+CONFIG_10B = ROOT / "configs" / "interm_10b.yaml"
+KEY_10B = "ERA5_2"
+LOW_10B = (180, 360)
+FIELDS_10B = 2
+BATCH_10B = 16
+BATCHES_10B = 2
+MC_SAMPLES_10B = 2
+# the parameters of the port's model at these tiles (JAX's count, key for key:
+# tests/test_torch_serve10b.py) and K1's (B, N, H, d) on this path
+PARAMS_10B = 9_408_639_363
+ATTENTION_10B = (BATCH_10B, 1152, 32, 256)
+# the witness of the bf16 prediction's error: the first WITNESS_TILES_10B
+# tiles of the batch through the same bf16 weights computing in fp32 on the
+# plain attention. The bf16 prediction on the kernels may lie at most
+# WITNESS_RATIO times as far from it as the bf16 prediction on the plain
+# attention does, by relative Frobenius error and by the largest difference
+# (a fault confined to a few values moves the largest)
+WITNESS_TILES_10B = 4
+WITNESS_RATIO = 2.0
 
 # (B, N_q, N_k, H, D): the slice, the 117M bench shape, the 1B serving shape,
 # a ragged N over many kv tiles at the widest head, N_q != N_k, and one query
@@ -476,6 +525,26 @@ def config_1b(root: Path, seed: int, low=LOW_1B, trainer=None, n_files=1, t=FIEL
     n_files x t fields at `low`."""
     return slice_config(root, seed, CONFIG_1B, trainer={"batch_size": BATCH_1B, **(trainer or {})},
                         model=model, n_files=n_files, t=t, low=low, shards=shards)
+
+
+def config_10b(root: Path, seed: int):
+    """configs/interm_10b.yaml with its mesh (fsdp 4 x tensor_par 4) cut to
+    the one card, batch BATCH_10B tiles, and ERA5_1's variables under
+    KEY_10B on a synthetic test split of FIELDS_10B fields at LOW_10B."""
+    import yaml
+
+    from orbit2_tpu_torch.config import load_config
+
+    raw = yaml.safe_load(CONFIG_10B.read_text())
+    data = raw["data"]
+    in_vars, out_vars = data["dict_in_variables"]["ERA5_1"], data["dict_out_variables"]["ERA5_1"]
+    low, high = write_dataset(root, in_vars, out_vars, seed, n_files=1, t=FIELDS_10B,
+                              low=LOW_10B, shards=("test",))
+    data["low_res_dir"], data["high_res_dir"] = {KEY_10B: low}, {KEY_10B: high}
+    data["dict_in_variables"], data["dict_out_variables"] = {KEY_10B: in_vars}, {KEY_10B: out_vars}
+    raw["parallelism"] = {"fsdp": 1, "simple_ddp": 1, "tensor_par": 1, "seq_par": 1}
+    raw["trainer"]["batch_size"] = BATCH_10B
+    return load_config(raw)
 
 
 def set_attention_impl(model, impl):
@@ -1435,7 +1504,7 @@ def serve1b(cfg, seed):
     print(f"  config {CONFIG_1B.name}: embed {m.embed_dim} depth {m.depth} heads {m.num_heads} "
           f"(d {m.embed_dim // m.num_heads}) decoder {m.decoder_depth} mlp_ratio {m.mlp_ratio} "
           f"gelu {m.gelu_approx} {cfg.trainer.data_type}, {n_params / 1e9:.3f} B parameters drawn "
-          f"from trainer.seed on the host and moved in {build_s:.1f} s; tiling div {div} overlap "
+          f"from trainer.seed on the card in {build_s:.1f} s; tiling div {div} overlap "
           f"{overlap}: tiles {tuple(in_shape[2:])} -> {tuple(out_shape[2:])}, {tokens} tokens, "
           f"batch {in_shape[0]} tiles")
     # the path's kernels at its shapes: K1 on a batch and on one stitched
@@ -2099,6 +2168,451 @@ def resume1b(s1b, root, seed):
                          "launched": ft_launched, "steps": RESUME_STEPS_1B * tc.grad_accum,
                          "width": width},
             "validation": {"shape": (BATCH_TRAIN_1B, tokens, h, d), "launches": val_launches}}
+
+def host_rss_gib():
+    """This process's resident set (VmRSS), GiB."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 2 ** 20
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+@contextlib.contextmanager
+def host_rss_peak(interval=0.005):
+    """Samples this process's resident set every `interval` seconds inside
+    the block (the kernel's own peak cannot be reset here): yields a dict
+    whose "peak_gib" holds the largest sample once the block ends."""
+    import threading
+
+    got = {"peak_gib": host_rss_gib()}
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(interval):
+            got["peak_gib"] = max(got["peak_gib"], host_rss_gib())
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield got
+    finally:
+        done.set()
+        thread.join()
+        got["peak_gib"] = max(got["peak_gib"], host_rss_gib())
+
+
+@contextlib.contextmanager
+def launch_widths(kernel):
+    """Counts the launches of K5's wrapper `kernel` inside the block by the
+    [rows, cols] each was made on: yields a collections.Counter of them."""
+    import collections
+
+    got = collections.Counter()
+    launch = kernel.launch
+
+    def counted(device, dtype, x, out, rows, cols, *rest):
+        got[(rows, cols)] += 1
+        return launch(device, dtype, x, out, rows, cols, *rest)
+
+    kernel.launch = counted
+    try:
+        yield got
+    finally:
+        del kernel.launch
+
+
+def build_10b(cfg, quant_modes):
+    """The 10B Evaluator asked for `quant_modes`, built with the card's
+    memory peak reset first: (Evaluator, {build seconds, host resident set
+    before, its sampled peak during the build and after it, getrusage's
+    lifetime peak, the card's peak and in-use bytes})."""
+    import gc
+    import resource
+
+    from orbit2_tpu_torch.evaluate import Evaluator
+    from orbit2_tpu_torch.utils.memory import device_memory_stats
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = host_rss_gib()
+    t0 = time.perf_counter()
+    with host_rss_peak() as rss:
+        ev = Evaluator(cfg, "cuda", quant_modes=quant_modes)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    after, card = host_rss_gib(), device_memory_stats()
+    out = {"quant_modes": list(quant_modes), "build_s": seconds, "host_rss_before_gib": before,
+           "host_peak_rss_gib": rss["peak_gib"], "host_rss_gib": after,
+           "ru_maxrss_gib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20,
+           "card_peak_gib": card["peak_bytes_in_use"] / 2 ** 30,
+           "card_in_use_gib": card["bytes_in_use"] / 2 ** 30}
+    fp32 = [k for k, t in ev.model.state_dict().items() if t.dtype == torch.float32]
+    check(not fp32, f"{quant_modes} Evaluator keeps fp32 tensors: {fp32[:3]}")
+    check(sorted(ev._twins) == sorted(set(quant_modes) - {"none"}),
+          f"{quant_modes} Evaluator holds the twins {sorted(ev._twins)}")
+    print(f"  Evaluator(quant_modes={tuple(quant_modes)}) built in {seconds:.2f} s: card peak "
+          f"{out['card_peak_gib']:.2f} GiB, in use {out['card_in_use_gib']:.2f} GiB; host resident "
+          f"{before:.2f} GiB before, peak {rss['peak_gib']:.2f} during (sampled every 5 ms), "
+          f"{after:.2f} after (getrusage's lifetime peak {out['ru_maxrss_gib']:.2f}); no fp32 "
+          f"tensor kept")
+    return ev, out
+
+
+def step_10b(label, step, x, y, smi):
+    """A 10B serving step (forward + clip of one batch) by events (median of
+    3) and by the kernel time of every kernel it launches, split by kind,
+    and its peak card memory."""
+    from orbit2_tpu_torch.utils.memory import device_memory_stats
+
+    ms = cuda_ms(lambda: step(x, y), iters=3, warmup=1)
+    by_name = {}
+    kern = kernel_ms(lambda: step(x, y), iters=3, sessions=2, by_name=by_name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step(x, y)
+    torch.cuda.synchronize()
+    peak = device_memory_stats()["peak_bytes_in_use"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    row = {"step_ms": ms, "kernel_ms": kern, "busy": kern / ms, "peak_gib": peak / 2 ** 30,
+           "step_gib": (peak - base) / 2 ** 30, "by_kind": step_kinds(by_name),
+           "kernels": {name[:80]: t for name, t in top}}
+    print(f"  serving 10B {label} step, batch {x.shape[0]} tiles: {ms:.3f} ms by events (median "
+          f"of 3), kernel time {kern:.3f} ms (busy {kern / ms:.3f}); peak memory "
+          f"{row['peak_gib']:.2f} GiB ({row['step_gib']:.2f} the step's own); gpu: {smi}")
+    print("    by kind: " + ", ".join(f"{kind} {t:.3f} ms" for kind, t in row["by_kind"].items()))
+    for name, t in top:
+        print(f"    {t:9.4f} ms  {name[:110]}")
+    return row
+
+
+def serve10b(cfg, seed, call_s, smi):
+    """Phase serve10b: configs/interm_10b.yaml served on the card at full
+    width and depth. Evaluator built for bf16 alone (no fp32 kept anywhere;
+    build seconds, host and card memory), K1 (B16, N1152, H32, d256) with and
+    without dropout against its plain version on the first and last batch
+    elements and at one stitched tile's (B1), K5 bit for bit at [18432, 8192
+    | 32768]; test() over BATCHES_10B batches (exact K1 launches), one batch
+    against the plain attention (the trunk and the prediction within
+    TRUNK_BF16_REL) and its first tiles against an fp32 forward (the
+    witness), the stitched 720 x 1440 field against the same field on the
+    plain attention, an MC ensemble of MC_SAMPLES_10B samples (exact K1
+    launches and K5 launches at each width; seeded); the bf16 step, K1's
+    rows (batch, stitched tile, dropout) and K5's timed. Then the
+    Evaluator built for w8a8 too (the twin quantized on the card as the
+    model is filled): its bf16 prediction equals the first one's bit for
+    bit, test() in w8a8 (exact K1 launches), its prediction and trunk within
+    W8A8_REL of bf16, its stitched field, its step timed. Returns the
+    {"serving_10b"} line's numbers and the kernels line's rows."""
+    import gc
+
+    import torch.nn.functional as F
+
+    from orbit2_tpu_torch.evaluate import make_data_module
+    from orbit2_tpu_torch.ops.dropout import FUSED_DROPOUT, FusedDropout, dropout_reference
+    from orbit2_tpu_torch.ops.flash_attention import (
+        attention_flops, attention_mult, flash_attention_fwd, flash_attention_reference)
+    from orbit2_tpu_torch.ops.kernel_prng import keep_mult
+    from orbit2_tpu_torch.training.train import make_eval_step
+    from orbit2_tpu_torch.utils.mc_dropout import get_monte_carlo_predictions
+    from orbit2_tpu_torch.utils.memory import device_memory_stats
+
+    from orbit2_tpu_torch.models.components.blocks import Block
+
+    m = cfg.model
+    div, overlap, mag = cfg.tiling.effective_div, cfg.tiling.effective_overlap, m.superres_mag
+    out = {"gpu": smi}
+    # what the card's draw replaces: one trunk Block drawn on the host
+    with torch.device("meta"):
+        block = Block(m.embed_dim, m.num_heads, m.mlp_ratio, qkv_bias=True,
+                      gelu_tanh=m.gelu_approx == "tanh")
+    block.to_empty(device="cpu")
+    t0 = time.perf_counter()
+    block.reset_parameters(torch.Generator().manual_seed(seed))
+    out["host_block_draw_s"] = time.perf_counter() - t0
+    print(f"  one Block drawn on the host ({sum(p.numel() for p in block.parameters()):,} "
+          f"parameters, as an Evaluator drew the model before it drew on its device): "
+          f"{out['host_block_draw_s']:.2f} s")
+    del block
+    ev, out["bf16_build"] = build_10b(cfg, ("none",))
+    dm = ev.data_module
+    in_vars, out_vars = dm.get_data_variables()
+    in_shape, out_shape = dm.get_data_dims()
+    tokens = (in_shape[2] // m.patch_size) * (in_shape[3] // m.patch_size)
+    n_params = sum(t.numel() for t in ev.model.parameters())
+    b, h, d = in_shape[0], m.num_heads, m.embed_dim // m.num_heads
+    hidden = int(m.embed_dim * m.mlp_ratio)
+    print(f"  config {CONFIG_10B.name}: embed {m.embed_dim} depth {m.depth} heads {h} (d {d}) "
+          f"decoder {m.decoder_depth} mlp_ratio {m.mlp_ratio} gelu {m.gelu_approx} "
+          f"{cfg.trainer.data_type}, {n_params:,} parameters drawn from trainer.seed on the card; "
+          f"{len(in_vars)} -> {len(out_vars)} variables, {KEY_10B} {LOW_10B} -> "
+          f"{tuple(x * mag for x in LOW_10B)}; tiling div {div} overlap {overlap}: tiles "
+          f"{tuple(in_shape[2:])} -> {tuple(out_shape[2:])}, {tokens} tokens, batch {b} tiles")
+    check(n_params == PARAMS_10B and (b, tokens, h, d) == ATTENTION_10B,
+          f"10B geometry {n_params, b, tokens, h, d}, want {PARAMS_10B, ATTENTION_10B}")
+    out["config"] = {"params": n_params, "batch_tiles": b, "tokens_per_tile": tokens,
+                     "heads": h, "head_dim": d, "depth": m.depth, "embed_dim": m.embed_dim}
+
+    # the path's kernels at its shapes against their plain versions
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kseed = 2 ** 40 + seed
+    errs = {}
+    q, k, v = make_qkv(b, tokens, tokens, h, d, torch.bfloat16, gen)
+    for rate in (0.0, m.drop_rate):
+        errs[("fwd", rate)] = check_batch_rows(q, k, v, None, rate, kseed, (0, b - 1),
+                                               f"bf16 drop {rate:g} B{b} N{tokens} H{h} d{d}")["fwd"]
+    del q, k, v
+    # stitched_inference runs the model one tile at a time
+    q, k, v = make_qkv(1, tokens, tokens, h, d, torch.bfloat16, gen)
+    errs[("fwd_tile", 0.0)] = check_forward(q, k, v, 0.0, kseed,
+                                            f"bf16 drop 0 B1 N{tokens} H{h} d{d} (a stitched "
+                                            f"tile)")[3]
+    del q, k, v
+    for c in (m.embed_dim, hidden):
+        check_dropout(b * tokens, c, torch.bfloat16, m.drop_rate, gen, kseed)
+    torch.cuda.empty_cache()
+
+    want_k1 = only(flash_attn_fwd=m.depth * BATCHES_10B)
+
+    def serve(evaluator, quant):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = evaluator.test(max_batches=BATCHES_10B, quant=quant)
+        torch.cuda.synchronize()
+        seconds, launched = time.perf_counter() - t0, counts()
+        peak = device_memory_stats()["peak_bytes_in_use"] / 2 ** 30
+        print(f"  test(max_batches={BATCHES_10B}, quant={quant!r}) {seconds:.3f} s, card peak "
+              f"{peak:.2f} GiB; launches {launched}")
+        check(len(metrics) == 12 and all(np.isfinite(v) for v in metrics.values()),
+              f"{quant} 10B metrics missing or not finite")
+        check(launched == want_k1, f"{quant} 10B serving launches {launched}, want "
+              f"flash_attn_fwd = depth x batches = {m.depth * BATCHES_10B} and nothing else")
+        return metrics, {"test_s_per_batch": seconds / BATCHES_10B, "test_peak_gib": peak,
+                         "launches": launched["flash_attn_fwd"]}
+
+    metrics, out["bf16_test"] = serve(ev, "none")
+    for key, val in metrics.items():
+        print(f"    {key} {val:.6f}")
+    loader = iter(dm.test_dataloader())
+    batch = next(loader)
+    loader.close()
+    x = torch.from_numpy(batch[0]).cuda()
+    y = torch.from_numpy(batch[1]).cuda()
+    with torch.no_grad(), trunk_outputs(ev.model) as trunks:
+        pred = ev.model(x, in_vars, out_vars).float()
+        set_attention_impl(ev.model, "xla")
+        pred_plain = ev.model(x, in_vars, out_vars).float()
+        set_attention_impl(ev.model, m.attention_impl)
+        torch.cuda.synchronize()
+    trunk, trunk_plain = trunks
+    want_shape = (b, len(out_vars)) + tuple(out_shape[2:])
+    check(tuple(pred.shape) == want_shape and bool(pred.isfinite().all()),
+          f"bad 10B prediction {tuple(pred.shape)}, want {want_shape}")
+    # held by relative Frobenius error: the 117M and 1B phases' elementwise
+    # atol=rtol PRED_BF16_TOL does not hold here (the rounding that differs
+    # passes 11 blocks and a decoder of four 8192-wide layers: max|d| 0.25
+    # at max|pred| 34.5 in the first run, 3,443 of 3,538,944 values beyond)
+    rel_plain, rel_pred = rel_frob(trunk, trunk_plain), rel_frob(pred, pred_plain)
+    pred_err = (pred - pred_plain).abs().max().item()
+    out["trunk_rel_vs_plain"], out["pred_rel_vs_plain"] = rel_plain, rel_pred
+    out["pred_max_abs_vs_plain"] = pred_err
+    print(f"  bf16 prediction of one batch, kernel vs plain attention: relative Frobenius error "
+          f"{rel_pred:.4e}, max|d| {pred_err:.3e} (max|pred| {pred_plain.abs().max().item():.3e}); "
+          f"the trunk's output after {m.depth} blocks: relative Frobenius error {rel_plain:.4e} "
+          f"(bound {TRUNK_BF16_REL:g} for both)")
+    check(rel_plain <= TRUNK_BF16_REL and rel_pred <= TRUNK_BF16_REL,
+          f"the 10B trunk on the kernels is {rel_plain} off the same trunk on the plain "
+          f"attention, the prediction {rel_pred}")
+    n = WITNESS_TILES_10B
+    with torch.no_grad():
+        ev.model.dtype = torch.float32  # every layer casts its bf16 weights to fp32 at use
+        set_attention_impl(ev.model, "xla")
+        pred_ref = ev.model(x[:n], in_vars, out_vars).float()
+        ev.model.dtype = torch.bfloat16
+        set_attention_impl(ev.model, m.attention_impl)
+    witness = {}
+    for label, got in (("kernels", pred[:n]), ("plain", pred_plain[:n])):
+        diff = (got - pred_ref).abs()
+        witness[label] = {"rel": rel_frob(got, pred_ref), "max_abs": diff.max().item(),
+                          "beyond_tol": int((diff > PRED_BF16_TOL * (1 + pred_ref.abs())).sum())}
+    out["witness_fp32"] = dict(witness, tiles=n, max_abs_ref=pred_ref.abs().max().item())
+    print(f"  witness: the first {n} tiles' bf16 predictions against the same weights computing "
+          f"in fp32 on the plain attention (max|pred| {out['witness_fp32']['max_abs_ref']:.3e}): "
+          + "; ".join(f"{label}: relative Frobenius error {w['rel']:.4e}, max|d| "
+                      f"{w['max_abs']:.3e}, {w['beyond_tol']} of {pred_ref.numel()} values beyond "
+                      f"atol=rtol {PRED_BF16_TOL:g}" for label, w in witness.items())
+          + f" (the kernels' path within {WITNESS_RATIO:g}x the plain path's)")
+    check(all(witness["kernels"][key] <= WITNESS_RATIO * witness["plain"][key]
+              for key in ("rel", "max_abs")),
+          f"the 10B bf16 prediction on the kernels is further from fp32 than the plain path's: "
+          f"{witness}")
+    del pred_plain, trunk_plain, trunks, pred_ref
+
+    dm_vis = make_data_module(cfg, ev.data_key, 1, 0, "test")
+    sample, _, names, _ = next(iter(dm_vis.data_test))
+    x_full = np.stack([sample[k] for k in names])
+    want_field = (len(out_vars), x_full.shape[1] * mag, x_full.shape[2] * mag)
+    stitched = {}
+
+    def stitch(label, model):
+        reset_counts()
+        field, seconds = stitch_field(model, x_full, div, overlap, mag, in_vars, out_vars)
+        launched = counts()
+        print(f"  stitched field 0, {label}: {x_full.shape} -> {field.shape} from {div * div} "
+              f"tiles in {seconds:.3f} s; launches {launched}")
+        check(field.shape == want_field and bool(np.isfinite(field).all()),
+              f"{label} stitched field {field.shape}, want {want_field}, or not finite")
+        check(launched == only(flash_attn_fwd=m.depth * div * div),
+              f"{label} stitching launched {launched}")
+        stitched[label] = field
+        out[label + "_stitch_s"] = seconds
+        out[label + "_stitch_launches"] = launched["flash_attn_fwd"]
+
+    stitch("bf16", ev.model)
+    set_attention_impl(ev.model, "xla")
+    field_plain, _ = stitch_field(ev.model, x_full, div, overlap, mag, in_vars, out_vars)
+    set_attention_impl(ev.model, m.attention_impl)
+    rel_field = float(np.linalg.norm(stitched["bf16"] - field_plain) / np.linalg.norm(field_plain))
+    out["stitch_rel_vs_plain"] = rel_field
+    print(f"  stitched bf16 field on the kernels against the same field on the plain attention: "
+          f"relative Frobenius error {rel_field:.4e} (bound {TRUNK_BF16_REL:g})")
+    check(rel_field <= TRUNK_BF16_REL, f"the stitched 10B field on the kernels is {rel_field} "
+          f"off the same field on the plain attention")
+    del field_plain
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with launch_widths(FUSED_DROPOUT) as k5_widths:
+        ens = get_monte_carlo_predictions(ev.model, x, in_vars, out_vars, MC_SAMPLES_10B,
+                                          torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+    mc_s, mc_counts = time.perf_counter() - t0, counts()
+    again = get_monte_carlo_predictions(ev.model, x, in_vars, out_vars, MC_SAMPLES_10B,
+                                        torch.Generator().manual_seed(seed))
+    want_mc = only(flash_attn_fwd=MC_SAMPLES_10B * m.depth,
+                   fused_dropout=MC_SAMPLES_10B * (1 + 3 * m.depth))
+    # pos_drop, proj and fc2's output at the model width, the MLP hidden wider
+    want_widths = {(b * tokens, m.embed_dim): MC_SAMPLES_10B * (1 + 2 * m.depth),
+                   (b * tokens, hidden): MC_SAMPLES_10B * m.depth}
+    print(f"  MC dropout, {MC_SAMPLES_10B} samples of one batch at drop_rate {m.drop_rate}: "
+          f"{tuple(ens.shape)} in {mc_s:.3f} s, mean member std "
+          f"{ens.float().std(dim=0).mean().item():.4e}; launches {mc_counts}")
+    check(tuple(ens.shape) == (MC_SAMPLES_10B,) + want_shape and bool(ens.isfinite().all()),
+          f"bad 10B MC ensemble {tuple(ens.shape)}")
+    check(mc_counts == want_mc, f"10B MC dropout launches {mc_counts}, want {want_mc}")
+    check(k5_widths == want_widths, f"10B MC dropout's K5 launches by shape {dict(k5_widths)}, "
+          f"want {want_widths}")
+    print(f"  K5 launches by [rows, cols]: {dict(k5_widths)}")
+    check(not torch.equal(ens[0], ens[1]), "two MC-dropout samples are equal")
+    check(torch.equal(ens, again), "the same seed gave other MC-dropout samples")
+    print("  MC-dropout samples differ; the same seed gives them bit for bit")
+    out["mc"] = {"samples": MC_SAMPLES_10B, "seconds": mc_s, "launches": mc_counts,
+                 "fused_dropout_by_width": {c: n for (_, c), n in k5_widths.items()}}
+    del ens, again
+
+    # times: the bf16 step, K1 and K5 at the path's shapes
+    out["bf16"] = step_10b("bf16", make_eval_step(ev.model, in_vars, out_vars), x, y, smi)
+    rows = {}
+    # the stitched tiles' launches are known once the w8a8 field is stitched
+    launches = {("fwd", 0.0): out["bf16_test"]["launches"], ("fwd_tile", 0.0): None,
+                ("fwd", m.drop_rate): mc_counts["flash_attn_fwd"]}
+    for (name, rate), n_launched in launches.items():
+        bt = 1 if name == "fwd_tile" else b
+        q, k, v = make_qkv(bt, tokens, tokens, h, d, torch.bfloat16, gen)
+        leaves = [t.transpose(1, 2) for t in (q, k, v)]
+        bound = roofline(attention_flops(bt, tokens, tokens, h, d),
+                         nbytes(q, k, v, q) + 4 * bt * h * tokens)
+        philox = bt * h * tokens * tokens / ELEMENTS_PER_CALL * call_s["fwd"] * 1e3
+        fn = lambda: flash_attention_fwd(q, k, v, None, rate, kseed)
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION), torch.no_grad():
+            lib = best_ms(lambda: F.scaled_dot_product_attention(*leaves, dropout_p=rate))
+        mult = attention_mult(q, k, rate, kseed)
+        plain = cuda_ms(lambda: flash_attention_reference(q, k, v, None, mult), iters=3, warmup=1)
+        del mult
+        torch.cuda.empty_cache()
+        row_bound = bound if rate == 0.0 else max(bound, (philox, "operations"))
+        rows[(name, rate)] = r = {
+            "shape": [bt, tokens, h, d], "dropout": rate, "ms": cuda_ms(fn),
+            "kernel_ms": kernel_ms(fn), "plain_ms": plain, "library_ms": lib,
+            "bound_ms": row_bound[0], "bound_by": row_bound[1], "launches": n_launched}
+        print(f"  K1 bf16 B{bt} N{tokens} H{h} d{d} drop {rate:g}: {r['ms']:.4f} ms (kernel alone "
+              f"{r['kernel_ms']:.4f}, {row_bound[0] / r['kernel_ms']:.3f} of the bound), plain "
+              f"{plain:.4f}, SDPA (flash) {lib:.4f} ({r['kernel_ms'] / lib:.2f}x by kernel time); "
+              f"bound {row_bound[0]:.4f} ({row_bound[1]}; tensor cores {bound[0]:.4f}, Philox "
+              f"{philox:.4f}); "
+              + (f"{n_launched} launches on the path" if n_launched is not None else
+                 "launched by both stitched fields") + f"; gpu: {smi}")
+        del q, k, v, leaves
+        torch.cuda.empty_cache()
+    for width in (m.embed_dim, hidden):
+        xd = torch.randn(b * tokens, width, generator=gen, device="cuda").to(torch.bfloat16)
+        mult = keep_mult(kseed, b * tokens, width, m.drop_rate, device="cuda")
+        fn = lambda: FusedDropout.apply(xd, kseed, m.drop_rate)
+        lib = lambda: F.dropout(xd, m.drop_rate, training=True)
+        row_bound = roofline(0, 2 * nbytes(xd))
+        rows[("fused_dropout", width)] = r = {
+            "shape": [b * tokens, width], "dropout": m.drop_rate, "ms": cuda_ms(fn),
+            "kernel_ms": kernel_ms(fn), "plain_ms": cuda_ms(lambda: dropout_reference(xd, mult)),
+            "library_ms": best_ms(lib), "library_kernel_ms": kernel_ms(lib),
+            "bound_ms": row_bound[0], "bound_by": row_bound[1],
+            "launches": k5_widths[(b * tokens, width)]}
+        print(f"  K5 bf16 [{b * tokens}, {width}]: {r['ms']:.4f} ms (kernel alone "
+              f"{r['kernel_ms']:.4f}, {row_bound[0] / r['kernel_ms']:.3f} of the bytes bound), "
+              f"plain {r['plain_ms']:.4f}, F.dropout {r['library_ms']:.4f} (kernel alone "
+              f"{r['library_kernel_ms']:.4f}); bound {row_bound[0]:.4f}; "
+              f"{r['launches']} of the ensemble's {mc_counts['fused_dropout']} launches at this "
+              f"shape; gpu: {smi}")
+        del xd, mult
+    torch.cuda.empty_cache()
+
+    # the w8a8 Evaluator: the same draw, the twin quantized as it is filled
+    pred_bf16, field_bf16 = pred.cpu(), stitched["bf16"]
+    del ev, pred, trunk
+    gc.collect()
+    torch.cuda.empty_cache()
+    ev, out["w8a8_build"] = build_10b(cfg, ("none", "w8a8"))
+    qmodel = ev.serving_model("w8a8")
+    with torch.no_grad(), trunk_outputs(ev.model) as trunks, trunk_outputs(qmodel) as qtrunks:
+        pred = ev.model(x, in_vars, out_vars).float().cpu()
+        pred_q = qmodel(x, in_vars, out_vars).float().cpu()
+    check(torch.equal(pred, pred_bf16), "the w8a8 Evaluator's bf16 prediction differs from the "
+          "bf16-only Evaluator's: the two draws from trainer.seed differ")
+    metrics_q, out["w8a8_test"] = serve(ev, "w8a8")
+    rel, rel_trunk = rel_frob(pred_q, pred), rel_frob(qtrunks[0], trunks[0])
+    out["w8a8_rel"], out["w8a8_trunk_rel"] = rel, rel_trunk
+    del trunks, qtrunks
+    print(f"  the w8a8 Evaluator's bf16 prediction equals the bf16-only one's bit for bit; its "
+          f"w8a8 prediction against bf16: relative Frobenius error {rel:.4e} (bound {W8A8_REL:g}), "
+          f"of the trunk's output alone {rel_trunk:.4e}; metrics " + ", ".join(
+              f"{k.split('/')[1]} {metrics_q[k]:.6f} (bf16 {metrics[k]:.6f})"
+              for k in metrics if k.endswith("aggregate")))
+    check(0.0 < rel <= W8A8_REL and 0.0 < rel_trunk <= W8A8_REL and bool(pred_q.isfinite().all()),
+          f"10B w8a8 prediction off the bf16 one by {rel}, its trunk's output by {rel_trunk}")
+    stitch("w8a8", qmodel)
+    rows[("fwd_tile", 0.0)]["launches"] = out["bf16_stitch_launches"] + out["w8a8_stitch_launches"]
+    rel_stitch = np.linalg.norm(stitched["w8a8"] - field_bf16) / np.linalg.norm(field_bf16)
+    out["w8a8_stitch_rel"] = float(rel_stitch)
+    print(f"  stitched w8a8 field against bf16: relative Frobenius error {rel_stitch:.4e} "
+          f"(bound {W8A8_REL:g})")
+    check(rel_stitch <= W8A8_REL, f"w8a8 stitched 10B field off the bf16 one by {rel_stitch}")
+    out["w8a8"] = step_10b("w8a8", make_eval_step(qmodel, in_vars, out_vars), x, y, smi)
+    quant_rescale = out["w8a8"]["by_kind"]["other"] - out["bf16"]["by_kind"]["other"]
+    out["w8a8"]["quant_rescale_ms"] = quant_rescale
+    print(f"  w8a8 step, by the two steps' profiles: the quantization and rescale passes of its "
+          f"{4 * m.depth} trunk products take {quant_rescale:.3f} ms of its "
+          f"{out['w8a8']['kernel_ms']:.3f} ms of kernel time (its other kernels less the bf16 "
+          f"step's)")
+    del ev, qmodel, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["errors"] = {"k1_nodrop": errs[("fwd", 0.0)], "k1_drop": errs[("fwd", m.drop_rate)],
+                     "k1_tile": errs[("fwd_tile", 0.0)], "fused_dropout": 0.0}
+    out["rows"] = {f"{name}_{key}": r for (name, key), r in rows.items()}
+    return {"out": out, "rows": rows, "errs": errs, "rate": m.drop_rate,
+            "widths": (m.embed_dim, hidden)}
+
 
 def step_kinds(by_name):
     """A step's kernel ms by kind, from its kernel names: int8 products
@@ -2919,6 +3433,13 @@ def main():
                                     "errors": r1b["errs"], "validation_k1_error": r1b["val_err"],
                                     "kernels": resume_1b}}))
 
+    # 7. the 10B config served on the card, last: it needs most of the card
+    del bench, bstep, bx, by
+    phase("serve10b")
+    with tempfile.TemporaryDirectory(dir=ROOT / "_smoke") as tmp:
+        s10b = serve10b(config_10b(Path(tmp), args.seed), args.seed, call_s, smi)
+    print(json.dumps({"serving_10b": s10b["out"]}))
+
     slice_shape = SHAPES[0]
     mlp_shape = MLP_SHAPES[0]
     bf16 = torch.bfloat16
@@ -3009,6 +3530,17 @@ def main():
         path_entry(resume_1b, "validation", resume_1b["validation"]["launches"],
                    "resume1b validation", "flash_attn_fwd", "flash_attn_fwd.cu",
                    "orbit2_tpu/ops/flash_attention.py:150", r1b["val_err"]),
+        # the 10B serving path's kernels at its shapes (phase serve10b): K1 in
+        # test(), on the stitched fields' tiles and, with dropout, in the MC
+        # ensemble, which also runs K5
+        *(path_entry(s10b["rows"], key, s10b["rows"][key]["launches"], path, "flash_attn_fwd",
+                     "flash_attn_fwd.cu", "orbit2_tpu/ops/flash_attention.py:150", s10b["errs"][key])
+          for key, path in ((("fwd", 0.0), "serve10b"), (("fwd_tile", 0.0), "serve10b stitch"),
+                            (("fwd", s10b["rate"]), "serve10b mc"))),
+        *(path_entry(s10b["rows"], ("fused_dropout", width),
+                     s10b["rows"][("fused_dropout", width)]["launches"], "serve10b mc",
+                     "fused_dropout", "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39", 0.0)
+          for width in s10b["widths"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

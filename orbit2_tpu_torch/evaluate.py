@@ -20,18 +20,18 @@ served. A config with `tiling.do_tiling` serves its TILES tiles (div x div
 halo tiles of each field, the JAX Trainer.test's batches; metrics per tile),
 after the JAX Trainer's tiling check (trainer.py:167-186). `--quant w8a8`
 serves through the int8 trunk (utils/quantize.py), quantized from the fp32
-weights. Device meshes and Orbax checkpoints are not ported: a config that
-asks for a mesh raises.
+weights; the CLI builds the Evaluator for the one mode it serves
+(`quant_modes`), so a bf16 run holds no int8 twin. Device meshes and Orbax
+checkpoints are not ported: a config that asks for a mesh raises.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import itertools
 import json
 import logging
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import torch
 
@@ -43,7 +43,8 @@ from orbit2_tpu_torch.training.checkpoint import (
     restore_checkpoint)
 from orbit2_tpu_torch.training.train import evaluate_batch, make_eval_step
 from orbit2_tpu_torch.utils.loaders import load_architecture, load_downscaling_module
-from orbit2_tpu_torch.utils.quantize import fp32_sources, w8a8_twin
+from orbit2_tpu_torch.utils.memory import device_memory_stats
+from orbit2_tpu_torch.utils.quantize import fill_twin, fp32_sources, quantize_state_dict
 
 log = logging.getLogger("orbit2_tpu_torch")
 
@@ -103,27 +104,61 @@ def make_data_module(cfg: Config, data_key: str, div: int, overlap: int,
     return dm
 
 
-def merge_weights(cfg: Config, data_module: IterDataModule, meta_model: torch.nn.Module,
-                  state_dict: Mapping[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor], dict]:
-    """`state_dict` (reference layout, perhaps of another grid) merged over
-    `meta_model`'s, a meta-device build of the config's model, by
-    load_pretrained_params at the tiles of `data_module`; only where keys
-    are left unfilled is the config's model drawn, to fill them, as the JAX
-    drivers merge into drawn weights. Returns (merged, the import report)."""
+def weight_fill(cfg: Config, data_module: IterDataModule, meta_model: torch.nn.Module,
+                state_dict: Mapping[str, torch.Tensor]):
+    """How `state_dict` (reference layout, perhaps of another grid; an
+    NpzState is read one tensor at a time) fills `meta_model`, a meta-device
+    build of the config's model, by load_pretrained_params at the tiles of
+    `data_module` (pos_embed resized to the tiles' grid): (fill, drawn,
+    the import report). fill(keys) gives the merged tensors of those keys,
+    for `materialize`; drawn says whether keys are left unfilled, which are
+    then drawn from trainer.seed, as the JAX drivers merge into drawn
+    weights."""
     in_shape, _ = data_module.get_data_dims()
-    merged, report = load_pretrained_params(meta_model.state_dict(), state_dict,
-                                            cfg.model.patch_size, img_size=tuple(in_shape[2:]))
-    lacking = [k for k, v in merged.items() if v.is_meta]
+    meta = meta_model.state_dict()
+    merge = lambda keys: load_pretrained_params(meta, state_dict, cfg.model.patch_size,
+                                                img_size=tuple(in_shape[2:]), keys=keys)
+    report = merge(())[1]
+    lacking = set(meta) - set(report["used"]) - set(report["resized"])
     log.info("weights: %d used / %d dropped / %d resized / %d drawn", len(report["used"]),
              len(report["dropped"]), len(report["resized"]), len(lacking))
-    if lacking:
-        drawn = load_architecture(data_module, cfg.model.preset, **model_kwargs(cfg)).state_dict()
-        merged.update((k, drawn[k]) for k in lacking)
-    return merged, report
+    return (lambda keys: merge(keys)[0]), bool(lacking), report
+
+
+def materialize(model: torch.nn.Module, device, dtype: Optional[torch.dtype] = None,
+                generator: Optional[torch.Generator] = None,
+                fill: Optional[Callable[[List[str]], Mapping[str, torch.Tensor]]] = None,
+                on_unit: Optional[Callable[[Dict[str, torch.Tensor]], None]] = None) -> None:
+    """Fills `model`, a ResSlimViT built on the meta device, on `device`
+    one unit at a time (ResSlimViT.init_units: a Block or a top-level
+    module): each unit is drawn from `generator` where one is given
+    (reset_parameters' values, in its order), takes the tensors that
+    `fill(its keys)` returns, is handed to `on_unit` as {key: fp32 tensor},
+    then cast to `dtype` (None: kept in fp32). At most one unit is on the
+    device in fp32, and nothing of the model is on the host unless `device`
+    is."""
+    with torch.no_grad():
+        for name, module, init in model.init_units():
+            recurse = module is not model
+            module.to_empty(device=device, recurse=recurse)
+            prefix = f"{name}." if name else ""
+            own = itertools.chain(module._parameters.items(), module._buffers.items())
+            unit = (module.state_dict(prefix=prefix, keep_vars=True) if recurse
+                    else {prefix + k: t for k, t in own if t is not None})
+            if generator is not None:
+                init(generator)
+            if fill is not None:
+                for key, t in fill(list(unit)).items():
+                    unit[key].copy_(t)
+            if on_unit is not None:
+                on_unit({k: t.detach() for k, t in unit.items()})
+            if dtype is not None:
+                module._apply(lambda t: t.to(dtype) if t.is_floating_point() else t,
+                              recurse=recurse)
 
 
 def serving_weights(cfg: Config, checkpoint: Optional[str] = None,
-                    torch_npz: Optional[str] = None) -> Optional[Dict[str, torch.Tensor]]:
+                    torch_npz: Optional[str] = None) -> Optional[Mapping[str, torch.Tensor]]:
     """The serving CLIs' weights (module docstring), as they lie in the
     source, for the Evaluator to merge: `torch_npz`, else the model of
     `checkpoint`, `trainer.checkpoint` or the newest port checkpoint under
@@ -141,41 +176,65 @@ def serving_weights(cfg: Config, checkpoint: Optional[str] = None,
 class Evaluator:
     """Builds the data module (tiled as the config says) and model of
     `config` on `device` (the card unless the caller asks for "cpu");
-    `test()` evaluates the test split. `state_dict` (reference layout, e.g.
+    `test()` evaluates the test split. The model is built on the meta device
+    and filled on `device` one Block or top-level module at a time
+    (`materialize`), so the host never holds the whole model: drawn from
+    `config.trainer.seed` (by a generator on `device`: a card's draws differ
+    from the host's), or merged from `state_dict` (reference layout, e.g.
     from training/checkpoint.py::state_dict_from_jax_params or
-    `serving_weights`, perhaps of another grid) is merged into a model
-    built on the meta device by `merge_weights` (pos_embed resized to the
-    tiles' grid; the model drawn from `config.trainer.seed` only where keys
-    are left unfilled). Without a state dict the weights are drawn.
-    w8a8 serving quantizes from the fp32 weights, as the JAX Trainer does
-    from its fp32 params: the host keeps the fp32 tensors the int8 trunk
-    takes (its Linears' weights and biases) until the first w8a8 request
-    builds the twin, which then serves every later one."""
+    `serving_weights`, perhaps of another grid; an NpzState is read one
+    tensor at a time) by `weight_fill` (pos_embed resized to the tiles'
+    grid; drawn only where keys are left unfilled).
+
+    `quant_modes` names the serving modes built at construction ("none" is
+    always served; default: both). w8a8 quantizes from the fp32 weights, as
+    the JAX Trainer does from its fp32 params: the int8 twin is quantized on
+    `device` as each unit is filled, from its fp32 tensors, so at most the
+    model and its twin live on the device and no fp32 tensor is kept. Built
+    without "w8a8", the Evaluator holds the bf16 model alone, and
+    test(quant="w8a8") raises."""
 
     def __init__(self, config: Config, device="cuda",
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                 data_key: Optional[str] = None):
+                 data_key: Optional[str] = None, quant_modes: Sequence[str] = QUANT_MODES):
         self.cfg = c = config.validate()
         check_scope(c)
+        unknown = set(quant_modes) - set(QUANT_MODES)
+        if unknown:
+            raise ValueError(f"unknown quant_modes {sorted(unknown)} (none | w8a8)")
         self.device = torch.device(device)
+        self.quant_modes = tuple(quant_modes)
         self.data_key = data_key or next(iter(c.data.low_res_dir))
         self.data_module = dm = make_data_module(
             c, self.data_key, c.tiling.effective_div, c.tiling.effective_overlap, "test")
         check_tiling(c, dm)
-        kwargs = model_kwargs(c) if state_dict is None else dict(model_kwargs(c), generator=None)
-        with torch.device("meta") if state_dict is not None else contextlib.nullcontext():
+        with torch.device("meta"):
             (self.model, _, _, self.test_losses, _, _,
-             self.test_transforms) = load_downscaling_module(dm, c.model.preset, kwargs)
+             self.test_transforms) = load_downscaling_module(
+                dm, c.model.preset, dict(model_kwargs(c), generator=None))
         self._phase(self.model)
+        fill, drawn = None, True
         if state_dict is not None:
-            merged, _ = merge_weights(c, dm, self.model, state_dict)
-            self.model.to_empty(device="cpu")
-            self.model.load_state_dict(merged, strict=True)
-        fp32 = self.model.state_dict()  # the host tensors themselves, no copy
-        self._fp32_sources = {k: fp32[k] for k in fp32_sources(self._architecture("w8a8"))}
+            fill, drawn, _ = weight_fill(c, dm, self.model, state_dict)
+        generator = torch.Generator(self.device).manual_seed(c.trainer.seed) if drawn else None
+
         self._twins: Dict[str, torch.nn.Module] = {}
+        on_unit = None
+        if "w8a8" in self.quant_modes:
+            twin = self._architecture("w8a8")
+            sources = fp32_sources(twin)
+            quantized: Dict[str, torch.Tensor] = {}
+
+            def on_unit(unit):
+                taken = {k: t for k, t in unit.items() if k in sources}
+                quantized.update(quantize_state_dict(twin, taken, self.device, partial=True))
         # serving holds the parameters in the compute dtype: no per-use casts
-        self.model.to(self.device, self.model.dtype).eval()
+        materialize(self.model, self.device, self.model.dtype, generator, fill, on_unit)
+        self.model.eval()
+        if "w8a8" in self.quant_modes:
+            rest = {k: t for k, t in self.model.state_dict().items() if k not in sources}
+            quantized.update(quantize_state_dict(twin, rest, self.device, partial=True))
+            self._twins["w8a8"] = fill_twin(twin, quantized, self.device)
 
     def _architecture(self, quant: str) -> torch.nn.Module:
         """The config's model under `quant`, on the meta device: nothing drawn."""
@@ -193,14 +252,12 @@ class Evaluator:
 
     def serving_model(self, quant: str = "none") -> torch.nn.Module:
         """The model served under `quant`: the fp model itself, or its int8
-        twin ("w8a8"), quantized on the device from the fp32 weights at the
-        first request."""
+        twin ("w8a8"), quantized at construction."""
         if quant == "none":
             return self.model
         if quant not in self._twins:
-            state = {**self.model.state_dict(), **self._fp32_sources}
-            self._twins[quant] = w8a8_twin(self._architecture(quant), state, self.device)
-            self._fp32_sources = {}  # the twin holds all it took from them
+            raise ValueError(f"quant={quant!r} was not asked for: this Evaluator was built with "
+                             f"quant_modes={self.quant_modes}; pass quant_modes=(..., {quant!r})")
         return self._twins[quant]
 
     def test(self, max_batches: Optional[int] = None, quant: str = "none") -> Dict[str, float]:
@@ -246,8 +303,10 @@ def main(argv=None):
     state_dict = serving_weights(cfg, args.checkpoint, args.torch_npz)
     if state_dict is None:
         log.warning("no checkpoint: evaluating weights drawn from trainer.seed")
-    ev = Evaluator(cfg, args.device, state_dict=state_dict, data_key=args.data_key)
+    ev = Evaluator(cfg, args.device, state_dict=state_dict, data_key=args.data_key,
+                   quant_modes=(args.quant,))
     means = ev.test(max_batches=args.max_batches, quant=args.quant)
+    log.info("memory: %s", device_memory_stats(ev.device))
     print(json.dumps({k: round(float(v), 6) for k, v in means.items()}, indent=2))
 
 

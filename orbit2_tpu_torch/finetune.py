@@ -11,8 +11,9 @@ state_dict saved as an npz (the JAX package's `export_torch_state_dict`
 writes one). The pretrained weights are merged into the Trainer's model
 with the reference's filter (training/checkpoint.py::load_pretrained_params:
 keys the model lacks and keys of another shape are dropped, pos_embed is
-resized to the tiles' grid; evaluate.py::merge_weights draws the model from
-trainer.seed only where keys are left unfilled), and it fits, saving each
+resized to the tiles' grid; evaluate.py::weight_fill and materialize fill
+the model one unit at a time, drawing from trainer.seed only where keys are
+left unfilled), and it fits, saving each
 epoch under --checkpoint-dir (default checkpoints/finetune, apart from the
 train CLI's checkpoints/climate that the pretrained weights usually come
 from); a checkpoint already there resumes instead, as in JAX, so --pretrain
@@ -31,7 +32,7 @@ import os
 import torch
 
 from orbit2_tpu_torch.config import load_config
-from orbit2_tpu_torch.evaluate import merge_weights, model_kwargs
+from orbit2_tpu_torch.evaluate import materialize, model_kwargs, weight_fill
 from orbit2_tpu_torch.training.checkpoint import load_state_npz, restore_checkpoint
 from orbit2_tpu_torch.training.trainer import Trainer
 from orbit2_tpu_torch.utils.loaders import load_architecture
@@ -90,11 +91,13 @@ def main(argv=None) -> dict:
             pretrained = restore_checkpoint(args.pretrain)["model"]
         c = trainer.cfg
         with torch.device("meta"):
-            meta = load_architecture(dm, c.model.preset, **dict(model_kwargs(c), generator=None))
-        merged, report = merge_weights(c, dm, meta, pretrained)
+            model = load_architecture(dm, c.model.preset, **dict(model_kwargs(c), generator=None))
+        fill, drawn, report = weight_fill(c, dm, model, pretrained)
+        generator = torch.Generator().manual_seed(c.trainer.seed) if drawn else None
+        materialize(model, "cpu", generator=generator, fill=fill)
         log.info("pretrain import: %d used, %d dropped, %d resized", len(report["used"]),
                  len(report["dropped"]), len(report["resized"]))
-        trainer.build_model(dm, merged)
+        trainer.build_model(dm, model.state_dict())
     history = trainer.fit(args.max_epochs, args.max_steps_per_epoch)
     for record in history:
         print(json.dumps(record))

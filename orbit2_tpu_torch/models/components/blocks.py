@@ -147,7 +147,11 @@ class LayerScale(nn.Module):
 
     def __init__(self, dim: int, init_values: float = 1e-5):
         super().__init__()
-        self.gamma = nn.Parameter(torch.full((dim,), float(init_values)))
+        self.init_values = float(init_values)
+        self.gamma = nn.Parameter(torch.full((dim,), self.init_values))
+
+    def reset_parameters(self):
+        nn.init.constant_(self.gamma, self.init_values)
 
     def forward(self, x):
         return x * self.gamma.to(x.dtype)
@@ -313,6 +317,11 @@ class Block(nn.Module):
         self.drop_path2 = DropPath(drop_path)
 
     def reset_parameters(self, generator=None):
+        """Every parameter of the Block: the norms and layer scales to their
+        constants, the Linears drawn from `generator` (attention, then Mlp)."""
+        for m in (self.norm1, self.norm2, self.ls1, self.ls2):
+            if not isinstance(m, nn.Identity):
+                m.reset_parameters()
         self.attn.reset_parameters(generator)
         self.mlp.reset_parameters(generator)
 

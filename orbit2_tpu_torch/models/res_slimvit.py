@@ -197,21 +197,54 @@ class ResSlimViT(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """The JAX package's initializers, drawn from `generator`."""
-        for te in self.token_embeds:
-            trunc_normal_(te.proj.weight, generator)
-            nn.init.zeros_(te.proj.bias)
-        nn.init.zeros_(self.var_embed)
-        nn.init.zeros_(self.var_query)
-        self.var_agg.reset_parameters(generator)
-        init_linear_(self.spatial_embed, generator)
-        for blk in self.blocks:
-            blk.reset_parameters(generator)
-        for m in self.head:
-            if isinstance(m, nn.Linear):
-                init_linear_(m, generator)
-        for conv in (self.conv_out, self.path2[0], self.path2[3]):
-            _lecun_normal_(conv.weight, generator)
-            nn.init.zeros_(conv.bias)
+        for _, _, init in self.init_units():
+            init(generator)
+
+    def init_units(self):
+        """reset_parameters in units, in its order: [(name, module, init)],
+        one a top-level module or a Block, and "" the model's own tensors
+        (var_embed, var_query, pos_embed) without its children. init(generator)
+        sets every parameter of its unit, so a unit built on the meta device is
+        whole after to_empty and init (evaluate.py::materialize), and drawing
+        the units in turn from one generator gives reset_parameters' values."""
+        p = self.patch_size
+
+        def own(generator):
+            nn.init.zeros_(self.var_embed)
+            nn.init.zeros_(self.var_query)
+            base = self.base_img_size
+            pe = get_2d_sincos_pos_embed(self.embed_dim, base[0] // p, base[1] // p)
+            self.pos_embed.copy_(torch.as_tensor(pe, dtype=torch.float32)[None])
+
+        def token_embed(te):
+            def init(generator):
+                trunc_normal_(te.proj.weight, generator)
+                nn.init.zeros_(te.proj.bias)
+            return init
+
+        def head(generator):
+            for m in self.head:
+                if isinstance(m, nn.Linear):
+                    init_linear_(m, generator)
+
+        def convs(*modules):
+            def init(generator):
+                for conv in modules:
+                    _lecun_normal_(conv.weight, generator)
+                    nn.init.zeros_(conv.bias)
+            return init
+
+        return [
+            *((f"token_embeds.{i}", te, token_embed(te)) for i, te in enumerate(self.token_embeds)),
+            ("", self, own),
+            ("var_agg", self.var_agg, self.var_agg.reset_parameters),
+            ("spatial_embed", self.spatial_embed, lambda g: init_linear_(self.spatial_embed, g)),
+            *((f"blocks.{i}", blk, blk.reset_parameters) for i, blk in enumerate(self.blocks)),
+            ("norm", self.norm, lambda g: self.norm.reset_parameters()),
+            ("head", self.head, head),
+            ("conv_out", self.conv_out, convs(self.conv_out)),
+            ("path2", self.path2, convs(self.path2[0], self.path2[3])),
+        ]
 
     def for_phase(self, spatial_resolution: float, img_size: Tuple[int, int],
                   in_channels: int, out_channels: int) -> "ResSlimViT":

@@ -40,7 +40,7 @@ import os
 import shutil
 import tempfile
 import threading
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -240,8 +240,16 @@ def prune_checkpoints(directory: str, keep_last: int, prefix: str = "epoch_",
         shutil.rmtree(os.path.join(directory, name), ignore_errors=True)
 
 
+def _shape(mapping: Mapping[str, Any], key: str) -> Tuple[int, ...]:
+    """The shape of mapping[key], without reading an NpzState member."""
+    if isinstance(mapping, NpzState):
+        return mapping.shape(key)
+    return tuple(np.shape(mapping[key]))
+
+
 def load_pretrained_params(state_dict: Mapping[str, torch.Tensor], pretrained: Mapping[str, Any],
-                           patch_size: int, img_size=None, strict: bool = False):
+                           patch_size: int, img_size=None, strict: bool = False,
+                           keys: Optional[Sequence[str]] = None):
     """Fine-tune import with the reference's filter (JAX checkpoint.py:
     120-204, reference intermediate_downscaling.py:116-153), on
     reference-layout state dicts: a key of `pretrained` missing from
@@ -251,6 +259,12 @@ def load_pretrained_params(state_dict: Mapping[str, torch.Tensor], pretrained: M
     target's dtype. Returns (merged state dict, {"used": [key], "dropped":
     [(reason, key)], "resized": [key]}).
 
+    `keys` restricts the merge to those keys of `state_dict`: merged then
+    holds only the ones `pretrained` fills, and only they are read from it
+    (the report, made from shapes, covers every key). So a caller can merge
+    a large state piece by piece from an NpzState, which reads a member
+    when it is taken.
+
     The JAX version also converts between the per-block and the pipelined
     (stacked) trunk layouts; the port has no pipelined trunk yet, so a
     stacked state dict raises NotImplementedError."""
@@ -259,33 +273,67 @@ def load_pretrained_params(state_dict: Mapping[str, torch.Tensor], pretrained: M
         raise NotImplementedError(
             f"{stacked[0]!r}: the pipelined trunk's stacked layout is not ported yet")
     used, dropped, resized = [], [], []
-    merged = dict(state_dict)
-    for key, val in pretrained.items():
+    merged = dict(state_dict) if keys is None else {}
+    take = (lambda key: True) if keys is None else set(keys).__contains__
+    for key in pretrained:
         if key not in state_dict:
             dropped.append(("missing", key))
             continue
         want = state_dict[key]
-        val = torch.as_tensor(val)
-        if tuple(val.shape) == tuple(want.shape):
-            merged[key] = val.to(want.dtype)
+        shape = _shape(pretrained, key)
+        if shape == tuple(want.shape):
             used.append(key)
+            if take(key):
+                merged[key] = torch.as_tensor(pretrained[key]).to(want.dtype)
         elif key.rsplit(".", 1)[-1] == "pos_embed" and img_size is not None:
-            merged[key] = interpolate_pos_embed_checkpoint(val, patch_size,
-                                                           tuple(img_size)).to(want.dtype)
             resized.append(key)
+            if take(key):
+                merged[key] = interpolate_pos_embed_checkpoint(
+                    torch.as_tensor(pretrained[key]), patch_size, tuple(img_size)).to(want.dtype)
         else:
             dropped.append(("shape", key))
             if strict:
-                raise ValueError(f"shape mismatch for {key}: {tuple(val.shape)} vs "
-                                 f"{tuple(want.shape)}")
+                raise ValueError(f"shape mismatch for {key}: {shape} vs {tuple(want.shape)}")
     return merged, {"used": used, "dropped": dropped, "resized": resized}
 
 
-def load_state_npz(path: str) -> Dict[str, torch.Tensor]:
+class NpzState(Mapping):
     """A reference-layout state dict saved as an npz of numpy arrays (the
-    CLIs' --torch-npz)."""
-    with np.load(path) as raw:
-        return {k: torch.from_numpy(raw[k]) for k in raw.files}
+    CLIs' --torch-npz), read member by member: `state[key]` reads that one
+    array, `shape(key)` its shape, read with every member's header when the
+    file is opened, so a merge holds one tensor of it at a time."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._shapes: Dict[str, Tuple[int, ...]] = {}
+        with np.load(path) as raw:
+            for key in raw.files:
+                with raw.zip.open(f"{key}.npy") as f:
+                    version = np.lib.format.read_magic(f)
+                    read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                            else np.lib.format.read_array_header_2_0)
+                    self._shapes[key] = tuple(read(f)[0])
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        if key not in self._shapes:
+            raise KeyError(key)
+        with np.load(self.path) as raw:
+            return torch.from_numpy(raw[key])
+
+    def __iter__(self):
+        return iter(self._shapes)
+
+    def __len__(self) -> int:
+        return len(self._shapes)
+
+    def shape(self, key: str) -> Tuple[int, ...]:
+        return self._shapes[key]
+
+
+def load_state_npz(path: str) -> NpzState:
+    """A reference-layout state dict saved as an npz of numpy arrays (the
+    CLIs' --torch-npz), opened lazily: an NpzState."""
+    return NpzState(path)
 
 
 def _to_numpy(tree):

@@ -38,17 +38,22 @@ def _source(state_dict: Mapping[str, torch.Tensor], key: str, shape) -> torch.Te
 
 
 def quantize_state_dict(qmodel: torch.nn.Module, state_dict: Mapping[str, torch.Tensor],
-                        device=None) -> Dict[str, torch.Tensor]:
+                        device=None, partial: bool = False) -> Dict[str, torch.Tensor]:
     """`state_dict` (fp, reference layout) mapped onto `qmodel`'s w8a8
     layout, every tensor a copy on `device` (default: where it lies); the
-    quantization runs there."""
+    quantization runs there. partial=True maps only the keys whose source
+    `state_dict` holds, so a twin can be filled piece by piece (the pieces
+    together give the whole mapping, tensor for tensor)."""
     out: Dict[str, torch.Tensor] = {}
     for key, want in qmodel.state_dict().items():
         path, _, name = key.rpartition(".")
         if name == "weight_scale":
             continue  # made with its weight_q
+        source = f"{path}.weight" if name == "weight_q" else key
+        if partial and source not in state_dict:
+            continue
         if name == "weight_q":
-            w = _source(state_dict, f"{path}.weight", want.shape)
+            w = _source(state_dict, source, want.shape)
             out[key], out[f"{path}.weight_scale"] = quantize_weight(w.to(device=device))
         else:
             out[key] = _source(state_dict, key, want.shape).to(device=device, copy=True)
@@ -63,11 +68,19 @@ def fp32_sources(qmodel: torch.nn.Module) -> Set[str]:
             if name == "weight" or mod.bias is not None}
 
 
+def fill_twin(twin: torch.nn.Module, quantized: Mapping[str, torch.Tensor],
+              device=None) -> torch.nn.Module:
+    """`twin`, a quant="w8a8" model built on the meta device, holding
+    `quantized` (quantize_state_dict's mapping, whole) on `device`,
+    computing in its dtype, in eval mode."""
+    twin.load_state_dict(quantized, strict=True, assign=True)
+    return twin.to(device, twin.dtype).eval()
+
+
 def w8a8_twin(twin: torch.nn.Module, state_dict: Mapping[str, torch.Tensor],
               device=None) -> torch.nn.Module:
     """`twin`, a quant="w8a8" model of the trained model's architecture and
     phase (built on the meta device, so nothing is drawn), holding
     quantize_state_dict(twin, state_dict) on `device` (default: where the
     state dict lies), computing in its dtype, in eval mode."""
-    twin.load_state_dict(quantize_state_dict(twin, state_dict, device), strict=True, assign=True)
-    return twin.to(device, twin.dtype).eval()
+    return fill_twin(twin, quantize_state_dict(twin, state_dict, device), device)

@@ -23,6 +23,7 @@ import logging
 from orbit2_tpu_torch.config import load_config
 from orbit2_tpu_torch.evaluate import Evaluator, make_data_module, serving_weights
 from orbit2_tpu_torch.models.components.blocks import QUANT_MODES
+from orbit2_tpu_torch.utils.memory import device_memory_stats
 from orbit2_tpu_torch.utils.visualize import model_forward_fn, visualize_at_index
 
 log = logging.getLogger("orbit2_tpu_torch")
@@ -47,7 +48,8 @@ def main(argv=None):
     state_dict = serving_weights(cfg, args.checkpoint, args.torch_npz)
     if state_dict is None:
         log.warning("no checkpoint: visualizing weights drawn from trainer.seed")
-    ev = Evaluator(cfg, args.device, state_dict=state_dict, data_key=args.data_key)
+    ev = Evaluator(cfg, args.device, state_dict=state_dict, data_key=args.data_key,
+                   quant_modes=(args.quant,))
     div, overlap = cfg.tiling.effective_div, cfg.tiling.effective_overlap
     dm_vis = ev.data_module if div == 1 else make_data_module(cfg, ev.data_key, 1, 0, "test")
     in_vars, out_vars = ev.data_module.get_data_variables()
@@ -56,6 +58,7 @@ def main(argv=None):
                              mag=cfg.model.superres_mag, out_dir=args.out_dir)
     for var, m in res["metrics"].items():
         log.info("%s: PSNR=%.2f SSIM=%.4f", var, m["psnr"], m["ssim"])
+    log.info("memory: %s", device_memory_stats(ev.device))
     print(json.dumps(res["metrics"]))
     return res
 

@@ -177,6 +177,32 @@ Phases, each of which raises (and so exits non-zero) on failure:
                first's bit for bit, test() in w8a8, the prediction, trunk and
                stitched field within 0.05 of bf16, its step timed; the line
                {"serving_10b": {...}}
+  8. moe1b  — configs/interm_1b_moe.yaml (the 1B trunk with 8 Switch top-1
+               experts in every 2nd Block, capacity 1.25; 3,103,984,003
+               parameters; its mesh cut to the card) on the 1B phases'
+               synthetic PRISM tiles (66 x 132, 2,178 tokens), last: its
+               training needs most of the card. Evaluator with w8a8 refused
+               (JAX's ValueError); the bf16 Evaluator (routers fp32); K1 at
+               (B16 | B1, N2178, H24, d128) with and without dropout, K5 at
+               [34,848 | 69,696, 3,072 | 12,288] and K1-K3 at the training
+               shapes against their plain versions; test() over 2 batches of
+               16 tiles (exact K1 launches); one batch against the plain
+               attention: the routers' flipped top-1 choices counted, the
+               prediction and the trunk's output on the tokens routed alike
+               within TRUNK_BF16_REL; the witness (the first 4 tiles in fp32
+               on the plain attention); a stitched field against the plain
+               attention's; an MC ensemble of 2 (exact K1 and K5 launches,
+               K5 at pos_drop and 3 sites a dense Block, 2 an MoE Block);
+               Trainer.fit from the served weights (batch 32, full remat,
+               bf16 moments, dropout and drop-path 0.1, 2 epochs x 2 steps):
+               exact launches, finite losses, the aux loss in [1, 8], every
+               router and every expert that took tokens moved; one step at 4
+               tiles with remat full, dots and none bit for bit; the step by
+               events, its kernel time by kind (the experts' products and
+               the dispatch and combine einsums apart), peak memory, tiles/s
+               and MFU on the products it executes; K1-K3 and K5 rows at the
+               training shapes and K1's at the serving batch; the line
+               {"moe_1b": {...}}
 
 The second-to-last line is {"kernels": [...]}: for each kernel its launches
 on its path, max abs error, ms, plain ms, library ms (null where no single
@@ -287,6 +313,20 @@ ATTENTION_10B = (BATCH_10B, 1152, 32, 256)
 # (a fault confined to a few values moves the largest)
 WITNESS_TILES_10B = 4
 WITNESS_RATIO = 2.0
+
+# the MoE phase (moe1b): configs/interm_1b_moe.yaml at full width and depth
+# (the 1B trunk, 8 Switch experts in every 2nd Block), its mesh (fsdp 2 x
+# expert_par 4) cut to the card, on the 1B phases' tiles: served BATCH_1B
+# tiles a batch over BATCHES_1B batches, an MC ensemble of MC_SAMPLES_MOE and
+# a witness of WITNESS_TILES_MOE tiles; trained as train1b, the config's 32
+# tiles in GRAD_ACCUM_MOE microbatches. PARAMS_MOE: the port's parameters
+# at its tiles TILE_MOE, JAX's count key for key (tests/test_torch_moe.py)
+CONFIG_MOE = ROOT / "configs" / "interm_1b_moe.yaml"
+GRAD_ACCUM_MOE = 1
+MC_SAMPLES_MOE = 2
+WITNESS_TILES_MOE = 4
+PARAMS_MOE = 3_103_984_003
+TILE_MOE = (66, 132)
 
 # (B, N_q, N_k, H, D): the slice, the 117M bench shape, the 1B serving shape,
 # a ragged N over many kv tiles at the widest head, N_q != N_k, and one query
@@ -1661,18 +1701,21 @@ def serve1b(cfg, seed):
             "test_q_s": test_q_s, "data_s": data_s}
 
 
-def remat_launches(depth, remat=True):
-    """Kernel launches of one train microbatch of the ResSlimViT: K1 once a
-    Block, and again in each Block's recomputation under remat (both
-    policies: the kernels are no products); K2 and K3 once a Block; K5 at
-    pos_drop and three sites a Block, forward and backward, and again in the
+def remat_launches(depth, remat=True, moe_blocks=0):
+    """Kernel launches of one train microbatch of the ResSlimViT with
+    `moe_blocks` MoE Blocks: K1 once a Block, and again in each Block's
+    recomputation under remat (both policies: the kernels are no products);
+    K2 and K3 once a Block; K5 at pos_drop and three sites a dense Block,
+    two an MoE Block (the attention's projection and the MoE output: the
+    experts' hidden has no dropout), forward and backward, and again in the
     recomputation but for Block 0's last: its drop-path rate is 0, so nothing
-    after its fc2 is saved and the recomputation stops there
-    (torch.utils.checkpoint's early stop; tests/test_torch_remat.py)."""
+    after it is saved and the recomputation stops there
+    (torch.utils.checkpoint's early stop; tests/test_torch_remat.py,
+    tests/test_torch_moe.py)."""
     again = int(remat)
+    sites = 3 * depth - moe_blocks
     return dict(flash_attn_fwd=(1 + again) * depth, flash_attn_bwd_dq=depth,
-                flash_attn_bwd_dkv=depth,
-                fused_dropout=2 * (1 + 3 * depth) + again * (3 * depth - 1))
+                flash_attn_bwd_dkv=depth, fused_dropout=2 * (1 + sites) + again * (sites - 1))
 
 
 def train_flops(model, tokens, b, n, h, d):
@@ -2519,33 +2562,8 @@ def serve10b(cfg, seed, call_s, smi):
     launches = {("fwd", 0.0): out["bf16_test"]["launches"], ("fwd_tile", 0.0): None,
                 ("fwd", m.drop_rate): mc_counts["flash_attn_fwd"]}
     for (name, rate), n_launched in launches.items():
-        bt = 1 if name == "fwd_tile" else b
-        q, k, v = make_qkv(bt, tokens, tokens, h, d, torch.bfloat16, gen)
-        leaves = [t.transpose(1, 2) for t in (q, k, v)]
-        bound = roofline(attention_flops(bt, tokens, tokens, h, d),
-                         nbytes(q, k, v, q) + 4 * bt * h * tokens)
-        philox = bt * h * tokens * tokens / ELEMENTS_PER_CALL * call_s["fwd"] * 1e3
-        fn = lambda: flash_attention_fwd(q, k, v, None, rate, kseed)
-        with sdpa_kernel(SDPBackend.FLASH_ATTENTION), torch.no_grad():
-            lib = best_ms(lambda: F.scaled_dot_product_attention(*leaves, dropout_p=rate))
-        mult = attention_mult(q, k, rate, kseed)
-        plain = cuda_ms(lambda: flash_attention_reference(q, k, v, None, mult), iters=3, warmup=1)
-        del mult
-        torch.cuda.empty_cache()
-        row_bound = bound if rate == 0.0 else max(bound, (philox, "operations"))
-        rows[(name, rate)] = r = {
-            "shape": [bt, tokens, h, d], "dropout": rate, "ms": cuda_ms(fn),
-            "kernel_ms": kernel_ms(fn), "plain_ms": plain, "library_ms": lib,
-            "bound_ms": row_bound[0], "bound_by": row_bound[1], "launches": n_launched}
-        print(f"  K1 bf16 B{bt} N{tokens} H{h} d{d} drop {rate:g}: {r['ms']:.4f} ms (kernel alone "
-              f"{r['kernel_ms']:.4f}, {row_bound[0] / r['kernel_ms']:.3f} of the bound), plain "
-              f"{plain:.4f}, SDPA (flash) {lib:.4f} ({r['kernel_ms'] / lib:.2f}x by kernel time); "
-              f"bound {row_bound[0]:.4f} ({row_bound[1]}; tensor cores {bound[0]:.4f}, Philox "
-              f"{philox:.4f}); "
-              + (f"{n_launched} launches on the path" if n_launched is not None else
-                 "launched by both stitched fields") + f"; gpu: {smi}")
-        del q, k, v, leaves
-        torch.cuda.empty_cache()
+        rows[(name, rate)] = k1_row(1 if name == "fwd_tile" else b, tokens, h, d, rate, gen,
+                                    kseed, call_s, smi, n_launched)
     for width in (m.embed_dim, hidden):
         xd = torch.randn(b * tokens, width, generator=gen, device="cuda").to(torch.bfloat16)
         mult = keep_mult(kseed, b * tokens, width, m.drop_rate, device="cuda")
@@ -2612,6 +2630,622 @@ def serve10b(cfg, seed, call_s, smi):
     out["rows"] = {f"{name}_{key}": r for (name, key), r in rows.items()}
     return {"out": out, "rows": rows, "errs": errs, "rate": m.drop_rate,
             "widths": (m.embed_dim, hidden)}
+
+
+def config_moe(root: Path, seed: int, trainer=None, **dataset):
+    """configs/interm_1b_moe.yaml with its mesh (fsdp 2 x expert_par 4) cut to
+    the one card and PRISM's variables on a synthetic split at LOW_1B
+    (write_dataset's `dataset` arguments)."""
+    return slice_config(root, seed, CONFIG_MOE, trainer=trainer, low=LOW_1B, **dataset)
+
+
+@contextlib.contextmanager
+def router_choices(model):
+    """Collects the top-1 choices [B, L] of every MoE Block of `model` in each
+    forward inside the block (run it without grad): yields a list with one
+    list of them a forward, in Block order."""
+    from orbit2_tpu_torch.models.components.moe import MoEMlp
+
+    got = []
+    moes = [mod for mod in model.modules() if isinstance(mod, MoEMlp)]
+
+    def record(mod, args):
+        if mod is moes[0]:
+            got.append([])
+        got[-1].append(mod.router_probs(args[0]).argmax(-1))
+
+    handles = [mod.register_forward_pre_hook(record) for mod in moes]
+    try:
+        yield got
+    finally:
+        for handle in handles:
+            handle.remove()
+
+
+def flips(got, want):
+    """(top-1 choices that differ, in each MoE Block; the tokens whose choice
+    differs in some Block), between two router_choices records of a batch."""
+    per_block = [int((a != b).sum()) for a, b in zip(got, want)]
+    any_flip = torch.stack([a != b for a, b in zip(got, want)]).any(dim=0)
+    return per_block, any_flip
+
+
+def fingerprints(model):
+    """{name: (fp64 sum, fp64 sum of squares)} of every parameter, per
+    expert (its first dimension) for the MoE Blocks' wi, bi, wo, bo: a
+    parameter or an expert whose fingerprint changed has moved."""
+    out = {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            t = p.detach().double()
+            if ".moe_mlp." in name and "router_kernel" not in name:
+                dims = tuple(range(1, t.dim()))
+                out[name] = torch.stack([t.sum(dims), t.square().sum(dims)], dim=-1).cpu()
+            else:
+                out[name] = torch.stack([t.sum(), t.square().sum()]).cpu()
+    return out
+
+
+def moe_flops(model, b, n, h, d):
+    """(model flops, hardware flops, 6 x parameters x tokens) of one MoE
+    train step over b tiles of n tokens, on the products it executes: 6 x
+    the parameters outside the experts (the routers among them) x the
+    tokens; in each MoE Block the experts' two products on their E x b x C
+    slots (2 x 2 D H a slot forward, 3x that with the backward) and the
+    dispatch and combine einsums (2 b n E C D each forward; the backward
+    takes the dispatch's once, for x, and the combine's twice, for the
+    experts' output and the gates: 5 in all); attention as train_flops
+    counts it. The hardware's also count full remat's forward again: the
+    Blocks' dense products, the experts' and both einsums, K1 and the
+    backward kernels' recomputed scores. The last counts every expert on
+    every token, as a dense model's MFU would."""
+    from orbit2_tpu_torch.ops.flash_attention import attention_flops
+
+    moes = [blk.moe_mlp for blk in model.blocks if blk.moe]
+    experts = sum(p.numel() for mlp in moes for name, p in mlp.named_parameters()
+                  if name != "router_kernel")
+    params = sum(p.numel() for p in model.parameters())
+    dense_blocks = sum(p.numel() for p in model.blocks.parameters()) - experts
+    depth, tokens = len(model.blocks), b * n
+    att = attention_flops(b, n, n, h, d)
+    expert_fwd = einsum_fwd = 0
+    for mlp in moes:
+        e, dim, hidden = mlp.wi.shape
+        slots = e * b * mlp.capacity(n)
+        expert_fwd += 2 * 2 * dim * hidden * slots
+        einsum_fwd += 2 * (2 * b * n * e * mlp.capacity(n) * dim)
+    model_flops = (6 * (params - experts) * tokens + 3 * expert_fwd + 5 / 2 * einsum_fwd
+                   + 3 * depth * att)
+    hardware = (model_flops + 2 * dense_blocks * tokens + expert_fwd + einsum_fwd
+                + depth * (1 + 3.5 - 2) * att)
+    return model_flops, hardware, 6 * params * tokens
+
+
+def step_split(fn, tiles, experts, slots, hidden):
+    """One call of fn's kernel ms by kind: K1, K2, K3 and K5 by the
+    profiler's kernel time (kernel_ms, by kernel name); the matrix products
+    by CUDA events recorded around each aten product op (a TorchDispatchMode,
+    which also sees the backward's), in three kinds: bmm / baddbmm batched
+    over the `experts` with the `hidden` width among their dimensions (the
+    experts' products), bmm / baddbmm batched over the `tiles` with the
+    experts' `slots` (E x C) among them (the dispatch and combine einsums),
+    and the rest with mm / addmm and the convolutions (the dense products);
+    "other" is the kernel time left (elementwise, copies, reductions,
+    norms). Returns (the kernel time, {kind: ms}, {kernel name: ms})."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    batched = {aten.bmm.default, aten.baddbmm.default}
+    products = batched | {aten.mm.default, aten.addmm.default, aten.convolution.default,
+                          aten.convolution_backward.default}
+    marks = []
+
+    class ProductTimer(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func not in products:
+                return func(*args, **(kwargs or {}))
+            kind = "dense_products"
+            if func in batched:
+                a, b = [t for t in args if isinstance(t, torch.Tensor)][-2:]  # the batches
+                dims = set(a.shape[1:]) | set(b.shape[1:])
+                if a.shape[0] == experts and hidden in dims:
+                    kind = "expert_products"
+                elif a.shape[0] == tiles and slots in dims:
+                    kind = "dispatch_combine"
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = func(*args, **(kwargs or {}))
+            end.record()
+            marks.append((kind, start, end))
+            return out
+
+    by_name = {}
+    total = kernel_ms(fn, iters=1, by_name=by_name)
+    named = {"k1": ("flash_fwd",), "k2": ("flash_bwd_dq",), "k3": ("flash_bwd_dkv",),
+             "k5": ("dropout_vec_kernel", "dropout_scalar_kernel")}
+    kinds = {kind: sum(t for name, t in by_name.items() if any(tag in name for tag in tags))
+             for kind, tags in named.items()}
+    kinds.update(dict.fromkeys(("expert_products", "dispatch_combine", "dense_products"), 0.0))
+    torch.cuda.synchronize()
+    with ProductTimer():
+        fn()
+    torch.cuda.synchronize()
+    for kind, start, end in marks:
+        kinds[kind] += start.elapsed_time(end)
+    kinds["other"] = total - sum(kinds.values())
+    return total, kinds, by_name
+
+
+def moe1b(root, seed, call_s, smi):
+    """Phase moe1b: configs/interm_1b_moe.yaml (the 1B trunk with 8 Switch
+    experts in every 2nd Block) served and trained on the card at full width
+    and depth, on the 1B phases' tiles (66 x 132, 2,178 tokens). w8a8 is
+    refused; the Evaluator draws the model on the card (its routers fp32);
+    K1 (B16 and B1, with and without dropout), K5 at the serving and
+    training widths, and K1-K3 at the training shapes against their plain
+    versions; test() over BATCHES_1B batches (exact K1 launches); one batch
+    against the plain attention (the routers' flipped choices counted, the
+    prediction and the trunk's output on tokens routed alike within
+    TRUNK_BF16_REL) and its first tiles against an fp32 forward (the
+    witness); a stitched field against the plain attention's; an MC
+    ensemble (exact K1 and K5 launches; seeded). Then Trainer.fit from the
+    served weights, batch 32 tiles, full remat, bf16 moments, dropout and
+    drop-path 0.1: exact launches, finite losses, the aux term in [1, E],
+    every router and every expert that took tokens moved; one step at
+    MICRO_1B tiles with remat full, dots and none bit for bit; the step's
+    time by events, its kernel time by kind (the experts' products and the
+    dispatch and combine einsums apart), peak memory, tiles/s and MFU on the
+    products it executes; the kernels' rows at the path's shapes. Returns
+    the {"moe_1b"} line's numbers and the kernels line's rows."""
+    import gc
+    import types
+
+    from orbit2_tpu_torch.evaluate import Evaluator, make_data_module
+    from orbit2_tpu_torch.models.components.blocks import MOE_QUANT_ERROR
+    from orbit2_tpu_torch.training.train import make_eval_step, make_train_step
+    from orbit2_tpu_torch.training.trainer import Trainer
+    from orbit2_tpu_torch.utils.mc_dropout import get_monte_carlo_predictions
+
+    cfg = config_moe(root / "serve", seed, trainer={"batch_size": BATCH_1B}, n_files=1,
+                     t=FIELDS_1B, shards=("test",))
+    m = cfg.model
+    depth, h, d = m.depth, m.num_heads, m.embed_dim // m.num_heads
+    hidden = int(m.embed_dim * m.mlp_ratio)
+    div, overlap, mag = cfg.tiling.effective_div, cfg.tiling.effective_overlap, m.superres_mag
+    out = {"gpu": smi}
+    try:
+        Evaluator(cfg, "cuda", quant_modes=("none", "w8a8"))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    print(f"  Evaluator(quant_modes=('none', 'w8a8')) raises ValueError: {refused!r}")
+    check(refused == MOE_QUANT_ERROR, f"w8a8 on the MoE config: {refused!r}")
+
+    # the phase trains near the card's size, in a process whose earlier phases
+    # left cached segments that live tensors pin: where a 9.57 GiB gradient of
+    # the variable aggregation must find room, they have run it out of memory
+    # with 19 GiB reserved and unused. Expandable segments map their pages
+    # anew. The config trained alone in a process fits without them.
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ev = Evaluator(cfg, "cuda")
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    dm = ev.data_module
+    in_vars, out_vars = dm.get_data_variables()
+    in_shape, out_shape = dm.get_data_dims()
+    b = in_shape[0]
+    tokens = (in_shape[2] // m.patch_size) * (in_shape[3] // m.patch_size)
+    model = ev.model
+    moe_blocks = [i for i, blk in enumerate(model.blocks) if blk.moe]
+    n_moe = len(moe_blocks)
+    n_params = sum(p.numel() for p in model.parameters())
+    routers = [model.blocks[i].moe_mlp.router_kernel for i in moe_blocks]
+    capacity = model.blocks[moe_blocks[0]].moe_mlp.capacity(tokens)
+    print(f"  config {CONFIG_MOE.name}: embed {m.embed_dim} depth {depth} heads {h} (d {d}) gelu "
+          f"{m.gelu_approx} {cfg.trainer.data_type}; {m.moe_experts} experts top-{m.moe_top_k} in "
+          f"Blocks {moe_blocks} (capacity factor {m.moe_capacity_factor}: C = {capacity} of "
+          f"{tokens} tokens), aux weight {m.moe_aux_weight}; {n_params:,} parameters drawn on "
+          f"the card in {out['build_s']:.2f} s (the routers "
+          f"{sorted({str(r.dtype)[6:] for r in routers})}); tiles {tuple(in_shape[2:])} -> "
+          f"{tuple(out_shape[2:])}, batch {b}; card peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    check(n_params == PARAMS_MOE and moe_blocks == list(range(m.moe_every - 1, depth, m.moe_every))
+          and tuple(in_shape[2:]) == TILE_MOE, f"MoE geometry {n_params, moe_blocks, tokens}")
+    check(all(r.dtype == torch.float32 for r in routers) and ev.quant_modes == ("none",)
+          and not ev._twins, "the bf16 MoE Evaluator's routers are not fp32, or it holds a twin")
+    out["config"] = {"params": n_params, "moe_blocks": moe_blocks, "experts": m.moe_experts,
+                     "capacity": capacity, "tokens_per_tile": tokens, "batch_tiles": b}
+
+    # the path's kernels at its shapes against their plain versions
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kseed = 2 ** 42 + seed
+    errs = {}
+    q, k, v = make_qkv(b, tokens, tokens, h, d, torch.bfloat16, gen)
+    for rate in (0.0, m.drop_rate):
+        errs[("serve", rate)] = check_batch_rows(
+            q, k, v, None, rate, kseed, (0, b - 1), f"bf16 drop {rate:g} B{b} N{tokens} H{h} "
+            f"d{d}")["fwd"]
+    del q, k, v
+    q, k, v = make_qkv(1, tokens, tokens, h, d, torch.bfloat16, gen)
+    errs[("tile", 0.0)] = check_forward(q, k, v, 0.0, kseed, f"bf16 drop 0 B1 N{tokens} H{h} "
+                                        f"d{d} (a stitched tile)")[3]
+    del q, k, v
+    for c in (m.embed_dim, hidden):
+        check_dropout(b * tokens, c, torch.bfloat16, m.drop_rate, gen, kseed)
+    torch.cuda.empty_cache()
+
+    # serving
+    sites = 3 * depth - n_moe  # K5 sites: pos_drop aside, 3 a dense Block, 2 an MoE Block
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = ev.test(max_batches=BATCHES_1B)
+    torch.cuda.synchronize()
+    test_s, launched = time.perf_counter() - t0, counts()
+    print(f"  test(max_batches={BATCHES_1B}) {test_s:.3f} s; launches {launched}")
+    check(len(metrics) == 12 and all(np.isfinite(v) for v in metrics.values()),
+          "MoE metrics missing or not finite")
+    check(launched == only(flash_attn_fwd=depth * BATCHES_1B),
+          f"MoE serving launches {launched}, want flash_attn_fwd = depth x batches")
+    out["test_s_per_batch"], out["test_launches"] = test_s / BATCHES_1B, launched["flash_attn_fwd"]
+    out["metrics"] = {k: v for k, v in metrics.items() if k.endswith("aggregate")}
+    loader = iter(dm.test_dataloader())
+    batch = next(loader)
+    loader.close()
+    x = torch.from_numpy(batch[0]).cuda()
+    y = torch.from_numpy(batch[1]).cuda()
+    with torch.no_grad(), trunk_outputs(model) as trunks, router_choices(model) as routes:
+        pred = model(x, in_vars, out_vars).float()
+        set_attention_impl(model, "xla")
+        pred_plain = model(x, in_vars, out_vars).float()
+        set_attention_impl(model, m.attention_impl)
+        torch.cuda.synchronize()
+    want_shape = (b, len(out_vars)) + tuple(out_shape[2:])
+    check(tuple(pred.shape) == want_shape and bool(pred.isfinite().all()),
+          f"bad MoE prediction {tuple(pred.shape)}, want {want_shape}")
+    per_block, flipped = flips(*routes)
+    agree = ~flipped
+    trunk, trunk_plain = trunks
+    rel_pred, rel_trunk = rel_frob(pred, pred_plain), rel_frob(trunk, trunk_plain)
+    rel_agree = rel_frob(trunk[agree], trunk_plain[agree])
+    out["prediction"] = {
+        "flips_per_moe_block": per_block, "tokens_flipped": int(flipped.sum()),
+        "tokens": flipped.numel(), "pred_rel_vs_plain": rel_pred,
+        "pred_max_abs_vs_plain": (pred - pred_plain).abs().max().item(),
+        "trunk_rel_vs_plain": rel_trunk, "trunk_rel_routed_alike": rel_agree}
+    print(f"  bf16 prediction of one batch, kernels vs plain attention: the routers' top-1 "
+          f"choices differ at {per_block} of {flipped.numel()} tokens in MoE Blocks "
+          f"{moe_blocks} ({int(flipped.sum())} tokens routed otherwise somewhere); prediction "
+          f"relative Frobenius error {rel_pred:.4e}, max|d| "
+          f"{out['prediction']['pred_max_abs_vs_plain']:.3e} (max|pred| "
+          f"{pred_plain.abs().max().item():.3e}); the trunk's output {rel_trunk:.4e}, on the "
+          f"{int(agree.sum())} tokens routed alike {rel_agree:.4e} (bound {TRUNK_BF16_REL:g} "
+          f"for the prediction and the tokens routed alike)")
+    check(rel_pred <= TRUNK_BF16_REL and rel_agree <= TRUNK_BF16_REL,
+          f"the MoE prediction on the kernels is {rel_pred} off the plain attention's, the "
+          f"trunk on the tokens routed alike {rel_agree}")
+    n = WITNESS_TILES_MOE
+    with torch.no_grad(), router_choices(model) as ref_routes:
+        model.dtype = torch.float32  # every layer casts its bf16 weights to fp32 at use
+        set_attention_impl(model, "xla")
+        pred_ref = model(x[:n], in_vars, out_vars).float()
+        model.dtype = torch.bfloat16
+        set_attention_impl(model, m.attention_impl)
+    witness = {}
+    for label, got, got_routes in (("kernels", pred[:n], routes[0]),
+                                   ("plain", pred_plain[:n], routes[1])):
+        diff = (got - pred_ref).abs()
+        witness[label] = {"rel": rel_frob(got, pred_ref), "max_abs": diff.max().item(),
+                          "flips_vs_fp32": flips([r[:n] for r in got_routes], ref_routes[0])[0]}
+    out["witness_fp32"] = dict(witness, tiles=n, max_abs_ref=pred_ref.abs().max().item())
+    print(f"  witness: the first {n} tiles' bf16 predictions against the same weights computing "
+          f"in fp32 on the plain attention (max|pred| {out['witness_fp32']['max_abs_ref']:.3e}): "
+          + "; ".join(f"{label}: relative Frobenius error {w['rel']:.4e}, max|d| "
+                      f"{w['max_abs']:.3e}, top-1 choices off fp32's {w['flips_vs_fp32']}"
+                      for label, w in witness.items())
+          + f" (the kernels' path within {WITNESS_RATIO:g}x the plain path's)")
+    check(all(witness["kernels"][key] <= WITNESS_RATIO * witness["plain"][key]
+              for key in ("rel", "max_abs")),
+          f"the MoE bf16 prediction on the kernels is further from fp32 than the plain path's: "
+          f"{witness}")
+    del pred_plain, trunk, trunk_plain, trunks, pred_ref, routes, ref_routes
+
+    dm_vis = make_data_module(cfg, ev.data_key, 1, 0, "test")
+    sample, _, names, _ = next(iter(dm_vis.data_test))
+    x_full = np.stack([sample[k] for k in names])
+    reset_counts()
+    field, stitch_s = stitch_field(model, x_full, div, overlap, mag, in_vars, out_vars)
+    stitch_launched = counts()
+    set_attention_impl(model, "xla")
+    field_plain, _ = stitch_field(model, x_full, div, overlap, mag, in_vars, out_vars)
+    set_attention_impl(model, m.attention_impl)
+    rel_field = float(np.linalg.norm(field - field_plain) / np.linalg.norm(field_plain))
+    want_field = (len(out_vars), x_full.shape[1] * mag, x_full.shape[2] * mag)
+    out["stitch"] = {"seconds": stitch_s, "launches": stitch_launched["flash_attn_fwd"],
+                     "rel_vs_plain": rel_field}
+    print(f"  stitched field 0: {x_full.shape} -> {field.shape} from {div * div} tiles in "
+          f"{stitch_s:.3f} s; launches {stitch_launched}; against the same field on the plain "
+          f"attention: relative Frobenius error {rel_field:.4e} (bound {TRUNK_BF16_REL:g})")
+    check(field.shape == want_field and bool(np.isfinite(field).all()),
+          f"MoE stitched field {field.shape}, want {want_field}, or not finite")
+    check(stitch_launched == only(flash_attn_fwd=depth * div * div),
+          f"MoE stitching launched {stitch_launched}")
+    check(rel_field <= TRUNK_BF16_REL, f"the stitched MoE field is {rel_field} off the plain "
+          f"attention's")
+    del field, field_plain
+
+    reset_counts()
+    ens = get_monte_carlo_predictions(model, x, in_vars, out_vars, MC_SAMPLES_MOE,
+                                      torch.Generator().manual_seed(seed))
+    torch.cuda.synchronize()
+    mc_counts = counts()
+    again = get_monte_carlo_predictions(model, x, in_vars, out_vars, MC_SAMPLES_MOE,
+                                        torch.Generator().manual_seed(seed))
+    want_mc = only(flash_attn_fwd=MC_SAMPLES_MOE * depth,
+                   fused_dropout=MC_SAMPLES_MOE * (1 + sites))
+    print(f"  MC dropout, {MC_SAMPLES_MOE} samples of one batch at drop_rate {m.drop_rate}: "
+          f"{tuple(ens.shape)}, mean member std {ens.float().std(dim=0).mean().item():.4e}; "
+          f"launches {mc_counts} (K5 at pos_drop and {sites} sites: 3 a dense Block, 2 an MoE "
+          f"Block, whose output is dropped and its experts' hidden not)")
+    check(tuple(ens.shape) == (MC_SAMPLES_MOE,) + want_shape and bool(ens.isfinite().all()),
+          f"bad MoE MC ensemble {tuple(ens.shape)}")
+    check(mc_counts == want_mc, f"MoE MC dropout launches {mc_counts}, want {want_mc}")
+    check(not torch.equal(ens[0], ens[1]) and torch.equal(ens, again),
+          "MC-dropout samples are equal, or the same seed gave others")
+    out["mc_launches"] = mc_counts
+    del ens, again
+    serve_step = make_eval_step(model, in_vars, out_vars)
+    out["serve_step_ms"] = cuda_ms(lambda: serve_step(x, y), iters=3, warmup=1)
+    print(f"  serving step (forward + clip), batch {b} tiles: {out['serve_step_ms']:.3f} ms by "
+          f"events (median of 3); gpu: {smi}")
+    del serve_step, x, y, pred
+
+    # training, from the served bf16 weights (fp32 masters of them)
+    tcfg = config_moe(root / "train", seed, trainer={"batch_size": BATCH_TRAIN_1B,
+                                                      "grad_accum": GRAD_ACCUM_MOE},
+                      n_files=FIELDS_TRAIN_1B, t=1, shards=("train",))
+    tc = tcfg.trainer
+    micro = tc.batch_size // tc.grad_accum
+    check(tc.remat and tc.remat_policy == "full" and tc.adam_mu_dtype == "bfloat16",
+          "interm_1b_moe.yaml no longer trains with full remat and bf16 moments")
+    before = fingerprints(model)
+    gc.collect()
+    torch.cuda.empty_cache()  # the fp32 masters in segments of their own
+    trainer = Trainer(tcfg, "cuda")
+    key = next(iter(tcfg.data.low_res_dir))
+    tdm = trainer.data_module(key)
+    trainer.build_model(tdm, model.state_dict())
+    del ev, model, routers, dm, dm_vis
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = 2 * TRAIN_STEPS_1B
+    print(f"  training: batch {tc.batch_size} tiles in grad_accum {tc.grad_accum} microbatches "
+          f"of {micro}, remat {tc.remat_policy}, adam mu {tc.adam_mu_dtype} nu "
+          f"{tc.adam_nu_dtype}, drop_rate {m.drop_rate} drop_path {m.drop_path}; 2 epochs x "
+          f"{TRAIN_STEPS_1B} steps on a synthetic train split of {FIELDS_TRAIN_1B} fields")
+    reset_counts()
+    tt = time.perf_counter()
+    history = trainer.fit(max_epochs=2, max_steps_per_epoch=TRAIN_STEPS_1B)
+    torch.cuda.synchronize()
+    fit_s, fit_launched = time.perf_counter() - tt, counts()
+    fit_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for rec in history:
+        print(f"    {json.dumps(rec)}")
+    want = only(**{k: v * steps * tc.grad_accum
+                   for k, v in remat_launches(depth, moe_blocks=n_moe).items()})
+    print(f"  fit {fit_s:.3f} s, card peak {fit_peak:.2f} GiB; launches {fit_launched}")
+    check(sum(r["batches"] for r in history) == steps, f"fit took {history}")
+    check(all(np.isfinite(r["loss"]) for r in history), "an MoE train loss is not finite")
+    check(fit_launched == want, f"MoE train launches {fit_launched}, want {want}")
+    model = trainer.model
+    params = dict(model.named_parameters())
+    after = fingerprints(model)
+    fed = {k for k, p in params.items() if p.grad is not None}
+    still = [k for k in fed if ".moe_mlp." not in k and torch.equal(after[k], before[k])]
+    router_still = [k for k in after if k.endswith("router_kernel")
+                    and torch.equal(after[k], before[k])]
+    took, expert_still = 0, []
+    for i in moe_blocks:
+        name = f"blocks.{i}.moe_mlp.wi"
+        received = (params[name].grad != 0).flatten(1).any(dim=1).cpu()  # the last step's
+        took += int(received.sum())
+        for e in received.nonzero().flatten().tolist():
+            if any(torch.equal(after[f"blocks.{i}.moe_mlp.{w}"][e], before[f"blocks.{i}.moe_mlp.{w}"][e])
+                   for w in ("wi", "wo")):
+                expert_still.append((i, e))
+    print(f"  moved (by fingerprint: fp64 sum and sum of squares, per expert): "
+          f"{len(fed) - len(still) - sum('.moe_mlp.' in k for k in fed)} of the dense parameters "
+          f"the loss reaches, the {n_moe} routers, and the {took} of {n_moe * m.moe_experts} "
+          f"experts that took tokens in the last step; all fp32 masters "
+          f"{all(p.dtype == torch.float32 for p in params.values())}")
+    check(not still and not router_still and not expert_still and took > 0
+          and all(p.dtype == torch.float32 for p in params.values()),
+          f"MoE parameters did not move: {still[:3]} {router_still} {expert_still}")
+    del before, after
+
+    loader = iter(tdm.train_dataloader())
+    batch = next(loader)
+    loader.close()
+    tvars_in, tvars_out = tdm.get_data_variables()
+    xb = torch.from_numpy(batch[0]).to(torch.bfloat16).cuda()
+    yb = torch.from_numpy(batch[1]).to(torch.bfloat16).cuda()
+    with torch.no_grad():
+        _, aux = model.train()(xb[:MICRO_1B], tvars_in, tvars_out, *gens(seed + 31),
+                               return_aux=True)
+    aux = [a.item() for a in aux]
+    aux_mean = sum(aux) / len(aux)
+    out["aux"] = {"per_moe_block": aux, "mean": aux_mean, "weight": m.moe_aux_weight,
+                  "term": m.moe_aux_weight * aux_mean}
+    print(f"  the load-balance losses of a train-mode forward at {MICRO_1B} tiles after the fit: "
+          f"{[round(a, 5) for a in aux]}, mean {aux_mean:.5f} in [1, {m.moe_experts}], x weight "
+          f"{m.moe_aux_weight} = {m.moe_aux_weight * aux_mean:.6f} of the train loss")
+    check(all(np.isfinite(aux)) and 1.0 <= aux_mean <= m.moe_experts,
+          f"the MoE aux term {aux} is not in [1, E]")
+
+    # remat full and dots against none, one microbatch, bit for bit
+    no_update = types.SimpleNamespace(step=lambda: None)
+    grad_step = make_train_step(model, trainer.train_loss, tcfg.data.var_weights, no_update,
+                                tvars_in, tvars_out, moe_aux_weight=m.moe_aux_weight)
+    first = None
+    torch.use_deterministic_algorithms(True)
+    try:
+        for remat, policy in ((True, "full"), (True, "dots"), (False, "full")):
+            model.remat, model.remat_policy = remat, policy
+            g1, g2 = gens(seed + 23)
+            reset_counts()
+            loss = grad_step(xb[:MICRO_1B], yb[:MICRO_1B], g1, g2)
+            torch.cuda.synchronize()
+            run = (loss, {k: p.grad for k, p in params.items() if p.grad is not None},
+                   (g1.get_state(), g2.get_state()))
+            label = policy if remat else "none"
+            print(f"  deterministic step at {MICRO_1B} tiles, remat {label}: loss "
+                  f"{loss.item():.7f}; launches {counts()}")
+            check(counts() == only(**remat_launches(depth, remat, n_moe)),
+                  f"MoE remat {label} step launched {counts()}")
+            if first is None:
+                first = run
+                continue
+            same = (torch.equal(run[0], first[0]) and run[1].keys() == first[1].keys()
+                    and all(torch.equal(run[1][k], first[1][k]) for k in first[1])
+                    and all(torch.equal(a, b) for a, b in zip(run[2], first[2])))
+            check(same, f"MoE remat {label} differs from remat full: loss {run[0].item()!r} vs "
+                  f"{first[0].item()!r}")
+            del run
+    finally:
+        torch.use_deterministic_algorithms(False)
+        model.remat, model.remat_policy = tc.remat, tc.remat_policy
+    print(f"  remat full, dots and none: losses, all {len(first[1])} gradients (the routers' "
+          f"and experts' among them) and both generators' states equal bit for bit")
+    del first
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # the training path's attention and dropout kernels at its shapes
+    for bt in sorted({micro, MICRO_1B}):
+        q, k, v = make_qkv(bt, tokens, tokens, h, d, torch.bfloat16, gen)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        errs[("train", bt)] = check_batch_rows(q, k, v, do, m.drop_rate, kseed,
+                                               sorted({0, bt - 1}),
+                                               f"bf16 drop {m.drop_rate:g} B{bt} N{tokens} H{h} "
+                                               f"d{d}")
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    for c in (m.embed_dim, hidden):
+        check_dropout(micro * tokens, c, torch.bfloat16, m.drop_rate, gen, kseed)
+    torch.cuda.empty_cache()
+
+    # the step's time, memory, kernel split and MFU
+    tstep = make_train_step(model, trainer.train_loss, tcfg.data.var_weights, trainer.optimizer,
+                            tvars_in, tvars_out, grad_accum=tc.grad_accum,
+                            moe_aux_weight=m.moe_aux_weight)
+    g1, g2 = gens(seed + 29)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = cuda_ms(lambda: tstep(xb, yb, g1, g2), iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    kern, kinds, by_name = step_split(lambda: tstep(xb, yb, g1, g2), xb.shape[0] // tc.grad_accum,
+                                      m.moe_experts, m.moe_experts * capacity, hidden)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    model_flops, hw_flops, naive_flops = moe_flops(model, xb.shape[0], tokens, h, d)
+    step = {"batch_tiles": xb.shape[0], "tokens_per_tile": tokens, "grad_accum": tc.grad_accum,
+            "remat": tc.remat_policy, "step_ms": ms, "kernel_ms": kern, "busy": kern / ms,
+            "tiles_per_s": xb.shape[0] / ms * 1e3, "peak_gib": peak / 2 ** 30,
+            "step_gib": (peak - base) / 2 ** 30, "fit_peak_gib": fit_peak,
+            "model_tflop": model_flops / 1e12, "hardware_tflop": hw_flops / 1e12,
+            "mfu": model_flops / (ms * 1e-3) / PEAK_FLOPS,
+            "hfu": hw_flops / (ms * 1e-3) / PEAK_FLOPS,
+            "dense_count_mfu": naive_flops / (ms * 1e-3) / PEAK_FLOPS, "fit_s": fit_s,
+            "by_kind": kinds, "losses": [r["loss"] for r in history],
+            "kernels": {name[:80]: t for name, t in top}}
+    free_gib = torch.cuda.mem_get_info()[1] / 2 ** 30 - max(fit_peak, step["peak_gib"])
+    print(f"  MoE train step, batch {xb.shape[0]} tiles of {tokens} tokens, grad_accum "
+          f"{tc.grad_accum}, remat {tc.remat_policy}: {ms:.3f} ms by events (median of 3 after a "
+          f"warm-up), {step['tiles_per_s']:.2f} tiles/s; kernel time {kern:.3f} ms (busy "
+          f"{step['busy']:.3f}); peak memory {step['peak_gib']:.2f} GiB ({step['step_gib']:.2f} "
+          f"the step's own; the fit's {fit_peak:.2f}; {free_gib:.2f} GiB of the card never "
+          f"used); executed products {step['model_tflop']:.1f} TFLOP a step, MFU "
+          f"{step['mfu']:.4f}; with the recomputation {step['hardware_tflop']:.1f} TFLOP, "
+          f"{step['hfu']:.4f}; 6 x params x tokens (every expert on every token) would read "
+          f"{step['dense_count_mfu']:.4f}; of {PEAK_FLOPS / 1e12:.0f} TFLOP/s; gpu: {smi}")
+    print("    by kind: " + ", ".join(f"{kind} {t:.3f} ms" for kind, t in kinds.items()))
+    for name, t in top:
+        print(f"    {t:9.4f} ms  {name[:110]}")
+    out["train"] = step
+    out["fit_launches"] = fit_launched
+    train_shape = (micro, tokens, h, d)
+    del trainer, model, params, tstep, grad_step, xb, yb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    m1b = {"shape": train_shape, "rate": m.drop_rate, "launched": fit_launched,
+           "steps": steps * tc.grad_accum, "width": (m.embed_dim, hidden)}
+    rows = train_1b_times(m1b, gen, kseed, call_s, smi, label="moe 1B")
+    rows["serve"] = k1_row(b, tokens, h, d, 0.0, gen, kseed, call_s, smi,
+                           out["test_launches"], chunk=MICRO_1B)
+    out["errors"] = {"serve_k1": errs[("serve", 0.0)], "serve_k1_drop": errs[("serve", m.drop_rate)],
+                     "tile_k1": errs[("tile", 0.0)],
+                     **{f"train_{name}": e for name, e in errs[("train", micro)].items()}}
+    out["rows"] = rows
+    return {"out": out, "rows": rows, "errs": errs[("train", micro)],
+            "serve_err": errs[("serve", 0.0)]}
+
+
+def k1_row(b, n, h, d, rate, gen, seed, call_s, smi, launches, chunk=None):
+    """K1's row at (b, n, h, d) bf16 with dropout `rate`: by events and by its
+    kernel time alone, its plain version (`chunk` batch elements at a time,
+    where the whole batch's scores would not fit; None: at once), SDPA's
+    flash forward and its bound (tensor cores and bytes, with dropout also
+    its Philox calls). Prints it; `launches` is the path's count, or None
+    where the caller fills it in."""
+    import torch.nn.functional as F
+
+    from orbit2_tpu_torch.ops.flash_attention import (
+        attention_flops, attention_mult, flash_attention_fwd, flash_attention_reference)
+    from orbit2_tpu_torch.ops.kernel_prng import keep_mult
+
+    q, k, v = make_qkv(b, n, n, h, d, torch.bfloat16, gen)
+    leaves = [t.transpose(1, 2) for t in (q, k, v)]
+    bound = roofline(attention_flops(b, n, n, h, d), nbytes(q, k, v, q) + 4 * b * h * n)
+    philox = b * h * n * n / ELEMENTS_PER_CALL * call_s["fwd"] * 1e3
+    fn = lambda: flash_attention_fwd(q, k, v, None, rate, seed)
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION), torch.no_grad():
+        lib = best_ms(lambda: F.scaled_dot_product_attention(*leaves, dropout_p=rate))
+    if chunk is None:
+        mult = attention_mult(q, k, rate, seed)
+        plain = cuda_ms(lambda: flash_attention_reference(q, k, v, None, mult), iters=3,
+                        warmup=1)
+    else:
+        parts = [slice(i, min(b, i + chunk)) for i in range(0, b, chunk)]
+        mult = [keep_mult(seed, n, n, rate, streams=(sl.stop - sl.start) * h, device="cuda",
+                          first_stream=sl.start * h) if rate > 0.0 else None for sl in parts]
+
+        def chunked():
+            for sl, mu in zip(parts, mult):
+                flash_attention_reference(q[sl], k[sl], v[sl], None, mu)
+
+        plain = cuda_ms(chunked, iters=3, warmup=1)
+    del mult
+    torch.cuda.empty_cache()
+    row_bound = bound if rate == 0.0 else max(bound, (philox, "operations"))
+    r = {"shape": [b, n, h, d], "dropout": rate, "ms": cuda_ms(fn), "kernel_ms": kernel_ms(fn),
+         "plain_ms": plain, "library_ms": lib, "bound_ms": row_bound[0],
+         "bound_by": row_bound[1], "launches": launches}
+    print(f"  K1 bf16 B{b} N{n} H{h} d{d} drop {rate:g}: {r['ms']:.4f} ms (kernel alone "
+          f"{r['kernel_ms']:.4f}, {row_bound[0] / r['kernel_ms']:.3f} of the bound), plain "
+          f"{plain:.4f}, SDPA (flash) {lib:.4f} ({r['kernel_ms'] / lib:.2f}x by kernel time); "
+          f"bound {row_bound[0]:.4f} ({row_bound[1]}; tensor cores {bound[0]:.4f}, Philox "
+          f"{philox:.4f}); "
+          + (f"{launches} launches on the path" if launches is not None else
+             "launched by both stitched fields") + f"; gpu: {smi}")
+    del q, k, v, leaves
+    torch.cuda.empty_cache()
+    return r
 
 
 def step_kinds(by_name):
@@ -3440,6 +4074,13 @@ def main():
         s10b = serve10b(config_10b(Path(tmp), args.seed), args.seed, call_s, smi)
     print(json.dumps({"serving_10b": s10b["out"]}))
 
+    # 8. the MoE config served and trained on the card, last: its training
+    # needs most of the card
+    phase("moe1b")
+    with tempfile.TemporaryDirectory(dir=ROOT / "_smoke") as tmp:
+        m1b = moe1b(Path(tmp), args.seed, call_s, smi)
+    print(json.dumps({"moe_1b": m1b["out"]}))
+
     slice_shape = SHAPES[0]
     mlp_shape = MLP_SHAPES[0]
     bf16 = torch.bfloat16
@@ -3541,6 +4182,21 @@ def main():
                      s10b["rows"][("fused_dropout", width)]["launches"], "serve10b mc",
                      "fused_dropout", "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39", 0.0)
           for width in s10b["widths"]),
+        # the MoE config's paths (phase moe1b): its training's K1-K3 and K5
+        # (launches: the fit's), its serving's K1 (launches: test()'s)
+        *(path_entry(m1b["rows"], name, m1b["out"]["fit_launches"][name], "moe1b", name, source,
+                     replaces, err)
+          for name, source, replaces, err in (
+              ("flash_attn_fwd", "flash_attn_fwd.cu", "orbit2_tpu/ops/flash_attention.py:150",
+               m1b["errs"]["fwd"]),
+              ("flash_attn_bwd_dq", "flash_attn_bwd.cu", "orbit2_tpu/ops/flash_attention.py:287",
+               m1b["errs"]["dq"]),
+              ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", "orbit2_tpu/ops/flash_attention.py:328",
+               max(m1b["errs"]["dk"], m1b["errs"]["dv"])),
+              ("fused_dropout", "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39", 0.0))),
+        path_entry(m1b["rows"], "serve", m1b["rows"]["serve"]["launches"], "moe1b serve",
+                   "flash_attn_fwd", "flash_attn_fwd.cu", "orbit2_tpu/ops/flash_attention.py:150",
+                   m1b["serve_err"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -21,8 +21,10 @@ halo tiles of each field, the JAX Trainer.test's batches; metrics per tile),
 after the JAX Trainer's tiling check (trainer.py:167-186). `--quant w8a8`
 serves through the int8 trunk (utils/quantize.py), quantized from the fp32
 weights; the CLI builds the Evaluator for the one mode it serves
-(`quant_modes`), so a bf16 run holds no int8 twin. Device meshes and Orbax
-checkpoints are not ported: a config that asks for a mesh raises.
+(`quant_modes`), so a bf16 run holds no int8 twin. An MoE config
+(`model.moe_experts` > 0) serves bf16 only, as in JAX: w8a8 raises JAX's
+ValueError. Device meshes and Orbax checkpoints are not ported: a config
+that asks for a mesh raises.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import torch
 
 from orbit2_tpu_torch.config import Config, load_config
 from orbit2_tpu_torch.data.itermodule import IterDataModule
-from orbit2_tpu_torch.models.components.blocks import QUANT_MODES
+from orbit2_tpu_torch.models.components.blocks import MOE_QUANT_ERROR, QUANT_MODES
 from orbit2_tpu_torch.training.checkpoint import (
     DEFAULT_CHECKPOINT_DIR, latest_port_checkpoint, load_pretrained_params, load_state_npz,
     restore_checkpoint)
@@ -58,6 +60,7 @@ def model_kwargs(c: Config) -> dict:
         decoder_depth=m.decoder_depth, num_heads=m.num_heads, mlp_ratio=m.mlp_ratio,
         drop_path=m.drop_path, drop_rate=m.drop_rate, attention_impl=m.attention_impl,
         gelu_approx=m.gelu_approx, data_type=c.trainer.data_type, moe_experts=m.moe_experts,
+        moe_every=m.moe_every, moe_capacity_factor=m.moe_capacity_factor, moe_top_k=m.moe_top_k,
         pipeline_stages=c.parallelism.pipeline,
         generator=torch.Generator().manual_seed(c.trainer.seed))
 
@@ -187,7 +190,9 @@ class Evaluator:
     grid; drawn only where keys are left unfilled).
 
     `quant_modes` names the serving modes built at construction ("none" is
-    always served; default: both). w8a8 quantizes from the fp32 weights, as
+    always served; default: both, or "none" alone for an MoE config, whose
+    expert FFNs have no int8 path: asking w8a8 of one raises JAX's
+    ValueError, at construction or in test()). w8a8 quantizes from the fp32 weights, as
     the JAX Trainer does from its fp32 params: the int8 twin is quantized on
     `device` as each unit is filled, from its fp32 tensors, so at most the
     model and its twin live on the device and no fp32 tensor is kept. Built
@@ -196,12 +201,17 @@ class Evaluator:
 
     def __init__(self, config: Config, device="cuda",
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                 data_key: Optional[str] = None, quant_modes: Sequence[str] = QUANT_MODES):
+                 data_key: Optional[str] = None, quant_modes: Optional[Sequence[str]] = None):
         self.cfg = c = config.validate()
         check_scope(c)
+        self.moe = c.model.moe_experts > 0
+        if quant_modes is None:
+            quant_modes = ("none",) if self.moe else QUANT_MODES
         unknown = set(quant_modes) - set(QUANT_MODES)
         if unknown:
             raise ValueError(f"unknown quant_modes {sorted(unknown)} (none | w8a8)")
+        if self.moe and set(quant_modes) - {"none"}:
+            raise ValueError(MOE_QUANT_ERROR)
         self.device = torch.device(device)
         self.quant_modes = tuple(quant_modes)
         self.data_key = data_key or next(iter(c.data.low_res_dir))
@@ -255,6 +265,8 @@ class Evaluator:
         twin ("w8a8"), quantized at construction."""
         if quant == "none":
             return self.model
+        if self.moe:
+            raise ValueError(MOE_QUANT_ERROR)
         if quant not in self._twins:
             raise ValueError(f"quant={quant!r} was not asked for: this Evaluator was built with "
                              f"quant_modes={self.quant_modes}; pass quant_modes=(..., {quant!r})")

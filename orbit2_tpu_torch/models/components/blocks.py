@@ -19,7 +19,9 @@ Without a drop_path generator DropPath is inert, as in the JAX package
 w8a8 serving (`quant="w8a8"`, JAX blocks.py:96-122, :147-168, :210-248):
 `Mlp` and `Attention` hold `QLinear`s at qkv, proj, fc1 and fc2, whose int8
 products run through ops/quant.py; attention itself stays on the flash
-kernel. Serving only: in training mode they raise ValueError.
+kernel. Serving only: in training mode they raise ValueError. An MoE Block
+(models/components/moe.py) has no int8 path and refuses w8a8 with JAX's
+ValueError.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from orbit2_tpu_torch.models.components.moe import MoEMlp
 from orbit2_tpu_torch.ops.attention import dot_product_attention
 from orbit2_tpu_torch.ops.dropout import dropout
 from orbit2_tpu_torch.ops.fused_mlp import fused_mlp
@@ -92,6 +95,9 @@ class QLinear(nn.Module):
 
 
 QUANT_MODES = ("none", "w8a8")
+# JAX blocks.py:388-397's refusal, wherever w8a8 is asked of an MoE model
+MOE_QUANT_ERROR = ("quant != 'none' is not supported for MoE blocks (moe_experts > 0): the "
+                   "expert FFN has no quantized path; serve the model with quant='none'")
 
 
 def _linear_class(quant: str):
@@ -297,34 +303,52 @@ class VariableMappingAttention(nn.Module):
 
 class Block(nn.Module):
     """Pre-LN transformer block (reference vit_blocks.py:25-81):
-    x = x + DropPath(LS(Attn(LN(x)))); x = x + DropPath(LS(Mlp(LN(x))))."""
+    x = x + DropPath(LS(Attn(LN(x)))); x = x + DropPath(LS(Mlp(LN(x)))).
+
+    moe_experts > 0 holds a MoEMlp (models/components/moe.py) as `moe_mlp`
+    in place of `mlp` (JAX blocks.py:343-419); such a Block returns (x, aux),
+    its load-balance loss beside its output, so the loss is an output of the
+    Block's call and a recomputation under remat counts it once."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, qk_norm: bool = False, proj_bias: bool = True,
                  proj_drop: float = 0.0, attn_drop: float = 0.0,
                  init_values: Optional[float] = None, drop_path: float = 0.0,
-                 attention_impl: str = "xla", gelu_tanh: bool = False, quant: str = "none"):
+                 attention_impl: str = "xla", gelu_tanh: bool = False, quant: str = "none",
+                 moe_experts: int = 0, moe_capacity_factor: float = 1.25, moe_top_k: int = 1):
         super().__init__()
+        if moe_experts > 0 and quant != "none":
+            raise ValueError(MOE_QUANT_ERROR)  # the expert FFNs have no int8 path
         self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn = Attention(dim, num_heads, qkv_bias, qk_norm, proj_bias, attn_drop,
                               proj_drop, attention_impl, quant)
         self.ls1 = LayerScale(dim, init_values) if init_values else nn.Identity()
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=proj_drop, use_bias=proj_bias,
-                       gelu_tanh=gelu_tanh, quant=quant)
+        self.moe = moe_experts > 0
+        if self.moe:
+            self.moe_mlp = MoEMlp(dim, int(dim * mlp_ratio), moe_experts, moe_capacity_factor,
+                                  moe_top_k, drop=proj_drop, gelu_tanh=gelu_tanh)
+        else:
+            self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=proj_drop, use_bias=proj_bias,
+                           gelu_tanh=gelu_tanh, quant=quant)
         self.ls2 = LayerScale(dim, init_values) if init_values else nn.Identity()
         self.drop_path2 = DropPath(drop_path)
 
     def reset_parameters(self, generator=None):
         """Every parameter of the Block: the norms and layer scales to their
-        constants, the Linears drawn from `generator` (attention, then Mlp)."""
+        constants, the Linears drawn from `generator` (attention, then the
+        Mlp or the MoE's router and experts)."""
         for m in (self.norm1, self.norm2, self.ls1, self.ls2):
             if not isinstance(m, nn.Identity):
                 m.reset_parameters()
         self.attn.reset_parameters(generator)
-        self.mlp.reset_parameters(generator)
+        (self.moe_mlp if self.moe else self.mlp).reset_parameters(generator)
 
     def forward(self, x, dropout_gen: Generator = None, drop_path_gen: Generator = None):
         x = x + self.drop_path1(self.ls1(self.attn(self.norm1(x), dropout_gen)), drop_path_gen)
-        return x + self.drop_path2(self.ls2(self.mlp(self.norm2(x), dropout_gen)), drop_path_gen)
+        if not self.moe:
+            return x + self.drop_path2(self.ls2(self.mlp(self.norm2(x), dropout_gen)),
+                                       drop_path_gen)
+        y, aux = self.moe_mlp(self.norm2(x), dropout_gen)
+        return x + self.drop_path2(self.ls2(y), drop_path_gen), aux

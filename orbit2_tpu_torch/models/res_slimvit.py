@@ -18,8 +18,17 @@ Mlp dropout, `drop_path` the per-depth stochastic-depth rates
 linspace(0, drop_path, depth). The parameters are created in fp32 (the JAX
 module's param_dtype; masters when training) and the forward computes in
 `dtype`: x is cast to it on entry and every layer casts its weights to it
-at use, a no-op once the parameters are in `dtype` (as for serving). Mixture-of-experts,
-pipeline and sequence sharding raise.
+at use, a no-op once the parameters are in `dtype` (as for serving). Pipeline
+and sequence sharding raise.
+
+Mixture of experts (JAX res_slimvit.py:117-125, :319-330): with
+`moe_experts` > 0, every Block i with (i + 1) % moe_every == 0 holds a MoEMlp
+(models/components/moe.py) in place of its Mlp, under the keys
+`blocks.{i}.moe_mlp.{router_kernel,wi,bi,wo,bo}`. Such a Block returns its
+load-balance loss beside its output; `forward(..., return_aux=True)` returns
+(prediction, [the losses of the MoE Blocks, in order]), which the train step
+weights (training/train.py). The losses are outputs of the Block calls, so
+a recomputation under remat counts each once.
 
 `remat` recomputes each Block's activations in the backward (JAX
 res_slimvit.py:312-316, `nn.remat(Block)`): `remat_policy="full"` keeps only
@@ -76,8 +85,9 @@ _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten
 
 
 def remat_block(block, x, dropout_gen: Generator, drop_path_gen: Generator, policy: str):
-    """block(x, dropout_gen, drop_path_gen) under non-reentrant activation
-    checkpointing: the backward recomputes what `policy` did not keep. The
+    """block(x, dropout_gen, drop_path_gen) (x, or an MoE Block's (x, aux))
+    under non-reentrant activation checkpointing: the backward recomputes
+    what `policy` did not keep. The
     Block draws its dropout seeds and DropPath masks from the two host
     generators as it runs, and checkpointing restores only the global RNGs;
     so the states of both generators are taken when the Block first runs,
@@ -136,13 +146,12 @@ class ResSlimViT(nn.Module):
                  decoder_depth: int = 8, num_heads: int = 16, mlp_ratio: float = 4.0,
                  spatial_resolution: float = 0.0, attention_impl: str = "xla",
                  gelu_approx: str = "exact", quant: str = "none", moe_experts: int = 0,
+                 moe_every: int = 2, moe_capacity_factor: float = 1.25, moe_top_k: int = 1,
                  pipeline_stages: int = 1, seq_shard: bool = False, remat: bool = False,
                  remat_policy: str = "full", base_img_size: Optional[Tuple[int, int]] = None,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if moe_experts:
-            raise NotImplementedError("moe_experts > 0: the MoE trunk is not ported yet")
         if pipeline_stages > 1 or seq_shard:
             raise NotImplementedError(
                 "pipeline_stages > 1 / seq_shard: the parallel trunks are not ported yet")
@@ -176,10 +185,14 @@ class ResSlimViT(nn.Module):
         self.spatial_embed = Linear(1, D)
         # float64 rates, as numpy gives them to the JAX module
         dpr = np.linspace(0, drop_path, depth)
+        # MoE in every moe_every-th Block (the 2nd, 4th, ...: Switch's
+        # every other layer)
         self.blocks = nn.ModuleList(
             Block(D, num_heads, mlp_ratio, qkv_bias=True, proj_drop=drop_rate,
                   attn_drop=drop_rate, drop_path=float(dpr[i]), attention_impl=attention_impl,
-                  gelu_tanh=gelu_approx == "tanh", quant=quant)
+                  gelu_tanh=gelu_approx == "tanh", quant=quant,
+                  moe_experts=moe_experts if moe_experts > 0 and (i + 1) % moe_every == 0 else 0,
+                  moe_capacity_factor=moe_capacity_factor, moe_top_k=moe_top_k)
             for i in range(depth))
         self.norm = LayerNorm(D, eps=1e-5)
         head = []
@@ -258,11 +271,14 @@ class ResSlimViT(nn.Module):
         return self
 
     def forward(self, x, in_variables: Sequence[str], out_variables: Sequence[str],
-                dropout_gen: Generator = None, drop_path_gen: Generator = None):
+                dropout_gen: Generator = None, drop_path_gen: Generator = None,
+                return_aux: bool = False):
         """x: [B, C_in, H, W] (or [B, T, C, H, W], flattened like reference
         :313-314); returns [B, C_out, H*mag, W*mag] in the compute dtype. In
         train() mode the dropout sites draw from `dropout_gen` and DropPath
-        from `drop_path_gen` (inert without it)."""
+        from `drop_path_gen` (inert without it). return_aux=True returns
+        (that, the MoE Blocks' load-balance losses: a list of 0-dim fp32
+        tensors, empty without MoE Blocks)."""
         if x.ndim == 5:
             x = x.flatten(1, 2)
         x = x.to(self.dtype)
@@ -271,10 +287,11 @@ class ResSlimViT(nn.Module):
             raise ValueError(f"{len(out_variables)} out variables for a "
                              f"{self.out_channels}-channel head")
         path2 = self.path2(x[:, find_var_index(in_variables, out_variables)])
-        y = self.head(self._forward_encoder(x, in_variables, dropout_gen, drop_path_gen))
-        y = self.conv_out(self._unpatchify(y, x.shape[2], x.shape[3]))
+        tokens, aux = self._forward_encoder(x, in_variables, dropout_gen, drop_path_gen)
+        y = self.conv_out(self._unpatchify(self.head(tokens), x.shape[2], x.shape[3]))
         # crop-to-match add (reference :333-336)
-        return y + path2[:, :, : y.shape[2], : y.shape[3]]
+        y = y + path2[:, :, : y.shape[2], : y.shape[3]]
+        return (y, aux) if return_aux else y
 
     def _forward_encoder(self, x, in_variables, dropout_gen, drop_path_gen):
         B, V, H, W = x.shape
@@ -299,12 +316,16 @@ class ResSlimViT(nn.Module):
         tokens = tokens + self.spatial_embed(res)
         tokens = dropout(tokens, self.drop_rate, self.training, dropout_gen)  # pos_drop
         remat = self.remat and torch.is_grad_enabled()
+        aux = []
         for blk in self.blocks:
             if remat:
                 tokens = remat_block(blk, tokens, dropout_gen, drop_path_gen, self.remat_policy)
             else:
                 tokens = blk(tokens, dropout_gen, drop_path_gen)
-        return self.norm(tokens)
+            if blk.moe:
+                tokens, loss = tokens
+                aux.append(loss)
+        return self.norm(tokens), aux
 
     def _unpatchify(self, y, H, W):
         """[B, L, out*(mag*p)^2] -> [B, out, H*mag, W*mag], the reference's

@@ -27,7 +27,10 @@ checkpoint of the JAX package: a JAX run reaches the port through
 orbit2_tpu/training/checkpoint.py::export_torch_state_dict: it maps the JAX
 ResSlimViT param tree (numpy or array-likes, no JAX needed) onto the
 reference state-dict layout that orbit2_tpu_torch's ResSlimViT carries, ready
-for `load_state_dict(strict=True)`. Any tree shaped like the params maps the
+for `load_state_dict(strict=True)`; an MoE Block's `moe_mlp` maps onto
+`blocks.{b}.moe_mlp.{router_kernel,wi,bi,wo,bo}` without transposes (the JAX
+export, `export_torch_state_dict`, reads every Block's `mlp` and so fails on
+an MoE trunk). Any tree shaped like the params maps the
 same way: JAX gradients (jax.grad of a loss in the params) land on the port's
 parameter names, to be held against each parameter's .grad, and so do
 optimizer moments.
@@ -389,8 +392,12 @@ def state_dict_from_jax_params(params_np: Dict[str, Any],
         put_ln(f"blocks.{b}.norm2", blk["norm2"])
         put_linear(f"blocks.{b}.attn.qkv", blk["attn"]["qkv"])
         put_linear(f"blocks.{b}.attn.proj", blk["attn"]["proj"])
-        put_linear(f"blocks.{b}.mlp.fc1", blk["mlp"]["fc1"])
-        put_linear(f"blocks.{b}.mlp.fc2", blk["mlp"]["fc2"])
+        if "moe_mlp" in blk:  # JAX's layouts, kept as they are
+            for name, t in blk["moe_mlp"].items():
+                sd[f"blocks.{b}.moe_mlp.{name}"] = t
+        else:
+            put_linear(f"blocks.{b}.mlp.fc1", blk["mlp"]["fc1"])
+            put_linear(f"blocks.{b}.mlp.fc2", blk["mlp"]["fc2"])
         b += 1
 
     put_ln("norm", p["norm"])

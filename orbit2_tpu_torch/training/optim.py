@@ -17,7 +17,13 @@ orbit2_tpu/training/optim.py).
     evaluates a power with an integral exponent, so a step never waits for
     the device.
 torch.optim.AdamW is not used: it cannot keep bf16 moments beside fp32
-parameters. The step runs as torch._foreach_* ops over the parameter list.
+parameters. The step runs as torch._foreach_* ops over groups of the
+parameter list of at most GROUP_BYTES of fp32 each: its fp32 temporaries
+(the fresh moments, the moments read up to fp32, the update) come to about
+five times the parameters they cover, so over the whole list at once they
+would not fit beside a 3B model's state on an 80 GB card
+(configs/interm_1b_moe.yaml). Every op is elementwise: the grouping changes
+no value.
 
 `state_dict()` / `load_state_dict()` carry `count`, `lr` and the moments
 keyed by parameter name (AdamW is built from `named_parameters()`); a load
@@ -35,6 +41,8 @@ import numpy as np
 import torch
 
 _DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
+# the fp32 bytes of parameters a step's foreach ops cover at once
+GROUP_BYTES = 1 << 30
 
 
 def _f32(x: float) -> float:
@@ -75,6 +83,16 @@ class AdamW:
                        for p in self.params]
             self.nu = [torch.zeros_like(p, dtype=_DTYPES[nu_dtype] or p.dtype)
                        for p in self.params]
+        # consecutive slices of the parameters, each GROUP_BYTES of fp32 at
+        # most (or one larger parameter)
+        self.groups, start, size = [], 0, 0
+        for i, p in enumerate(self.params):
+            if i > start and size + 4 * p.numel() > GROUP_BYTES:
+                self.groups.append(slice(start, i))
+                start, size = i, 0
+            size += 4 * p.numel()
+        if self.params:
+            self.groups.append(slice(start, len(self.params)))
 
     def set_learning_rate(self, lr: float) -> None:
         self.lr = _f32(lr)
@@ -105,23 +123,28 @@ class AdamW:
 
     @torch.no_grad()
     def step(self) -> None:
-        params = self.params
+        self.count += 1
+        one = np.float32(1.0)
+        bc1 = float(one - _pow_f32(self.b1, self.count))
+        bc2 = float(one - _pow_f32(self.b2, self.count))
+        for group in self.groups:
+            self._update(group, bc1, bc2)
+
+    def _update(self, group: slice, bc1: float, bc2: float) -> None:
+        params, b1, b2, one = self.params[group], self.b1, self.b2, np.float32(1.0)
         # a parameter the loss does not reach (the token embedding of a
         # default variable the phase does not feed) has a zero gradient, as
         # in optax: its moments decay and weight decay still moves it
         grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None else p.grad.float()
                  for p in params]
-        self.count += 1
-        b1, b2 = self.b1, self.b2
-        one = np.float32(1.0)
-        bc1 = float(one - _pow_f32(b1, self.count))
-        bc2 = float(one - _pow_f32(b2, self.count))
 
         # fresh fp32 moments: (1 - b) g^k + b m, each product rounded as optax does
         mu = torch._foreach_mul(grads, float(one - b1))
-        torch._foreach_add_(mu, torch._foreach_mul([m.float() for m in self.mu], float(b1)))
+        torch._foreach_add_(mu, torch._foreach_mul([m.float() for m in self.mu[group]],
+                                                   float(b1)))
         nu = torch._foreach_mul(torch._foreach_mul(grads, grads), float(one - b2))
-        torch._foreach_add_(nu, torch._foreach_mul([v.float() for v in self.nu], float(b2)))
+        torch._foreach_add_(nu, torch._foreach_mul([v.float() for v in self.nu[group]],
+                                                   float(b2)))
 
         upd = torch._foreach_div(mu, bc1)
         denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
@@ -131,8 +154,8 @@ class AdamW:
         torch._foreach_mul_(upd, -self.lr)
         torch._foreach_add_(params, upd)
 
-        torch._foreach_copy_(self.mu, mu)  # the stored moments, cast to their dtype
-        torch._foreach_copy_(self.nu, nu)
+        torch._foreach_copy_(self.mu[group], mu)  # the stored moments, cast to their dtype
+        torch._foreach_copy_(self.nu[group], nu)
 
 
 def make_optimizer(name: str, hyperparams: Dict[str, Any], named_params) -> AdamW:

@@ -32,7 +32,7 @@ def _crop_to_match(yhat, y):
 
 def make_train_step(model, train_loss_metric, var_weights: Optional[Dict[str, float]],
                     optimizer, in_variables: Sequence[str], out_variables: Sequence[str],
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, moe_aux_weight: float = 0.01):
     """Returns step(x, y, dropout_gen, drop_path_gen) -> loss (a 0-dim device
     tensor): train-mode forward, clip, the train loss, backward and one
     optimizer update (reference intermediate_downscaling.py:281-306, 715-742;
@@ -41,16 +41,24 @@ def make_train_step(model, train_loss_metric, var_weights: Optional[Dict[str, fl
 
     grad_accum > 1 splits the batch into that many microbatches and averages
     their gradients and losses before the one update. The gradients stay in
-    each parameter's .grad until the next step."""
+    each parameter's .grad until the next step.
+
+    A model with MoE Blocks adds moe_aux_weight x the mean of their
+    load-balance losses to each microbatch's loss, the returned loss
+    included (JAX train.py:86-127)."""
     in_variables, out_variables = tuple(in_variables), tuple(out_variables)
     params = [p for p in model.parameters() if p.requires_grad]
 
     def loss_of(xb, yb, dropout_gen, drop_path_gen):
-        yhat = model(xb, in_variables, out_variables, dropout_gen, drop_path_gen).float()
-        yhat = clip_replace_constant(yb, yhat, out_variables)
+        yhat, aux = model(xb, in_variables, out_variables, dropout_gen, drop_path_gen,
+                          return_aux=True)
+        yhat = clip_replace_constant(yb, yhat.float(), out_variables)
         losses = train_loss_metric(yhat, _crop_to_match(yhat, yb),
                                    var_names=list(out_variables), var_weights=var_weights)
-        return losses if losses.ndim == 0 else losses[-1]
+        loss = losses if losses.ndim == 0 else losses[-1]
+        if aux:  # mean over the MoE layers, 1 at perfect balance
+            loss = loss + float(moe_aux_weight) * sum(aux) / len(aux)
+        return loss
 
     def step(x, y, dropout_gen: torch.Generator, drop_path_gen: Optional[torch.Generator]):
         if x.shape[0] % grad_accum:

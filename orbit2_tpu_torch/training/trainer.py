@@ -42,8 +42,12 @@ Trainer's tile check (trainer.py:129-186); `trainer.remat` and
 `trainer.remat_policy` recompute each Block's activations in the backward
 (models/res_slimvit.py::remat_block), which changes no value.
 
-Not ported, and raising NotImplementedError when configured: device meshes,
-MoE and pipeline trunks.
+An MoE config (`model.moe_experts` > 0) trains its MoE trunk and adds
+`model.moe_aux_weight` x the mean load-balance loss of its MoE Blocks to the
+train loss, as the JAX Trainer does (trainer.py:455-461).
+
+Not ported, and raising NotImplementedError when configured: device meshes
+and pipeline trunks.
 """
 
 from __future__ import annotations
@@ -89,8 +93,8 @@ class Trainer:
                  keep_last_checkpoints: int = 0, async_checkpoints: bool = False):
         self.cfg = c = config.validate()
         check_scope(c)
-        if c.model.moe_experts or c.parallelism.pipeline > 1:
-            raise NotImplementedError("MoE and pipeline trunks are not ported yet")
+        if c.parallelism.pipeline > 1:
+            raise NotImplementedError("pipeline trunks are not ported yet")
         self.device = torch.device(device)
         self.state_dict = state_dict
         self.checkpoint_dir = checkpoint_dir
@@ -204,7 +208,8 @@ class Trainer:
                 if data_key not in steps:
                     steps[data_key] = make_train_step(
                         self.model, self.train_loss, c.data.var_weights, self.optimizer,
-                        in_vars, out_vars, grad_accum=c.trainer.grad_accum)
+                        in_vars, out_vars, grad_accum=c.trainer.grad_accum,
+                        moe_aux_weight=c.model.moe_aux_weight)
                 train_step = steps[data_key]
 
                 epoch_end = min(epoch_start + interval, max_epochs)

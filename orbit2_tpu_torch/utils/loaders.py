@@ -30,8 +30,8 @@ def load_architecture(data_module, architecture: str, default_vars=None, superre
                       cnn_ratio=4, patch_size=2, embed_dim=256, depth=6, decoder_depth=1,
                       num_heads=4, mlp_ratio=4, drop_path=0.1, drop_rate=0.1,
                       attention_impl="auto", gelu_approx="exact", data_type="float32",
-                      remat=False, remat_policy="full", moe_experts=0, pipeline_stages=1,
-                      quant="none", generator: Optional[torch.Generator] = None, **_ignored):
+                      remat=False, remat_policy="full", moe_experts=0, moe_every=2,
+                      moe_capacity_factor=1.25, moe_top_k=1, pipeline_stages=1, quant="none", generator: Optional[torch.Generator] = None, **_ignored):
     """The downscaling ResSlimViT with fp32 parameters computing in `data_type`."""
     if architecture != "res_slimvit":
         raise NotImplementedError(
@@ -46,7 +46,9 @@ def load_architecture(data_module, architecture: str, default_vars=None, superre
         embed_dim=embed_dim, depth=depth, decoder_depth=decoder_depth,
         num_heads=num_heads, mlp_ratio=mlp_ratio, drop_path=drop_path, drop_rate=drop_rate,
         attention_impl=attention_impl, gelu_approx=gelu_approx, remat=remat,
-        remat_policy=remat_policy, moe_experts=moe_experts, pipeline_stages=pipeline_stages,
+        remat_policy=remat_policy, moe_experts=moe_experts, moe_every=moe_every,
+        moe_capacity_factor=moe_capacity_factor, moe_top_k=moe_top_k,
+        pipeline_stages=pipeline_stages,
         quant=quant, dtype=DTYPES[data_type], generator=generator)
 
 

@@ -7,7 +7,8 @@ selectivity falls out of the generators: the model runs in train mode with a
 `dropout` generator only, and DropPath without its own generator is inert
 (models/components/blocks.py), so the ensemble samples the reference's
 distribution. On the card the dropout sites are the kernels: the flash
-forward with dropout and the fused dropout.
+forward with dropout and the fused dropout (in an MoE Block, on the
+attention's projection and the MoE output: its experts' hidden has none).
 """
 
 from __future__ import annotations

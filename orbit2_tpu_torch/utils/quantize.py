@@ -24,7 +24,8 @@ from typing import Dict, Mapping, Set
 
 import torch
 
-from orbit2_tpu_torch.models.components.blocks import QLinear
+from orbit2_tpu_torch.models.components.blocks import MOE_QUANT_ERROR, QLinear
+from orbit2_tpu_torch.models.components.moe import MoEMlp
 from orbit2_tpu_torch.ops.quant import quantize_weight
 
 
@@ -43,7 +44,12 @@ def quantize_state_dict(qmodel: torch.nn.Module, state_dict: Mapping[str, torch.
     layout, every tensor a copy on `device` (default: where it lies); the
     quantization runs there. partial=True maps only the keys whose source
     `state_dict` holds, so a twin can be filled piece by piece (the pieces
-    together give the whole mapping, tensor for tensor)."""
+    together give the whole mapping, tensor for tensor). An MoE model or
+    state dict raises JAX's ValueError: its experts have no int8 path, and
+    would be left unquantized."""
+    if (any(isinstance(m, MoEMlp) for m in qmodel.modules())
+            or any(".moe_mlp." in key for key in state_dict)):
+        raise ValueError(MOE_QUANT_ERROR)
     out: Dict[str, torch.Tensor] = {}
     for key, want in qmodel.state_dict().items():
         path, _, name = key.rpartition(".")

@@ -464,6 +464,58 @@ def test_finetune_cli_imports_pretrained_weights(synth_dataset, tmp_path, caplog
         finetune.main([cfg, "--loss", "perceptual", "--device", "cpu"])
 
 
+def test_moe_model_saves_resumes_and_finetunes(synth_dataset, tmp_path):
+    """A tiny MoE model (2 experts in every Block, bf16 moments): the epoch
+    checkpoint restores its parameters, moments, count and lr bit for bit,
+    AdamW's moments keyed by name, the routers' among them in the
+    configured dtype; a second Trainer resumes from it at the next epoch;
+    the finetune CLI imports every key of it. AdamW decays every parameter,
+    the router and the 2-D expert biases too, as optax's
+    add_decayed_weights without a mask does."""
+    from orbit2_tpu_torch import finetune
+
+    raw, _ = tiny_cfg(synth_dataset, tmp_path, adam_mu_dtype="bfloat16",
+                      adam_nu_dtype="bfloat16")
+    raw["model"].update(moe_experts=2, moe_every=1, weight_decay=0.5)
+    path = tmp_path / "moe.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    ck_dir = tmp_path / "ck"
+    trainer = Trainer(load_config(raw), "cpu", checkpoint_dir=str(ck_dir))
+    trainer.fit(max_epochs=1, max_steps_per_epoch=2)
+    want = snapshot({"model": trainer.model.state_dict(),
+                     "optimizer": trainer.optimizer.state_dict()})
+    got = ck.restore_checkpoint(str(ck_dir / "epoch_0"))
+    assert got["epoch"] == 0
+    assert_equal_states({"model": got["model"], "optimizer": got["optimizer"]}, want)
+    moe_keys = [k for k in got["model"] if ".moe_mlp." in k]
+    assert len(moe_keys) == 5 and "blocks.0.moe_mlp.router_kernel" in moe_keys
+    for key in ("mu", "nu"):
+        assert set(got["optimizer"][key]) == set(got["model"])
+        assert got["optimizer"][key]["blocks.0.moe_mlp.router_kernel"].dtype == torch.bfloat16
+    assert got["model"]["blocks.0.moe_mlp.router_kernel"].dtype == torch.float32
+
+    resumed = Trainer(load_config(raw), "cpu", checkpoint_dir=str(ck_dir))
+    history = resumed.fit(max_epochs=2, max_steps_per_epoch=1)
+    assert [r["epoch"] for r in history] == [1] and np.isfinite(history[0]["loss"])
+
+    out = finetune.main([str(path), "--pretrain", str(ck_dir / "epoch_0"), "--max-epochs", "1",
+                         "--max-steps-per-epoch", "1", "--checkpoint-dir", str(tmp_path / "ft"),
+                         "--device", "cpu"])
+    assert set(out["pretrain"]["used"]) == set(got["model"]) and not out["pretrain"]["dropped"]
+    assert np.isfinite(out["history"][0]["loss"])
+
+    model = resumed.model
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = torch.zeros_like(p)
+    resumed.optimizer.step()
+    for k in ("blocks.0.moe_mlp.router_kernel", "blocks.0.moe_mlp.bi", "blocks.0.moe_mlp.bo"):
+        moved = model.get_parameter(k).detach()
+        assert not torch.equal(moved, before[k]) or not before[k].any(), k
+    assert not torch.equal(model.get_parameter("blocks.0.moe_mlp.router_kernel"),
+                           before["blocks.0.moe_mlp.router_kernel"])
+
+
 def load_jax_example(name):
     spec = importlib.util.spec_from_file_location(
         f"examples_{name}", os.path.join(ROOT, "examples", f"{name}.py"))

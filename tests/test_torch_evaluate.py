@@ -83,13 +83,16 @@ def test_evaluator_cli_prints_metrics(synth_dataset, tmp_path, monkeypatch, caps
     assert len(out) == 12 and all(np.isfinite(v) for v in out.values())
 
 
-@pytest.mark.parametrize("override,section", [
-    ({"fsdp": 2}, "parallelism"),
-    ({"moe_experts": 2, "moe_every": 1}, "model"),
-], ids=["mesh", "moe"])
-def test_evaluator_rejects_unported_configs(synth_dataset, override, section):
+@pytest.mark.parametrize("overrides", [
+    {"parallelism": {"fsdp": 2}},
+    # the MoE trunk is ported; its expert-parallel mesh is not
+    {"model": {"moe_experts": 2, "moe_every": 1}, "parallelism": {"expert_par": 2}},
+    {"trainer": {"task": "forecasting"}},
+], ids=["mesh", "expert_par", "forecasting"])
+def test_evaluator_rejects_unported_configs(synth_dataset, overrides):
     raw = tiny_raw(synth_dataset)
-    raw[section].update(override)
+    for section, override in overrides.items():
+        raw[section].update(override)
     with pytest.raises(NotImplementedError):
         Evaluator(load_config(raw), "cpu")
 

@@ -92,6 +92,38 @@ def test_step_needs_every_gradient():
     assert not np.array_equal(tp["b"].detach().numpy(), params["b"])
 
 
+@pytest.mark.parametrize("group_bytes", [1, 4 * 24 + 4 * 16 * 24, 1 << 30],
+                         ids=["one-a-group", "two-groups", "one-group"])
+def test_grouped_step_equals_one_foreach_over_all(monkeypatch, group_bytes):
+    """The step runs over groups of at most GROUP_BYTES of parameters (its
+    fp32 temporaries must fit beside a 3B model's state): three steps under
+    bf16 moments give the parameters and moments of a step over all of
+    them at once, bit for bit."""
+    import orbit2_tpu_torch.training.optim as optim
+
+    rng = np.random.default_rng(2)
+    params = {k: rng.normal(size=s).astype(np.float32) for k, s in SHAPES.items()}
+    grads = [{k: rng.normal(size=s).astype(np.float32) for k, s in SHAPES.items()}
+             for _ in range(3)]
+
+    def run():
+        named = [(k, torch.from_numpy(v.copy()).requires_grad_()) for k, v in params.items()]
+        opt = make_optimizer("adamw", dict(HP, mu_dtype="bfloat16", nu_dtype="bfloat16"), named)
+        for g in grads:
+            for k, p in named:
+                p.grad = torch.from_numpy(g[k])
+            opt.step()
+        return opt
+
+    whole = run()
+    monkeypatch.setattr(optim, "GROUP_BYTES", group_bytes)
+    grouped = run()
+    want = {1: 3, 4 * 24 + 4 * 16 * 24: 2, 1 << 30: 1}[group_bytes]
+    assert len(grouped.groups) == want and len(whole.groups) == 1
+    for a, b in zip(grouped.params + grouped.mu + grouped.nu, whole.params + whole.mu + whole.nu):
+        assert torch.equal(a, b)
+
+
 def test_warmup_cosine_matches_jax_every_epoch():
     kw = dict(lr=2e-3, warmup_epochs=2, max_epochs=10, warmup_start_lr=1e-7, eta_min=1e-8)
     got = make_lr_scheduler("linear-warmup-cosine-annealing", kw)

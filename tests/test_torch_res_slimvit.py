@@ -111,9 +111,9 @@ def test_train_mode_forward_raises():
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("kwargs", [dict(moe_experts=4), dict(pipeline_stages=2),
+@pytest.mark.parametrize("kwargs", [dict(moe_experts=4, pipeline_stages=2), dict(pipeline_stages=2),
                                     dict(seq_shard=True)],
-                         ids=["moe", "pipeline", "seq_shard"])
+                         ids=["moe_pipeline", "pipeline", "seq_shard"])
 def test_unported_trunks_raise(kwargs):
     with pytest.raises(NotImplementedError):
         ResSlimViT(DEFAULT_VARS, (8, 16), 7, 3, embed_dim=32, depth=2, decoder_depth=1,

@@ -294,7 +294,8 @@ def test_train_cli_runs_on_cpu(synth_dataset, tmp_path, capsys):
 
 @pytest.mark.parametrize("override,section,kwargs", [
     ({"fsdp": 2}, "parallelism", {}),
-], ids=["mesh"])
+    ({"pipeline": 2}, "parallelism", {}),
+], ids=["mesh", "pipeline"])
 def test_trainer_rejects_what_is_not_ported(synth_dataset, override, section, kwargs):
     raw = tiny_raw(synth_dataset)
     raw[section].update(override)

@@ -155,6 +155,47 @@ Phases, each of which raises (and so exits non-zero) on failure:
                validation's K1 at (B32, N2178) without dropout beside SDPA,
                with resume1b's numbers, on the line {"resume_1b": {...}}
 
+  6b. forecast — configs/forecast.yaml at its own size (the
+               rasp-theurey-2020 ResNet: 19 blocks of 128 channels,
+               BatchNorm, dropout 0.1; ERA5 5.625 deg 32 x 64, history 3 x 6
+               variables -> 2, pred_range 72, batch 32, bf16; its mesh cut
+               to the card) on a synthetic grid made from --seed:
+               Trainer.fit 2 epochs x 2 steps with validation (lat_rmse,
+               lat_acc, lat_mse), exact K5 launches (2 sites a residual
+               block, forward and backward), finite losses, moved parameters
+               and BatchNorm statistics, the eval prediction reading them;
+               Evaluator.test (lat_rmse, lat_acc; nothing launched); one
+               seeded fp32 step with dropout on the card against the CPU
+               (losses) and against the same step in fp64 (gradients: at
+               most WITNESS_RATIO times the CPU fp32 step's distance); K5
+               at [B 128 32, 64] bit for bit; the step by events and kernel
+               time by kind, busy share, its conv flops; {"forecast": ...}
+     hub     — `python -m orbit2_tpu_torch.finetune --arch vit|unet|resnet`
+               on configs/interm_fine_tune.yaml's model (embed 256, depth 6,
+               4 heads, d 64, decoder 4, dropout and drop-path 0.1, bf16),
+               cut to a regional 64 x 128 -> 256 x 512 crop of DAYMET_2's 23
+               -> 3 variables, batch 8 of 32, mesh to the card: 2 x 2 steps
+               from drawn weights each (losses bayesian_tv, imagegradient,
+               quantile), then Evaluator.test over 2 batches from the last
+               epoch's checkpoint (w8a8 refused), exact launches; for the
+               ViT (N 32,768 tokens) K1, K2 and K3 at (B8, N32768, H4, d64)
+               with dropout 0.1 and K1 without it against their plain
+               versions on the first and last (batch, head) pairs, the
+               prediction (batch element 0) within relative Frobenius 0.02
+               of the plain attention's (fp32 math, one head at a time);
+               K5 bit for bit at the ViT's and
+               the CNNs' shapes; each preset's step by events and kernel
+               time, peak memory, its serving step; K1-K3's rows beside
+               their plain versions (pair by pair), SDPA and bounds;
+               {"hub": ...}
+     climatebench — `python -m orbit2_tpu_torch.climatebench`'s run for
+               resnet (28 blocks), unet and vit at MODEL_KWARGS, fp32, on
+               synthetic forcings (4 variables at 32 x 64, history 10; two
+               scenario runs and a historical run) made from --seed, one
+               epoch each: finite NRMSE trio, exact K5 launches, the ViT's
+               attention (head dim 32) on the plain path; K5 bit for bit at
+               the ResNet's and the ViT's fp32 shapes; {"climatebench": ...}
+
   7. serve10b — configs/interm_10b.yaml served at full width and depth
                (embed 8192, depth 11, 32 heads, d 256, MLP 32,768, gelu
                tanh, bf16, 9,408,639,363 parameters; its mesh cut to the
@@ -327,6 +368,45 @@ MC_SAMPLES_MOE = 2
 WITNESS_TILES_MOE = 4
 PARAMS_MOE = 3_103_984_003
 TILE_MOE = (66, 132)
+
+# the forecasting phase (forecast): configs/forecast.yaml at its own size
+# (ERA5 5.625 deg, 32 x 64; history 3 x 6 variables -> 2; pred_range 72;
+# batch 32; bf16; the rasp-theurey-2020 ResNet, 19 blocks of 128 channels),
+# its mesh cut to the card, on a synthetic one-grid set of FORECAST_FILES
+# shards of FORECAST_T hourly fields a split (T - 84 DirectForecast pairs a
+# shard: 2 batches of 32 a split); 2 epochs of FORECAST_STEPS steps
+CONFIG_FORECAST = ROOT / "configs" / "forecast.yaml"
+# the device the forecast, hub and climatebench phases run on
+CARD = "cuda"
+GRID_FORECAST = (32, 64)
+FORECAST_FILES = 2
+FORECAST_T = 120
+FORECAST_STEPS = 2
+# the model-hub phase (hub): configs/interm_fine_tune.yaml's model section
+# (embed 256, depth 6, 4 heads, d 64, decoder 4, dropout and drop-path 0.1,
+# bf16) and its DAYMET_2 variables (23 -> 3) on a synthetic regional crop of
+# LOW_HUB -> 4x (the config's 0.5-arcmin field is millions of tokens), batch
+# BATCH_HUB of the config's 32, mesh cut to the card; `finetune --arch` for
+# each preset, 2 epochs of HUB_STEPS steps from drawn weights, then
+# Evaluator.test over HUB_TEST_BATCHES batches. The ViT's tokens: the target
+# grid at patch 2, (256 / 2) x (512 / 2) = 32,768 (ATTENTION_HUB)
+CONFIG_HUB = ROOT / "configs" / "interm_fine_tune.yaml"
+LOW_HUB = (64, 128)
+BATCH_HUB = 8
+FIELDS_HUB = 16
+HUB_STEPS = 2
+HUB_TEST_BATCHES = 2
+ATTENTION_HUB = (BATCH_HUB, 32768, 4, 64)
+HUB_LOSSES = {"vit": "bayesian_tv", "unet": "imagegradient", "resnet": "quantile"}
+# the ClimateBench phase (climatebench): the CLI's run for each model at
+# MODEL_KWARGS, fp32 (as the JAX driver), on synthetic forcings of 4
+# variables at CB_GRID (two scenario runs of LEN_HISTORICAL + CB_FUTURE years,
+# whose windows start at the scenario, and a historical run of
+# LEN_HISTORICAL), history 10, batch CB_BATCH, CB_EPOCHS epochs
+CB_GRID = (32, 64)
+CB_FUTURE = 86
+CB_BATCH = 16
+CB_EPOCHS = 1
 
 # (B, N_q, N_k, H, D): the slice, the 117M bench shape, the 1B serving shape,
 # a ragged N over many kv tiles at the widest head, N_q != N_k, and one query
@@ -1058,7 +1138,7 @@ def sdpa_ms(q, k, v, do):
     return out
 
 
-def kernel_ms(fn, iters=10, sessions=3, by_name=None):
+def kernel_ms(fn, iters=10, sessions=6, by_name=None):
     """Device time of one call of fn by torch.profiler: the kernel time of
     every kernel one call launches, without the host's launch work. Over a
     session of `iters` calls after warm-up, each kernel name's mean time
@@ -3533,6 +3613,707 @@ def resume_1b_times(r1b, gen, seed, call_s, smi):
     rows["validation"] = row
     return rows
 
+
+def write_forecast_dataset(root: Path, variables, seed: int, grid, n_files: int, t: int):
+    """One grid of the tests/conftest.py layout (forecasting reads inputs
+    and targets from it): n_files npz shards of [t, 1, H, W] hourly fields
+    a split, normalize mean/std, lat/lon and every split's climatology."""
+    rng = np.random.default_rng(seed)
+    h, w = grid
+    for split in ("train", "val", "test"):
+        d = root / split
+        d.mkdir(parents=True)
+        for i in range(n_files):
+            np.savez(d / f"shard_{i}.npz",
+                     **{v: rng.normal(280, 10, size=(t, 1, h, w)).astype(np.float32)
+                        for v in variables})
+        np.savez(d / "climatology.npz",
+                 **{v: rng.normal(280, 1, size=(1, h, w)).astype(np.float32) for v in variables})
+    np.save(root / "lat.npy", np.linspace(-87.1875, 87.1875, h).astype(np.float32))
+    np.save(root / "lon.npy", np.linspace(0, 360 - 360 / w, w).astype(np.float32))
+    np.savez(root / "normalize_mean.npz", **{v: np.array([280.0], np.float32) for v in variables})
+    np.savez(root / "normalize_std.npz", **{v: np.array([10.0], np.float32) for v in variables})
+    return str(root)
+
+
+def forecast_config(root: Path, seed: int):
+    """configs/forecast.yaml with its mesh (fsdp 4 x simple_ddp 2) cut to the
+    card, on write_forecast_dataset's synthetic grid."""
+    import yaml
+
+    from orbit2_tpu_torch.config import load_config
+
+    raw = yaml.safe_load(CONFIG_FORECAST.read_text())
+    data = raw["data"]
+    key = next(iter(data["low_res_dir"]))
+    path = write_forecast_dataset(root, data["dict_in_variables"][key], seed, GRID_FORECAST,
+                                  FORECAST_FILES, FORECAST_T)
+    data["low_res_dir"], data["high_res_dir"] = {key: path}, {key: path}
+    raw["parallelism"] = {"fsdp": 1, "simple_ddp": 1, "tensor_par": 1, "seq_par": 1}
+    return load_config(raw)
+
+
+def conv_train_flops(model, x_shape):
+    """A train step's convolution flops: 6 x the conv weights x the output
+    positions of each conv (2 a MAC, forward and the backward's two
+    products), counted by forward hooks on one meta forward of x_shape."""
+    flops = []
+
+    def hook(mod, inp, out):
+        flops.append(6 * mod.weight[0].numel() * out.numel())
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    try:
+        meta = copy.deepcopy(model).to("meta").eval()
+        with torch.no_grad():
+            meta(torch.zeros(x_shape, device="meta"))
+    finally:
+        for h in handles:
+            h.remove()
+    return float(sum(flops))
+
+
+def k5_row(shape, dtype, rate, gen, seed, launches, smi, label):
+    """K5's row at [rows, cols] of `dtype`: events, kernel time alone, its
+    plain version (the mask precomputed), F.dropout, the bytes bound."""
+    import torch.nn.functional as F
+
+    from orbit2_tpu_torch.ops.dropout import FusedDropout, dropout_reference
+    from orbit2_tpu_torch.ops.kernel_prng import keep_mult
+
+    r, c = shape
+    x = torch.randn(r, c, generator=gen, device="cuda").to(dtype)
+    mult = keep_mult(seed, r, c, rate, device="cuda")
+    fn = lambda: FusedDropout.apply(x, seed, rate)  # noqa: E731
+    ms, plain = paired_ms(fn, lambda: dropout_reference(x, mult))
+    bound = roofline(0, 2 * nbytes(x))
+    row = {"shape": [r, c], "dtype": str(dtype)[6:], "dropout": rate, "ms": ms,
+           "kernel_ms": kernel_ms(fn), "plain_ms": plain,
+           "library_ms": best_ms(lambda: F.dropout(x, rate, training=True)),
+           "bound_ms": bound[0], "bound_by": bound[1], "launches": launches}
+    print(f"  {label} K5 {row['dtype']} [{r}, {c}]: {ms:.4f} ms (kernel alone "
+          f"{row['kernel_ms']:.4f}, {bound[0] / row['kernel_ms']:.3f} of the bytes bound "
+          f"{bound[0]:.4f}), plain {plain:.4f} (mask precomputed), F.dropout "
+          f"{row['library_ms']:.4f}; {launches} launches on the path; gpu: {smi}")
+    del x, mult
+    torch.cuda.empty_cache()
+    return row
+
+
+def hub_kinds(by_name):
+    """A step's kernel ms by kind, from its kernel names: K1, K2, K3, K5,
+    products (GEMMs and convolutions), cuDNN's NCHW <-> NHWC layout
+    conversions, and the other kernels (elementwise, BatchNorm's passes,
+    reductions, copies)."""
+    kinds = dict.fromkeys(("k1", "k2", "k3", "k5", "products", "layout", "other"), 0.0)
+    for name, t in by_name.items():
+        low = name.lower()
+        if "flash_fwd" in name:
+            kinds["k1"] += t
+        elif "flash_bwd_dq" in name:
+            kinds["k2"] += t
+        elif "flash_bwd_dkv" in name:
+            kinds["k3"] += t
+        elif "dropout" in low:
+            kinds["k5"] += t
+        elif "nchwtonhwc" in low or "nhwctonchw" in low:
+            kinds["layout"] += t
+        elif any(tag in low for tag in ("gemm", "nvjet", "xmma", "cutlass", "conv", "wgrad",
+                                        "dgrad", "fprop")):
+            kinds["products"] += t
+        else:
+            kinds["other"] += t
+    return kinds
+
+
+def step_row(step, label, samples, flops, smi, iters=5):
+    """A train step's time by events (median of `iters` after a warm-up),
+    its kernel time by kind (hub_kinds), busy share, peak memory and its
+    flops' share of the tensor-core peak."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(step, iters=iters, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    by_name = {}
+    kern = kernel_ms(step, iters=3, by_name=by_name)
+    row = {"step_ms": ms, "kernel_ms": kern, "busy": kern / ms, "idle": 1 - kern / ms,
+           "samples_per_s": samples / ms * 1e3, "peak_gib": peak / 2 ** 30,
+           "tflop": flops / 1e12, "flop_share": flops / (ms * 1e-3) / PEAK_FLOPS,
+           "by_kind": hub_kinds(by_name),
+           "kernels": {name[:80]: t for name, t in
+                       sorted(by_name.items(), key=lambda kv: -kv[1])[:6]}}
+    print(f"  {label} train step: {ms:.3f} ms by events (median of {iters}), kernel time "
+          f"{kern:.3f} ms (busy {row['busy']:.3f}, idle {row['idle']:.3f}); "
+          f"{row['samples_per_s']:.2f} samples/s; peak memory {row['peak_gib']:.2f} GiB; "
+          f"{row['tflop']:.3f} TFLOP a step, {row['flop_share']:.4f} of "
+          f"{PEAK_FLOPS / 1e12:.0f} TFLOP/s; gpu: {smi}")
+    print("    by kind: " + ", ".join(f"{kind} {t:.3f} ms" for kind, t in row["by_kind"].items()))
+    for name, t in row["kernels"].items():
+        print(f"    {t:9.4f} ms  {name}")
+    return row
+
+
+def batchnorms(model):
+    from orbit2_tpu_torch.models.components.cnn import BatchNorm2d
+
+    return [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+
+
+def dropout_sites(model):
+    """K5 sites of a hub model's forward: two a residual block, and for the
+    ViT pos_drop and three a Block (the attention's projection, the Mlp's
+    hidden and output)."""
+    from orbit2_tpu_torch.models.components.blocks import Block
+    from orbit2_tpu_torch.models.components.cnn import ResidualBlock
+
+    blocks = sum(isinstance(m, Block) for m in model.modules())
+    res = sum(isinstance(m, ResidualBlock) for m in model.modules())
+    return 2 * res + (1 + 3 * blocks if blocks else 0)
+
+
+def forecast(root: Path, seed: int, smi):
+    """Phase forecast: configs/forecast.yaml's ResNet trained, validated and
+    tested on the card (module docstring)."""
+    from orbit2_tpu_torch.evaluate import Evaluator, load_module, model_kwargs
+    from orbit2_tpu_torch.training.optim import make_optimizer
+    from orbit2_tpu_torch.training.train import make_train_step
+    from orbit2_tpu_torch.training.trainer import Trainer
+
+    cfg = forecast_config(root, seed)
+    m, tc = cfg.model, cfg.trainer
+    key = next(iter(cfg.data.low_res_dir))
+    steps = 2 * FORECAST_STEPS
+    print(f"  config {CONFIG_FORECAST.name}: preset {m.preset}, {tc.data_type}, batch "
+          f"{tc.batch_size}, history {cfg.data.history} x {len(cfg.data.dict_in_variables[key])} "
+          f"variables -> {len(cfg.data.dict_out_variables[key])} at {GRID_FORECAST}, pred_range "
+          f"{cfg.data.pred_range}; 2 epochs x {FORECAST_STEPS} steps with validation")
+    reset_counts()
+    trainer = Trainer(cfg, CARD, run_validation=True)
+    tt = time.perf_counter()
+    history = trainer.fit(max_epochs=2, max_steps_per_epoch=FORECAST_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - tt
+    launched = counts()
+    model = trainer.model
+    n_params = sum(p.numel() for p in model.parameters())
+    sites = dropout_sites(model)
+    for rec in history:
+        print(f"    {json.dumps(rec)}")
+    val = trainer.last_validation
+    print(f"  fit {fit_s:.3f} s; {n_params:,} parameters; launches {launched}; validation over "
+          f"{val['samples']} samples: " + ", ".join(f"{k} {v:.5f}" for k, v in val["means"].items()))
+    check(sum(r["batches"] for r in history) == steps, f"fit took {history}")
+    check(all(np.isfinite(r["loss"]) for r in history), "a forecast train loss is not finite")
+    check(len(val["means"]) == 9 and all(np.isfinite(v) for v in val["means"].values()),
+          "forecast validation means missing or not finite")
+    want = only(fused_dropout=2 * sites * steps)
+    check(launched == want, f"forecast launches {launched}, want {want} (K5 at {sites} sites, "
+          "forward and backward, a step; nothing in validation)")
+
+    dm = trainer.data_module(key)
+    in_vars, out_vars = dm.get_data_variables()
+    init = load_module(cfg, dm, model_kwargs(cfg))[0].state_dict()  # the fit's draw, on the host
+    still = [k for k, p in model.named_parameters() if torch.equal(p.detach().cpu(), init[k])]
+    check(not still, f"forecast parameters did not move: {still}")
+    norms = batchnorms(model)
+    moved = [bn for bn in norms if not (torch.equal(bn.running_mean.cpu(), torch.zeros_like(
+        bn.running_mean.cpu())) or torch.equal(bn.running_var.cpu(), torch.ones_like(
+            bn.running_var.cpu())))]
+    check(len(moved) == len(norms) == 2 * len(model.blocks) + 1,
+          f"{len(norms) - len(moved)} of {len(norms)} BatchNorms kept their initial statistics")
+    loader = iter(dm.test_dataloader())
+    batch = next(loader)
+    loader.close()
+    x, y = torch.from_numpy(batch[0]).to(CARD), torch.from_numpy(batch[1]).to(CARD)
+    with torch.no_grad():
+        pred = model.eval()(x).float()
+        fresh = copy.deepcopy(model)
+        for bn in batchnorms(fresh):
+            bn.reset_running_stats()
+        pred_fresh = fresh.eval()(x).float()
+        del fresh
+    want_shape = (x.shape[0], len(out_vars)) + GRID_FORECAST
+    check(tuple(pred.shape) == want_shape and bool(pred.isfinite().all()),
+          f"bad forecast {tuple(pred.shape)}, want {want_shape}")
+    used = ((pred - pred_fresh).norm() / pred.norm()).item()
+    print(f"  eval uses the running statistics: the prediction with them reset differs by "
+          f"{used:.3e} (relative Frobenius)")
+    check(used > 1e-3, "the eval-mode prediction does not read the BatchNorm running statistics")
+
+    reset_counts()
+    tt = time.perf_counter()
+    ev = Evaluator(cfg, CARD, state_dict=model.state_dict())
+    metrics = ev.test()
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - tt
+    check(counts() == only(), f"forecast serving launched {counts()}")
+    print(f"  Evaluator.test {test_s:.3f} s (build included): " +
+          ", ".join(f"{k} {v:.5f}" for k, v in metrics.items()))
+    check(len(metrics) == 6 and all(np.isfinite(v) for v in metrics.values()),
+          "forecast test metrics missing or not finite")
+    del ev
+
+    # one seeded fp32 step with dropout, card (K5, cuDNN) against the CPU
+    # (plain), and its witness: the same step in fp64 on the CPU. Through 19
+    # train-mode BatchNorms at 4 samples the CPU's own fp32 gradients lie
+    # ~1e-3 (weights) to ~1e-2 (the conv biases before a BatchNorm, whose
+    # true gradient is 0) from fp64, so the card is held against the fp64
+    # step as the CPU's fp32 step is: its gradients (relative Frobenius over
+    # all of them) at most WITNESS_RATIO times as far
+    results = []
+    for device, dtype in ((CARD, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+        mdl = copy.deepcopy(model).to(device=device, dtype=dtype)
+        mdl.dtype = dtype
+        opt = make_optimizer("adamw", {"lr": m.lr, "weight_decay": m.weight_decay,
+                                       "betas": (m.beta_1, m.beta_2)}, mdl.named_parameters())
+        step = make_train_step(mdl, trainer.train_loss, cfg.data.var_weights, opt, in_vars,
+                               out_vars)
+        loss = step(x[:4].to(device=device, dtype=dtype), y[:4].to(device=device, dtype=dtype),
+                    *gens(11)).item()
+        results.append((loss, {k: p.grad.cpu().double() for k, p in mdl.named_parameters()}))
+        del mdl, opt, step
+    (loss_gpu, g_gpu), (loss_cpu, g_cpu), (loss_64, g_64) = results
+    norm = math.sqrt(sum(g.square().sum().item() for g in g_64.values()))
+    far = lambda got: math.sqrt(sum((got[k] - g_64[k]).square().sum().item()  # noqa: E731
+                                    for k in g_64)) / norm
+    card_far, cpu_far = far(g_gpu), far(g_cpu)
+    worst = max(((g_gpu[k] - g_cpu[k]).norm() / g_cpu[k].norm(), k) for k in g_cpu)
+    print(f"  fp32 step with dropout: loss card (K5, cuDNN) {loss_gpu:.7f}, CPU (plain) "
+          f"{loss_cpu:.7f}, CPU fp64 {loss_64:.7f}; gradients from fp64 (relative Frobenius "
+          f"over all {len(g_64)}): card {card_far:.3e}, CPU fp32 {cpu_far:.3e} (card at most "
+          f"{WITNESS_RATIO:g}x the CPU's); worst tensor card vs CPU {worst[0].item():.3e} at "
+          f"{worst[1]}")
+    check(math.isclose(loss_gpu, loss_cpu, rel_tol=TRAIN_FP32_TOL, abs_tol=TRAIN_FP32_TOL),
+          "fp32 forecast step losses differ between card and CPU")
+    check(card_far <= WITNESS_RATIO * cpu_far,
+          "the card's fp32 forecast gradients lie further from fp64 than the CPU's allow")
+    del results, g_gpu, g_cpu, g_64
+
+    # K5 at the path's shape ([B, 128, 32, 64] viewed [B 128 32, 64]), bit for bit
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    kseed = 2 ** 41 + seed
+    hidden = model.blocks[0].conv1.conv.out_channels
+    k5_shape = (tc.batch_size * hidden * GRID_FORECAST[0], GRID_FORECAST[1])
+    check_dropout(*k5_shape, torch.bfloat16, m.drop_rate, gen, kseed)
+
+    # the step's time: bf16 compute, fp32 masters, batches cast on the host as the fit does
+    xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
+    tstep = make_train_step(model, trainer.train_loss, cfg.data.var_weights, trainer.optimizer,
+                            in_vars, out_vars)
+    g1, g2 = gens(seed + 31)
+    flops = conv_train_flops(model, tuple(xb.shape))
+    step = step_row(lambda: tstep(xb, yb, g1, g2), "forecast", xb.shape[0], flops, smi)
+    row = k5_row(k5_shape, torch.bfloat16, m.drop_rate, gen, kseed, launched["fused_dropout"],
+                 smi, "forecast")
+    out = {"gpu": smi, "params": n_params, "fit_s": fit_s, "losses": [r["loss"] for r in history],
+           "validation": val["means"], "test": metrics, "launches": launched,
+           "eval_uses_stats": used, "fp32_from_fp64": {"card": card_far, "cpu": cpu_far},
+           "step": step}
+    del trainer, model, tstep, xb, yb
+    torch.cuda.empty_cache()
+    return {"out": out, "rows": {"fused_dropout": row}}
+
+
+def hub_config(root: Path, seed: int):
+    """configs/interm_fine_tune.yaml with its mesh (fsdp 4 x simple_ddp 4)
+    cut to the card, batch BATCH_HUB, and DAYMET_2's variables on a synthetic
+    LOW_HUB -> 4x crop (train and test splits of FIELDS_HUB fields), written
+    as a YAML the finetune CLI reads. Returns (its path, its raw sections)."""
+    import yaml
+
+    raw = yaml.safe_load(CONFIG_HUB.read_text())
+    data = raw["data"]
+    key = next(iter(data["low_res_dir"]))
+    low, high = write_dataset(root, data["dict_in_variables"][key],
+                              data["dict_out_variables"][key], seed, n_files=1, t=FIELDS_HUB,
+                              low=LOW_HUB, shards=("train", "test"))
+    data["low_res_dir"], data["high_res_dir"] = {key: low}, {key: high}
+    raw["parallelism"] = {"fsdp": 1, "simple_ddp": 1, "tensor_par": 1, "seq_par": 1}
+    raw["trainer"]["batch_size"] = BATCH_HUB
+    path = root / "hub.yaml"
+    path.write_text(yaml.safe_dump(raw, sort_keys=False))
+    return str(path), raw
+
+
+def check_pairs(q, k, v, do, rate, seed, pairs, case):
+    """K1, K2 and K3 launched on the whole batch, held on the (batch, head)
+    pairs `pairs` against their plain versions on each pair alone, under
+    that pair's stream (b H + h): o and lse as check_forward, dq, dk and dv
+    as check_backward; K1 alone where do is None. One pair's fp32 scores at
+    N 32,768 are 4.3 GB: a batch element's would not fit beside them.
+    Returns {name: max abs error}."""
+    from orbit2_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd, flash_attention_reference)
+    from orbit2_tpu_torch.ops.kernel_prng import keep_mult
+
+    _, n, h, d = q.shape
+    o, lse = flash_attention_fwd(q, k, v, None, rate, seed)
+    got = None if do is None else flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, rate, seed)
+    err = {}
+    for b, hh in pairs:
+        at = (slice(b, b + 1), slice(None), slice(hh, hh + 1))
+        mult = (keep_mult(seed, n, n, rate, streams=1, device=q.device, first_stream=b * h + hh)
+                if rate > 0.0 else None)
+        want_o, want_lse = flash_attention_reference(q[at], k[at], v[at], None, mult)
+        where = f"{case}, batch {b} head {hh}"
+        err[("fwd", b, hh)] = hold_forward(o[at], lse[b * h + hh:b * h + hh + 1], want_o,
+                                           want_lse, where)
+        del want_o, want_lse
+        if got is not None:
+            e, line = hold_grads([g[at] for g in got],
+                                 plain_grads(q[at], k[at], v[at], do[at], mult), where)
+            print(f"  bwd {where}: {line}")
+            err.update(((name, b, hh), val) for name, val in e.items())
+        del mult
+        torch.cuda.empty_cache()
+    names = ("fwd",) + (() if got is None else ("dq", "dk", "dv"))
+    return {name: max(val for (nm, *_), val in err.items() if nm == name) for name in names}
+
+
+def hub_attention_rows(gen, seed, rate, call_s, smi, launches):
+    """K1 (with and without dropout), K2 and K3 at ATTENTION_HUB bf16: by
+    events and kernel time alone; their plain versions over every (batch,
+    head) pair one at a time (one pair's dropout multiplier, drawn before
+    the timing, serves every pair: the plain versions' work does not depend
+    on its values); SDPA's flash forward and whole backward; the bounds
+    (tensor cores and bytes, with dropout the Philox calls)."""
+    from orbit2_tpu_torch.ops.flash_attention import (
+        FLASH_BWD_DKV, FLASH_BWD_DQ, attention_delta, attention_flops,
+        flash_attention_bwd_reference, flash_attention_fwd, flash_attention_reference)
+    from orbit2_tpu_torch.ops.kernel_prng import keep_mult
+
+    b, n, h, d = ATTENTION_HUB
+    q, k, v = make_qkv(b, n, n, h, d, torch.bfloat16, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    o, lse = flash_attention_fwd(q, k, v, None, rate, seed)
+    delta = attention_delta(o, do)
+    mult = keep_mult(seed, n, n, rate, streams=1, device="cuda")
+    pairs = [(bb, hh) for bb in range(b) for hh in range(h)]
+
+    def at(bb, hh):
+        return slice(bb, bb + 1), slice(None), slice(hh, hh + 1)
+
+    def plain_fwd(m):
+        for bb, hh in pairs:
+            flash_attention_reference(q[at(bb, hh)], k[at(bb, hh)], v[at(bb, hh)], None, m)
+
+    def plain_bwd():
+        for bb, hh in pairs:
+            i = bb * h + hh
+            flash_attention_bwd_reference(q[at(bb, hh)], k[at(bb, hh)], v[at(bb, hh)],
+                                          o[at(bb, hh)], lse[i:i + 1], do[at(bb, hh)],
+                                          d ** -0.5, mult)
+
+    att = attention_flops(b, n, n, h, d)
+    rows_f32 = 4 * b * h * n
+    philox = b * h * n * n / ELEMENTS_PER_CALL
+    lib = sdpa_ms(q, k, v, do)
+    plain = {"fwd": cuda_ms(lambda: plain_fwd(mult), iters=1, warmup=1),
+             "fwd0": cuda_ms(lambda: plain_fwd(None), iters=1, warmup=1),
+             "bwd": cuda_ms(plain_bwd, iters=1, warmup=1)}
+    cases = {
+        ("flash_attn_fwd", rate): (lambda: flash_attention_fwd(q, k, v, None, rate, seed),
+                                   plain["fwd"], lib["fwd"][DROP],
+                                   roofline(att, nbytes(q, k, v, q) + rows_f32), "fwd"),
+        ("flash_attn_fwd", 0.0): (lambda: flash_attention_fwd(q, k, v), plain["fwd0"],
+                                  lib["fwd"][0.0], roofline(att, nbytes(q, k, v, q) + rows_f32),
+                                  None),
+        ("flash_attn_bwd_dq", rate): (
+            lambda: FLASH_BWD_DQ(q, k, v, do, lse, delta, d ** -0.5, rate, seed), plain["bwd"],
+            lib["bwd"], roofline(1.5 * att, nbytes(q, k, v, do, q) + 2 * rows_f32), "dq"),
+        ("flash_attn_bwd_dkv", rate): (
+            lambda: FLASH_BWD_DKV(q, k, v, do, lse, delta, d ** -0.5, rate, seed), plain["bwd"],
+            lib["bwd"], roofline(2 * att, nbytes(q, k, v, do, k, v) + 2 * rows_f32), "dkv"),
+    }
+    check(rate == DROP, f"the hub's dropout rate {rate} is not the SDPA rows' {DROP}")
+    rows = {}
+    for (name, r), (fn, plain_ms, library, bound, op) in cases.items():
+        if op is not None:
+            bound = max(bound, (philox * call_s[op] * 1e3, "operations"))
+        rows[(name, r)] = row = {
+            "shape": [b, n, h, d], "dropout": r, "ms": cuda_ms(fn, iters=10),
+            "kernel_ms": kernel_ms(fn, iters=5), "plain_ms": plain_ms, "library_ms": library,
+            "bound_ms": bound[0], "bound_by": bound[1], "launches": launches.get((name, r))}
+        print(f"  hub ViT {name} bf16 B{b} N{n} H{h} d{d} drop {r:g}: {row['ms']:.3f} ms "
+              f"(kernel alone {row['kernel_ms']:.3f}, {bound[0] / row['kernel_ms']:.3f} of the "
+              f"bound {bound[0]:.3f} ({bound[1]})), plain {plain_ms:.3f} (pair by pair), "
+              f"library {library:.3f} ({row['kernel_ms'] / library:.2f}x by kernel time); "
+              f"{row['launches']} launches on the path; gpu: {smi}")
+    del q, k, v, do, o, lse, delta, mult
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def attention_by_head():
+    """Routes the Blocks' attention to its plain version (fp32 math) one
+    (batch, head) pair at a time, for eval mode (no dropout): at N 32,768
+    one pair's fp32 scores take 4.3 GB."""
+    import orbit2_tpu_torch.models.components.blocks as blocks
+    from orbit2_tpu_torch.ops.flash_attention import flash_attention_reference
+
+    def attention(q, k, v, impl, scale=None, dropout_rate=0.0, generator=None):
+        check(dropout_rate == 0.0, "attention_by_head serves eval mode only")
+        out = torch.empty_like(q)
+        for b in range(q.shape[0]):
+            for h in range(q.shape[2]):
+                at = (slice(b, b + 1), slice(None), slice(h, h + 1))
+                out[at] = flash_attention_reference(q[at], k[at], v[at], scale)[0]
+        return out
+
+    saved = blocks.dot_product_attention
+    blocks.dot_product_attention = attention
+    try:
+        yield
+    finally:
+        blocks.dot_product_attention = saved
+
+
+def hub(root: Path, seed: int, call_s, smi):
+    """Phase hub: `python -m orbit2_tpu_torch.finetune --arch vit|unet|resnet`
+    on configs/interm_fine_tune.yaml's model at a regional crop, then
+    Evaluator.test of each (module docstring)."""
+    from orbit2_tpu_torch import finetune
+    from orbit2_tpu_torch.config import load_config
+    from orbit2_tpu_torch.evaluate import Evaluator
+    from orbit2_tpu_torch.training.checkpoint import restore_checkpoint
+    from orbit2_tpu_torch.training.train import make_eval_step, make_train_step
+    from orbit2_tpu_torch.training.trainer import Trainer
+
+    path, raw = hub_config(root, seed)
+    key = next(iter(raw["data"]["low_res_dir"]))
+    m = raw["model"]
+    rate = m["drop_rate"]
+    steps = 2 * HUB_STEPS
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    kseed = 2 ** 42 + seed
+    out, rows, errs = {"gpu": smi}, {}, {}
+    launches = {}
+    for arch in ("vit", "unet", "resnet"):
+        loss = HUB_LOSSES[arch]
+        print(f"  finetune --arch {arch} --loss {loss}: {raw['trainer']['data_type']}, batch "
+              f"{BATCH_HUB}, {LOW_HUB} -> 4x, 2 epochs x {HUB_STEPS} steps from drawn weights")
+        reset_counts()
+        tt = time.perf_counter()
+        res = finetune.main([path, "--arch", arch, "--loss", loss, "--max-epochs", "2",
+                             "--max-steps-per-epoch", str(HUB_STEPS), "--checkpoint-dir",
+                             str(root / f"ft_{arch}"), "--device", CARD])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - tt
+        fit_counts = counts()
+        history = res["history"]
+        check(sum(r["batches"] for r in history) == steps and
+              all(np.isfinite(r["loss"]) for r in history), f"{arch} fine-tune took {history}")
+        state = restore_checkpoint(str(root / f"ft_{arch}" / "epoch_1"))["model"]
+        cfg = load_config(dict(raw, model=dict(m, preset=arch),
+                               trainer=dict(raw["trainer"], train_loss=loss)))
+        reset_counts()
+        tt = time.perf_counter()
+        ev = Evaluator(cfg, CARD, state_dict=state)
+        metrics = ev.test(max_batches=HUB_TEST_BATCHES)
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - tt
+        test_counts = counts()
+        model = ev.model
+        n_params = sum(p.numel() for p in model.parameters())
+        sites = dropout_sites(model)
+        depth = len(getattr(model.backbone, "blocks", ()))
+        vit = arch == "vit"
+        want_fit = only(fused_dropout=2 * sites * steps,
+                        **(dict(flash_attn_fwd=depth * steps, flash_attn_bwd_dq=depth * steps,
+                                flash_attn_bwd_dkv=depth * steps) if vit else {}))
+        want_test = only(**(dict(flash_attn_fwd=depth * HUB_TEST_BATCHES) if vit else {}))
+        print(f"    fit {fit_s:.3f} s, losses {[round(r['loss'], 6) for r in history]}; "
+              f"{n_params:,} parameters; launches {fit_counts}; test {test_s:.3f} s (build "
+              f"included) over {HUB_TEST_BATCHES} batches, launches {test_counts}")
+        for k_, v_ in metrics.items():
+            print(f"      {k_} {v_:.6f}")
+        check(fit_counts == want_fit, f"{arch} fine-tune launches {fit_counts}, want {want_fit}")
+        check(test_counts == want_test, f"{arch} test launches {test_counts}, want {want_test}")
+        check(len(metrics) == 12 and all(np.isfinite(v) for v in metrics.values()),
+              f"{arch} test metrics missing or not finite")
+        with pytest_raises(ValueError, "no quantized serving path"):
+            ev.test(quant="w8a8")
+
+        dm = ev.data_module
+        in_vars, out_vars = dm.get_data_variables()
+        loader = iter(dm.test_dataloader())
+        batch = next(loader)
+        loader.close()
+        x, y = torch.from_numpy(batch[0]).to(CARD), torch.from_numpy(batch[1]).to(CARD)
+        entry = {"params": n_params, "fit_s": fit_s, "losses": [r["loss"] for r in history],
+                 "test": metrics, "fit_launches": fit_counts, "test_launches": test_counts,
+                 "test_s": test_s}
+        if vit:
+            check(tuple(model.backbone.pos_embed.shape) == (1, ATTENTION_HUB[1], m["embed_dim"]),
+                  f"ViT pos_embed {tuple(model.backbone.pos_embed.shape)}")
+            entry["pos_embed_params"] = model.backbone.pos_embed.numel()
+            # the prediction on the kernels against the plain attention, on one
+            # batch element, its plain version one head at a time (the plain
+            # scores of all heads of the batch would take 137 GB in fp32)
+            with torch.no_grad():
+                pred = model(x[:1]).float()
+                with attention_by_head():
+                    pred_plain = model(x[:1]).float()
+                torch.cuda.synchronize()
+            rel = rel_frob(pred, pred_plain)
+            print(f"    bf16 prediction (batch element 0), kernel vs plain attention: relative "
+                  f"Frobenius error {rel:.3e} (bound {TRUNK_BF16_REL:g})")
+            check(bool(pred.isfinite().all()) and rel <= TRUNK_BF16_REL,
+                  "ViT prediction differs from the plain attention's")
+            entry["vs_plain"] = rel
+            torch.cuda.empty_cache()
+            b, n, h, d = ATTENTION_HUB
+            q, k, v = make_qkv(b, n, n, h, d, torch.bfloat16, gen)
+            do = torch.randn(q.shape, generator=gen, device=CARD).to(torch.bfloat16)
+            pairs = [(0, 0), (b - 1, h - 1)]
+            errs["train"] = check_pairs(q, k, v, do, rate, kseed, pairs,
+                                        f"bf16 drop {rate:g} B{b} N{n} H{h} d{d}")
+            errs["serve"] = check_pairs(q, k, v, None, 0.0, kseed, pairs,
+                                        f"bf16 drop 0 B{b} N{n} H{h} d{d}")
+            del q, k, v, do
+            torch.cuda.empty_cache()
+            tokens = b * n
+            widths = (m["embed_dim"], int(m["embed_dim"] * m["mlp_ratio"]))
+            launches.update({("flash_attn_fwd", rate): fit_counts["flash_attn_fwd"],
+                             ("flash_attn_fwd", 0.0): test_counts["flash_attn_fwd"],
+                             ("flash_attn_bwd_dq", rate): fit_counts["flash_attn_bwd_dq"],
+                             ("flash_attn_bwd_dkv", rate): fit_counts["flash_attn_bwd_dkv"]})
+            k5_shapes = [(tokens, c) for c in widths]
+        else:
+            # K5 at the top level's [B, C, H, W] and, for the Unet, the lowest's
+            first = model.backbone.blocks[0] if arch == "resnet" else model.backbone.down[0].res
+            c = first.conv1.conv.out_channels
+            k5_shapes = [(BATCH_HUB * c * LOW_HUB[0] * 4, LOW_HUB[1] * 4)]
+            if arch == "unet":
+                c = model.backbone.middle.res1.conv1.conv.out_channels
+                scale = 2 ** (len([mm for mm in model.backbone.down if hasattr(mm, "conv")]))
+                k5_shapes.append((BATCH_HUB * c * LOW_HUB[0] * 4 // scale,
+                                  LOW_HUB[1] * 4 // scale))
+        for shape in k5_shapes:
+            check_dropout(*shape, torch.bfloat16, rate, gen, kseed)
+        # the step: the fine-tune's train step on the served weights (fp32 masters)
+        trainer = Trainer(cfg, CARD, state_dict=state)
+        tdm = trainer.data_module(key)
+        trainer._start(tdm)
+        tstep = make_train_step(trainer.model, trainer.train_loss, cfg.data.var_weights,
+                                trainer.optimizer, in_vars, out_vars)
+        xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
+        g1, g2 = gens(seed + 37)
+        if vit:
+            from orbit2_tpu_torch.ops.flash_attention import attention_flops
+
+            bb = trainer.model.backbone
+            att = attention_flops(*ATTENTION_HUB[:2], ATTENTION_HUB[1], *ATTENTION_HUB[2:])
+            linear = sum(p.numel() for name, p in bb.named_parameters()
+                         if name.endswith("weight") and p.dim() == 2)
+            patch = bb.patch_embed.proj.weight.numel()
+            flops = 6 * (linear + patch) * BATCH_HUB * ATTENTION_HUB[1] + 3 * depth * att
+        else:
+            flops = conv_train_flops(trainer.model.backbone, (BATCH_HUB, len(in_vars),
+                                                              LOW_HUB[0] * 4, LOW_HUB[1] * 4))
+        entry["step"] = step_row(lambda: tstep(xb, yb, g1, g2), f"hub {arch}", BATCH_HUB, flops,
+                                 smi, iters=3)
+        eval_step = make_eval_step(model, in_vars, out_vars)
+        entry["serve_ms"] = cuda_ms(lambda: eval_step(x, y), iters=5, warmup=1)
+        print(f"    {arch} serving: eval step {entry['serve_ms']:.3f} ms a batch of {x.shape[0]}")
+        del trainer, tstep, xb, yb, ev, model, eval_step
+        torch.cuda.empty_cache()
+        rows.update({(arch, "fused_dropout", s): k5_row(s, torch.bfloat16, rate, gen, kseed,
+                                                         fit_counts["fused_dropout"], smi,
+                                                         f"hub {arch}") for s in k5_shapes})
+        out[arch] = entry
+    rows.update(hub_attention_rows(gen, kseed, rate, call_s, smi, launches))
+    out["errors"] = {k_: v_ for k_, v_ in errs.items()}
+    return {"out": out, "rows": rows, "errs": errs}
+
+
+class pytest_raises:
+    """`with pytest_raises(Error, text)`: the block must raise Error whose
+    message holds `text` (pytest is not needed on the card's path)."""
+
+    def __init__(self, error, text):
+        self.error, self.text = error, text
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, kind, value, tb):
+        check(kind is not None and issubclass(kind, self.error) and self.text in str(value),
+              f"expected {self.error.__name__} holding {self.text!r}, got {kind}: {value}")
+        return True
+
+
+def cb_arrays(seed: int):
+    """Synthetic ClimateBench forcings (CO2, SO2, CH4, BC) and a tas target
+    at CB_GRID: two scenario runs (historical + future years; their windows
+    start at the scenario) and a historical run."""
+    from orbit2_tpu_torch.data.climatebench import LEN_HISTORICAL
+
+    rng = np.random.default_rng(seed)
+    h, w = CB_GRID
+    runs = {"ssp126": LEN_HISTORICAL + CB_FUTURE, "ssp370": LEN_HISTORICAL + CB_FUTURE,
+            "historical": LEN_HISTORICAL}
+    dict_x = {k: rng.normal(size=(t, 4, h, w)).astype(np.float32) for k, t in runs.items()}
+    dict_y = {k: rng.normal(15, 3, size=(t, 1, h, w)).astype(np.float32) for k, t in runs.items()}
+    return dict_x, dict_y, np.linspace(-87.5, 87.5, h), np.linspace(0, 357.5, w)
+
+
+def climatebench_phase(seed: int, smi):
+    """Phase climatebench: the ClimateBench CLI's run (AdamW + warmup-cosine,
+    early stopping on val/mse, the best weights tested) for resnet (28
+    blocks), unet and vit at MODEL_KWARGS on synthetic arrays: finite NRMSE
+    trio, exact K5 launches, the ViT's attention on the plain path (head dim
+    32: no flash launch); K5 bit for bit at the ResNet's and the ViT's
+    shapes."""
+    from orbit2_tpu_torch import climatebench
+    from orbit2_tpu_torch.data.climatebench import ClimateBenchDataModule
+
+    arrays = cb_arrays(seed)
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    kseed = 2 ** 43 + seed
+    out, rows = {"gpu": smi}, {}
+    for name in ("resnet", "unet", "vit"):
+        dm = ClimateBenchDataModule(history=10, batch_size=CB_BATCH, _arrays=arrays,
+                                    list_train_simu=tuple(arrays[0]), list_test_simu=("ssp245",))
+        with torch.device("meta"):
+            meta = climatebench.build_model(name)
+        sites = dropout_sites(meta)
+        reset_counts()
+        history = []
+        tt = time.perf_counter()
+        best_val, test = climatebench.run(dm, name, max_epochs=CB_EPOCHS, patience=CB_EPOCHS,
+                                          device=CARD, seed=seed, history=history)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - tt
+        launched = counts()
+        steps = sum(r["steps"] for r in history)
+        want = only(fused_dropout=2 * sites * steps)
+        print(f"  {name}: {sum(p.numel() for p in meta.parameters()):,} parameters, "
+              f"{len(dm.dataset_train)} train / {len(dm.dataset_val)} val / "
+              f"{len(dm.dataset_test)} test windows, {steps} steps in {run_s:.3f} s; best "
+              f"val/mse {best_val:.6f}; " + ", ".join(f"{k} {v:.6f}" for k, v in test.items())
+              + f"; launches {launched}")
+        check(np.isfinite(best_val) and len(test) == 6
+              and all(np.isfinite(v) for v in test.values()),
+              f"ClimateBench {name}: best val {best_val}, test {test}")
+        check(launched == want, f"ClimateBench {name} launches {launched}, want {want}")
+        out[name] = {"run_s": run_s, "steps": steps, "best_val": best_val, "test": test,
+                     "launches": launched, "history": history}
+        if name != "unet":
+            if name == "resnet":
+                shape = (CB_BATCH * meta.blocks[0].conv1.conv.out_channels * CB_GRID[0],
+                         CB_GRID[1])
+            else:
+                tokens = (CB_GRID[0] // meta.patch_size) * (CB_GRID[1] // meta.patch_size)
+                shape = (CB_BATCH * tokens, meta.embed_dim)
+            check_dropout(*shape, torch.float32, 0.1, gen, kseed)
+            rows[name] = k5_row(shape, torch.float32, 0.1, gen, kseed,
+                                launched["fused_dropout"], smi, f"climatebench {name}")
+    return {"out": out, "rows": rows}
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Routes the model's kernel calls to the kernels' plain PyTorch versions
@@ -4067,8 +4848,28 @@ def main():
                                     "errors": r1b["errs"], "validation_k1_error": r1b["val_err"],
                                     "kernels": resume_1b}}))
 
-    # 7. the 10B config served on the card, last: it needs most of the card
     del bench, bstep, bx, by
+    torch.cuda.empty_cache()
+
+    # 6b. the forecasting task, the model hub and the ClimateBench driver
+    # (after phase 6's timings, so that their profiler sessions come after
+    # those; the profiler may slow the launches that follow it, and the
+    # forecast step is launch-heavy: its step alone is timed by a run of
+    # these phases alone, PERF.md)
+    phase("forecast")
+    with tempfile.TemporaryDirectory(dir=ROOT / "_smoke") as tmp:
+        fc = forecast(Path(tmp), args.seed, smi)
+    print(json.dumps({"forecast": fc["out"]}))
+    phase("hub")
+    with tempfile.TemporaryDirectory(dir=ROOT / "_smoke") as tmp:
+        hb = hub(Path(tmp), args.seed, call_s, smi)
+    print(json.dumps({"hub": hb["out"]}))
+    phase("climatebench")
+    cb = climatebench_phase(args.seed, smi)
+    print(json.dumps({"climatebench": cb["out"]}))
+    torch.cuda.empty_cache()
+
+    # 7. the 10B config served on the card, last but one: it needs most of the card
     phase("serve10b")
     with tempfile.TemporaryDirectory(dir=ROOT / "_smoke") as tmp:
         s10b = serve10b(config_10b(Path(tmp), args.seed), args.seed, call_s, smi)
@@ -4197,6 +4998,30 @@ def main():
         path_entry(m1b["rows"], "serve", m1b["rows"]["serve"]["launches"], "moe1b serve",
                    "flash_attn_fwd", "flash_attn_fwd.cu", "orbit2_tpu/ops/flash_attention.py:150",
                    m1b["serve_err"]),
+        # the forecasting ResNet's K5 (phase forecast)
+        path_entry(fc["rows"], "fused_dropout", fc["rows"]["fused_dropout"]["launches"],
+                   "forecast", "fused_dropout", "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39",
+                   0.0),
+        # the hub ViT's K1-K3 at N 32,768 (K1 also without dropout, as test()
+        # runs it) and K5 at the hub models' shapes (phase hub)
+        *(path_entry(hb["rows"], (name, rate), hb["rows"][(name, rate)]["launches"], path, name,
+                     source, f"orbit2_tpu/ops/flash_attention.py:{line}", err)
+          for name, rate, path, source, line, err in (
+              ("flash_attn_fwd", DROP, "hub vit", "flash_attn_fwd.cu", 150,
+               hb["errs"]["train"]["fwd"]),
+              ("flash_attn_fwd", 0.0, "hub vit serve", "flash_attn_fwd.cu", 150,
+               hb["errs"]["serve"]["fwd"]),
+              ("flash_attn_bwd_dq", DROP, "hub vit", "flash_attn_bwd.cu", 287,
+               hb["errs"]["train"]["dq"]),
+              ("flash_attn_bwd_dkv", DROP, "hub vit", "flash_attn_bwd.cu", 328,
+               max(hb["errs"]["train"]["dk"], hb["errs"]["train"]["dv"])))),
+        *(path_entry(hb["rows"], key, hb["rows"][key]["launches"], f"hub {key[0]}",
+                     "fused_dropout", "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39", 0.0)
+          for key in hb["rows"] if key[1] == "fused_dropout"),
+        # the ClimateBench driver's K5, fp32 (phase climatebench)
+        *(path_entry(cb["rows"], name, cb["rows"][name]["launches"], f"climatebench {name}",
+                     "fused_dropout", "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39", 0.0)
+          for name in cb["rows"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

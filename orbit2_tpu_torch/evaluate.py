@@ -1,9 +1,15 @@
 """Test-split evaluation on one device: the serving path of the port.
 
 Counterpart of `Trainer.test` (orbit2_tpu/training/trainer.py:762-831) and
-of examples/evaluate.py: a deterministic ResSlimViT forward on every test
-batch, clip, denormalize, then rmse / pearson / mean_bias per output variable,
-averaged over samples into the same `test/<metric>:<var>` dict.
+of examples/evaluate.py: a deterministic forward of the config's model on
+every test batch, clip, then the task's test metrics per output variable
+(downscaling: rmse / pearson / mean_bias, denormalized; forecasting and
+continuous-forecasting: lat_rmse / lat_acc, denormalized), averaged over
+samples into the same `test/<metric>:<var>` dict. The model is the
+config's preset: the ResSlimViT, or a model-hub preset (utils/loaders.py:
+vit, unet, resnet, the interpolation baselines; rasp-theurey-2020 and the
+forecasting baselines), which is built whole on the device and serves bf16
+or fp32 alone, as in JAX (w8a8 raises JAX's ValueError).
 
 Usage: python -m orbit2_tpu_torch.evaluate configs/interm_1b.yaml \
            [--checkpoint DIR | --torch-npz PATH] [--max-batches N] \
@@ -44,7 +50,8 @@ from orbit2_tpu_torch.training.checkpoint import (
     DEFAULT_CHECKPOINT_DIR, latest_port_checkpoint, load_pretrained_params, load_state_npz,
     restore_checkpoint)
 from orbit2_tpu_torch.training.train import evaluate_batch, make_eval_step
-from orbit2_tpu_torch.utils.loaders import load_architecture, load_downscaling_module
+from orbit2_tpu_torch.utils.loaders import (
+    QUANT_PRESETS, load_architecture, load_downscaling_module, load_forecasting_module)
 from orbit2_tpu_torch.utils.memory import device_memory_stats
 from orbit2_tpu_torch.utils.quantize import fill_twin, fp32_sources, quantize_state_dict
 
@@ -65,9 +72,19 @@ def model_kwargs(c: Config) -> dict:
         generator=torch.Generator().manual_seed(c.trainer.seed))
 
 
+def load_module(cfg: Config, data_module: IterDataModule, kwargs: dict):
+    """The config's (model, train_loss, val_losses, test_losses,
+    train_transform, val_transforms, test_transforms) by its task's factory,
+    as the JAX Trainer builds them (trainer.py:188-236)."""
+    loader = (load_downscaling_module if cfg.trainer.task == "downscaling"
+              else load_forecasting_module)
+    return loader(data_module=data_module, architecture=cfg.model.preset, model_kwargs=kwargs,
+                  train_loss=cfg.trainer.train_loss)
+
+
 def check_scope(cfg: Config) -> None:
-    if cfg.trainer.task != "downscaling":
-        raise NotImplementedError(f"task {cfg.trainer.task!r}: only downscaling is ported")
+    """Refuses what the port does not run: device meshes (the tasks are
+    downscaling, forecasting and continuous-forecasting, as in JAX)."""
     par = cfg.parallelism
     if par.auto or par.world_size != 1:
         raise NotImplementedError(
@@ -76,12 +93,16 @@ def check_scope(cfg: Config) -> None:
 
 
 def check_tiling(cfg: Config, data_module: IterDataModule) -> None:
-    """Tile dims must divide by patch_size (JAX Trainer._check_tiling; the
-    reference aborts with an increase-the-overlap instruction). Its other
-    check, tiling for downscaling only, is check_scope's refusal of every
-    other task."""
+    """The JAX Trainer's tiling checks (trainer.py:167-186): TILES tiling is
+    for downscaling only, and tile dims must divide by patch_size (the
+    reference aborts with an increase-the-overlap instruction)."""
     if cfg.tiling.effective_div <= 1:
         return
+    if cfg.trainer.task != "downscaling":
+        raise ValueError(
+            "TILES tiling is a downscaling-only feature (reference "
+            "iterdataset.py:90-177); disable tiling.do_tiling for "
+            f"task={cfg.trainer.task}")
     in_shape, _ = data_module.get_data_dims()
     _, h, w = in_shape[1:]
     p = cfg.model.patch_size
@@ -97,12 +118,21 @@ def make_data_module(cfg: Config, data_key: str, div: int, overlap: int,
     """The one-device data module of `data_key` at tiling (div, overlap),
     set up for `stage` (None: every split)."""
     c = cfg
+    # config task -> the data module's (JAX Trainer._make_data_module)
+    task = {"forecasting": "direct-forecasting"}.get(c.trainer.task, c.trainer.task)
+    forecast = {}
+    if task != "downscaling":
+        d = c.data
+        forecast = dict(src=d.src, history=d.history, window=d.window, pred_range=d.pred_range,
+                        random_lead_time=d.random_lead_time, max_pred_range=d.max_pred_range,
+                        hrs_each_step=d.hrs_each_step)
     dm = IterDataModule(
-        "downscaling", c.data.low_res_dir[data_key], c.data.high_res_dir[data_key],
+        task, c.data.low_res_dir[data_key], c.data.high_res_dir[data_key],
         c.data.dict_in_variables[data_key], out_vars=c.data.dict_out_variables[data_key],
         subsample=1, batch_size=c.trainer.batch_size, buffer_size=c.trainer.buffer_size,
         num_workers=c.trainer.num_workers, drop_last=True, div=div, overlap=overlap,
-        seed=c.trainer.data_seed if c.trainer.data_seed is not None else c.trainer.seed)
+        seed=c.trainer.data_seed if c.trainer.data_seed is not None else c.trainer.seed,
+        **forecast)
     dm.setup(stage)
     return dm
 
@@ -205,30 +235,34 @@ class Evaluator:
         self.cfg = c = config.validate()
         check_scope(c)
         self.moe = c.model.moe_experts > 0
+        # the w8a8 path is the ResSlimViT family's (JAX trainer.py:847-850)
+        self.hub = c.model.preset not in QUANT_PRESETS
         if quant_modes is None:
-            quant_modes = ("none",) if self.moe else QUANT_MODES
+            quant_modes = ("none",) if self.moe or self.hub else QUANT_MODES
         unknown = set(quant_modes) - set(QUANT_MODES)
         if unknown:
             raise ValueError(f"unknown quant_modes {sorted(unknown)} (none | w8a8)")
-        if self.moe and set(quant_modes) - {"none"}:
-            raise ValueError(MOE_QUANT_ERROR)
+        if set(quant_modes) - {"none"}:
+            self._check_quant("w8a8")
         self.device = torch.device(device)
         self.quant_modes = tuple(quant_modes)
         self.data_key = data_key or next(iter(c.data.low_res_dir))
         self.data_module = dm = make_data_module(
             c, self.data_key, c.tiling.effective_div, c.tiling.effective_overlap, "test")
         check_tiling(c, dm)
+        self._twins: Dict[str, torch.nn.Module] = {}
+        if self.hub:
+            self._build_hub(state_dict)
+            return
         with torch.device("meta"):
             (self.model, _, _, self.test_losses, _, _,
-             self.test_transforms) = load_downscaling_module(
-                dm, c.model.preset, dict(model_kwargs(c), generator=None))
+             self.test_transforms) = load_module(c, dm, dict(model_kwargs(c), generator=None))
         self._phase(self.model)
         fill, drawn = None, True
         if state_dict is not None:
             fill, drawn, _ = weight_fill(c, dm, self.model, state_dict)
         generator = torch.Generator(self.device).manual_seed(c.trainer.seed) if drawn else None
 
-        self._twins: Dict[str, torch.nn.Module] = {}
         on_unit = None
         if "w8a8" in self.quant_modes:
             twin = self._architecture("w8a8")
@@ -246,6 +280,36 @@ class Evaluator:
             quantized.update(quantize_state_dict(twin, rest, self.device, partial=True))
             self._twins["w8a8"] = fill_twin(twin, quantized, self.device)
 
+    def _build_hub(self, state_dict) -> None:
+        """A model-hub preset (at most a few tens of millions of parameters):
+        built whole on the device, drawn from a generator there seeded with
+        trainer.seed, then merged with `state_dict` by load_pretrained_params
+        where one is given (its BatchNorm running averages too). Its
+        parameters stay fp32 and it computes in its dtype, as in training."""
+        c, dm = self.cfg, self.data_module
+        generator = torch.Generator(self.device).manual_seed(c.trainer.seed)
+        with torch.device(self.device):
+            (self.model, _, _, self.test_losses, _, _,
+             self.test_transforms) = load_module(c, dm, dict(model_kwargs(c), generator=generator))
+        self._phase(self.model)
+        if state_dict is not None:
+            in_shape, _ = dm.get_data_dims()
+            merged, report = load_pretrained_params(self.model.state_dict(), state_dict,
+                                                    c.model.patch_size,
+                                                    img_size=tuple(in_shape[-2:]))
+            self.model.load_state_dict(merged, strict=True)
+            log.info("weights: %d used / %d dropped / %d resized", len(report["used"]),
+                     len(report["dropped"]), len(report["resized"]))
+        self.model.eval()
+
+    def _check_quant(self, quant: str) -> None:
+        """JAX's ValueErrors for w8a8 where the model has no int8 path."""
+        if self.moe:
+            raise ValueError(MOE_QUANT_ERROR)
+        if self.hub:
+            raise ValueError(f"preset {self.cfg.model.preset!r} has no quantized serving path "
+                             "(w8a8 is wired for the ViT family)")
+
     def _architecture(self, quant: str) -> torch.nn.Module:
         """The config's model under `quant`, on the meta device: nothing drawn."""
         with torch.device("meta"):
@@ -256,6 +320,8 @@ class Evaluator:
     def _phase(self, model):
         in_shape, _ = self.data_module.get_data_dims()
         in_vars, out_vars = self.data_module.get_data_variables()
+        if not hasattr(model, "for_phase"):
+            return model  # geometry-agnostic (JAX trainer.py:273-276)
         return model.for_phase(
             spatial_resolution=self.cfg.data.spatial_resolution[self.data_key],
             img_size=tuple(in_shape[-2:]), in_channels=len(in_vars), out_channels=len(out_vars))
@@ -265,8 +331,9 @@ class Evaluator:
         twin ("w8a8"), quantized at construction."""
         if quant == "none":
             return self.model
-        if self.moe:
-            raise ValueError(MOE_QUANT_ERROR)
+        if quant not in QUANT_MODES:
+            raise ValueError(f"unknown quant mode {quant!r} (none | w8a8)")
+        self._check_quant(quant)
         if quant not in self._twins:
             raise ValueError(f"quant={quant!r} was not asked for: this Evaluator was built with "
                              f"quant_modes={self.quant_modes}; pass quant_modes=(..., {quant!r})")

@@ -2,7 +2,8 @@
 examples/finetune.py (reference examples/era5_daymet_downscaling.py:201-572).
 
 Usage: python -m orbit2_tpu_torch.finetune configs/interm_1b.yaml \
-           [--pretrain PATH] [--arch res_slimvit] [--loss {mse,bayesian_tv}] \
+           [--pretrain PATH] [--arch {res_slimvit,resnet,unet,vit}] \
+           [--loss {mse,bayesian_tv,quantile,imagegradient,masked_mse}] \
            [--max-epochs N] [--max-steps-per-epoch N] [--checkpoint-dir DIR] \
            [--device cuda]
 
@@ -17,9 +18,14 @@ left unfilled), and it fits, saving each
 epoch under --checkpoint-dir (default checkpoints/finetune, apart from the
 train CLI's checkpoints/climate that the pretrained weights usually come
 from); a checkpoint already there resumes instead, as in JAX, so --pretrain
-may not lie inside it. Prints one JSON history record per epoch. The other
-architectures and losses of the JAX driver are not ported yet and raise
-NotImplementedError.
+may not lie inside it. Prints one JSON history record per epoch.
+
+--arch resnet | unet | vit fine-tunes the model-hub presets behind a
+bilinear upsample to the target grid (utils/loaders.py::PreInterpolated;
+their weights drawn whole on the host where --pretrain leaves keys
+unfilled). --loss masked_mse takes the data module's validity mask (the
+Trainer wires it; TILES tiling refuses it, as in JAX). --loss perceptual
+raises NotImplementedError: LPIPS is not ported.
 """
 
 from __future__ import annotations
@@ -32,18 +38,17 @@ import os
 import torch
 
 from orbit2_tpu_torch.config import load_config
-from orbit2_tpu_torch.evaluate import materialize, model_kwargs, weight_fill
-from orbit2_tpu_torch.training.checkpoint import load_state_npz, restore_checkpoint
+from orbit2_tpu_torch.evaluate import load_module, materialize, model_kwargs, weight_fill
+from orbit2_tpu_torch.training.checkpoint import (
+    load_pretrained_params, load_state_npz, restore_checkpoint)
 from orbit2_tpu_torch.training.trainer import Trainer
 from orbit2_tpu_torch.utils.loaders import load_architecture
 
 log = logging.getLogger("orbit2_tpu_torch")
 
-# examples/finetune.py's choices; the port has the first of each so far
+# examples/finetune.py's choices
 ARCHS = ("res_slimvit", "resnet", "unet", "vit")
 LOSSES = ("mse", "bayesian_tv", "perceptual", "quantile", "imagegradient", "masked_mse")
-PORTED_ARCHS = ("res_slimvit",)
-PORTED_LOSSES = ("mse", "bayesian_tv")
 FINETUNE_CHECKPOINT_DIR = os.path.join("checkpoints", "finetune")
 
 
@@ -67,11 +72,10 @@ def main(argv=None) -> dict:
     p.add_argument("--checkpoint-dir", default=FINETUNE_CHECKPOINT_DIR)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.arch not in PORTED_ARCHS or args.loss not in PORTED_LOSSES:
+    if args.loss == "perceptual":
         raise NotImplementedError(
-            f"--arch {args.arch} --loss {args.loss}: the port has the architectures "
-            f"{PORTED_ARCHS} and the losses {PORTED_LOSSES}; the others wait for the model hub "
-            "and the loaders API (ROADMAP.md section 1, queue item 5)")
+            "--loss perceptual (L1 + LPIPS over VGG16) is not ported: the repo holds no trained "
+            "LPIPS weights to hold it against (ROADMAP.md section 1, queue 1 item 7)")
 
     if args.pretrain and _inside(args.pretrain, args.checkpoint_dir):
         raise ValueError(
@@ -90,14 +94,23 @@ def main(argv=None) -> dict:
         else:
             pretrained = restore_checkpoint(args.pretrain)["model"]
         c = trainer.cfg
-        with torch.device("meta"):
-            model = load_architecture(dm, c.model.preset, **dict(model_kwargs(c), generator=None))
-        fill, drawn, report = weight_fill(c, dm, model, pretrained)
-        generator = torch.Generator().manual_seed(c.trainer.seed) if drawn else None
-        materialize(model, "cpu", generator=generator, fill=fill)
+        if c.model.preset == "res_slimvit":
+            with torch.device("meta"):
+                model = load_architecture(dm, c.model.preset,
+                                          **dict(model_kwargs(c), generator=None))
+            fill, drawn, report = weight_fill(c, dm, model, pretrained)
+            generator = torch.Generator().manual_seed(c.trainer.seed) if drawn else None
+            materialize(model, "cpu", generator=generator, fill=fill)
+            state = model.state_dict()
+        else:  # a model-hub preset, small: drawn whole on the host, then merged
+            model = load_module(c, dm, model_kwargs(c))[0]
+            in_shape, _ = dm.get_data_dims()
+            state, report = load_pretrained_params(model.state_dict(), pretrained,
+                                                   c.model.patch_size,
+                                                   img_size=tuple(in_shape[-2:]))
         log.info("pretrain import: %d used, %d dropped, %d resized", len(report["used"]),
                  len(report["dropped"]), len(report["resized"]))
-        trainer.build_model(dm, model.state_dict())
+        trainer.build_model(dm, state)
     history = trainer.fit(args.max_epochs, args.max_steps_per_epoch)
     for record in history:
         print(json.dumps(record))

@@ -345,9 +345,157 @@ def _to_numpy(tree):
     return np.asarray(tree)
 
 
-def state_dict_from_jax_params(params_np: Dict[str, Any],
-                               patch_size: int) -> Dict[str, torch.Tensor]:
+def _put_hub(p: dict, stats: Optional[dict], fixed: Optional[dict],
+             patch_size: Optional[int]) -> Dict[str, np.ndarray]:
+    """The model hub's trees (JAX models/{resnet,unet,vit,baselines}.py)
+    onto the port's reference keys: HWIO conv kernels to OIHW, dense kernels
+    transposed, flax ConvTranspose kernels flipped and laid out as torch's
+    [I, O, kH, kW] (it does not flip, torch does), BatchNorm scale/bias and,
+    where `stats` (the batch_stats collection) is given, its running
+    averages with num_batches_tracked 0."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def linear(dst, sub):
+        sd[f"{dst}.weight"] = sub["kernel"].T
+        if "bias" in sub:
+            sd[f"{dst}.bias"] = sub["bias"]
+
+    def conv(dst, sub):
+        sd[f"{dst}.weight"] = sub["kernel"].transpose(3, 2, 0, 1)
+        if "bias" in sub:
+            sd[f"{dst}.bias"] = sub["bias"]
+
+    def conv_t(dst, sub):
+        sd[f"{dst}.weight"] = sub["kernel"][::-1, ::-1].transpose(2, 3, 0, 1)
+        sd[f"{dst}.bias"] = sub["bias"]
+
+    def bn(dst, sub, st):
+        sd[f"{dst}.weight"], sd[f"{dst}.bias"] = sub["scale"], sub["bias"]
+        if st is not None:
+            sd[f"{dst}.running_mean"], sd[f"{dst}.running_var"] = st["mean"], st["var"]
+            sd[f"{dst}.num_batches_tracked"] = np.zeros((), np.int64)
+
+    def sub_stats(st, name):
+        return None if st is None else st.get(name)
+
+    def residual(dst, sub, st):
+        conv(f"{dst}.conv1.conv", sub["PeriodicConv2D_0"]["Conv_0"])
+        conv(f"{dst}.conv2.conv", sub["PeriodicConv2D_1"]["Conv_0"])
+        for i in (0, 1):
+            if f"BatchNorm_{i}" in sub:
+                bn(f"{dst}.norm{i + 1}", sub[f"BatchNorm_{i}"], sub_stats(st, f"BatchNorm_{i}"))
+        if "shortcut" in sub:
+            conv(f"{dst}.shortcut", sub["shortcut"])
+
+    def block(dst, sub, st, res="res"):
+        residual(f"{dst}.{res}", sub["ResidualBlock_0"], sub_stats(st, "ResidualBlock_0"))
+        if "AttentionBlock_0" in sub:
+            linear(f"{dst}.attn.projection", sub["AttentionBlock_0"]["Dense_0"])
+            linear(f"{dst}.attn.output", sub["AttentionBlock_0"]["Dense_1"])
+
+    def stem_and_head(st):
+        conv("image_proj.conv", p["PeriodicConv2D_0"]["Conv_0"])
+        if "BatchNorm_0" in p:
+            bn("norm", p["BatchNorm_0"], sub_stats(st, "BatchNorm_0"))
+        conv("final.conv", p["PeriodicConv2D_1"]["Conv_0"])
+
+    def count(name):
+        n = 0
+        while f"{name}_{n}" in p:
+            n += 1
+        return n
+
+    if "patch_embed" in p:  # VisionTransformer
+        kern = p["patch_embed"]["kernel"]  # [C p p, D], features (C, p, p)-ordered
+        sd["patch_embed.proj.weight"] = kern.T.reshape(kern.shape[1], -1, patch_size, patch_size)
+        sd["patch_embed.proj.bias"] = p["patch_embed"]["bias"]
+        sd["pos_embed"] = p["pos_embed"] if "pos_embed" in p else fixed["pos_embed"]
+        _put_blocks(sd, p)
+        sd["norm.weight"], sd["norm.bias"] = p["norm"]["scale"], p["norm"]["bias"]
+        _put_head(sd, p)
+    elif "DownBlock_0" in p:  # Unet
+        stem_and_head(stats)
+        n_res = count("Downsample") + 1
+        n_blocks = count("DownBlock") // n_res
+        j = down = 0
+        for i in range(n_res):
+            for _ in range(n_blocks):
+                block(f"down.{j}", p[f"DownBlock_{down}"], sub_stats(stats, f"DownBlock_{down}"))
+                j, down = j + 1, down + 1
+            if i < n_res - 1:
+                conv(f"down.{j}.conv", p[f"Downsample_{i}"]["Conv_0"])
+                j += 1
+        mid, mst = p["MiddleBlock_0"], sub_stats(stats, "MiddleBlock_0")
+        residual("middle.res1", mid["ResidualBlock_0"], sub_stats(mst, "ResidualBlock_0"))
+        if "AttentionBlock_0" in mid:
+            linear("middle.attn.projection", mid["AttentionBlock_0"]["Dense_0"])
+            linear("middle.attn.output", mid["AttentionBlock_0"]["Dense_1"])
+        residual("middle.res2", mid["ResidualBlock_1"], sub_stats(mst, "ResidualBlock_1"))
+        j = upb = ups = 0
+        for i in reversed(range(n_res)):
+            for _ in range(n_blocks + 1):
+                block(f"up.{j}", p[f"UpBlock_{upb}"], sub_stats(stats, f"UpBlock_{upb}"))
+                j, upb = j + 1, upb + 1
+            if i > 0:
+                conv_t(f"up.{j}.conv", p[f"Upsample_{ups}"]["ConvTranspose_0"])
+                j, ups = j + 1, ups + 1
+    elif "ResidualBlock_0" in p:  # ResNet
+        stem_and_head(stats)
+        for i in range(count("ResidualBlock")):
+            residual(f"blocks.{i}", p[f"ResidualBlock_{i}"], sub_stats(stats, f"ResidualBlock_{i}"))
+    elif set(p) == {"Dense_0"}:  # LinearRegression
+        linear("linear", p["Dense_0"])
+    else:
+        raise KeyError(f"no port model has the JAX tree with top-level keys {sorted(p)}")
+    return sd
+
+
+def _put_blocks(sd: Dict[str, np.ndarray], p: dict) -> None:
+    b = 0
+    while f"blocks_{b}" in p:
+        blk = p[f"blocks_{b}"]
+        for name in ("norm1", "norm2"):
+            sd[f"blocks.{b}.{name}.weight"] = blk[name]["scale"]
+            sd[f"blocks.{b}.{name}.bias"] = blk[name]["bias"]
+        pairs = [("attn.qkv", blk["attn"]["qkv"]), ("attn.proj", blk["attn"]["proj"])]
+        if "moe_mlp" in blk:  # JAX's layouts, kept as they are
+            for name, t in blk["moe_mlp"].items():
+                sd[f"blocks.{b}.moe_mlp.{name}"] = t
+        else:
+            pairs += [("mlp.fc1", blk["mlp"]["fc1"]), ("mlp.fc2", blk["mlp"]["fc2"])]
+        for dst, sub in pairs:
+            sd[f"blocks.{b}.{dst}.weight"] = sub["kernel"].T
+            if "bias" in sub:
+                sd[f"blocks.{b}.{dst}.bias"] = sub["bias"]
+        b += 1
+
+
+def _put_head(sd: Dict[str, np.ndarray], p: dict) -> None:
+    i = 0
+    while f"head_{i}" in p:
+        sd[f"head.{2 * i}.weight"] = p[f"head_{i}"]["kernel"].T
+        sd[f"head.{2 * i}.bias"] = p[f"head_{i}"]["bias"]
+        i += 1
+    sd[f"head.{2 * i}.weight"] = p["head_out"]["kernel"].T
+    sd[f"head.{2 * i}.bias"] = p["head_out"]["bias"]
+
+
+def state_dict_from_jax_params(params_np: Dict[str, Any], patch_size: Optional[int] = None,
+                               batch_stats: Optional[Dict[str, Any]] = None,
+                               fixed: Optional[Dict[str, Any]] = None,
+                               prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX model's param tree as the port model's state dict (module
+    docstring). The model is told by the tree: the ResSlimViT or the ViT
+    (both need `patch_size`), or a model-hub tree (ViT, Unet, ResNet,
+    LinearRegression), whose BatchNorm running averages come from
+    `batch_stats` and whose fixed pos_embed, if not learned, from `fixed`.
+    `prefix` is put before every key: "backbone." for the downscaling
+    presets behind utils/loaders.py::PreInterpolated."""
     p = _to_numpy(params_np)
+    if "token_embed_kernel" not in p:
+        sd = _put_hub(p, None if batch_stats is None else _to_numpy(batch_stats),
+                      None if fixed is None else _to_numpy(fixed), patch_size)
+        return {prefix + k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}
     sd: Dict[str, np.ndarray] = {}
 
     def put_linear(key_dst: str, sub: dict):
@@ -385,30 +533,11 @@ def state_dict_from_jax_params(params_np: Dict[str, Any],
         sd["var_agg.kv.bias"] = va["kv_bias"]
     put_linear("var_agg.proj", va["proj"])
 
-    b = 0
-    while f"blocks_{b}" in p:
-        blk = p[f"blocks_{b}"]
-        put_ln(f"blocks.{b}.norm1", blk["norm1"])
-        put_ln(f"blocks.{b}.norm2", blk["norm2"])
-        put_linear(f"blocks.{b}.attn.qkv", blk["attn"]["qkv"])
-        put_linear(f"blocks.{b}.attn.proj", blk["attn"]["proj"])
-        if "moe_mlp" in blk:  # JAX's layouts, kept as they are
-            for name, t in blk["moe_mlp"].items():
-                sd[f"blocks.{b}.moe_mlp.{name}"] = t
-        else:
-            put_linear(f"blocks.{b}.mlp.fc1", blk["mlp"]["fc1"])
-            put_linear(f"blocks.{b}.mlp.fc2", blk["mlp"]["fc2"])
-        b += 1
-
+    _put_blocks(sd, p)
     put_ln("norm", p["norm"])
-
-    i = 0
-    while f"head_{i}" in p:
-        put_linear(f"head.{2 * i}", p[f"head_{i}"])
-        i += 1
-    put_linear(f"head.{2 * i}", p["head_out"])
+    _put_head(sd, p)
 
     put_conv("conv_out", p["conv_out"])
     put_conv("path2.0", p["path2_conv1"])
     put_conv("path2.3", p["path2_conv2"])
-    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}
+    return {prefix + k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}

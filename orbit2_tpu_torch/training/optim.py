@@ -1,5 +1,5 @@
-"""AdamW and the per-epoch learning-rate schedule (counterpart of
-orbit2_tpu/training/optim.py).
+"""Optimizers (AdamW, Adam, SGD) and the per-epoch learning-rate schedules
+(counterpart of orbit2_tpu/training/optim.py).
 
 `AdamW` reproduces optax.adamw and the JAX package's `_adamw_2dtypes`
 (optim.py:21-89) step for step:
@@ -158,19 +158,71 @@ class AdamW:
         torch._foreach_copy_(self.nu[group], nu)
 
 
-def make_optimizer(name: str, hyperparams: Dict[str, Any], named_params) -> AdamW:
-    """reference load_optimizer (loaders.py:390-406); "adamw" only, over
-    `named_params` (a model's `named_parameters()`). The learning rate is
+class SGD:
+    """optax.sgd over `named_params` (JAX optim.py:159-162): the trace
+    t = g + momentum * t (in the parameter's dtype), then p += -lr * t;
+    momentum 0 keeps a trace equal to the gradient, as optax's trace(0)
+    does. The same protocol as AdamW: set_learning_rate, state_dict (count,
+    lr, the traces by name), load_state_dict."""
+
+    def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], lr: float,
+                 momentum: float = 0.0):
+        pairs = [(n, p) for n, p in named_params if p.requires_grad]
+        self.names = [n for n, _ in pairs]
+        self.params = [p for _, p in pairs]
+        self.lr = _f32(lr)
+        self.momentum = _f32(momentum)
+        self.count = 0
+        with torch.no_grad():
+            self.trace = [torch.zeros_like(p) for p in self.params]
+
+    def set_learning_rate(self, lr: float) -> None:
+        self.lr = _f32(lr)
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"count": self.count, "lr": self.lr, "trace": dict(zip(self.names, self.trace))}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        got = state["trace"]
+        if set(got) != set(self.names):
+            raise KeyError(f"optimizer state trace: keys {sorted(set(got) ^ set(self.names))} "
+                           "differ")
+        for name, t in zip(self.names, self.trace):
+            t.copy_(got[name])
+        self.count = int(state["count"])
+        self.lr = _f32(state["lr"])
+
+    @torch.no_grad()
+    def step(self) -> None:
+        self.count += 1
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        new = torch._foreach_mul(self.trace, self.momentum)
+        torch._foreach_add_(new, grads)
+        torch._foreach_copy_(self.trace, new)
+        torch._foreach_add_(self.params, torch._foreach_mul(new, -self.lr))
+
+
+def make_optimizer(name: str, hyperparams: Dict[str, Any], named_params):
+    """reference load_optimizer (loaders.py:390-406), over `named_params` (a
+    model's `named_parameters()`): "adamw" (betas, weight_decay, mu_dtype,
+    nu_dtype), "adam" (optax.adam: AdamW without weight decay, the moments
+    in the parameters' dtype) or "sgd" (momentum). The learning rate is
     changed per epoch with `set_learning_rate`."""
-    if name != "adamw":
-        raise NotImplementedError(f"optimizer {name!r} is not ported: only adamw")
-    b1, b2 = hyperparams.get("betas", (0.9, 0.999))
-    return AdamW(named_params, lr=float(hyperparams.get("lr", 1e-3)), b1=float(b1), b2=float(b2),
-                 weight_decay=float(hyperparams.get("weight_decay", 0.0)),
-                 mu_dtype=hyperparams.get("mu_dtype"), nu_dtype=hyperparams.get("nu_dtype"))
+    lr = float(hyperparams.get("lr", 1e-3))
+    if name in ("adamw", "adam"):
+        b1, b2 = hyperparams.get("betas", (0.9, 0.999))
+        if name == "adam":
+            return AdamW(named_params, lr=lr, b1=float(b1), b2=float(b2))
+        return AdamW(named_params, lr=lr, b1=float(b1), b2=float(b2),
+                     weight_decay=float(hyperparams.get("weight_decay", 0.0)),
+                     mu_dtype=hyperparams.get("mu_dtype"), nu_dtype=hyperparams.get("nu_dtype"))
+    if name == "sgd":
+        return SGD(named_params, lr=lr, momentum=float(hyperparams.get("momentum", 0.0)))
+    raise NotImplementedError(f"optimizer {name} not supported")
 
 
-def set_learning_rate(optimizer: AdamW, lr: float) -> AdamW:
+def set_learning_rate(optimizer, lr: float):
     optimizer.set_learning_rate(lr)
     return optimizer
 
@@ -190,16 +242,70 @@ def linear_warmup_cosine_annealing(base_lr: float, warmup_epochs: int, max_epoch
 
 
 def make_lr_scheduler(name: str, hyperparams: Dict[str, Any]):
-    """reference load_lr_scheduler (loaders.py:409-433) -> epoch -> lr;
-    "linear-warmup-cosine-annealing" only."""
-    if name != "linear-warmup-cosine-annealing":
-        raise NotImplementedError(f"lr scheduler {name!r} is not ported")
-    return linear_warmup_cosine_annealing(
-        base_lr=float(hyperparams["lr"]), warmup_epochs=int(hyperparams["warmup_epochs"]),
-        max_epochs=int(hyperparams["max_epochs"]),
-        warmup_start_lr=float(hyperparams.get("warmup_start_lr", 0.0)),
-        eta_min=float(hyperparams.get("eta_min", 0.0)))
+    """reference load_lr_scheduler (loaders.py:409-433) -> epoch -> lr (JAX
+    optim.py:165-228): constant, linear (to end_lr over total_iters
+    epochs), exponential (gamma per epoch), linear-warmup-cosine-annealing,
+    or reduce-lr-on-plateau (a ReduceLROnPlateau: `step(metric)` each
+    epoch, read as schedule(epoch))."""
+    if name == "constant":
+        lr = float(hyperparams["lr"])
+        return lambda epoch: lr
+    if name == "linear":
+        base = float(hyperparams["lr"])
+        end = float(hyperparams.get("end_lr", 0.0))
+        total = int(hyperparams.get("total_iters", 1))
+        return lambda e: base + (end - base) * min(1.0, e / max(1, total))
+    if name == "exponential":
+        base = float(hyperparams["lr"])
+        gamma = float(hyperparams.get("gamma", 0.99))
+        return lambda e: base * gamma ** e
+    if name == "linear-warmup-cosine-annealing":
+        return linear_warmup_cosine_annealing(
+            base_lr=float(hyperparams["lr"]), warmup_epochs=int(hyperparams["warmup_epochs"]),
+            max_epochs=int(hyperparams["max_epochs"]),
+            warmup_start_lr=float(hyperparams.get("warmup_start_lr", 0.0)),
+            eta_min=float(hyperparams.get("eta_min", 0.0)))
+    if name == "reduce-lr-on-plateau":
+        return ReduceLROnPlateau(
+            base_lr=float(hyperparams["lr"]), factor=float(hyperparams.get("factor", 0.1)),
+            patience=int(hyperparams.get("patience", 10)),
+            min_lr=float(hyperparams.get("min_lr", 0.0)))
+    raise NotImplementedError(f"lr scheduler {name} not supported")
 
 
-__all__ = ["AdamW", "make_optimizer", "make_lr_scheduler", "set_learning_rate",
-           "linear_warmup_cosine_annealing"]
+class ReduceLROnPlateau:
+    """The metric-driven schedule (reference loaders.py:428-431 exposes
+    torch's; JAX optim.py:196-228): `step(metric)` once an epoch; after more
+    than `patience` epochs without a better metric the lr is multiplied by
+    `factor` (not below min_lr). Read as `schedule(epoch)` it returns the
+    current lr, so the epoch-based protocol still works."""
+
+    def __init__(self, base_lr: float, factor: float = 0.1, patience: int = 10,
+                 min_lr: float = 0.0, mode: str = "min"):
+        self.lr = base_lr
+        self.factor = factor
+        self.patience = patience
+        self.min_lr = min_lr
+        self.mode = mode
+        self.best = None
+        self.bad_epochs = 0
+
+    def step(self, metric: float) -> float:
+        better = (self.best is None
+                  or (metric < self.best if self.mode == "min" else metric > self.best))
+        if better:
+            self.best = metric
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+            if self.bad_epochs > self.patience:
+                self.lr = max(self.min_lr, self.lr * self.factor)
+                self.bad_epochs = 0
+        return self.lr
+
+    def __call__(self, epoch: int) -> float:
+        return self.lr
+
+
+__all__ = ["AdamW", "SGD", "ReduceLROnPlateau", "make_optimizer", "make_lr_scheduler",
+           "set_learning_rate", "linear_warmup_cosine_annealing"]

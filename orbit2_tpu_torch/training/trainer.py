@@ -46,6 +46,14 @@ An MoE config (`model.moe_experts` > 0) trains its MoE trunk and adds
 `model.moe_aux_weight` x the mean load-balance loss of its MoE Blocks to the
 train loss, as the JAX Trainer does (trainer.py:455-461).
 
+`trainer.task` forecasting and continuous-forecasting train the
+forecasting presets (rasp-theurey-2020, linear-regression, ...) on the
+config's history windows; the model-hub presets (vit, unet, resnet behind a
+bilinear upsample) downscale. BatchNorm running statistics are the models'
+buffers: train() mode moves them, validation and test run in eval() mode,
+and checkpoints carry them. A loss with `set_mask` (masked_mse) takes the
+data module's validity mask (`_wire_out_mask`, JAX trainer.py:238-265).
+
 Not ported, and raising NotImplementedError when configured: device meshes
 and pipeline trunks.
 """
@@ -58,17 +66,18 @@ import os
 import time
 from typing import Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 from orbit2_tpu_torch.config import Config
 from orbit2_tpu_torch.data.itermodule import IterDataModule
-from orbit2_tpu_torch.evaluate import check_scope, check_tiling, make_data_module, model_kwargs
+from orbit2_tpu_torch.evaluate import (
+    check_scope, check_tiling, load_module, make_data_module, model_kwargs)
 from orbit2_tpu_torch.training.checkpoint import (
     latest_port_checkpoint, prune_checkpoints, restore_checkpoint, save_checkpoint,
     wait_for_async_saves)
 from orbit2_tpu_torch.training.optim import make_lr_scheduler, make_optimizer, set_learning_rate
 from orbit2_tpu_torch.training.train import evaluate_batch, make_eval_step, make_train_step
-from orbit2_tpu_torch.utils.loaders import load_downscaling_module
 
 log = logging.getLogger("orbit2_tpu_torch")
 
@@ -128,10 +137,10 @@ class Trainer:
                       remat_policy=c.trainer.remat_policy)
         meta = state_dict is not None
         with torch.device("meta") if meta else contextlib.nullcontext():
-            (self.model, self.train_loss, self.val_losses, _, _, self.val_transforms,
-             _) = load_downscaling_module(dm, c.model.preset,
-                                          dict(kwargs, generator=None) if meta else kwargs,
-                                          train_loss=c.trainer.train_loss)
+            (self.model, self.train_loss, self.val_losses, self.test_losses, _,
+             self.val_transforms, _) = load_module(c, dm,
+                                                   dict(kwargs, generator=None) if meta else kwargs)
+        self._wire_out_mask(dm)
         if meta:
             self.model.to_empty(device=self.device)
             self.model.load_state_dict(state_dict, strict=True)
@@ -139,6 +148,30 @@ class Trainer:
             self.model.to(self.device)
         n = sum(p.numel() for p in self.model.parameters())
         log.info("initialized %.2fM params on %s", n / 1e6, self.device)
+
+    def _wire_out_mask(self, dm: IterDataModule) -> None:
+        """Hands the data module's validity mask to every loss that takes one
+        (masked_mse's set_mask), as the JAX Trainer does (trainer.py:238-265):
+        masked losses are full-grid, so TILES tiling with one raises
+        ValueError; a data module without a mask leaves them unmasked."""
+        losses = [self.train_loss, *(self.val_losses or []), *(self.test_losses or [])]
+        maskable = [l for l in losses if hasattr(l, "set_mask")]
+        if not maskable:
+            return
+        mask = dm.get_out_mask()
+        if mask is None:
+            log.warning("mask-aware loss requested but the data module derives no validity "
+                        "mask — running unmasked")
+            for l in maskable:
+                l.set_mask(None)
+            return
+        if self.cfg.tiling.effective_div > 1:
+            raise ValueError("masked losses need full-grid targets; disable tiling.do_tiling "
+                             "for masked fine-tuning")
+        for l in maskable:
+            l.set_mask(mask)
+        log.info("wired validity mask (%.1f%% valid) into %d losses",
+                 100.0 * float(np.asarray(mask).mean()), len(maskable))
 
     def _start(self, dm: IterDataModule) -> int:
         """Builds the model (unless the caller has) and the optimizer, and
@@ -170,6 +203,8 @@ class Trainer:
         return epoch
 
     def _phase(self, dm: IterDataModule, data_key: str) -> None:
+        if not hasattr(self.model, "for_phase"):
+            return  # a geometry-agnostic model (JAX trainer.py:273-276)
         in_shape, _ = dm.get_data_dims()
         in_vars, out_vars = dm.get_data_variables()
         self.model.for_phase(spatial_resolution=self.cfg.data.spatial_resolution[data_key],
@@ -203,6 +238,8 @@ class Trainer:
                 dm = self.data_module(data_key)
                 if self.optimizer is None:
                     epoch_start = self._start(dm)
+                else:  # a masked loss holds one mask: this phase's
+                    self._wire_out_mask(dm)
                 self._phase(dm, data_key)
                 in_vars, out_vars = dm.get_data_variables()
                 if data_key not in steps:

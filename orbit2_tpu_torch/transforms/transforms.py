@@ -2,7 +2,8 @@
 
 `Denormalize` inverts the per-variable Normalize; precipitation variables get
 identity (mean 0 / std 1) because they are log-transformed in data space
-instead (reference transforms/denormalize.py:23-31).
+instead (reference transforms/denormalize.py:23-31). `Mask` keeps values where
+the mask is 1 and sets the rest to `val` (reference transforms/mask.py:10-20).
 """
 
 from __future__ import annotations
@@ -27,3 +28,14 @@ class Denormalize:
 
     def __call__(self, x):
         return x * self.std.to(x.device) + self.mean.to(x.device)
+
+
+@register("mask")
+class Mask:
+    def __init__(self, mask, val=0):
+        self.mask = torch.from_numpy(np.array(mask))
+        self.val = val
+
+    def __call__(self, x):
+        keep = self.mask.to(x.device) == 1
+        return torch.where(keep, x, torch.as_tensor(self.val, dtype=x.dtype, device=x.device))

@@ -87,8 +87,7 @@ def test_evaluator_cli_prints_metrics(synth_dataset, tmp_path, monkeypatch, caps
     {"parallelism": {"fsdp": 2}},
     # the MoE trunk is ported; its expert-parallel mesh is not
     {"model": {"moe_experts": 2, "moe_every": 1}, "parallelism": {"expert_par": 2}},
-    {"trainer": {"task": "forecasting"}},
-], ids=["mesh", "expert_par", "forecasting"])
+], ids=["mesh", "expert_par"])
 def test_evaluator_rejects_unported_configs(synth_dataset, overrides):
     raw = tiny_raw(synth_dataset)
     for section, override in overrides.items():

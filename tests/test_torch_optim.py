@@ -131,4 +131,63 @@ def test_warmup_cosine_matches_jax_every_epoch():
                         warmup_start_lr=1e-7, eta_min=1e-8)
     assert [got(e) for e in range(12)] == [want(e) for e in range(12)]
     with pytest.raises(NotImplementedError):
-        make_lr_scheduler("exponential", kw)
+        make_lr_scheduler("cosine", kw)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("constant", dict(lr=3e-4)),
+    ("linear", dict(lr=1e-3, end_lr=1e-5, total_iters=6)),
+    ("exponential", dict(lr=1e-3, gamma=0.9)),
+], ids=["constant", "linear", "exponential"])
+def test_schedules_match_jax_every_epoch(name, kw):
+    from orbit2_tpu.training.optim import make_lr_scheduler as jax_make_lr_scheduler
+
+    got, want = make_lr_scheduler(name, kw), jax_make_lr_scheduler(name, kw)
+    assert [got(e) for e in range(10)] == [want(e) for e in range(10)]
+
+
+def test_reduce_lr_on_plateau_matches_jax_over_a_metric_sequence():
+    from orbit2_tpu.training.optim import make_lr_scheduler as jax_make_lr_scheduler
+
+    kw = dict(lr=1e-2, factor=0.5, patience=2, min_lr=2e-3)
+    got = make_lr_scheduler("reduce-lr-on-plateau", kw)
+    want = jax_make_lr_scheduler("reduce-lr-on-plateau", kw)
+    metrics = [1.0, 0.9, 0.95, 0.93, 0.92, 0.91, 0.95, 0.96, 0.97, 0.98, 0.5, 0.6, 0.7, 0.8, 0.9]
+    lrs = []
+    for epoch, m in enumerate(metrics):
+        assert got(epoch) == want(epoch)
+        lrs.append(got.step(m))
+        assert lrs[-1] == want.step(m)
+    assert lrs[0] == 1e-2 and min(lrs) == 2e-3 and len(set(lrs)) == 4  # halved twice, then floored
+
+
+@pytest.mark.parametrize("name,hp", [("adam", dict(lr=2e-3, betas=(0.9, 0.99))),
+                                     ("sgd", dict(lr=1e-2, momentum=0.0)),
+                                     ("sgd", dict(lr=1e-2, momentum=0.9))],
+                         ids=["adam", "sgd", "sgd_momentum"])
+def test_adam_and_sgd_match_optax_five_steps(name, hp):
+    """optax.adam and optax.sgd (the JAX package's make_optimizer) against
+    the port's over 5 steps of numpy gradients, the lr set per step."""
+    rng = np.random.default_rng(1)
+    params = {k: rng.normal(size=s).astype(np.float32) for k, s in SHAPES.items()}
+    tx = jax_make_optimizer(name, hp)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    state = tx.init(jp)
+    tp = {k: torch.from_numpy(v.copy()).requires_grad_() for k, v in params.items()}
+    opt = make_optimizer(name, hp, tp.items())
+    for step in range(5):
+        lr = hp["lr"] * (step + 1) / 5
+        state = jax_set_lr(state, lr)
+        set_learning_rate(opt, lr)
+        grads = {k: (rng.normal(size=s) * 10.0 ** rng.integers(-3, 1)).astype(np.float32)
+                 for k, s in SHAPES.items()}
+        updates, state = tx.update({k: jnp.asarray(g) for k, g in grads.items()}, state, jp)
+        jp = optax.apply_updates(jp, updates)
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(grads[k])
+        opt.step()
+        for k in tp:
+            np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]), rtol=1e-6,
+                                       atol=1e-7, err_msg=f"{name} step {step} param {k}")
+    with pytest.raises(NotImplementedError):
+        make_optimizer("lamb", hp, tp.items())

@@ -4851,11 +4851,9 @@ def main():
     del bench, bstep, bx, by
     torch.cuda.empty_cache()
 
-    # 6b. the forecasting task, the model hub and the ClimateBench driver
-    # (after phase 6's timings, so that their profiler sessions come after
-    # those; the profiler may slow the launches that follow it, and the
-    # forecast step is launch-heavy: its step alone is timed by a run of
-    # these phases alone, PERF.md)
+    # 6b. the forecasting task, the model hub and the ClimateBench driver,
+    # after phase 6's timings: placed before them, their profiler sessions
+    # left one of phase 6's sessions empty three times over
     phase("forecast")
     with tempfile.TemporaryDirectory(dir=ROOT / "_smoke") as tmp:
         fc = forecast(Path(tmp), args.seed, smi)

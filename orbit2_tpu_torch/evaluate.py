@@ -281,11 +281,12 @@ class Evaluator:
             self._twins["w8a8"] = fill_twin(twin, quantized, self.device)
 
     def _build_hub(self, state_dict) -> None:
-        """A model-hub preset (at most a few tens of millions of parameters):
-        built whole on the device, drawn from a generator there seeded with
-        trainer.seed, then merged with `state_dict` by load_pretrained_params
-        where one is given (its BatchNorm running averages too). Its
-        parameters stay fp32 and it computes in its dtype, as in training."""
+        """A model-hub preset (small beside the large ResSlimViT configs: the
+        Unet preset, the largest, holds 144M parameters): built whole on the
+        device, drawn from a generator there seeded with trainer.seed, then
+        merged with `state_dict` by load_pretrained_params where one is given
+        (its BatchNorm running averages too). Its parameters stay fp32 and it
+        computes in its dtype, as in training."""
         c, dm = self.cfg, self.data_module
         generator = torch.Generator(self.device).manual_seed(c.trainer.seed)
         with torch.device(self.device):

@@ -376,8 +376,6 @@ TILE_MOE = (66, 132)
 # shards of FORECAST_T hourly fields a split (T - 84 DirectForecast pairs a
 # shard: 2 batches of 32 a split); 2 epochs of FORECAST_STEPS steps
 CONFIG_FORECAST = ROOT / "configs" / "forecast.yaml"
-# the device the forecast, hub and climatebench phases run on
-CARD = "cuda"
 GRID_FORECAST = (32, 64)
 FORECAST_FILES = 2
 FORECAST_T = 120
@@ -1138,7 +1136,7 @@ def sdpa_ms(q, k, v, do):
     return out
 
 
-def kernel_ms(fn, iters=10, sessions=6, by_name=None):
+def kernel_ms(fn, iters=10, sessions=3, by_name=None):
     """Device time of one call of fn by torch.profiler: the kernel time of
     every kernel one call launches, without the host's launch work. Over a
     session of `iters` calls after warm-up, each kernel name's mean time
@@ -3683,6 +3681,7 @@ def k5_row(shape, dtype, rate, gen, seed, launches, smi, label):
     from orbit2_tpu_torch.ops.kernel_prng import keep_mult
 
     r, c = shape
+    check(launches > 0, f"{label}: K5 at [{r}, {c}] was launched no time on the path")
     x = torch.randn(r, c, generator=gen, device="cuda").to(dtype)
     mult = keep_mult(seed, r, c, rate, device="cuda")
     fn = lambda: FusedDropout.apply(x, seed, rate)  # noqa: E731
@@ -3760,16 +3759,35 @@ def batchnorms(model):
     return [m for m in model.modules() if isinstance(m, BatchNorm2d)]
 
 
-def dropout_sites(model):
-    """K5 sites of a hub model's forward: two a residual block, and for the
-    ViT pos_drop and three a Block (the attention's projection, the Mlp's
-    hidden and output)."""
-    from orbit2_tpu_torch.models.components.blocks import Block
-    from orbit2_tpu_torch.models.components.cnn import ResidualBlock
+def dropout_shapes(net, b, h, w, times=1):
+    """K5's launches by [rows, cols] in `times` forwards of the hub model
+    `net` on a batch of b [., h, w] fields, as a collections.Counter: for a
+    ViT, pos_drop and a Block's attention projection and Mlp output at
+    [b tokens, embed] and its Mlp hidden at [b tokens, hidden]; for a CNN,
+    two a ResidualBlock at [b C h', w'], C its output channels and h' x w'
+    the resolution it runs at (halved after each Downsample, doubled after
+    each Upsample, in the order the forward runs them)."""
+    import collections
 
-    blocks = sum(isinstance(m, Block) for m in model.modules())
-    res = sum(isinstance(m, ResidualBlock) for m in model.modules())
-    return 2 * res + (1 + 3 * blocks if blocks else 0)
+    from orbit2_tpu_torch.models.components.blocks import Block
+    from orbit2_tpu_torch.models.components.cnn import Downsample, ResidualBlock, Upsample
+
+    got = collections.Counter()
+    blocks = [m for m in net.modules() if isinstance(m, Block)]
+    if blocks:
+        rows = b * (h // net.patch_size) * (w // net.patch_size)
+        got[(rows, net.embed_dim)] += times * (1 + 2 * len(blocks))
+        for blk in blocks:
+            got[(rows, blk.mlp.fc1.out_features)] += times
+        return got
+    for m in net.modules():
+        if isinstance(m, Downsample):
+            h, w = h // 2, w // 2
+        elif isinstance(m, Upsample):
+            h, w = 2 * h, 2 * w
+        elif isinstance(m, ResidualBlock):
+            got[(b * m.conv1.conv.out_channels * h, w)] += 2 * times
+    return got
 
 
 def forecast(root: Path, seed: int, smi):
@@ -3789,15 +3807,17 @@ def forecast(root: Path, seed: int, smi):
           f"variables -> {len(cfg.data.dict_out_variables[key])} at {GRID_FORECAST}, pred_range "
           f"{cfg.data.pred_range}; 2 epochs x {FORECAST_STEPS} steps with validation")
     reset_counts()
-    trainer = Trainer(cfg, CARD, run_validation=True)
+    trainer = Trainer(cfg, "cuda", run_validation=True)
     tt = time.perf_counter()
-    history = trainer.fit(max_epochs=2, max_steps_per_epoch=FORECAST_STEPS)
-    torch.cuda.synchronize()
+    with launch_widths(kernels()["fused_dropout"]) as k5_widths:
+        history = trainer.fit(max_epochs=2, max_steps_per_epoch=FORECAST_STEPS)
+        torch.cuda.synchronize()
     fit_s = time.perf_counter() - tt
     launched = counts()
     model = trainer.model
     n_params = sum(p.numel() for p in model.parameters())
-    sites = dropout_sites(model)
+    # forward and backward a step; nothing in validation
+    want_widths = dropout_shapes(model, tc.batch_size, *GRID_FORECAST, times=2 * steps)
     for rec in history:
         print(f"    {json.dumps(rec)}")
     val = trainer.last_validation
@@ -3807,9 +3827,11 @@ def forecast(root: Path, seed: int, smi):
     check(all(np.isfinite(r["loss"]) for r in history), "a forecast train loss is not finite")
     check(len(val["means"]) == 9 and all(np.isfinite(v) for v in val["means"].values()),
           "forecast validation means missing or not finite")
-    want = only(fused_dropout=2 * sites * steps)
-    check(launched == want, f"forecast launches {launched}, want {want} (K5 at {sites} sites, "
-          "forward and backward, a step; nothing in validation)")
+    want = only(fused_dropout=sum(want_widths.values()))
+    check(launched == want, f"forecast launches {launched}, want {want}")
+    check(k5_widths == want_widths, f"forecast K5 launches by [rows, cols] {dict(k5_widths)}, "
+          f"want {dict(want_widths)}")
+    print(f"  K5 launches by [rows, cols]: {dict(k5_widths)}")
 
     dm = trainer.data_module(key)
     in_vars, out_vars = dm.get_data_variables()
@@ -3825,7 +3847,7 @@ def forecast(root: Path, seed: int, smi):
     loader = iter(dm.test_dataloader())
     batch = next(loader)
     loader.close()
-    x, y = torch.from_numpy(batch[0]).to(CARD), torch.from_numpy(batch[1]).to(CARD)
+    x, y = torch.from_numpy(batch[0]).to("cuda"), torch.from_numpy(batch[1]).to("cuda")
     with torch.no_grad():
         pred = model.eval()(x).float()
         fresh = copy.deepcopy(model)
@@ -3843,7 +3865,7 @@ def forecast(root: Path, seed: int, smi):
 
     reset_counts()
     tt = time.perf_counter()
-    ev = Evaluator(cfg, CARD, state_dict=model.state_dict())
+    ev = Evaluator(cfg, "cuda", state_dict=model.state_dict())
     metrics = ev.test()
     torch.cuda.synchronize()
     test_s = time.perf_counter() - tt
@@ -3862,7 +3884,7 @@ def forecast(root: Path, seed: int, smi):
     # step as the CPU's fp32 step is: its gradients (relative Frobenius over
     # all of them) at most WITNESS_RATIO times as far
     results = []
-    for device, dtype in ((CARD, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
         mdl = copy.deepcopy(model).to(device=device, dtype=dtype)
         mdl.dtype = dtype
         opt = make_optimizer("adamw", {"lr": m.lr, "weight_decay": m.weight_decay,
@@ -3891,7 +3913,7 @@ def forecast(root: Path, seed: int, smi):
     del results, g_gpu, g_cpu, g_64
 
     # K5 at the path's shape ([B, 128, 32, 64] viewed [B 128 32, 64]), bit for bit
-    gen = torch.Generator(device=CARD).manual_seed(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     kseed = 2 ** 41 + seed
     hidden = model.blocks[0].conv1.conv.out_channels
     k5_shape = (tc.batch_size * hidden * GRID_FORECAST[0], GRID_FORECAST[1])
@@ -3904,8 +3926,8 @@ def forecast(root: Path, seed: int, smi):
     g1, g2 = gens(seed + 31)
     flops = conv_train_flops(model, tuple(xb.shape))
     step = step_row(lambda: tstep(xb, yb, g1, g2), "forecast", xb.shape[0], flops, smi)
-    row = k5_row(k5_shape, torch.bfloat16, m.drop_rate, gen, kseed, launched["fused_dropout"],
-                 smi, "forecast")
+    row = k5_row(k5_shape, torch.bfloat16, m.drop_rate, gen, kseed, k5_widths[k5_shape], smi,
+                 "forecast")
     out = {"gpu": smi, "params": n_params, "fit_s": fit_s, "losses": [r["loss"] for r in history],
            "validation": val["means"], "test": metrics, "launches": launched,
            "eval_uses_stats": used, "fp32_from_fp64": {"card": card_far, "cpu": cpu_far},
@@ -4086,7 +4108,7 @@ def hub(root: Path, seed: int, call_s, smi):
     m = raw["model"]
     rate = m["drop_rate"]
     steps = 2 * HUB_STEPS
-    gen = torch.Generator(device=CARD).manual_seed(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     kseed = 2 ** 42 + seed
     out, rows, errs = {"gpu": smi}, {}, {}
     launches = {}
@@ -4096,10 +4118,11 @@ def hub(root: Path, seed: int, call_s, smi):
               f"{BATCH_HUB}, {LOW_HUB} -> 4x, 2 epochs x {HUB_STEPS} steps from drawn weights")
         reset_counts()
         tt = time.perf_counter()
-        res = finetune.main([path, "--arch", arch, "--loss", loss, "--max-epochs", "2",
-                             "--max-steps-per-epoch", str(HUB_STEPS), "--checkpoint-dir",
-                             str(root / f"ft_{arch}"), "--device", CARD])
-        torch.cuda.synchronize()
+        with launch_widths(kernels()["fused_dropout"]) as k5_widths:
+            res = finetune.main([path, "--arch", arch, "--loss", loss, "--max-epochs", "2",
+                                 "--max-steps-per-epoch", str(HUB_STEPS), "--checkpoint-dir",
+                                 str(root / f"ft_{arch}"), "--device", "cuda"])
+            torch.cuda.synchronize()
         fit_s = time.perf_counter() - tt
         fit_counts = counts()
         history = res["history"]
@@ -4110,17 +4133,19 @@ def hub(root: Path, seed: int, call_s, smi):
                                trainer=dict(raw["trainer"], train_loss=loss)))
         reset_counts()
         tt = time.perf_counter()
-        ev = Evaluator(cfg, CARD, state_dict=state)
+        ev = Evaluator(cfg, "cuda", state_dict=state)
         metrics = ev.test(max_batches=HUB_TEST_BATCHES)
         torch.cuda.synchronize()
         test_s = time.perf_counter() - tt
         test_counts = counts()
         model = ev.model
         n_params = sum(p.numel() for p in model.parameters())
-        sites = dropout_sites(model)
+        # forward and backward a step, at the target grid
+        want_widths = dropout_shapes(model.backbone, BATCH_HUB, LOW_HUB[0] * 4, LOW_HUB[1] * 4,
+                                     times=2 * steps)
         depth = len(getattr(model.backbone, "blocks", ()))
         vit = arch == "vit"
-        want_fit = only(fused_dropout=2 * sites * steps,
+        want_fit = only(fused_dropout=sum(want_widths.values()),
                         **(dict(flash_attn_fwd=depth * steps, flash_attn_bwd_dq=depth * steps,
                                 flash_attn_bwd_dkv=depth * steps) if vit else {}))
         want_test = only(**(dict(flash_attn_fwd=depth * HUB_TEST_BATCHES) if vit else {}))
@@ -4130,6 +4155,9 @@ def hub(root: Path, seed: int, call_s, smi):
         for k_, v_ in metrics.items():
             print(f"      {k_} {v_:.6f}")
         check(fit_counts == want_fit, f"{arch} fine-tune launches {fit_counts}, want {want_fit}")
+        check(k5_widths == want_widths, f"{arch} fine-tune's K5 launches by [rows, cols] "
+              f"{dict(k5_widths)}, want {dict(want_widths)}")
+        print(f"    K5 launches by [rows, cols]: {dict(k5_widths)}")
         check(test_counts == want_test, f"{arch} test launches {test_counts}, want {want_test}")
         check(len(metrics) == 12 and all(np.isfinite(v) for v in metrics.values()),
               f"{arch} test metrics missing or not finite")
@@ -4141,10 +4169,11 @@ def hub(root: Path, seed: int, call_s, smi):
         loader = iter(dm.test_dataloader())
         batch = next(loader)
         loader.close()
-        x, y = torch.from_numpy(batch[0]).to(CARD), torch.from_numpy(batch[1]).to(CARD)
+        x, y = torch.from_numpy(batch[0]).to("cuda"), torch.from_numpy(batch[1]).to("cuda")
         entry = {"params": n_params, "fit_s": fit_s, "losses": [r["loss"] for r in history],
                  "test": metrics, "fit_launches": fit_counts, "test_launches": test_counts,
-                 "test_s": test_s}
+                 "test_s": test_s, "fused_dropout_by_shape": {
+                     f"{r_}x{c_}": n_ for (r_, c_), n_ in k5_widths.items()}}
         if vit:
             check(tuple(model.backbone.pos_embed.shape) == (1, ATTENTION_HUB[1], m["embed_dim"]),
                   f"ViT pos_embed {tuple(model.backbone.pos_embed.shape)}")
@@ -4166,7 +4195,7 @@ def hub(root: Path, seed: int, call_s, smi):
             torch.cuda.empty_cache()
             b, n, h, d = ATTENTION_HUB
             q, k, v = make_qkv(b, n, n, h, d, torch.bfloat16, gen)
-            do = torch.randn(q.shape, generator=gen, device=CARD).to(torch.bfloat16)
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
             pairs = [(0, 0), (b - 1, h - 1)]
             errs["train"] = check_pairs(q, k, v, do, rate, kseed, pairs,
                                         f"bf16 drop {rate:g} B{b} N{n} H{h} d{d}")
@@ -4194,7 +4223,7 @@ def hub(root: Path, seed: int, call_s, smi):
         for shape in k5_shapes:
             check_dropout(*shape, torch.bfloat16, rate, gen, kseed)
         # the step: the fine-tune's train step on the served weights (fp32 masters)
-        trainer = Trainer(cfg, CARD, state_dict=state)
+        trainer = Trainer(cfg, "cuda", state_dict=state)
         tdm = trainer.data_module(key)
         trainer._start(tdm)
         tstep = make_train_step(trainer.model, trainer.train_loss, cfg.data.var_weights,
@@ -4221,8 +4250,8 @@ def hub(root: Path, seed: int, call_s, smi):
         del trainer, tstep, xb, yb, ev, model, eval_step
         torch.cuda.empty_cache()
         rows.update({(arch, "fused_dropout", s): k5_row(s, torch.bfloat16, rate, gen, kseed,
-                                                         fit_counts["fused_dropout"], smi,
-                                                         f"hub {arch}") for s in k5_shapes})
+                                                         k5_widths[s], smi, f"hub {arch}")
+                     for s in k5_shapes})
         out[arch] = entry
     rows.update(hub_attention_rows(gen, kseed, rate, call_s, smi, launches))
     out["errors"] = {k_: v_ for k_, v_ in errs.items()}
@@ -4271,7 +4300,7 @@ def climatebench_phase(seed: int, smi):
     from orbit2_tpu_torch.data.climatebench import ClimateBenchDataModule
 
     arrays = cb_arrays(seed)
-    gen = torch.Generator(device=CARD).manual_seed(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     kseed = 2 ** 43 + seed
     out, rows = {"gpu": smi}, {}
     for name in ("resnet", "unet", "vit"):
@@ -4279,17 +4308,19 @@ def climatebench_phase(seed: int, smi):
                                     list_train_simu=tuple(arrays[0]), list_test_simu=("ssp245",))
         with torch.device("meta"):
             meta = climatebench.build_model(name)
-        sites = dropout_sites(meta)
         reset_counts()
         history = []
         tt = time.perf_counter()
-        best_val, test = climatebench.run(dm, name, max_epochs=CB_EPOCHS, patience=CB_EPOCHS,
-                                          device=CARD, seed=seed, history=history)
-        torch.cuda.synchronize()
+        with launch_widths(kernels()["fused_dropout"]) as k5_widths:
+            best_val, test = climatebench.run(dm, name, max_epochs=CB_EPOCHS, patience=CB_EPOCHS,
+                                              device="cuda", seed=seed, history=history)
+            torch.cuda.synchronize()
         run_s = time.perf_counter() - tt
         launched = counts()
         steps = sum(r["steps"] for r in history)
-        want = only(fused_dropout=2 * sites * steps)
+        # forward and backward a step (run() drops a short last batch)
+        want_widths = dropout_shapes(meta, CB_BATCH, *CB_GRID, times=2 * steps)
+        want = only(fused_dropout=sum(want_widths.values()))
         print(f"  {name}: {sum(p.numel() for p in meta.parameters()):,} parameters, "
               f"{len(dm.dataset_train)} train / {len(dm.dataset_val)} val / "
               f"{len(dm.dataset_test)} test windows, {steps} steps in {run_s:.3f} s; best "
@@ -4299,8 +4330,12 @@ def climatebench_phase(seed: int, smi):
               and all(np.isfinite(v) for v in test.values()),
               f"ClimateBench {name}: best val {best_val}, test {test}")
         check(launched == want, f"ClimateBench {name} launches {launched}, want {want}")
+        check(k5_widths == want_widths, f"ClimateBench {name} K5 launches by [rows, cols] "
+              f"{dict(k5_widths)}, want {dict(want_widths)}")
+        print(f"    K5 launches by [rows, cols]: {dict(k5_widths)}")
         out[name] = {"run_s": run_s, "steps": steps, "best_val": best_val, "test": test,
-                     "launches": launched, "history": history}
+                     "launches": launched, "history": history, "fused_dropout_by_shape": {
+                         f"{r_}x{c_}": n_ for (r_, c_), n_ in k5_widths.items()}}
         if name != "unet":
             if name == "resnet":
                 shape = (CB_BATCH * meta.blocks[0].conv1.conv.out_channels * CB_GRID[0],
@@ -4309,8 +4344,8 @@ def climatebench_phase(seed: int, smi):
                 tokens = (CB_GRID[0] // meta.patch_size) * (CB_GRID[1] // meta.patch_size)
                 shape = (CB_BATCH * tokens, meta.embed_dim)
             check_dropout(*shape, torch.float32, 0.1, gen, kseed)
-            rows[name] = k5_row(shape, torch.float32, 0.1, gen, kseed,
-                                launched["fused_dropout"], smi, f"climatebench {name}")
+            rows[name] = k5_row(shape, torch.float32, 0.1, gen, kseed, k5_widths[shape], smi,
+                                f"climatebench {name}")
     return {"out": out, "rows": rows}
 
 

@@ -51,7 +51,8 @@ from orbit2_tpu_torch.training.checkpoint import (
     restore_checkpoint)
 from orbit2_tpu_torch.training.train import evaluate_batch, make_eval_step
 from orbit2_tpu_torch.utils.loaders import (
-    QUANT_PRESETS, load_architecture, load_downscaling_module, load_forecasting_module)
+    QUANT_PRESETS, check_quant, load_architecture, load_downscaling_module,
+    load_forecasting_module)
 from orbit2_tpu_torch.utils.memory import device_memory_stats
 from orbit2_tpu_torch.utils.quantize import fill_twin, fp32_sources, quantize_state_dict
 
@@ -235,10 +236,10 @@ class Evaluator:
         self.cfg = c = config.validate()
         check_scope(c)
         self.moe = c.model.moe_experts > 0
-        # the w8a8 path is the ResSlimViT family's (JAX trainer.py:847-850)
-        self.hub = c.model.preset not in QUANT_PRESETS
         if quant_modes is None:
-            quant_modes = ("none",) if self.moe or self.hub else QUANT_MODES
+            # the w8a8 path is the ResSlimViT family's (JAX trainer.py:847-850)
+            quant_modes = (QUANT_MODES if c.model.preset in QUANT_PRESETS and not self.moe
+                           else ("none",))
         unknown = set(quant_modes) - set(QUANT_MODES)
         if unknown:
             raise ValueError(f"unknown quant_modes {sorted(unknown)} (none | w8a8)")
@@ -251,12 +252,12 @@ class Evaluator:
             c, self.data_key, c.tiling.effective_div, c.tiling.effective_overlap, "test")
         check_tiling(c, dm)
         self._twins: Dict[str, torch.nn.Module] = {}
-        if self.hub:
-            self._build_hub(state_dict)
-            return
         with torch.device("meta"):
             (self.model, _, _, self.test_losses, _, _,
              self.test_transforms) = load_module(c, dm, dict(model_kwargs(c), generator=None))
+        if not hasattr(self.model, "init_units"):
+            self._build_whole(state_dict)
+            return
         self._phase(self.model)
         fill, drawn = None, True
         if state_dict is not None:
@@ -280,13 +281,14 @@ class Evaluator:
             quantized.update(quantize_state_dict(twin, rest, self.device, partial=True))
             self._twins["w8a8"] = fill_twin(twin, quantized, self.device)
 
-    def _build_hub(self, state_dict) -> None:
-        """A model-hub preset (small beside the large ResSlimViT configs: the
-        Unet preset, the largest, holds 144M parameters): built whole on the
-        device, drawn from a generator there seeded with trainer.seed, then
-        merged with `state_dict` by load_pretrained_params where one is given
-        (its BatchNorm running averages too). Its parameters stay fp32 and it
-        computes in its dtype, as in training."""
+    def _build_whole(self, state_dict) -> None:
+        """A model without `init_units`: a model-hub preset, small beside the
+        large ResSlimViT configs (the Unet preset, the largest, holds 144M
+        parameters). Built whole on the device, drawn from a generator there
+        seeded with trainer.seed, then merged with `state_dict` by
+        load_pretrained_params where one is given (its BatchNorm running
+        averages too). Its parameters stay fp32 and it computes in its dtype,
+        as in training."""
         c, dm = self.cfg, self.data_module
         generator = torch.Generator(self.device).manual_seed(c.trainer.seed)
         with torch.device(self.device):
@@ -307,9 +309,7 @@ class Evaluator:
         """JAX's ValueErrors for w8a8 where the model has no int8 path."""
         if self.moe:
             raise ValueError(MOE_QUANT_ERROR)
-        if self.hub:
-            raise ValueError(f"preset {self.cfg.model.preset!r} has no quantized serving path "
-                             "(w8a8 is wired for the ViT family)")
+        check_quant(self.cfg.model.preset, quant)
 
     def _architecture(self, quant: str) -> torch.nn.Module:
         """The config's model under `quant`, on the meta device: nothing drawn."""

@@ -94,10 +94,9 @@ def main(argv=None) -> dict:
         else:
             pretrained = restore_checkpoint(args.pretrain)["model"]
         c = trainer.cfg
-        if c.model.preset == "res_slimvit":
-            with torch.device("meta"):
-                model = load_architecture(dm, c.model.preset,
-                                          **dict(model_kwargs(c), generator=None))
+        with torch.device("meta"):
+            model = load_architecture(dm, c.model.preset, **dict(model_kwargs(c), generator=None))
+        if hasattr(model, "init_units"):
             fill, drawn, report = weight_fill(c, dm, model, pretrained)
             generator = torch.Generator().manual_seed(c.trainer.seed) if drawn else None
             materialize(model, "cpu", generator=generator, fill=fill)

@@ -51,6 +51,14 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 QUANT_PRESETS = ("res_slimvit",)
 
 
+def check_quant(architecture: str, quant: str) -> None:
+    """JAX's ValueError for a `quant` other than "none" on a preset with no
+    quantized serving path (JAX trainer.py:847-850)."""
+    if quant != "none" and architecture not in QUANT_PRESETS:
+        raise ValueError(f"preset {architecture!r} has no quantized serving path "
+                         "(w8a8 is wired for the ViT family)")
+
+
 def load_model_module(data_module=None, task: str = "downscaling",
                       architecture: Optional[str] = None, model=None,
                       model_kwargs: Optional[Dict[str, Any]] = None,
@@ -186,9 +194,7 @@ def load_architecture(data_module, architecture: str, default_vars=None, superre
         return NotImplementedError(
             f"{architecture} is not an implemented architecture for the {task} task.")
 
-    if quant != "none" and architecture not in QUANT_PRESETS:
-        raise ValueError(f"preset {architecture!r} has no quantized serving path "
-                         "(w8a8 is wired for the ViT family)")
+    check_quant(architecture, quant)
     if task in ("forecasting", "continuous-forecasting"):
         history, in_channels, in_height, in_width = in_shape[1:]
         out_channels, out_height, out_width = out_shape[1:]

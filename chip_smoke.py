@@ -195,6 +195,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
                epoch each: finite NRMSE trio, exact K5 launches, the ViT's
                attention (head dim 32) on the plain path; K5 bit for bit at
                the ResNet's and the ViT's fp32 shapes; {"climatebench": ...}
+     mesh    — the device mesh (orbit2_tpu_torch/parallel/): (a) `python -m
+               orbit2_tpu_torch.train`'s main on configs/interm_1b.yaml as
+               shipped (fsdp 8 x simple_ddp 4 x tensor_par 4), from
+               serve1b's weights (an npz): the scale-down brings the mesh to
+               the one card, 2 steps of 32 tiles, finite losses, exact
+               launches; (b) the 1B model wrapped on a one-rank NCCL mesh
+               (the tensor plan, FSDP2 per Block and at the root, DTensor
+               parameters, AdamW on the shards) against the same 2 steps
+               unwrapped at BATCH_MESH tiles: losses and every parameter
+               bit for bit, K1-K3 and K5 launches exactly equal; each one's
+               step by events, kernel time and peak memory; K1-K3 at (B8,
+               N2178, H24, d128, dropout 0.1) on two batch elements and K5
+               at [17,424, 3,072 | 12,288] against their plain versions,
+               and their rows; (c) two ranks on the one card over gloo
+               (`python3 chip_smoke.py --mesh-worker RANK PORT DIR`) at
+               interm_117m.yaml's width, depth 2, fp32, under fsdp 2 and
+               under tensor 2, against one rank (MESH_REL), after a probe
+               of the collectives on CUDA tensors: where gloo refuses one
+               (an error, or a dead process), (c) is left out and names
+               it; {"mesh": ...}
 
   7. serve10b — configs/interm_10b.yaml served at full width and depth
                (embed 8192, depth 11, 32 heads, d 256, MLP 32,768, gelu
@@ -613,14 +633,21 @@ def write_dataset(root: Path, in_vars, out_vars, seed: int, n_files=2, t=16, low
     return str(root / "low"), str(root / "high")
 
 
-def slice_config(root: Path, seed: int, config=CONFIG, trainer=None, model=None, **dataset):
-    """`config` (configs/interm_117m.yaml) with its first data key on a
-    synthetic dataset of its variables written under `root` (write_dataset's
-    `dataset` arguments), its mesh (117M: fsdp 4 x simple_ddp 4) cut to the
-    one card, and its trainer and model keys updated from `trainer`, `model`."""
-    import yaml
+def to_one_card(cfg):
+    """`cfg` with its mesh scaled to the one card by the train CLI's
+    scale-down (orbit2_tpu_torch/train.py::scale_parallelism, examples/
+    train.py:28-48's): pipeline and expert_par are left as they are."""
+    from orbit2_tpu_torch.train import scale_parallelism
 
-    from orbit2_tpu_torch.config import load_config
+    return scale_parallelism(cfg, 1)
+
+
+def raw_config(root: Path, seed: int, config=CONFIG, trainer=None, model=None, **dataset):
+    """`config`'s raw sections with its first data key on a synthetic dataset
+    of its variables written under `root` (write_dataset's `dataset`
+    arguments), its mesh as shipped, and its trainer and model keys updated
+    from `trainer`, `model`."""
+    import yaml
 
     raw = yaml.safe_load(config.read_text())
     data = raw["data"]
@@ -629,10 +656,17 @@ def slice_config(root: Path, seed: int, config=CONFIG, trainer=None, model=None,
                               data["dict_out_variables"][key], seed, **dataset)
     data["low_res_dir"] = {key: low}
     data["high_res_dir"] = {key: high}
-    raw["parallelism"] = {"fsdp": 1, "simple_ddp": 1, "tensor_par": 1, "seq_par": 1}
     raw["trainer"].update(trainer or {})
     raw["model"].update(model or {})
-    return load_config(raw)
+    return raw
+
+
+def slice_config(root: Path, seed: int, config=CONFIG, trainer=None, model=None, **dataset):
+    """`config` (configs/interm_117m.yaml) as raw_config writes it, its mesh
+    (117M: fsdp 4 x simple_ddp 4) cut to the one card (to_one_card)."""
+    from orbit2_tpu_torch.config import load_config
+
+    return to_one_card(load_config(raw_config(root, seed, config, trainer, model, **dataset)))
 
 
 def config_1b(root: Path, seed: int, low=LOW_1B, trainer=None, n_files=1, t=FIELDS_1B,
@@ -660,9 +694,8 @@ def config_10b(root: Path, seed: int):
                               low=LOW_10B, shards=("test",))
     data["low_res_dir"], data["high_res_dir"] = {KEY_10B: low}, {KEY_10B: high}
     data["dict_in_variables"], data["dict_out_variables"] = {KEY_10B: in_vars}, {KEY_10B: out_vars}
-    raw["parallelism"] = {"fsdp": 1, "simple_ddp": 1, "tensor_par": 1, "seq_par": 1}
     raw["trainer"]["batch_size"] = BATCH_10B
-    return load_config(raw)
+    return to_one_card(load_config(raw))
 
 
 def set_attention_impl(model, impl):
@@ -1136,15 +1169,15 @@ def sdpa_ms(q, k, v, do):
     return out
 
 
-def kernel_ms(fn, iters=10, sessions=3, by_name=None):
+def kernel_ms(fn, iters=10, sessions=6, by_name=None):
     """Device time of one call of fn by torch.profiler: the kernel time of
     every kernel one call launches, without the host's launch work. Over a
     session of `iters` calls after warm-up, each kernel name's mean time
     times its launches a call (its count over iters, rounded), summed. A
     session that records some kernel fewer than `iters` times (the profiler
-    now and then hands back an empty or partial session) is run again, up to
-    `sessions` times; the fullest is kept, and it must hold at least half of
-    the kernels. by_name, a dict, receives each kernel name's ms a call."""
+    now and then hands back an empty or partial session, three times in a
+    row once at K5's [16384, 1024] row) is run again, up to `sessions` times;
+    the fullest is kept, and it must hold at least half of the kernels. by_name, a dict, receives each kernel name's ms a call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2713,8 +2746,12 @@ def serve10b(cfg, seed, call_s, smi):
 def config_moe(root: Path, seed: int, trainer=None, **dataset):
     """configs/interm_1b_moe.yaml with its mesh (fsdp 2 x expert_par 4) cut to
     the one card and PRISM's variables on a synthetic split at LOW_1B
-    (write_dataset's `dataset` arguments)."""
-    return slice_config(root, seed, CONFIG_MOE, trainer=trainer, low=LOW_1B, **dataset)
+    (write_dataset's `dataset` arguments). The scale-down leaves expert_par
+    as it is, as JAX's does, and the expert axis is not ported: it is cut to
+    1 here by hand."""
+    cfg = slice_config(root, seed, CONFIG_MOE, trainer=trainer, low=LOW_1B, **dataset)
+    cfg.parallelism.expert_par = 1
+    return cfg
 
 
 @contextlib.contextmanager
@@ -3647,8 +3684,7 @@ def forecast_config(root: Path, seed: int):
     path = write_forecast_dataset(root, data["dict_in_variables"][key], seed, GRID_FORECAST,
                                   FORECAST_FILES, FORECAST_T)
     data["low_res_dir"], data["high_res_dir"] = {key: path}, {key: path}
-    raw["parallelism"] = {"fsdp": 1, "simple_ddp": 1, "tensor_par": 1, "seq_par": 1}
-    return load_config(raw)
+    return to_one_card(load_config(raw))
 
 
 def conv_train_flops(model, x_shape):
@@ -3942,17 +3978,16 @@ def hub_config(root: Path, seed: int):
     cut to the card, batch BATCH_HUB, and DAYMET_2's variables on a synthetic
     LOW_HUB -> 4x crop (train and test splits of FIELDS_HUB fields), written
     as a YAML the finetune CLI reads. Returns (its path, its raw sections)."""
+    import dataclasses
+
     import yaml
 
-    raw = yaml.safe_load(CONFIG_HUB.read_text())
-    data = raw["data"]
-    key = next(iter(data["low_res_dir"]))
-    low, high = write_dataset(root, data["dict_in_variables"][key],
-                              data["dict_out_variables"][key], seed, n_files=1, t=FIELDS_HUB,
-                              low=LOW_HUB, shards=("train", "test"))
-    data["low_res_dir"], data["high_res_dir"] = {key: low}, {key: high}
-    raw["parallelism"] = {"fsdp": 1, "simple_ddp": 1, "tensor_par": 1, "seq_par": 1}
-    raw["trainer"]["batch_size"] = BATCH_HUB
+    from orbit2_tpu_torch.config import load_config
+
+    raw = raw_config(root, seed, CONFIG_HUB, trainer={"batch_size": BATCH_HUB}, n_files=1,
+                     t=FIELDS_HUB, low=LOW_HUB, shards=("train", "test"))
+    # the finetune CLI, as JAX's, does not scale the mesh: written scaled
+    raw["parallelism"] = dataclasses.asdict(to_one_card(load_config(raw)).parallelism)
     path = root / "hub.yaml"
     path.write_text(yaml.safe_dump(raw, sort_keys=False))
     return str(path), raw
@@ -4075,7 +4110,7 @@ def attention_by_head():
     import orbit2_tpu_torch.models.components.blocks as blocks
     from orbit2_tpu_torch.ops.flash_attention import flash_attention_reference
 
-    def attention(q, k, v, impl, scale=None, dropout_rate=0.0, generator=None):
+    def attention(q, k, v, impl, scale=None, dropout_rate=0.0, generator=None, fold=()):
         check(dropout_rate == 0.0, "attention_by_head serves eval mode only")
         out = torch.empty_like(q)
         for b in range(q.shape[0]):
@@ -4349,6 +4384,328 @@ def climatebench_phase(seed: int, smi):
     return {"out": out, "rows": rows}
 
 
+# the mesh phase: configs/interm_1b.yaml through the train CLI at its shipped
+# mesh (scaled to the card), MESH_STEPS steps of its batch; its model wrapped
+# on a one-rank NCCL mesh (every sharding rule: the tensor plan, FSDP2 per
+# Block and at the root, DTensor parameters, AdamW on the shards) against
+# the same steps unwrapped, at BATCH_MESH tiles a step; then two ranks on
+# the one card over gloo at interm_117m.yaml's width (MESH_TWO: embed 1024,
+# 16 heads, d 64; depth cut to 2), fp32 on the kernels, dropout 0, under
+# fsdp 2 and under tensor 2, against the one-rank step: relative Frobenius
+# error MESH_REL a gradient, the loss within MESH_REL relative
+BATCH_MESH = 8
+MESH_STEPS = 2
+MESH_TWO = dict(embed_dim=1024, num_heads=16, depth=2, decoder_depth=2, batch=4)
+MESH_REL = 1e-4
+MESH_TWO_SEED = 7
+MESH_AXES = ("fsdp", "simple_ddp", "tensor_par", "seq_par", "pipeline", "expert_par")
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phase(root: Path, seed: int, weights: str, call_s, smi):
+    """Phase mesh (module docstring): (a) the train CLI on interm_1b.yaml as
+    shipped, from `weights` (serve1b's, an npz); (b) the wrapped 1B path on
+    a one-rank NCCL mesh against the unwrapped one, losses and parameters
+    bit for bit, launches exactly equal, each step's time, kernel time and
+    peak memory; K1-K3 and K5 at the path's shapes against their plain
+    versions; (c) two ranks on the card over gloo, or the collective gloo
+    refuses there (by an error, or by a dead process: the probe marks each
+    collective it starts and ends). Returns what the kernels line reads."""
+    import dataclasses
+    import shutil
+
+    import torch.distributed as dist
+    import yaml
+
+    from orbit2_tpu_torch import train as train_cli
+    from orbit2_tpu_torch.parallel import full_state_dict, make_mesh
+    from orbit2_tpu_torch.training.checkpoint import load_state_npz
+    from orbit2_tpu_torch.training.train import make_train_step
+    from orbit2_tpu_torch.training.trainer import Trainer
+
+    out = {}
+    # (a) the CLI on the config as shipped: the scale-down brings it to the card
+    raw = raw_config(root / "cli", seed, CONFIG_1B, n_files=FIELDS_TRAIN_1B, t=1, low=LOW_1B,
+                     shards=("train",))
+    shipped = {a: raw["parallelism"].get(a, 1) for a in MESH_AXES}
+    path = root / "interm_1b.yaml"
+    path.write_text(yaml.safe_dump(raw, sort_keys=False))
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = train_cli.main([str(path), "--torch-npz", weights, "--device", "cuda",
+                              "--max-epochs", "1", "--max-steps-per-epoch", str(MESH_STEPS),
+                              "--checkpoint-dir", str(root / "ck")])
+    torch.cuda.synchronize()
+    cli_s, cli_launched = time.perf_counter() - t0, counts()
+    shutil.rmtree(root / "ck")
+    scaled = {a: getattr(trainer.cfg.parallelism, a) for a in MESH_AXES}
+    m, tc = trainer.cfg.model, trainer.cfg.trainer
+    depth, h, d = m.depth, m.num_heads, m.embed_dim // m.num_heads
+    want = only(**{k: v * MESH_STEPS * tc.grad_accum for k, v in remat_launches(depth).items()})
+    hist = trainer.history
+    print(f"  (a) train CLI, {CONFIG_1B.name} as shipped {shipped} -> {scaled} at world 1: "
+          f"{json.dumps(hist)}; {cli_s:.1f} s with the build and one checkpoint; launches "
+          f"{cli_launched}")
+    check(shipped["fsdp"] * shipped["simple_ddp"] * shipped["tensor_par"] > 1,
+          f"interm_1b.yaml ships no mesh: {shipped}")
+    check(all(v == 1 for v in scaled.values()), f"the CLI scaled the mesh to {scaled}")
+    check(hist[0]["batches"] == MESH_STEPS and all(np.isfinite(r["loss"]) for r in hist),
+          f"the CLI's run: {hist}")
+    check(cli_launched == want, f"the CLI's launches {cli_launched}, want {want}")
+    out["cli"] = {"shipped": shipped, "scaled": scaled, "batch_tiles": tc.batch_size,
+                  "losses": [r["loss"] for r in hist], "launches": cli_launched, "seconds": cli_s}
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (b) the wrapped path on a one-rank NCCL mesh against the unwrapped one
+    cfg = config_1b(root / "wrap", seed, trainer={"batch_size": BATCH_MESH}, n_files=1, t=1,
+                    shards=("train",))
+    key = next(iter(cfg.data.low_res_dir))
+    state = load_state_npz(weights)
+
+    def run(mesh):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(cfg, "cuda", state_dict=state, mesh=mesh)
+        history = tr.fit(max_epochs=MESH_STEPS, max_steps_per_epoch=1)
+        torch.cuda.synchronize()
+        launched = counts()
+        params = (full_state_dict(tr.model) if mesh is not None else
+                  {k: t.detach().cpu() for k, t in tr.model.state_dict().items()})
+        dm = tr._data_modules[key]
+        in_vars, out_vars = dm.get_data_variables()
+        loader = iter(dm.train_dataloader())
+        batch = next(loader)
+        loader.close()
+        xb, yb = (torch.from_numpy(a).to(torch.bfloat16).cuda() for a in batch[:2])
+        step = make_train_step(tr.model, tr.train_loss, cfg.data.var_weights, tr.optimizer,
+                               in_vars, out_vars)
+        g1, g2 = gens(seed + 31)
+        ms = cuda_ms(lambda: step(xb, yb, g1, g2), iters=3, warmup=1)
+        kern = kernel_ms(lambda: step(xb, yb, g1, g2), iters=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tokens = (xb.shape[2] // m.patch_size) * (xb.shape[3] // m.patch_size)
+        del tr, step, xb, yb
+        torch.cuda.empty_cache()
+        return {"losses": [r["loss"] for r in history], "launched": launched, "params": params,
+                "step_ms": ms, "kernel_ms": kern, "busy": kern / ms, "peak_gib": peak,
+                "tokens": tokens}
+
+    plain = run(None)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(device_type="cuda")
+        wrapped = run(mesh)
+    finally:
+        dist.destroy_process_group()
+    want = only(**{k: v * MESH_STEPS for k, v in remat_launches(depth).items()})
+    differ = [k for k in plain["params"] if not torch.equal(plain["params"][k],
+                                                            wrapped["params"][k])]
+    for label, r in (("unwrapped", plain), ("wrapped", wrapped)):
+        print(f"  (b) {label}: losses {r['losses']}, launches {r['launched']}; step "
+              f"{r['step_ms']:.3f} ms by events (median of 3), kernel time {r['kernel_ms']:.3f} "
+              f"ms (busy {r['busy']:.3f}), peak {r['peak_gib']:.2f} GiB; gpu: {smi}")
+    print(f"  (b) the wrapped steps against the unwrapped: losses equal "
+          f"{wrapped['losses'] == plain['losses']}, {len(plain['params']) - len(differ)} of "
+          f"{len(plain['params'])} parameters bit-equal after {MESH_STEPS} steps")
+    check(wrapped["losses"] == plain["losses"] and not differ,
+          f"the wrapped 1B steps differ from the unwrapped: losses {wrapped['losses']} vs "
+          f"{plain['losses']}, parameters {differ[:5]}")
+    check(plain["launched"] == want and wrapped["launched"] == want,
+          f"launches unwrapped {plain['launched']}, wrapped {wrapped['launched']}, want {want}")
+    out["wrapped"] = {key: {k: r[k] for k in ("losses", "step_ms", "kernel_ms", "busy",
+                                              "peak_gib")}
+                      for key, r in (("unwrapped", plain), ("one_rank_mesh", wrapped))}
+    out["wrapped"]["batch_tiles"] = BATCH_MESH
+    out["wrapped"]["launches"] = wrapped["launched"]
+    tokens = wrapped["tokens"]
+    del plain, wrapped, state
+    torch.cuda.empty_cache()
+
+    # the path's kernels at its shapes: B8 of the tiles, H24 (one rank: every head)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kseed = 2 ** 42 + seed
+    q, k, v = make_qkv(BATCH_MESH, tokens, tokens, h, d, torch.bfloat16, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    errs = check_batch_rows(q, k, v, do, m.drop_rate, kseed, [0, BATCH_MESH - 1],
+                            f"bf16 drop {m.drop_rate:g} B{BATCH_MESH} N{tokens} H{h} d{d}")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    width = (m.embed_dim, int(m.embed_dim * m.mlp_ratio))
+    for c in width:
+        check_dropout(BATCH_MESH * tokens, c, torch.bfloat16, m.drop_rate, gen, kseed)
+    path_t = {"shape": (BATCH_MESH, tokens, h, d), "rate": m.drop_rate,
+              "launched": out["wrapped"]["launches"], "steps": MESH_STEPS, "width": width}
+    rows = train_1b_times(path_t, gen, kseed, call_s, smi, label="mesh 1B")
+
+    # (c) two ranks on the one card over gloo
+    out["two_ranks"] = two_ranks(root / "two")
+    return {"out": out, "rows": rows, "errs": errs, "launched": path_t["launched"]}
+
+
+def two_ranks(two: Path):
+    """Phase mesh (c): the two gloo ranks of mesh_worker on the one card,
+    held against one rank; or, where gloo refuses CUDA tensors in a
+    collective (an error, or a dead process), that collective named."""
+    two.mkdir()
+    port = str(free_port())
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
+                               str(r), port, str(two)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    # a collective gloo cannot run on CUDA tensors may kill the process (a
+    # segfault) instead of raising: the probe's markers name the one it died in
+    died = sorted(m.name[:-len(".start")] for m in two.glob("*.start")
+                  if not (two / (m.name[:-len(".start")] + ".ok")).exists())
+    if died and any(p.returncode != 0 for p in procs):
+        res = {"refused": {name.split(".", 1)[1]: f"rank {name.split('.')[0]} died (exit code "
+                           f"{procs[int(name.split('.')[0])].returncode}) in it"
+                           for name in died}}
+        print("\n".join(f"  two-rank worker {r}, exit {p.returncode}: {logs[r][-1500:]}"
+                        for r, p in enumerate(procs)))
+    else:
+        for r, p in enumerate(procs):
+            check(p.returncode == 0,
+                  f"two-rank worker {r} exited {p.returncode}:\n{logs[r][-3000:]}")
+        res = json.loads((two / "result.json").read_text())
+    if res["refused"]:
+        print(f"  (c) two ranks on one card over gloo: left out, gloo refuses CUDA tensors in "
+              f"{res['refused']}")
+    else:
+        for mode in ("fsdp", "tensor"):
+            r = res[mode]
+            print(f"  (c) two ranks on one card over gloo, {mode} 2, fp32 on the kernels: loss "
+                  f"{r['loss']!r} against one rank's {r['loss_one']!r}; gradients within "
+                  f"{r['max_rel']:.3e} relative Frobenius ({r['worst']}); launches a rank "
+                  f"{r['launches']}; {r['step_s']:.3f} s a step")
+            check(abs(r["loss"] - r["loss_one"]) <= MESH_REL * abs(r["loss_one"])
+                  and r["max_rel"] <= MESH_REL,
+                  f"the two-rank {mode} step differs from the one-rank step: {r}")
+            depth2 = MESH_TWO["depth"]
+            check(r["launches"] == only(flash_attn_fwd=depth2, flash_attn_bwd_dq=depth2,
+                                        flash_attn_bwd_dkv=depth2),
+                  f"the two-rank {mode} step launched {r['launches']}")
+    return res
+
+
+def mesh_worker(rank: int, port: str, out_dir: str):
+    """One of phase mesh's two ranks on the one card (gloo): first whether
+    gloo takes CUDA tensors in the collectives FSDP2 and the tensor splits
+    issue; then, where it does, the MESH_TWO model's fp32 train step on a
+    fsdp-2 and on a tensor-2 mesh against the same step on one rank (rank 0
+    runs it unwrapped). Rank 0 writes result.json."""
+    import datetime
+    import faulthandler
+
+    import torch.distributed as dist
+
+    from orbit2_tpu_torch.evaluate import materialize
+    from orbit2_tpu_torch.metrics.metrics import METRICS_REGISTRY
+    from orbit2_tpu_torch.models import ResSlimViT
+    from orbit2_tpu_torch.parallel import (
+        data_group, data_rank, data_size, full_tensor, make_mesh, shard_model)
+    from orbit2_tpu_torch.training.optim import make_optimizer
+    from orbit2_tpu_torch.training.train import make_train_step
+
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=120))
+    probes = {
+        "all_gather_into_tensor": lambda t: dist.all_gather_into_tensor(
+            torch.empty(2 * t.numel(), device="cuda"), t),
+        "reduce_scatter_tensor": lambda t: dist.reduce_scatter_tensor(
+            torch.empty(t.numel() // 2, device="cuda"), t),
+        "all_reduce": lambda t: dist.all_reduce(t),
+        "all_gather": lambda t: dist.all_gather([torch.empty_like(t) for _ in range(2)], t),
+    }
+    refused = {}
+    for name, fn in probes.items():
+        (Path(out_dir) / f"{rank}.{name}.start").touch()
+        try:
+            fn(torch.ones(8, device="cuda"))
+            torch.cuda.synchronize()
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            refused[name] = f"{type(e).__name__}: {e}"[:300]
+        (Path(out_dir) / f"{rank}.{name}.ok").touch()
+    result = {"refused": refused}
+    if not refused:
+        kw = dict(attention_impl="auto", drop_rate=0.0, drop_path=0.0, learn_pos_emb=True,
+                  spatial_resolution=111.0, superres_mag=4, patch_size=2,
+                  **{k: v for k, v in MESH_TWO.items() if k != "batch"})
+        args = (BENCH_VARS, (64, 128), 7, 3)
+        rng = np.random.default_rng(5)
+        x = torch.from_numpy(rng.normal(size=(MESH_TWO["batch"], 7, 64, 128)).astype(np.float32))
+        y = torch.from_numpy((rng.normal(size=(MESH_TWO["batch"], 3, 256, 512)) * 0.5)
+                             .astype(np.float32))
+        x, y = x.cuda(), y.cuda()
+        loss_fn = METRICS_REGISTRY["bayesian_tv"](aggregate_only=True)
+
+        def step_of(model):
+            opt = make_optimizer("adamw", {"lr": 1e-4}, model.named_parameters())
+            return make_train_step(model, loss_fn, None, opt, BENCH_VARS, BENCH_VARS[4:])
+
+        one = None
+        if rank == 0:  # the one-rank step, unwrapped
+            ref = ResSlimViT(*args, generator=torch.Generator().manual_seed(MESH_TWO_SEED), **kw)
+            ref.cuda()
+            loss_one = step_of(ref)(x, y, torch.Generator(), None).item()
+            one = (loss_one, {k: p.grad.detach().cpu() for k, p in ref.named_parameters()
+                              if p.grad is not None})
+            del ref
+        for mode, axes in (("fsdp", dict(fsdp=2)), ("tensor", dict(tensor=2))):
+            mesh = make_mesh(device_type="cuda", **axes)
+            with torch.device("meta"):
+                skeleton = ResSlimViT(*args, **kw)
+            model = shard_model(copy.deepcopy(skeleton), mesh)
+            model.to_empty(device="cuda")
+            materialize(skeleton, "cpu", generator=torch.Generator().manual_seed(MESH_TWO_SEED),
+                        into=model)
+            xs, ys = (t.chunk(data_size(mesh))[data_rank(mesh)] for t in (x, y))
+            step = step_of(model)
+            reset_counts()
+            t0 = time.perf_counter()
+            loss = step(xs, ys, torch.Generator(), None).detach().clone()
+            torch.cuda.synchronize()
+            step_s, launched = time.perf_counter() - t0, counts()
+            dist.all_reduce(loss, group=data_group(mesh))
+            loss = loss.item() / data_size(mesh)
+            grads = {k: full_tensor(p.grad).cpu() for k, p in model.named_parameters()
+                     if p.grad is not None}
+            if rank == 0:
+                rel = {k: ((grads[k] - g).norm() / g.norm().clamp_min(1e-30)).item()
+                       for k, g in one[1].items()}
+                worst = max(rel, key=rel.get)
+                result[mode] = {"loss": loss, "loss_one": one[0], "max_rel": rel[worst],
+                                "worst": worst, "launches": launched, "step_s": step_s,
+                                "same_keys": set(grads) == set(one[1])}
+                check(set(grads) == set(one[1]), f"{mode}: gradients of {set(grads) ^ set(one[1])}")
+            del model, step, grads
+            torch.cuda.empty_cache()
+    if rank == 0:
+        (Path(out_dir) / "result.json").write_text(json.dumps(result))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Routes the model's kernel calls to the kernels' plain PyTorch versions
@@ -4358,18 +4715,19 @@ def plain_versions():
     import orbit2_tpu_torch.models.res_slimvit as res_slimvit
     from orbit2_tpu_torch.ops.dropout import dropout_reference
     from orbit2_tpu_torch.ops.flash_attention import attention_mult, flash_attention_reference
-    from orbit2_tpu_torch.ops.kernel_prng import draw_seed, keep_mult
+    from orbit2_tpu_torch.ops.kernel_prng import draw_seed, fold_seed, keep_mult
 
-    def attention(q, k, v, impl, scale=None, dropout_rate=0.0, generator=None):
-        seed = draw_seed(generator) if dropout_rate > 0.0 else 0
+    def attention(q, k, v, impl, scale=None, dropout_rate=0.0, generator=None, fold=()):
+        seed = fold_seed(draw_seed(generator), fold) if dropout_rate > 0.0 else 0
         return flash_attention_reference(q, k, v, scale,
                                          attention_mult(q, k, dropout_rate, seed))[0]
 
-    def drop(x, rate, training, generator):
+    def drop(x, rate, training, generator, fold=()):
         if not training or rate <= 0.0:
             return x
         cols = x.shape[-1]
-        mult = keep_mult(draw_seed(generator), x.numel() // cols, cols, rate, device=x.device)
+        mult = keep_mult(fold_seed(draw_seed(generator), fold), x.numel() // cols, cols, rate,
+                         device=x.device)
         return dropout_reference(x, mult)
 
     saved = blocks.dot_product_attention, blocks.dropout, res_slimvit.dropout
@@ -4873,6 +5231,11 @@ def main():
     serving_rows(*serving, smi)
     del serving
     serving_1b = serving_1b_times(s1b, gen, kernel_seed, call_s, smi)
+    # serve1b's weights for phase mesh, as the train CLI's --torch-npz reads them
+    mesh_dir = tempfile.TemporaryDirectory(dir=ROOT / "_smoke")
+    weights_1b = str(Path(mesh_dir.name) / "weights_1b.npz")
+    np.savez(weights_1b, **{k: t.float().cpu().numpy() for k, t in
+                            s1b["ev"].model.state_dict().items()})
     del s1b
     print(json.dumps({"serving_1b": serving_1b}))
     train_1b = train_1b_times(t1b, gen, kernel_seed, call_s, smi)
@@ -4900,6 +5263,13 @@ def main():
     phase("climatebench")
     cb = climatebench_phase(args.seed, smi)
     print(json.dumps({"climatebench": cb["out"]}))
+    torch.cuda.empty_cache()
+
+    # the device mesh: before serve10b and moe1b, which need most of the card
+    phase("mesh")
+    with mesh_dir:
+        mp = mesh_phase(Path(mesh_dir.name), args.seed, weights_1b, call_s, smi)
+    print(json.dumps({"mesh": {"gpu": smi, **mp["out"], "errors": mp["errs"]}}))
     torch.cuda.empty_cache()
 
     # 7. the 10B config served on the card, last but one: it needs most of the card
@@ -5055,6 +5425,17 @@ def main():
         *(path_entry(cb["rows"], name, cb["rows"][name]["launches"], f"climatebench {name}",
                      "fused_dropout", "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39", 0.0)
           for name in cb["rows"]),
+        # the 1B model wrapped on a one-rank mesh (phase mesh): K1-K3 and K5
+        # at its shapes, launches the wrapped steps'
+        *(path_entry(mp["rows"], name, mp["launched"][name], "mesh", name, source,
+                     f"orbit2_tpu/ops/{replaces}", err)
+          for name, source, replaces, err in (
+              ("flash_attn_fwd", "flash_attn_fwd.cu", "flash_attention.py:150", mp["errs"]["fwd"]),
+              ("flash_attn_bwd_dq", "flash_attn_bwd.cu", "flash_attention.py:287",
+               mp["errs"]["dq"]),
+              ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", "flash_attention.py:328",
+               max(mp["errs"]["dk"], mp["errs"]["dv"])),
+              ("fused_dropout", "fused_dropout.cu", "dropout.py:39", 0.0))),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -5062,4 +5443,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-worker"]:  # one of phase mesh's two ranks
+        mesh_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

@@ -46,6 +46,8 @@ import torch
 from orbit2_tpu_torch.config import Config, load_config
 from orbit2_tpu_torch.data.itermodule import IterDataModule
 from orbit2_tpu_torch.models.components.blocks import MOE_QUANT_ERROR, QUANT_MODES
+from orbit2_tpu_torch.parallel.mesh import rank_grid, world_size
+from orbit2_tpu_torch.parallel.sharding import load_full_state_dict
 from orbit2_tpu_torch.training.checkpoint import (
     DEFAULT_CHECKPOINT_DIR, latest_port_checkpoint, load_pretrained_params, load_state_npz,
     restore_checkpoint)
@@ -83,14 +85,37 @@ def load_module(cfg: Config, data_module: IterDataModule, kwargs: dict):
                   train_loss=cfg.trainer.train_loss)
 
 
-def check_scope(cfg: Config) -> None:
-    """Refuses what the port does not run: device meshes (the tasks are
-    downscaling, forecasting and continuous-forecasting, as in JAX)."""
+def check_mesh(cfg: Config, world: int) -> None:
+    """JAX make_mesh's refusal of a mesh larger than the devices
+    (orbit2_tpu/parallel/mesh.py:53-57), over a world of `world` processes,
+    one device each (parallel/mesh.py::rank_grid)."""
     par = cfg.parallelism
-    if par.auto or par.world_size != 1:
+    rank_grid(replica=par.simple_ddp, fsdp=par.fsdp, tensor=par.tensor_par, seq=par.seq_par,
+              stage=par.pipeline, expert=par.expert_par, world=world)
+
+
+def check_training_scope(cfg: Config) -> None:
+    """The mesh axes the Trainer does not run yet (ROADMAP queue 1 item 2)."""
+    par = cfg.parallelism
+    if par.auto:
         raise NotImplementedError(
-            "device meshes are not ported: the evaluator runs on one device — set every "
-            "parallelism size to 1 and auto to false")
+            "parallelism.auto resolves its mesh through the TPU AOT planner, which has no GPU "
+            "meaning: give the axis sizes")
+    for size, item in ((par.pipeline, "pipeline trunks are"),
+                       (par.seq_par, "seq_par > 1 (sequence attention) is"),
+                       (par.expert_par, "expert_par > 1 (the expert axis) is")):
+        if size > 1:
+            raise NotImplementedError(f"{item} not ported yet (ROADMAP queue 1 item 2)")
+
+
+def check_scope(cfg: Config) -> None:
+    """The Evaluator's scope: one device. Evaluator.test, visualize, MC
+    dropout and w8a8 on a mesh are not ported (ROADMAP queue 1 item 2)."""
+    par = cfg.parallelism
+    if par.auto or par.world_size != 1 or world_size() != 1:
+        raise NotImplementedError(
+            "the Evaluator runs on one device: test, visualize, MC dropout and w8a8 on a device "
+            "mesh are not ported yet — set every parallelism size to 1 and auto to false")
 
 
 def check_tiling(cfg: Config, data_module: IterDataModule) -> None:
@@ -115,10 +140,18 @@ def check_tiling(cfg: Config, data_module: IterDataModule) -> None:
 
 
 def make_data_module(cfg: Config, data_key: str, div: int, overlap: int,
-                     stage: Optional[str] = None) -> IterDataModule:
-    """The one-device data module of `data_key` at tiling (div, overlap),
-    set up for `stage` (None: every split)."""
+                     stage: Optional[str] = None, data_par_size: int = 1,
+                     data_par_rank: int = 0) -> IterDataModule:
+    """The data module of `data_key` at tiling (div, overlap), set up for
+    `stage` (None: every split). On a mesh it is data rank `data_par_rank`
+    of `data_par_size`'s: it reads that rank's file shards, in batches of
+    `trainer.batch_size / data_par_size`, so the data ranks' batches make up
+    the global batch (the single-process JAX mesh's meaning of
+    batch_size)."""
     c = cfg
+    if c.trainer.batch_size % data_par_size:
+        raise ValueError(f"trainer.batch_size {c.trainer.batch_size} is not divisible by the "
+                         f"{data_par_size} data ranks")
     # config task -> the data module's (JAX Trainer._make_data_module)
     task = {"forecasting": "direct-forecasting"}.get(c.trainer.task, c.trainer.task)
     forecast = {}
@@ -130,7 +163,8 @@ def make_data_module(cfg: Config, data_key: str, div: int, overlap: int,
     dm = IterDataModule(
         task, c.data.low_res_dir[data_key], c.data.high_res_dir[data_key],
         c.data.dict_in_variables[data_key], out_vars=c.data.dict_out_variables[data_key],
-        subsample=1, batch_size=c.trainer.batch_size, buffer_size=c.trainer.buffer_size,
+        data_par_size=data_par_size, data_par_rank=data_par_rank, subsample=1,
+        batch_size=c.trainer.batch_size // data_par_size, buffer_size=c.trainer.buffer_size,
         num_workers=c.trainer.num_workers, drop_last=True, div=div, overlap=overlap,
         seed=c.trainer.data_seed if c.trainer.data_seed is not None else c.trainer.seed,
         **forecast)
@@ -162,7 +196,8 @@ def weight_fill(cfg: Config, data_module: IterDataModule, meta_model: torch.nn.M
 def materialize(model: torch.nn.Module, device, dtype: Optional[torch.dtype] = None,
                 generator: Optional[torch.Generator] = None,
                 fill: Optional[Callable[[List[str]], Mapping[str, torch.Tensor]]] = None,
-                on_unit: Optional[Callable[[Dict[str, torch.Tensor]], None]] = None) -> None:
+                on_unit: Optional[Callable[[Dict[str, torch.Tensor]], None]] = None,
+                into: Optional[torch.nn.Module] = None) -> None:
     """Fills `model`, a ResSlimViT built on the meta device, on `device`
     one unit at a time (ResSlimViT.init_units: a Block or a top-level
     module): each unit is drawn from `generator` where one is given
@@ -170,7 +205,13 @@ def materialize(model: torch.nn.Module, device, dtype: Optional[torch.dtype] = N
     `fill(its keys)` returns, is handed to `on_unit` as {key: fp32 tensor},
     then cast to `dtype` (None: kept in fp32). At most one unit is on the
     device in fp32, and nothing of the model is on the host unless `device`
-    is."""
+    is.
+
+    `into`: the same model sharded over a mesh (parallel/sharding.py::
+    shard_model, after to_empty). Each unit's whole tensors are then copied
+    into its shards and the unit is released to the meta device, so no rank
+    holds more than one whole unit, and the shards hold the one-process
+    draws."""
     with torch.no_grad():
         for name, module, init in model.init_units():
             recurse = module is not model
@@ -186,6 +227,10 @@ def materialize(model: torch.nn.Module, device, dtype: Optional[torch.dtype] = N
                     unit[key].copy_(t)
             if on_unit is not None:
                 on_unit({k: t.detach() for k, t in unit.items()})
+            if into is not None:
+                load_full_state_dict(into, unit, keys=list(unit))
+                module.to_empty(device="meta", recurse=recurse)
+                continue
             if dtype is not None:
                 module._apply(lambda t: t.to(dtype) if t.is_floating_point() else t,
                               recurse=recurse)

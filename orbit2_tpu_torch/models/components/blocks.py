@@ -22,6 +22,16 @@ products run through ops/quant.py; attention itself stays on the flash
 kernel. Serving only: in training mode they raise ValueError. An MoE Block
 (models/components/moe.py) has no int8 path and refuses w8a8 with JAX's
 ValueError.
+
+On a device mesh (parallel/sharding.py::shard_model) qkv, fc1 and var_agg's
+q/kv are column-split Linears and proj, fc2 and var_agg's proj row-split
+ones (`Linear.tensor_split`): a Block then holds num_heads / tensor heads
+and mlp / tensor hidden columns, and its dropout sites fold the rank's mesh
+coordinates into their seeds (`*_fold`: the data coordinate where the
+activation is replicated across the tensor axis, so every tensor rank draws
+the same mask, and the tensor coordinate too where the activation is split
+over it: the attention probabilities and the Mlp hidden). DropPath then
+takes the rank's slice of the global batch's mask (`batch_slice`).
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from orbit2_tpu_torch.ops.attention import dot_product_attention
 from orbit2_tpu_torch.ops.dropout import dropout
 from orbit2_tpu_torch.ops.fused_mlp import fused_mlp
 from orbit2_tpu_torch.ops.quant import w8a8_matmul
+from orbit2_tpu_torch.parallel.tensor import TensorSplit, local, reduce_from_tensor
 
 Generator = Optional[torch.Generator]
 
@@ -59,10 +70,25 @@ def _cast(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tenso
 
 
 class Linear(nn.Linear):
-    """nn.Linear computing in its input's dtype."""
+    """nn.Linear computing in its input's dtype. Under tensor parallelism
+    (`tensor_split`, set by parallel/sharding.py) it computes on its weight's
+    local shard: a column split on the replicated input (a packed
+    projection's replicated bias cut to the rank's heads), a row split as a
+    partial product summed over the tensor group before its bias is added."""
+
+    tensor_split: Optional[TensorSplit] = None
 
     def forward(self, x):
-        return F.linear(x, _cast(self.weight, x.dtype), _cast(self.bias, x.dtype))
+        w, b, split = local(self.weight), self.bias, self.tensor_split
+        if split is None or split.size == 1:
+            return F.linear(x, _cast(w, x.dtype), _cast(local(b), x.dtype))
+        if split.mode == "row":
+            y = reduce_from_tensor(F.linear(x, _cast(w, x.dtype)), split.group)
+            return y if b is None else y + b.to(x.dtype)
+        x = split.copy_in(x)
+        if b is not None:
+            b = split.heads_of(b) if split.packs > 1 else local(b)
+        return F.linear(x, _cast(w, x.dtype), _cast(b, x.dtype))
 
 
 class QLinear(nn.Module):
@@ -133,6 +159,10 @@ class DropPath(nn.Module):
     scaled by 1/keep. The [B] keep mask is drawn on the host from the
     drop_path generator and copied to the device without a sync."""
 
+    # on a mesh: (data rank, data size), the slice of the global batch's
+    # mask this rank's local batch takes
+    batch_slice: Optional[tuple] = None
+
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
@@ -141,7 +171,12 @@ class DropPath(nn.Module):
         if not self.training or generator is None or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape[0], generator=generator) < keep
+        n = x.shape[0]
+        if self.batch_slice is None:
+            mask = torch.rand(n, generator=generator) < keep
+        else:
+            rank, size = self.batch_slice
+            mask = (torch.rand(n * size, generator=generator) < keep)[rank * n:(rank + 1) * n]
         if x.is_cuda:
             mask = mask.pin_memory()
         mask = mask.to(x.device, non_blocking=True).view((-1,) + (1,) * (x.dim() - 1))
@@ -176,7 +211,13 @@ class Mlp(nn.Module):
     (blocks.py:128-137; a TPU finding, not one about this port).
 
     quant="w8a8": fc1 and fc2 are QLinears, and the forward is fc1 -> GELU ->
-    fc2 without dropout or the fused kernel (JAX blocks.py:157-168)."""
+    fc2 without dropout or the fused kernel (JAX blocks.py:157-168).
+
+    On a mesh of more than one device K6 steps aside, as JAX's does
+    (ops/fused_mlp.py:479-483): shard_model turns `use_fused` off."""
+
+    hidden_fold: tuple = ()
+    out_fold: tuple = ()
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: Optional[int] = None, drop: float = 0.0, use_bias: bool = True,
@@ -204,15 +245,19 @@ class Mlp(nn.Module):
             if out is not None:
                 return out
         h = F.gelu(self.fc1(x), approximate=self.approximate)
-        h = dropout(h, self.drop, self.training, generator)
-        return dropout(self.fc2(h), self.drop, self.training, generator)
+        h = dropout(h, self.drop, self.training, generator, self.hidden_fold)
+        return dropout(self.fc2(h), self.drop, self.training, generator, self.out_fold)
 
 
 class Attention(nn.Module):
     """Self attention with a selectable kernel (reference attention.py:12-87):
     probability dropout `attn_drop` inside the attention op, `proj_drop` on
     the projection. quant="w8a8" makes qkv and proj QLinears (JAX
-    blocks.py:210-248); the attention op is the same."""
+    blocks.py:210-248); the attention op is the same. Under tensor
+    parallelism qkv yields the rank's heads (num_heads / tensor of them)."""
+
+    attn_fold: tuple = ()
+    proj_fold: tuple = ()
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
                  qk_norm: bool = False, proj_bias: bool = True, attn_drop: float = 0.0,
@@ -237,16 +282,17 @@ class Attention(nn.Module):
     def forward(self, x, generator: Generator = None):
         if self.quant == "w8a8":
             _serving_only(self.training)
-        B, N, C = x.shape
+        B, N, _ = x.shape
         # q, k, v stay strided views of the packed projection: the kernels
         # read them through their strides, no copy
-        q, k, v = self.qkv(x).reshape(B, N, 3, self.num_heads, self.head_dim).unbind(2)
+        q, k, v = self.qkv(x).reshape(B, N, 3, -1, self.head_dim).unbind(2)
         if self.q_norm is not None:
             q, k = self.q_norm(q), self.k_norm(k)
         rate = self.attn_drop if self.training else 0.0
         x = dot_product_attention(q, k, v, impl=self.attention_impl, dropout_rate=rate,
-                                  generator=generator)
-        return dropout(self.proj(x.reshape(B, N, C)), self.proj_drop, self.training, generator)
+                                  generator=generator, fold=self.attn_fold)
+        return dropout(self.proj(x.reshape(B, N, -1)), self.proj_drop, self.training, generator,
+                       self.proj_fold)
 
 
 class VariableMappingAttention(nn.Module):
@@ -258,7 +304,9 @@ class VariableMappingAttention(nn.Module):
       * values: sum_v attn_vh (W_v x_v)_h == W_v[h] (sum_v attn_vh x_v)
 
     The model builds it without dropout (attn_drop = proj_drop = 0 in the
-    JAX package), so it has none.
+    JAX package), so it has none. Under tensor parallelism q and kv hold the
+    rank's heads (kv: of k and of v) and proj sums the heads' partial
+    products over the tensor group.
     """
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
@@ -278,11 +326,16 @@ class VariableMappingAttention(nn.Module):
         """var_query: [1, 1, C] (learned, position-independent); x: [B', V, C]
         where B' = B*L. Returns [B', 1, C]."""
         Bp, _, C = x.shape
-        H, D = self.num_heads, self.dim
-        hd = D // H
+        hd = self.dim // self.num_heads
         scale = hd ** -0.5
-        kv_w = self.kv.weight.to(x.dtype)
-        kv_b = _cast(self.kv.bias, x.dtype)
+        split = self.kv.tensor_split
+        kv_w, kv_b = local(self.kv.weight), self.kv.bias
+        if split is not None and split.size > 1:
+            x = split.copy_in(x)
+            kv_b = None if kv_b is None else split.heads_of(kv_b)
+        kv_w, kv_b = kv_w.to(x.dtype), _cast(local(kv_b), x.dtype)
+        D = kv_w.shape[0] // 2  # the rank's heads x hd
+        H = D // hd
 
         q_heads = self.q(var_query[0, 0].to(x.dtype)).reshape(H, hd)
         w_k = kv_w[:D].reshape(H, hd, C)

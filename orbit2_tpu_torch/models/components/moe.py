@@ -99,6 +99,9 @@ class MoEMlp(nn.Module):
         each token's first choice."""
         return torch.softmax(x.float() @ self.router_kernel, dim=-1)
 
+    # on a mesh: the data coordinates folded into the output dropout's seed
+    out_fold: tuple = ()
+
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
         B, L, _ = x.shape
         E, K = self.num_experts, self.top_k
@@ -143,7 +146,7 @@ class MoEMlp(nn.Module):
         h = F.gelu(h, approximate=self.approximate)
         out = torch.einsum("ebch,ehd->ebcd", h, self.wo.to(cd)) + self.bo.to(cd)[:, None, None, :]
         y = torch.einsum("blec,ebcd->bld", combine.to(cd), out)
-        return dropout(y, self.drop, self.training, generator), aux
+        return dropout(y, self.drop, self.training, generator, self.out_fold), aux
 
 
 __all__ = ["MoEMlp"]

@@ -138,6 +138,9 @@ def _lecun_normal_(t: torch.Tensor, generator) -> None:
 
 @register_model("res_slimvit")
 class ResSlimViT(nn.Module):
+    # on a mesh: the data coordinates folded into pos_drop's seed
+    pos_fold: tuple = ()
+
     def __init__(self, default_vars: Sequence[str], img_size: Tuple[int, int],
                  in_channels: int, out_channels: int, superres_mag: int = 4,
                  cnn_ratio: int = 4, patch_size: int = 2, drop_path: float = 0.1,
@@ -314,7 +317,8 @@ class ResSlimViT(nn.Module):
         tokens = tokens + interpolate_pos_embed_on_the_fly(self.pos_embed.to(x.dtype), p, (H, W))
         res = torch.tensor([[self.spatial_resolution]], dtype=x.dtype, device=x.device)
         tokens = tokens + self.spatial_embed(res)
-        tokens = dropout(tokens, self.drop_rate, self.training, dropout_gen)  # pos_drop
+        tokens = dropout(tokens, self.drop_rate, self.training, dropout_gen,
+                         self.pos_fold)  # pos_drop
         remat = self.remat and torch.is_grad_enabled()
         aux = []
         for blk in self.blocks:

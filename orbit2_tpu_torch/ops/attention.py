@@ -25,7 +25,7 @@ import torch
 
 from orbit2_tpu_torch.ops.flash_attention import (
     attention_mult, flash_attention, flash_supported)
-from orbit2_tpu_torch.ops.kernel_prng import draw_seed
+from orbit2_tpu_torch.ops.kernel_prng import draw_seed, fold_seed
 
 
 def _sdpa(q, k, v, scale: float, dropout_rate: float = 0.0, seed: int = 0):
@@ -39,14 +39,17 @@ def _sdpa(q, k, v, scale: float, dropout_rate: float = 0.0, seed: int = 0):
 
 def dot_product_attention(q, k, v, impl: str = "xla", scale: Optional[float] = None,
                           dropout_rate: float = 0.0,
-                          generator: Optional[torch.Generator] = None):
-    """q: [B, Nq, H, Dh]; k/v: [B, Nk, H, Dh]. dropout_rate > 0 needs `generator`."""
+                          generator: Optional[torch.Generator] = None, fold=()):
+    """q: [B, Nq, H, Dh]; k/v: [B, Nk, H, Dh]. dropout_rate > 0 needs `generator`;
+    the mesh coordinates `fold` are folded into its seed (on a mesh, q, k and
+    v are the rank's local batch and heads: batch_flash_attention's fold of
+    the replica, fsdp and tensor indices, JAX seq_attention.py:88-93)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     seed = 0
     if dropout_rate > 0.0:
         if generator is None:
             raise ValueError("attention dropout needs a generator")
-        seed = draw_seed(generator)
+        seed = fold_seed(draw_seed(generator), fold)
     if impl in ("auto", "pallas"):
         if flash_supported(q, k, v):
             return flash_attention(q, k, v, sm_scale=scale, dropout_rate=dropout_rate, seed=seed)

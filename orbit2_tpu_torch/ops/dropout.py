@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from orbit2_tpu_torch.ops._nvcc import NvccKernel, NvccLibrary
-from orbit2_tpu_torch.ops.kernel_prng import draw_seed, keep_mult, keep_threshold
+from orbit2_tpu_torch.ops.kernel_prng import draw_seed, fold_seed, keep_mult, keep_threshold
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -88,15 +88,16 @@ class FusedDropout(torch.autograd.Function):
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator], fold=()) -> torch.Tensor:
     """nn.Dropout on the hot paths. Identity, drawing no seed, when not
     training or at rate 0; otherwise the seed comes from `generator` (a CPU
-    generator, so drawing it does not wait for the device)."""
+    generator, so drawing it does not wait for the device), with the mesh
+    coordinates `fold` folded in (kernel_prng.fold_seed)."""
     if not training or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a generator")
-    return FusedDropout.apply(x, draw_seed(generator), float(rate))
+    return FusedDropout.apply(x, fold_seed(draw_seed(generator), fold), float(rate))
 
 
 __all__ = ["FUSED_DROPOUT", "FusedDropout", "apply_dropout", "dropout", "dropout_reference"]

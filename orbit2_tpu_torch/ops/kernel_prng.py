@@ -109,4 +109,21 @@ def draw_seed(generator: torch.Generator) -> int:
     return lo | (hi << 32)
 
 
-__all__ = ["philox4x32_10", "dropout_bits", "keep_threshold", "keep_mult", "draw_seed"]
+_M64 = (1 << 64) - 1
+
+
+def fold_seed(seed: int, coords=()) -> int:
+    """`seed` with each of `coords` folded in (splitmix64 of the seed offset
+    by the coordinate): the mesh path's counterpart of jax.random.fold_in,
+    so ranks that hold different data, or different heads or columns, draw
+    different masks. No coordinate: the seed itself."""
+    for c in coords:
+        z = (seed + 0x9E3779B97F4A7C15 * (int(c) + 1)) & _M64
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+        seed = z ^ (z >> 31)
+    return seed
+
+
+__all__ = ["philox4x32_10", "dropout_bits", "keep_threshold", "keep_mult", "draw_seed",
+           "fold_seed"]

@@ -30,6 +30,12 @@ keyed by parameter name (AdamW is built from `named_parameters()`); a load
 casts each moment to this optimizer's storage dtype, as Orbax casts to the
 template on a JAX restore, so a checkpoint with fp32 moments resumes under
 bf16 moments and the reverse.
+
+On a device mesh (parallel/sharding.py) the parameters are DTensors: the
+moments are made like them (DTensors of the same placements, so sharded
+like their parameters), the step runs on the local shards, a load copies
+each rank's part of a whole moment in (`shard_like`), and state_dict()'s
+moments are the DTensors, which a checkpoint gathers whole.
 """
 
 from __future__ import annotations
@@ -39,6 +45,9 @@ from typing import Any, Dict, Iterable, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from orbit2_tpu_torch.parallel.tensor import local
 
 _DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
 # the fp32 bytes of parameters a step's foreach ops cover at once
@@ -117,7 +126,7 @@ class AdamW:
                 if got[name].shape != m.shape:
                     raise ValueError(f"optimizer state {key}/{name}: shape "
                                      f"{tuple(got[name].shape)}, the parameter's {tuple(m.shape)}")
-                m.copy_(got[name])
+                _copy_whole(m, got[name])
         self.count = int(state["count"])
         self.lr = _f32(state["lr"])
 
@@ -131,20 +140,21 @@ class AdamW:
             self._update(group, bc1, bc2)
 
     def _update(self, group: slice, bc1: float, bc2: float) -> None:
-        params, b1, b2, one = self.params[group], self.b1, self.b2, np.float32(1.0)
+        b1, b2, one = self.b1, self.b2, np.float32(1.0)
+        # the local shards on a mesh (every op is elementwise)
+        params = [local(p) for p in self.params[group]]
+        mus, nus = [local(m) for m in self.mu[group]], [local(v) for v in self.nu[group]]
         # a parameter the loss does not reach (the token embedding of a
         # default variable the phase does not feed) has a zero gradient, as
         # in optax: its moments decay and weight decay still moves it
-        grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None else p.grad.float()
-                 for p in params]
+        grads = [torch.zeros_like(p, dtype=torch.float32) if q.grad is None
+                 else local(q.grad).float() for p, q in zip(params, self.params[group])]
 
         # fresh fp32 moments: (1 - b) g^k + b m, each product rounded as optax does
         mu = torch._foreach_mul(grads, float(one - b1))
-        torch._foreach_add_(mu, torch._foreach_mul([m.float() for m in self.mu[group]],
-                                                   float(b1)))
+        torch._foreach_add_(mu, torch._foreach_mul([m.float() for m in mus], float(b1)))
         nu = torch._foreach_mul(torch._foreach_mul(grads, grads), float(one - b2))
-        torch._foreach_add_(nu, torch._foreach_mul([v.float() for v in self.nu[group]],
-                                                   float(b2)))
+        torch._foreach_add_(nu, torch._foreach_mul([v.float() for v in nus], float(b2)))
 
         upd = torch._foreach_div(mu, bc1)
         denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
@@ -154,8 +164,19 @@ class AdamW:
         torch._foreach_mul_(upd, -self.lr)
         torch._foreach_add_(params, upd)
 
-        torch._foreach_copy_(self.mu[group], mu)  # the stored moments, cast to their dtype
-        torch._foreach_copy_(self.nu[group], nu)
+        torch._foreach_copy_(mus, mu)  # the stored moments, cast to their dtype
+        torch._foreach_copy_(nus, nu)
+
+
+def _copy_whole(mine: torch.Tensor, whole: torch.Tensor) -> None:
+    """Copies `whole` into `mine`, or its rank's part where `mine` is a
+    DTensor (parallel/sharding.py::shard_like)."""
+    if isinstance(mine, DTensor):
+        from orbit2_tpu_torch.parallel.sharding import shard_like
+
+        mine.to_local().copy_(shard_like(whole.to(mine.dtype), mine))
+    else:
+        mine.copy_(whole)
 
 
 class SGD:

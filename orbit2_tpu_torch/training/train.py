@@ -9,6 +9,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from orbit2_tpu_torch.data.processing.era5_constants import CONSTANTS
+from orbit2_tpu_torch.parallel.tensor import local
 
 
 def clip_replace_constant(y, yhat, out_variables: Sequence[str]):
@@ -45,7 +46,12 @@ def make_train_step(model, train_loss_metric, var_weights: Optional[Dict[str, fl
 
     A model with MoE Blocks adds moe_aux_weight x the mean of their
     load-balance losses to each microbatch's loss, the returned loss
-    included (JAX train.py:86-127)."""
+    included (JAX train.py:86-127).
+
+    On a mesh (parallel/sharding.py) x and y are the rank's local batch and
+    the loss is its mean; FSDP2 averages the gradients over the data ranks,
+    so the update is the global batch's (JAX train.py:131-141). The caller
+    averages the losses over the data ranks for its records."""
     in_variables, out_variables = tuple(in_variables), tuple(out_variables)
     params = [p for p in model.parameters() if p.requires_grad]
 
@@ -73,7 +79,7 @@ def make_train_step(model, train_loss_metric, var_weights: Optional[Dict[str, fl
             loss = l.detach() if loss is None else loss + l.detach()
         if grad_accum > 1:
             loss = loss / grad_accum
-            torch._foreach_div_([p.grad for p in params], float(grad_accum))
+            torch._foreach_div_([local(p.grad) for p in params], float(grad_accum))
         optimizer.step()
         return loss
 

@@ -1,6 +1,6 @@
-"""Trainer.fit on one device (counterpart of orbit2_tpu/training/trainer.py:
-29-65, 188-323, 370-619, 859-872; the reference's main() loop,
-examples/intermediate_downscaling.py:379-832).
+"""Trainer.fit on one device or a device mesh (counterpart of
+orbit2_tpu/training/trainer.py: 29-65, 188-323, 370-700, 786-801, 859-872;
+the reference's main() loop, examples/intermediate_downscaling.py:379-832).
 
 The loop is the JAX Trainer's: the curriculum over `data.low_res_dir` keys
 (each phase rebinds the same parameters to its geometry with `for_phase`),
@@ -54,13 +54,32 @@ buffers: train() mode moves them, validation and test run in eval() mode,
 and checkpoints carry them. A loss with `set_mask` (masked_mse) takes the
 data module's validity mask (`_wire_out_mask`, JAX trainer.py:238-265).
 
-Not ported, and raising NotImplementedError when configured: device meshes
-and pipeline trunks.
+On a device mesh (`mesh`, or the config's mesh whenever a process group
+runs: parallel/mesh.py; one process drives one device): the ResSlimViT is
+built on the meta device, sharded (parallel/sharding.py::shard_model: tensor
+parallelism, then FSDP2 per Block and at the root over (replica, fsdp)) and
+each rank's shards are filled unit by unit (evaluate.py::materialize), with
+the one-process draws from trainer.seed or the `state_dict`. Each data rank
+(replica, fsdp) reads its own file shards in batches of batch_size / its
+count; the tensor ranks of one data rank read the same ones. The epoch is
+clamped to the least number of batches of any rank (JAX trainer.py:470-490);
+the records' loss is the mean over the data ranks. Validation pads a short
+rank with zero batches that count no sample (JAX `_synced_batches`,
+trainer.py:621-685) and sums the sample-weighted losses over the data ranks.
+Rank 0 writes the checkpoint, the model and the moments gathered whole, so
+a checkpoint resumes on any mesh, or on one device.
+
+A mesh larger than the world raises JAX's ValueError; then pipeline trunks,
+seq_par > 1, expert_par > 1 and `parallelism.auto` raise
+NotImplementedError (evaluate.py::check_mesh, check_training_scope), and so
+do a model-hub preset and an MoE trunk under tensor_par > 1 on a mesh
+(parallel/sharding.py::check_shardable).
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import logging
 import os
 import time
@@ -68,11 +87,17 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from orbit2_tpu_torch.config import Config
 from orbit2_tpu_torch.data.itermodule import IterDataModule
 from orbit2_tpu_torch.evaluate import (
-    check_scope, check_tiling, load_module, make_data_module, model_kwargs)
+    check_mesh, check_tiling, check_training_scope, load_module, make_data_module, materialize,
+    model_kwargs)
+from orbit2_tpu_torch.parallel.mesh import (
+    data_group, data_rank, data_size, mesh_from_config, world_size)
+from orbit2_tpu_torch.parallel.sharding import (
+    check_shardable, full_state_dict, full_tensor, load_full_state_dict, shard_model)
 from orbit2_tpu_torch.training.checkpoint import (
     latest_port_checkpoint, prune_checkpoints, restore_checkpoint, save_checkpoint,
     wait_for_async_saves)
@@ -94,17 +119,22 @@ class Trainer:
     as the initial parameters (the model is then built on the meta device
     and nothing is drawn); without one they are drawn from
     `config.trainer.seed`. The module docstring says what `checkpoint_dir`,
-    `keep_last_checkpoints`, `async_checkpoints` and `run_validation` do."""
+    `keep_last_checkpoints`, `async_checkpoints` and `run_validation` do.
+    `mesh`: a DeviceMesh (parallel/mesh.py::make_mesh) to train on; by
+    default the config's mesh when a process group runs, else none (one
+    device, the model unwrapped)."""
 
     def __init__(self, config: Config, device="cuda",
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  checkpoint_dir: Optional[str] = None, run_validation: bool = False,
-                 keep_last_checkpoints: int = 0, async_checkpoints: bool = False):
+                 keep_last_checkpoints: int = 0, async_checkpoints: bool = False, mesh=None):
         self.cfg = c = config.validate()
-        check_scope(c)
-        if c.parallelism.pipeline > 1:
-            raise NotImplementedError("pipeline trunks are not ported yet")
+        check_mesh(c, world_size())
+        check_training_scope(c)
         self.device = torch.device(device)
+        if mesh is None and dist.is_initialized():
+            mesh = mesh_from_config(c.parallelism, self.device.type)
+        self.mesh = mesh
         self.state_dict = state_dict
         self.checkpoint_dir = checkpoint_dir
         self.run_validation = run_validation
@@ -123,7 +153,10 @@ class Trainer:
         dm = self._data_modules.get(data_key)
         if dm is None:
             c = self.cfg
-            dm = make_data_module(c, data_key, c.tiling.effective_div, c.tiling.effective_overlap)
+            ranks = ({} if self.mesh is None else
+                     dict(data_par_size=data_size(self.mesh), data_par_rank=data_rank(self.mesh)))
+            dm = make_data_module(c, data_key, c.tiling.effective_div, c.tiling.effective_overlap,
+                                  **ranks)
             check_tiling(c, dm)
             self._data_modules[data_key] = dm
         return dm
@@ -135,6 +168,9 @@ class Trainer:
         c = self.cfg
         kwargs = dict(model_kwargs(c), remat=c.trainer.remat,
                       remat_policy=c.trainer.remat_policy)
+        if self.mesh is not None:
+            self._build_sharded(dm, kwargs, state_dict)
+            return
         meta = state_dict is not None
         with torch.device("meta") if meta else contextlib.nullcontext():
             (self.model, self.train_loss, self.val_losses, self.test_losses, _,
@@ -148,6 +184,31 @@ class Trainer:
             self.model.to(self.device)
         n = sum(p.numel() for p in self.model.parameters())
         log.info("initialized %.2fM params on %s", n / 1e6, self.device)
+
+    def _build_sharded(self, dm: IterDataModule, kwargs: dict, state_dict) -> None:
+        """The model on the mesh: built on the meta device, sharded, and each
+        rank's shards filled unit by unit from the one-process draws (the
+        host generator of trainer.seed, init_units order) or from
+        `state_dict` (strictly); no rank holds more than one whole unit."""
+        c = self.cfg
+        with torch.device("meta"):
+            (skeleton, self.train_loss, self.val_losses, self.test_losses, _,
+             self.val_transforms, _) = load_module(c, dm, dict(kwargs, generator=None))
+        self._wire_out_mask(dm)
+        check_shardable(skeleton, self.mesh)
+        self.model = shard_model(copy.deepcopy(skeleton), self.mesh)
+        self.model.to_empty(device=self.device)
+        fill, generator = None, kwargs["generator"]
+        if state_dict is not None:
+            want = set(self.model.state_dict())
+            if set(state_dict) != want:
+                raise KeyError(f"state dict: missing {sorted(want - set(state_dict))}, "
+                               f"unexpected {sorted(set(state_dict) - want)}")
+            fill, generator = (lambda keys: {k: state_dict[k] for k in keys}), None
+        materialize(skeleton, "cpu", generator=generator, fill=fill, into=self.model)
+        n = sum(p.numel() for p in self.model.parameters())
+        log.info("initialized %.2fM params on mesh %s", n / 1e6,
+                 dict(zip(self.mesh.mesh_dim_names, self.mesh.mesh.shape)))
 
     def _wire_out_mask(self, dm: IterDataModule) -> None:
         """Hands the data module's validity mask to every loss that takes one
@@ -188,6 +249,8 @@ class Trainer:
         state = restore_checkpoint(path) if path else None
         if self.model is None:
             self.build_model(dm, state["model"] if state else self.state_dict)
+        elif state and self.mesh is not None:
+            load_full_state_dict(self.model, state["model"])
         elif state:
             self.model.load_state_dict(state["model"], strict=True)
         self.optimizer = make_optimizer("adamw", {
@@ -252,9 +315,18 @@ class Trainer:
                 epoch_end = min(epoch_start + interval, max_epochs)
                 for epoch in range(epoch_start, epoch_end):
                     set_learning_rate(self.optimizer, self.lr_schedule(epoch))
+                    max_steps = max_steps_per_epoch
+                    if self.mesh is not None:
+                        # every rank takes the same number of steps: the
+                        # least any rank's file shards give (before the
+                        # epoch's iterator: the count peeks its permutation)
+                        least = self._all_ranks(dm.num_batches("train"), dist.ReduceOp.MIN)
+                        max_steps = least if not max_steps else min(max_steps, least)
+                        if not max_steps:
+                            raise ValueError("a data rank has no full train batch this epoch")
                     self.history.append(self._epoch(
                         epoch, data_key, dm, train_step, dropout_gen, drop_path_gen,
-                        stage_dtype, max_steps_per_epoch))
+                        stage_dtype, max_steps))
                     log.info("epoch %d %s: %s", epoch, data_key, self.history[-1])
                     if self.checkpoint_dir is not None:
                         self._save(epoch)
@@ -264,14 +336,31 @@ class Trainer:
                 if epoch_start >= max_epochs:
                     break
         wait_for_async_saves()
+        if self.mesh is not None:
+            dist.barrier()
         return self.history
+
+    def _all_ranks(self, value: int, op) -> int:
+        t = torch.tensor([value], dtype=torch.int64, device=self._comm_device())
+        dist.all_reduce(t, op=op)
+        return int(t.item())
+
+    def _comm_device(self) -> torch.device:
+        return torch.device("cpu") if dist.get_backend() == "gloo" else self.device
 
     def _save(self, epoch: int) -> None:
         """Saves epoch_{epoch}, then prunes to the newest keep_last_checkpoints
-        (JAX trainer.py:859-872)."""
+        (JAX trainer.py:859-872). On a mesh every rank gathers the model and
+        the moments whole and rank 0 writes them (JAX trainer.py:786-801)."""
         path = os.path.join(self.checkpoint_dir, f"epoch_{epoch}")
-        save_checkpoint(path, {"model": self.model.state_dict(),
-                               "optimizer": self.optimizer.state_dict(), "epoch": epoch},
+        model, opt = self.model.state_dict(), self.optimizer.state_dict()
+        if self.mesh is not None:
+            model = full_state_dict(self.model)
+            opt = dict(opt, **{k: {n: full_tensor(t).cpu() for n, t in opt[k].items()}
+                               for k in ("mu", "nu")})
+            if dist.get_rank() != 0:
+                return
+        save_checkpoint(path, {"model": model, "optimizer": opt, "epoch": epoch},
                         async_save=self.async_checkpoints)
         if self.keep_last_checkpoints:
             prune_checkpoints(self.checkpoint_dir, self.keep_last_checkpoints,
@@ -285,22 +374,56 @@ class Trainer:
         step = make_eval_step(self.model, in_vars, out_vars)
         agg: Dict[str, float] = {}
         n = 0
+        rounds = (None if self.mesh is None
+                  else self._all_ranks(dm.num_batches("val"), dist.ReduceOp.MAX))
         loader = iter(dm.val_dataloader())
         try:
-            for batch in loader:
+            for batch, real in self._synced_batches(loader, dm, rounds):
                 x, y = self._put(batch[0], None), self._put(batch[1], None)
                 losses = evaluate_batch(step(x, y), y, "val", self.val_losses,
                                         self.val_transforms, out_vars)
                 values = torch.stack(list(losses.values())).tolist()  # one sync per batch
                 for k, v in zip(losses, values):
-                    agg[k] = agg.get(k, 0.0) + v * x.shape[0]
-                n += x.shape[0]
+                    agg[k] = agg.get(k, 0.0) + v * real
+                n += real
         finally:
             loader.close()
+        if self.mesh is not None:  # the sums over the data ranks
+            keys = sorted(agg)
+            t = torch.tensor([agg[k] for k in keys] + [n], dtype=torch.float64,
+                             device=self._comm_device())
+            dist.all_reduce(t, group=data_group(self.mesh))
+            agg, n = dict(zip(keys, t[:-1].tolist())), int(t[-1].item())
         means = {k: v / max(1, n) for k, v in agg.items()}
         log.info("validation epoch %d: %s", epoch, means)
         self.last_validation = {"means": means, "samples": n}
         return means
+
+    @staticmethod
+    def _synced_batches(loader, dm: IterDataModule, rounds: Optional[int]):
+        """(batch, real samples) of `loader`; on a mesh, `rounds` of them
+        (the most any rank has): a rank out of batches feeds zero batches
+        that count no sample, so every rank runs every collective (JAX
+        trainer.py:621-685)."""
+        if rounds is None:
+            for batch in loader:
+                yield batch, batch[0].shape[0]
+            return
+        last = None
+        for _ in range(rounds):
+            batch = next(loader, None)
+            if batch is not None:
+                last = batch
+                yield batch, batch[0].shape[0]
+                continue
+            if last is not None:
+                shapes = [(dm.batch_size,) + tuple(np.shape(a))[1:] for a in last[:2]]
+            else:  # this rank saw no batch at all
+                shapes = [tuple(d) for d in dm.get_data_dims()]
+            yield tuple(np.zeros(sh, np.float32) for sh in shapes), 0
+        if next(loader, None) is not None:
+            raise RuntimeError(f"num_batches('val') undercounted: the loader yielded more than "
+                               f"{rounds} batches")
 
     def _epoch(self, epoch, data_key, dm, train_step, dropout_gen, drop_path_gen, stage_dtype,
                max_steps) -> dict:
@@ -328,7 +451,14 @@ class Trainer:
         finally:
             it.close()
         tf = time.perf_counter()
-        total = torch.stack(step_losses).sum().item() if step_losses else 0.0
+        total = 0.0
+        if step_losses:
+            losses = torch.stack(step_losses)
+            if self.mesh is not None:  # the mean over the data ranks
+                losses = losses.to(self._comm_device())
+                dist.all_reduce(losses, group=data_group(self.mesh))
+                losses = losses / data_size(self.mesh)
+            total = losses.sum().item()
         fence_wait_s += time.perf_counter() - tf
         return {"epoch": epoch, "data_key": data_key,
                 "loss": total / max(1, len(step_losses)), "batches": len(step_losses),

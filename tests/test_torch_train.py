@@ -297,9 +297,12 @@ def test_train_cli_runs_on_cpu(synth_dataset, tmp_path, capsys):
     ({"pipeline": 2}, "parallelism", {}),
 ], ids=["mesh", "pipeline"])
 def test_trainer_rejects_what_is_not_ported(synth_dataset, override, section, kwargs):
+    """At world 1 a mesh of 2 devices (an fsdp or a pipeline axis of 2) is
+    larger than the world: JAX make_mesh's ValueError, before any refusal of
+    what is not ported (tests/test_torch_mesh.py holds those)."""
     raw = tiny_raw(synth_dataset)
     raw[section].update(override)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="> 1 devices"):
         Trainer(load_config(raw), "cpu", **kwargs).fit(max_epochs=1, max_steps_per_epoch=1)
 
 

@@ -201,20 +201,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
                serve1b's weights (an npz): the scale-down brings the mesh to
                the one card, 2 steps of 32 tiles, finite losses, exact
                launches; (b) the 1B model wrapped on a one-rank NCCL mesh
-               (the tensor plan, FSDP2 per Block and at the root, DTensor
-               parameters, AdamW on the shards) against the same 2 steps
-               unwrapped at BATCH_MESH tiles: losses and every parameter
-               bit for bit, K1-K3 and K5 launches exactly equal; each one's
-               step by events, kernel time and peak memory; K1-K3 at (B8,
+               (the Trainer's own, from the config, under a one-rank NCCL
+               group: the tensor plan, FSDP2 per Block and at the root,
+               DTensor parameters, AdamW on the shards) against the same 2
+               steps unwrapped at BATCH_MESH tiles: losses and every
+               parameter bit for bit, K1-K3 launches and K5's at each
+               [rows, cols] exactly equal; each one's step by events,
+               kernel time and peak memory; K1-K3 at (B8,
                N2178, H24, d128, dropout 0.1) on two batch elements and K5
                at [17,424, 3,072 | 12,288] against their plain versions,
-               and their rows; (c) two ranks on the one card over gloo
-               (`python3 chip_smoke.py --mesh-worker RANK PORT DIR`) at
-               interm_117m.yaml's width, depth 2, fp32, under fsdp 2 and
-               under tensor 2, against one rank (MESH_REL), after a probe
-               of the collectives on CUDA tensors: where gloo refuses one
-               (an error, or a dead process), (c) is left out and names
-               it; {"mesh": ...}
+               and their rows, K5 one a width; (c) two ranks on the one
+               card over gloo (`python3 chip_smoke.py --mesh-worker RANK
+               PORT DIR`) at interm_117m.yaml's width, depth 2, fp32, under
+               fsdp 2 and under tensor 2, against one rank (MESH_REL); a
+               rank that fails or dies fails the phase; {"mesh": ...}
 
   7. serve10b — configs/interm_10b.yaml served at full width and depth
                (embed 8192, depth 11, 32 heads, d 256, MLP 32,768, gelu
@@ -4415,9 +4415,8 @@ def mesh_phase(root: Path, seed: int, weights: str, call_s, smi):
     a one-rank NCCL mesh against the unwrapped one, losses and parameters
     bit for bit, launches exactly equal, each step's time, kernel time and
     peak memory; K1-K3 and K5 at the path's shapes against their plain
-    versions; (c) two ranks on the card over gloo, or the collective gloo
-    refuses there (by an error, or by a dead process: the probe marks each
-    collective it starts and ends). Returns what the kernels line reads."""
+    versions; (c) two ranks on the card over gloo against one rank. Returns
+    what the kernels line reads."""
     import dataclasses
     import shutil
 
@@ -4425,7 +4424,7 @@ def mesh_phase(root: Path, seed: int, weights: str, call_s, smi):
     import yaml
 
     from orbit2_tpu_torch import train as train_cli
-    from orbit2_tpu_torch.parallel import full_state_dict, make_mesh
+    from orbit2_tpu_torch.parallel import full_state_dict
     from orbit2_tpu_torch.training.checkpoint import load_state_npz
     from orbit2_tpu_torch.training.train import make_train_step
     from orbit2_tpu_torch.training.trainer import Trainer
@@ -4470,14 +4469,18 @@ def mesh_phase(root: Path, seed: int, weights: str, call_s, smi):
     key = next(iter(cfg.data.low_res_dir))
     state = load_state_npz(weights)
 
-    def run(mesh):
+    def run():
+        """The fit on the config's mesh where a process group runs (the
+        Trainer's own choice), else unwrapped."""
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
-        tr = Trainer(cfg, "cuda", state_dict=state, mesh=mesh)
-        history = tr.fit(max_epochs=MESH_STEPS, max_steps_per_epoch=1)
-        torch.cuda.synchronize()
+        tr = Trainer(cfg, "cuda", state_dict=state)
+        with launch_widths(kernels()["fused_dropout"]) as k5_widths:
+            history = tr.fit(max_epochs=MESH_STEPS, max_steps_per_epoch=1)
+            torch.cuda.synchronize()
         launched = counts()
-        params = (full_state_dict(tr.model) if mesh is not None else
+        meshed = tr.mesh is not None
+        params = (full_state_dict(tr.model) if meshed else
                   {k: t.detach().cpu() for k, t in tr.model.state_dict().items()})
         dm = tr._data_modules[key]
         in_vars, out_vars = dm.get_data_variables()
@@ -4496,17 +4499,26 @@ def mesh_phase(root: Path, seed: int, weights: str, call_s, smi):
         torch.cuda.empty_cache()
         return {"losses": [r["loss"] for r in history], "launched": launched, "params": params,
                 "step_ms": ms, "kernel_ms": kern, "busy": kern / ms, "peak_gib": peak,
-                "tokens": tokens}
+                "tokens": tokens, "k5_widths": dict(k5_widths), "meshed": meshed}
 
-    plain = run(None)
+    plain = run()
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
                             world_size=1)
     try:
-        mesh = make_mesh(device_type="cuda")
-        wrapped = run(mesh)
+        wrapped = run()
     finally:
         dist.destroy_process_group()
+    check(wrapped["meshed"] and not plain["meshed"],
+          "the Trainer took no mesh under the NCCL group, or one without it")
     want = only(**{k: v * MESH_STEPS for k, v in remat_launches(depth).items()})
+    # K5 a step under full remat (remat_launches): pos_drop and each Block's
+    # projection and Mlp output at [rows, embed], its Mlp hidden at [rows,
+    # hidden], forward and backward, and all again in the recomputation but
+    # Block 0's Mlp output: 6 depth + 1 at the embed width, 3 depth at the hidden
+    rows_k5 = BATCH_MESH * plain["tokens"]
+    hidden = int(m.embed_dim * m.mlp_ratio)
+    want_widths = {(rows_k5, m.embed_dim): MESH_STEPS * (6 * depth + 1),
+                   (rows_k5, hidden): MESH_STEPS * 3 * depth}
     differ = [k for k in plain["params"] if not torch.equal(plain["params"][k],
                                                             wrapped["params"][k])]
     for label, r in (("unwrapped", plain), ("wrapped", wrapped)):
@@ -4521,12 +4533,18 @@ def mesh_phase(root: Path, seed: int, weights: str, call_s, smi):
           f"{plain['losses']}, parameters {differ[:5]}")
     check(plain["launched"] == want and wrapped["launched"] == want,
           f"launches unwrapped {plain['launched']}, wrapped {wrapped['launched']}, want {want}")
+    check(plain["k5_widths"] == want_widths and wrapped["k5_widths"] == want_widths,
+          f"K5 launches by [rows, cols]: unwrapped {plain['k5_widths']}, wrapped "
+          f"{wrapped['k5_widths']}, want {want_widths}")
+    print(f"  (b) K5 launches by [rows, cols], wrapped: {wrapped['k5_widths']}")
     out["wrapped"] = {key: {k: r[k] for k in ("losses", "step_ms", "kernel_ms", "busy",
                                               "peak_gib")}
                       for key, r in (("unwrapped", plain), ("one_rank_mesh", wrapped))}
     out["wrapped"]["batch_tiles"] = BATCH_MESH
     out["wrapped"]["launches"] = wrapped["launched"]
-    tokens = wrapped["tokens"]
+    out["wrapped"]["fused_dropout_by_shape"] = {f"{r_}x{c_}": n_ for (r_, c_), n_
+                                                in wrapped["k5_widths"].items()}
+    tokens, k5_launched = wrapped["tokens"], wrapped["k5_widths"]
     del plain, wrapped, state
     torch.cuda.empty_cache()
 
@@ -4539,22 +4557,24 @@ def mesh_phase(root: Path, seed: int, weights: str, call_s, smi):
                             f"bf16 drop {m.drop_rate:g} B{BATCH_MESH} N{tokens} H{h} d{d}")
     del q, k, v, do
     torch.cuda.empty_cache()
-    width = (m.embed_dim, int(m.embed_dim * m.mlp_ratio))
-    for c in width:
-        check_dropout(BATCH_MESH * tokens, c, torch.bfloat16, m.drop_rate, gen, kseed)
     path_t = {"shape": (BATCH_MESH, tokens, h, d), "rate": m.drop_rate,
-              "launched": out["wrapped"]["launches"], "steps": MESH_STEPS, "width": width}
+              "launched": out["wrapped"]["launches"], "steps": MESH_STEPS, "width": ()}
     rows = train_1b_times(path_t, gen, kseed, call_s, smi, label="mesh 1B")
+    # K5 at each width of the path, its launches the wrapped fit's at that width
+    for shape, n in k5_launched.items():
+        check_dropout(*shape, torch.bfloat16, m.drop_rate, gen, kseed)
+        rows[("fused_dropout", shape)] = k5_row(shape, torch.bfloat16, m.drop_rate, gen, kseed,
+                                                n, smi, "mesh 1B")
 
     # (c) two ranks on the one card over gloo
     out["two_ranks"] = two_ranks(root / "two")
-    return {"out": out, "rows": rows, "errs": errs, "launched": path_t["launched"]}
+    return {"out": out, "rows": rows, "errs": errs, "launched": path_t["launched"],
+            "k5_shapes": list(k5_launched)}
 
 
 def two_ranks(two: Path):
     """Phase mesh (c): the two gloo ranks of mesh_worker on the one card,
-    held against one rank; or, where gloo refuses CUDA tensors in a
-    collective (an error, or a dead process), that collective named."""
+    held against one rank; a rank that fails or dies fails the phase."""
     two.mkdir()
     port = str(free_port())
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
@@ -4569,47 +4589,31 @@ def two_ranks(two: Path):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    # a collective gloo cannot run on CUDA tensors may kill the process (a
-    # segfault) instead of raising: the probe's markers name the one it died in
-    died = sorted(m.name[:-len(".start")] for m in two.glob("*.start")
-                  if not (two / (m.name[:-len(".start")] + ".ok")).exists())
-    if died and any(p.returncode != 0 for p in procs):
-        res = {"refused": {name.split(".", 1)[1]: f"rank {name.split('.')[0]} died (exit code "
-                           f"{procs[int(name.split('.')[0])].returncode}) in it"
-                           for name in died}}
-        print("\n".join(f"  two-rank worker {r}, exit {p.returncode}: {logs[r][-1500:]}"
-                        for r, p in enumerate(procs)))
-    else:
-        for r, p in enumerate(procs):
-            check(p.returncode == 0,
-                  f"two-rank worker {r} exited {p.returncode}:\n{logs[r][-3000:]}")
-        res = json.loads((two / "result.json").read_text())
-    if res["refused"]:
-        print(f"  (c) two ranks on one card over gloo: left out, gloo refuses CUDA tensors in "
-              f"{res['refused']}")
-    else:
-        for mode in ("fsdp", "tensor"):
-            r = res[mode]
-            print(f"  (c) two ranks on one card over gloo, {mode} 2, fp32 on the kernels: loss "
-                  f"{r['loss']!r} against one rank's {r['loss_one']!r}; gradients within "
-                  f"{r['max_rel']:.3e} relative Frobenius ({r['worst']}); launches a rank "
-                  f"{r['launches']}; {r['step_s']:.3f} s a step")
-            check(abs(r["loss"] - r["loss_one"]) <= MESH_REL * abs(r["loss_one"])
-                  and r["max_rel"] <= MESH_REL,
-                  f"the two-rank {mode} step differs from the one-rank step: {r}")
-            depth2 = MESH_TWO["depth"]
-            check(r["launches"] == only(flash_attn_fwd=depth2, flash_attn_bwd_dq=depth2,
-                                        flash_attn_bwd_dkv=depth2),
-                  f"the two-rank {mode} step launched {r['launches']}")
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"two-rank worker {r} exited {p.returncode}:\n{logs[r][-3000:]}")
+    res = json.loads((two / "result.json").read_text())
+    for mode in ("fsdp", "tensor"):
+        r = res[mode]
+        print(f"  (c) two ranks on one card over gloo, {mode} 2, fp32 on the kernels: loss "
+              f"{r['loss']!r} against one rank's {r['loss_one']!r}; gradients within "
+              f"{r['max_rel']:.3e} relative Frobenius ({r['worst']}); launches a rank "
+              f"{r['launches']}; {r['step_s']:.3f} s a step")
+        check(abs(r["loss"] - r["loss_one"]) <= MESH_REL * abs(r["loss_one"])
+              and r["max_rel"] <= MESH_REL,
+              f"the two-rank {mode} step differs from the one-rank step: {r}")
+        depth2 = MESH_TWO["depth"]
+        check(r["launches"] == only(flash_attn_fwd=depth2, flash_attn_bwd_dq=depth2,
+                                    flash_attn_bwd_dkv=depth2),
+              f"the two-rank {mode} step launched {r['launches']}")
     return res
 
 
 def mesh_worker(rank: int, port: str, out_dir: str):
-    """One of phase mesh's two ranks on the one card (gloo): first whether
-    gloo takes CUDA tensors in the collectives FSDP2 and the tensor splits
-    issue; then, where it does, the MESH_TWO model's fp32 train step on a
-    fsdp-2 and on a tensor-2 mesh against the same step on one rank (rank 0
-    runs it unwrapped). Rank 0 writes result.json."""
+    """One of phase mesh's two ranks on the one card (gloo, whose
+    all-gather, reduce-scatter and all-reduce take the CUDA tensors FSDP2
+    and the tensor splits hand them): the MESH_TWO model's fp32 train step
+    on a fsdp-2 and on a tensor-2 mesh against the same step on one rank
+    (rank 0 runs it unwrapped). Rank 0 writes result.json."""
     import datetime
     import faulthandler
 
@@ -4629,77 +4633,59 @@ def mesh_worker(rank: int, port: str, out_dir: str):
     torch.backends.cudnn.allow_tf32 = False
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                             world_size=2, timeout=datetime.timedelta(seconds=120))
-    probes = {
-        "all_gather_into_tensor": lambda t: dist.all_gather_into_tensor(
-            torch.empty(2 * t.numel(), device="cuda"), t),
-        "reduce_scatter_tensor": lambda t: dist.reduce_scatter_tensor(
-            torch.empty(t.numel() // 2, device="cuda"), t),
-        "all_reduce": lambda t: dist.all_reduce(t),
-        "all_gather": lambda t: dist.all_gather([torch.empty_like(t) for _ in range(2)], t),
-    }
-    refused = {}
-    for name, fn in probes.items():
-        (Path(out_dir) / f"{rank}.{name}.start").touch()
-        try:
-            fn(torch.ones(8, device="cuda"))
-            torch.cuda.synchronize()
-        except (RuntimeError, ValueError, NotImplementedError) as e:
-            refused[name] = f"{type(e).__name__}: {e}"[:300]
-        (Path(out_dir) / f"{rank}.{name}.ok").touch()
-    result = {"refused": refused}
-    if not refused:
-        kw = dict(attention_impl="auto", drop_rate=0.0, drop_path=0.0, learn_pos_emb=True,
-                  spatial_resolution=111.0, superres_mag=4, patch_size=2,
-                  **{k: v for k, v in MESH_TWO.items() if k != "batch"})
-        args = (BENCH_VARS, (64, 128), 7, 3)
-        rng = np.random.default_rng(5)
-        x = torch.from_numpy(rng.normal(size=(MESH_TWO["batch"], 7, 64, 128)).astype(np.float32))
-        y = torch.from_numpy((rng.normal(size=(MESH_TWO["batch"], 3, 256, 512)) * 0.5)
-                             .astype(np.float32))
-        x, y = x.cuda(), y.cuda()
-        loss_fn = METRICS_REGISTRY["bayesian_tv"](aggregate_only=True)
+    result = {}
+    kw = dict(attention_impl="auto", drop_rate=0.0, drop_path=0.0, learn_pos_emb=True,
+              spatial_resolution=111.0, superres_mag=4, patch_size=2,
+              **{k: v for k, v in MESH_TWO.items() if k != "batch"})
+    args = (BENCH_VARS, (64, 128), 7, 3)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(MESH_TWO["batch"], 7, 64, 128)).astype(np.float32))
+    y = torch.from_numpy((rng.normal(size=(MESH_TWO["batch"], 3, 256, 512)) * 0.5)
+                         .astype(np.float32))
+    x, y = x.cuda(), y.cuda()
+    loss_fn = METRICS_REGISTRY["bayesian_tv"](aggregate_only=True)
 
-        def step_of(model):
-            opt = make_optimizer("adamw", {"lr": 1e-4}, model.named_parameters())
-            return make_train_step(model, loss_fn, None, opt, BENCH_VARS, BENCH_VARS[4:])
+    def step_of(model):
+        opt = make_optimizer("adamw", {"lr": 1e-4}, model.named_parameters())
+        return make_train_step(model, loss_fn, None, opt, BENCH_VARS, BENCH_VARS[4:])
 
-        one = None
-        if rank == 0:  # the one-rank step, unwrapped
-            ref = ResSlimViT(*args, generator=torch.Generator().manual_seed(MESH_TWO_SEED), **kw)
-            ref.cuda()
-            loss_one = step_of(ref)(x, y, torch.Generator(), None).item()
-            one = (loss_one, {k: p.grad.detach().cpu() for k, p in ref.named_parameters()
-                              if p.grad is not None})
-            del ref
-        for mode, axes in (("fsdp", dict(fsdp=2)), ("tensor", dict(tensor=2))):
-            mesh = make_mesh(device_type="cuda", **axes)
-            with torch.device("meta"):
-                skeleton = ResSlimViT(*args, **kw)
-            model = shard_model(copy.deepcopy(skeleton), mesh)
-            model.to_empty(device="cuda")
-            materialize(skeleton, "cpu", generator=torch.Generator().manual_seed(MESH_TWO_SEED),
-                        into=model)
-            xs, ys = (t.chunk(data_size(mesh))[data_rank(mesh)] for t in (x, y))
-            step = step_of(model)
-            reset_counts()
-            t0 = time.perf_counter()
-            loss = step(xs, ys, torch.Generator(), None).detach().clone()
-            torch.cuda.synchronize()
-            step_s, launched = time.perf_counter() - t0, counts()
-            dist.all_reduce(loss, group=data_group(mesh))
-            loss = loss.item() / data_size(mesh)
-            grads = {k: full_tensor(p.grad).cpu() for k, p in model.named_parameters()
-                     if p.grad is not None}
-            if rank == 0:
-                rel = {k: ((grads[k] - g).norm() / g.norm().clamp_min(1e-30)).item()
-                       for k, g in one[1].items()}
-                worst = max(rel, key=rel.get)
-                result[mode] = {"loss": loss, "loss_one": one[0], "max_rel": rel[worst],
-                                "worst": worst, "launches": launched, "step_s": step_s,
-                                "same_keys": set(grads) == set(one[1])}
-                check(set(grads) == set(one[1]), f"{mode}: gradients of {set(grads) ^ set(one[1])}")
-            del model, step, grads
-            torch.cuda.empty_cache()
+    one = None
+    if rank == 0:  # the one-rank step, unwrapped
+        ref = ResSlimViT(*args, generator=torch.Generator().manual_seed(MESH_TWO_SEED), **kw)
+        ref.cuda()
+        loss_one = step_of(ref)(x, y, torch.Generator(), None).item()
+        one = (loss_one, {k: p.grad.detach().cpu() for k, p in ref.named_parameters()
+                          if p.grad is not None})
+        del ref
+    for mode, axes in (("fsdp", dict(fsdp=2)), ("tensor", dict(tensor=2))):
+        mesh = make_mesh(device_type="cuda", **axes)
+        with torch.device("meta"):
+            skeleton = ResSlimViT(*args, **kw)
+        model = shard_model(copy.deepcopy(skeleton), mesh)
+        model.to_empty(device="cuda")
+        materialize(skeleton, "cpu", generator=torch.Generator().manual_seed(MESH_TWO_SEED),
+                    into=model)
+        xs, ys = (t.chunk(data_size(mesh))[data_rank(mesh)] for t in (x, y))
+        step = step_of(model)
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = step(xs, ys, torch.Generator(), None).detach().clone()
+        torch.cuda.synchronize()
+        step_s, launched = time.perf_counter() - t0, counts()
+        dist.all_reduce(loss, group=data_group(mesh))
+        loss = loss.item() / data_size(mesh)
+        grads = {k: full_tensor(p.grad).cpu() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        if rank == 0:
+            rel = {k: ((grads[k] - g).norm() / g.norm().clamp_min(1e-30)).item()
+                   for k, g in one[1].items()}
+            worst = max(rel, key=rel.get)
+            result[mode] = {"loss": loss, "loss_one": one[0], "max_rel": rel[worst],
+                            "worst": worst, "launches": launched, "step_s": step_s,
+                            "same_keys": set(grads) == set(one[1])}
+            check(set(grads) == set(one[1]), f"{mode}: gradients of {set(grads) ^ set(one[1])}")
+        del model, step, grads
+        torch.cuda.empty_cache()
     if rank == 0:
         (Path(out_dir) / "result.json").write_text(json.dumps(result))
     dist.barrier()
@@ -5434,8 +5420,11 @@ def main():
               ("flash_attn_bwd_dq", "flash_attn_bwd.cu", "flash_attention.py:287",
                mp["errs"]["dq"]),
               ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", "flash_attention.py:328",
-               max(mp["errs"]["dk"], mp["errs"]["dv"])),
-              ("fused_dropout", "fused_dropout.cu", "dropout.py:39", 0.0))),
+               max(mp["errs"]["dk"], mp["errs"]["dv"])))),
+        *(path_entry(mp["rows"], ("fused_dropout", shape),
+                     mp["rows"][("fused_dropout", shape)]["launches"], "mesh", "fused_dropout",
+                     "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39", 0.0)
+          for shape in mp["k5_shapes"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,7 @@ from orbit2_tpu_torch.parallel.mesh import (
     data_group,
     data_rank,
     data_size,
+    in_mesh,
     init_distributed,
     make_mesh,
     mesh_from_config,

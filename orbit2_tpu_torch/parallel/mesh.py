@@ -15,7 +15,9 @@ order:
 Tensor varies fastest, then seq, expert, fsdp, replica and stage, so rank r
 sits where JAX's device r sits (`rank_grid`). One process drives one device:
 the world is the process group's size (`world_size`), which `torchrun` sets
-up and `init_distributed` joins.
+up and `init_distributed` joins. As JAX's make_mesh takes the first devices,
+the mesh takes the first ranks; a world larger than the mesh leaves the
+ranks past it idle (`in_mesh`).
 
 The data-parallel coordinate of a rank is its (replica, fsdp) pair,
 `data_rank` / `data_size`: the ranks of one tensor group share it, and so
@@ -53,28 +55,34 @@ def world_size() -> int:
 def rank_grid(replica: int = 1, fsdp: int = 1, tensor: int = 1, seq: int = 1, stage: int = 1,
               expert: int = 1, world: Optional[int] = None) -> np.ndarray:
     """The ranks of the mesh as a (stage, replica, fsdp, expert, seq, tensor)
-    array, JAX make_mesh's device layout. A mesh larger than `world`
-    (default: the process group's) raises JAX's ValueError."""
+    array, JAX make_mesh's device layout: the first ranks of `world`
+    (default: the process group's). A mesh larger than the world raises
+    JAX's ValueError."""
     world = world_size() if world is None else world
     want = replica * fsdp * tensor * seq * stage * expert
     if want > world:
         raise ValueError(f"mesh {stage}x{replica}x{fsdp}x{expert}x{seq}x{tensor}={want} > "
                          f"{world} devices")
-    if want < world:
-        raise ValueError(f"mesh {stage}x{replica}x{fsdp}x{expert}x{seq}x{tensor}={want} leaves "
-                         f"{world - want} of {world} ranks idle: one process drives one device, "
-                         "so the mesh must take them all")
     return np.arange(want).reshape(stage, replica, fsdp, expert, seq, tensor)
 
 
 def make_mesh(replica: int = 1, fsdp: int = 1, tensor: int = 1, seq: int = 1, stage: int = 1,
               expert: int = 1, device_type: str = "cuda") -> DeviceMesh:
-    """The DeviceMesh of these axis sizes over the process group; its
-    (replica, fsdp) dims flattened into one, AXIS_DATA, are `data_mesh`."""
+    """The DeviceMesh of these axis sizes over the first ranks of the
+    process group; its (replica, fsdp) dims flattened into one, AXIS_DATA,
+    are `data_mesh`, and `mesh_group` is the process group of all its ranks
+    (None: the whole world's). Every rank of the world calls it, those past
+    the mesh too: making the mesh's process groups is collective."""
     grid = rank_grid(replica, fsdp, tensor, seq, stage, expert)
     mesh = DeviceMesh(device_type, torch.as_tensor(grid), mesh_dim_names=AXES)
     mesh.data_mesh = mesh[BATCH_AXES]._flatten(AXIS_DATA)
+    mesh.mesh_group = None if grid.size == world_size() else dist.new_group(range(grid.size))
     return mesh
+
+
+def in_mesh(mesh: DeviceMesh) -> bool:
+    """Whether this rank is one of the mesh's: the ranks past it are idle."""
+    return mesh.get_coordinate() is not None
 
 
 def mesh_from_config(parallelism, device_type: str = "cuda") -> DeviceMesh:
@@ -136,5 +144,5 @@ def init_distributed(device: str = "cuda") -> int:
 
 __all__ = ["AXES", "AXIS_DATA", "AXIS_EXPERT", "AXIS_FSDP", "AXIS_REPLICA", "AXIS_SEQ",
            "AXIS_STAGE", "AXIS_TENSOR", "BATCH_AXES", "axis_size", "data_group", "data_rank",
-           "data_size", "init_distributed", "make_mesh", "mesh_from_config", "rank_grid",
-           "sharded_coords", "world_size"]
+           "data_size", "in_mesh", "init_distributed", "make_mesh", "mesh_from_config",
+           "rank_grid", "sharded_coords", "world_size"]

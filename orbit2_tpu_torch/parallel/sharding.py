@@ -11,10 +11,12 @@ conv's OIHW of its HWIO, a token embedding's [D, 1, p, p] weight one
 variable of JAX's stacked [V, p*p, D].
 
 `shard_model` applies the table with torch's tools:
-  * tensor parallelism by `parallelize_module` over the tensor axis: the
-    column splits (`ColwiseHeads`, where JAX puts `tensor` on the output
-    dim: qkv, fc1, var_agg's q and kv) and the row splits (`Rowwise`, where
-    it puts it on the input dim: attention's proj, fc2, var_agg's proj).
+  * tensor parallelism over the tensor axis (`tensor_plan`, `split_linear`):
+    the column splits, where JAX puts `tensor` on the output dim (qkv, fc1,
+    var_agg's q and kv), and the row splits, where it puts it on the input
+    dim (attention's proj, fc2, var_agg's proj). The weights become
+    DTensors; the products run on their local shards through the Megatron
+    collectives of parallel/tensor.py.
     A packed projection is split by heads inside each of its packs (a
     `_StridedShard` of dim 0): rank t holds heads t*H/tp.. of q, of k and of
     v. Its bias stays replicated and is cut to the rank's heads at use,
@@ -53,7 +55,6 @@ from torch import nn
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Shard, distribute_tensor
-from torch.distributed.tensor.parallel import ParallelStyle, parallelize_module
 from torch.distributed.tensor.placement_types import _StridedShard
 
 from orbit2_tpu_torch.parallel.mesh import (
@@ -202,59 +203,38 @@ def _distribute(module: nn.Module, name: str, mesh: DeviceMesh, placements) -> N
         requires_grad=t.requires_grad))
 
 
-def _check_linear(module: nn.Module, style: str) -> None:
+def split_linear(module: nn.Module, mode: str, packs: int, tmesh: DeviceMesh) -> None:
+    """Splits a Linear over the tensor axis `tmesh`: mode "col" its weight's
+    output rows (by heads inside each of `packs` packed projections; the
+    bias split with them where there is one pack, else replicated and cut at
+    use, TensorSplit.heads_of), mode "row" its input columns (the bias stays
+    replicated and is added after the sum)."""
     # the model modules import parallel/tensor.py: imported here, not above
     from orbit2_tpu_torch.models.components.blocks import Linear
 
     if not isinstance(module, Linear):
-        raise TypeError(f"{style} splits a Linear, got {type(module).__name__}")
+        raise TypeError(f"a tensor split takes a Linear, got {type(module).__name__}")
+    tp = tmesh.size()
+    if mode == "col":
+        rows = Shard(0) if packs == 1 or tp == 1 else _StridedShard(0, split_factor=packs)
+        _distribute(module, "weight", tmesh, [rows])
+        if packs == 1:
+            _distribute(module, "bias", tmesh, [Shard(0)])
+    else:
+        _distribute(module, "weight", tmesh, [Shard(1)])
+    module.tensor_split = TensorSplit(mode, tmesh.get_group(), tp, tmesh.get_local_rank(), packs)
 
 
-class ColwiseHeads(ParallelStyle):
-    """A column split of a Linear over the tensor axis: its weight's output
-    rows, split by heads inside each of `packs` packed projections."""
-
-    def __init__(self, packs: int = 1):
-        super().__init__()
-        self.packs = packs
-
-    def _apply(self, module: nn.Module, device_mesh: DeviceMesh) -> nn.Module:
-        _check_linear(module, "ColwiseHeads")
-        tp = device_mesh.size()
-        rows = (Shard(0) if self.packs == 1 or tp == 1
-                else _StridedShard(0, split_factor=self.packs))
-        _distribute(module, "weight", device_mesh, [rows])
-        if self.packs == 1:  # a packed bias stays replicated: TensorSplit.heads_of
-            _distribute(module, "bias", device_mesh, [Shard(0)])
-        module.tensor_split = TensorSplit("col", device_mesh.get_group(), tp,
-                                          device_mesh.get_local_rank(), self.packs)
-        return module
-
-
-class Rowwise(ParallelStyle):
-    """A row split of a Linear over the tensor axis: its weight's input
-    columns; the bias stays replicated and is added after the sum."""
-
-    def _apply(self, module: nn.Module, device_mesh: DeviceMesh) -> nn.Module:
-        _check_linear(module, "Rowwise")
-        _distribute(module, "weight", device_mesh, [Shard(1)])
-        module.tensor_split = TensorSplit("row", device_mesh.get_group(), device_mesh.size(),
-                                          device_mesh.get_local_rank())
-        return module
-
-
-def tensor_plan(model: nn.Module) -> Dict[str, ParallelStyle]:
-    """parallelize_module's plan for a ResSlimViT: every Block's attention
-    and Mlp, and the variable aggregation."""
-    plan: Dict[str, ParallelStyle] = {
-        "var_agg.q": ColwiseHeads(), "var_agg.kv": ColwiseHeads(packs=2),
-        "var_agg.proj": Rowwise()}
+def tensor_plan(model: nn.Module) -> Dict[str, Tuple[str, int]]:
+    """The tensor splits of a ResSlimViT, (mode, packs) by Linear name:
+    every Block's attention and dense Mlp, and the variable aggregation."""
+    plan = {"var_agg.q": ("col", 1), "var_agg.kv": ("col", 2), "var_agg.proj": ("row", 1)}
     for i, blk in enumerate(model.blocks):
-        plan[f"blocks.{i}.attn.qkv"] = ColwiseHeads(packs=3)
-        plan[f"blocks.{i}.attn.proj"] = Rowwise()
+        plan[f"blocks.{i}.attn.qkv"] = ("col", 3)
+        plan[f"blocks.{i}.attn.proj"] = ("row", 1)
         if not blk.moe:
-            plan[f"blocks.{i}.mlp.fc1"] = ColwiseHeads()
-            plan[f"blocks.{i}.mlp.fc2"] = Rowwise()
+            plan[f"blocks.{i}.mlp.fc1"] = ("col", 1)
+            plan[f"blocks.{i}.mlp.fc2"] = ("row", 1)
     return plan
 
 
@@ -309,7 +289,9 @@ def shard_model(model: nn.Module, mesh: DeviceMesh):
 
     check_shardable(model, mesh)
     sizes = axis_sizes(mesh)
-    parallelize_module(model, mesh[AXIS_TENSOR], tensor_plan(model))
+    tmesh = mesh[AXIS_TENSOR]
+    for name, (mode, packs) in tensor_plan(model).items():
+        split_linear(model.get_submodule(name), mode, packs, tmesh)
 
     data = sharded_coords(mesh, BATCH_AXES)
     split = data + sharded_coords(mesh, (AXIS_TENSOR,))
@@ -471,6 +453,6 @@ def full_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     return {k: full_tensor(t.detach()).cpu() for k, t in model.state_dict().items()}
 
 
-__all__ = ["ColwiseHeads", "Rowwise", "axis_sizes", "check_shardable", "full_state_dict",
-           "full_tensor", "jax_name", "jax_spec_for", "load_full_state_dict", "shard_like",
-           "shard_model", "spec_for", "tensor_plan"]
+__all__ = ["axis_sizes", "check_shardable", "full_state_dict", "full_tensor", "jax_name",
+           "jax_spec_for", "load_full_state_dict", "shard_like", "shard_model", "spec_for",
+           "split_linear", "tensor_plan"]

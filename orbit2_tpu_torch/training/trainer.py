@@ -54,8 +54,8 @@ buffers: train() mode moves them, validation and test run in eval() mode,
 and checkpoints carry them. A loss with `set_mask` (masked_mse) takes the
 data module's validity mask (`_wire_out_mask`, JAX trainer.py:238-265).
 
-On a device mesh (`mesh`, or the config's mesh whenever a process group
-runs: parallel/mesh.py; one process drives one device): the ResSlimViT is
+On a device mesh (the config's, whenever a process group runs:
+parallel/mesh.py; one process drives one device): the ResSlimViT is
 built on the meta device, sharded (parallel/sharding.py::shard_model: tensor
 parallelism, then FSDP2 per Block and at the root over (replica, fsdp)) and
 each rank's shards are filled unit by unit (evaluate.py::materialize), with
@@ -67,7 +67,10 @@ the records' loss is the mean over the data ranks. Validation pads a short
 rank with zero batches that count no sample (JAX `_synced_batches`,
 trainer.py:621-685) and sums the sample-weighted losses over the data ranks.
 Rank 0 writes the checkpoint, the model and the moments gathered whole, so
-a checkpoint resumes on any mesh, or on one device.
+a checkpoint resumes on any mesh, or on one device. As JAX's mesh takes the
+first devices, the mesh takes the first ranks: where the world is larger
+(the scale-down halved the data axes to divide the batch), the ranks past
+the mesh are idle and their fit returns at once with no record.
 
 A mesh larger than the world raises JAX's ValueError; then pipeline trunks,
 seq_par > 1, expert_par > 1 and `parallelism.auto` raise
@@ -95,7 +98,7 @@ from orbit2_tpu_torch.evaluate import (
     check_mesh, check_tiling, check_training_scope, load_module, make_data_module, materialize,
     model_kwargs)
 from orbit2_tpu_torch.parallel.mesh import (
-    data_group, data_rank, data_size, mesh_from_config, world_size)
+    data_group, data_rank, data_size, in_mesh, mesh_from_config, world_size)
 from orbit2_tpu_torch.parallel.sharding import (
     check_shardable, full_state_dict, full_tensor, load_full_state_dict, shard_model)
 from orbit2_tpu_torch.training.checkpoint import (
@@ -120,21 +123,19 @@ class Trainer:
     and nothing is drawn); without one they are drawn from
     `config.trainer.seed`. The module docstring says what `checkpoint_dir`,
     `keep_last_checkpoints`, `async_checkpoints` and `run_validation` do.
-    `mesh`: a DeviceMesh (parallel/mesh.py::make_mesh) to train on; by
-    default the config's mesh when a process group runs, else none (one
-    device, the model unwrapped)."""
+    Where a process group runs, the Trainer trains on the config's mesh
+    (`mesh`); else `mesh` is None (one device, the model unwrapped)."""
 
     def __init__(self, config: Config, device="cuda",
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  checkpoint_dir: Optional[str] = None, run_validation: bool = False,
-                 keep_last_checkpoints: int = 0, async_checkpoints: bool = False, mesh=None):
+                 keep_last_checkpoints: int = 0, async_checkpoints: bool = False):
         self.cfg = c = config.validate()
         check_mesh(c, world_size())
         check_training_scope(c)
         self.device = torch.device(device)
-        if mesh is None and dist.is_initialized():
-            mesh = mesh_from_config(c.parallelism, self.device.type)
-        self.mesh = mesh
+        self.mesh = (mesh_from_config(c.parallelism, self.device.type) if dist.is_initialized()
+                     else None)
         self.state_dict = state_dict
         self.checkpoint_dir = checkpoint_dir
         self.run_validation = run_validation
@@ -294,6 +295,10 @@ class Trainer:
         drop_path_gen = torch.Generator().manual_seed(c.trainer.seed + DROP_PATH_SEED_OFFSET)
         stage_dtype = torch.bfloat16 if c.trainer.data_type == "bfloat16" else None
         steps = {}
+        if self.mesh is not None and not in_mesh(self.mesh):
+            log.info("rank %d is idle: the mesh takes the first %d ranks of %d", dist.get_rank(),
+                     self.mesh.size(), dist.get_world_size())
+            return self.history
 
         epoch_start = 0
         while epoch_start < max_epochs:
@@ -337,12 +342,12 @@ class Trainer:
                     break
         wait_for_async_saves()
         if self.mesh is not None:
-            dist.barrier()
+            dist.barrier(group=self.mesh.mesh_group)
         return self.history
 
     def _all_ranks(self, value: int, op) -> int:
         t = torch.tensor([value], dtype=torch.int64, device=self._comm_device())
-        dist.all_reduce(t, op=op)
+        dist.all_reduce(t, op=op, group=self.mesh.mesh_group)
         return int(t.item())
 
     def _comm_device(self) -> torch.device:

@@ -16,7 +16,9 @@ Two launches of tests/torch_mesh_worker.py, 4 processes each:
     ranks read disjoint files and the tensor ranks the same ones, the epoch
     is clamped to the least rank's batches, validation counts every sample,
     rank 0 writes the one checkpoint, and a resume on the mesh and one at
-    world 1 restore it bit for bit (the seams of tests/test_distributed.py).
+    world 1 restore it bit for bit (the seams of tests/test_distributed.py);
+    then a config the scale-down brings to a mesh of 2 of the 4 ranks: the
+    first 2 train, the other 2 stay idle.
 """
 
 import json
@@ -321,3 +323,15 @@ def test_cli_rank0_checkpoint_resumes_at_world_1_bit_for_bit(cli):
     for k in cli["params"].files:
         assert torch.equal(got[k], torch.from_numpy(cli["params"][k])), k
     assert trainer.optimizer.count == 2
+
+
+def test_cli_mesh_smaller_than_the_world_leaves_the_last_ranks_idle(cli):
+    """As JAX's make_mesh takes the first devices: fsdp 8 at world 4 and a
+    batch of 2 scale to fsdp 2 on ranks 0 and 1; ranks 2 and 3 return."""
+    idle = [r["idle"] for r in cli["reports"]]
+    assert [i["in_mesh"] for i in idle] == [True, True, False, False]
+    assert all(i["mesh_size"] == 2 and i["fsdp"] == 2 for i in idle)
+    assert [len(i["history"]) for i in idle] == [1, 1, 0, 0]
+    trained = [i["history"][0] for i in idle[:2]]
+    assert all(h["batches"] == 1 and np.isfinite(h["loss"]) for h in trained)
+    assert trained[0]["loss"] == trained[1]["loss"]

@@ -56,9 +56,11 @@ TINY = dict(img_size=(8, 16), in_channels=7, out_channels=3, superres_mag=4, pat
 # -- (1) the mesh ------------------------------------------------------------
 
 
-@pytest.mark.parametrize("axes", [dict(replica=2, fsdp=2, tensor=2), dict(fsdp=4, tensor=2)],
-                         ids=["2x2x2", "4x2"])
+@pytest.mark.parametrize("axes", [dict(replica=2, fsdp=2, tensor=2), dict(fsdp=4, tensor=2),
+                                  dict(fsdp=2, tensor=2)],
+                         ids=["2x2x2", "4x2", "2x2_of_8"])
 def test_rank_grid_is_jax_device_layout(axes):
+    """Over 8 devices; a smaller mesh takes the first ones, as JAX's does."""
     want = np.vectorize(lambda d: d.id)(jax_make_mesh(**axes).devices)
     np.testing.assert_array_equal(rank_grid(world=8, **axes), want)
 
@@ -168,12 +170,28 @@ def _jax_scaled(path, world, monkeypatch):
     return {a: getattr(got["cfg"].parallelism, a) for a in AXES}
 
 
-@pytest.mark.parametrize("world", [1, 2, 4, 8])
+@pytest.mark.parametrize("world", [1, 2, 3, 4, 8])
 def test_scale_down_equals_jax_driver_on_every_shipped_config(world, monkeypatch):
+    """The scaled parallelism, and whether its mesh fits the world: at world
+    3 the data axes halve to a mesh smaller than the world, which JAX builds
+    on the first devices and the port on the first ranks."""
+    from orbit2_tpu.parallel.mesh import mesh_from_config
+
     for path in CONFIGS:
         want = _jax_scaled(path, world, monkeypatch)
         cfg = train_cli.scale_parallelism(load_config(path), world)
         assert {a: getattr(cfg.parallelism, a) for a in AXES} == want, (path, world)
+        try:
+            mesh_from_config(cfg.parallelism, devices=jax.devices()[:world])
+            jax_fits = True
+        except ValueError:
+            jax_fits = False
+        try:
+            check_mesh(cfg, world)
+            fits = True
+        except ValueError:
+            fits = False
+        assert fits == jax_fits, (path, world)
 
 
 def test_cli_accepts_the_configs_jax_brings_to_one_device(monkeypatch):

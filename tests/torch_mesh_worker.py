@@ -18,7 +18,9 @@ JAX: the test process holds the JAX side).
       it, one epoch with validation, recording the files each reader was
       given and the batch counts each data module reported; then the model
       gathered whole (rank 0: OUT_DIR/cli_params.npz), and a fresh Trainer on
-      the mesh resumed from the checkpoint. OUT_DIR/cli_R.json.
+      the mesh resumed from the checkpoint; last the CLI on the config meshed
+      fsdp 8 at a batch of 2, which the scale-down brings to a mesh of the
+      first 2 ranks, the others idle. OUT_DIR/cli_R.json.
 """
 
 import copy
@@ -205,6 +207,8 @@ def run_cli(rank, out_dir, config, ckpt_dir):
     IterDataModule.num_batches = record_count
     trainer = main([config, "--device", "cpu", "--max-epochs", "1", "--validate",
                     "--checkpoint-dir", ckpt_dir])
+    reader_mod.NpyReader._sharded_files = sharded_files
+    IterDataModule.num_batches = num_batches
     params = {k: full_tensor(t).numpy() for k, t in trainer.model.state_dict().items()}
     if rank == 0:
         np.savez(os.path.join(out_dir, "cli_params.npz"), **params)
@@ -223,8 +227,27 @@ def run_cli(rank, out_dir, config, ckpt_dir):
     moments = all(torch.equal(full_tensor(t), saved["optimizer"][key][n])
                   for key in ("mu", "nu")
                   for n, t in again.optimizer.state_dict()[key].items())
+
+    # a mesh smaller than the world: fsdp 8 asked for at world 4 scales to
+    # fsdp 4, which the batch of 2 halves to 2 (examples/train.py:28-48);
+    # the mesh takes ranks 0 and 1, as JAX's takes the first devices
+    import yaml
+
+    from orbit2_tpu_torch.parallel import in_mesh
+
+    with open(config) as f:
+        raw = yaml.safe_load(f)
+    raw["parallelism"] = {"fsdp": 8, "simple_ddp": 1, "tensor_par": 1}
+    raw["trainer"]["batch_size"] = 2
+    small = os.path.join(out_dir, f"idle_{rank}.yaml")
+    with open(small, "w") as f:
+        yaml.safe_dump(raw, f)
+    part = main([small, "--device", "cpu", "--max-epochs", "1", "--max-steps-per-epoch", "1",
+                 "--checkpoint-dir", os.path.join(out_dir, "ck_idle")])
+    idle = {"in_mesh": in_mesh(part.mesh), "mesh_size": part.mesh.size(),
+            "fsdp": part.cfg.parallelism.fsdp, "history": part.history}
     with open(os.path.join(out_dir, f"cli_{rank}.json"), "w") as f:
-        json.dump({"history": trainer.history, "validation": trainer.last_validation,
+        json.dump({"idle": idle, "history": trainer.history, "validation": trainer.last_validation,
                    "resumed_epoch": resumed, "restored": restored, "moments": moments,
                    "files": {k: sorted(v) for k, v in files.items()}, "counts": counts,
                    "data_rank": data_rank(mesh), "tensor_rank": mesh.get_local_rank(AXIS_TENSOR),

@@ -215,6 +215,31 @@ Phases, each of which raises (and so exits non-zero) on failure:
                PORT DIR`) at interm_117m.yaml's width, depth 2, fp32, under
                fsdp 2 and under tensor 2, against one rank (MESH_REL); a
                rank that fails or dies fails the phase; {"mesh": ...}
+  seqexpert — the seq and expert axes (`python3 chip_smoke.py
+               --seqexpert-worker MODE RANK WORLD PORT DIR` ranks over gloo
+               on the one card; a rank that fails or dies fails the phase):
+               (a) Trainer.fit on configs/interm_1b.yaml's model at full
+               width, depth 4 (64 x 128 crops, 2,048 tokens, batch 8,
+               bf16, full remat) at seq 2 under gather, Ulysses and ring,
+               on two ranks against one unwrapped rank: the trunk's
+               first-step gradients at dropout 0 within SEQEXP_GRAD_REL,
+               then 2 steps at dropout 0.1 (gather, Ulysses) or 0 (ring):
+               losses and parameters within SEQEXP_REL, exact K1-K3 and K5
+               launches, seconds, the collectives' seconds, peak memory a
+               rank; (b)
+               configs/interm_1b_moe.yaml at full width, depth 4, batch 8
+               tiles, at expert 2 against one rank: the trunk's first-step
+               gradients but the expert stacks' within SEQEXP_GRAD_REL,
+               the dense parameters bit-equal on both ranks; (c) four
+               ranks at interm_117m.yaml's width, depth 2, fp32: seq 2 x
+               fsdp 2 under each impl, expert 2 x fsdp 2 and expert 2 x
+               tensor 2 on an MoE variant, one step against one rank
+               (MESH_REL); then K1-K3 at the seq path's
+               call shapes against their plain versions (gather: B8, N_q
+               1,024, N_k 2,048, H24, d128; Ulysses: N 2,048, H12; a ring
+               chunk: N 1,024, its two halves merged, K2/K3 fed the merged
+               lse) and their rows, K5 at the path's widths;
+               {"seqexpert": ...}
 
   7. serve10b — configs/interm_10b.yaml served at full width and depth
                (embed 8192, depth 11, 32 heads, d 256, MLP 32,768, gelu
@@ -280,9 +305,11 @@ the SM's issue rate of 128 lanes) at the card's maximum SM clock. The last line 
 import argparse
 import contextlib
 import copy
+import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1149,11 +1176,11 @@ def roofline(flops, moved):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def sdpa_ms(q, k, v, do):
+def sdpa_ms(q, k, v, do, bwd_rate=DROP):
     """SDPA pinned to its flash backend (any other raises) on q, k, v
     [B, N, H, D] viewed as
     [B, H, N, D]: {"fwd": {0.0: ms, DROP: ms}, "bwd": ms of its backward alone
-    (dq, dk and dv) at dropout DROP under the cotangent do}."""
+    (dq, dk and dv) at dropout `bwd_rate` under the cotangent do}."""
     import torch.nn.functional as F
 
     leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
@@ -1163,7 +1190,7 @@ def sdpa_ms(q, k, v, do):
             out["fwd"][rate] = best_ms(
                 lambda: F.scaled_dot_product_attention(*leaves, dropout_p=rate))
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        o = F.scaled_dot_product_attention(*leaves, dropout_p=DROP)
+        o = F.scaled_dot_product_attention(*leaves, dropout_p=bwd_rate)
         do_t = do.transpose(1, 2)
         out["bwd"] = best_ms(lambda: torch.autograd.grad(o, leaves, do_t, retain_graph=True))
     return out
@@ -2747,8 +2774,8 @@ def config_moe(root: Path, seed: int, trainer=None, **dataset):
     """configs/interm_1b_moe.yaml with its mesh (fsdp 2 x expert_par 4) cut to
     the one card and PRISM's variables on a synthetic split at LOW_1B
     (write_dataset's `dataset` arguments). The scale-down leaves expert_par
-    as it is, as JAX's does, and the expert axis is not ported: it is cut to
-    1 here by hand."""
+    as it is, as JAX's does; one process holds every expert, so it is cut
+    to 1 here by hand (phase seqexpert runs the expert axis on two ranks)."""
     cfg = slice_config(root, seed, CONFIG_MOE, trainer=trainer, low=LOW_1B, **dataset)
     cfg.parallelism.expert_par = 1
     return cfg
@@ -4110,8 +4137,10 @@ def attention_by_head():
     import orbit2_tpu_torch.models.components.blocks as blocks
     from orbit2_tpu_torch.ops.flash_attention import flash_attention_reference
 
-    def attention(q, k, v, impl, scale=None, dropout_rate=0.0, generator=None, fold=()):
-        check(dropout_rate == 0.0, "attention_by_head serves eval mode only")
+    def attention(q, k, v, impl, scale=None, dropout_rate=0.0, generator=None, fold=(),
+                  seq=None):
+        check(dropout_rate == 0.0 and seq is None,
+              "attention_by_head serves eval mode on one device only")
         out = torch.empty_like(q)
         for b in range(q.shape[0]):
             for h in range(q.shape[2]):
@@ -4692,6 +4721,660 @@ def mesh_worker(rank: int, port: str, out_dir: str):
     dist.destroy_process_group()
 
 
+# the seq and expert axes (phase seqexpert, after mesh): (a) configs/
+# interm_1b.yaml's model at full width (embed 3072, 24 heads of d 128, its
+# full remat), depth cut to SEQ_DEPTH (two ranks on the card sum the Blocks'
+# fp32 gradients, 3.6 GB a step at depth 8, through gloo's host copies: ~10
+# s a step), on SEQ_LOW crops without tiling (2,048 tokens, N/s 1,024 at seq
+# 2), SEQ_BATCH a step, bf16: SEQ_STEPS steps of Trainer.fit on two gloo
+# ranks of the card at seq 2 under gather and Ulysses (dropout SEQ_DROP) and
+# ring (dropout 0: ring with dropout is the gather path), each against the
+# same fit on one unwrapped rank: the losses and the parameters, all of them
+# as one vector, within relative Frobenius SEQEXP_REL (the ranks' dropout
+# masks fold the seq coordinate, so they are not the one rank's, and a
+# zero-initialised bias moved by two steps differs by far more than that
+# relative to itself), launches exact. The first epoch's warm-up rate leaves
+# the parameters at their draw and the CNN path sets the loss, so what holds
+# the trunk is its first step's gradients, all of them as one vector, at
+# dropout 0 (a one-step fit for gather and Ulysses) within relative
+# Frobenius SEQEXP_GRAD_REL of one rank's: sound bf16 readings are 2.0e-3 to
+# 2.2e-3, a trunk that skips the seq sum of its gradients reads 0.51, gather
+# on the rank's own keys alone 0.14 (chip_faults.py plants such faults;
+# PERF.md §6); (b) configs/interm_1b_moe.yaml at full width, depth cut to
+# EXPERT_DEPTH (MoE Blocks 1 and 3, 8 experts each: full depth is ~2.0B a
+# rank, too much for two ranks on one card), its tiles, EXPERT_BATCH tiles a
+# step, at expert 2 on two gloo ranks against one rank: the trunk's
+# first-step gradients but the expert stacks' (whole on every rank; upstream
+# of an MoE layer they take its expert sums' backward) within
+# SEQEXP_GRAD_REL (sound: 0, bit-equal; the MoE's f skipped: 6.0e-2), the
+# dense parameters bit-equal on both ranks; (c) four gloo ranks, fp32 on the
+# kernels, MESH_TWO's width: one step at seq 2 x fsdp 2 under each impl, and
+# at expert 2 x fsdp 2 and expert 2 x tensor 2 on an MoE variant (MESH_MOE),
+# against the one-rank step within MESH_REL (each gradient relative to its
+# own norm, or to GRAD_FLOOR of the largest where its own is below that).
+# The weights of (a) and (b) are drawn on the card from SEQEXP_SEED (a host
+# draw of 1.1B takes minutes)
+SEQ_LOW = (64, 128)
+SEQ_DEPTH = 4
+SEQ_BATCH = 8
+SEQ_STEPS = 2
+SEQ_DROP = 0.1
+SEQ_IMPL_DROP = {"gather": SEQ_DROP, "ulysses": SEQ_DROP, "ring": 0.0}
+SEQEXP_REL = 0.02
+SEQEXP_GRAD_REL = 1e-2
+SEQEXP_SEED = 23
+EXPERT_DEPTH = 4
+EXPERT_BATCH = 8
+MESH_MOE = dict(moe_experts=4, moe_every=2)
+GRAD_FLOOR = 1e-3
+EXPERT_STACKS = r"moe_mlp\.(wi|bi|wo|bo)$"
+# the gradients (a) and (b) hold: the trunk's, (b) but the expert stacks'
+TRUNK = r"^blocks\."
+TRUNK_DENSE = r"^blocks\.(?!.*moe_mlp\.(wi|bi|wo|bo)$)"
+SEQEXP_MESHES = {**{f"seq_{impl}": dict(seq=2, fsdp=2) for impl in SEQ_IMPL_DROP},
+                 "expert_fsdp": dict(expert=2, fsdp=2), "expert_tensor": dict(expert=2, tensor=2)}
+
+
+def seqexpert_configs(root: Path, seed: int):
+    """(the seq config at seq 2, the MoE config at expert 2) as raw dicts,
+    each on a synthetic train split under `root`."""
+    seq = raw_config(root / "seq", seed, CONFIG_1B, trainer={"batch_size": SEQ_BATCH},
+                     model={"depth": SEQ_DEPTH}, n_files=1, t=SEQ_BATCH * SEQ_STEPS,
+                     low=SEQ_LOW, shards=("train",))
+    seq["tiling"] = {"do_tiling": False}
+    seq["parallelism"] = {"seq_par": 2}
+    # one 252 x 504 field cuts 16 tiles of 66 x 132: SEQ_STEPS batches
+    moe = raw_config(root / "moe", seed, CONFIG_MOE, trainer={"batch_size": EXPERT_BATCH},
+                     model={"depth": EXPERT_DEPTH}, n_files=1, t=1, low=LOW_1B,
+                     shards=("train",))
+    moe["parallelism"] = {"expert_par": 2}
+    return seq, moe
+
+
+def drawn_weights(cfg, seed: int):
+    """The config's model's weights drawn on the card (evaluate.py::materialize
+    from a CUDA generator at `seed`), as a state dict on the host."""
+    from orbit2_tpu_torch.evaluate import load_module, make_data_module, materialize, model_kwargs
+
+    key = next(iter(cfg.data.low_res_dir))
+    dm = make_data_module(cfg, key, cfg.tiling.effective_div, cfg.tiling.effective_overlap)
+    with torch.device("meta"):
+        model = load_module(cfg, dm, dict(model_kwargs(cfg), generator=None))[0]
+    materialize(model, "cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+    state = {k: t.detach().cpu() for k, t in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    return state
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Host seconds inside the collectives torch.distributed hands gloo (each
+    synced with the device around it; an async one waited for): yields a
+    dict {"s": seconds, "calls": n}."""
+    import torch.distributed as dist
+
+    names = ("all_reduce", "all_gather", "all_gather_into_tensor", "reduce_scatter_tensor",
+             "all_to_all_single", "broadcast")
+    saved = {n: getattr(dist, n) for n in names}
+    took = {"s": 0.0, "calls": 0}
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            work = fn(*args, **kwargs)
+            if work is not None and hasattr(work, "wait"):
+                work.wait()
+            torch.cuda.synchronize()
+            took["s"] += time.perf_counter() - t0
+            took["calls"] += 1
+            return work
+        return run
+
+    for n, fn in saved.items():
+        setattr(dist, n, timed(fn))
+    try:
+        yield took
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def rel_params(got, want):
+    """(the largest relative Frobenius error of a parameter, its name, the
+    whole state's relative Frobenius error) of `got` against `want`."""
+    rel = {k: rel_frob(got[k].float(), want[k].float()) for k in want}
+    worst = max(rel, key=rel.get)
+    num = sum(float((got[k].float() - want[k].float()).norm() ** 2) for k in want)
+    den = sum(float(want[k].float().norm() ** 2) for k in want)
+    return rel[worst], worst, math.sqrt(num / den)
+
+
+@contextlib.contextmanager
+def first_step_grads(of=TRUNK):
+    """Keeps the first train step's gradients as the optimizer takes them
+    (after the seq sum, training/train.py::reduce_seq_grads) of the
+    parameters whose names match the regex `of`, each whole (full_tensor:
+    every rank keeps them) in fp32 on the host: yields the dict it fills."""
+    import orbit2_tpu_torch.training.train as train
+    from orbit2_tpu_torch.parallel import full_tensor
+
+    summed, grads = train.reduce_seq_grads, {}
+
+    def keep(model):
+        summed(model)
+        if not grads:
+            grads.update({n: full_tensor(p.grad).float().cpu()
+                          for n, p in model.named_parameters()
+                          if p.grad is not None and re.search(of, n)})
+
+    train.reduce_seq_grads = keep
+    try:
+        yield grads
+    finally:
+        train.reduce_seq_grads = summed
+
+
+def rel_grads(got, want):
+    """(the whole gradient's relative Frobenius error, the largest of one
+    parameter's relative to its own norm or, below that, to GRAD_FLOOR of
+    the largest's, its name) of `got` against `want`."""
+    check(set(got) == set(want), f"gradients of {sorted(set(got) ^ set(want))}")
+    num = sum(float((got[k] - g).norm() ** 2) for k, g in want.items())
+    den = sum(float(g.norm() ** 2) for g in want.values())
+    floor = GRAD_FLOOR * max(float(g.norm()) for g in want.values())
+    rel = {k: float((got[k] - g).norm()) / max(float(g.norm()), floor) for k, g in want.items()}
+    worst = max(rel, key=rel.get)
+    return math.sqrt(num / den), rel[worst], worst
+
+
+def fit_run(cfg, weights, label, steps=SEQ_STEPS, grads_of=TRUNK):
+    """Trainer.fit of `cfg` from `weights`, `steps` steps: {losses,
+    launches (K5's also by [rows, cols]), seconds, collective seconds, peak
+    GiB}, the parameters gathered whole on the host and the first step's
+    gradients (first_step_grads(grads_of)), on every rank."""
+    from orbit2_tpu_torch.parallel import full_state_dict
+    from orbit2_tpu_torch.training.trainer import Trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, "cuda", state_dict=weights)
+    reset_counts()
+    with timed_collectives() as coll, launch_widths(kernels()["fused_dropout"]) as widths:
+        with first_step_grads(grads_of) as grads:
+            hist = trainer.fit(max_epochs=1, max_steps_per_epoch=steps)
+        torch.cuda.synchronize()
+    launched = counts()
+    params = (full_state_dict(trainer.model) if trainer.mesh is not None else
+              {k: t.detach().cpu() for k, t in trainer.model.state_dict().items()})
+    out = {"losses": [r["loss"] for r in hist], "batches": hist[0]["batches"],
+           "launches": launched, "k5_widths": sorted([r, c, n] for (r, c), n in widths.items()),
+           "fit_s": hist[0]["seconds"], "collective_s": coll["s"],
+           "collective_calls": coll["calls"],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"  {label}: losses {out['losses']}, {out['fit_s']:.2f} s for {steps} steps "
+          f"({coll['s']:.2f} s in {coll['calls']} collectives), peak {out['peak_gib']:.2f} GiB, "
+          f"launches {launched}", flush=True)
+    del trainer
+    gc.collect()  # FSDP2's hooks hold the model in reference cycles
+    torch.cuda.empty_cache()
+    return out, params, grads
+
+
+def seqexp_config(raw, drop_rate=None, **par):
+    """load_config of a copy of `raw` with these parallelism entries and,
+    given one, this model drop_rate."""
+    from orbit2_tpu_torch.config import load_config
+
+    raw = copy.deepcopy(raw)
+    raw["parallelism"].update(par)
+    if drop_rate is not None:
+        raw["model"]["drop_rate"] = drop_rate
+    return load_config(raw)
+
+
+def one_rank_fits(seq_raw, moe_raw, seq_w, moe_w):
+    """Phase seqexpert's one-rank fits, unwrapped: (a)'s at each dropout
+    rate of SEQ_IMPL_DROP, the trunk's first-step gradients kept at rate 0,
+    and (b)'s, the trunk's but the expert stacks'. {rate | "moe": (fit_run's
+    result, params, grads)}."""
+    refs = {}
+    for rate in sorted(set(SEQ_IMPL_DROP.values())):
+        run, params, grads = fit_run(seqexp_config(seq_raw, seq_par=1, drop_rate=rate), seq_w,
+                                     f"(a) one rank, dropout {rate:g}")
+        refs[rate] = (run, params, grads if rate == 0 else None)
+    refs["moe"] = fit_run(seqexp_config(moe_raw, expert_par=1), moe_w, "(b) one rank",
+                          grads_of=TRUNK_DENSE)
+    return refs
+
+
+def seq_fits(rank, seq_raw, seq_w, refs):
+    """Phase seqexpert (a) on one of its two ranks: under each impl, one
+    step at dropout 0, the trunk's gradients against the one rank's first
+    step's (SEQEXP_GRAD_REL), then SEQ_STEPS steps at the impl's dropout rate:
+    launches exact, losses and parameters within SEQEXP_REL of one rank's
+    (ring's one fit serves both). Returns rank 0's results."""
+    from orbit2_tpu_torch.config import load_config
+
+    m = load_config(seq_raw).model
+    seq_tokens = (SEQ_LOW[0] // m.patch_size) * (SEQ_LOW[1] // m.patch_size)
+    result = {}
+    for impl, rate in SEQ_IMPL_DROP.items():
+        run, params, grads = fit_run(seqexp_config(seq_raw, seq_impl=impl, drop_rate=rate), seq_w,
+                                     f"(a) seq 2 {impl} rank {rank}")
+        if rate:
+            grads = fit_run(seqexp_config(seq_raw, seq_impl=impl, drop_rate=0.0), seq_w,
+                            f"(a) seq 2 {impl} rank {rank}, dropout 0", steps=1)[2]
+        base = remat_launches(m.depth)
+        chunks = 2 if impl == "ring" else 1
+        want = only(flash_attn_fwd=chunks * base["flash_attn_fwd"] * SEQ_STEPS,
+                    flash_attn_bwd_dq=chunks * base["flash_attn_bwd_dq"] * SEQ_STEPS,
+                    flash_attn_bwd_dkv=chunks * base["flash_attn_bwd_dkv"] * SEQ_STEPS,
+                    fused_dropout=base["fused_dropout"] * SEQ_STEPS if rate else 0)
+        check(run["launches"] == want, f"seq {impl}: launches {run['launches']}, want {want}")
+        # K5 at pos_drop on the whole tokens, at the Blocks' sites on the
+        # rank's half (remat_launches' count by site)
+        rows, d = SEQ_BATCH * seq_tokens, m.embed_dim
+        want_widths = sorted([[rows, d, 2 * SEQ_STEPS],
+                              [rows // 2, d, (6 * m.depth - 1) * SEQ_STEPS],
+                              [rows // 2, int(d * m.mlp_ratio), 3 * m.depth * SEQ_STEPS]]
+                             if rate else [])
+        check(run["k5_widths"] == want_widths,
+              f"seq {impl}: K5 by [rows, cols, launches] {run['k5_widths']}, want "
+              f"{want_widths}")
+        if rank == 0:
+            ref, ref_params, _ = refs[rate]
+            grad_rel, grad_worst, grad_name = rel_grads(grads, refs[0.0][2])
+            print(f"  (a) seq 2 {impl}: the trunk's first-step gradients at dropout 0 within "
+                  f"{grad_rel:.3e} relative Frobenius of one rank's (the worst parameter "
+                  f"{grad_name}: {grad_worst:.3e})", flush=True)
+            check(grad_rel <= SEQEXP_GRAD_REL,
+                  f"seq {impl}: the trunk's first-step gradients {grad_rel:.3e} from one "
+                  f"rank's")
+            worst, name, whole = rel_params(params, ref_params)
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref["losses"]))
+            check(whole <= SEQEXP_REL and loss_rel <= SEQEXP_REL,
+                  f"seq {impl}: parameters {whole:.3e} (worst {name}: {worst:.3e}), losses "
+                  f"{loss_rel:.3e} from one rank's")
+            run.update(one_rank=ref, param_rel=worst, param_worst=name, state_rel=whole,
+                       loss_rel=loss_rel, grad_rel=grad_rel, grad_param_rel=grad_worst,
+                       grad_worst=grad_name)
+            result[f"seq_{impl}"] = run
+        del params, grads
+    return result
+
+
+def expert_fit(rank, world, moe_raw, moe_w, refs):
+    """Phase seqexpert (b) on one of its two ranks: SEQ_STEPS steps at
+    expert 2, launches exact, the dense parameters bit-equal on both ranks,
+    the trunk's first-step gradients but the expert stacks' within
+    SEQEXP_GRAD_REL of one rank's (they take the expert sums' backward),
+    losses and parameters within SEQEXP_REL. Returns rank 0's results."""
+    import torch.distributed as dist
+
+    from orbit2_tpu_torch.config import load_config
+
+    run, params, grads = fit_run(seqexp_config(moe_raw), moe_w, f"(b) expert 2 rank {rank}",
+                                 grads_of=TRUNK_DENSE)
+    mm = load_config(moe_raw).model
+    moe_blocks = sum((i + 1) % mm.moe_every == 0 for i in range(mm.depth))
+    want = only(**{k: v * SEQ_STEPS for k, v in remat_launches(
+        mm.depth, moe_blocks=moe_blocks).items()})
+    check(run["launches"] == want, f"expert: launches {run['launches']}, want {want}")
+    dense = equal = 0
+    for name, t in params.items():  # whole on both ranks: the dense ones the same
+        if re.search(EXPERT_STACKS, name):
+            continue  # the expert stacks, gathered from both ranks' experts
+        both = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(both, t.contiguous())
+        dense += 1
+        equal += int(torch.equal(both[0], both[1]))
+    check(dense > 0 and equal == dense,
+          f"expert: {dense - equal} of {dense} dense parameters differ across expert ranks")
+    if rank != 0:
+        return {}
+    ref, ref_params, ref_grads = refs["moe"]
+    grad_rel, grad_worst, grad_name = rel_grads(grads, ref_grads)
+    print(f"  (b) expert 2: the trunk's first-step gradients but the expert stacks' within "
+          f"{grad_rel:.3e} relative Frobenius of one rank's (the worst parameter {grad_name}: "
+          f"{grad_worst:.3e})", flush=True)
+    check(grad_rel <= SEQEXP_GRAD_REL,
+          f"expert: the trunk's first-step gradients {grad_rel:.3e} from one rank's")
+    worst, name, whole = rel_params(params, ref_params)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], ref["losses"]))
+    check(whole <= SEQEXP_REL and loss_rel <= SEQEXP_REL,
+          f"expert: parameters {whole:.3e} (worst {name}: {worst:.3e}), losses "
+          f"{loss_rel:.3e} from one rank's")
+    run.update(one_rank=ref, param_rel=worst, param_worst=name, state_rel=whole,
+               loss_rel=loss_rel, dense_equal=f"{equal} of {dense}", grad_rel=grad_rel,
+               grad_param_rel=grad_worst, grad_worst=grad_name)
+    return {"expert": run}
+
+
+def seqexpert_worker(mode: str, rank: int, world: int, port: str, out_dir: str):
+    """One rank of phase seqexpert: mode "full" ((a) and (b), 2 ranks: rank 0
+    runs the one-rank fits before the group starts) or "strict" ((c), 4
+    ranks). Rank 0 writes OUT_DIR/{mode}.json; a failing check raises."""
+    import datetime
+    import faulthandler
+
+    import torch.distributed as dist
+
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    out = Path(out_dir)
+
+    def join():
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=900))
+
+    if mode == "strict":
+        join()
+        result = strict_meshes(rank)
+    else:
+        import yaml
+
+        raws = yaml.safe_load((out / "configs.yaml").read_text())
+        seq_raw, moe_raw = raws["seq"], raws["moe"]
+        seq_w = drawn_weights(seqexp_config(seq_raw, seq_par=1), SEQEXP_SEED)
+        moe_w = drawn_weights(seqexp_config(moe_raw, expert_par=1), SEQEXP_SEED + 1)
+        # the one-rank fits run before the group starts
+        refs = one_rank_fits(seq_raw, moe_raw, seq_w, moe_w) if rank == 0 else {}
+        join()
+        result = seq_fits(rank, seq_raw, seq_w, refs)
+        result.update(expert_fit(rank, world, moe_raw, moe_w, refs))
+    if rank == 0:
+        (out / f"{mode}.json").write_text(json.dumps(result))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def strict_meshes(rank: int):
+    """Phase seqexpert (c) on one rank: MESH_TWO's fp32 step, dense (seq
+    meshes) and with MESH_MOE (expert meshes), on each of SEQEXP_MESHES
+    against the one-rank step (rank 0, unwrapped). Returns rank 0's results."""
+    import torch.distributed as dist
+
+    from orbit2_tpu_torch.evaluate import materialize
+    from orbit2_tpu_torch.metrics.metrics import METRICS_REGISTRY
+    from orbit2_tpu_torch.models import ResSlimViT
+    from orbit2_tpu_torch.parallel import (
+        data_group, data_rank, data_size, full_tensor, make_mesh, shard_model)
+    from orbit2_tpu_torch.training.optim import make_optimizer
+    from orbit2_tpu_torch.training.train import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(attention_impl="auto", drop_rate=0.0, drop_path=0.0, learn_pos_emb=True,
+              spatial_resolution=111.0, superres_mag=4, patch_size=2,
+              **{k: v for k, v in MESH_TWO.items() if k != "batch"})
+    args = (BENCH_VARS, (64, 128), 7, 3)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(MESH_TWO["batch"], 7, 64, 128)).astype(np.float32))
+    y = torch.from_numpy((rng.normal(size=(MESH_TWO["batch"], 3, 256, 512)) * 0.5)
+                         .astype(np.float32))
+    x, y = x.cuda(), y.cuda()
+    loss_fn = METRICS_REGISTRY["bayesian_tv"](aggregate_only=True)
+
+    def step_of(model):
+        opt = make_optimizer("adamw", {"lr": 1e-4}, model.named_parameters())
+        return make_train_step(model, loss_fn, None, opt, BENCH_VARS, BENCH_VARS[4:])
+
+    def drawn():  # the one-process draw, on the card (a host draw costs seconds a rank)
+        return torch.Generator(device="cuda").manual_seed(MESH_TWO_SEED)
+
+    ones = {}
+    if rank == 0:  # the one-rank steps, unwrapped
+        for kind, extra in (("dense", {}), ("moe", MESH_MOE)):
+            with torch.device("meta"):
+                ref = ResSlimViT(*args, **kw, **extra)
+            materialize(ref, "cuda", generator=drawn())
+            loss = step_of(ref)(x, y, torch.Generator(), None).item()
+            ones[kind] = (loss, {k: p.grad.detach().cpu() for k, p in ref.named_parameters()
+                                 if p.grad is not None})
+            del ref
+    result, depth = {}, MESH_TWO["depth"]
+    for name, axes in SEQEXP_MESHES.items():
+        seq = name.startswith("seq_")
+        extra = dict(seq_shard=True, seq_impl=name[4:]) if seq else MESH_MOE
+        mesh = make_mesh(device_type="cuda", **axes)
+        with torch.device("meta"):
+            skeleton = ResSlimViT(*args, **kw, **extra)
+        model = shard_model(copy.deepcopy(skeleton), mesh)
+        model.to_empty(device="cuda")
+        materialize(skeleton, "cuda", generator=drawn(), into=model)
+        xs, ys = (t.chunk(data_size(mesh))[data_rank(mesh)] for t in (x, y))
+        step = step_of(model)
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = step(xs, ys, torch.Generator(), None).detach().clone()
+        torch.cuda.synchronize()
+        step_s, launched = time.perf_counter() - t0, counts()
+        chunks = 2 if name == "seq_ring" else 1
+        want = only(flash_attn_fwd=chunks * depth, flash_attn_bwd_dq=chunks * depth,
+                    flash_attn_bwd_dkv=chunks * depth)
+        check(launched == want, f"(c) {name}: launches {launched}, want {want}")
+        dist.all_reduce(loss, group=data_group(mesh))
+        loss = loss.item() / data_size(mesh)
+        grads = {k: full_tensor(p.grad).cpu() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        if rank == 0:
+            loss_one, one = ones["dense" if seq else "moe"]
+            check(set(grads) == set(one), f"(c) {name}: gradients of {set(grads) ^ set(one)}")
+            # a gradient near zero (the MoE variant's token embeddings: ~1e-7 of
+            # the largest) is held against GRAD_FLOOR of the largest gradient's
+            # norm: relative to itself its fp32 rounding exceeds MESH_REL
+            floor = GRAD_FLOOR * max(float(g.norm()) for g in one.values())
+            rel = {k: float((grads[k] - g).norm()) / max(float(g.norm()), floor)
+                   for k, g in one.items()}
+            worst = max(rel, key=rel.get)
+            r = {"loss": loss, "loss_one": loss_one, "max_rel": rel[worst], "worst": worst,
+                 "launches": launched, "step_s": step_s}
+            print(f"  (c) {name} {axes}, fp32 on the kernels: loss {loss!r} against one rank's "
+                  f"{loss_one!r}; gradients within {rel[worst]:.3e} relative Frobenius "
+                  f"({worst}); {step_s:.3f} s a step", flush=True)
+            check(abs(loss - loss_one) <= MESH_REL * abs(loss_one) and rel[worst] <= MESH_REL,
+                  f"(c) {name} differs from the one-rank step: {r}")
+            result[name] = r
+        del model, step, grads
+        torch.cuda.empty_cache()
+    return result
+
+
+def launch_ranks(mode: str, world: int, out: Path, timeout: int):
+    """The `world` ranks of seqexpert_worker(mode) on the card; a rank that
+    fails or dies fails the phase. Returns rank 0's json."""
+    port = str(free_port())
+    # the ranks share the card with this process: segments that grow spare
+    # them the caching allocator's fragments
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--seqexpert-worker", mode, str(r), str(world), port, str(out)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    print("\n".join(line for line in logs[0].splitlines() if line.startswith("  (")))
+    failed = [f"{mode} rank {r} exited {p.returncode}:\n{logs[r][-3000:]}"
+              for r, p in enumerate(procs) if p.returncode != 0]
+    check(not failed, "\n".join(failed))
+    return json.loads((out / f"{mode}.json").read_text())
+
+
+def check_ring_chunks(q, k, v, do, case):
+    """K1-K3 as ring attention calls them at seq 2 on one rank's queries: K1
+    on each half of k/v, the (o, lse) merged as ops/ring_attention.py does,
+    against the plain forward over all keys; K2 and K3 per half fed the
+    merged o and global lse, dq summed, against the plain gradients over all
+    keys. Returns {name: max abs error}."""
+    from orbit2_tpu_torch.ops.flash_attention import (
+        attention_delta, flash_attention_bwd, flash_attention_fwd, flash_attention_reference)
+    from orbit2_tpu_torch.ops.ring_attention import _per_row
+
+    b, n, h, d = q.shape
+    halves = list(zip(k.chunk(2, 1), v.chunk(2, 1)))
+    m = torch.full((b * h, n), float("-inf"), device="cuda")
+    den = torch.zeros((b * h, n), device="cuda")
+    num = torch.zeros((b, n, h, d), device="cuda")
+    for kc, vc in halves:
+        o_j, lse_j = flash_attention_fwd(q, kc.contiguous(), vc.contiguous())
+        m_new = torch.maximum(m, lse_j)
+        c_old, c_new = torch.exp2(m - m_new), torch.exp2(lse_j - m_new)
+        num = num * _per_row(c_old, b, h) + o_j.float() * _per_row(c_new, b, h)
+        den, m = den * c_old + c_new, m_new
+    o = (num / _per_row(den, b, h)).to(q.dtype)
+    lse = (m + torch.log2(den)).contiguous()
+    want_o, want_lse = flash_attention_reference(q, k, v)
+    err = {"fwd": hold_forward(o, lse, want_o, want_lse, f"{case}, merged over 2 chunks")}
+    delta = attention_delta(o, do)
+    parts = [flash_attention_bwd(q, kc.contiguous(), vc.contiguous(), o, lse, do, d ** -0.5,
+                                 delta=delta) for kc, vc in halves]
+    dq = sum(p[0].float() for p in parts).to(q.dtype)
+    dk = torch.cat([p[1] for p in parts], 1)
+    dv = torch.cat([p[2] for p in parts], 1)
+    e, line = hold_grads([dq, dk, dv], plain_grads(q, k, v, do, None), case)
+    print(f"  bwd {case}, per chunk against the global lse: {line}")
+    err.update(e)
+    return err
+
+
+def seq_rows(shapes, gen, seed, call_s, smi):
+    """K1, K2 and K3's rows at phase seqexpert's call shapes, {(path, name):
+    row}: `shapes` maps a path to (b, n_q, n_k, h, d, dropout, launches a
+    step by kernel name). Each by events and by its kernel time alone, its
+    plain version (two batch elements at a time), SDPA's flash backend at
+    the same shapes and dropout (its whole backward for K2 and K3) and its
+    bound."""
+    from orbit2_tpu_torch.ops.flash_attention import (
+        FLASH_BWD_DKV, FLASH_BWD_DQ, attention_delta, attention_flops,
+        flash_attention_bwd_reference, flash_attention_fwd, flash_attention_reference)
+    from orbit2_tpu_torch.ops.kernel_prng import keep_mult
+
+    rows = {}
+    for path, (b, n_q, n_k, h, d, rate, launched) in shapes.items():
+        q, k, v = make_qkv(b, n_q, n_k, h, d, torch.bfloat16, gen)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        o, lse = flash_attention_fwd(q, k, v, None, rate, seed)
+        delta = attention_delta(o, do)
+        parts = [slice(i, min(b, i + 2)) for i in range(0, b, 2)]
+        mults = [keep_mult(seed, n_q, n_k, rate, streams=(sl.stop - sl.start) * h,
+                           device="cuda", first_stream=sl.start * h) if rate else None
+                 for sl in parts]
+
+        def plain_fwd():
+            for sl, mult in zip(parts, mults):
+                flash_attention_reference(q[sl], k[sl], v[sl], None, mult)
+
+        def plain_bwd():
+            for sl, mult in zip(parts, mults):
+                flash_attention_bwd_reference(q[sl], k[sl], v[sl], o[sl],
+                                              lse[sl.start * h:sl.stop * h], do[sl], d ** -0.5,
+                                              mult)
+
+        lib = sdpa_ms(q, k, v, do, bwd_rate=rate)
+        att = attention_flops(b, n_q, n_k, h, d)
+        rows_f32 = 4 * b * h * n_q
+        calls = b * h * n_q * n_k / ELEMENTS_PER_CALL if rate else 0
+        fns = {
+            "flash_attn_fwd": (lambda: flash_attention_fwd(q, k, v, None, rate, seed), plain_fwd,
+                               lib["fwd"][DROP if rate else 0.0],
+                               roofline(att, nbytes(q, k, v, q) + rows_f32), "fwd"),
+            "flash_attn_bwd_dq": (
+                lambda: FLASH_BWD_DQ(q, k, v, do, lse, delta, d ** -0.5, rate, seed), plain_bwd,
+                lib["bwd"], roofline(1.5 * att, nbytes(q, k, v, do, q) + 2 * rows_f32), "dq"),
+            "flash_attn_bwd_dkv": (
+                lambda: FLASH_BWD_DKV(q, k, v, do, lse, delta, d ** -0.5, rate, seed), plain_bwd,
+                lib["bwd"], roofline(2 * att, nbytes(q, k, v, do, k, v) + 2 * rows_f32), "dkv"),
+        }
+        plain_ms = {}
+        for name, (fn, plain, library, bound, op) in fns.items():
+            if plain not in plain_ms:
+                plain_ms[plain] = cuda_ms(plain, iters=3, warmup=1)
+            bound = max(bound, (calls * call_s[op] * 1e3, "operations"))
+            r = rows[(path, name)] = {
+                "shape": [b, n_q, n_k, h, d], "dropout": rate, "ms": cuda_ms(fn),
+                "kernel_ms": kernel_ms(fn), "plain_ms": plain_ms[plain], "library_ms": library,
+                "bound_ms": bound[0], "bound_by": bound[1], "launches_per_step": launched[name]}
+            print(f"  {path} {name} bf16 B{b} Nq{n_q} Nk{n_k} H{h} d{d} drop {rate:g}: "
+                  f"{r['ms']:.4f} ms (kernel alone {r['kernel_ms']:.4f}), plain "
+                  f"{r['plain_ms']:.4f}, SDPA (flash) {library:.4f}; bound {bound[0]:.4f} "
+                  f"({bound[1]}); {launched[name]} launches a step; gpu: {smi}")
+        del q, k, v, do, o, lse, delta, mults
+        torch.cuda.empty_cache()
+    return rows
+
+
+def seqexpert_phase(root: Path, seed: int, call_s, smi):
+    """Phase seqexpert (the constants' comment): (a) and (b) on two gloo
+    ranks, (c) on four; then K1-K3 at the seq path's new call shapes against
+    their plain versions (gather: N_q N/2 against N_k N; Ulysses: N with
+    half the heads; a ring chunk, its halves merged and K2/K3 fed the merged
+    lse), their rows, and K5's at the path's widths. Returns what the
+    kernels line reads."""
+    import yaml
+
+    from orbit2_tpu_torch.config import load_config
+
+    seq_raw, moe_raw = seqexpert_configs(root, seed)
+    (root / "configs.yaml").write_text(yaml.safe_dump({"seq": seq_raw, "moe": moe_raw}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"  this process holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+          f"({torch.cuda.memory_reserved() / 2 ** 30:.2f} reserved); the card has "
+          f"{free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB free", flush=True)
+    full = launch_ranks("full", 2, root, timeout=600)
+    strict = launch_ranks("strict", 4, root, timeout=300)
+
+    m = load_config(seq_raw).model
+    h, d = m.num_heads, m.embed_dim // m.num_heads
+    n = (SEQ_LOW[0] // m.patch_size) * (SEQ_LOW[1] // m.patch_size)
+    launched = {impl: {k: v // SEQ_STEPS for k, v in full[f"seq_{impl}"]["launches"].items()}
+                for impl in SEQ_IMPL_DROP}
+    shapes = {"seqexpert gather": (SEQ_BATCH, n // 2, n, h, d, SEQ_DROP, launched["gather"]),
+              "seqexpert ulysses": (SEQ_BATCH, n, n, h // 2, d, SEQ_DROP, launched["ulysses"]),
+              "seqexpert ring": (SEQ_BATCH, n // 2, n // 2, h, d, 0.0, launched["ring"])}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kseed = 2 ** 43 + seed
+    errs = {}
+    for path, (b, n_q, n_k, hh, dd, rate, _) in shapes.items():
+        case = f"{path} bf16 drop {rate:g} B{b} Nq{n_q} Nk{n_k} H{hh} d{dd}"
+        if path.endswith("ring"):  # one rank's queries against both halves of all N keys
+            q, k, v = make_qkv(b, n_q, 2 * n_k, hh, dd, torch.bfloat16, gen)
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+            errs[path] = check_ring_chunks(q, k, v, do, case)
+        else:
+            q, k, v = make_qkv(b, n_q, n_k, hh, dd, torch.bfloat16, gen)
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+            errs[path] = check_batch_rows(q, k, v, do, rate, kseed, [0, b - 1], case)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    rows = seq_rows(shapes, gen, kseed, call_s, smi)
+    # K5 at the seq path's shapes, each with the gather fit's launches at it
+    k5 = {}
+    for r, c, launches in full["seq_gather"]["k5_widths"]:
+        check_dropout(r, c, torch.bfloat16, SEQ_DROP, gen, kseed)
+        k5[(r, c)] = k5_row((r, c), torch.bfloat16, SEQ_DROP, gen, kseed, launches, smi,
+                            "seqexpert gather")
+    out = {"seq": {impl: {k: full[f"seq_{impl}"][k] for k in (
+        "losses", "launches", "k5_widths", "fit_s", "collective_s", "collective_calls", "peak_gib",
+        "param_rel", "param_worst", "state_rel", "loss_rel", "grad_rel", "grad_param_rel",
+        "grad_worst")} | {
+            "one_rank": full[f"seq_{impl}"]["one_rank"]} for impl in SEQ_IMPL_DROP},
+           "expert": full["expert"], "strict": strict,
+           "geometry": {"seq": [SEQ_BATCH, n, h, d, m.depth], "expert_depth": EXPERT_DEPTH,
+                        "expert_batch_tiles": EXPERT_BATCH}}
+    return {"out": out, "rows": rows, "errs": errs, "k5": k5, "launched": full}
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Routes the model's kernel calls to the kernels' plain PyTorch versions
@@ -4703,7 +5386,9 @@ def plain_versions():
     from orbit2_tpu_torch.ops.flash_attention import attention_mult, flash_attention_reference
     from orbit2_tpu_torch.ops.kernel_prng import draw_seed, fold_seed, keep_mult
 
-    def attention(q, k, v, impl, scale=None, dropout_rate=0.0, generator=None, fold=()):
+    def attention(q, k, v, impl, scale=None, dropout_rate=0.0, generator=None, fold=(),
+                  seq=None):
+        check(seq is None, "plain_versions runs the tokens whole")
         seed = fold_seed(draw_seed(generator), fold) if dropout_rate > 0.0 else 0
         return flash_attention_reference(q, k, v, scale,
                                          attention_mult(q, k, dropout_rate, seed))[0]
@@ -5258,6 +5943,13 @@ def main():
     print(json.dumps({"mesh": {"gpu": smi, **mp["out"], "errors": mp["errs"]}}))
     torch.cuda.empty_cache()
 
+    # the seq and expert axes, on two and four gloo ranks of the card
+    phase("seqexpert")
+    with tempfile.TemporaryDirectory(dir=ROOT / "_smoke") as tmp:
+        se = seqexpert_phase(Path(tmp), args.seed, call_s, smi)
+    print(json.dumps({"seqexpert": {"gpu": smi, **se["out"], "errors": se["errs"]}}))
+    torch.cuda.empty_cache()
+
     # 7. the 10B config served on the card, last but one: it needs most of the card
     phase("serve10b")
     with tempfile.TemporaryDirectory(dir=ROOT / "_smoke") as tmp:
@@ -5425,6 +6117,21 @@ def main():
                      mp["rows"][("fused_dropout", shape)]["launches"], "mesh", "fused_dropout",
                      "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39", 0.0)
           for shape in mp["k5_shapes"]),
+        # the seq axis's new calls (phase seqexpert): K1-K3 at the gather,
+        # Ulysses and ring shapes, launches the two-rank fit's under each
+        # impl (a rank's), and K5 at the seq path's widths
+        *(path_entry(se["rows"], (path, name),
+                     se["launched"][f"seq_{path.split()[-1]}"]["launches"][name], path, name,
+                     source, f"orbit2_tpu/ops/flash_attention.py:{line}", err)
+          for path in ("seqexpert gather", "seqexpert ulysses", "seqexpert ring")
+          for name, source, line, err in (
+              ("flash_attn_fwd", "flash_attn_fwd.cu", 150, se["errs"][path]["fwd"]),
+              ("flash_attn_bwd_dq", "flash_attn_bwd.cu", 287, se["errs"][path]["dq"]),
+              ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", 328,
+               max(se["errs"][path]["dk"], se["errs"][path]["dv"])))),
+        *(path_entry(se["k5"], shape, se["k5"][shape]["launches"], "seqexpert gather",
+                     "fused_dropout", "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39", 0.0)
+          for shape in se["k5"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -5434,5 +6141,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-worker"]:  # one of phase mesh's two ranks
         mesh_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    elif sys.argv[1:2] == ["--seqexpert-worker"]:  # one of phase seqexpert's ranks
+        seqexpert_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
+                         sys.argv[6])
     else:
         main()

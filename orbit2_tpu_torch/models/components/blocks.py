@@ -30,8 +30,12 @@ and mlp / tensor hidden columns, and its dropout sites fold the rank's mesh
 coordinates into their seeds (`*_fold`: the data coordinate where the
 activation is replicated across the tensor axis, so every tensor rank draws
 the same mask, and the tensor coordinate too where the activation is split
-over it: the attention probabilities and the Mlp hidden). DropPath then
-takes the rank's slice of the global batch's mask (`batch_slice`).
+over it: the attention probabilities and the Mlp hidden). Where the trunk's
+tokens are split over a seq axis, every Block site folds the seq coordinate
+in as well, and the attention runs over all ranks' keys
+(`Attention.seq_split`, ops/seq_attention.py). DropPath then takes the
+rank's slice of the global batch's mask (`batch_slice`), the same on every
+expert, seq and tensor rank.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from orbit2_tpu_torch.ops.attention import dot_product_attention
 from orbit2_tpu_torch.ops.dropout import dropout
 from orbit2_tpu_torch.ops.fused_mlp import fused_mlp
 from orbit2_tpu_torch.ops.quant import w8a8_matmul
-from orbit2_tpu_torch.parallel.tensor import TensorSplit, local, reduce_from_tensor
+from orbit2_tpu_torch.parallel.tensor import SeqSplit, TensorSplit, local, reduce_from_tensor
 
 Generator = Optional[torch.Generator]
 
@@ -254,10 +258,12 @@ class Attention(nn.Module):
     probability dropout `attn_drop` inside the attention op, `proj_drop` on
     the projection. quant="w8a8" makes qkv and proj QLinears (JAX
     blocks.py:210-248); the attention op is the same. Under tensor
-    parallelism qkv yields the rank's heads (num_heads / tensor of them)."""
+    parallelism qkv yields the rank's heads (num_heads / tensor of them);
+    under a seq split (`seq_split`) x is the rank's token slice."""
 
     attn_fold: tuple = ()
     proj_fold: tuple = ()
+    seq_split: Optional[SeqSplit] = None
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
                  qk_norm: bool = False, proj_bias: bool = True, attn_drop: float = 0.0,
@@ -290,7 +296,7 @@ class Attention(nn.Module):
             q, k = self.q_norm(q), self.k_norm(k)
         rate = self.attn_drop if self.training else 0.0
         x = dot_product_attention(q, k, v, impl=self.attention_impl, dropout_rate=rate,
-                                  generator=generator, fold=self.attn_fold)
+                                  generator=generator, fold=self.attn_fold, seq=self.seq_split)
         return dropout(self.proj(x.reshape(B, N, -1)), self.proj_drop, self.training, generator,
                        self.proj_fold)
 

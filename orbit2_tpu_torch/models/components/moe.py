@@ -25,6 +25,23 @@ The JAX module's einsum formulation with a static capacity, step for step:
 Parameters carry the JAX names and layouts: router_kernel [D, E], wi
 [E, D, H], bi [E, H], wo [E, H, D], bo [E, D]; a state dict maps across
 without transposes.
+
+Expert parallelism (JAX moe.py:50-70, :149-161; `expert_split`, set by
+parallel/sharding.py::shard_model): the stacks are DTensors over the
+(expert, tensor) dims, so the rank holds E / expert of the experts, and of
+those the tensor rank's hidden columns of wi/bi and rows of wo, as the
+dense Mlp's fc1 and fc2 are split. The router, capacity and queue positions
+are computed over all E experts on every rank from the same tokens, so the
+routing is JAX's bit for bit; the dispatch and FFN einsums run for the
+rank's experts only, and their combine is summed over the expert x tensor
+ranks (Megatron's g). Its backward:
+  * the MoE input's gradient through the dispatch is the rank's experts'
+    part, summed over the group (Megatron's f on the dispatched x);
+  * the gates' gradient through the combine likewise (f on the gates), so
+    the router's gradient is whole on every rank; its load-balance part is
+    computed whole on every rank and counted once;
+  * the output bias, held whole on every tensor rank, is added by the
+    tensor rank 0 alone and its gradient summed over the tensor group.
 """
 
 from __future__ import annotations
@@ -37,6 +54,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from orbit2_tpu_torch.ops.dropout import dropout
+from orbit2_tpu_torch.parallel.tensor import ExpertSplit, copy_to_tensor, local, reduce_from_tensor
 
 
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -99,8 +117,10 @@ class MoEMlp(nn.Module):
         each token's first choice."""
         return torch.softmax(x.float() @ self.router_kernel, dim=-1)
 
-    # on a mesh: the data coordinates folded into the output dropout's seed
+    # on a mesh: the data coordinates folded into the output dropout's seed,
+    # and the split over the expert and tensor axes
     out_fold: tuple = ()
+    expert_split: Optional[ExpertSplit] = None
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
         B, L, _ = x.shape
@@ -126,6 +146,9 @@ class MoEMlp(nn.Module):
         if K > 1:
             denom = sum(gates)
             gates = [g / denom.clamp_min(1e-9) for g in gates]
+        split = self.expert_split
+        if split is not None:  # the combine's gradient is the rank's experts' part
+            gates = [copy_to_tensor(g, split.group) for g in gates]
         combine = torch.zeros(B, L, E, C, dtype=torch.float32, device=x.device)
         counts = torch.zeros(B, E, dtype=torch.int64, device=x.device)
         for oh, gate in zip(onehots, gates):
@@ -138,14 +161,22 @@ class MoEMlp(nn.Module):
             slot = _one_hot((pos * ohi).sum(dim=-1), C)  # [B, L, C]
             combine = combine + gate[..., None, None] * keep[..., None] * slot[:, :, None, :]
         cd = x.dtype
+        wi, bi, wo, bo = (local(t).to(cd) for t in (self.wi, self.bi, self.wo, self.bo))
+        if split is not None:  # the rank's experts
+            combine = combine[:, :, split.first:split.first + split.count]
+            x = copy_to_tensor(x, split.group)
+            if split.tensor_size > 1:
+                bo = copy_to_tensor(bo, split.tensor_group) * float(split.tensor_rank == 0)
         dispatch = (combine > 0.0).to(cd)
 
         # the expert FFN over [E, B, C, *]
         xin = torch.einsum("blec,bld->ebcd", dispatch, x)
-        h = torch.einsum("ebcd,edh->ebch", xin, self.wi.to(cd)) + self.bi.to(cd)[:, None, None, :]
+        h = torch.einsum("ebcd,edh->ebch", xin, wi) + bi[:, None, None, :]
         h = F.gelu(h, approximate=self.approximate)
-        out = torch.einsum("ebch,ehd->ebcd", h, self.wo.to(cd)) + self.bo.to(cd)[:, None, None, :]
+        out = torch.einsum("ebch,ehd->ebcd", h, wo) + bo[:, None, None, :]
         y = torch.einsum("blec,ebcd->bld", combine.to(cd), out)
+        if split is not None:
+            y = reduce_from_tensor(y, split.group)
         return dropout(y, self.drop, self.training, generator, self.out_fold), aux
 
 

@@ -18,8 +18,21 @@ Mlp dropout, `drop_path` the per-depth stochastic-depth rates
 linspace(0, drop_path, depth). The parameters are created in fp32 (the JAX
 module's param_dtype; masters when training) and the forward computes in
 `dtype`: x is cast to it on entry and every layer casts its weights to it
-at use, a no-op once the parameters are in `dtype` (as for serving). Pipeline
-and sequence sharding raise.
+at use, a no-op once the parameters are in `dtype` (as for serving). The
+pipelined trunk raises.
+
+Sequence parallelism (`seq_shard`, JAX res_slimvit.py:147-162, :317,
+:333-335): on a mesh with a seq axis (parallel/sharding.py::shard_model
+sets `seq_split`) the tokens are split over it where JAX pins them, after
+pos_drop and before Block 0, and gathered again before the final norm and
+the head. The split's backward all-gathers the slices' gradients and the
+gather's takes the rank's slice, so the embedding, variable aggregation,
+norm and head run on the whole tokens on every seq rank, their gradients
+whole there, and only the Blocks see the rank's slice (their gradients are
+summed over seq after the backward, parallel/sharding.py::reduce_seq_grads).
+`seq_impl` is the Blocks' sequence attention (ops/seq_attention.py). Without
+a seq axis seq_shard changes nothing, as JAX's constraint does nothing off a
+mesh.
 
 Mixture of experts (JAX res_slimvit.py:117-125, :319-330): with
 `moe_experts` > 0, every Block i with (i + 1) % moe_every == 0 holds a MoEMlp
@@ -71,6 +84,8 @@ from orbit2_tpu_torch.ops.pos_embed import (
     get_2d_sincos_pos_embed,
     interpolate_pos_embed_on_the_fly,
 )
+from orbit2_tpu_torch.ops.seq_attention import SEQ_IMPLS
+from orbit2_tpu_torch.parallel.tensor import SeqSplit, gather_tokens, split_tokens
 from orbit2_tpu_torch.registry import register_model
 
 # static surface channels appended to the residual path input
@@ -138,8 +153,10 @@ def _lecun_normal_(t: torch.Tensor, generator) -> None:
 
 @register_model("res_slimvit")
 class ResSlimViT(nn.Module):
-    # on a mesh: the data coordinates folded into pos_drop's seed
+    # on a mesh: the data coordinates folded into pos_drop's seed, and the
+    # seq axis the trunk's tokens are split over
     pos_fold: tuple = ()
+    seq_split: Optional[SeqSplit] = None
 
     def __init__(self, default_vars: Sequence[str], img_size: Tuple[int, int],
                  in_channels: int, out_channels: int, superres_mag: int = 4,
@@ -150,14 +167,17 @@ class ResSlimViT(nn.Module):
                  spatial_resolution: float = 0.0, attention_impl: str = "xla",
                  gelu_approx: str = "exact", quant: str = "none", moe_experts: int = 0,
                  moe_every: int = 2, moe_capacity_factor: float = 1.25, moe_top_k: int = 1,
-                 pipeline_stages: int = 1, seq_shard: bool = False, remat: bool = False,
-                 remat_policy: str = "full", base_img_size: Optional[Tuple[int, int]] = None,
+                 pipeline_stages: int = 1, seq_shard: bool = False, seq_impl: str = "gather",
+                 remat: bool = False, remat_policy: str = "full",
+                 base_img_size: Optional[Tuple[int, int]] = None,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if pipeline_stages > 1 or seq_shard:
+        if pipeline_stages > 1:
             raise NotImplementedError(
-                "pipeline_stages > 1 / seq_shard: the parallel trunks are not ported yet")
+                "pipeline_stages > 1: the pipelined trunk is not ported yet")
+        if seq_impl not in SEQ_IMPLS:
+            raise ValueError(f"unknown seq_impl {seq_impl!r} ({' | '.join(SEQ_IMPLS)})")
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {remat_policy!r} (full | dots)")
         if gelu_approx not in ("exact", "tanh"):
@@ -171,6 +191,7 @@ class ResSlimViT(nn.Module):
         self.embed_dim = embed_dim
         self.drop_rate = drop_rate
         self.remat, self.remat_policy = remat, remat_policy
+        self.seq_shard, self.seq_impl = seq_shard, seq_impl
         self.dtype = dtype
         self.spatial_resolution = spatial_resolution
         self.base_img_size = tuple(base_img_size or img_size)
@@ -319,6 +340,9 @@ class ResSlimViT(nn.Module):
         tokens = tokens + self.spatial_embed(res)
         tokens = dropout(tokens, self.drop_rate, self.training, dropout_gen,
                          self.pos_fold)  # pos_drop
+        seq = self.seq_split
+        if seq is not None:
+            tokens = split_tokens(tokens, seq)
         remat = self.remat and torch.is_grad_enabled()
         aux = []
         for blk in self.blocks:
@@ -329,6 +353,8 @@ class ResSlimViT(nn.Module):
             if blk.moe:
                 tokens, loss = tokens
                 aux.append(loss)
+        if seq is not None:
+            tokens = gather_tokens(tokens, seq)
         return self.norm(tokens), aux
 
     def _unpatchify(self, y, H, W):

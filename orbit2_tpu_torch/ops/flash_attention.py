@@ -299,9 +299,10 @@ def flash_attention_fwd(q, k, v, sm_scale: Optional[float] = None, dropout_rate:
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, sm_scale: float, dropout_rate: float = 0.0,
-                        seed: int = 0):
+                        seed: int = 0, delta: Optional[torch.Tensor] = None):
     """(dq, dk, dv): the dq and dk/dv kernels for CUDA tensors, the plain
-    backward for CPU ones."""
+    backward for CPU ones. `delta`: attention_delta(o, do) where the caller
+    has it (ring attention's steps share one)."""
     if _device_type(q, k, v, o, lse, do) == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, lse, do, sm_scale,
                                              attention_mult(q, k, dropout_rate, seed))
@@ -309,7 +310,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, sm_scale: float, dropout_rate: floa
     want = (q.shape[0] * q.shape[2], q.shape[1])
     if lse.dtype != torch.float32 or tuple(lse.shape) != want or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous fp32 {want}, got {lse.dtype} {tuple(lse.shape)}")
-    delta = attention_delta(o, do)
+    if delta is None:
+        delta = attention_delta(o, do)
     dq = FLASH_BWD_DQ(q, k, v, do, lse, delta, sm_scale, dropout_rate, seed)
     dk, dv = FLASH_BWD_DKV(q, k, v, do, lse, delta, sm_scale, dropout_rate, seed)
     return dq, dk, dv

@@ -1,5 +1,6 @@
-"""Device meshes and parameter sharding (counterpart of orbit2_tpu/parallel/:
-the mesh and the sharding rules; the pipeline is not ported yet)."""
+"""Device meshes, parameter sharding and the mesh's collectives (counterpart
+of orbit2_tpu/parallel/: the mesh and the sharding rules; the pipeline is
+not ported yet)."""
 
 from orbit2_tpu_torch.parallel.mesh import (
     AXES,
@@ -19,6 +20,7 @@ from orbit2_tpu_torch.parallel.mesh import (
     make_mesh,
     mesh_from_config,
     rank_grid,
+    seq_split,
     world_size,
 )
 from orbit2_tpu_torch.parallel.sharding import (

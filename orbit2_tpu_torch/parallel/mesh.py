@@ -8,8 +8,9 @@ order:
   replica  - "simple_ddp": pure data parallelism, parameters replicated
   fsdp     - parameter-sharded data parallelism (ZeRO-3; HSDP's shard axis
              when replica > 1)
-  expert   - MoE expert parallelism (not ported)
-  seq      - sequence parallelism (not ported)
+  expert   - MoE expert parallelism: the expert stacks split by expert,
+             routing whole on every rank
+  seq      - sequence parallelism: the trunk's tokens split over it
   tensor   - Megatron-style tensor parallelism
 
 Tensor varies fastest, then seq, expert, fsdp, replica and stage, so rank r
@@ -20,8 +21,12 @@ the mesh takes the first ranks; a world larger than the mesh leaves the
 ranks past it idle (`in_mesh`).
 
 The data-parallel coordinate of a rank is its (replica, fsdp) pair,
-`data_rank` / `data_size`: the ranks of one tensor group share it, and so
-read the same samples.
+`data_rank` / `data_size`: the ranks of one expert, seq and tensor group
+share it, and so read the same samples. `seq_split` is the seq axis as the
+trunk splits tokens over it (its group, size, this rank's coordinate, the
+sequence attention), `mesh.moe_group` the process group of the expert x
+tensor ranks an MoE layer sums its experts' outputs over (None where the
+expert axis is 1: there the layer sums over the tensor axis's group).
 """
 
 from __future__ import annotations
@@ -45,6 +50,9 @@ AXES = (AXIS_STAGE, AXIS_REPLICA, AXIS_FSDP, AXIS_EXPERT, AXIS_SEQ, AXIS_TENSOR)
 BATCH_AXES = (AXIS_REPLICA, AXIS_FSDP)
 # the flattened (replica, fsdp) dim of every mesh make_mesh builds
 AXIS_DATA = "data"
+# an MoE layer's experts and their hidden columns: split over both axes,
+# the layer's output summed over their ranks
+MOE_AXES = (AXIS_EXPERT, AXIS_TENSOR)
 
 
 def world_size() -> int:
@@ -76,8 +84,24 @@ def make_mesh(replica: int = 1, fsdp: int = 1, tensor: int = 1, seq: int = 1, st
     grid = rank_grid(replica, fsdp, tensor, seq, stage, expert)
     mesh = DeviceMesh(device_type, torch.as_tensor(grid), mesh_dim_names=AXES)
     mesh.data_mesh = mesh[BATCH_AXES]._flatten(AXIS_DATA)
+    mesh.moe_group = _groups_over(grid, MOE_AXES) if expert > 1 else None
     mesh.mesh_group = None if grid.size == world_size() else dist.new_group(range(grid.size))
     return mesh
+
+
+def _groups_over(grid: np.ndarray, axes) -> Optional[object]:
+    """This rank's process group over `axes` of the rank grid (the ranks
+    that share every other coordinate), None where this rank is past the
+    grid. Every rank makes every such group, in one
+    order: making a group is collective."""
+    dims = [AXES.index(a) for a in axes]
+    size = int(np.prod([grid.shape[d] for d in dims]))
+    mine, rank = None, dist.get_rank()
+    for ranks in np.moveaxis(grid, dims, range(-len(dims), 0)).reshape(-1, size):
+        group = dist.new_group(ranks.tolist())
+        if rank in ranks:
+            mine = group
+    return mine
 
 
 def in_mesh(mesh: DeviceMesh) -> bool:
@@ -113,6 +137,15 @@ def data_group(mesh: DeviceMesh):
     return mesh.data_mesh.get_group()
 
 
+def seq_split(mesh: DeviceMesh, impl: str = "gather"):
+    """The seq axis as parallel/tensor.py::SeqSplit (its process group, size
+    and this rank's coordinate, with the sequence attention `impl`)."""
+    from orbit2_tpu_torch.parallel.tensor import SeqSplit
+
+    return SeqSplit(mesh[AXIS_SEQ].get_group(), axis_size(mesh, AXIS_SEQ),
+                    mesh.get_local_rank(AXIS_SEQ), impl)
+
+
 def sharded_coords(mesh: DeviceMesh, axes) -> tuple:
     """This rank's coordinates along those of `axes` whose size is above 1:
     what a dropout seed folds in (JAX folds an axis index only where the
@@ -142,7 +175,8 @@ def init_distributed(device: str = "cuda") -> int:
     return dist.get_world_size()
 
 
-__all__ = ["AXES", "AXIS_DATA", "AXIS_EXPERT", "AXIS_FSDP", "AXIS_REPLICA", "AXIS_SEQ",
-           "AXIS_STAGE", "AXIS_TENSOR", "BATCH_AXES", "axis_size", "data_group", "data_rank",
-           "data_size", "in_mesh", "init_distributed", "make_mesh", "mesh_from_config",
-           "rank_grid", "sharded_coords", "world_size"]
+__all__ = ["AXES", "AXIS_DATA", "AXIS_EXPERT", "AXIS_FSDP", "AXIS_REPLICA",
+           "AXIS_SEQ", "AXIS_STAGE", "AXIS_TENSOR", "BATCH_AXES", "MOE_AXES", "axis_size",
+           "data_group", "data_rank", "data_size", "in_mesh", "init_distributed", "make_mesh",
+           "mesh_from_config", "rank_grid", "seq_split", "sharded_coords",
+           "world_size"]

@@ -1,5 +1,5 @@
-"""Parameter sharding rules and the sharded model: HSDP x tensor parallelism
-(counterpart of orbit2_tpu/parallel/sharding.py).
+"""Parameter sharding rules and the sharded model: HSDP x tensor x expert x
+seq parallelism (counterpart of orbit2_tpu/parallel/sharding.py).
 
 The rule table is JAX's, whole (`_RULES`, `_fit`, `jax_spec_for`): a
 parameter path gets a PartitionSpec over the mesh axes, first match wins,
@@ -21,6 +21,17 @@ variable of JAX's stacked [V, p*p, D].
     `_StridedShard` of dim 0): rank t holds heads t*H/tp.. of q, of k and of
     v. Its bias stays replicated and is cut to the rank's heads at use,
     since FSDP2 cannot describe a dim-0 shard of a strided dim-0 shard;
+  * an MoE layer's expert stacks (wi, bi, wo, bo) become DTensors over the
+    (expert, tensor) dims: the rank's experts of dim 0, and of those the
+    tensor rank's hidden columns (wi, bi) or rows (wo), as the dense Mlp's
+    fc1 and fc2 are split; its ExpertSplit (parallel/tensor.py) tells it
+    which experts are its own and which group sums their outputs
+    (models/components/moe.py);
+  * the seq axis: the model's tokens are split over it (its SeqSplit on the
+    model and every Attention: models/res_slimvit.py, ops/seq_attention.py).
+    The parameters stay whole on every seq rank; the Blocks' gradients,
+    partial sums over the rank's tokens, are summed over it after the
+    backward (`reduce_seq_grads`, called by training/train.py's step);
   * then `fully_shard` (FSDP2) on each Block, and on the root last, over
     the (replica, fsdp) mesh: HSDP when both are above 1. FSDP2 shards the
     dim the table names for `fsdp` (shard_placement_fn), dim 0 where it
@@ -31,13 +42,16 @@ A remat Block (models/res_slimvit.py::remat_block) recomputes inside its
 FSDP2 unit: the pre-backward all-gather serves the recomputation.
 
 The dropout sites fold the rank's coordinates into their seeds: the data
-coordinates (replica, fsdp) everywhere, and the tensor coordinate where the
-activation is split over it (the attention probabilities, the Mlp hidden),
-so activations replicated across the tensor axis get one mask on every
-tensor rank. Folds are taken only over axes above 1, so a one-device mesh
-draws the one-process masks. DropPath takes the rank's slice of the global
-batch's mask. K6 (Mlp.use_fused) steps aside on a mesh of more than one
-device, as JAX's does.
+coordinates (replica, fsdp) everywhere, the seq coordinate where the
+trunk's tokens are split over it (every Block site), and the tensor
+coordinate where the activation is split over it (the attention
+probabilities, the Mlp hidden), so activations replicated across the
+tensor, expert or seq axis get one mask on every such rank (pos_drop
+before the split, the MoE output after its sum). Folds are taken only over
+axes above 1, so a one-device mesh draws the one-process masks. DropPath
+takes the rank's slice of the global batch's mask, the same on every
+expert, seq and tensor rank. K6 (Mlp.use_fused) steps aside on a mesh of
+more than one device, as JAX's does.
 
 `full_tensor` / `shard_like` / `load_full_state_dict` move whole tensors in
 and out of the shards (checkpoints, the unit-by-unit fill of
@@ -54,13 +68,13 @@ import torch
 from torch import nn
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 from torch.distributed.tensor.placement_types import _StridedShard
 
 from orbit2_tpu_torch.parallel.mesh import (
-    AXES, AXIS_EXPERT, AXIS_FSDP, AXIS_SEQ, AXIS_STAGE, AXIS_TENSOR, BATCH_AXES, data_rank,
-    data_size, sharded_coords)
-from orbit2_tpu_torch.parallel.tensor import TensorSplit
+    AXES, AXIS_EXPERT, AXIS_FSDP, AXIS_SEQ, AXIS_STAGE, AXIS_TENSOR, BATCH_AXES, MOE_AXES,
+    data_rank, data_size, seq_split, sharded_coords)
+from orbit2_tpu_torch.parallel.tensor import ExpertSplit, TensorSplit, local
 
 Spec = Tuple[Any, ...]
 
@@ -240,31 +254,96 @@ def tensor_plan(model: nn.Module) -> Dict[str, Tuple[str, int]]:
 
 def check_shardable(model: nn.Module, mesh: DeviceMesh) -> None:
     """What shard_model does not take: a model without Blocks (the model
-    hub), the stage, seq and expert axes, heads or hidden columns the
-    tensor axis does not divide, and MoE Blocks under tensor parallelism."""
+    hub), the stage axis, heads or hidden columns the tensor axis does not
+    divide, an expert axis over a trunk without MoE Blocks or experts it
+    does not divide, and a seq axis under a model not built with seq_shard
+    (its tokens would stay whole)."""
     sizes = axis_sizes(mesh)
-    for axis, item in ((AXIS_STAGE, "the pipeline"), (AXIS_SEQ, "sequence attention"),
-                       (AXIS_EXPERT, "the expert axis")):
-        if sizes[axis] > 1:
-            raise NotImplementedError(f"{axis} = {sizes[axis]}: {item} is not ported yet "
-                                      "(ROADMAP queue 1 item 2)")
+    if sizes[AXIS_STAGE] > 1:
+        raise NotImplementedError(f"stage = {sizes[AXIS_STAGE]}: the pipeline is not ported "
+                                  "yet (ROADMAP queue 1 item 2)")
     if not hasattr(model, "blocks") or not hasattr(model, "init_units"):
         raise NotImplementedError(f"{type(model).__name__} on a device mesh: only the "
                                   "ResSlimViT is sharded (ROADMAP queue 1 item 2)")
-    tp = sizes[AXIS_TENSOR]
-    if tp == 1:
-        return
-    if any(blk.moe for blk in model.blocks):
-        raise NotImplementedError(
-            "an MoE trunk under tensor_par > 1: the expert weights are einsum operands, not "
-            "Linears, and the expert axis is not ported yet (ROADMAP queue 1 item 2)")
+    if sizes[AXIS_SEQ] > 1 and not model.seq_shard:
+        raise ValueError(f"a seq axis of {sizes[AXIS_SEQ]} needs the model built with "
+                         "seq_shard=True")
+    tp, ep = sizes[AXIS_TENSOR], sizes[AXIS_EXPERT]
+    if ep > 1 and not any(blk.moe for blk in model.blocks):
+        raise ValueError(f"an expert axis of {ep} needs MoE Blocks (model.moe_experts > 0)")
     for blk in model.blocks:
-        heads, hidden = blk.attn.num_heads, blk.mlp.fc1.out_features
+        heads = blk.attn.num_heads
+        if blk.moe:
+            experts, hidden = blk.moe_mlp.num_experts, blk.moe_mlp.wi.shape[2]
+            if experts % ep:
+                raise ValueError(f"expert_par {ep} must divide the {experts} experts")
+        else:
+            hidden = blk.mlp.fc1.out_features
         if heads % tp or hidden % tp:
             raise ValueError(f"tensor_par {tp} must divide the {heads} heads and the {hidden} "
                              "Mlp columns")
     if model.var_agg.num_heads % tp:
         raise ValueError(f"tensor_par {tp} must divide var_agg's {model.var_agg.num_heads} heads")
+
+
+# an expert stack's tensor split: the dense Mlp's, behind the leading E dim
+_EXPERT_TENSOR_DIM = {"wi": 2, "bi": 1, "wo": 1, "bo": None}
+
+
+def split_experts(model: nn.Module, mesh: DeviceMesh) -> None:
+    """Splits every MoE layer's expert stacks over the (expert, tensor) dims
+    of `mesh` (module docstring) and hands the layer its ExpertSplit; no-op
+    where both axes are 1."""
+    from orbit2_tpu_torch.models.components.moe import MoEMlp
+
+    sizes = axis_sizes(mesh)
+    ep, tp = sizes[AXIS_EXPERT], sizes[AXIS_TENSOR]
+    if ep * tp == 1:
+        return
+    emesh = mesh[MOE_AXES]
+    for m in model.modules():
+        if not isinstance(m, MoEMlp):
+            continue
+        for name, dim in _EXPERT_TENSOR_DIM.items():
+            _distribute(m, name, emesh,
+                        [Shard(0), Replicate() if dim is None or tp == 1 else Shard(dim)])
+        count = m.num_experts // ep
+        tgroup = mesh[AXIS_TENSOR].get_group()
+        m.expert_split = ExpertSplit(
+            mesh.moe_group if ep > 1 else tgroup, mesh.get_local_rank(AXIS_EXPERT) * count,
+            count, tgroup, tp, mesh.get_local_rank(AXIS_TENSOR))
+
+
+# the bytes of gradients reduce_seq_grads sums in one all-reduce
+SEQ_GRAD_BUCKET = 256 << 20
+
+
+def reduce_seq_grads(model: nn.Module) -> None:
+    """Sums the Blocks' gradients over the seq axis the model's tokens are
+    split over (each rank's are the part its tokens give), in buckets of at
+    most SEQ_GRAD_BUCKET bytes; no-op without one. The embedding, variable
+    aggregation, final norm and head run on the tokens whole on every seq
+    rank, so theirs are whole already and are not summed."""
+    split = getattr(model, "seq_split", None)
+    if split is None or split.size == 1:
+        return
+    buckets, size = [[]], 0
+    for p in model.blocks.parameters():
+        if p.grad is None:
+            continue
+        g = local(p.grad)
+        if buckets[-1] and (size + g.nbytes > SEQ_GRAD_BUCKET or g.dtype != buckets[-1][0].dtype):
+            buckets.append([])
+            size = 0
+        buckets[-1].append(g)
+        size += g.nbytes
+    for bucket in buckets:
+        if not bucket:
+            continue
+        flat = torch.cat([g.reshape(-1) for g in bucket])
+        dist.all_reduce(flat, group=split.group)
+        parts = flat.split([g.numel() for g in bucket])
+        torch._foreach_copy_(bucket, [t.view_as(g) for t, g in zip(parts, bucket)])
 
 
 def _fsdp_dim(name: str, p: torch.Tensor, mesh: DeviceMesh) -> int:
@@ -292,20 +371,26 @@ def shard_model(model: nn.Module, mesh: DeviceMesh):
     tmesh = mesh[AXIS_TENSOR]
     for name, (mode, packs) in tensor_plan(model).items():
         split_linear(model.get_submodule(name), mode, packs, tmesh)
+    split_experts(model, mesh)
 
     data = sharded_coords(mesh, BATCH_AXES)
-    split = data + sharded_coords(mesh, (AXIS_TENSOR,))
+    seq = sharded_coords(mesh, (AXIS_SEQ,))  # the Blocks' tokens are split over seq
+    tokens = data + seq
+    heads = tokens + sharded_coords(mesh, (AXIS_TENSOR,))
     many = int(np.prod(list(sizes.values()))) > 1
     model.pos_fold = data
+    if seq:
+        model.seq_split = seq_split(mesh, model.seq_impl)
     for m in model.modules():
         if isinstance(m, Attention):
-            m.attn_fold, m.proj_fold = split, data
+            m.attn_fold, m.proj_fold = heads, tokens
+            m.seq_split = model.seq_split
         elif isinstance(m, Mlp):
-            m.hidden_fold, m.out_fold = split, data
+            m.hidden_fold, m.out_fold = heads, tokens
             if many:
                 m.use_fused = False
         elif isinstance(m, MoEMlp):
-            m.out_fold = data
+            m.out_fold = data  # summed over expert x tensor: the same y on each
         elif isinstance(m, DropPath) and data_size(mesh) > 1:
             m.batch_slice = (data_rank(mesh), data_size(mesh))
 
@@ -335,15 +420,18 @@ def _chunk_sizes(n: int, parts: int) -> List[int]:
 
 
 def _splits(t: DTensor):
-    """(the tensor axis's placement or None, [(mesh dim, dim) of the data
-    axes' shards]). On the port's meshes FSDP2 shards the tensor axis's local
-    tensor: whatever DTensor calls its placement (Shard, or a _StridedShard
-    where it shares the tensor split's dim), each data rank holds its
-    torch.chunk piece of that local tensor along `dim`."""
-    names = t.device_mesh.mesh_dim_names
+    """(the tensor axis's placement or None, [(mesh dim, dim) of the other
+    axes' shards: the data axes' and the expert axis's]), mesh dims of one
+    rank left out (their piece is the whole). On the port's meshes FSDP2
+    shards the tensor axis's local tensor: whatever DTensor calls its
+    placement (Shard, or a _StridedShard where it shares the tensor split's
+    dim), each data rank holds its torch.chunk piece of that local tensor
+    along `dim`."""
+    mesh = t.device_mesh
+    names = mesh.mesh_dim_names
     tp, data = None, []
     for i, p in enumerate(t.placements):
-        if not isinstance(p, (Shard, _StridedShard)):
+        if not isinstance(p, (Shard, _StridedShard)) or mesh.size(i) == 1:
             continue
         if names[i] == AXIS_TENSOR:
             tp = p
@@ -454,5 +542,5 @@ def full_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
 
 
 __all__ = ["axis_sizes", "check_shardable", "full_state_dict", "full_tensor", "jax_name",
-           "jax_spec_for", "load_full_state_dict", "shard_like", "shard_model", "spec_for",
-           "split_linear", "tensor_plan"]
+           "jax_spec_for", "load_full_state_dict", "reduce_seq_grads", "shard_like",
+           "shard_model", "spec_for", "split_experts", "split_linear", "tensor_plan"]

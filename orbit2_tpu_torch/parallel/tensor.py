@@ -1,5 +1,6 @@
-"""Megatron tensor parallelism's two collectives and the split a Linear
-carries (the reference's dist_functions.py, as autograd functions).
+"""The mesh's autograd collectives: Megatron tensor parallelism's two and
+the split a Linear carries (the reference's dist_functions.py), the token
+split over the seq axis, and the expert axis's sum.
 
 A column-split Linear holds the output rows of its rank (for a packed
 projection such as attention's qkv: the rank's heads of each of q, k and v)
@@ -8,7 +9,28 @@ and sums its gradient over the tensor group. A row-split Linear holds the
 input columns of its rank and produces a partial sum: `reduce_from_tensor`
 sums it over the tensor group, and passes the gradient on. The parameters
 are DTensors (parallel/sharding.py); the products run on their local
-shards (`local`).
+shards (`local`). Both take any process group: an MoE layer sums its
+experts' outputs over the expert (x tensor) group with them
+(models/components/moe.py).
+
+Over the seq axis (`SeqSplit`) a rank holds one contiguous slice of the
+tokens:
+  * `split_tokens` takes the rank's slice of replicated tokens; its
+    backward all-gathers the slices' gradients, so what ran before the
+    split gets the whole gradient on every rank;
+  * `gather_tokens` all-gathers the slices back into replicated tokens;
+    its backward takes the rank's slice (every rank computes the same
+    loss from them, so the gradient is already whole);
+  * `gather_seq` all-gathers a slice whose consumers on every rank
+    contribute to its gradient (sequence attention's k and v): the
+    backward reduce-scatters, summing each slice's gradient on its home
+    rank;
+  * `all_to_all` swaps one dim's split for another's (Ulysses: tokens for
+    heads); its backward swaps back;
+  * `ring_shift` (no autograd) hands a tensor to the next rank of the ring
+    and takes the previous rank's, with one all_to_all_single whose only
+    non-empty piece goes to the next rank (NCCL and gloo both take it, on
+    CUDA tensors too).
 """
 
 from __future__ import annotations
@@ -87,4 +109,143 @@ class TensorSplit:
             -1, *t.shape[1:])
 
 
-__all__ = ["TensorSplit", "copy_to_tensor", "local", "reduce_from_tensor"]
+@dataclass(frozen=True)
+class ExpertSplit:
+    """How an MoE layer is split over the expert and tensor axes: `group`,
+    the expert x tensor ranks its output is summed over; experts `first` ..
+    `first + count - 1` are this rank's; the tensor axis's group, size and
+    this rank's coordinate (its rank 0 alone adds the output bias, which
+    every tensor rank holds)."""
+
+    group: object
+    first: int
+    count: int
+    tensor_group: object
+    tensor_size: int
+    tensor_rank: int
+
+
+@dataclass(frozen=True)
+class SeqSplit:
+    """The seq axis a ResSlimViT's tokens are split over: its process group,
+    size, this rank's coordinate and the sequence attention (`impl`:
+    gather | ring | ulysses, ops/seq_attention.py)."""
+
+    group: object
+    size: int
+    rank: int
+    impl: str = "gather"
+
+
+def _gather(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((size * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // size, *x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+def _slice(x: torch.Tensor, dim: int, size: int, rank: int) -> torch.Tensor:
+    return x.chunk(size, dim)[rank]
+
+
+class _SplitTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, split):
+        ctx.dim, ctx.split = dim, split
+        return _slice(x, dim, split.size, split.rank).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather(grad, ctx.dim, ctx.split.group, ctx.split.size), None, None
+
+
+class _GatherTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, split):
+        ctx.dim, ctx.split = dim, split
+        return _gather(x, dim, split.group, split.size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _slice(grad, ctx.dim, ctx.split.size, ctx.split.rank).contiguous(), None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, split):
+        ctx.dim, ctx.split = dim, split
+        return _gather(x, dim, split.group, split.size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter(grad, ctx.dim, ctx.split.group, ctx.split.size), None, None
+
+
+def _all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, group,
+                size: int) -> torch.Tensor:
+    parts = torch.stack(x.chunk(size, split_dim)).contiguous()
+    out = torch.empty_like(parts)
+    dist.all_to_all_single(out, parts, group=group)
+    return torch.cat(out.unbind(0), concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, split):
+        ctx.dims, ctx.split = (split_dim, concat_dim), split
+        return _all_to_all(x, split_dim, concat_dim, split.group, split.size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_dim, concat_dim = ctx.dims
+        return (_all_to_all(grad, concat_dim, split_dim, ctx.split.group, ctx.split.size),
+                None, None, None)
+
+
+def split_tokens(x: torch.Tensor, split: SeqSplit, dim: int = 1) -> torch.Tensor:
+    """This rank's slice of replicated x along `dim` (which `split.size`
+    must divide); the gradient all-gathered."""
+    if x.shape[dim] % split.size:
+        raise ValueError(f"{x.shape[dim]} tokens do not split over a seq axis of {split.size}")
+    return _SplitTokens.apply(x, dim, split)
+
+
+def gather_tokens(x: torch.Tensor, split: SeqSplit, dim: int = 1) -> torch.Tensor:
+    """The slices of every seq rank along `dim`, in rank order; the gradient
+    the rank's slice."""
+    return _GatherTokens.apply(x, dim, split)
+
+
+def gather_seq(x: torch.Tensor, split: SeqSplit, dim: int = 1) -> torch.Tensor:
+    """The slices of every seq rank along `dim`, in rank order; the gradient
+    reduce-scattered (each slice's summed over the ranks, on its rank)."""
+    return _GatherSeq.apply(x, dim, split)
+
+
+def all_to_all(x: torch.Tensor, split: SeqSplit, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """Piece i of x along `split_dim` to rank i; the pieces received, in rank
+    order, concatenated along `concat_dim`. Differentiable."""
+    return _AllToAll.apply(x, split_dim, concat_dim, split)
+
+
+def ring_shift(t: torch.Tensor, group, size: int, rank: int) -> torch.Tensor:
+    """t of rank r - 1 (mod size) on rank r: every rank hands its t to the
+    next one. Not differentiable."""
+    flat = t.contiguous().view(-1)
+    out = torch.empty_like(flat)
+    send, recv = [0] * size, [0] * size
+    send[(rank + 1) % size] = recv[(rank - 1) % size] = flat.numel()
+    dist.all_to_all_single(out, flat, output_split_sizes=recv, input_split_sizes=send,
+                           group=group)
+    return out.view(t.shape)
+
+
+__all__ = ["ExpertSplit", "SeqSplit", "TensorSplit", "all_to_all", "copy_to_tensor", "gather_seq",
+           "gather_tokens", "local", "reduce_from_tensor", "ring_shift", "split_tokens"]

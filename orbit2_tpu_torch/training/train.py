@@ -9,6 +9,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from orbit2_tpu_torch.data.processing.era5_constants import CONSTANTS
+from orbit2_tpu_torch.parallel.sharding import reduce_seq_grads
 from orbit2_tpu_torch.parallel.tensor import local
 
 
@@ -50,7 +51,9 @@ def make_train_step(model, train_loss_metric, var_weights: Optional[Dict[str, fl
 
     On a mesh (parallel/sharding.py) x and y are the rank's local batch and
     the loss is its mean; FSDP2 averages the gradients over the data ranks,
-    so the update is the global batch's (JAX train.py:131-141). The caller
+    so the update is the global batch's (JAX train.py:131-141). Where the
+    trunk's tokens are split over a seq axis, the Blocks' gradients are then
+    summed over it (parallel/sharding.py::reduce_seq_grads). The caller
     averages the losses over the data ranks for its records."""
     in_variables, out_variables = tuple(in_variables), tuple(out_variables)
     params = [p for p in model.parameters() if p.requires_grad]
@@ -77,6 +80,7 @@ def make_train_step(model, train_loss_metric, var_weights: Optional[Dict[str, fl
             l = loss_of(xb, yb, dropout_gen, drop_path_gen)
             l.backward()
             loss = l.detach() if loss is None else loss + l.detach()
+        reduce_seq_grads(model)
         if grad_accum > 1:
             loss = loss / grad_accum
             torch._foreach_div_([local(p.grad) for p in params], float(grad_accum))

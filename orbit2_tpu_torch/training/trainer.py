@@ -57,11 +57,16 @@ data module's validity mask (`_wire_out_mask`, JAX trainer.py:238-265).
 On a device mesh (the config's, whenever a process group runs:
 parallel/mesh.py; one process drives one device): the ResSlimViT is
 built on the meta device, sharded (parallel/sharding.py::shard_model: tensor
-parallelism, then FSDP2 per Block and at the root over (replica, fsdp)) and
-each rank's shards are filled unit by unit (evaluate.py::materialize), with
-the one-process draws from trainer.seed or the `state_dict`. Each data rank
-(replica, fsdp) reads its own file shards in batches of batch_size / its
-count; the tensor ranks of one data rank read the same ones. The epoch is
+parallelism, the MoE expert stacks over (expert, tensor), the tokens over
+seq where `parallelism.seq_par` > 1 (the model built with seq_shard and the
+config's seq_impl, JAX trainer.py:44-46, :283-286), then FSDP2 per Block and
+at the root over (replica, fsdp)) and each rank's shards are filled unit by
+unit (evaluate.py::materialize), with the one-process draws from
+trainer.seed or the `state_dict`. The train step sums the Blocks' gradients
+over seq (training/train.py). Each data rank (replica, fsdp) reads its own
+file shards in batches of batch_size / its count; the expert, seq and
+tensor ranks of one data rank read the same ones. An MoE trunk's aux loss
+is the whole routing's on every rank, weighted as on one device. The epoch is
 clamped to the least number of batches of any rank (JAX trainer.py:470-490);
 the records' loss is the mean over the data ranks. Validation pads a short
 rank with zero batches that count no sample (JAX `_synced_batches`,
@@ -72,10 +77,9 @@ first devices, the mesh takes the first ranks: where the world is larger
 (the scale-down halved the data axes to divide the batch), the ranks past
 the mesh are idle and their fit returns at once with no record.
 
-A mesh larger than the world raises JAX's ValueError; then pipeline trunks,
-seq_par > 1, expert_par > 1 and `parallelism.auto` raise
-NotImplementedError (evaluate.py::check_mesh, check_training_scope), and so
-do a model-hub preset and an MoE trunk under tensor_par > 1 on a mesh
+A mesh larger than the world raises JAX's ValueError; then pipeline trunks
+and `parallelism.auto` raise NotImplementedError (evaluate.py::check_mesh,
+check_training_scope), and so does a model-hub preset on a mesh
 (parallel/sharding.py::check_shardable).
 """
 

@@ -112,9 +112,11 @@ def test_train_mode_forward_raises():
 
 
 @pytest.mark.parametrize("kwargs", [dict(moe_experts=4, pipeline_stages=2), dict(pipeline_stages=2),
-                                    dict(seq_shard=True)],
+                                    dict(seq_shard=True, pipeline_stages=2)],
                          ids=["moe_pipeline", "pipeline", "seq_shard"])
 def test_unported_trunks_raise(kwargs):
+    """The pipelined trunk is refused, with seq_shard too (JAX refuses that
+    pair, res_slimvit.py:356-358); seq_shard alone is taken."""
     with pytest.raises(NotImplementedError):
         ResSlimViT(DEFAULT_VARS, (8, 16), 7, 3, embed_dim=32, depth=2, decoder_depth=1,
                    num_heads=2, **kwargs)

@@ -13,6 +13,20 @@ JAX: the test process holds the JAX side).
       bit-equal on both tensor ranks, and K6 stepped aside; last an MoE
       trunk's forward and a train step on replica 2 x fsdp 2. One JSON per rank: OUT_DIR/steps_R.json.
 
+  python tests/torch_mesh_worker.py seqexpert RANK WORLD PORT IN_DIR OUT_DIR
+      The seq and expert axes (tests/test_torch_seq.py, test_torch_expert.py):
+      seq_flash_attention under gather, Ulysses and ring at seq 2 and 4, its
+      output and input gradients gathered whole (and ring at N 768, and
+      dropout on inputs whose two halves are equal); then one train step of
+      IN_DIR/in.npz's models on its batch: the seq model at seq 2 x fsdp 2
+      under each impl, the MoE model at expert 2 x fsdp 2 and expert 2 x
+      tensor 2, the gradients gathered whole; then Trainer.fit on IN_DIR's
+      configs (seq_{impl}.yaml, moe_ep_fsdp.yaml saving a checkpoint each
+      epoch into OUT_DIR/ck, moe_ep_tp.yaml) with its history and the final
+      parameters; last two dropout steps at seq 2 x tensor 2 and expert 2 x
+      fsdp 2: whether the replicated parameters stayed bit-equal. Rank 0
+      writes OUT_DIR/seqexpert.npz and seqexpert.json.
+
   python tests/torch_mesh_worker.py cli RANK WORLD PORT CONFIG CKPT_DIR OUT_DIR
       The train CLI (`orbit2_tpu_torch.train.main`) as torchrun would start
       it, one epoch with validation, recording the files each reader was
@@ -39,6 +53,7 @@ from orbit2_tpu_torch.evaluate import materialize  # noqa: E402
 from orbit2_tpu_torch.metrics.metrics import METRICS_REGISTRY  # noqa: E402
 from orbit2_tpu_torch.models import ResSlimViT  # noqa: E402
 from orbit2_tpu_torch.models.components.blocks import DropPath, Mlp  # noqa: E402
+from orbit2_tpu_torch.ops.seq_attention import SEQ_IMPLS, seq_flash_attention  # noqa: E402
 from orbit2_tpu_torch.parallel import (  # noqa: E402
     AXIS_TENSOR, data_group, data_rank, data_size, full_tensor, make_mesh, shard_model)
 from orbit2_tpu_torch.training.optim import make_optimizer  # noqa: E402
@@ -60,7 +75,8 @@ MESHES = {"fsdp2_tensor2": dict(fsdp=2, tensor=2), "replica2_fsdp2": dict(replic
 def sharded(mesh, state=None, drop=0.0, remat=False, seed=0, fused=False, **model):
     """The tiny model on `mesh`, filled from `state` or drawn from `seed`;
     `fused` asks its Mlps for K6 first."""
-    kw = dict(attention_impl="auto", drop_rate=drop, drop_path=drop, remat=remat, **TINY, **model)
+    kw = dict(attention_impl="auto", drop_rate=drop, drop_path=drop, remat=remat,
+              **dict(TINY, **model))
     with torch.device("meta"):
         skeleton = ResSlimViT(DEFAULT_VARS, **kw)
     for m in skeleton.modules():
@@ -179,6 +195,136 @@ def run_steps(rank, out_dir, state_path):
         json.dump(report, f)
 
 
+# seq_flash_attention's cases: (impl, seq, B, N, H, D)
+ATTENTION_CASES = [(impl, s, 2, 512, 4, 32) for s in (2, 4) for impl in SEQ_IMPLS] + [
+    ("ring", 2, 2, 768, 2, 32)]
+# the models' changes to TINY: the seq model at head dim 64 (the flash path)
+# over 16 x 32 fields of 512 tokens (ring's N/s % 128), the MoE model with 4
+# experts in each Block
+SEQ_MODEL = dict(img_size=(16, 32), embed_dim=128, num_heads=2, patch_size=1)
+MOE_MODEL = dict(embed_dim=128, num_heads=2, moe_experts=4, moe_every=1)
+# Trainer.fit's run: epochs of one step
+FIT = dict(max_epochs=3, max_steps_per_epoch=1)
+STEP_MESHES = {f"seq_{impl}": (dict(seq=2, fsdp=2), "seq", dict(seq_shard=True, seq_impl=impl))
+               for impl in SEQ_IMPLS}
+STEP_MESHES.update({"moe_ep_fsdp": (dict(expert=2, fsdp=2), "moe", {}),
+                    "moe_ep_tp": (dict(expert=2, tensor=2), "moe", {})})
+
+
+def attention_inputs(b, n, h, d, seed, doubled=False):
+    """q, k, v [B, N, H, D] fp32 from numpy's generator at `seed`; `doubled`:
+    each the concatenation of two equal halves along N."""
+    rng = np.random.default_rng(seed)
+    half = n // 2 if doubled else n
+    out = []
+    for _ in range(3):
+        a = rng.normal(size=(b, half, h, d)).astype(np.float32)
+        out.append(torch.from_numpy(np.concatenate([a, a], axis=1) if doubled else a))
+    return out
+
+
+def gather_seq_dim(t, split):
+    parts = [torch.empty_like(t) for _ in range(split.size)]
+    dist.all_gather(parts, t.contiguous(), group=split.group)
+    return torch.cat(parts, 1)
+
+
+def run_seqexpert(rank, in_dir, out_dir):
+    from orbit2_tpu_torch.config import load_config
+    from orbit2_tpu_torch.ops.attention import dot_product_attention
+    from orbit2_tpu_torch.parallel import AXIS_SEQ, BATCH_AXES, seq_split
+    from orbit2_tpu_torch.parallel.mesh import sharded_coords
+    from orbit2_tpu_torch.training.trainer import Trainer
+
+    world = dist.get_world_size()
+    arrays, report = {}, {}
+
+    # seq_flash_attention: output and gradients of sum(o^2), gathered whole
+    for i, (impl, s, b, n, h, d) in enumerate(ATTENTION_CASES):
+        split = seq_split(make_mesh(device_type="cpu", seq=s, replica=world // s), impl)
+        q, k, v = (t.chunk(s, 1)[split.rank].clone().requires_grad_()
+                   for t in attention_inputs(b, n, h, d, seed=i))
+        o = seq_flash_attention(q, k, v, split)
+        (o ** 2).sum().backward()
+        key = f"attn/{impl}{s}_n{n}"
+        for name, t in (("o", o.detach()), ("dq", q.grad), ("dk", k.grad), ("dv", v.grad)):
+            arrays[f"{key}/{name}"] = gather_seq_dim(t, split).numpy()
+    # dropout on inputs whose halves are equal, through the Attention's call
+    # (head dim 64: the flash path) with shard_model's fold of the rank's
+    # replica and seq coordinates: the two seq ranks' masks
+    for impl in ("gather", "ulysses"):
+        mesh = make_mesh(device_type="cpu", seq=2, replica=2)
+        split, fold = seq_split(mesh, impl), sharded_coords(mesh, BATCH_AXES + (AXIS_SEQ,))
+        q, k, v = (t.chunk(2, 1)[split.rank] for t in attention_inputs(2, 256, 4, 64, seed=20,
+                                                                      doubled=True))
+        runs = [dot_product_attention(q, k, v, "auto", dropout_rate=rate, fold=fold, seq=split,
+                                      generator=torch.Generator().manual_seed(5))
+                for rate in (0.0, 0.3, 0.3)]
+        for name, o in zip(("clean", "drop", "drop2"), runs):
+            arrays[f"dropout/{impl}/{name}"] = gather_seq_dim(o, split).numpy()
+
+    # one train step at dropout 0 on in.npz's batch and weights
+    raw = np.load(os.path.join(in_dir, "in.npz"))
+    batch = {kind: (torch.from_numpy(raw[f"{kind}_x"]), torch.from_numpy(raw[f"{kind}_y"]))
+             for kind in ("seq", "moe")}
+    states = {kind: {k.split("/", 1)[1]: torch.from_numpy(raw[k]) for k in raw.files
+                     if k.startswith(kind + "/")} for kind in ("seq", "moe", "moetp")}
+    for name, (axes, kind, extra) in STEP_MESHES.items():
+        mesh = make_mesh(device_type="cpu", **axes)
+        model = sharded(mesh, states[kind], **dict(SEQ_MODEL if kind == "seq" else MOE_MODEL,
+                                                   **extra))
+        xs, ys = (t.chunk(data_size(mesh))[data_rank(mesh)] for t in batch[kind])
+        loss = data_mean(train_step(model)(xs, ys, torch.Generator(), None), mesh)
+        arrays[f"step/{name}/loss"] = loss.numpy()
+        for k, p in model.named_parameters():
+            if p.grad is not None:
+                arrays[f"step/{name}/grad/{k}"] = full_tensor(p.grad).numpy()
+
+    # Trainer.fit on the configs
+    for name in [f"seq_{impl}" for impl in SEQ_IMPLS] + ["moe_ep_fsdp", "moe_ep_tp"]:
+        cfg = load_config(os.path.join(in_dir, f"{name}.yaml"))
+        ck = os.path.join(out_dir, "ck") if name == "moe_ep_fsdp" else None
+        kind = {"moe_ep_fsdp": "moe", "moe_ep_tp": "moetp"}.get(name, "seq")
+        trainer = Trainer(cfg, "cpu", state_dict=states[kind], checkpoint_dir=ck)
+        report[f"fit/{name}"] = trainer.fit(**FIT)
+        for k, t in trainer.model.state_dict().items():
+            arrays[f"fit/{name}/param/{k}"] = full_tensor(t).numpy()
+        if name == "moe_ep_fsdp":
+            for key in ("mu", "nu"):
+                for k, t in trainer.optimizer.state_dict()[key].items():
+                    arrays[f"fit/{name}/{key}/{k}"] = full_tensor(t).numpy()
+
+    # dropout and drop-path 0.1: the replicas of each parameter stay bit-equal
+    for name, axes, kind, extra, axis in (
+            ("seq2_tensor2", dict(seq=2, tensor=2), "seq", dict(seq_shard=True), "seq"),
+            ("expert2_fsdp2", dict(expert=2, fsdp=2), "moe", {}, "expert")):
+        mesh = make_mesh(device_type="cpu", **axes)
+        model = sharded(mesh, states[kind], drop=0.1,
+                        **dict(SEQ_MODEL if kind == "seq" else MOE_MODEL, **extra))
+        step = train_step(model)
+        xs, ys = (t.chunk(data_size(mesh))[data_rank(mesh)] for t in batch[kind])
+        gens = (torch.Generator().manual_seed(11), torch.Generator().manual_seed(12))
+        losses = [step(xs, ys, *gens).item() for _ in range(2)]
+        checked = {AXIS_TENSOR: [0, 0], axis: [0, 0]}
+        for _, p in model.named_parameters():
+            placed = dict(zip(p.device_mesh.mesh_dim_names, p.placements))
+            for along in checked:
+                if along in placed and not placed[along].is_replicate():
+                    continue  # split over this axis: no replica to compare
+                group = mesh[along].get_group()
+                mine = p.detach().to_local().contiguous()
+                both = [torch.empty_like(mine) for _ in range(mesh[along].size())]
+                dist.all_gather(both, mine, group=group)
+                checked[along][0] += 1
+                checked[along][1] += int(all(torch.equal(both[0], t) for t in both))
+        report[f"replicas/{name}"] = {"checked": checked, "losses": losses}
+
+    with open(os.path.join(out_dir, f"seqexpert_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "seqexpert.npz"), **arrays)
+
+
 def run_cli(rank, out_dir, config, ckpt_dir):
     from orbit2_tpu_torch.data import reader as reader_mod
     from orbit2_tpu_torch.data.itermodule import IterDataModule
@@ -258,10 +404,13 @@ def run_cli(rank, out_dir, config, ckpt_dir):
 def main():
     mode, rank, world, port = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
     torch.set_num_threads(1)
-    if mode == "steps":
+    if mode in ("steps", "seqexpert"):
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
                                 world_size=world)
-        run_steps(rank, sys.argv[6], sys.argv[5])
+        if mode == "steps":
+            run_steps(rank, sys.argv[6], sys.argv[5])
+        else:
+            run_seqexpert(rank, sys.argv[5], sys.argv[6])
     else:  # torchrun's variables, for the CLI's init_distributed
         os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
                           MASTER_ADDR="localhost", MASTER_PORT=port)

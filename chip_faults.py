@@ -1,24 +1,33 @@
 #!/usr/bin/env python3
-"""Faults planted in chip_smoke.py phase seqexpert's (a) and (b), to show that
-their gradient check (SEQEXP_GRAD_REL) fails a wrong trunk.
+"""Faults planted in chip_smoke.py's gradient checks, to show that their
+bound (SEQEXP_GRAD_REL) fails a wrong trunk.
 
-    python3 chip_faults.py
+    python3 chip_faults.py [seqexpert] [pipeline]
 
-Needs one CUDA card. Builds the kernels, then runs two gloo ranks on the
-card, as the phase does. Rank 0 first runs the phase's one-rank fits. Then
-both ranks run these fits, each with one fault patched in at run time (the
-package on disk is not changed):
+Needs one CUDA card. Builds the kernels, then, for each phase named (both
+without arguments), runs two gloo ranks on the card, as the phase does.
+Rank 0 first runs the phase's one-rank fits. Then both ranks run these
+fits, each with one fault patched in at run time (the package on disk is
+not changed):
 
-  no_seq_sum     (a) under ring: the Blocks' gradients not summed over seq
-  own_keys       (a) under gather: k/v not gathered, so each rank attends
-                 to its own tokens' keys alone
-  no_expert_sum  (b): the MoE layer's f operator (the expert sum of its
-                 input's and gates' gradients) skipped
+  seqexpert:
+  no_seq_sum          (a) under ring: the Blocks' gradients not summed over
+                      seq
+  own_keys            (a) under gather: k/v not gathered, so each rank
+                      attends to its own tokens' keys alone
+  no_expert_sum       (b): the MoE layer's f operator (the expert sum of
+                      its input's and gates' gradients) skipped
+  pipeline:
+  unmasked_output     (a): the trunk's output summed over the stages
+                      without the last-stage mask, every stage's slots in
+  unsummed_embedding  (a): the trunk's input not summed over the stages in
+                      the backward, so the later stage's embedding takes a
+                      zero gradient
 
-Each fit prints the trunk's first-step gradient reading against one rank's,
-and the phase's checks it fails are counted, not raised. The last line is
-one JSON object {"faults": {name: reading}, "bound": SEQEXP_GRAD_REL,
-"caught": bool}. The exit code is 0 when every reading is above the bound.
+Each fit prints its first-step gradient reading against one rank's, and the
+phase's checks it fails are counted, not raised. The last line is one JSON
+object {"faults": {name: reading}, "bound": SEQEXP_GRAD_REL, "caught":
+bool}. The exit code is 0 when every reading is above the bound.
 """
 
 import datetime
@@ -35,8 +44,18 @@ import torch
 
 import chip_smoke as cs
 
+PHASES = ("seqexpert", "pipeline")
 
-def faults():
+
+def patch(module, name, value):
+    def apply():
+        saved = getattr(module, name)
+        setattr(module, name, value)
+        return lambda: setattr(module, name, saved)
+    return apply
+
+
+def seqexpert_faults():
     """{name: (a function of (rank, raws, weights, refs) that runs the
     phase's fits it names and returns rank 0's result (None on rank 1), a
     function that patches the fault in and returns the function that takes
@@ -44,13 +63,6 @@ def faults():
     import orbit2_tpu_torch.models.components.moe as moe
     import orbit2_tpu_torch.ops.seq_attention as sa
     import orbit2_tpu_torch.training.train as train
-
-    def patch(module, name, value):
-        def apply():
-            saved = getattr(module, name)
-            setattr(module, name, value)
-            return lambda: setattr(module, name, saved)
-        return apply
 
     def seq_under(impl):
         def run(rank, raws, weights, refs):
@@ -69,23 +81,52 @@ def faults():
             "no_expert_sum": (expert, patch(moe, "copy_to_tensor", lambda x, group: x))}
 
 
-def rank_main(rank: int, port: str, root: str):
+def pipeline_faults(root: Path):
+    """The same for phase pipeline (a): each runs its gradient check."""
+    import orbit2_tpu_torch.parallel.pipeline as pp
+
+    def run(rank, raws, weights, refs):
+        return cs.pp_grad_check(rank, raws["pipeline"], weights["pipeline"], refs["pipeline"],
+                                root, "(fault)")
+
+    stage_masks = pp.stage_masks
+
+    def unmasked(split, device):
+        first, _ = stage_masks(split, device)
+        return first, torch.tensor(True, device=device)
+
+    return {"unmasked_output": (run, patch(pp, "stage_masks", unmasked)),
+            "unsummed_embedding": (run, patch(pp, "copy_to_tensor", lambda x, group: x))}
+
+
+def rank_main(phase: str, rank: int, port: str, root: str):
     import torch.distributed as dist
     import yaml
 
     torch.cuda.set_device(0)
-    raws = yaml.safe_load((Path(root) / "configs.yaml").read_text())
-    weights = {"seq": cs.drawn_weights(cs.seqexp_config(raws["seq"], seq_par=1), cs.SEQEXP_SEED),
-               "moe": cs.drawn_weights(cs.seqexp_config(raws["moe"], expert_par=1),
-                                       cs.SEQEXP_SEED + 1)}
-    refs = cs.one_rank_fits(raws["seq"], raws["moe"], weights["seq"], weights["moe"]) \
-        if rank == 0 else {}
+    root = Path(root)
+    if phase == "seqexpert":
+        raws = yaml.safe_load((root / "configs.yaml").read_text())
+        weights = {"seq": cs.drawn_weights(cs.seqexp_config(raws["seq"], seq_par=1),
+                                           cs.SEQEXP_SEED),
+                   "moe": cs.drawn_weights(cs.seqexp_config(raws["moe"], expert_par=1),
+                                           cs.SEQEXP_SEED + 1)}
+        refs = cs.one_rank_fits(raws["seq"], raws["moe"], weights["seq"], weights["moe"]) \
+            if rank == 0 else {}
+        faults = seqexpert_faults()
+    else:
+        raws = {"pipeline": yaml.safe_load((root / "pipeline.yaml").read_text())}
+        weights = {"pipeline": cs.drawn_weights(cs.pp_config(raws["pipeline"], pipeline=1,
+                                                             pipeline_interleave=1), cs.PP_SEED)}
+        refs = {"pipeline": cs.pp_reference(raws["pipeline"], weights["pipeline"], root)[1]
+                if rank == 0 else None}
+        faults = pipeline_faults(root)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                             world_size=2, timeout=datetime.timedelta(seconds=900))
     failed = []
     cs.check = lambda cond, msg: cond or failed.append(msg)
     readings = {}
-    for name, (run, apply) in faults().items():
+    for name, (run, apply) in faults.items():
         undo = apply()
         try:
             result = run(rank, raws, weights, refs)
@@ -93,17 +134,55 @@ def rank_main(rank: int, port: str, root: str):
             undo()
         if rank == 0:
             readings[name] = result["grad_rel"]
-            print(f"  ({name}) the trunk's first-step gradients {result['grad_rel']:.3e} from "
-                  f"one rank's (the worst parameter {result['grad_worst']}: "
-                  f"{result['grad_param_rel']:.3e})", flush=True)
+            worst = (f"the worst parameter {result['grad_worst']}: "
+                     f"{result['grad_param_rel']:.3e}" if "grad_worst" in result else
+                     f"by part {json.dumps(result['readings'])}")
+            print(f"  ({name}) the first-step gradients {result['grad_rel']:.3e} from one "
+                  f"rank's ({worst})", flush=True)
     if rank == 0:
         print("  (checks the faults failed) " + json.dumps(failed), flush=True)
-        (Path(root) / "faults.json").write_text(json.dumps(readings))
+        (root / f"faults_{phase}.json").write_text(json.dumps(readings))
     dist.barrier()
     dist.destroy_process_group()
 
 
+def run_phase(phase: str, root: Path):
+    """Writes the phase's configs under `root`, runs its two ranks and
+    returns rank 0's readings."""
+    import yaml
+
+    if phase == "seqexpert":
+        seq_raw, moe_raw = cs.seqexpert_configs(root, 0)
+        (root / "configs.yaml").write_text(yaml.safe_dump({"seq": seq_raw, "moe": moe_raw}))
+    else:
+        (root / "pipeline.yaml").write_text(yaml.safe_dump(cs.pipeline_raw(root / "data", 0)))
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    port = str(cs.free_port())
+    procs = [subprocess.Popen([sys.executable, __file__, "--rank", phase, str(r), port,
+                               str(root)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    print("\n".join(line for line in logs[0].splitlines() if line.startswith("  (")))
+    failed = [f"rank {r} exited {p.returncode}:\n{logs[r][-3000:]}"
+              for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        sys.exit("\n".join(failed))
+    return json.loads((root / f"faults_{phase}.json").read_text())
+
+
 def main():
+    phases = sys.argv[1:] or list(PHASES)
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        sys.exit(f"chip_faults: unknown phases {sorted(unknown)} ({' | '.join(PHASES)})")
     if not torch.cuda.is_available():
         sys.exit("chip_faults: needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -111,32 +190,11 @@ def main():
     libraries = {k.library.source.name: k.library for k in cs.kernels().values()}
     with ThreadPoolExecutor(len(libraries)) as pool:
         list(pool.map(lambda lib: lib.load(), libraries.values()))
-    with tempfile.TemporaryDirectory() as tmp:
-        import yaml
-
-        root = Path(tmp)
-        seq_raw, moe_raw = cs.seqexpert_configs(root, 0)
-        (root / "configs.yaml").write_text(yaml.safe_dump({"seq": seq_raw, "moe": moe_raw}))
-        env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-        port, t0 = str(cs.free_port()), time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, __file__, "--rank", str(r), port, tmp],
-                                  env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                  text=True) for r in range(2)]
-        logs = []
-        try:
-            for p in procs:
-                logs.append(p.communicate(timeout=900)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        print("\n".join(line for line in logs[0].splitlines() if line.startswith("  (")))
-        failed = [f"rank {r} exited {p.returncode}:\n{logs[r][-3000:]}"
-                  for r, p in enumerate(procs) if p.returncode != 0]
-        if failed:
-            sys.exit("\n".join(failed))
-        readings = json.loads((root / "faults.json").read_text())
+    readings = {}
+    t0 = time.perf_counter()
+    for phase in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            readings.update(run_phase(phase, Path(tmp)))
     caught = all(v > cs.SEQEXP_GRAD_REL for v in readings.values())
     print(f"  {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"faults": readings, "bound": cs.SEQEXP_GRAD_REL, "caught": caught}))
@@ -145,6 +203,6 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
-        rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        rank_main(sys.argv[2], int(sys.argv[3]), sys.argv[4], sys.argv[5])
     else:
         main()

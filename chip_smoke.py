@@ -240,6 +240,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
                chunk: N 1,024, its two halves merged, K2/K3 fed the merged
                lse) and their rows, K5 at the path's widths;
                {"seqexpert": ...}
+  pipeline — the stage axis (`python3 chip_smoke.py --pipeline-worker
+               pipeline RANK 2 PORT DIR` ranks over gloo on the one card; a
+               rank that fails or dies fails the phase): (a) Trainer.fit on
+               configs/interm_1b_pp.yaml's model and schedule at full width
+               (embed 3072, depth cut from 8 to 4, 2 stages, 8 microbatches
+               of its 32-tile batch, interleave 2, full remat, bf16) on the
+               1B tiles, its fsdp 4 and tensor 2 cut to 1, on two ranks: the
+               first-step gradients at dropout 0 against one unpipelined
+               rank's 2-step fit (the trunk's gathered over the stages, the
+               embedding's on each stage) within SEQEXP_GRAD_REL, then 2 steps at
+               dropout 0.1 under the interleaved schedule and 2 under GPipe:
+               exact K1-K3 and K5 launches (K5 by width), finite losses, a
+               step's seconds, its gloo and data-wait seconds and peak
+               memory a rank beside one rank's; (b) (run in seqexpert's
+               four-rank launch) interm_117m.yaml's width, depth 4, fp32,
+               batch 8: stage 2 x fsdp 2 and stage 2 x tensor 2 under GPipe
+               and interleaved (M 4), one step against one rank (MESH_REL),
+               exact launches; (c) K1-K3 at a microbatch's (B4, N2178, H24,
+               d128, dropout 0.1) on two batch elements and K5 at [8,712,
+               3,072 | 12,288] against their plain versions, and their rows;
+               {"pipeline": ...}
 
   7. serve10b — configs/interm_10b.yaml served at full width and depth
                (embed 8192, depth 11, 32 heads, d 256, MLP 32,768, gelu
@@ -323,6 +344,10 @@ import numpy as np
 # torch.use_deterministic_algorithms (phase train1b) needs cuBLAS's workspace
 # fixed before the first product: 8 buffers of 4 MiB, 32 MiB in all
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+# expandable segments: a phase's cached memory goes back to the card when it
+# is done (empty_cache), even where a few live tensors sit in its segments,
+# so the later phases and the multi-rank phases' processes find it free
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import torch  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
@@ -2965,13 +2990,11 @@ def moe1b(root, seed, call_s, smi):
     check(refused == MOE_QUANT_ERROR, f"w8a8 on the MoE config: {refused!r}")
 
     # the phase trains near the card's size, in a process whose earlier phases
-    # left cached segments that live tensors pin: where a 9.57 GiB gradient of
-    # the variable aggregation must find room, they have run it out of memory
-    # with 19 GiB reserved and unused. Expandable segments map their pages
-    # anew. The config trained alone in a process fits without them.
+    # left live tensors: without expandable segments (set at the top) their
+    # cached segments ran a 9.57 GiB gradient of the variable aggregation out
+    # of memory with 19 GiB reserved and unused
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ev = Evaluator(cfg, "cuda")
@@ -5178,20 +5201,20 @@ def strict_meshes(rank: int):
             result[name] = r
         del model, step, grads
         torch.cuda.empty_cache()
+    result["pipeline"] = strict_pipeline(rank, step_of, kw, args, drawn)
     return result
 
 
-def launch_ranks(mode: str, world: int, out: Path, timeout: int):
-    """The `world` ranks of seqexpert_worker(mode) on the card; a rank that
-    fails or dies fails the phase. Returns rank 0's json."""
+def launch_ranks(mode: str, world: int, out: Path, timeout: int, worker="--seqexpert-worker"):
+    """The `world` ranks of `worker` (--seqexpert-worker, --pipeline-worker)
+    in `mode` on the card; a rank that fails or dies fails the phase.
+    Returns rank 0's json."""
     port = str(free_port())
-    # the ranks share the card with this process: segments that grow spare
-    # them the caching allocator's fragments
-    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    # the ranks share the card with this process, all on expandable segments
+    # (set at the top, inherited)
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                               "--seqexpert-worker", mode, str(r), str(world), port, str(out)],
-                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)
+                               worker, mode, str(r), str(world), port, str(out)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
     logs = []
     try:
@@ -5373,6 +5396,353 @@ def seqexpert_phase(root: Path, seed: int, call_s, smi):
            "geometry": {"seq": [SEQ_BATCH, n, h, d, m.depth], "expert_depth": EXPERT_DEPTH,
                         "expert_batch_tiles": EXPERT_BATCH}}
     return {"out": out, "rows": rows, "errs": errs, "k5": k5, "launched": full}
+
+
+# phase pipeline: configs/interm_1b_pp.yaml's model (embed 3072, 24 heads)
+# and schedule (2 stages, 8 microbatches of a 32-tile batch,
+# interleave 2) on the 1B tiles, its mesh cut to the stage axis (fsdp 4 and
+# tensor 2 to 1): two gloo ranks on the card. (b)'s fp32 meshes run in phase
+# seqexpert's four-rank launch.
+CONFIG_PP = ROOT / "configs" / "interm_1b_pp.yaml"
+PP_FIELDS = 4
+PP_STEPS = 2
+# interm_1b_pp.yaml's depth 8 cut to 4 (still dc 1 at S 2, V 2): the
+# script's time and two ranks' memory beside this process's (phase pipeline
+# ran at depth 8 alone on the card)
+PP_DEPTH = 4
+PP_SEED = 29
+# the gradients (a) holds: the trunk's as one vector (rank 0, gathered over
+# the stages), and on each stage those of the parameters before the trunk
+EMBED = r"^(token_embeds\.|var_embed$|var_query$|var_agg\.|spatial_embed\.|pos_embed$)"
+PP_GRADS = f"{TRUNK}|{EMBED}"
+PP_STRICT = dict(depth=4, batch=8, microbatches=4)
+PP_MESHES = {"stage2_fsdp2": dict(stage=2, fsdp=2), "stage2_tensor2": dict(stage=2, tensor=2)}
+
+
+def pipeline_raw(root: Path, seed: int):
+    """configs/interm_1b_pp.yaml as a raw dict on a synthetic train split of
+    PP_FIELDS fields at LOW_1B, its mesh cut to stage 2 alone."""
+    raw = raw_config(root, seed, CONFIG_PP, model={"depth": PP_DEPTH}, n_files=1, t=PP_FIELDS,
+                     low=LOW_1B, shards=("train",))
+    raw["parallelism"].update(fsdp=1, tensor_par=1, simple_ddp=1)
+    return raw
+
+
+def pipeline_launches(depth, stages, interleave, microbatches, stage, drop=True):
+    """Kernel launches of one pipelined train step on stage `stage` under
+    full remat (module docstring of orbit2_tpu_torch/parallel/pipeline.py:
+    the bubble runs no Block): each of the stage's Blocks runs once a
+    microbatch, K1 twice (the recomputation), K2 and K3 once, K5 at three
+    sites forward, in the recomputation and backward but for Block 0's last
+    in its recomputation (remat_launches); pos_drop's K5, forward and
+    backward, on every stage. Returns (the counts, widths(batch rows,
+    microbatch rows, embed, hidden): K5's [rows, cols, launches])."""
+    from orbit2_tpu_torch.parallel.pipeline import owned_blocks
+
+    held = owned_blocks(depth, stages, interleave, stage)
+    calls = microbatches * len(held)
+    skipped = microbatches * (0 in held)
+    k5 = 2 + 9 * calls - skipped if drop else 0
+    counts = only(flash_attn_fwd=2 * calls, flash_attn_bwd_dq=calls, flash_attn_bwd_dkv=calls,
+                  fused_dropout=k5)
+
+    def widths(batch_rows, micro_rows, d, hidden):
+        if not drop:
+            return []
+        return sorted([[batch_rows, d, 2], [micro_rows, d, 6 * calls - skipped],
+                       [micro_rows, hidden, 3 * calls]])
+    return counts, widths
+
+
+def pp_fit(cfg, weights, label, steps, grads_of=None):
+    """Trainer.fit of `cfg` from `weights`, `steps` steps, on this rank:
+    {losses, launches, K5's by [rows, cols], step seconds, collective
+    seconds and calls, peak GiB}, and the first step's gradients of the
+    parameters matching `grads_of` (None: none kept), each whole; on a stage
+    mesh the trunk's are then handed over the stages (full_named), so every
+    rank holds all of them."""
+    from orbit2_tpu_torch.parallel.sharding import full_named
+    from orbit2_tpu_torch.training.trainer import Trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, "cuda", state_dict=weights)
+    reset_counts()
+    with timed_collectives() as coll, launch_widths(kernels()["fused_dropout"]) as widths:
+        with first_step_grads(grads_of or "$^") as grads:
+            hist = trainer.fit(max_epochs=1, max_steps_per_epoch=steps)
+        torch.cuda.synchronize()
+    launched = counts()
+    out = {"losses": [r["loss"] for r in hist], "launches": launched,
+           "k5_widths": sorted([r, c, n] for (r, c), n in widths.items()),
+           "step_s": hist[0]["seconds"] / steps, "collective_s": coll["s"] / steps,
+           "data_wait_s": hist[0]["data_wait_s"] / steps,
+           "collective_calls": coll["calls"],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if getattr(trainer.model, "stage_split", None) is not None and grads:
+        grads = full_named(trainer.model, grads)
+    print(f"  {label}: losses {out['losses']}, {out['step_s']:.3f} s a step "
+          f"({out['collective_s']:.3f} s in {coll['calls'] // steps} collectives, "
+          f"{out['data_wait_s']:.3f} s waiting for data a step), "
+          f"peak {out['peak_gib']:.2f} GiB, launches {launched}", flush=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, grads
+
+
+def pp_config(raw, drop_rate=None, **par):
+    """seqexp_config of a pipeline raw dict: these parallelism entries and
+    dropout (and drop-path) rate."""
+    cfg = seqexp_config(raw, drop_rate, **par)
+    if drop_rate is not None:
+        cfg.model.drop_path = drop_rate
+    return cfg
+
+
+def pp_readings(grads, ref):
+    """(the trunk's first-step gradients' relative Frobenius error against
+    one rank's, where this rank holds them all; the embedding's; the worst
+    single parameter and its reading) by rel_grads."""
+    out = {}
+    for name, pattern in (("trunk", TRUNK), ("embed", EMBED)):
+        got = {k: g for k, g in grads.items() if re.search(pattern, k)}
+        want = {k: ref[k] for k in got}
+        if got:
+            whole, worst, worst_name = rel_grads(got, want)
+            out[name] = whole
+            out[f"{name}_worst"] = (worst_name, worst)
+    return out
+
+
+def pp_reference(raw, weights, out: Path, steps=1):
+    """Phase pipeline (a)'s one-rank fit, unpipelined, at dropout 0, before
+    the group starts: `steps` steps, the first step's gradients kept (the
+    embedding's also in OUT/pp_embed_ref.pt, for the other stage). Returns
+    (pp_fit's result, the gradients)."""
+    run, grads = pp_fit(pp_config(raw, 0.0, pipeline=1, pipeline_interleave=1), weights,
+                        "(a) one rank, dropout 0", steps, PP_GRADS)
+    torch.save({k: g for k, g in grads.items() if re.search(EMBED, k)}, out / "pp_embed_ref.pt")
+    return run, grads
+
+
+def pp_grad_check(rank, raw, weights, ref, out: Path, label="(a)"):
+    """Phase pipeline (a)'s gradient check on one of its two ranks: one
+    pipelined step at dropout 0 (the config's schedule), exact K1-K3
+    launches, and its readings against the one rank's (rank 0: the trunk's
+    gathered and its embedding's; rank 1: its embedding's, against
+    OUT/pp_embed_ref.pt). Returns {readings, the largest}: on rank 0 both
+    ranks' (rank 1's over the stage group)."""
+    import torch.distributed as dist
+
+    cfg = pp_config(raw, 0.0)
+    run, grads = pp_fit(cfg, weights, f"{label} stage 2 rank {rank}, dropout 0", 1, PP_GRADS)
+    par, m = cfg.parallelism, cfg.model
+    want, _ = pipeline_launches(m.depth, par.pipeline, par.pipeline_interleave,
+                                par.pipeline_microbatches, rank, drop=False)
+    check(run["launches"] == want, f"{label} dropout 0: launches {run['launches']}, want {want}")
+    if rank != 0:
+        ref = torch.load(out / "pp_embed_ref.pt")
+        grads = {k: g for k, g in grads.items() if re.search(EMBED, k)}
+    readings = pp_readings(grads, ref)
+    both = [None, None]
+    dist.all_gather_object(both, readings)
+    largest = max(v for r in both for k, v in r.items() if not k.endswith("_worst"))
+    if rank == 0:
+        print(f"  {label} the first-step gradients at dropout 0 against one rank's: trunk "
+              f"{both[0]['trunk']:.3e} (worst {both[0]['trunk_worst']}), embedding on stage 0 "
+              f"{both[0]['embed']:.3e}, on stage 1 {both[1]['embed']:.3e} (worst "
+              f"{both[1]['embed_worst']}); the largest {largest:.3e}", flush=True)
+    return {"readings": both, "grad_rel": largest}
+
+
+def pp_fits(rank, raw, weights, ref, out: Path):
+    """Phase pipeline (a) on one of its two ranks: the gradient check
+    (within SEQEXP_GRAD_REL), then PP_STEPS steps at the config's dropout under
+    its interleaved schedule and under GPipe (V 1): exact launches, K5 by
+    width, finite losses, the step and gloo seconds, peak memory. Returns
+    rank 0's results, each schedule's runs of both ranks."""
+    import torch.distributed as dist
+
+    from orbit2_tpu_torch.config import load_config
+
+    result = {"grads": pp_grad_check(rank, raw, weights, ref, out)}
+    check(result["grads"]["grad_rel"] <= SEQEXP_GRAD_REL,
+          f"(a) the first-step gradients {result['grads']['grad_rel']:.3e} from one rank's")
+    cfg = load_config(raw)
+    m, par = cfg.model, cfg.parallelism
+    tokens = (TILE_MOE[0] // m.patch_size) * (TILE_MOE[1] // m.patch_size)  # the 1B tiles'
+    rows = cfg.trainer.batch_size * tokens  # a rank's batch: the stage axis splits no data
+    for name, v in (("interleaved", par.pipeline_interleave), ("gpipe", 1)):
+        run, _ = pp_fit(pp_config(raw, pipeline_interleave=v), weights,
+                        f"(a) {name} (V {v}) rank {rank}", PP_STEPS)
+        want, widths = pipeline_launches(m.depth, par.pipeline, v, par.pipeline_microbatches,
+                                         rank)
+        want = {k: n * PP_STEPS for k, n in want.items()}
+        check(run["launches"] == want, f"(a) {name}: launches {run['launches']}, want {want}")
+        want_widths = [[r, c, n * PP_STEPS] for r, c, n in widths(
+            rows, rows // par.pipeline_microbatches, m.embed_dim, int(m.embed_dim * m.mlp_ratio))]
+        check(run["k5_widths"] == want_widths,
+              f"(a) {name}: K5 by [rows, cols, launches] {run['k5_widths']}, want {want_widths}")
+        check(all(np.isfinite(run["losses"])), f"(a) {name}: losses {run['losses']}")
+        both = [None, None]
+        dist.all_gather_object(both, run)
+        result[name] = both
+    return result if rank == 0 else {}
+
+
+def pipeline_worker(mode: str, rank: int, world: int, port: str, out_dir: str):
+    """One of phase pipeline (a)'s two ranks (mode "pipeline"): the weights
+    drawn on the card, rank 0's one-rank runs before the group starts, then
+    pp_fits. Rank 0 writes OUT_DIR/pipeline.json; a failing check raises."""
+    import datetime
+    import faulthandler
+
+    import torch.distributed as dist
+    import yaml
+
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    out = Path(out_dir)
+    raw = yaml.safe_load((out / "pipeline.yaml").read_text())
+    weights = drawn_weights(pp_config(raw, pipeline=1, pipeline_interleave=1), PP_SEED)
+    one, ref = pp_reference(raw, weights, out, PP_STEPS) if rank == 0 else (None, None)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=900))
+    result = pp_fits(rank, raw, weights, ref, out)
+    if rank == 0:
+        (out / f"{mode}.json").write_text(json.dumps(dict(result, one_rank=one)))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def pipeline_phase(root: Path, seed: int, call_s, smi, strict):
+    """Phase pipeline (the constants' comment): (a) on two gloo ranks, its
+    readings, launches against pipeline_launches, step and gloo seconds and
+    peak memory a rank beside one rank's, GPipe beside interleaved; (b)'s
+    results from phase seqexpert's launch (`strict`); (c) K1-K3 at a
+    microbatch's shape on two batch elements and K5 at its widths against
+    their plain versions, and their rows. Returns what the kernels line
+    reads."""
+    import yaml
+
+    from orbit2_tpu_torch.config import load_config
+
+    raw = pipeline_raw(root, seed)
+    (root / "pipeline.yaml").write_text(yaml.safe_dump(raw))
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"  the card has {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB free", flush=True)
+    full = launch_ranks("pipeline", 2, root, timeout=600, worker="--pipeline-worker")
+    cfg = load_config(raw)
+    m, par = cfg.model, cfg.parallelism
+    one = full["one_rank"]
+    for name in ("interleaved", "gpipe"):
+        v = par.pipeline_interleave if name == "interleaved" else 1
+        for rank, run in enumerate(full[name]):
+            want = pipeline_launches(m.depth, par.pipeline, v, par.pipeline_microbatches, rank)[0]
+            print(f"  (a) {name} (V {v}) rank {rank}: a step {run['step_s']:.3f} s, "
+                  f"{run['collective_s'] / run['step_s']:.3f} of it in gloo, "
+                  f"{run['data_wait_s'] / run['step_s']:.3f} waiting for data; launches a step "
+                  f"{ {k: n // PP_STEPS for k, n in run['launches'].items() if n} } (predicted "
+                  f"{ {k: n for k, n in want.items() if n} }); peak {run['peak_gib']:.2f} GiB "
+                  f"(one rank {one['peak_gib']:.2f}, {one['step_s']:.3f} s a step, "
+                  f"{one['data_wait_s']:.3f} waiting for data); gpu: {smi}")
+    h, d = m.num_heads, m.embed_dim // m.num_heads
+    n = (TILE_MOE[0] // m.patch_size) * (TILE_MOE[1] // m.patch_size)
+    mb = cfg.trainer.batch_size // par.pipeline_microbatches
+    launched = {k: v // PP_STEPS for k, v in full["interleaved"][0]["launches"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kseed = 2 ** 44 + seed
+    case = f"pipeline bf16 drop {DROP:g} B{mb} N{n} H{h} d{d}"
+    q, k, v = make_qkv(mb, n, n, h, d, torch.bfloat16, gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    errs = check_batch_rows(q, k, v, do, DROP, kseed, [0, mb - 1], case)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    rows = seq_rows({"pipeline": (mb, n, n, h, d, DROP, launched)}, gen, kseed, call_s, smi)
+    k5 = {}
+    for r, c, launches in full["interleaved"][0]["k5_widths"]:
+        if r == mb * n:  # the microbatch's widths (pos_drop's batch width is train1b's)
+            check_dropout(r, c, torch.bfloat16, DROP, gen, kseed)
+            k5[(r, c)] = k5_row((r, c), torch.bfloat16, DROP, gen, kseed, launches, smi,
+                                "pipeline")
+    out = {"grads": full["grads"], "one_rank": one, "strict": strict,
+           **{name: full[name] for name in ("interleaved", "gpipe")},
+           "geometry": {"batch": cfg.trainer.batch_size, "microbatches": par.pipeline_microbatches,
+                        "interleave": par.pipeline_interleave, "stages": par.pipeline,
+                        "depth": m.depth, "tokens": n, "heads": h, "head_dim": d}}
+    return {"out": out, "rows": rows, "errs": errs, "k5": k5, "launched": full}
+
+
+def strict_pipeline(rank, step_of, kw, args, drawn):
+    """Phase pipeline (b) on one of the four ranks of phase seqexpert's (c)
+    launch: the fp32 model of (c) at depth PP_STRICT["depth"], batch
+    PP_STRICT["batch"], on each of PP_MESHES under GPipe and the interleaved
+    schedule (M PP_STRICT["microbatches"]), one step against the unwrapped,
+    unpipelined model's on this rank: the loss and the gradient of every
+    parameter the rank holds within MESH_REL, exact launches. Returns rank
+    0's results (readings the largest over the ranks)."""
+    import torch.distributed as dist
+
+    from orbit2_tpu_torch.evaluate import materialize
+    from orbit2_tpu_torch.models import ResSlimViT
+    from orbit2_tpu_torch.parallel import (
+        AXIS_STAGE, data_group, data_rank, data_size, full_tensor, make_mesh, shard_model)
+    from orbit2_tpu_torch.parallel.pipeline import owned_blocks
+
+    depth, b, mb = PP_STRICT["depth"], PP_STRICT["batch"], PP_STRICT["microbatches"]
+    kw = dict(kw, depth=depth)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(b, 7, 64, 128)).astype(np.float32)).cuda()
+    y = torch.from_numpy((rng.normal(size=(b, 3, 256, 512)) * 0.5).astype(np.float32)).cuda()
+    with torch.device("meta"):
+        ref = ResSlimViT(*args, **kw)
+    materialize(ref, "cuda", generator=drawn())
+    loss_one = step_of(ref)(x, y, torch.Generator(), None).item()
+    one = {k: p.grad.detach().cpu() for k, p in ref.named_parameters() if p.grad is not None}
+    floor = GRAD_FLOOR * max(float(g.norm()) for g in one.values())
+    del ref
+    result = {}
+    for name, axes in PP_MESHES.items():
+        for sched, v in (("gpipe", 1), ("interleaved", 2)):
+            mesh = make_mesh(device_type="cuda", **axes)
+            with torch.device("meta"):
+                skeleton = ResSlimViT(*args, **kw, pipeline_stages=2, pipeline_microbatches=mb,
+                                      pipeline_interleave=v)
+            model = shard_model(copy.deepcopy(skeleton), mesh)
+            model.to_empty(device="cuda")
+            materialize(skeleton, "cuda", generator=drawn(), into=model)
+            xs, ys = (t.chunk(data_size(mesh))[data_rank(mesh)] for t in (x, y))
+            step = step_of(model)
+            reset_counts()
+            loss = step(xs, ys, torch.Generator(), None).detach().clone()
+            torch.cuda.synchronize()
+            launched = counts()
+            calls = mb * len(owned_blocks(depth, 2, v, mesh.get_local_rank(AXIS_STAGE)))
+            want = only(flash_attn_fwd=calls, flash_attn_bwd_dq=calls, flash_attn_bwd_dkv=calls)
+            check(launched == want, f"(b) {name} {sched}: launches {launched}, want {want}")
+            dist.all_reduce(loss, group=data_group(mesh))
+            loss = loss.item() / data_size(mesh)
+            grads = {k: full_tensor(p.grad).cpu() for k, p in model.named_parameters()
+                     if p.grad is not None}
+            rel = {k: float((g - one[k]).norm()) / max(float(one[k].norm()), floor)
+                   for k, g in grads.items()}
+            worst = max(rel, key=rel.get)
+            reading = torch.tensor([rel[worst], abs(loss - loss_one) / abs(loss_one)])
+            dist.all_reduce(reading, op=dist.ReduceOp.MAX)
+            if rank == 0:
+                r = {"loss": loss, "loss_one": loss_one, "max_rel": float(reading[0]),
+                     "loss_rel": float(reading[1]), "launches_rank0": launched}
+                print(f"  (pipeline b) {name} {sched} (V {v}, M {mb}), fp32: loss {loss!r} "
+                      f"against one rank's {loss_one!r}; every rank's gradients within "
+                      f"{r['max_rel']:.3e} relative Frobenius", flush=True)
+                check(r["loss_rel"] <= MESH_REL and r["max_rel"] <= MESH_REL,
+                      f"(b) {name} {sched} differs from the one-rank step: {r}")
+                result[f"{name}_{sched}"] = r
+            del model, step, grads
+            torch.cuda.empty_cache()
+    return result
 
 
 @contextlib.contextmanager
@@ -5947,7 +6317,18 @@ def main():
     phase("seqexpert")
     with tempfile.TemporaryDirectory(dir=ROOT / "_smoke") as tmp:
         se = seqexpert_phase(Path(tmp), args.seed, call_s, smi)
-    print(json.dumps({"seqexpert": {"gpu": smi, **se["out"], "errors": se["errs"]}}))
+    print(json.dumps({"seqexpert": {"gpu": smi, **{k: v for k, v in se["out"].items()
+                                                   if k != "strict"},
+                                    "strict": {k: v for k, v in se["out"]["strict"].items()
+                                               if k != "pipeline"},
+                                    "errors": se["errs"]}}))
+    torch.cuda.empty_cache()
+
+    # the stage axis: two gloo ranks of the card ((b) ran in seqexpert's launch)
+    phase("pipeline")
+    with tempfile.TemporaryDirectory(dir=ROOT / "_smoke") as tmp:
+        pl = pipeline_phase(Path(tmp), args.seed, call_s, smi, se["out"]["strict"]["pipeline"])
+    print(json.dumps({"pipeline": {"gpu": smi, **pl["out"], "errors": pl["errs"]}}))
     torch.cuda.empty_cache()
 
     # 7. the 10B config served on the card, last but one: it needs most of the card
@@ -6132,6 +6513,19 @@ def main():
         *(path_entry(se["k5"], shape, se["k5"][shape]["launches"], "seqexpert gather",
                      "fused_dropout", "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39", 0.0)
           for shape in se["k5"]),
+        # the pipeline's microbatches (phase pipeline): K1-K3 and K5 at a
+        # microbatch's shapes, launches stage 0's in the interleaved fit
+        *(path_entry(pl["rows"], ("pipeline", name),
+                     pl["launched"]["interleaved"][0]["launches"][name], "pipeline", name, source,
+                     f"orbit2_tpu/ops/flash_attention.py:{line}", err)
+          for name, source, line, err in (
+              ("flash_attn_fwd", "flash_attn_fwd.cu", 150, pl["errs"]["fwd"]),
+              ("flash_attn_bwd_dq", "flash_attn_bwd.cu", 287, pl["errs"]["dq"]),
+              ("flash_attn_bwd_dkv", "flash_attn_bwd.cu", 328,
+               max(pl["errs"]["dk"], pl["errs"]["dv"])))),
+        *(path_entry(pl["k5"], shape, pl["k5"][shape]["launches"], "pipeline", "fused_dropout",
+                     "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39", 0.0)
+          for shape in pl["k5"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -6144,5 +6538,8 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--seqexpert-worker"]:  # one of phase seqexpert's ranks
         seqexpert_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
                          sys.argv[6])
+    elif sys.argv[1:2] == ["--pipeline-worker"]:  # one of phase pipeline's two ranks
+        pipeline_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
+                        sys.argv[6])
     else:
         main()

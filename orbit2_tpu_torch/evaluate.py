@@ -71,7 +71,9 @@ def model_kwargs(c: Config) -> dict:
         drop_path=m.drop_path, drop_rate=m.drop_rate, attention_impl=m.attention_impl,
         gelu_approx=m.gelu_approx, data_type=c.trainer.data_type, moe_experts=m.moe_experts,
         moe_every=m.moe_every, moe_capacity_factor=m.moe_capacity_factor, moe_top_k=m.moe_top_k,
-        pipeline_stages=c.parallelism.pipeline, seq_shard=c.parallelism.seq_par > 1,
+        pipeline_stages=c.parallelism.pipeline,
+        pipeline_microbatches=c.parallelism.pipeline_microbatches,
+        pipeline_interleave=c.parallelism.pipeline_interleave, seq_shard=c.parallelism.seq_par > 1,
         seq_impl=c.parallelism.seq_impl,
         generator=torch.Generator().manual_seed(c.trainer.seed))
 
@@ -96,15 +98,11 @@ def check_mesh(cfg: Config, world: int) -> None:
 
 
 def check_training_scope(cfg: Config) -> None:
-    """What the Trainer does not run yet: the pipeline axis (ROADMAP queue 1
-    item 2) and `parallelism.auto`."""
-    par = cfg.parallelism
-    if par.auto:
+    """What the Trainer does not run: `parallelism.auto`."""
+    if cfg.parallelism.auto:
         raise NotImplementedError(
             "parallelism.auto resolves its mesh through the TPU AOT planner, which has no GPU "
             "meaning: give the axis sizes")
-    if par.pipeline > 1:
-        raise NotImplementedError("pipeline trunks are not ported yet (ROADMAP queue 1 item 2)")
 
 
 def check_scope(cfg: Config) -> None:

@@ -18,8 +18,22 @@ Mlp dropout, `drop_path` the per-depth stochastic-depth rates
 linspace(0, drop_path, depth). The parameters are created in fp32 (the JAX
 module's param_dtype; masters when training) and the forward computes in
 `dtype`: x is cast to it on entry and every layer casts its weights to it
-at use, a no-op once the parameters are in `dtype` (as for serving). The
-pipelined trunk raises.
+at use, a no-op once the parameters are in `dtype` (as for serving).
+
+The pipelined trunk (`pipeline_stages` S > 1, JAX res_slimvit.py:100-116,
+:338-407): the Blocks stay in the reference layout (`blocks.{i}`, so a
+pipelined model's state dict is the unpipelined one's); on a mesh with a
+stage axis (parallel/sharding.py::shard_model sets `stage_split` and keeps
+on each stage only the Blocks it holds) the trunk runs the GPipe (V = 1) or
+interleaved (`pipeline_interleave` V > 1) schedule of
+parallel/pipeline.py over `pipeline_microbatches` M (0: S) microbatches,
+and without one the same microbatches through every Block in turn (JAX's
+sequential fallback). The depth must divide by S*V, and seq_shard and MoE
+Blocks raise JAX's errors. Dropout there folds the microbatch and the
+global Block into each Block's seeds (kernel_prng.fold_seed of one draw a
+forward from each generator, in place of JAX's tick): a (microbatch, Block)
+pair draws the same masks whatever S and V are, DropPath's per-sample masks
+too, and a recomputation under remat draws them again.
 
 Sequence parallelism (`seq_shard`, JAX res_slimvit.py:147-162, :317,
 :333-335): on a mesh with a seq axis (parallel/sharding.py::shard_model
@@ -80,13 +94,21 @@ from orbit2_tpu_torch.models.components.blocks import (
     trunc_normal_,
 )
 from orbit2_tpu_torch.ops.dropout import dropout
+from orbit2_tpu_torch.ops.kernel_prng import draw_seed, fold_seed
 from orbit2_tpu_torch.ops.pos_embed import (
     get_2d_sincos_pos_embed,
     interpolate_pos_embed_on_the_fly,
 )
 from orbit2_tpu_torch.ops.seq_attention import SEQ_IMPLS
+from orbit2_tpu_torch.parallel.pipeline import (
+    StageSplit, check_schedule, pipeline_blocks, sequential_blocks)
 from orbit2_tpu_torch.parallel.tensor import SeqSplit, gather_tokens, split_tokens
 from orbit2_tpu_torch.registry import register_model
+
+# JAX config.py:328-335's refusal, wherever MoE Blocks meet a pipelined trunk
+MOE_PIPELINE_ERROR = ("model.moe_experts inside a pipelined trunk is future work (the "
+                      "stacked-block pipeline shares one Block template; MoE blocks alternate "
+                      "with dense ones)")
 
 # static surface channels appended to the residual path input
 # (reference find_var_index, res_slimvit.py:302-310)
@@ -153,10 +175,12 @@ def _lecun_normal_(t: torch.Tensor, generator) -> None:
 
 @register_model("res_slimvit")
 class ResSlimViT(nn.Module):
-    # on a mesh: the data coordinates folded into pos_drop's seed, and the
-    # seq axis the trunk's tokens are split over
+    # on a mesh: the data coordinates folded into pos_drop's seed, the seq
+    # axis the trunk's tokens are split over and the stage axis it is
+    # pipelined over
     pos_fold: tuple = ()
     seq_split: Optional[SeqSplit] = None
+    stage_split: Optional[StageSplit] = None
 
     def __init__(self, default_vars: Sequence[str], img_size: Tuple[int, int],
                  in_channels: int, out_channels: int, superres_mag: int = 4,
@@ -167,15 +191,26 @@ class ResSlimViT(nn.Module):
                  spatial_resolution: float = 0.0, attention_impl: str = "xla",
                  gelu_approx: str = "exact", quant: str = "none", moe_experts: int = 0,
                  moe_every: int = 2, moe_capacity_factor: float = 1.25, moe_top_k: int = 1,
-                 pipeline_stages: int = 1, seq_shard: bool = False, seq_impl: str = "gather",
+                 pipeline_stages: int = 1, pipeline_microbatches: int = 0,
+                 pipeline_interleave: int = 1, seq_shard: bool = False, seq_impl: str = "gather",
                  remat: bool = False, remat_policy: str = "full",
                  base_img_size: Optional[Tuple[int, int]] = None,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if pipeline_stages > 1:
-            raise NotImplementedError(
-                "pipeline_stages > 1: the pipelined trunk is not ported yet")
+            S, V = pipeline_stages, pipeline_interleave
+            if depth % (S * V):
+                raise ValueError(f"depth {depth} not divisible by pipeline_stages x "
+                                 f"interleave {S}x{V}")
+            if seq_shard:
+                raise ValueError("pipeline_stages > 1 is incompatible with seq_shard (v1 "
+                                 "scope; see parallel/pipeline.py)")
+            if moe_experts > 0:
+                raise ValueError(MOE_PIPELINE_ERROR)
+            check_schedule(depth, S, pipeline_microbatches or S, V)
+        elif pipeline_interleave > 1:
+            raise ValueError("pipeline_interleave > 1 needs pipeline_stages > 1")
         if seq_impl not in SEQ_IMPLS:
             raise ValueError(f"unknown seq_impl {seq_impl!r} ({' | '.join(SEQ_IMPLS)})")
         if remat_policy not in REMAT_POLICIES:
@@ -192,6 +227,9 @@ class ResSlimViT(nn.Module):
         self.drop_rate = drop_rate
         self.remat, self.remat_policy = remat, remat_policy
         self.seq_shard, self.seq_impl = seq_shard, seq_impl
+        self.pipeline_stages = pipeline_stages
+        self.pipeline_microbatches = pipeline_microbatches or pipeline_stages
+        self.pipeline_interleave = pipeline_interleave
         self.dtype = dtype
         self.spatial_resolution = spatial_resolution
         self.base_img_size = tuple(base_img_size or img_size)
@@ -340,6 +378,8 @@ class ResSlimViT(nn.Module):
         tokens = tokens + self.spatial_embed(res)
         tokens = dropout(tokens, self.drop_rate, self.training, dropout_gen,
                          self.pos_fold)  # pos_drop
+        if self.pipeline_stages > 1:
+            return self.norm(self._pipelined_trunk(tokens, dropout_gen, drop_path_gen)), []
         seq = self.seq_split
         if seq is not None:
             tokens = split_tokens(tokens, seq)
@@ -356,6 +396,26 @@ class ResSlimViT(nn.Module):
         if seq is not None:
             tokens = gather_tokens(tokens, seq)
         return self.norm(tokens), aux
+
+    def _pipelined_trunk(self, tokens, dropout_gen, drop_path_gen):
+        """The Blocks over the stage axis (stage_split) or, without one, in
+        turn on one process, microbatch by microbatch; Block g on microbatch
+        m draws from generators seeded with the (m, g) fold of one draw from
+        each of the caller's (module docstring)."""
+        remat = self.remat and torch.is_grad_enabled()
+        seeds = [draw_seed(g) if self.training and g is not None else None
+                 for g in (dropout_gen, drop_path_gen)]
+
+        def run_block(g, m, x):
+            gens = [None if seed is None else
+                    torch.Generator().manual_seed(fold_seed(seed, (m, g))) for seed in seeds]
+            if remat:
+                return remat_block(self.blocks[g], x, *gens, self.remat_policy)
+            return self.blocks[g](x, *gens)
+
+        if self.stage_split is not None:
+            return pipeline_blocks(self.blocks, tokens, self.stage_split, run_block)
+        return sequential_blocks(self.blocks, tokens, self.pipeline_microbatches, run_block)
 
     def _unpatchify(self, y, H, W):
         """[B, L, out*(mag*p)^2] -> [B, out, H*mag, W*mag], the reference's

@@ -1,6 +1,5 @@
-"""Device meshes, parameter sharding and the mesh's collectives (counterpart
-of orbit2_tpu/parallel/: the mesh and the sharding rules; the pipeline is
-not ported yet)."""
+"""Device meshes, parameter sharding, the pipeline and the mesh's
+collectives (counterpart of orbit2_tpu/parallel/)."""
 
 from orbit2_tpu_torch.parallel.mesh import (
     AXES,
@@ -21,6 +20,7 @@ from orbit2_tpu_torch.parallel.mesh import (
     mesh_from_config,
     rank_grid,
     seq_split,
+    stage_split,
     world_size,
 )
 from orbit2_tpu_torch.parallel.sharding import (

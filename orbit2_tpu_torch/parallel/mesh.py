@@ -3,8 +3,8 @@
 One torch `DeviceMesh` over the process group, with JAX's six axes in JAX's
 order:
 
-  stage    - pipeline parallelism (not ported: a mesh with stage > 1 is
-             refused by the Trainer)
+  stage    - pipeline parallelism: the trunk's Blocks split over it, the
+             microbatches handed from stage to stage (parallel/pipeline.py)
   replica  - "simple_ddp": pure data parallelism, parameters replicated
   fsdp     - parameter-sharded data parallelism (ZeRO-3; HSDP's shard axis
              when replica > 1)
@@ -22,11 +22,13 @@ ranks past it idle (`in_mesh`).
 
 The data-parallel coordinate of a rank is its (replica, fsdp) pair,
 `data_rank` / `data_size`: the ranks of one expert, seq and tensor group
-share it, and so read the same samples. `seq_split` is the seq axis as the
-trunk splits tokens over it (its group, size, this rank's coordinate, the
-sequence attention), `mesh.moe_group` the process group of the expert x
-tensor ranks an MoE layer sums its experts' outputs over (None where the
-expert axis is 1: there the layer sums over the tensor axis's group).
+share it, and so read the same samples, and so do the ranks of one stage
+group. `seq_split` is the seq axis as the trunk splits tokens over it (its
+group, size, this rank's coordinate, the sequence attention), `stage_split`
+the stage axis as the trunk is pipelined over it, `mesh.moe_group` the
+process group of the expert x tensor ranks an MoE layer sums its experts'
+outputs over (None where the expert axis is 1: there the layer sums over
+the tensor axis's group).
 """
 
 from __future__ import annotations
@@ -146,6 +148,17 @@ def seq_split(mesh: DeviceMesh, impl: str = "gather"):
                     mesh.get_local_rank(AXIS_SEQ), impl)
 
 
+def stage_split(mesh: DeviceMesh, microbatches: int = 0, interleave: int = 1):
+    """The stage axis as parallel/pipeline.py::StageSplit (its process group,
+    size and this rank's stage, with the schedule's microbatches, 0 for as
+    many as stages, and interleave)."""
+    from orbit2_tpu_torch.parallel.pipeline import StageSplit
+
+    size = axis_size(mesh, AXIS_STAGE)
+    return StageSplit(mesh[AXIS_STAGE].get_group(), size, mesh.get_local_rank(AXIS_STAGE),
+                      microbatches or size, interleave)
+
+
 def sharded_coords(mesh: DeviceMesh, axes) -> tuple:
     """This rank's coordinates along those of `axes` whose size is above 1:
     what a dropout seed folds in (JAX folds an axis index only where the
@@ -179,4 +192,4 @@ __all__ = ["AXES", "AXIS_DATA", "AXIS_EXPERT", "AXIS_FSDP", "AXIS_REPLICA",
            "AXIS_SEQ", "AXIS_STAGE", "AXIS_TENSOR", "BATCH_AXES", "MOE_AXES", "axis_size",
            "data_group", "data_rank", "data_size", "in_mesh", "init_distributed", "make_mesh",
            "mesh_from_config", "rank_grid", "seq_split", "sharded_coords",
-           "world_size"]
+           "stage_split", "world_size"]

@@ -32,6 +32,13 @@ variable of JAX's stacked [V, p*p, D].
     The parameters stay whole on every seq rank; the Blocks' gradients,
     partial sums over the rank's tokens, are summed over it after the
     backward (`reduce_seq_grads`, called by training/train.py's step);
+  * the stage axis (parallel/pipeline.py): the model's `stage_split` is
+    set, and each stage rank keeps only the Blocks its stage holds
+    ((v*S + s)*dc + j, JAX's P("stage") on the stacked Blocks); the others
+    become pipeline.Elsewhere stand-ins, never materialised, and the tensor
+    plan and FSDP2 take the held Blocks alone. Everything outside the trunk
+    is replicated over stage (its gradients come out equal on every stage,
+    parallel/pipeline.py says why);
   * then `fully_shard` (FSDP2) on each Block, and on the root last, over
     the (replica, fsdp) mesh: HSDP when both are above 1. FSDP2 shards the
     dim the table names for `fsdp` (shard_placement_fn), dim 0 where it
@@ -55,7 +62,10 @@ more than one device, as JAX's does.
 
 `full_tensor` / `shard_like` / `load_full_state_dict` move whole tensors in
 and out of the shards (checkpoints, the unit-by-unit fill of
-evaluate.py::materialize).
+evaluate.py::materialize); on a stage mesh `full_state_dict` and
+`full_named` also hand each Block from the stage that holds it to the
+others, so a checkpoint holds the whole model in the reference layout, and
+`load_full_state_dict` / `held_state` pass over the Blocks held elsewhere.
 """
 
 from __future__ import annotations
@@ -73,7 +83,8 @@ from torch.distributed.tensor.placement_types import _StridedShard
 
 from orbit2_tpu_torch.parallel.mesh import (
     AXES, AXIS_EXPERT, AXIS_FSDP, AXIS_SEQ, AXIS_STAGE, AXIS_TENSOR, BATCH_AXES, MOE_AXES,
-    data_rank, data_size, seq_split, sharded_coords)
+    data_rank, data_size, seq_split, sharded_coords, stage_split)
+from orbit2_tpu_torch.parallel.pipeline import Elsewhere, block_stage
 from orbit2_tpu_torch.parallel.tensor import ExpertSplit, TensorSplit, local
 
 Spec = Tuple[Any, ...]
@@ -244,6 +255,8 @@ def tensor_plan(model: nn.Module) -> Dict[str, Tuple[str, int]]:
     every Block's attention and dense Mlp, and the variable aggregation."""
     plan = {"var_agg.q": ("col", 1), "var_agg.kv": ("col", 2), "var_agg.proj": ("row", 1)}
     for i, blk in enumerate(model.blocks):
+        if isinstance(blk, Elsewhere):
+            continue
         plan[f"blocks.{i}.attn.qkv"] = ("col", 3)
         plan[f"blocks.{i}.attn.proj"] = ("row", 1)
         if not blk.moe:
@@ -254,24 +267,28 @@ def tensor_plan(model: nn.Module) -> Dict[str, Tuple[str, int]]:
 
 def check_shardable(model: nn.Module, mesh: DeviceMesh) -> None:
     """What shard_model does not take: a model without Blocks (the model
-    hub), the stage axis, heads or hidden columns the tensor axis does not
+    hub), a stage axis above 1 other than the model's pipeline_stages (a
+    pipelined model on a mesh without one sweeps its microbatches on each
+    rank, JAX's fallback), heads or hidden columns the tensor axis does not
     divide, an expert axis over a trunk without MoE Blocks or experts it
     does not divide, and a seq axis under a model not built with seq_shard
     (its tokens would stay whole)."""
     sizes = axis_sizes(mesh)
-    if sizes[AXIS_STAGE] > 1:
-        raise NotImplementedError(f"stage = {sizes[AXIS_STAGE]}: the pipeline is not ported "
-                                  "yet (ROADMAP queue 1 item 2)")
     if not hasattr(model, "blocks") or not hasattr(model, "init_units"):
         raise NotImplementedError(f"{type(model).__name__} on a device mesh: only the "
                                   "ResSlimViT is sharded (ROADMAP queue 1 item 2)")
+    stages = getattr(model, "pipeline_stages", 1)
+    if sizes[AXIS_STAGE] > 1 and sizes[AXIS_STAGE] != stages:
+        raise ValueError(f"pipeline_stages={stages} but the mesh's stage axis is "
+                         f"{sizes[AXIS_STAGE]}: build the mesh with stage={stages}")
     if sizes[AXIS_SEQ] > 1 and not model.seq_shard:
         raise ValueError(f"a seq axis of {sizes[AXIS_SEQ]} needs the model built with "
                          "seq_shard=True")
     tp, ep = sizes[AXIS_TENSOR], sizes[AXIS_EXPERT]
-    if ep > 1 and not any(blk.moe for blk in model.blocks):
+    blocks = [blk for blk in model.blocks if not isinstance(blk, Elsewhere)]
+    if ep > 1 and not any(blk.moe for blk in blocks):
         raise ValueError(f"an expert axis of {ep} needs MoE Blocks (model.moe_experts > 0)")
-    for blk in model.blocks:
+    for blk in blocks:
         heads = blk.attn.num_heads
         if blk.moe:
             experts, hidden = blk.moe_mlp.num_experts, blk.moe_mlp.wi.shape[2]
@@ -368,6 +385,14 @@ def shard_model(model: nn.Module, mesh: DeviceMesh):
 
     check_shardable(model, mesh)
     sizes = axis_sizes(mesh)
+    if sizes[AXIS_STAGE] > 1:
+        split = model.stage_split = stage_split(mesh, model.pipeline_microbatches,
+                                                model.pipeline_interleave)
+        depth = len(model.blocks)
+        for g in range(depth):
+            stage = block_stage(g, depth, split.size, split.interleave)
+            if stage != split.rank:
+                model.blocks[g] = Elsewhere(stage)
     tmesh = mesh[AXIS_TENSOR]
     for name, (mode, packs) in tensor_plan(model).items():
         split_linear(model.get_submodule(name), mode, packs, tmesh)
@@ -404,7 +429,8 @@ def shard_model(model: nn.Module, mesh: DeviceMesh):
     # unsharded after a no-grad forward would hand its whole parameters, not
     # the shards, to named_parameters() (an optimizer built then steps them)
     for blk in model.blocks:
-        fully_shard(blk, mesh=dp, shard_placement_fn=placement, reshard_after_forward=True)
+        if not isinstance(blk, Elsewhere):
+            fully_shard(blk, mesh=dp, shard_placement_fn=placement, reshard_after_forward=True)
     fully_shard(model, mesh=dp, shard_placement_fn=placement, reshard_after_forward=True)
     return model
 
@@ -514,15 +540,33 @@ def shard_like(full: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return full
 
 
+def held_elsewhere(model: nn.Module, key: str) -> bool:
+    """Whether `key` (a state-dict or parameter name) belongs to a Block
+    another stage holds (shard_model on a stage mesh)."""
+    m = re.match(r"^blocks\.(\d+)\.", key)
+    blocks = getattr(model, "blocks", ())
+    return bool(m) and int(m.group(1)) < len(blocks) and isinstance(blocks[int(m.group(1))],
+                                                                     Elsewhere)
+
+
+def held_state(model: nn.Module, state: Mapping[str, Any]) -> Dict[str, Any]:
+    """`state` (whole tensors by name) without the Blocks other stages hold:
+    what this rank loads of a checkpoint's model or moments."""
+    return {k: v for k, v in state.items() if not held_elsewhere(model, k)}
+
+
 @torch.no_grad()
 def load_full_state_dict(model: nn.Module, state: Mapping[str, torch.Tensor],
                          keys: Optional[Sequence[str]] = None) -> None:
     """Copies the whole tensors of `state` into `model`'s shards, strictly:
-    every parameter and buffer (or every one of `keys`) must be there."""
+    every parameter and buffer (or every one of `keys`) must be there. The
+    tensors of Blocks other stages hold are passed over."""
     mine = {**dict(model.named_parameters()), **dict(model.named_buffers())}
-    keys = list(mine) if keys is None else list(keys)
+    whole = keys is None
+    keys = list(mine) if whole else [k for k in keys if not held_elsewhere(model, k)]
     missing = [k for k in keys if k not in state]
-    extra = [k for k in state if k not in mine] if keys is None else []
+    extra = ([k for k in state if k not in mine and not held_elsewhere(model, k)] if whole
+             else [k for k in keys if k not in mine])
     if missing or extra:
         raise KeyError(f"state dict: missing {missing}, unexpected {extra}")
     for k in keys:
@@ -534,13 +578,50 @@ def load_full_state_dict(model: nn.Module, state: Mapping[str, torch.Tensor],
         tl.copy_(shard_like(got.to(t.dtype), t))
 
 
+def full_named(model: nn.Module, tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """{name: whole tensor on the host} of `tensors` (named as the model's
+    state: its state dict, or optimizer moments by parameter name), gathered
+    on every rank (a collective, one tensor at a time, so the device never
+    holds more than one whole tensor besides the shards). On a stage mesh
+    each Block's tensors are then handed from the stage that holds it to
+    every other, over the stage group, Block by Block in order, and take
+    their places in the order of the unsharded model's."""
+    out = {k: full_tensor(t.detach()).cpu() for k, t in tensors.items()}
+    split = getattr(model, "stage_split", None)
+    if split is None or split.size == 1:
+        return out
+    comm = torch.device("cpu") if dist.get_backend(split.group) == "gloo" else next(
+        p.device for p in model.parameters())
+    blocks = []
+    for g, blk in enumerate(model.blocks):
+        owner = blk.stage if isinstance(blk, Elsewhere) else split.rank
+        src = dist.get_global_rank(split.group, owner)
+        prefix = f"blocks.{g}."
+        names = [[(k, tuple(t.shape), t.dtype) for k, t in out.items() if k.startswith(prefix)]]
+        dist.broadcast_object_list(names, src=src, group=split.group)
+        for k, shape, dtype in names[0]:
+            t = (out[k] if owner == split.rank else torch.empty(shape, dtype=dtype)).to(comm)
+            dist.broadcast(t, src=src, group=split.group)
+            blocks.append((k, t.cpu()))
+    ordered, placed = {}, False
+    for k, t in out.items():
+        if not k.startswith("blocks."):
+            ordered[k] = t
+        elif not placed:
+            ordered.update(blocks)
+            placed = True
+    if not placed:
+        ordered.update(blocks)
+    return ordered
+
+
 def full_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     """{name: whole tensor on the host} of the model's parameters and
-    buffers, gathered on every rank (a collective, one tensor at a time, so
-    the device never holds more than one whole tensor besides the shards)."""
-    return {k: full_tensor(t.detach()).cpu() for k, t in model.state_dict().items()}
+    buffers, the Blocks other stages hold included (full_named)."""
+    return full_named(model, model.state_dict())
 
 
-__all__ = ["axis_sizes", "check_shardable", "full_state_dict", "full_tensor", "jax_name",
-           "jax_spec_for", "load_full_state_dict", "reduce_seq_grads", "shard_like",
-           "shard_model", "spec_for", "split_experts", "split_linear", "tensor_plan"]
+__all__ = ["axis_sizes", "check_shardable", "full_named", "full_state_dict", "full_tensor",
+           "held_elsewhere", "held_state", "jax_name", "jax_spec_for", "load_full_state_dict",
+           "reduce_seq_grads", "shard_like", "shard_model", "spec_for", "split_experts",
+           "split_linear", "tensor_plan"]

@@ -30,7 +30,12 @@ tokens:
   * `ring_shift` (no autograd) hands a tensor to the next rank of the ring
     and takes the previous rank's, with one all_to_all_single whose only
     non-empty piece goes to the next rank (NCCL and gloo both take it, on
-    CUDA tensors too).
+    CUDA tensors too; gloo refuses send/recv on them).
+
+Over the stage axis (parallel/pipeline.py) `stage_shift` hands a
+microbatch's activations to the next stage, and from the last to the first
+where the schedule is interleaved; its backward hands the gradient back the
+other way. Both are a ring_shift, so the hop uses no point-to-point op.
 """
 
 from __future__ import annotations
@@ -235,17 +240,46 @@ def all_to_all(x: torch.Tensor, split: SeqSplit, split_dim: int, concat_dim: int
     return _AllToAll.apply(x, split_dim, concat_dim, split)
 
 
-def ring_shift(t: torch.Tensor, group, size: int, rank: int) -> torch.Tensor:
-    """t of rank r - 1 (mod size) on rank r: every rank hands its t to the
-    next one. Not differentiable."""
+def ring_shift(t: torch.Tensor, group, size: int, rank: int, step: int = 1,
+               wrap: bool = True) -> torch.Tensor:
+    """t of rank r - step (mod size) on rank r: every rank hands its t to
+    the rank `step` (1 or -1) further on. wrap=False keeps the ring's ends
+    apart: the last rank along `step` hands nothing on, and the first
+    receives zeros. Not differentiable."""
     flat = t.contiguous().view(-1)
-    out = torch.empty_like(flat)
     send, recv = [0] * size, [0] * size
-    send[(rank + 1) % size] = recv[(rank - 1) % size] = flat.numel()
-    dist.all_to_all_single(out, flat, output_split_sizes=recv, input_split_sizes=send,
-                           group=group)
+    to, frm = rank + step, rank - step
+    if wrap or 0 <= to < size:
+        send[to % size] = flat.numel()
+    if wrap or 0 <= frm < size:
+        recv[frm % size] = flat.numel()
+    out = torch.empty_like(flat) if sum(recv) else torch.zeros_like(flat)
+    # the pieces' sizes must add up to each tensor's
+    dist.all_to_all_single(out[:sum(recv)], flat[:sum(send)], output_split_sizes=recv,
+                           input_split_sizes=send, group=group)
     return out.view(t.shape)
 
 
+class _StageShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, rank, wrap):
+        ctx.args = group, size, rank, wrap
+        return ring_shift(x, group, size, rank, 1, wrap)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, size, rank, wrap = ctx.args
+        return ring_shift(grad, group, size, rank, -1, wrap), None, None, None, None
+
+
+def stage_shift(x: torch.Tensor, split) -> torch.Tensor:
+    """x of the previous stage of `split` (parallel/pipeline.py::StageSplit)
+    on this one: the last stage's on the first where the schedule is
+    interleaved (split.interleave > 1), else zeros there. The gradient goes
+    back the other way. Every stage calls it at once."""
+    return _StageShift.apply(x, split.group, split.size, split.rank, split.interleave > 1)
+
+
 __all__ = ["ExpertSplit", "SeqSplit", "TensorSplit", "all_to_all", "copy_to_tensor", "gather_seq",
-           "gather_tokens", "local", "reduce_from_tensor", "ring_shift", "split_tokens"]
+           "gather_tokens", "local", "reduce_from_tensor", "ring_shift", "split_tokens",
+           "stage_shift"]

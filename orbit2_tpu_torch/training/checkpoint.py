@@ -30,7 +30,10 @@ reference state-dict layout that orbit2_tpu_torch's ResSlimViT carries, ready
 for `load_state_dict(strict=True)`; an MoE Block's `moe_mlp` maps onto
 `blocks.{b}.moe_mlp.{router_kernel,wi,bi,wo,bo}` without transposes (the JAX
 export, `export_torch_state_dict`, reads every Block's `mlp` and so fails on
-an MoE trunk). Any tree shaped like the params maps the
+an MoE trunk). A pipelined model's tree, its Blocks stacked under
+`blocks_stacked` [depth, ...] or `blocks_stacked_iv` [V, S, dc, ...], is
+unstacked into `blocks.{i}` first (JAX's export reads only `blocks_{b}`
+and so exports no Block of it). Any tree shaped like the params maps the
 same way: JAX gradients (jax.grad of a loss in the params) land on the port's
 parameter names, to be held against each parameter's .grad, and so do
 optimizer moments.
@@ -49,6 +52,7 @@ import numpy as np
 import torch
 
 from orbit2_tpu_torch.ops.pos_embed import interpolate_pos_embed_checkpoint
+from orbit2_tpu_torch.parallel.pipeline import STACKED_IV_KEY, STACKED_KEY, unstack_any
 
 log = logging.getLogger("orbit2_tpu_torch")
 
@@ -56,8 +60,6 @@ CHECKPOINT_FILE = "state.pt"
 # where the CLIs save and look for checkpoints, as the JAX drivers do
 # through the JAX Trainer's default (orbit2_tpu/training/trainer.py:30)
 DEFAULT_CHECKPOINT_DIR = os.path.join("checkpoints", "climate")
-# the pipelined trunk's stacked block layout (JAX parallel/pipeline.py)
-STACKED_PREFIX = "blocks_stacked"
 
 
 def _map_tensors(obj, fn):
@@ -250,6 +252,28 @@ def _shape(mapping: Mapping[str, Any], key: str) -> Tuple[int, ...]:
     return tuple(np.shape(mapping[key]))
 
 
+def unstack_state_dict(state: Mapping[str, Any]) -> Mapping[str, Any]:
+    """A reference-layout state dict whose Blocks lie stacked
+    (`blocks_stacked.<key>` [depth, ...] or `blocks_stacked_iv.<key>` [V, S,
+    dc, ...]) with them unstacked into `blocks.{i}.<key>`; `state` itself
+    where nothing is stacked (an NpzState stays unread)."""
+    stacked = {}
+    for key in (STACKED_IV_KEY, STACKED_KEY):
+        sub = {k[len(key) + 1:]: np.asarray(state[k]) for k in state
+               if k.startswith(key + ".")}
+        if sub:
+            stacked[key] = sub
+    if not stacked:
+        return state
+    rest = {k: v for k, v in state.items()
+            if not k.startswith((STACKED_KEY + ".", STACKED_IV_KEY + "."))}
+    for key, sub in stacked.items():
+        for name, tree in unstack_any({key: sub}).items():
+            rest.update({f"blocks.{name[len('blocks_'):]}.{k}": torch.from_numpy(np.array(a))
+                         for k, a in tree.items()})
+    return rest
+
+
 def load_pretrained_params(state_dict: Mapping[str, torch.Tensor], pretrained: Mapping[str, Any],
                            patch_size: int, img_size=None, strict: bool = False,
                            keys: Optional[Sequence[str]] = None):
@@ -268,13 +292,12 @@ def load_pretrained_params(state_dict: Mapping[str, torch.Tensor], pretrained: M
     a large state piece by piece from an NpzState, which reads a member
     when it is taken.
 
-    The JAX version also converts between the per-block and the pipelined
-    (stacked) trunk layouts; the port has no pipelined trunk yet, so a
-    stacked state dict raises NotImplementedError."""
-    stacked = [k for k in (*state_dict, *pretrained) if k.startswith(STACKED_PREFIX)]
-    if stacked:
-        raise NotImplementedError(
-            f"{stacked[0]!r}: the pipelined trunk's stacked layout is not ported yet")
+    The port's models, pipelined ones too, keep the Blocks in the reference
+    layout; a source in the JAX pipeline's stacked layouts
+    (`blocks_stacked.<Block key>` [depth, ...] or `blocks_stacked_iv.<Block
+    key>` [V, S, dc, ...], as JAX converts, checkpoint.py:120-171) is
+    unstacked into `blocks.{i}.<Block key>` first (`unstack_state_dict`)."""
+    pretrained = unstack_state_dict(pretrained)
     used, dropped, resized = [], [], []
     merged = dict(state_dict) if keys is None else {}
     take = (lambda key: True) if keys is None else set(keys).__contains__
@@ -491,7 +514,7 @@ def state_dict_from_jax_params(params_np: Dict[str, Any], patch_size: Optional[i
     `batch_stats` and whose fixed pos_embed, if not learned, from `fixed`.
     `prefix` is put before every key: "backbone." for the downscaling
     presets behind utils/loaders.py::PreInterpolated."""
-    p = _to_numpy(params_np)
+    p = unstack_any(_to_numpy(params_np))
     if "token_embed_kernel" not in p:
         sd = _put_hub(p, None if batch_stats is None else _to_numpy(batch_stats),
                       None if fixed is None else _to_numpy(fixed), patch_size)

@@ -77,8 +77,20 @@ first devices, the mesh takes the first ranks: where the world is larger
 (the scale-down halved the data axes to divide the batch), the ranks past
 the mesh are idle and their fit returns at once with no record.
 
-A mesh larger than the world raises JAX's ValueError; then pipeline trunks
-and `parallelism.auto` raise NotImplementedError (evaluate.py::check_mesh,
+On a mesh with a stage axis (`parallelism.pipeline` S > 1) the trunk is
+pipelined (parallel/pipeline.py): each stage rank holds its stage's Blocks
+alone (GPipe, or interleaved with `pipeline_interleave`, over
+`pipeline_microbatches` microbatches of its local batch), and the fill
+still draws every unit in init_units order from the one generator, the
+Blocks held elsewhere too, and drops those, so a pipelined run starts from
+the one-process parameters. The stage ranks of one data rank read the same
+batches; every stage computes the loss, the validation and the records on
+the same output. A checkpoint saved there holds the whole model and moments
+in the reference layout (the Blocks handed over the stage group), and a
+stage rank resumes its own part of one.
+
+A mesh larger than the world raises JAX's ValueError; then
+`parallelism.auto` raises NotImplementedError (evaluate.py::check_mesh,
 check_training_scope), and so does a model-hub preset on a mesh
 (parallel/sharding.py::check_shardable).
 """
@@ -104,7 +116,7 @@ from orbit2_tpu_torch.evaluate import (
 from orbit2_tpu_torch.parallel.mesh import (
     data_group, data_rank, data_size, in_mesh, mesh_from_config, world_size)
 from orbit2_tpu_torch.parallel.sharding import (
-    check_shardable, full_state_dict, full_tensor, load_full_state_dict, shard_model)
+    check_shardable, full_named, full_state_dict, held_state, load_full_state_dict, shard_model)
 from orbit2_tpu_torch.training.checkpoint import (
     latest_port_checkpoint, prune_checkpoints, restore_checkpoint, save_checkpoint,
     wait_for_async_saves)
@@ -205,7 +217,7 @@ class Trainer:
         self.model.to_empty(device=self.device)
         fill, generator = None, kwargs["generator"]
         if state_dict is not None:
-            want = set(self.model.state_dict())
+            want = set(skeleton.state_dict())  # a stage rank's model holds part of the trunk
             if set(state_dict) != want:
                 raise KeyError(f"state dict: missing {sorted(want - set(state_dict))}, "
                                f"unexpected {sorted(set(state_dict) - want)}")
@@ -265,7 +277,10 @@ class Trainer:
         }, self.model.named_parameters())
         if state is None:
             return 0
-        self.optimizer.load_state_dict(state["optimizer"])
+        opt = state["optimizer"]
+        if self.mesh is not None:  # a stage rank steps its own Blocks' moments
+            opt = dict(opt, **{k: held_state(self.model, opt[k]) for k in ("mu", "nu")})
+        self.optimizer.load_state_dict(opt)
         epoch = int(state["epoch"]) + 1
         log.info("resumed from %s at epoch %d", path, epoch)
         return epoch
@@ -365,8 +380,7 @@ class Trainer:
         model, opt = self.model.state_dict(), self.optimizer.state_dict()
         if self.mesh is not None:
             model = full_state_dict(self.model)
-            opt = dict(opt, **{k: {n: full_tensor(t).cpu() for n, t in opt[k].items()}
-                               for k in ("mu", "nu")})
+            opt = dict(opt, **{k: full_named(self.model, opt[k]) for k in ("mu", "nu")})
             if dist.get_rank() != 0:
                 return
         save_checkpoint(path, {"model": model, "optimizer": opt, "epoch": epoch},

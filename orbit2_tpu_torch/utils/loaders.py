@@ -177,7 +177,8 @@ def load_architecture(data_module, architecture: str, default_vars=None, superre
                       num_heads=4, mlp_ratio=4, drop_path=0.1, drop_rate=0.1,
                       attention_impl="auto", gelu_approx="exact", data_type="float32",
                       remat=False, remat_policy="full", moe_experts=0, moe_every=2,
-                      moe_capacity_factor=1.25, moe_top_k=1, pipeline_stages=1, seq_shard=False,
+                      moe_capacity_factor=1.25, moe_top_k=1, pipeline_stages=1,
+                      pipeline_microbatches=0, pipeline_interleave=1, seq_shard=False,
                       seq_impl="gather", quant="none",
                       generator: Optional[torch.Generator] = None, task: str = "downscaling",
                       **_ignored):
@@ -251,7 +252,9 @@ def load_architecture(data_module, architecture: str, default_vars=None, superre
                 drop_rate=drop_rate, attention_impl=attention_impl, gelu_approx=gelu_approx,
                 remat=remat, remat_policy=remat_policy, moe_experts=moe_experts,
                 moe_every=moe_every, moe_capacity_factor=moe_capacity_factor,
-                moe_top_k=moe_top_k, pipeline_stages=pipeline_stages, seq_shard=seq_shard,
+                moe_top_k=moe_top_k, pipeline_stages=pipeline_stages,
+                pipeline_microbatches=pipeline_microbatches,
+                pipeline_interleave=pipeline_interleave, seq_shard=seq_shard,
                 seq_impl=seq_impl, quant=quant, dtype=dtype, generator=generator)
         raise not_implemented()
     raise not_implemented()

@@ -359,9 +359,13 @@ def test_load_pretrained_params_strict_and_stacked_raise():
     _, rep = ck.load_pretrained_params(torch_state(tgt), port_src, 2)
     _, wrep = jck.load_pretrained_params(tgt, src, patch_size=2)
     assert ("shape", "pos_embed") in rep["dropped"] and ("shape", ("pos_embed",)) in wrep["dropped"]
-    with pytest.raises(NotImplementedError, match="stacked"):
-        ck.load_pretrained_params(torch_state(tgt), {"blocks_stacked.attn.qkv.weight":
-                                                     torch.zeros(2)}, 2)
+    # a source in the JAX pipeline's stacked layout is unstacked, not refused
+    state = torch_state(tgt)
+    depth = sum(k.endswith(".attn.qkv.weight") for k in state)
+    stacked = torch.stack([state[f"blocks.{i}.attn.qkv.weight"] + 1 for i in range(depth)])
+    got, rep = ck.load_pretrained_params(state, {"blocks_stacked.attn.qkv.weight": stacked}, 2)
+    assert sorted(rep["used"]) == sorted(f"blocks.{i}.attn.qkv.weight" for i in range(depth))
+    assert all(torch.equal(got[f"blocks.{i}.attn.qkv.weight"], stacked[i]) for i in range(depth))
 
 
 def test_interpolate_pos_embed_checkpoint_keeps_the_type():

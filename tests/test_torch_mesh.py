@@ -288,19 +288,18 @@ def test_shipped_117m_mesh_trains_a_step_through_the_module_cli(synth_dataset, t
 @pytest.mark.parametrize("axis,world", [("pipeline", 2), ("seq_par", 2), ("expert_par", 2),
                                         ("auto", 1)])
 def test_trainer_refuses_axes_not_ported(synth_dataset, axis, world):
-    """The pipeline and parallelism.auto are refused; the seq and expert
-    axes, ported since, are taken."""
+    """parallelism.auto is refused; the seq and expert axes and the
+    pipeline, ported since, are taken."""
     raw = tiny_raw(synth_dataset, {"fsdp": 1, "simple_ddp": 1, "tensor_par": 1})
     raw["parallelism"][axis] = True if axis == "auto" else 2
     if axis == "expert_par":
         raw["model"].update(moe_experts=2, moe_every=1)
     cfg = load_config(raw)
     check_mesh(cfg, world)  # the mesh fits the world: the refusal is the axis's
-    if axis in ("seq_par", "expert_par"):
+    if axis in ("seq_par", "expert_par", "pipeline"):
         check_training_scope(cfg)
         return
-    with pytest.raises(NotImplementedError, match="auto resolves" if axis == "auto"
-                       else "not ported yet"):
+    with pytest.raises(NotImplementedError, match="auto resolves"):
         check_training_scope(cfg)
 
 
@@ -308,9 +307,10 @@ def test_trainer_refuses_axes_not_ported(synth_dataset, axis, world):
     ("moe", {"tensor": 2}), ("hub", {"fsdp": 2}), ("stage", {"stage": 2}),
     ("seq", {"seq": 2}), ("expert", {"expert": 2})])
 def test_shard_model_refuses_what_it_does_not_split(what, sizes):
-    """A model-hub preset and the stage axis are refused, a seq axis under a
-    model built without seq_shard and an expert axis over a trunk without
-    MoE Blocks too; an MoE trunk under tensor parallelism is taken."""
+    """A model-hub preset is refused, a stage axis under a model built
+    without pipeline_stages, a seq axis under a model built without
+    seq_shard and an expert axis over a trunk without MoE Blocks too; an MoE
+    trunk under tensor parallelism is taken."""
     from orbit2_tpu_torch.models import ResSlimViT
     from orbit2_tpu_torch.models.resnet import ResNet
     from orbit2_tpu_torch.parallel.sharding import check_shardable
@@ -319,7 +319,7 @@ def test_shard_model_refuses_what_it_does_not_split(what, sizes):
         model = (ResNet(7, 3, history=1) if what == "hub" else
                  ResSlimViT(DEFAULT_VARS, **TINY, moe_experts=2 if what == "moe" else 0))
     refusal = {"hub": (NotImplementedError, "ROADMAP queue 1 item 2"),
-               "stage": (NotImplementedError, "ROADMAP queue 1 item 2"),
+               "stage": (ValueError, "pipeline_stages=1 but the mesh's stage axis is 2"),
                "seq": (ValueError, "seq_shard=True"),
                "expert": (ValueError, "needs MoE Blocks")}.get(what)
     if refusal is None:

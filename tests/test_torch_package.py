@@ -21,6 +21,10 @@ MODULES = [
     "orbit2_tpu_torch.ops.pos_embed",
     "orbit2_tpu_torch.ops.quant",
     "orbit2_tpu_torch.models",
+    "orbit2_tpu_torch.parallel.mesh",
+    "orbit2_tpu_torch.parallel.pipeline",
+    "orbit2_tpu_torch.parallel.sharding",
+    "orbit2_tpu_torch.parallel.tensor",
     "orbit2_tpu_torch.metrics",
     "orbit2_tpu_torch.transforms",
     "orbit2_tpu_torch.training.checkpoint",

@@ -115,11 +115,17 @@ def test_train_mode_forward_raises():
                                     dict(seq_shard=True, pipeline_stages=2)],
                          ids=["moe_pipeline", "pipeline", "seq_shard"])
 def test_unported_trunks_raise(kwargs):
-    """The pipelined trunk is refused, with seq_shard too (JAX refuses that
-    pair, res_slimvit.py:356-358); seq_shard alone is taken."""
-    with pytest.raises(NotImplementedError):
-        ResSlimViT(DEFAULT_VARS, (8, 16), 7, 3, embed_dim=32, depth=2, decoder_depth=1,
-                   num_heads=2, **kwargs)
+    """The pipelined trunk is built; with MoE Blocks or seq_shard it raises
+    JAX's ValueErrors (config.py:328-335, res_slimvit.py:356-358)."""
+    build = lambda: ResSlimViT(DEFAULT_VARS, (8, 16), 7, 3, embed_dim=32, depth=2,  # noqa: E731
+                               decoder_depth=1, num_heads=2, **kwargs)
+    if "moe_experts" not in kwargs and "seq_shard" not in kwargs:
+        model = build()
+        assert model.pipeline_stages == 2 and len(model.blocks) == 2
+        return
+    with pytest.raises(ValueError, match="seq_shard" if "seq_shard" in kwargs
+                       else "moe_experts inside a pipelined trunk"):
+        build()
 
 
 def test_init_is_seeded_by_the_generator():

@@ -25,7 +25,9 @@ JAX side computes what they are held against:
     deterministic, and at seq 2 x tensor 2 with dropout and drop-path the
     parameters replicated over seq and tensor stay bit-equal.
 JAX's refusals are the port's: Ulysses' head divisibility, ring's
-N_local % 128, MoE x seq and pipeline x seq.
+N_local % 128, MoE x seq and pipeline x seq. The launch also runs the stage
+axis's cases of tests/test_torch_pipeline.py, whose JAX side runs as a
+process of its own beside this file's (`test_torch_pipeline.jax_side`).
 """
 
 import fcntl
@@ -248,8 +250,9 @@ def _wait(procs):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{logs[r][-4000:]}"
+    for r, p in enumerate(procs):  # the stage axis's JAX side, then the ranks
+        who = "the pipeline's JAX side" if r == 0 else f"rank {r - 1}"
+        assert p.returncode == 0, f"{who} exited {p.returncode}:\n{logs[r][-4000:]}"
 
 
 def _prepare_and_run(root, ds):
@@ -257,28 +260,37 @@ def _prepare_and_run(root, ds):
 
     from orbit2_tpu_torch.training.checkpoint import state_dict_from_jax_params
 
-    raws = configs(root, ds)
-    for name, raw in raws.items():
-        (root / f"{name}.yaml").write_text(yaml.safe_dump(raw))
-    trainers = {name: jax_trainer(raws[name], root / f"jax_ck_{name}")
-                for name in ("seq_gather", "moe_ep_fsdp", "moe_ep_tp")}
-    params = {kind: jax.tree.map(np.asarray, trainers[name].params)
-              for kind, name in (("seq", "seq_gather"), ("moe", "moe_ep_fsdp"),
-                                 ("moetp", "moe_ep_tp"))}
-    rng = np.random.default_rng(1)
-    batches = {"seq": (rng.normal(size=(4, 7, 16, 32)), rng.normal(size=(4, 3, 64, 128)) * 0.5),
-               "moe": (rng.normal(size=(4, 7, 8, 16)), rng.normal(size=(4, 3, 32, 64)) * 0.5)}
-    batches = {k: tuple(a.astype(np.float32) for a in v) for k, v in batches.items()}
-    inputs = {f"{kind}_{n}": a for kind, b in batches.items() for n, a in zip("xy", b)}
-    for kind, p in params.items():
-        patch = worker.SEQ_MODEL["patch_size"] if kind == "seq" else worker.TINY["patch_size"]
-        for k, t in state_dict_from_jax_params(p, patch_size=patch).items():
-            inputs[f"{kind}/{k}"] = t.numpy()
-    np.savez(root / "in.npz", **inputs)
-    out = root / "out"
-    out.mkdir()
-    procs = _launch(root, root, out)
-    try:  # the JAX side while the ranks run
+    # the stage axis's JAX side (tests/test_torch_pipeline.py), a process of
+    # its own from the start: the ranks wait for its inputs after this file's
+    # cases
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "tests", "test_torch_pipeline.py"), str(root)],
+        cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="1"), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)]
+    try:
+        raws = configs(root, ds)
+        for name, raw in raws.items():
+            (root / f"{name}.yaml").write_text(yaml.safe_dump(raw))
+        trainers = {name: jax_trainer(raws[name], root / f"jax_ck_{name}")
+                    for name in ("seq_gather", "moe_ep_fsdp", "moe_ep_tp")}
+        params = {kind: jax.tree.map(np.asarray, trainers[name].params)
+                  for kind, name in (("seq", "seq_gather"), ("moe", "moe_ep_fsdp"),
+                                     ("moetp", "moe_ep_tp"))}
+        rng = np.random.default_rng(1)
+        batches = {"seq": (rng.normal(size=(4, 7, 16, 32)),
+                           rng.normal(size=(4, 3, 64, 128)) * 0.5),
+                   "moe": (rng.normal(size=(4, 7, 8, 16)), rng.normal(size=(4, 3, 32, 64)) * 0.5)}
+        batches = {k: tuple(a.astype(np.float32) for a in v) for k, v in batches.items()}
+        inputs = {f"{kind}_{n}": a for kind, b in batches.items() for n, a in zip("xy", b)}
+        for kind, p in params.items():
+            patch = worker.SEQ_MODEL["patch_size"] if kind == "seq" else worker.TINY["patch_size"]
+            for k, t in state_dict_from_jax_params(p, patch_size=patch).items():
+                inputs[f"{kind}/{k}"] = t.numpy()
+        np.savez(root / "in.npz", **inputs)
+        out = root / "out"
+        out.mkdir()
+        procs += _launch(root, root, out)
+        # the JAX side while the ranks run
         want = {}
         jax_attention(want)
         hist = {}
@@ -316,7 +328,14 @@ def seqexpert(tmp_path_factory, synth_dataset):
                 jax=np.load(root / "jax.npz"),
                 jax_fit=json.loads((root / "jax.json").read_text())["fit"],
                 reports=[json.loads((root / "out" / f"seqexpert_{r}.json").read_text())
-                         for r in range(WORLD)])
+                         for r in range(WORLD)],
+                pipeline=[np.load(root / "out" / f"pipeline_{r}.npz") for r in range(WORLD)],
+                pipeline_reports=[json.loads((root / "out" / f"pipeline_{r}.json").read_text())
+                                  for r in range(WORLD)],
+                pipeline_jax=np.load(root / "pp_jax.npz"),
+                pipeline_jax_fit=json.loads((root / "pp_jax.json").read_text())["fit"],
+                pipeline_jax_validation=json.loads(
+                    (root / "pp_jax.json").read_text())["validation"])
 
 
 # -- seq_flash_attention -----------------------------------------------------

@@ -25,7 +25,15 @@ JAX: the test process holds the JAX side).
       epoch into OUT_DIR/ck, moe_ep_tp.yaml) with its history and the final
       parameters; last two dropout steps at seq 2 x tensor 2 and expert 2 x
       fsdp 2: whether the replicated parameters stayed bit-equal. Rank 0
-      writes OUT_DIR/seqexpert.npz and seqexpert.json.
+      writes OUT_DIR/seqexpert.npz and seqexpert.json. Then the stage axis
+      (tests/test_torch_pipeline.py): the pipelined model of
+      IN_DIR/pp_in.npz's weights under each schedule of PIPE_CASES on
+      each mesh of PIPE_MESHES, its output and input gradients gathered
+      and every rank's own parameter gradients; the unpipelined model's on
+      one process; Trainer.fit on IN_DIR's pp_*.yaml (the GPipe one saving
+      checkpoints into OUT_DIR/ppck, then resumed on the mesh and loaded
+      into one process); last the dropout cases. Each rank writes
+      OUT_DIR/pipeline_R.npz and pipeline_R.json.
 
   python tests/torch_mesh_worker.py cli RANK WORLD PORT CONFIG CKPT_DIR OUT_DIR
       The train CLI (`orbit2_tpu_torch.train.main`) as torchrun would start
@@ -41,6 +49,7 @@ import copy
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -323,6 +332,188 @@ def run_seqexpert(rank, in_dir, out_dir):
         json.dump(report, f)
     if rank == 0:
         np.savez(os.path.join(out_dir, "seqexpert.npz"), **arrays)
+    run_pipeline(rank, in_dir, out_dir)
+
+
+# the pipelined model (JAX tests/test_pipeline.py's tiny model) and its cases:
+# (name, microbatches, interleave) on each mesh, 2 stages
+PIPE_MODEL = dict(img_size=(16, 32), embed_dim=64, depth=4, num_heads=4)
+PIPE_CASES = [("gpipe_m2", 2, 1), ("gpipe_m4", 4, 1), ("interleaved_m4", 4, 2)]
+PIPE_MESHES = {"stage2_fsdp2": dict(stage=2, fsdp=2), "stage2_tensor2": dict(stage=2, tensor=2)}
+# how long the ranks wait for the JAX side's inputs
+PIPE_WAIT_S = 400
+PIPE_FITS = {"pp_gpipe": {"pipeline": 2, "fsdp": 2, "pipeline_microbatches": 2},
+             "pp_interleaved": {"pipeline": 2, "fsdp": 2, "pipeline_microbatches": 4,
+                                "pipeline_interleave": 2}}
+
+
+def run_pipeline(rank, in_dir, out_dir):
+    from orbit2_tpu_torch.config import load_config
+    from orbit2_tpu_torch.parallel import AXIS_STAGE, in_mesh
+    from orbit2_tpu_torch.parallel.sharding import full_named, full_state_dict
+    from orbit2_tpu_torch.training.checkpoint import restore_checkpoint
+    from orbit2_tpu_torch.training.trainer import Trainer
+
+    path, waited = os.path.join(in_dir, "pp_in.npz"), 0.0
+    while not os.path.exists(path):  # written by the JAX side beside the ranks
+        if waited > PIPE_WAIT_S:
+            raise TimeoutError(f"no {path} after {PIPE_WAIT_S} s")
+        time.sleep(0.5)
+        waited += 0.5
+    raw = np.load(path)
+    state = {k[3:]: torch.from_numpy(raw[k]) for k in raw.files if k.startswith("pp/")}
+    x, y = torch.from_numpy(raw["pp_x"]), torch.from_numpy(raw["pp_y"])
+    arrays, report = {}, {}
+
+    def step(model, xs, ys, mesh):
+        """Forward, JAX test_pipeline.py's loss mean((out - y)^2) of the
+        rank's slice (FSDP2 averages the data ranks' gradients: the global
+        mean's) and its backward: (output and input gradient gathered over
+        the data ranks, this rank's parameters' gradients, each whole)."""
+        xs = xs.clone().requires_grad_()
+        model.train()
+        out = model(xs, DEFAULT_VARS, OUT_VARS)
+        ((out - ys) ** 2).mean().backward()
+        # the rank's loss is its slice's mean: its input gradient is the
+        # global mean's times the data ranks
+        dx = xs.grad / (1 if mesh is None else data_size(mesh))
+        if mesh is not None:
+            out, dx = gather_batch(out.detach(), mesh), gather_batch(dx, mesh)
+        grads = {k: full_tensor(p.grad).numpy() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        return out.detach().numpy(), dx.numpy(), grads
+
+    # the unpipelined model on one process, then each schedule on each mesh
+    one = ResSlimViT(DEFAULT_VARS, attention_impl="auto", drop_rate=0.0, drop_path=0.0,
+                     **dict(TINY, **PIPE_MODEL))
+    one.load_state_dict(state)
+    out, dx, grads = step(one, x, y, None)
+    arrays.update({"one/out": out, "one/dx": dx, **{f"one/grad/{k}": g for k, g in grads.items()}})
+    for mesh_name, axes in PIPE_MESHES.items():
+        mesh = make_mesh(device_type="cpu", **axes)
+        # the fill draws every unit from the one generator, the Blocks held
+        # elsewhere too: the whole model is the one-process draw
+        drawn = sharded(mesh, seed=3, pipeline_stages=2, pipeline_interleave=2,
+                        pipeline_microbatches=4, **PIPE_MODEL)
+        one_draw = ResSlimViT(DEFAULT_VARS, attention_impl="auto", drop_rate=0.0, drop_path=0.0,
+                              generator=torch.Generator().manual_seed(3),
+                              **dict(TINY, **PIPE_MODEL)).state_dict()
+        whole = full_state_dict(drawn)
+        report[f"{mesh_name}/draw_equal"] = list(whole) == list(one_draw) and all(
+            torch.equal(t, one_draw[k]) for k, t in whole.items())
+        for case, m, v in PIPE_CASES:
+            model = sharded(mesh, state, pipeline_stages=2, pipeline_microbatches=m,
+                            pipeline_interleave=v, **PIPE_MODEL)
+            xs, ys = (t.chunk(data_size(mesh))[data_rank(mesh)] for t in (x, y))
+            out, dx, grads = step(model, xs, ys, mesh)
+            key = f"{mesh_name}/{case}"
+            arrays.update({f"{key}/out": out, f"{key}/dx": dx,
+                           **{f"{key}/grad/{k}": g for k, g in grads.items()}})
+            report[key] = {"blocks": [i for i, b in enumerate(model.blocks)
+                                      if any(True for _ in b.parameters())],
+                           "stage": mesh.get_local_rank(AXIS_STAGE)}
+
+    # Trainer.fit on the configs, the GPipe one saving checkpoints
+    for name in PIPE_FITS:  # both from the JAX Trainer's initial parameters
+        cfg = load_config(os.path.join(in_dir, f"{name}.yaml"))
+        init = state
+        ck = os.path.join(out_dir, "ppck") if name == "pp_gpipe" else None
+        trainer = Trainer(cfg, "cpu", state_dict=init, checkpoint_dir=ck,
+                          run_validation=ck is not None)
+        report[f"fit/{name}"] = trainer.fit(**FIT)
+        if ck is None:
+            continue
+        report["validation"] = trainer.last_validation
+        params = full_state_dict(trainer.model)
+        moments = {k: full_named(trainer.model, trainer.optimizer.state_dict()[k])
+                   for k in ("mu", "nu")}
+        saved = restore_checkpoint(os.path.join(ck, f"epoch_{FIT['max_epochs'] - 1}"))
+        again = Trainer(cfg, "cpu", checkpoint_dir=ck)
+        key = next(iter(cfg.data.low_res_dir))
+        again._start(again.data_module(key))
+        again._phase(again.data_module(key), key)  # the phase's geometry, as fit sets it
+        resumed = full_state_dict(again.model)
+        report["checkpoint"] = {
+            "keys": list(saved["model"]),
+            "saved_equal": all(torch.equal(saved["model"][k], t) for k, t in params.items()),
+            "moments_saved_equal": all(torch.equal(saved["optimizer"][k][n], t)
+                                       for k in moments for n, t in moments[k].items()),
+            "resumed_equal": list(resumed) == list(params) and all(
+                torch.equal(resumed[k], t) for k, t in params.items()),
+            "resumed_moments_equal": all(
+                torch.equal(full_named(again.model, again.optimizer.state_dict()[k])[n], t)
+                for k in moments for n, t in moments[k].items()),
+            "own_blocks": sorted({int(n.split(".")[1]) for n, _ in again.model.named_parameters()
+                                  if n.startswith("blocks.")})}
+        # the saved model on one process against the pipelined one, eval mode
+        mesh = again.mesh
+        xs = x.chunk(data_size(mesh))[data_rank(mesh)]
+        with torch.no_grad():
+            got = gather_batch(again.model.eval()(xs, DEFAULT_VARS, OUT_VARS), mesh)
+        if rank == 0:  # the config's model, unpipelined
+            single = ResSlimViT(DEFAULT_VARS, attention_impl="auto", drop_rate=0.0,
+                                drop_path=0.0, **dict(TINY, **PIPE_MODEL))
+            report["checkpoint"]["one_keys"] = list(single.state_dict())
+            single.load_state_dict(saved["model"], strict=True)
+            with torch.no_grad():
+                arrays["ck/one_out"] = single.eval()(x, DEFAULT_VARS, OUT_VARS).numpy()
+            arrays["ck/pipelined_out"] = got.numpy()
+
+    # dropout and drop-path 0.1
+    mesh = make_mesh(device_type="cpu", stage=2, fsdp=2)
+    gens = lambda: (torch.Generator().manual_seed(11), torch.Generator().manual_seed(12))  # noqa
+    model = sharded(mesh, state, drop=0.1, pipeline_stages=2, pipeline_microbatches=2,
+                    **PIPE_MODEL)
+    xs = x[:2].repeat(2, 1, 1, 1)  # microbatches 0 and 1 of equal samples
+    with torch.no_grad():
+        model.train()
+        arrays["dropout/twice"] = gather_batch(model(xs, DEFAULT_VARS, OUT_VARS, *gens()),
+                                               mesh).numpy()
+    runs = {}
+    for remat in (False, True):
+        model = sharded(mesh, state, drop=0.1, remat=remat, pipeline_stages=2,
+                        pipeline_microbatches=2, pipeline_interleave=1, **PIPE_MODEL)
+        train = train_step(model)
+        xs, ys = (t.chunk(data_size(mesh))[data_rank(mesh)] for t in (x, y))
+        g = gens()
+        losses = [train(xs, ys, *g).item() for _ in range(2)]
+        runs[remat] = (losses, {k: p.detach().to_local().clone()
+                                for k, p in model.named_parameters()})
+    report["remat_equal"] = runs[False][0] == runs[True][0] and all(
+        torch.equal(t, runs[True][1][k]) for k, t in runs[False][1].items())
+    # the parameters outside the trunk, replicated over stage, after two steps
+    group = mesh[AXIS_STAGE].get_group()
+    checked = equal = 0
+    for k, t in runs[True][1].items():
+        if k.startswith("blocks."):
+            continue
+        both = [torch.empty_like(t) for _ in range(2)]
+        dist.all_gather(both, t.contiguous(), group=group)
+        checked += 1
+        equal += int(torch.equal(both[0], both[1]))
+    report["outer_replicas"] = {"checked": checked, "equal": equal, "losses": runs[True][0]}
+
+    # an interleaved step at stage 2 x fsdp 2 against the same model on fsdp 2
+    # alone (ranks 0 and 1; 2 and 3 idle), where each data rank sweeps its
+    # microbatches through every Block on one process: the same folds
+    kw = dict(drop=0.1, pipeline_stages=2, pipeline_microbatches=4, pipeline_interleave=2,
+              **PIPE_MODEL)
+    for name, axes in (("sweep", dict(stage=2, fsdp=2)), ("sweep/one", dict(fsdp=2))):
+        mesh = make_mesh(device_type="cpu", **axes)
+        if not in_mesh(mesh):
+            continue
+        model = sharded(mesh, state, **kw)
+        xs, ys = (t.chunk(data_size(mesh))[data_rank(mesh)] for t in (x, y))
+        loss = data_mean(train_step(model)(xs, ys, *gens()), mesh).item()
+        grads = full_named(model, {k: p.grad for k, p in model.named_parameters()})
+        report[f"{name}/loss"] = loss
+        report[f"{name}/split"] = model.stage_split is not None
+        if rank == 0:
+            arrays.update({f"{name}/grad/{k}": g.numpy() for k, g in grads.items()})
+
+    np.savez(os.path.join(out_dir, f"pipeline_{rank}.npz"), **arrays)
+    with open(os.path.join(out_dir, f"pipeline_{rank}.json"), "w") as f:
+        json.dump(report, f)
 
 
 def run_cli(rank, out_dir, config, ckpt_dir):

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Faults planted in chip_smoke.py's gradient checks, to show that their
-bound (SEQEXP_GRAD_REL) fails a wrong trunk.
+"""Faults planted in chip_smoke.py's multi-rank checks, to show that their
+bounds fail a wrong trunk: the gradient bound (SEQEXP_GRAD_REL) and phase
+servemesh's serving bounds.
 
-    python3 chip_faults.py [seqexpert] [pipeline]
+    python3 chip_faults.py [seqexpert] [pipeline] [servemesh]
 
 Needs one CUDA card. Builds the kernels, then, for each phase named (both
 without arguments), runs two gloo ranks on the card, as the phase does.
@@ -23,11 +24,20 @@ not changed):
   unsummed_embedding  (a): the trunk's input not summed over the stages in
                       the backward, so the later stage's embedding takes a
                       zero gradient
+  servemesh:
+  dropped_rows        (a) at fsdp 2: data rank 1's rows missing from each
+                      gathered round
+  no_row_sum          (a) at tensor 2: the row-parallel products' sum over
+                      the tensor axis skipped (attention's projection, fc2)
 
-Each fit prints its first-step gradient reading against one rank's, and the
-phase's checks it fails are counted, not raised. The last line is one JSON
-object {"faults": {name: reading}, "bound": SEQEXP_GRAD_REL, "caught":
-bool}. The exit code is 0 when every reading is above the bound.
+Each fit prints its first-step gradient reading against one rank's, each
+serving run its readings against the one rank's (servemesh_phase's one
+rank, run here first on weights drawn from trainer.seed, which the ranks
+draw alike), and the phase's checks it fails are counted, not raised. The
+last line is one JSON object {"faults": {name: reading}, "bound":
+SEQEXP_GRAD_REL, "serving": {name: {failed checks, readings}}, "caught":
+bool}. The exit code is 0 when every gradient reading is above the bound
+and every serving fault fails a check of the phase.
 """
 
 import datetime
@@ -44,7 +54,7 @@ import torch
 
 import chip_smoke as cs
 
-PHASES = ("seqexpert", "pipeline")
+PHASES = ("seqexpert", "pipeline", "servemesh")
 
 
 def patch(module, name, value):
@@ -99,13 +109,38 @@ def pipeline_faults(root: Path):
             "unsummed_embedding": (run, patch(pp, "copy_to_tensor", lambda x, group: x))}
 
 
+def servemesh_faults():
+    """The same for phase servemesh (a): each serves its one mesh."""
+    import orbit2_tpu_torch.evaluate as evaluate
+    import orbit2_tpu_torch.models.components.blocks as blocks
+
+    gather_rows = evaluate.gather_rows
+
+    def first_rank_rows(tensors, real, mesh, device):
+        (out, total) = gather_rows(tensors, real, mesh, device)
+        mine = total // 2  # the rounds are full: each data rank holds half
+        return [t[:mine] for t in out], mine
+
+    def serve(mode):
+        def run(rank, raws, weights, refs):
+            return cs.servemesh_rank(rank, raws["root"], None, mode)[mode][0]
+        return run
+
+    return {"dropped_rows": (serve("fsdp"), patch(evaluate, "gather_rows", first_rank_rows)),
+            "no_row_sum": (serve("tensor"), patch(blocks, "reduce_from_tensor",
+                                                  lambda x, group: x))}
+
+
 def rank_main(phase: str, rank: int, port: str, root: str):
     import torch.distributed as dist
     import yaml
 
     torch.cuda.set_device(0)
     root = Path(root)
-    if phase == "seqexpert":
+    if phase == "servemesh":
+        raws, weights, refs = {"root": root}, None, None
+        faults = servemesh_faults()
+    elif phase == "seqexpert":
         raws = yaml.safe_load((root / "configs.yaml").read_text())
         weights = {"seq": cs.drawn_weights(cs.seqexp_config(raws["seq"], seq_par=1),
                                            cs.SEQEXP_SEED),
@@ -132,7 +167,14 @@ def rank_main(phase: str, rank: int, port: str, root: str):
             result = run(rank, raws, weights, refs)
         finally:
             undo()
-        if rank == 0:
+        if rank == 0 and phase == "servemesh":
+            readings[name] = {"failed": len(failed), **{k: result[k] for k in (
+                "pred_max_abs", "trunk_rel", "field_trunk_rel") if k in result},
+                "metric_rel": max(result[q]["metric_rel"] for q in ("none", "w8a8")),
+                "samples": result["none"]["samples"]}
+            failed.clear()
+            print(f"  ({name}) {json.dumps(readings[name])}", flush=True)
+        elif rank == 0:
             readings[name] = result["grad_rel"]
             worst = (f"the worst parameter {result['grad_worst']}: "
                      f"{result['grad_param_rel']:.3e}" if "grad_worst" in result else
@@ -151,7 +193,17 @@ def run_phase(phase: str, root: Path):
     returns rank 0's readings."""
     import yaml
 
-    if phase == "seqexpert":
+    if phase == "servemesh":
+        from orbit2_tpu_torch.config import load_config
+        from orbit2_tpu_torch.evaluate import Evaluator
+
+        raws = cs.serve_raws(root, 0)
+        for mode, raw in raws.items():
+            (root / f"serve_{mode}.yaml").write_text(yaml.safe_dump(raw, sort_keys=False))
+        cfgs = {mode: load_config(raw) for mode, raw in raws.items()}
+        cs.serve_reference(Evaluator(cfgs["one"], "cuda"), cfgs, root)
+        torch.cuda.empty_cache()
+    elif phase == "seqexpert":
         seq_raw, moe_raw = cs.seqexpert_configs(root, 0)
         (root / "configs.yaml").write_text(yaml.safe_dump({"seq": seq_raw, "moe": moe_raw}))
     else:
@@ -190,14 +242,16 @@ def main():
     libraries = {k.library.source.name: k.library for k in cs.kernels().values()}
     with ThreadPoolExecutor(len(libraries)) as pool:
         list(pool.map(lambda lib: lib.load(), libraries.values()))
-    readings = {}
+    readings, serving = {}, {}
     t0 = time.perf_counter()
     for phase in phases:
         with tempfile.TemporaryDirectory() as tmp:
-            readings.update(run_phase(phase, Path(tmp)))
-    caught = all(v > cs.SEQEXP_GRAD_REL for v in readings.values())
+            (serving if phase == "servemesh" else readings).update(run_phase(phase, Path(tmp)))
+    caught = (all(v > cs.SEQEXP_GRAD_REL for v in readings.values())
+              and all(r["failed"] > 0 for r in serving.values()))
     print(f"  {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"faults": readings, "bound": cs.SEQEXP_GRAD_REL, "caught": caught}))
+    print(json.dumps({"faults": readings, "bound": cs.SEQEXP_GRAD_REL, "serving": serving,
+                      "caught": caught}))
     sys.exit(0 if caught else 1)
 
 

@@ -213,13 +213,35 @@ Phases, each of which raises (and so exits non-zero) on failure:
                and their rows, K5 one a width; (c) two ranks on the one
                card over gloo (`python3 chip_smoke.py --mesh-worker RANK
                PORT DIR`) at interm_117m.yaml's width, depth 2, fp32, under
-               fsdp 2 and under tensor 2, against one rank (MESH_REL); a
-               rank that fails or dies fails the phase; {"mesh": ...}
+               fsdp 2 and under tensor 2, against one rank (MESH_REL), then
+               test() on both meshes against the config at mesh 1 on rank
+               0 (serve_meshes: the other rank idle; MESH_REL); a rank that
+               fails or dies fails the phase; {"mesh": ...}
+  servemesh — serving on a mesh, from serve1b's weights (the npz phase mesh
+               reads): configs/interm_1b.yaml's model at full width and
+               depth on serve1b's tiles (2 fields of 16 tiles, batch 16).
+               One rank (this process, unwrapped): test() in bf16 and w8a8,
+               the metrics over the rounds each mesh gathers, round 0's
+               prediction and trunk, a stitched field; (b) `python -m
+               orbit2_tpu_torch.evaluate` under a one-rank NCCL group set
+               up from torchrun's variables: metrics, printed JSON and a
+               batch's prediction bit-equal to the unwrapped Evaluator's;
+               (a) two gloo ranks (`--servemesh-worker`) at fsdp 2 and two
+               at tensor 2, at once: test() over 2 batches in bf16 and
+               w8a8 (exact K1 launches, samples, metrics within
+               SERVE_METRIC_REL), round 0's prediction gathered
+               (PRED_BF16_TOL) and trunk (TRUNK_BF16_REL), the stitched
+               field at tensor 2, an MC ensemble of 2
+               (exact K1 / K5 launches by width, seeded, members differ);
+               seconds, gloo seconds and peak a rank; then K1 at (B8,
+               N2178, H24, d128) and (B16, N2178, H12, d128) and K5 at the
+               ensemble's widths against their plain versions, and their
+               rows; {"servemesh": ...}
   seqexpert — the seq and expert axes (`python3 chip_smoke.py
                --seqexpert-worker MODE RANK WORLD PORT DIR` ranks over gloo
                on the one card; a rank that fails or dies fails the phase):
                (a) Trainer.fit on configs/interm_1b.yaml's model at full
-               width, depth 4 (64 x 128 crops, 2,048 tokens, batch 8,
+               width, depth 2 (64 x 128 crops, 2,048 tokens, batch 8,
                bf16, full remat) at seq 2 under gather, Ulysses and ring,
                on two ranks against one unwrapped rank: the trunk's
                first-step gradients at dropout 0 within SEQEXP_GRAD_REL,
@@ -227,14 +249,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
                losses and parameters within SEQEXP_REL, exact K1-K3 and K5
                launches, seconds, the collectives' seconds, peak memory a
                rank; (b)
-               configs/interm_1b_moe.yaml at full width, depth 4, batch 8
+               configs/interm_1b_moe.yaml at full width, depth 2, batch 8
                tiles, at expert 2 against one rank: the trunk's first-step
                gradients but the expert stacks' within SEQEXP_GRAD_REL,
-               the dense parameters bit-equal on both ranks; (c) four
+               the dense parameters bit-equal on both ranks, then the
+               trained model's test() at expert 2 against one rank within
+               SERVE_METRIC_REL; (c) four
                ranks at interm_117m.yaml's width, depth 2, fp32: seq 2 x
                fsdp 2 under each impl, expert 2 x fsdp 2 and expert 2 x
                tensor 2 on an MoE variant, one step against one rank
-               (MESH_REL); then K1-K3 at the seq path's
+               (MESH_REL), and test() on each against the config at mesh
+               1 on rank 0 (serve_meshes); then K1-K3 at the seq path's
                call shapes against their plain versions (gather: B8, N_q
                1,024, N_k 2,048, H24, d128; Ulysses: N 2,048, H12; a ring
                chunk: N 1,024, its two halves merged, K2/K3 fed the merged
@@ -253,11 +278,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
                dropout 0.1 under the interleaved schedule and 2 under GPipe:
                exact K1-K3 and K5 launches (K5 by width), finite losses, a
                step's seconds, its gloo and data-wait seconds and peak
-               memory a rank beside one rank's; (b) (run in seqexpert's
-               four-rank launch) interm_117m.yaml's width, depth 4, fp32,
-               batch 8: stage 2 x fsdp 2 and stage 2 x tensor 2 under GPipe
-               and interleaved (M 4), one step against one rank (MESH_REL),
-               exact launches; (c) K1-K3 at a microbatch's (B4, N2178, H24,
+               memory a rank beside one rank's, then the GPipe fit's model
+               served at stage 2 under both schedules against one
+               unpipelined rank (serve_meshes, SERVE_METRIC_REL); (b) (run
+               in seqexpert's four-rank launch) interm_117m.yaml's width,
+               depth 4, fp32, batch 8: stage 2 x fsdp 2 and stage 2 x
+               tensor 2 under GPipe and interleaved (M 4), one step against
+               one rank (MESH_REL), exact launches, and test() on each
+               against one unpipelined rank; (c) K1-K3 at a microbatch's (B4, N2178, H24,
                d128, dropout 0.1) on two batch elements and K5 at [8,712,
                3,072 | 12,288] against their plain versions, and their rows;
                {"pipeline": ...}
@@ -643,6 +671,11 @@ def only(**launched):
     return {name: launched.get(name, 0) for name in kernels()}
 
 
+def nonzero(launched):
+    """The kernels of `launched` (a counts() dict) launched at all."""
+    return {k: n for k, n in launched.items() if n}
+
+
 def reset_counts():
     for k in kernels().values():
         k.launches = 0
@@ -653,19 +686,29 @@ def counts():
 
 
 def write_dataset(root: Path, in_vars, out_vars, seed: int, n_files=2, t=16, low=(32, 64),
-                  mag=4, shards=("train", "val", "test")):
+                  mag=4, shards=("train", "val", "test"), same_samples=False):
     """The tests/conftest.py layout, by default at ERA5 5.625 deg (32 x 64) ->
     1.40625 deg (128 x 256): npz shards of [T, 1, H, W] arrays at `low` and
     `mag` x finer for the splits in `shards`, normalize mean/std, lat/lon and
-    every split's climatology."""
+    every split's climatology. `same_samples`: every sample of every file one
+    field (a mesh's data ranks then read what one rank reads, in any
+    grouping)."""
     rng = np.random.default_rng(seed)
+    fields = {}
 
     def field(v, h, w):
+        if same_samples and (v, h, w) in fields:
+            return fields[v, h, w]
+        n = 1 if same_samples else t
         if v == "total_precipitation_24hr":
-            return rng.gamma(0.3, 0.004, size=(t, 1, h, w))
-        if v in ("land_sea_mask", "landcover"):
-            return rng.integers(0, 2, size=(t, 1, h, w)).astype(np.float64)
-        return rng.normal(280, 10, size=(t, 1, h, w))
+            a = rng.gamma(0.3, 0.004, size=(n, 1, h, w))
+        elif v in ("land_sea_mask", "landcover"):
+            a = rng.integers(0, 2, size=(n, 1, h, w)).astype(np.float64)
+        else:
+            a = rng.normal(280, 10, size=(n, 1, h, w))
+        if same_samples:
+            a = fields[v, h, w] = np.repeat(a, t, axis=0)
+        return a
 
     for base, (h, w), variables in ((root / "low", low, in_vars),
                                     (root / "high", (low[0] * mag, low[1] * mag), out_vars)):
@@ -4619,15 +4662,20 @@ def mesh_phase(root: Path, seed: int, weights: str, call_s, smi):
                                                 n, smi, "mesh 1B")
 
     # (c) two ranks on the one card over gloo
-    out["two_ranks"] = two_ranks(root / "two")
+    out["two_ranks"] = two_ranks(root / "two", strict_serve_raw(root / "two_data", seed,
+                                                                MESH_TWO["batch"]))
     return {"out": out, "rows": rows, "errs": errs, "launched": path_t["launched"],
             "k5_shapes": list(k5_launched)}
 
 
-def two_ranks(two: Path):
+def two_ranks(two: Path, serve_raw):
     """Phase mesh (c): the two gloo ranks of mesh_worker on the one card,
-    held against one rank; a rank that fails or dies fails the phase."""
+    held against one rank (and serving `serve_raw`); a rank that fails or
+    dies fails the phase."""
+    import yaml
+
     two.mkdir()
+    (two / "serve.yaml").write_text(yaml.safe_dump(serve_raw, sort_keys=False))
     port = str(free_port())
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
                                str(r), port, str(two)], stdout=subprocess.PIPE,
@@ -4644,6 +4692,7 @@ def two_ranks(two: Path):
     for r, p in enumerate(procs):
         check(p.returncode == 0, f"two-rank worker {r} exited {p.returncode}:\n{logs[r][-3000:]}")
     res = json.loads((two / "result.json").read_text())
+    print("\n".join(line for line in logs[0].splitlines() if line.startswith("  (c) serving")))
     for mode in ("fsdp", "tensor"):
         r = res[mode]
         print(f"  (c) two ranks on one card over gloo, {mode} 2, fp32 on the kernels: loss "
@@ -4738,7 +4787,12 @@ def mesh_worker(rank: int, port: str, out_dir: str):
             check(set(grads) == set(one[1]), f"{mode}: gradients of {set(grads) ^ set(one[1])}")
         del model, step, grads
         torch.cuda.empty_cache()
+    import yaml
+
+    serve = serve_meshes(rank, yaml.safe_load((Path(out_dir) / "serve.yaml").read_text()),
+                         {"fsdp": {"fsdp": 2}, "tensor": {"tensor_par": 2}}, "(c)")
     if rank == 0:
+        result["serve"] = serve
         (Path(out_dir) / "result.json").write_text(json.dumps(result))
     dist.barrier()
     dist.destroy_process_group()
@@ -4764,8 +4818,8 @@ def mesh_worker(rank: int, port: str, out_dir: str):
 # 2.2e-3, a trunk that skips the seq sum of its gradients reads 0.51, gather
 # on the rank's own keys alone 0.14 (chip_faults.py plants such faults;
 # PERF.md §6); (b) configs/interm_1b_moe.yaml at full width, depth cut to
-# EXPERT_DEPTH (MoE Blocks 1 and 3, 8 experts each: full depth is ~2.0B a
-# rank, too much for two ranks on one card), its tiles, EXPERT_BATCH tiles a
+# EXPERT_DEPTH (MoE Block 1, 8 experts: full depth is ~2.0B a rank, too much
+# for two ranks on one card), its tiles, EXPERT_BATCH tiles a
 # step, at expert 2 on two gloo ranks against one rank: the trunk's
 # first-step gradients but the expert stacks' (whole on every rank; upstream
 # of an MoE layer they take its expert sums' backward) within
@@ -4778,7 +4832,8 @@ def mesh_worker(rank: int, port: str, out_dir: str):
 # The weights of (a) and (b) are drawn on the card from SEQEXP_SEED (a host
 # draw of 1.1B takes minutes)
 SEQ_LOW = (64, 128)
-SEQ_DEPTH = 4
+# cut from 4 to 2 for the script's time (phase servemesh)
+SEQ_DEPTH = 2
 SEQ_BATCH = 8
 SEQ_STEPS = 2
 SEQ_DROP = 0.1
@@ -4786,7 +4841,7 @@ SEQ_IMPL_DROP = {"gather": SEQ_DROP, "ulysses": SEQ_DROP, "ring": 0.0}
 SEQEXP_REL = 0.02
 SEQEXP_GRAD_REL = 1e-2
 SEQEXP_SEED = 23
-EXPERT_DEPTH = 4
+EXPERT_DEPTH = 2
 EXPERT_BATCH = 8
 MESH_MOE = dict(moe_experts=4, moe_every=2)
 GRAD_FLOOR = 1e-3
@@ -4809,7 +4864,7 @@ def seqexpert_configs(root: Path, seed: int):
     # one 252 x 504 field cuts 16 tiles of 66 x 132: SEQ_STEPS batches
     moe = raw_config(root / "moe", seed, CONFIG_MOE, trainer={"batch_size": EXPERT_BATCH},
                      model={"depth": EXPERT_DEPTH}, n_files=1, t=1, low=LOW_1B,
-                     shards=("train",))
+                     shards=("train", "test"))
     moe["parallelism"] = {"expert_par": 2}
     return seq, moe
 
@@ -5054,6 +5109,9 @@ def expert_fit(rank, world, moe_raw, moe_w, refs):
         equal += int(torch.equal(both[0], both[1]))
     check(dense > 0 and equal == dense,
           f"expert: {dense - equal} of {dense} dense parameters differ across expert ranks")
+    # the trained MoE model served at expert 2 against one rank
+    serve = serve_meshes(rank, moe_raw, {"expert": {"expert_par": 2}}, "(b)",
+                         bound=SERVE_METRIC_REL, state=params)
     if rank != 0:
         return {}
     ref, ref_params, ref_grads = refs["moe"]
@@ -5070,7 +5128,7 @@ def expert_fit(rank, world, moe_raw, moe_w, refs):
           f"{loss_rel:.3e} from one rank's")
     run.update(one_rank=ref, param_rel=worst, param_worst=name, state_rel=whole,
                loss_rel=loss_rel, dense_equal=f"{equal} of {dense}", grad_rel=grad_rel,
-               grad_param_rel=grad_worst, grad_worst=grad_name)
+               grad_param_rel=grad_worst, grad_worst=grad_name, serve=serve)
     return {"expert": run}
 
 
@@ -5093,7 +5151,7 @@ def seqexpert_worker(mode: str, rank: int, world: int, port: str, out_dir: str):
 
     if mode == "strict":
         join()
-        result = strict_meshes(rank)
+        result = strict_meshes(rank, out)
     else:
         import yaml
 
@@ -5112,10 +5170,101 @@ def seqexpert_worker(mode: str, rank: int, world: int, port: str, out_dir: str):
     dist.destroy_process_group()
 
 
-def strict_meshes(rank: int):
+# the fp32 serving checks of phases mesh (c), seqexpert (c) and pipeline (b):
+# configs/interm_117m.yaml at MESH_TWO's width, fp32, on a test split of two
+# files whose samples are one field (so a mesh's rounds hold what one rank's
+# batches hold), STRICT_BATCHES batches: test() on each mesh against the same
+# config at mesh 1 (rank 0 serves it, the other ranks idle), every metric
+# within MESH_REL (serve_readings), the samples equal, K1 depth a batch a rank
+STRICT_BATCHES = 1
+
+
+def strict_serve_raw(root: Path, seed: int, batch: int, **model):
+    """The raw config of the fp32 serving checks (the comment above), its
+    model changed by `model`."""
+    raw = raw_config(root, seed, CONFIG, trainer={"batch_size": batch, "data_type": "float32"},
+                     model=dict({k: v for k, v in MESH_TWO.items() if k != "batch"},
+                                drop_rate=0.0, drop_path=0.0, **model),
+                     n_files=2, t=batch, low=(64, 128), shards=("test",), same_samples=True)
+    raw["tiling"] = {"do_tiling": False}
+    return raw
+
+
+def serve_meshes(rank: int, raw, meshes, label: str, bound=MESH_REL, state=None):
+    """test() of `raw` over STRICT_BATCHES (weights `state`, None: drawn from
+    trainer.seed) on each of `meshes` ({name: parallelism}) against the
+    same config at mesh 1 (rank 0 serves it, the other ranks idle): every
+    metric within `bound` by serve_readings (the largest over the ranks),
+    the samples equal, K1 launched depth times a batch, on a stage rank its
+    Blocks' times the microbatches (the bubble runs none). Returns rank 0's
+    readings."""
+    import torch.distributed as dist
+
+    from orbit2_tpu_torch.config import load_config
+    from orbit2_tpu_torch.evaluate import Evaluator
+    from orbit2_tpu_torch.parallel.pipeline import owned_blocks
+
+    def served(par):
+        r = copy.deepcopy(raw)
+        r["parallelism"] = dict({a: 1 for a in MESH_AXES}, **par)
+        cfg = load_config(r)
+        t0 = time.perf_counter()
+        ev = Evaluator(cfg, "cuda", quant_modes=("none",), state_dict=state)
+        t1 = time.perf_counter()
+        reset_counts()
+        metrics = ev.test(max_batches=STRICT_BATCHES)
+        torch.cuda.synchronize()
+        got = {"metrics": metrics, "samples": ev.last_test["samples"] if ev.last_test else 0,
+               "launches": counts(), "idle": ev.idle, "seconds": time.perf_counter() - t1,
+               "build_s": t1 - t0}
+        m, p = cfg.model, cfg.parallelism
+        if not ev.idle:
+            calls = m.depth
+            if p.pipeline > 1:
+                stage = ev.mesh.get_local_rank("stage")
+                calls = (p.pipeline_microbatches or p.pipeline) * len(
+                    owned_blocks(m.depth, p.pipeline, p.pipeline_interleave, stage))
+            chunks = 2 if p.seq_par > 1 and p.seq_impl == "ring" else 1
+            want = only(flash_attn_fwd=chunks * calls * STRICT_BATCHES)
+            check(got["launches"] == want, f"{label} {par}: test() launched {got['launches']}, "
+                  f"want {want}")
+        del ev
+        gc.collect()
+        torch.cuda.empty_cache()
+        return got
+
+    one = [served({})]
+    dist.broadcast_object_list(one, src=0)
+    want = one[0]
+    result = {}
+    for name, par in meshes.items():
+        got = served(par)
+        rel, worst = serve_readings(got["metrics"], want["metrics"]) if not got["idle"] else (
+            0.0, None)
+        readings = [None] * dist.get_world_size()
+        dist.all_gather_object(readings, (rel, worst, got["samples"], got["idle"]))
+        largest = max(readings, key=lambda r: r[0])
+        r = {"metric_rel": largest[0], "worst": largest[1], "seconds": got["seconds"],
+             "build_s": got["build_s"], "samples": [x[2] for x in readings],
+             "launches_rank0": got["launches"]}
+        if rank == 0:
+            print(f"  {label} serving on {name} {par}: metrics within {largest[0]:.3e} of one "
+                  f"rank's ({largest[1]}; bound {bound:g}), samples a rank {r['samples']} (one "
+                  f"rank {want['samples']}), test() {got['seconds']:.3f} s, built in "
+                  f"{got['build_s']:.1f} s (one rank {want['build_s']:.1f})", flush=True)
+        check(largest[0] <= bound and all(x[2] == want["samples"] for x in readings if not x[3]),
+              f"{label} serving on {name} differs from one rank: {r}")
+        result[name] = r
+    return result
+
+
+def strict_meshes(rank: int, out: Path):
     """Phase seqexpert (c) on one rank: MESH_TWO's fp32 step, dense (seq
     meshes) and with MESH_MOE (expert meshes), on each of SEQEXP_MESHES
-    against the one-rank step (rank 0, unwrapped). Returns rank 0's results."""
+    against the one-rank step (rank 0, unwrapped), then test() of OUT's
+    serve_*.yaml on the same meshes (serve_meshes); then phase pipeline (b)
+    and its serving. Returns rank 0's results."""
+    import yaml
     import torch.distributed as dist
 
     from orbit2_tpu_torch.evaluate import materialize
@@ -5201,21 +5350,47 @@ def strict_meshes(rank: int):
             result[name] = r
         del model, step, grads
         torch.cuda.empty_cache()
+    raws = {kind: yaml.safe_load((out / f"serve_{kind}.yaml").read_text())
+            for kind in ("dense", "moe", "pipeline")}
+    serve = serve_meshes(rank, raws["dense"], {
+        name: {"seq_par": 2, "fsdp": 2, "seq_impl": name[4:]} for name in SEQEXP_MESHES
+        if name.startswith("seq_")}, "(c)")
+    serve.update(serve_meshes(rank, raws["moe"], {"expert_fsdp": {"expert_par": 2, "fsdp": 2},
+                                                  "expert_tensor": {"expert_par": 2,
+                                                                    "tensor_par": 2}}, "(c)"))
+    result["serve"] = serve
     result["pipeline"] = strict_pipeline(rank, step_of, kw, args, drawn)
+    result["pipeline"]["serve"] = serve_meshes(rank, raws["pipeline"], {
+        f"{name}_{sched}": {"pipeline": 2, "pipeline_microbatches": PP_STRICT["microbatches"],
+                            "pipeline_interleave": v,
+                            **({"fsdp": 2} if "fsdp" in name else {"tensor_par": 2})}
+        for name in PP_MESHES for sched, v in (("gpipe", 1), ("interleaved", 2))},
+        "(pipeline b)")
     return result
 
 
 def launch_ranks(mode: str, world: int, out: Path, timeout: int, worker="--seqexpert-worker"):
-    """The `world` ranks of `worker` (--seqexpert-worker, --pipeline-worker)
-    in `mode` on the card; a rank that fails or dies fails the phase.
-    Returns rank 0's json."""
+    """The `world` ranks of `worker` (--seqexpert-worker, --pipeline-worker,
+    --servemesh-worker) in `mode` on the card; a rank that fails or dies
+    fails the phase. Returns rank 0's json."""
+    return finish_ranks(mode, start_ranks(mode, world, out, worker), out, timeout)
+
+
+def start_ranks(mode: str, world: int, out: Path, worker: str):
+    """Starts launch_ranks' processes (a free port of their own) and returns them."""
     port = str(free_port())
     # the ranks share the card with this process, all on expandable segments
     # (set at the top, inherited)
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                               worker, mode, str(r), str(world), port, str(out)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
+    return [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                              worker, mode, str(r), str(world), port, str(out)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+
+
+def finish_ranks(mode: str, procs, out: Path, timeout: int):
+    """Waits for start_ranks' processes (each within `timeout` s), prints
+    rank 0's "  (" lines, fails the phase on a failed rank and returns rank
+    0's OUT/{mode}.json."""
     logs = []
     try:
         for p in procs:
@@ -5355,7 +5530,13 @@ def seqexpert_phase(root: Path, seed: int, call_s, smi):
           f"({torch.cuda.memory_reserved() / 2 ** 30:.2f} reserved); the card has "
           f"{free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB free", flush=True)
     full = launch_ranks("full", 2, root, timeout=600)
-    strict = launch_ranks("strict", 4, root, timeout=300)
+    for kind, (batch, model) in {"dense": (MESH_TWO["batch"], {}),
+                                 "moe": (MESH_TWO["batch"], MESH_MOE),
+                                 "pipeline": (PP_STRICT["batch"],
+                                              {"depth": PP_STRICT["depth"]})}.items():
+        (root / f"serve_{kind}.yaml").write_text(yaml.safe_dump(
+            strict_serve_raw(root / f"serve_{kind}", seed, batch, **model), sort_keys=False))
+    strict = launch_ranks("strict", 4, root, timeout=420)
 
     m = load_config(seq_raw).model
     h, d = m.num_heads, m.embed_dim // m.num_heads
@@ -5423,7 +5604,7 @@ def pipeline_raw(root: Path, seed: int):
     """configs/interm_1b_pp.yaml as a raw dict on a synthetic train split of
     PP_FIELDS fields at LOW_1B, its mesh cut to stage 2 alone."""
     raw = raw_config(root, seed, CONFIG_PP, model={"depth": PP_DEPTH}, n_files=1, t=PP_FIELDS,
-                     low=LOW_1B, shards=("train",))
+                     low=LOW_1B, shards=("train", "test"))
     raw["parallelism"].update(fsdp=1, tensor_par=1, simple_ddp=1)
     return raw
 
@@ -5454,14 +5635,15 @@ def pipeline_launches(depth, stages, interleave, microbatches, stage, drop=True)
     return counts, widths
 
 
-def pp_fit(cfg, weights, label, steps, grads_of=None):
+def pp_fit(cfg, weights, label, steps, grads_of=None, keep=False):
     """Trainer.fit of `cfg` from `weights`, `steps` steps, on this rank:
     {losses, launches, K5's by [rows, cols], step seconds, collective
-    seconds and calls, peak GiB}, and the first step's gradients of the
-    parameters matching `grads_of` (None: none kept), each whole; on a stage
-    mesh the trunk's are then handed over the stages (full_named), so every
-    rank holds all of them."""
-    from orbit2_tpu_torch.parallel.sharding import full_named
+    seconds and calls, peak GiB; with `keep` the trained model whole as
+    "state"}, and the first step's gradients of the parameters matching
+    `grads_of` (None: none kept), each whole; on a stage mesh the trunk's
+    are then handed over the stages (full_named), so every rank holds all
+    of them."""
+    from orbit2_tpu_torch.parallel.sharding import full_named, full_state_dict
     from orbit2_tpu_torch.training.trainer import Trainer
 
     torch.cuda.reset_peak_memory_stats()
@@ -5480,6 +5662,8 @@ def pp_fit(cfg, weights, label, steps, grads_of=None):
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     if getattr(trainer.model, "stage_split", None) is not None and grads:
         grads = full_named(trainer.model, grads)
+    if keep:
+        out["state"] = full_state_dict(trainer.model)
     print(f"  {label}: losses {out['losses']}, {out['step_s']:.3f} s a step "
           f"({out['collective_s']:.3f} s in {coll['calls'] // steps} collectives, "
           f"{out['data_wait_s']:.3f} s waiting for data a step), "
@@ -5574,7 +5758,8 @@ def pp_fits(rank, raw, weights, ref, out: Path):
     rows = cfg.trainer.batch_size * tokens  # a rank's batch: the stage axis splits no data
     for name, v in (("interleaved", par.pipeline_interleave), ("gpipe", 1)):
         run, _ = pp_fit(pp_config(raw, pipeline_interleave=v), weights,
-                        f"(a) {name} (V {v}) rank {rank}", PP_STEPS)
+                        f"(a) {name} (V {v}) rank {rank}", PP_STEPS, keep=name == "gpipe")
+        trained = run.pop("state", None)
         want, widths = pipeline_launches(m.depth, par.pipeline, v, par.pipeline_microbatches,
                                          rank)
         want = {k: n * PP_STEPS for k, n in want.items()}
@@ -5587,6 +5772,12 @@ def pp_fits(rank, raw, weights, ref, out: Path):
         both = [None, None]
         dist.all_gather_object(both, run)
         result[name] = both
+    # the GPipe fit's model served at stage 2 under both schedules
+    result["serve"] = serve_meshes(rank, raw, {
+        name: {"pipeline": par.pipeline, "pipeline_microbatches": par.pipeline_microbatches,
+               "pipeline_interleave": v}
+        for name, v in (("interleaved", par.pipeline_interleave), ("gpipe", 1))}, "(a)",
+        bound=SERVE_METRIC_REL, state=trained)
     return result if rank == 0 else {}
 
 
@@ -5743,6 +5934,408 @@ def strict_pipeline(rank, step_of, kw, args, drawn):
             del model, step, grads
             torch.cuda.empty_cache()
     return result
+
+
+# serving on a mesh (phase servemesh, after mesh, from serve1b's weights, the
+# npz phase mesh reads): configs/interm_1b.yaml's model at full width and
+# depth (embed 3072, depth 8, 24 heads of d 128, gelu tanh, bf16) on serve1b's
+# tiles (66 x 132, 2,178 tokens), a test split of SERVE_FILES files of one
+# field each (16 tiles: one BATCH_1B-tile batch a file). (a) two gloo ranks on
+# the card under each of SERVE_MESHES (the config's own axes cut to two
+# ranks; both pairs at once): test() over BATCHES_1B batches in bf16 and in
+# w8a8, an MC ensemble of SERVE_MC members, and at tensor 2 one stitched
+# field (at fsdp 2 each tile's forward re-gathers the weights: 38 s), each
+# held against one rank serving the same weights: the round-0 prediction
+# (gathered over the data ranks) within PRED_BF16_TOL and its trunk's output
+# within TRUNK_BF16_REL, the stitched field's trunk within TRUNK_BF16_REL,
+# and every metric within SERVE_METRIC_REL (relative; mean_bias relative to
+# its variable's rmse, pearson, near 0 at random weights, absolute) of the
+# one rank's over the same rounds (at fsdp 2 a round is both data ranks'
+# batches); the samples counted exactly. Sound readings: fsdp 2 bit-equal,
+# tensor 2 7.8e-7; chip_faults.py servemesh's faults 1.4e-4 (a data rank's
+# rows dropped; its samples 16 of 32 too) and 1.9e-3 (the row-parallel sum
+# skipped; its trunk 1.11). (b) python -m orbit2_tpu_torch.evaluate under a
+# one-rank NCCL group set up from torchrun's variables, on the config with
+# its mesh at 1, beside (a)'s ranks: the wrapped Evaluator against the
+# unwrapped one, metrics and prediction bit for bit
+SERVE_FILES = 2
+SERVE_MESHES = {"fsdp": {"fsdp": 2}, "tensor": {"tensor_par": 2}}
+SERVE_MC = 2
+SERVE_METRIC_REL = 2e-5
+
+
+def serve_readings(got, want):
+    """The largest error of the metrics `got` against `want` (test()'s dicts)
+    as SERVE_METRIC_REL reads it, and its metric."""
+    rel = {}
+    for k, w in want.items():
+        var = k.split(":")[1]
+        scale = (abs(want[f"test/rmse:{var}"]) if "mean_bias" in k
+                 else 1.0 if "pearson" in k else abs(w))
+        rel[k] = abs(got[k] - w) / max(scale, 1e-30)
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
+
+
+def serve_raws(root: Path, seed: int):
+    """{mode: raw config} of phase servemesh: interm_1b.yaml on the phase's
+    test split, batch BATCH_1B, its mesh at 1 ("one") or SERVE_MESHES'."""
+    raw = raw_config(root / "data", seed, CONFIG_1B, trainer={"batch_size": BATCH_1B},
+                     n_files=SERVE_FILES, t=1, low=LOW_1B, shards=("test",))
+    out = {}
+    for mode, par in (("one", {}), *SERVE_MESHES.items()):
+        r = copy.deepcopy(raw)
+        r["parallelism"] = dict({a: 1 for a in MESH_AXES}, **par)
+        out[mode] = r
+    return out
+
+
+def serve_rounds(cfg, data_size):
+    """The (x, y) of the rounds a mesh of `data_size` data ranks of `cfg`
+    gathers, each data rank's batch in turn, on one process."""
+    from orbit2_tpu_torch.evaluate import make_data_module
+
+    key = next(iter(cfg.data.low_res_dir))
+    dms = [make_data_module(cfg, key, cfg.tiling.effective_div, cfg.tiling.effective_overlap,
+                            "test", data_par_size=data_size, data_par_rank=r)
+           for r in range(data_size)]
+    loaders = [iter(dm.test_dataloader()) for dm in dms]
+    try:
+        for _ in range(BATCHES_1B):
+            parts = [next(it) for it in loaders]
+            yield tuple(torch.from_numpy(np.concatenate([p[i] for p in parts])).cuda()
+                        for i in (0, 1))
+    finally:
+        for it in loaders:
+            it.close()
+
+
+def serve_reference(ev, cfgs, root: Path):
+    """Phase servemesh's one rank (the unwrapped Evaluator `ev`): for each
+    mesh, the metrics over the rounds it gathers (bf16 and w8a8) and round
+    0's prediction and trunk output; field 0 stitched and its tiles' trunk
+    outputs; test()'s seconds a batch and peak memory. Saved to
+    ROOT/serve_ref.pt for the ranks; returns what the phase prints."""
+    from orbit2_tpu_torch.evaluate import make_data_module
+    from orbit2_tpu_torch.training.train import evaluate_batch, make_eval_step
+
+    in_vars, out_vars = ev.data_module.get_data_variables()
+    ref = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref["test"] = ev.test(max_batches=BATCHES_1B)
+    torch.cuda.synchronize()
+    ref["batch_s"] = (time.perf_counter() - t0) / BATCHES_1B
+    ref["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    for mode, par in SERVE_MESHES.items():
+        ds = par.get("fsdp", 1) * par.get("simple_ddp", 1)
+        for quant in ("none", "w8a8"):
+            model = ev.serving_model(quant)
+            step = make_eval_step(model, in_vars, out_vars)
+            agg, n = {}, 0
+            for i, (x, y) in enumerate(serve_rounds(cfgs[mode], ds)):
+                if i == 0 and quant == "none":
+                    with torch.no_grad(), trunk_outputs(model) as trunks:
+                        ref[f"{mode}/pred"] = model(x, in_vars, out_vars).float().cpu()
+                    ref[f"{mode}/trunk"] = trunks[0].cpu()
+                yhat = step(x, y)
+                for k, v in evaluate_batch(yhat, y, "test", ev.test_losses, ev.test_transforms,
+                                           out_vars).items():
+                    agg[k] = agg.get(k, 0.0) + v.item() * x.shape[0]
+                n += x.shape[0]
+            ref[f"{mode}/{quant}"] = {k: v / n for k, v in agg.items()}
+            ref[f"{mode}/samples"] = n
+    cfg = cfgs["one"]
+    dm_vis = make_data_module(cfg, ev.data_key, 1, 0, "test")
+    sample, _, names, _ = next(iter(dm_vis.data_test))
+    x_full = np.stack([sample[k] for k in names])
+    with trunk_outputs(ev.model) as trunks:
+        ref["field"], ref["field_s"] = stitch_field(
+            ev.model, x_full, cfg.tiling.effective_div, cfg.tiling.effective_overlap,
+            cfg.model.superres_mag, in_vars, out_vars)
+    ref["field"], ref["field_trunk"] = torch.from_numpy(ref["field"]), torch.cat(trunks).cpu()
+    torch.save(ref, root / "serve_ref.tmp.pt")
+    os.replace(root / "serve_ref.tmp.pt", root / "serve_ref.pt")  # the ranks wait for it
+    return ref
+
+
+def servemesh_field(ev, cfg, ref, mode: str):
+    """Phase servemesh (a): field 0 stitched on the mesh against the one
+    rank's (its tiles' trunks within TRUNK_BF16_REL, the field within
+    PRED_BF16_TOL), depth x tiles K1 launches. Returns the readings."""
+    from orbit2_tpu_torch.evaluate import make_data_module
+
+    m, r = cfg.model, {}
+    in_vars, out_vars = ev.data_module.get_data_variables()
+    dm_vis = make_data_module(cfg, ev.data_key, 1, 0, "test")
+    sample, _, names, _ = next(iter(dm_vis.data_test))
+    x_full = np.stack([sample[k] for k in names])
+    div = cfg.tiling.effective_div
+    reset_counts()
+    with trunk_outputs(ev.model) as trunks:
+        field, r["field_s"] = stitch_field(ev.model, x_full, div,
+                                           cfg.tiling.effective_overlap, m.superres_mag,
+                                           in_vars, out_vars)
+    r["field_launches"] = counts()
+    check(r["field_launches"] == only(flash_attn_fwd=m.depth * div * div),
+          f"({mode}) the stitched field launched {r['field_launches']}")
+    r["field_trunk_rel"] = rel_frob(torch.cat(trunks), ref["field_trunk"].cuda())
+    want_field = ref["field"].numpy()
+    r["field_max_abs"] = float(np.abs(field - want_field).max())
+    check(r["field_trunk_rel"] <= TRUNK_BF16_REL and np.allclose(
+        field, want_field, atol=PRED_BF16_TOL, rtol=PRED_BF16_TOL),
+          f"({mode}) the stitched field's trunk {r['field_trunk_rel']:.3e}, field "
+          f"{r['field_max_abs']:.3e} from one rank's")
+    return r
+
+
+def servemesh_rank(rank: int, root: Path, weights, mode: str):
+    """Phase servemesh (a) on one of its two gloo ranks: SERVE_MESHES[mode]
+    served from `weights` (an npz path; None: drawn from trainer.seed, as
+    the one rank draws them) against ROOT/serve_ref.pt; tensor 2 also
+    stitches the field. Returns rank 0's readings (both ranks' seconds, gloo
+    seconds and peak memory); every failing check is raised (check)."""
+    import torch.distributed as dist
+
+    import yaml
+
+    from orbit2_tpu_torch.config import load_config
+    from orbit2_tpu_torch.evaluate import Evaluator
+    from orbit2_tpu_torch.parallel import data_group, data_size
+    from orbit2_tpu_torch.training.checkpoint import load_state_npz
+    from orbit2_tpu_torch.utils.mc_dropout import get_monte_carlo_predictions
+
+    state = load_state_npz(weights) if weights else None
+    cfg = load_config(yaml.safe_load((root / f"serve_{mode}.yaml").read_text()))
+    m = cfg.model
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ev = Evaluator(cfg, "cuda", state_dict=state)
+    r = {"build_s": time.perf_counter() - t0}
+    in_vars, out_vars = ev.data_module.get_data_variables()
+    # the one rank's results, which this process's start overlaps
+    while not (root / "serve_ref.pt").exists():
+        time.sleep(0.5)
+    ref = torch.load(root / "serve_ref.pt")
+    for quant in ("none", "w8a8"):
+        reset_counts()
+        with timed_collectives() as coll:
+            t0 = time.perf_counter()
+            metrics = ev.test(max_batches=BATCHES_1B, quant=quant)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launched = counts()
+        rel, worst = serve_readings(metrics, ref[f"{mode}/{quant}"])
+        r[quant] = {"metrics": metrics, "samples": ev.last_test["samples"],
+                    "metric_rel": rel, "metric_worst": worst, "launches": launched,
+                    "batch_s": seconds / BATCHES_1B, "gloo_s": coll["s"] / BATCHES_1B}
+        check(launched == only(flash_attn_fwd=m.depth * BATCHES_1B),
+              f"({mode} {quant}) test() launched {launched}, want flash_attn_fwd = depth x "
+              f"batches = {m.depth * BATCHES_1B} and nothing else")
+        check(ev.last_test["samples"] == ref[f"{mode}/samples"],
+              f"({mode} {quant}) {ev.last_test['samples']} samples, one rank "
+              f"{ref[f'{mode}/samples']}")
+        check(rel <= SERVE_METRIC_REL, f"({mode} {quant}) the metrics {rel:.3e} ({worst}) "
+              f"from one rank's")
+    # round 0's prediction and trunk, gathered over the data ranks
+    loader = iter(ev.data_module.test_dataloader())
+    x = torch.from_numpy(next(loader)[0]).cuda()
+    loader.close()
+    with torch.no_grad(), trunk_outputs(ev.model) as trunks:
+        pred = ev.model(x, in_vars, out_vars).float()
+    trunk = trunks[0]
+    if data_size(ev.mesh) > 1:
+        parts = [[torch.empty_like(t) for _ in range(data_size(ev.mesh))] for t in (pred, trunk)]
+        for t, p in zip((pred, trunk), parts):
+            dist.all_gather(p, t.contiguous(), group=data_group(ev.mesh))
+        pred, trunk = (torch.cat(p) for p in parts)
+    want_pred = ref[f"{mode}/pred"].cuda()
+    same_shape = pred.shape == want_pred.shape
+    r["pred_max_abs"] = (pred - want_pred).abs().max().item() if same_shape else math.inf
+    r["trunk_rel"] = rel_frob(trunk, ref[f"{mode}/trunk"].cuda()) if same_shape else math.inf
+    check(same_shape and bool(torch.isclose(pred, want_pred, atol=PRED_BF16_TOL,
+                                            rtol=PRED_BF16_TOL).all()),
+          f"({mode}) round 0's prediction {tuple(pred.shape)} off one rank's "
+          f"{tuple(want_pred.shape)} by {r['pred_max_abs']:.3e}")
+    check(r["trunk_rel"] <= TRUNK_BF16_REL, f"({mode}) round 0's trunk {r['trunk_rel']:.3e} "
+          f"from one rank's")
+    if mode == "tensor":  # one stitched field: every rank runs every tile
+        r.update(servemesh_field(ev, cfg, ref, mode))
+    # an MC ensemble: K1 with dropout and K5, the seeds folded with the rank's coordinates
+    reset_counts()
+    with launch_widths(kernels()["fused_dropout"]) as widths:
+        ens = get_monte_carlo_predictions(ev.model, x, in_vars, out_vars, SERVE_MC,
+                                          torch.Generator().manual_seed(5))
+        torch.cuda.synchronize()
+    r["mc_launches"], r["mc_widths"] = counts(), sorted([a, b, n] for (a, b), n
+                                                        in widths.items())
+    # the same seed repeats the first member (its seeds are the generator's first)
+    again = get_monte_carlo_predictions(ev.model, x, in_vars, out_vars, 1,
+                                        torch.Generator().manual_seed(5))
+    check(r["mc_launches"] == only(flash_attn_fwd=SERVE_MC * m.depth,
+                                   fused_dropout=SERVE_MC * (1 + 3 * m.depth)),
+          f"({mode}) MC launches {r['mc_launches']}")
+    check(torch.equal(ens[:1], again) and not torch.equal(ens[0], ens[1])
+          and bool(ens.isfinite().all()), f"({mode}) the MC ensemble: seeded repeat, "
+          f"members equal or not finite")
+    r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    both = [None, None]
+    dist.all_gather_object(both, r)
+    return {mode: both}
+
+
+def servemesh_worker(mode: str, rank: int, port: str, out_dir: str):
+    """One of phase servemesh (a)'s two gloo ranks on the card, serving
+    SERVE_MESHES[mode]: servemesh_rank from OUT_DIR's weights; rank 0
+    writes OUT_DIR/{mode}.json."""
+    import datetime
+    import faulthandler
+
+    import torch.distributed as dist
+
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    out = Path(out_dir)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=600))
+    weights = (out / "weights.txt").read_text().strip() or None
+    result = servemesh_rank(rank, out, weights, mode)
+    if rank == 0:
+        (out / f"{mode}.json").write_text(json.dumps(result))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def serve_cli_one_rank(path: Path, weights: str, ev):
+    """Phase servemesh (b): `python -m orbit2_tpu_torch.evaluate` on `path`
+    (mesh 1) under a one-rank NCCL group that torchrun's variables describe,
+    against the unwrapped Evaluator `ev` on the same config and weights:
+    metrics, the printed JSON and one batch's prediction bit for bit."""
+    import io
+
+    import torch.distributed as dist
+
+    from orbit2_tpu_torch import evaluate as evaluate_mod
+
+    env = dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out = io.StringIO()
+    try:
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            cli = evaluate_mod.main([str(path), "--torch-npz", weights, "--device", "cuda",
+                                     "--max-batches", str(BATCHES_1B)])
+        launched = counts()
+        check(dist.is_initialized() and dist.get_backend() == "nccl" and cli.mesh is not None,
+              "the evaluate CLI joined no NCCL group or served unwrapped")
+        printed = json.loads(out.getvalue())
+        want = ev.last_test["means"]
+        loader = iter(ev.data_module.test_dataloader())
+        x = torch.from_numpy(next(loader)[0]).cuda()
+        loader.close()
+        in_vars, out_vars = ev.data_module.get_data_variables()
+        with torch.no_grad():
+            same_pred = torch.equal(cli.model(x, in_vars, out_vars), ev.model(x, in_vars,
+                                                                             out_vars))
+        r = {"metrics_equal": cli.last_test["means"] == want,
+             "printed_equal": printed == {k: round(float(v), 6) for k, v in want.items()},
+             "pred_equal": same_pred, "launches": launched}
+        print(f"  (b) evaluate CLI under a one-rank NCCL group (torchrun's variables), "
+              f"{path.name}: metrics bit-equal to the unwrapped Evaluator's "
+              f"{r['metrics_equal']}, printed JSON equal {r['printed_equal']}, one batch's "
+              f"prediction bit-equal {same_pred}; launches {nonzero(launched)}")
+        check(r["metrics_equal"] and r["printed_equal"] and same_pred,
+              f"the wrapped evaluate CLI differs from the unwrapped Evaluator: {r}")
+        check(launched == only(flash_attn_fwd=ev.cfg.model.depth * BATCHES_1B),
+              f"the evaluate CLI launched {launched}")
+        del cli
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def servemesh_phase(root: Path, seed: int, weights: str, call_s, smi):
+    """Phase servemesh (the constants' comment): the one rank and (b) in this
+    process, then (a)'s two ranks, then K1 and K5 at the meshes' shapes
+    against their plain versions, and their rows. Returns what the kernels
+    line reads."""
+    import yaml
+
+    from orbit2_tpu_torch.config import load_config
+    from orbit2_tpu_torch.evaluate import Evaluator
+    from orbit2_tpu_torch.training.checkpoint import load_state_npz
+
+    root.mkdir(exist_ok=True)
+    raws = serve_raws(root, seed)
+    for mode, raw in raws.items():
+        (root / f"serve_{mode}.yaml").write_text(yaml.safe_dump(raw, sort_keys=False))
+    cfgs = {mode: load_config(raw) for mode, raw in raws.items()}
+    m = cfgs["one"].model
+    (root / "weights.txt").write_text(weights)
+    # the two meshes' rank pairs at once (their time is mostly gloo's host
+    # copies), building while this process serves the one rank and (b)
+    procs = {mode: start_ranks(mode, 2, root, "--servemesh-worker") for mode in SERVE_MESHES}
+    ev = Evaluator(cfgs["one"], "cuda", state_dict=load_state_npz(weights))
+    ref = serve_reference(ev, cfgs, root)
+    print(f"  one rank, {CONFIG_1B.name} at full width and depth (embed {m.embed_dim}, depth "
+          f"{m.depth}, {m.num_heads} heads), {SERVE_FILES} fields of 16 tiles: test() "
+          f"{ref['batch_s']:.3f} s a batch, peak {ref['peak_gib']:.2f} GiB; gpu: {smi}")
+    cli = serve_cli_one_rank(root / "serve_one.yaml", weights, ev)
+    del ev
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = {mode: finish_ranks(mode, p, root, 900)[mode] for mode, p in procs.items()}
+    out = {"one_rank": {k: ref[k] for k in ("test", "batch_s", "peak_gib", "field_s")},
+           "cli": cli}
+    for mode, both in full.items():
+        for rank, r in enumerate(both):
+            for quant in ("none", "w8a8"):
+                q = r[quant]
+                print(f"  (a) {mode} 2 rank {rank} {quant}: {q['batch_s']:.3f} s a batch "
+                      f"({q['gloo_s']:.3f} s in gloo; one rank {ref['batch_s']:.3f}), "
+                      f"{q['samples']} samples, metrics within {q['metric_rel']:.3e} of one "
+                      f"rank's ({q['metric_worst']}; bound {SERVE_METRIC_REL:g}); launches "
+                      f"{nonzero(q['launches'])}")
+            field = (f"stitched field max|d| {r['field_max_abs']:.3e}, trunk "
+                     f"{r['field_trunk_rel']:.3e} (bound {TRUNK_BF16_REL:g}), {r['field_s']:.3f} "
+                     f"s (one rank {ref['field_s']:.3f}); " if "field_s" in r else "")
+            print(f"  (a) {mode} 2 rank {rank}: built in {r['build_s']:.1f} s; round 0's "
+                  f"prediction max|d| {r['pred_max_abs']:.3e}, trunk {r['trunk_rel']:.3e}; "
+                  f"{field}MC launches {nonzero(r['mc_launches'])}, K5 by [rows, cols, n] "
+                  f"{r['mc_widths']}; peak {r['peak_gib']:.2f} GiB (one rank "
+                  f"{ref['peak_gib']:.2f}); gpu: {smi}")
+        out[mode] = both
+    # K1 and K5 at the meshes' shapes: fsdp 2 halves the batch, tensor 2 the heads
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kseed = 2 ** 45 + seed
+    h, d = m.num_heads, m.embed_dim // m.num_heads
+    n = ref["fsdp/trunk"].shape[1]
+    rows, errs, k5 = {}, {}, {}
+    for mode, (b, heads) in (("fsdp", (BATCH_1B // 2, h)), ("tensor", (BATCH_1B, h // 2))):
+        q, k, v = make_qkv(b, n, n, heads, d, torch.bfloat16, gen)
+        errs[mode] = check_forward(q, k, v, 0.0, kseed, f"servemesh {mode} bf16 drop 0 B{b} "
+                                   f"N{n} H{heads} d{d}")[3]
+        del q, k, v
+        torch.cuda.empty_cache()
+        rows[mode] = k1_row(b, n, heads, d, 0.0, gen, kseed, call_s, smi,
+                            full[mode][0]["none"]["launches"]["flash_attn_fwd"])
+        for r_, c_, launches in full[mode][0]["mc_widths"]:
+            if (r_, c_) in k5 or c_ == m.embed_dim and mode == "tensor":
+                continue  # tensor 2's [34,848, 3,072] is serve1b's
+            check_dropout(r_, c_, torch.bfloat16, m.drop_rate, gen, kseed)
+            k5[(r_, c_)] = k5_row((r_, c_), torch.bfloat16, m.drop_rate, gen, kseed, launches,
+                                  smi, f"servemesh {mode} MC")
+    return {"out": out, "rows": rows, "errs": errs, "k5": k5}
 
 
 @contextlib.contextmanager
@@ -6310,7 +6903,12 @@ def main():
     phase("mesh")
     with mesh_dir:
         mp = mesh_phase(Path(mesh_dir.name), args.seed, weights_1b, call_s, smi)
-    print(json.dumps({"mesh": {"gpu": smi, **mp["out"], "errors": mp["errs"]}}))
+        print(json.dumps({"mesh": {"gpu": smi, **mp["out"], "errors": mp["errs"]}}))
+        torch.cuda.empty_cache()
+        # serving on a mesh, from the same weights
+        phase("servemesh")
+        sm = servemesh_phase(Path(mesh_dir.name) / "serve", args.seed, weights_1b, call_s, smi)
+    print(json.dumps({"servemesh": {"gpu": smi, **sm["out"], "errors": sm["errs"]}}))
     torch.cuda.empty_cache()
 
     # the seq and expert axes, on two and four gloo ranks of the card
@@ -6526,6 +7124,15 @@ def main():
         *(path_entry(pl["k5"], shape, pl["k5"][shape]["launches"], "pipeline", "fused_dropout",
                      "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39", 0.0)
           for shape in pl["k5"]),
+        # serving on a mesh (phase servemesh): K1 at a rank's shapes, launches
+        # a rank's in test(), and K5 at the MC ensemble's widths
+        *(path_entry(sm["rows"], mode, sm["rows"][mode]["launches"], f"servemesh {mode}",
+                     "flash_attn_fwd", "flash_attn_fwd.cu",
+                     "orbit2_tpu/ops/flash_attention.py:150", sm["errs"][mode])
+          for mode in sm["rows"]),
+        *(path_entry(sm["k5"], shape, sm["k5"][shape]["launches"], "servemesh mc",
+                     "fused_dropout", "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39", 0.0)
+          for shape in sm["k5"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -6538,6 +7145,8 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--seqexpert-worker"]:  # one of phase seqexpert's ranks
         seqexpert_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
                          sys.argv[6])
+    elif sys.argv[1:2] == ["--servemesh-worker"]:  # one of phase servemesh's two ranks
+        servemesh_worker(sys.argv[2], int(sys.argv[3]), sys.argv[5], sys.argv[6])
     elif sys.argv[1:2] == ["--pipeline-worker"]:  # one of phase pipeline's two ranks
         pipeline_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
                         sys.argv[6])

@@ -226,8 +226,10 @@ class NpyReader:
 
     def __iter__(self) -> Iterator[Sample]:
         for path_inp, path_out in self._sharded_files():
-            inp_data = np.load(path_inp)
-            out_data = inp_data if path_out == path_inp else np.load(path_out)
+            # each variable read once a file (an NpzFile reads a member anew at
+            # every index), every tile a copy of its slice of it
+            inp_data = _members(path_inp, self.variables)
+            out_data = _members(path_out, self.out_variables)
 
             k0, k1 = self.variables[0], self.out_variables[0]
             # arrays are [T, 1, H, W] (reference :103-110)
@@ -237,20 +239,22 @@ class NpyReader:
             for t in tile_slices(self.div, self.overlap, yinp, xinp, yout, xout):
                 yield (
                     {
-                        k: np.squeeze(
-                            inp_data[k][:, :, t.yi[0] : t.yi[1], t.xi[0] : t.xi[1]], axis=1
-                        )
+                        k: np.array(inp_data[k][:, 0, t.yi[0] : t.yi[1], t.xi[0] : t.xi[1]])
                         for k in self.variables
                     },
                     {
-                        k: np.squeeze(
-                            out_data[k][:, :, t.yo[0] : t.yo[1], t.xo[0] : t.xo[1]], axis=1
-                        )
+                        k: np.array(out_data[k][:, 0, t.yo[0] : t.yo[1], t.xo[0] : t.xo[1]])
                         for k in self.out_variables
                     },
                     self.variables,
                     self.out_variables,
                 )
+
+
+def _members(path: str, keys: Sequence[str]) -> Dict[str, np.ndarray]:
+    """The arrays `keys` of the npz at `path`, each read once."""
+    with np.load(path) as f:
+        return {k: f[k] for k in keys}
 
 
 class Downscale:

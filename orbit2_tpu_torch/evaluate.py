@@ -1,4 +1,5 @@
-"""Test-split evaluation on one device: the serving path of the port.
+"""Test-split evaluation on one device or a device mesh: the serving path
+of the port.
 
 Counterpart of `Trainer.test` (orbit2_tpu/training/trainer.py:762-831) and
 of examples/evaluate.py: a deterministic forward of the config's model on
@@ -29,25 +30,41 @@ serves through the int8 trunk (utils/quantize.py), quantized from the fp32
 weights; the CLI builds the Evaluator for the one mode it serves
 (`quant_modes`), so a bf16 run holds no int8 twin. An MoE config
 (`model.moe_experts` > 0) serves bf16 only, as in JAX: w8a8 raises JAX's
-ValueError. Device meshes and Orbax checkpoints are not ported: a config
-that asks for a mesh raises.
+ValueError. Orbax checkpoints are not read.
+
+On a device mesh: under torchrun (one process a card: the CLI joins the
+group its variables describe, parallel/mesh.py::init_distributed) the
+Evaluator serves on the config's mesh as written, as examples/evaluate.py
+and examples/visualize.py do (no scale-down; a mesh larger than the world
+raises JAX's ValueError, and so does a config mesh above 1 without a
+process group). The ResSlimViT is
+sharded as the Trainer shards it (parallel/sharding.py: fsdp, replica,
+tensor, seq, expert and stage), each data rank reads its file shards, and
+each round's predictions are gathered over the data ranks, so the metrics
+are the global batch's, as JAX's one-process mesh takes them
+(`Evaluator.test`). Rank 0 prints; the ranks past the mesh are idle.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import itertools
 import json
 import logging
 from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from orbit2_tpu_torch.config import Config, load_config
 from orbit2_tpu_torch.data.itermodule import IterDataModule
 from orbit2_tpu_torch.models.components.blocks import MOE_QUANT_ERROR, QUANT_MODES
-from orbit2_tpu_torch.parallel.mesh import rank_grid, world_size
-from orbit2_tpu_torch.parallel.sharding import load_full_state_dict
+from orbit2_tpu_torch.parallel.mesh import (
+    all_ranks, comm_device, data_group, data_rank, data_size, in_mesh, init_distributed,
+    mesh_from_config, rank_grid, world_size)
+from orbit2_tpu_torch.parallel.sharding import check_shardable, load_full_state_dict, shard_model
 from orbit2_tpu_torch.training.checkpoint import (
     DEFAULT_CHECKPOINT_DIR, latest_port_checkpoint, load_pretrained_params, load_state_npz,
     restore_checkpoint)
@@ -59,6 +76,15 @@ from orbit2_tpu_torch.utils.memory import device_memory_stats
 from orbit2_tpu_torch.utils.quantize import fill_twin, fp32_sources, quantize_state_dict
 
 log = logging.getLogger("orbit2_tpu_torch")
+
+# JAX's quantize_weight takes each kernel's per-output-channel scale over its
+# axis 0, which in a pipelined trunk's stacked Block kernels [depth, K, N] is
+# the depth axis, and flax refuses the [K, N] scales it wants as [depth, N]
+# (orbit2_tpu/ops/quant.py:36-44, utils/quantize.py:32-52): JAX's
+# Trainer.test(quant="w8a8") of a pipelined config raises
+PIPELINE_QUANT_ERROR = ("quant='w8a8' of a pipelined trunk (parallelism.pipeline > 1): the JAX "
+                        "package cannot quantize its stacked Block kernels (flax "
+                        "ScopeParamShapeError); serve it with quant='none'")
 
 
 def model_kwargs(c: Config) -> dict:
@@ -97,22 +123,14 @@ def check_mesh(cfg: Config, world: int) -> None:
               stage=par.pipeline, expert=par.expert_par, world=world)
 
 
-def check_training_scope(cfg: Config) -> None:
-    """What the Trainer does not run: `parallelism.auto`."""
+def check_scope(cfg: Config) -> None:
+    """What neither the Trainer nor the Evaluator runs: `parallelism.auto`.
+    Both run on one device or on the config's mesh (a model-hub preset on a
+    mesh raises from parallel/sharding.py::check_shardable)."""
     if cfg.parallelism.auto:
         raise NotImplementedError(
             "parallelism.auto resolves its mesh through the TPU AOT planner, which has no GPU "
             "meaning: give the axis sizes")
-
-
-def check_scope(cfg: Config) -> None:
-    """The Evaluator's scope: one device. Evaluator.test, visualize, MC
-    dropout and w8a8 on a mesh are not ported (ROADMAP queue 1 item 2)."""
-    par = cfg.parallelism
-    if par.auto or par.world_size != 1 or world_size() != 1:
-        raise NotImplementedError(
-            "the Evaluator runs on one device: test, visualize, MC dropout and w8a8 on a device "
-            "mesh are not ported yet — set every parallelism size to 1 and auto to false")
 
 
 def check_tiling(cfg: Config, data_module: IterDataModule) -> None:
@@ -233,6 +251,75 @@ def materialize(model: torch.nn.Module, device, dtype: Optional[torch.dtype] = N
                               recurse=recurse)
 
 
+def build_sharded(skeleton: torch.nn.Module, mesh, device, fill_device,
+                  generator: Optional[torch.Generator] = None,
+                  fill: Optional[Callable[[List[str]], Mapping[str, torch.Tensor]]] = None,
+                  on_unit: Optional[Callable[[Dict[str, torch.Tensor]], None]] = None,
+                  dtype: Optional[torch.dtype] = None) -> torch.nn.Module:
+    """`skeleton`, a ResSlimViT on the meta device, sharded over `mesh` on
+    `device` (parallel/sharding.py::shard_model; `dtype`: serving's), each
+    rank's shards filled unit by unit by `materialize` on `fill_device`
+    (drawn from `generator`, or from `fill`; each unit handed to `on_unit`),
+    so no rank holds more than one whole unit. The skeleton stays on the
+    meta device."""
+    model = shard_model(copy.deepcopy(skeleton), mesh, dtype)
+    model.to_empty(device=device)
+    materialize(skeleton, fill_device, generator=generator, fill=fill, on_unit=on_unit,
+                into=model)
+    return model
+
+
+def synced_batches(loader, dm: IterDataModule, rounds: Optional[int]):
+    """(batch, real samples) of `loader`; on a mesh, `rounds` of them (the
+    most any rank has): a rank out of batches feeds zero batches that count
+    no sample, so every rank runs every collective (JAX trainer.py:621-685)."""
+    if rounds is None:
+        for batch in loader:
+            yield batch, batch[0].shape[0]
+        return
+    last = None
+    for _ in range(rounds):
+        batch = next(loader, None)
+        if batch is not None:
+            last = batch
+            yield batch, batch[0].shape[0]
+            continue
+        if last is not None:
+            shapes = [(dm.batch_size,) + tuple(np.shape(a))[1:] for a in last[:2]]
+        else:  # this rank saw no batch at all
+            shapes = [tuple(d) for d in dm.get_data_dims()]
+        yield tuple(np.zeros(sh, np.float32) for sh in shapes), 0
+    if next(loader, None) is not None:
+        raise RuntimeError(f"the batch count undercounted: the loader yielded more than "
+                           f"{rounds} batches")
+
+
+def pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
+    """`a` with its last row repeated up to `rows` rows (JAX _eval_one's
+    padding of a partial tail batch, trainer.py:719-725)."""
+    if a.shape[0] == rows:
+        return a
+    return np.concatenate([a, np.repeat(a[-1:], rows - a.shape[0], axis=0)])
+
+
+def gather_rows(tensors: Sequence[torch.Tensor], real: int, mesh, device):
+    """Each data rank's first `real` rows of each of `tensors` (of equal
+    rows on every rank), over its data group, in data-rank order: the
+    round's global batch, its padding dropped, on every data rank; and the
+    round's samples."""
+    group, size = data_group(mesh), data_size(mesh)
+    cdev = comm_device(device)
+    reals = [torch.zeros(1, dtype=torch.int64, device=cdev) for _ in range(size)]
+    dist.all_gather(reals, torch.tensor([real], dtype=torch.int64, device=cdev), group=group)
+    reals = [int(r.item()) for r in reals]
+    out = []
+    for t in tensors:
+        parts = [torch.empty_like(t) for _ in range(size)]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        out.append(torch.cat([p[:r] for p, r in zip(parts, reals)]))
+    return out, sum(reals)
+
+
 def serving_weights(cfg: Config, checkpoint: Optional[str] = None,
                     torch_npz: Optional[str] = None) -> Optional[Mapping[str, torch.Tensor]]:
     """The serving CLIs' weights (module docstring), as they lie in the
@@ -270,33 +357,60 @@ class Evaluator:
     `device` as each unit is filled, from its fp32 tensors, so at most the
     model and its twin live on the device and no fp32 tensor is kept. Built
     without "w8a8", the Evaluator holds the bf16 model alone, and
-    test(quant="w8a8") raises."""
+    test(quant="w8a8") raises.
+
+    Where a process group runs, the Evaluator serves on the config's mesh
+    (`mesh`; else None: one device, the model unwrapped), as the Trainer
+    trains on it: the model built on the meta device, sharded
+    (parallel/sharding.py::shard_model, its parameters in the compute dtype)
+    and each rank's shards filled unit by unit with the one-device draws or
+    the merged `state_dict` (`build_sharded`); the data module is the rank's
+    data shard. The int8 twin lies whole on every rank of the mesh (JAX's
+    quantized kernels land replicated, trainer.py:833-857), quantized from
+    every unit's fp32 tensors as they are filled, and serves the rank's data
+    batch. A rank past the mesh is idle: it builds nothing and its test()
+    returns {}."""
 
     def __init__(self, config: Config, device="cuda",
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  data_key: Optional[str] = None, quant_modes: Optional[Sequence[str]] = None):
         self.cfg = c = config.validate()
+        check_mesh(c, world_size())
         check_scope(c)
+        self.device = torch.device(device)
+        self.mesh = (mesh_from_config(c.parallelism, self.device.type) if dist.is_initialized()
+                     else None)
+        self.idle = self.mesh is not None and not in_mesh(self.mesh)
         self.moe = c.model.moe_experts > 0
+        self.pipelined = c.parallelism.pipeline > 1
         if quant_modes is None:
             # the w8a8 path is the ResSlimViT family's (JAX trainer.py:847-850)
             quant_modes = (QUANT_MODES if c.model.preset in QUANT_PRESETS and not self.moe
-                           else ("none",))
+                           and not self.pipelined else ("none",))
         unknown = set(quant_modes) - set(QUANT_MODES)
         if unknown:
             raise ValueError(f"unknown quant_modes {sorted(unknown)} (none | w8a8)")
         if set(quant_modes) - {"none"}:
             self._check_quant("w8a8")
-        self.device = torch.device(device)
         self.quant_modes = tuple(quant_modes)
         self.data_key = data_key or next(iter(c.data.low_res_dir))
-        self.data_module = dm = make_data_module(
-            c, self.data_key, c.tiling.effective_div, c.tiling.effective_overlap, "test")
-        check_tiling(c, dm)
         self._twins: Dict[str, torch.nn.Module] = {}
+        self.last_test: Optional[dict] = None
+        if self.idle:
+            self.model = self.data_module = None
+            log.info("rank %d is idle: the mesh takes the first %d ranks of %d", dist.get_rank(),
+                     self.mesh.size(), dist.get_world_size())
+            return
+        ranks = ({} if self.mesh is None else
+                 dict(data_par_size=data_size(self.mesh), data_par_rank=data_rank(self.mesh)))
+        self.data_module = dm = make_data_module(
+            c, self.data_key, c.tiling.effective_div, c.tiling.effective_overlap, "test", **ranks)
+        check_tiling(c, dm)
         with torch.device("meta"):
             (self.model, _, _, self.test_losses, _, _,
              self.test_transforms) = load_module(c, dm, dict(model_kwargs(c), generator=None))
+        if self.mesh is not None:
+            check_shardable(self.model, self.mesh)  # a model-hub preset raises here
         if not hasattr(self.model, "init_units"):
             self._build_whole(state_dict)
             return
@@ -313,14 +427,23 @@ class Evaluator:
             quantized: Dict[str, torch.Tensor] = {}
 
             def on_unit(unit):
-                taken = {k: t for k, t in unit.items() if k in sources}
+                # on a mesh the whole twin comes from the units (the model's
+                # own tensors are shards); on one device the rest comes from
+                # the filled model, cast, so no fp32 copy of it is held
+                taken = (unit if self.mesh is not None
+                         else {k: t for k, t in unit.items() if k in sources})
                 quantized.update(quantize_state_dict(twin, taken, self.device, partial=True))
         # serving holds the parameters in the compute dtype: no per-use casts
-        materialize(self.model, self.device, self.model.dtype, generator, fill, on_unit)
+        if self.mesh is None:
+            materialize(self.model, self.device, self.model.dtype, generator, fill, on_unit)
+        else:
+            self.model = build_sharded(self.model, self.mesh, self.device, self.device,
+                                       generator, fill, on_unit, self.model.dtype)
         self.model.eval()
         if "w8a8" in self.quant_modes:
-            rest = {k: t for k, t in self.model.state_dict().items() if k not in sources}
-            quantized.update(quantize_state_dict(twin, rest, self.device, partial=True))
+            if self.mesh is None:
+                rest = {k: t for k, t in self.model.state_dict().items() if k not in sources}
+                quantized.update(quantize_state_dict(twin, rest, self.device, partial=True))
             self._twins["w8a8"] = fill_twin(twin, quantized, self.device)
 
     def _build_whole(self, state_dict) -> None:
@@ -348,9 +471,13 @@ class Evaluator:
         self.model.eval()
 
     def _check_quant(self, quant: str) -> None:
-        """JAX's ValueErrors for w8a8 where the model has no int8 path."""
+        """JAX's refusals of w8a8: its ValueErrors where the model has no
+        int8 path, and a pipelined trunk, which JAX cannot convert
+        (PIPELINE_QUANT_ERROR)."""
         if self.moe:
             raise ValueError(MOE_QUANT_ERROR)
+        if self.pipelined:
+            raise ValueError(PIPELINE_QUANT_ERROR)
         check_quant(self.cfg.model.preset, quant)
 
     def _architecture(self, quant: str) -> torch.nn.Module:
@@ -383,28 +510,58 @@ class Evaluator:
         return self._twins[quant]
 
     def test(self, max_batches: Optional[int] = None, quant: str = "none") -> Dict[str, float]:
-        """Metrics over the test split. quant="w8a8" serves the int8 twin
-        (JAX Trainer.test(quant=...)); the fp model is untouched, so later
-        calls serve in fp again."""
+        """Metrics over the test split (at most `max_batches` batches a
+        rank), each batch's weighted by its samples, into means; sets
+        `last_test` = {"means", "samples"}. quant="w8a8" serves the int8
+        twin (JAX Trainer.test(quant=...)); the fp model is untouched, so
+        later calls serve in fp again. A partial tail batch is padded to the
+        batch size by its last row and the padding dropped before the
+        metrics (JAX _eval_one).
+
+        On a mesh, JAX's semantics (trainer.py:621-749): every rank runs as
+        many rounds as the data rank with the most batches (a rank out of
+        batches feeds zero batches that count no sample), and each round's
+        metrics are taken over the global batch: every data rank's
+        prediction and target gathered over the data group, the padding
+        rows dropped. Every rank returns the same means; an idle rank
+        returns {}."""
+        if self.idle:
+            log.info("rank %d is idle: no test()", dist.get_rank())
+            return {}
         dm = self.data_module
         in_vars, out_vars = dm.get_data_variables()
         step = make_eval_step(self.serving_model(quant), in_vars, out_vars)
+        rounds = None
+        if self.mesh is not None:
+            mine = dm.num_batches("test")
+            rounds = all_ranks(mine if max_batches is None else min(mine, max_batches),
+                               dist.ReduceOp.MAX, self.mesh, self.device)
+        gathered = self.mesh is not None and data_size(self.mesh) > 1
         agg: Dict[str, float] = {}
         n = 0
         loader = iter(dm.test_dataloader())
         try:
-            for batch in itertools.islice(loader, max_batches):
-                x = torch.from_numpy(batch[0]).to(self.device)
-                y = torch.from_numpy(batch[1]).to(self.device)
-                losses = evaluate_batch(step(x, y), y, "test", self.test_losses,
+            for batch, real in synced_batches(itertools.islice(loader, max_batches), dm, rounds):
+                x, y = (torch.from_numpy(pad_rows(a, dm.batch_size)).to(self.device)
+                        for a in batch[:2])
+                yhat = step(x, y)
+                if gathered:
+                    (yhat, y), real = gather_rows((yhat, y), real, self.mesh, self.device)
+                    if not real:  # every data rank on a padding round
+                        continue
+                else:
+                    yhat, y = yhat[:real], y[:real]
+                losses = evaluate_batch(yhat, y, "test", self.test_losses,
                                         self.test_transforms, out_vars)
                 values = torch.stack(list(losses.values())).tolist()  # one sync per batch
                 for k, v in zip(losses, values):
-                    agg[k] = agg.get(k, 0.0) + v * x.shape[0]
-                n += x.shape[0]
+                    agg[k] = agg.get(k, 0.0) + v * real
+                n += real
         finally:
             loader.close()
-        return {k: v / max(1, n) for k, v in agg.items()}
+        means = {k: v / max(1, n) for k, v in agg.items()}
+        self.last_test = {"means": means, "samples": n}
+        return means
 
 
 def main(argv=None):
@@ -421,6 +578,7 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
+    init_distributed(args.device)  # torchrun's group, where its variables are set
     cfg = load_config(args.config)
     state_dict = serving_weights(cfg, args.checkpoint, args.torch_npz)
     if state_dict is None:
@@ -428,8 +586,12 @@ def main(argv=None):
     ev = Evaluator(cfg, args.device, state_dict=state_dict, data_key=args.data_key,
                    quant_modes=(args.quant,))
     means = ev.test(max_batches=args.max_batches, quant=args.quant)
+    if ev.idle:
+        return ev
     log.info("memory: %s", device_memory_stats(ev.device))
-    print(json.dumps({k: round(float(v), 6) for k, v in means.items()}, indent=2))
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps({k: round(float(v), 6) for k, v in means.items()}, indent=2))
+    return ev
 
 
 if __name__ == "__main__":

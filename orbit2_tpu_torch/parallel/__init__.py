@@ -3,7 +3,6 @@ collectives (counterpart of orbit2_tpu/parallel/)."""
 
 from orbit2_tpu_torch.parallel.mesh import (
     AXES,
-    AXIS_DATA,
     AXIS_EXPERT,
     AXIS_FSDP,
     AXIS_REPLICA,

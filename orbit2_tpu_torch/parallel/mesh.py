@@ -50,8 +50,6 @@ AXIS_TENSOR = "tensor"
 AXES = (AXIS_STAGE, AXIS_REPLICA, AXIS_FSDP, AXIS_EXPERT, AXIS_SEQ, AXIS_TENSOR)
 # activations: the batch is split over both data axes
 BATCH_AXES = (AXIS_REPLICA, AXIS_FSDP)
-# the flattened (replica, fsdp) dim of every mesh make_mesh builds
-AXIS_DATA = "data"
 # an MoE layer's experts and their hidden columns: split over both axes,
 # the layer's output summed over their ranks
 MOE_AXES = (AXIS_EXPERT, AXIS_TENSOR)
@@ -79,13 +77,16 @@ def rank_grid(replica: int = 1, fsdp: int = 1, tensor: int = 1, seq: int = 1, st
 def make_mesh(replica: int = 1, fsdp: int = 1, tensor: int = 1, seq: int = 1, stage: int = 1,
               expert: int = 1, device_type: str = "cuda") -> DeviceMesh:
     """The DeviceMesh of these axis sizes over the first ranks of the
-    process group; its (replica, fsdp) dims flattened into one, AXIS_DATA,
-    are `data_mesh`, and `mesh_group` is the process group of all its ranks
-    (None: the whole world's). Every rank of the world calls it, those past
-    the mesh too: making the mesh's process groups is collective."""
+    process group; `mesh.data_group` is the process group of this rank's
+    (replica, fsdp) ranks, and `mesh_group` the process group of all its
+    ranks (None: the whole world's). Every rank of the world calls it, those
+    past the mesh too: making the mesh's process groups is collective. The
+    data groups are made by hand, as the expert x tensor ones are: a
+    DeviceMesh slice of the data dims fails on a rank past the mesh where
+    both are 1."""
     grid = rank_grid(replica, fsdp, tensor, seq, stage, expert)
     mesh = DeviceMesh(device_type, torch.as_tensor(grid), mesh_dim_names=AXES)
-    mesh.data_mesh = mesh[BATCH_AXES]._flatten(AXIS_DATA)
+    mesh.data_group = _groups_over(grid, BATCH_AXES)
     mesh.moe_group = _groups_over(grid, MOE_AXES) if expert > 1 else None
     mesh.mesh_group = None if grid.size == world_size() else dist.new_group(range(grid.size))
     return mesh
@@ -136,7 +137,7 @@ def data_rank(mesh: DeviceMesh) -> int:
 def data_group(mesh: DeviceMesh):
     """The process group of this rank's data ranks: the (replica, fsdp)
     ranks of its tensor coordinate."""
-    return mesh.data_mesh.get_group()
+    return mesh.data_group
 
 
 def seq_split(mesh: DeviceMesh, impl: str = "gather"):
@@ -166,6 +167,22 @@ def sharded_coords(mesh: DeviceMesh, axes) -> tuple:
     return tuple(mesh.get_local_rank(a) for a in axes if axis_size(mesh, a) > 1)
 
 
+def comm_device(device=None) -> torch.device:
+    """Where a collective's host-made tensors go: the host under gloo, else
+    `device` (None: this process's card)."""
+    if dist.get_backend() == "gloo":
+        return torch.device("cpu")
+    return torch.device(device) if device is not None else torch.device(
+        "cuda", torch.cuda.current_device())
+
+
+def all_ranks(value: int, op, mesh: DeviceMesh, device) -> int:
+    """`value` reduced by `op` (a dist.ReduceOp) over the mesh's ranks."""
+    t = torch.tensor([value], dtype=torch.int64, device=comm_device(device))
+    dist.all_reduce(t, op=op, group=mesh.mesh_group)
+    return int(t.item())
+
+
 def init_distributed(device: str = "cuda") -> int:
     """Joins the process group that torchrun describes (RANK, WORLD_SIZE,
     LOCAL_RANK, MASTER_ADDR, MASTER_PORT), once, and returns the world size:
@@ -188,7 +205,7 @@ def init_distributed(device: str = "cuda") -> int:
     return dist.get_world_size()
 
 
-__all__ = ["AXES", "AXIS_DATA", "AXIS_EXPERT", "AXIS_FSDP", "AXIS_REPLICA",
+__all__ = ["AXES", "all_ranks", "comm_device", "AXIS_EXPERT", "AXIS_FSDP", "AXIS_REPLICA",
            "AXIS_SEQ", "AXIS_STAGE", "AXIS_TENSOR", "BATCH_AXES", "MOE_AXES", "axis_size",
            "data_group", "data_rank", "data_size", "in_mesh", "init_distributed", "make_mesh",
            "mesh_from_config", "rank_grid", "seq_split", "sharded_coords",

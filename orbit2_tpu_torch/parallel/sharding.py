@@ -276,7 +276,8 @@ def check_shardable(model: nn.Module, mesh: DeviceMesh) -> None:
     sizes = axis_sizes(mesh)
     if not hasattr(model, "blocks") or not hasattr(model, "init_units"):
         raise NotImplementedError(f"{type(model).__name__} on a device mesh: only the "
-                                  "ResSlimViT is sharded (ROADMAP queue 1 item 2)")
+                                  "ResSlimViT is sharded; model-hub presets on a mesh are not "
+                                  "ported yet (ROADMAP queue 1 item 2)")
     stages = getattr(model, "pipeline_stages", 1)
     if sizes[AXIS_STAGE] > 1 and sizes[AXIS_STAGE] != stages:
         raise ValueError(f"pipeline_stages={stages} but the mesh's stage axis is "
@@ -373,17 +374,25 @@ def _fsdp_dim(name: str, p: torch.Tensor, mesh: DeviceMesh) -> int:
     return 0
 
 
-def shard_model(model: nn.Module, mesh: DeviceMesh):
+def shard_model(model: nn.Module, mesh: DeviceMesh, dtype: Optional[torch.dtype] = None):
     """Shards a ResSlimViT over `mesh` in place (module docstring) and
     returns it: its parameters become DTensors, each rank holding its
     shards. Built on the meta device, it stays there (then to_empty and a
-    fill: evaluate.py::materialize)."""
+    fill: evaluate.py::materialize). `dtype` (serving): the floating
+    tensors are cast to it first, as the one-device Evaluator holds them;
+    those the cast leaves as they are (an MoE router, kept fp32) stay out of
+    FSDP2, which gathers one dtype a unit, whole on every rank (no gradient
+    reaches them in serving)."""
     from torch.distributed.fsdp import fully_shard
 
     from orbit2_tpu_torch.models.components.blocks import Attention, DropPath, Mlp
     from orbit2_tpu_torch.models.components.moe import MoEMlp
 
     check_shardable(model, mesh)
+    ignored = set()
+    if dtype is not None:
+        model._apply(lambda t: t.to(dtype) if t.is_floating_point() else t)
+        ignored = {p for p in model.parameters() if p.is_floating_point() and p.dtype != dtype}
     sizes = axis_sizes(mesh)
     if sizes[AXIS_STAGE] > 1:
         split = model.stage_split = stage_split(mesh, model.pipeline_microbatches,
@@ -430,8 +439,10 @@ def shard_model(model: nn.Module, mesh: DeviceMesh):
     # the shards, to named_parameters() (an optimizer built then steps them)
     for blk in model.blocks:
         if not isinstance(blk, Elsewhere):
-            fully_shard(blk, mesh=dp, shard_placement_fn=placement, reshard_after_forward=True)
-    fully_shard(model, mesh=dp, shard_placement_fn=placement, reshard_after_forward=True)
+            fully_shard(blk, mesh=dp, shard_placement_fn=placement, reshard_after_forward=True,
+                        ignored_params=ignored or None)
+    fully_shard(model, mesh=dp, shard_placement_fn=placement, reshard_after_forward=True,
+                ignored_params=ignored or None)
     return model
 
 

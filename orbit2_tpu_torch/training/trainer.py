@@ -91,14 +91,13 @@ stage rank resumes its own part of one.
 
 A mesh larger than the world raises JAX's ValueError; then
 `parallelism.auto` raises NotImplementedError (evaluate.py::check_mesh,
-check_training_scope), and so does a model-hub preset on a mesh
+check_scope), and so does a model-hub preset on a mesh
 (parallel/sharding.py::check_shardable).
 """
 
 from __future__ import annotations
 
 import contextlib
-import copy
 import logging
 import os
 import time
@@ -111,12 +110,13 @@ import torch.distributed as dist
 from orbit2_tpu_torch.config import Config
 from orbit2_tpu_torch.data.itermodule import IterDataModule
 from orbit2_tpu_torch.evaluate import (
-    check_mesh, check_tiling, check_training_scope, load_module, make_data_module, materialize,
-    model_kwargs)
+    build_sharded, check_mesh, check_tiling, check_scope, load_module,
+    make_data_module, model_kwargs, synced_batches)
 from orbit2_tpu_torch.parallel.mesh import (
-    data_group, data_rank, data_size, in_mesh, mesh_from_config, world_size)
+    all_ranks, comm_device, data_group, data_rank, data_size, in_mesh, mesh_from_config,
+    world_size)
 from orbit2_tpu_torch.parallel.sharding import (
-    check_shardable, full_named, full_state_dict, held_state, load_full_state_dict, shard_model)
+    full_named, full_state_dict, held_state, load_full_state_dict)
 from orbit2_tpu_torch.training.checkpoint import (
     latest_port_checkpoint, prune_checkpoints, restore_checkpoint, save_checkpoint,
     wait_for_async_saves)
@@ -148,7 +148,7 @@ class Trainer:
                  keep_last_checkpoints: int = 0, async_checkpoints: bool = False):
         self.cfg = c = config.validate()
         check_mesh(c, world_size())
-        check_training_scope(c)
+        check_scope(c)
         self.device = torch.device(device)
         self.mesh = (mesh_from_config(c.parallelism, self.device.type) if dist.is_initialized()
                      else None)
@@ -212,9 +212,6 @@ class Trainer:
             (skeleton, self.train_loss, self.val_losses, self.test_losses, _,
              self.val_transforms, _) = load_module(c, dm, dict(kwargs, generator=None))
         self._wire_out_mask(dm)
-        check_shardable(skeleton, self.mesh)
-        self.model = shard_model(copy.deepcopy(skeleton), self.mesh)
-        self.model.to_empty(device=self.device)
         fill, generator = None, kwargs["generator"]
         if state_dict is not None:
             want = set(skeleton.state_dict())  # a stage rank's model holds part of the trunk
@@ -222,7 +219,7 @@ class Trainer:
                 raise KeyError(f"state dict: missing {sorted(want - set(state_dict))}, "
                                f"unexpected {sorted(set(state_dict) - want)}")
             fill, generator = (lambda keys: {k: state_dict[k] for k in keys}), None
-        materialize(skeleton, "cpu", generator=generator, fill=fill, into=self.model)
+        self.model = build_sharded(skeleton, self.mesh, self.device, "cpu", generator, fill)
         n = sum(p.numel() for p in self.model.parameters())
         log.info("initialized %.2fM params on mesh %s", n / 1e6,
                  dict(zip(self.mesh.mesh_dim_names, self.mesh.mesh.shape)))
@@ -344,7 +341,8 @@ class Trainer:
                         # every rank takes the same number of steps: the
                         # least any rank's file shards give (before the
                         # epoch's iterator: the count peeks its permutation)
-                        least = self._all_ranks(dm.num_batches("train"), dist.ReduceOp.MIN)
+                        least = all_ranks(dm.num_batches("train"), dist.ReduceOp.MIN,
+                                          self.mesh, self.device)
                         max_steps = least if not max_steps else min(max_steps, least)
                         if not max_steps:
                             raise ValueError("a data rank has no full train batch this epoch")
@@ -363,14 +361,6 @@ class Trainer:
         if self.mesh is not None:
             dist.barrier(group=self.mesh.mesh_group)
         return self.history
-
-    def _all_ranks(self, value: int, op) -> int:
-        t = torch.tensor([value], dtype=torch.int64, device=self._comm_device())
-        dist.all_reduce(t, op=op, group=self.mesh.mesh_group)
-        return int(t.item())
-
-    def _comm_device(self) -> torch.device:
-        return torch.device("cpu") if dist.get_backend() == "gloo" else self.device
 
     def _save(self, epoch: int) -> None:
         """Saves epoch_{epoch}, then prunes to the newest keep_last_checkpoints
@@ -398,10 +388,10 @@ class Trainer:
         agg: Dict[str, float] = {}
         n = 0
         rounds = (None if self.mesh is None
-                  else self._all_ranks(dm.num_batches("val"), dist.ReduceOp.MAX))
+                  else all_ranks(dm.num_batches("val"), dist.ReduceOp.MAX, self.mesh, self.device))
         loader = iter(dm.val_dataloader())
         try:
-            for batch, real in self._synced_batches(loader, dm, rounds):
+            for batch, real in synced_batches(loader, dm, rounds):
                 x, y = self._put(batch[0], None), self._put(batch[1], None)
                 losses = evaluate_batch(step(x, y), y, "val", self.val_losses,
                                         self.val_transforms, out_vars)
@@ -414,39 +404,13 @@ class Trainer:
         if self.mesh is not None:  # the sums over the data ranks
             keys = sorted(agg)
             t = torch.tensor([agg[k] for k in keys] + [n], dtype=torch.float64,
-                             device=self._comm_device())
+                             device=comm_device(self.device))
             dist.all_reduce(t, group=data_group(self.mesh))
             agg, n = dict(zip(keys, t[:-1].tolist())), int(t[-1].item())
         means = {k: v / max(1, n) for k, v in agg.items()}
         log.info("validation epoch %d: %s", epoch, means)
         self.last_validation = {"means": means, "samples": n}
         return means
-
-    @staticmethod
-    def _synced_batches(loader, dm: IterDataModule, rounds: Optional[int]):
-        """(batch, real samples) of `loader`; on a mesh, `rounds` of them
-        (the most any rank has): a rank out of batches feeds zero batches
-        that count no sample, so every rank runs every collective (JAX
-        trainer.py:621-685)."""
-        if rounds is None:
-            for batch in loader:
-                yield batch, batch[0].shape[0]
-            return
-        last = None
-        for _ in range(rounds):
-            batch = next(loader, None)
-            if batch is not None:
-                last = batch
-                yield batch, batch[0].shape[0]
-                continue
-            if last is not None:
-                shapes = [(dm.batch_size,) + tuple(np.shape(a))[1:] for a in last[:2]]
-            else:  # this rank saw no batch at all
-                shapes = [tuple(d) for d in dm.get_data_dims()]
-            yield tuple(np.zeros(sh, np.float32) for sh in shapes), 0
-        if next(loader, None) is not None:
-            raise RuntimeError(f"num_batches('val') undercounted: the loader yielded more than "
-                               f"{rounds} batches")
 
     def _epoch(self, epoch, data_key, dm, train_step, dropout_gen, drop_path_gen, stage_dtype,
                max_steps) -> dict:
@@ -478,7 +442,7 @@ class Trainer:
         if step_losses:
             losses = torch.stack(step_losses)
             if self.mesh is not None:  # the mean over the data ranks
-                losses = losses.to(self._comm_device())
+                losses = losses.to(comm_device(self.device))
                 dist.all_reduce(losses, group=data_group(self.mesh))
                 losses = losses / data_size(self.mesh)
             total = losses.sum().item()

@@ -9,6 +9,12 @@ selectivity falls out of the generators: the model runs in train mode with a
 distribution. On the card the dropout sites are the kernels: the flash
 forward with dropout and the fused dropout (in an MoE Block, on the
 attention's projection and the MoE output: its experts' hidden has none).
+
+On a device mesh (a model sharded by parallel/sharding.py::shard_model, as
+the Evaluator serves it there) every rank calls it, each with its data
+rank's batch, with generators seeded alike: each member's seeds are then
+folded with the rank's coordinates, as in training, so the data ranks draw
+the masks of their slices of one global batch.
 """
 
 from __future__ import annotations

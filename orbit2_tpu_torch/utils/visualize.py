@@ -10,6 +10,11 @@ visualize.py:125-311 (edge tiles whose halo was borrowed inward included).
 PNG) dumps and PSNR/SSIM; `visualize_mean_bias` and `rank_histogram` are the
 analysis extras. Everything here is numpy on the host; `model_forward_fn`
 wraps a port model as the numpy forward the functions take.
+
+On a device mesh (a model sharded by parallel/sharding.py::shard_model, as
+the Evaluator serves it there) the forward is collective: every rank of the
+mesh runs every tile, each on the whole tile, and every rank gets the same
+field; rank 0 alone writes the files.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from orbit2_tpu_torch.data.reader import halo_lrtb, tile_slices
 from orbit2_tpu_torch.transforms.transforms import Denormalize
@@ -28,7 +34,8 @@ from orbit2_tpu_torch.utils.image_metrics import psnr, ssim
 def model_forward_fn(model: torch.nn.Module, in_variables: Sequence[str],
                      out_variables: Sequence[str]) -> Callable[[np.ndarray], np.ndarray]:
     """A numpy forward of `model` on its device, in eval mode: x [B, C, h, w]
-    -> fp32 [B, C_out, h*mag, w*mag]."""
+    -> fp32 [B, C_out, h*mag, w*mag]. On a mesh every rank calls it with
+    the same x (module docstring)."""
     device = next(model.parameters()).device
     in_variables, out_variables = tuple(in_variables), tuple(out_variables)
 
@@ -142,7 +149,7 @@ def visualize_at_index(
             "ssim": ssim(preds_d[i], y_d[i]),
         }
 
-    if out_dir:
+    if out_dir and _writes():
         os.makedirs(out_dir, exist_ok=True)
         for i, var in enumerate(out_vars):
             np.save(os.path.join(out_dir, f"pred_{var}_{index}.npy"), preds_d[i])
@@ -152,6 +159,12 @@ def visualize_at_index(
 
     return {"preds": preds_d, "groundtruth": y_d, "inputs": x,
             "out_variables": out_vars, "metrics": metrics}
+
+
+def _writes() -> bool:
+    """Whether this process writes the files: rank 0 of a process group, or
+    the process itself without one."""
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 def _save_png(pred, gt, var, path):  # pragma: no cover - plotting
@@ -191,7 +204,7 @@ def visualize_mean_bias(forward_fn, data_module, div=1, overlap=0, mag=4,
         n += 1
         out_vars = list(ovars)
     mean_bias = acc / max(1, n)
-    if out_dir:
+    if out_dir and _writes():
         os.makedirs(out_dir, exist_ok=True)
         for i, var in enumerate(out_vars):
             np.save(os.path.join(out_dir, f"mean_bias_{var}.npy"), mean_bias[i])

@@ -2,6 +2,7 @@
 `Trainer.test` on the same weights and the same synthetic test split, plus the
 eval pieces it is built from (clip, denormalize, the three test metrics)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -85,15 +86,23 @@ def test_evaluator_cli_prints_metrics(synth_dataset, tmp_path, monkeypatch, caps
 
 @pytest.mark.parametrize("overrides", [
     {"parallelism": {"fsdp": 2}},
-    # the MoE trunk is ported; its expert-parallel mesh is not
     {"model": {"moe_experts": 2, "moe_every": 1}, "parallelism": {"expert_par": 2}},
 ], ids=["mesh", "expert_par"])
 def test_evaluator_rejects_unported_configs(synth_dataset, overrides):
+    """Without a process group a config mesh above one device raises JAX's
+    ValueError, as examples/evaluate.py does on one device (its make_mesh,
+    orbit2_tpu/parallel/mesh.py:53-57): the serving CLIs scale no mesh down."""
+    from orbit2_tpu.parallel.mesh import mesh_from_config as jax_mesh_from_config
+
     raw = tiny_raw(synth_dataset)
     for section, override in overrides.items():
         raw[section].update(override)
-    with pytest.raises(NotImplementedError):
-        Evaluator(load_config(raw), "cpu")
+    cfg = load_config(raw)
+    with pytest.raises(ValueError) as jax_err:
+        jax_mesh_from_config(cfg.parallelism, devices=jax.devices()[:1])
+    with pytest.raises(ValueError) as err:
+        Evaluator(cfg, "cpu")
+    assert str(err.value) == str(jax_err.value)
 
 
 def _pred_target(seed=0):

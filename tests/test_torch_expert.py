@@ -35,7 +35,7 @@ import torch_mesh_worker as worker  # noqa: E402
 from test_torch_seq import TOL, seqexpert  # noqa: E402,F401  (the shared launch)
 
 from orbit2_tpu_torch.config import ConfigError, load_config  # noqa: E402
-from orbit2_tpu_torch.evaluate import check_mesh, check_training_scope  # noqa: E402
+from orbit2_tpu_torch.evaluate import check_mesh, check_scope  # noqa: E402
 from orbit2_tpu_torch.models import ResSlimViT  # noqa: E402
 from orbit2_tpu_torch.parallel.sharding import check_shardable, spec_for  # noqa: E402
 from orbit2_tpu_torch.train import scale_parallelism  # noqa: E402
@@ -119,7 +119,7 @@ def test_1b_moe_config_trains_at_its_shipped_mesh_at_world_8():
     par = cfg.parallelism
     assert (par.fsdp, par.expert_par, par.world_size) == (2, 4, 8)
     check_mesh(cfg, 8)
-    check_training_scope(cfg)
+    check_scope(cfg)
     m = cfg.model
     with torch.device("meta"):
         model = ResSlimViT(cfg.data.default_vars, (16, 32), len(cfg.data.default_vars), 3,

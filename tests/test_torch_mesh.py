@@ -33,7 +33,7 @@ from orbit2_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from orbit2_tpu.parallel.sharding import spec_for as jax_spec_for
 from orbit2_tpu_torch import train as train_cli
 from orbit2_tpu_torch.config import load_config
-from orbit2_tpu_torch.evaluate import check_mesh, check_training_scope
+from orbit2_tpu_torch.evaluate import check_mesh, check_scope
 from orbit2_tpu_torch.models.components.blocks import DropPath
 from orbit2_tpu_torch.ops.kernel_prng import fold_seed
 from orbit2_tpu_torch.parallel.mesh import rank_grid
@@ -297,10 +297,10 @@ def test_trainer_refuses_axes_not_ported(synth_dataset, axis, world):
     cfg = load_config(raw)
     check_mesh(cfg, world)  # the mesh fits the world: the refusal is the axis's
     if axis in ("seq_par", "expert_par", "pipeline"):
-        check_training_scope(cfg)
+        check_scope(cfg)
         return
     with pytest.raises(NotImplementedError, match="auto resolves"):
-        check_training_scope(cfg)
+        check_scope(cfg)
 
 
 @pytest.mark.parametrize("what,sizes", [

@@ -439,7 +439,7 @@ def test_cli_trains_interm_1b_pp_only_at_its_world(world, monkeypatch):
     from test_torch_mesh import AXES, _jax_scaled
 
     from orbit2_tpu_torch import train as train_cli
-    from orbit2_tpu_torch.evaluate import check_mesh, check_training_scope
+    from orbit2_tpu_torch.evaluate import check_mesh, check_scope
 
     path = os.path.join(ROOT, "configs", "interm_1b_pp.yaml")
     want = _jax_scaled(path, world, monkeypatch)
@@ -448,7 +448,7 @@ def test_cli_trains_interm_1b_pp_only_at_its_world(world, monkeypatch):
     assert cfg.parallelism.pipeline == 2 and cfg.parallelism.pipeline_interleave == 2
     if world == 16:
         check_mesh(cfg, world)
-        check_training_scope(cfg)
+        check_scope(cfg)
         return
     with pytest.raises(ValueError, match="devices"):
         check_mesh(cfg, world)

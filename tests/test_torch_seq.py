@@ -27,7 +27,9 @@ JAX side computes what they are held against:
 JAX's refusals are the port's: Ulysses' head divisibility, ring's
 N_local % 128, MoE x seq and pipeline x seq. The launch also runs the stage
 axis's cases of tests/test_torch_pipeline.py, whose JAX side runs as a
-process of its own beside this file's (`test_torch_pipeline.jax_side`).
+process of its own beside this file's (`test_torch_pipeline.jax_side`),
+and the serving cases of tests/test_torch_serve_mesh.py, whose JAX side is
+another (`test_torch_serve_mesh.jax_side`).
 """
 
 import fcntl
@@ -250,8 +252,9 @@ def _wait(procs):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    for r, p in enumerate(procs):  # the stage axis's JAX side, then the ranks
-        who = "the pipeline's JAX side" if r == 0 else f"rank {r - 1}"
+    sides = ("the pipeline's JAX side", "the serving cases' JAX side")
+    for r, p in enumerate(procs):  # the stage axis's and the serving's JAX sides, the ranks
+        who = sides[r] if r < len(sides) else f"rank {r - len(sides)}"
         assert p.returncode == 0, f"{who} exited {p.returncode}:\n{logs[r][-4000:]}"
 
 
@@ -260,13 +263,15 @@ def _prepare_and_run(root, ds):
 
     from orbit2_tpu_torch.training.checkpoint import state_dict_from_jax_params
 
-    # the stage axis's JAX side (tests/test_torch_pipeline.py), a process of
-    # its own from the start: the ranks wait for its inputs after this file's
-    # cases
+    # the stage axis's and the serving cases' JAX sides
+    # (tests/test_torch_pipeline.py, test_torch_serve_mesh.py), processes of
+    # their own from the start: the ranks wait for their inputs after this
+    # file's cases
     procs = [subprocess.Popen(
-        [sys.executable, os.path.join(ROOT, "tests", "test_torch_pipeline.py"), str(root)],
+        [sys.executable, os.path.join(ROOT, "tests", side), str(root)],
         cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="1"), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)]
+        stderr=subprocess.STDOUT, text=True)
+        for side in ("test_torch_pipeline.py", "test_torch_serve_mesh.py")]
     try:
         raws = configs(root, ds)
         for name, raw in raws.items():
@@ -335,7 +340,10 @@ def seqexpert(tmp_path_factory, synth_dataset):
                 pipeline_jax=np.load(root / "pp_jax.npz"),
                 pipeline_jax_fit=json.loads((root / "pp_jax.json").read_text())["fit"],
                 pipeline_jax_validation=json.loads(
-                    (root / "pp_jax.json").read_text())["validation"])
+                    (root / "pp_jax.json").read_text())["validation"],
+                serve_reports=[json.loads((root / "out" / f"serve_{r}.json").read_text())
+                               for r in range(WORLD)],
+                serve_arrays=[np.load(root / "out" / f"serve_{r}.npz") for r in range(WORLD)])
 
 
 # -- seq_flash_attention -----------------------------------------------------

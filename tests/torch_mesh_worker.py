@@ -33,7 +33,11 @@ JAX: the test process holds the JAX side).
       one process; Trainer.fit on IN_DIR's pp_*.yaml (the GPipe one saving
       checkpoints into OUT_DIR/ppck, then resumed on the mesh and loaded
       into one process); last the dropout cases. Each rank writes
-      OUT_DIR/pipeline_R.npz and pipeline_R.json.
+      OUT_DIR/pipeline_R.npz and pipeline_R.json. Last serving on the mesh
+      (tests/test_torch_serve_mesh.py, `run_servemesh`): the Evaluator on
+      every SERVE_CASES config of IN_DIR/serve_in.npz's weights, MC dropout,
+      the stitched field, the evaluate CLI and test_on_many_images; each
+      rank writes OUT_DIR/serve_R.json and serve_R.npz.
 
   python tests/torch_mesh_worker.py cli RANK WORLD PORT CONFIG CKPT_DIR OUT_DIR
       The train CLI (`orbit2_tpu_torch.train.main`) as torchrun would start
@@ -513,6 +517,165 @@ def run_pipeline(rank, in_dir, out_dir):
 
     np.savez(os.path.join(out_dir, f"pipeline_{rank}.npz"), **arrays)
     with open(os.path.join(out_dir, f"pipeline_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    run_servemesh(rank, in_dir, out_dir)
+
+
+# the serving cases (tests/test_torch_serve_mesh.py): name -> (model kind,
+# parallelism, dropout), each kind's changes to TINY
+SERVE_MODELS = {"dense": {}, "seq": SEQ_MODEL, "moe": MOE_MODEL, "pipe": PIPE_MODEL}
+SERVE_CASES = {
+    "tensor2_seq2_gather": ("seq", {"tensor_par": 2, "seq_par": 2, "seq_impl": "gather"}, 0.0),
+    "tensor2_seq2_ring": ("seq", {"tensor_par": 2, "seq_par": 2, "seq_impl": "ring"}, 0.0),
+    "expert2_tensor2": ("moe", {"expert_par": 2, "tensor_par": 2}, 0.0),
+    "stage2_tensor2_gpipe": ("pipe", {"pipeline": 2, "tensor_par": 2,
+                                      "pipeline_microbatches": 4}, 0.0),
+    "stage2_tensor2_interleaved": ("pipe", {"pipeline": 2, "tensor_par": 2,
+                                            "pipeline_microbatches": 4,
+                                            "pipeline_interleave": 2}, 0.0),
+    "fsdp2_tensor2": ("dense", {"fsdp": 2, "tensor_par": 2}, 0.0),
+    "replica2_fsdp2": ("dense", {"simple_ddp": 2, "fsdp": 2}, 0.0),
+    # meshes of ranks 0 and 1, ranks 2 and 3 idle
+    "tensor2": ("dense", {"tensor_par": 2}, 0.1),
+    "stage2": ("pipe", {"pipeline": 2, "pipeline_microbatches": 2}, 0.0),
+}
+# the samples of each round the data ranks gather (files of 3, 2, 2 and 1
+# samples: at two data ranks of batch 2 rank 0 reads files 0-1, rank 1 files
+# 2-3; at four of batch 1 one file each)
+SERVE_ROUND_REALS = {"fsdp2_tensor2": [4, 3, 1], "replica2_fsdp2": [4, 3, 1]}
+# how long the ranks wait for the serving cases' JAX side
+SERVE_WAIT_S = 400
+
+
+def serve_world(name):
+    """The ranks of case `name`'s mesh."""
+    par = SERVE_CASES[name][1]
+    return int(np.prod([v for k, v in par.items() if k in (
+        "tensor_par", "seq_par", "expert_par", "pipeline", "fsdp", "simple_ddp")]))
+
+
+def first_batch(dm):
+    loader = iter(dm.test_dataloader())
+    try:
+        return torch.from_numpy(next(loader)[0])
+    finally:
+        loader.close()
+
+
+def run_servemesh(rank, in_dir, out_dir):
+    """Every SERVE_CASES config served on its mesh (Evaluator.test in fp32
+    and w8a8, or the error it raises), the data meshes' gathered rounds
+    recorded; the meshes that leave ranks 2 and 3 idle; MC dropout, the
+    stitched field and both serving CLIs on tensor 2; test_on_many_images on
+    fsdp 2 x tensor 2. Each rank writes OUT_DIR/serve_R.json and
+    serve_R.npz."""
+    import contextlib
+    import io
+
+    from orbit2_tpu_torch import evaluate as evaluate_mod
+    from orbit2_tpu_torch.config import load_config
+    from orbit2_tpu_torch.parallel import in_mesh
+    from orbit2_tpu_torch.utils.inference import test_on_many_images
+    from orbit2_tpu_torch.utils.mc_dropout import get_monte_carlo_predictions
+    from orbit2_tpu_torch.utils.visualize import model_forward_fn, visualize_at_index
+
+    path, waited = os.path.join(in_dir, "serve_in.npz"), 0.0
+    while not os.path.exists(path):  # written by the JAX side beside the ranks
+        if waited > SERVE_WAIT_S:
+            raise TimeoutError(f"no {path} after {SERVE_WAIT_S} s")
+        time.sleep(0.5)
+        waited += 0.5
+    raw = np.load(path)
+    states = {kind: {k.split("/", 1)[1]: torch.from_numpy(raw[k]) for k in raw.files
+                     if k.startswith(kind + "/")} for kind in SERVE_MODELS}
+    report, arrays = {"idle_meshes": {}}, {}
+    # the repaired fault: meshes whose data axes are 1, smaller than the world
+    for name, axes in (("stage2", dict(stage=2)), ("tensor2", dict(tensor=2))):
+        mesh = make_mesh(device_type="cpu", **axes)
+        r = report["idle_meshes"][name] = {"in_mesh": in_mesh(mesh)}
+        if r["in_mesh"]:
+            r.update(data_size=data_size(mesh), data_rank=data_rank(mesh))
+
+    gathered = []
+    gather_rows = evaluate_mod.gather_rows
+
+    def recording(tensors, real, mesh, device):
+        out = gather_rows(tensors, real, mesh, device)
+        gathered.append(out)
+        return out
+
+    evaluate_mod.gather_rows = recording
+    for name, (kind, _, _) in SERVE_CASES.items():
+        cfg = load_config(os.path.join(in_dir, f"serve_{name}.yaml"))
+        ev = evaluate_mod.Evaluator(cfg, "cpu", state_dict=states[kind])
+        gathered.clear()
+        r = report[name] = {"idle": ev.idle, "means": ev.test()}
+        r["samples"] = ev.last_test["samples"] if ev.last_test else 0
+        for i, ((yhat, y), real) in enumerate(gathered):
+            if rank == 0:
+                arrays.update({f"{name}/round/{i}/yhat": yhat.numpy(),
+                               f"{name}/round/{i}/y": y.numpy(),
+                               f"{name}/round/{i}/real": np.int64(real)})
+        try:
+            r["w8a8"] = ev.test(quant="w8a8")
+        except Exception as e:  # noqa: BLE001 - the error is the result
+            r["w8a8_error"] = [type(e).__name__, str(e)]
+        if ev.idle:
+            continue
+        in_vars, out_vars = ev.data_module.get_data_variables()
+        if name == "fsdp2_tensor2":
+            # MC dropout at rate 0: the deterministic prediction
+            x = first_batch(ev.data_module)
+            with torch.no_grad():
+                det = ev.model.eval()(x, in_vars, out_vars)
+            ens = get_monte_carlo_predictions(ev.model, x, in_vars, out_vars, n_samples=2)
+            report["mc"] = {"rate0_equals_eval": all(torch.equal(e, det) for e in ens)}
+            many = os.path.join(out_dir, f"many_{rank}")
+            written = test_on_many_images(model_forward_fn(ev.model, in_vars, out_vars),
+                                          ev.data_module, many, mesh=ev.mesh)
+            files = sorted(os.listdir(many)) if os.path.isdir(many) else []
+            gts = [np.load(os.path.join(many, f)) for f in files if f.startswith("gt_")]
+            rows = np.concatenate(gts) if gts else np.zeros((0,))
+            report["many"] = {"written": written, "files": len(files),
+                              "samples": int(rows.shape[0]),
+                              "unique_targets": len({a.tobytes() for a in rows})}
+        if name == "tensor2":
+            x = first_batch(ev.data_module)
+            runs = [get_monte_carlo_predictions(ev.model, x, in_vars, out_vars, n_samples=2,
+                                                generator=torch.Generator().manual_seed(3))
+                    for _ in range(2)]
+            report["mc"]["repeats"] = torch.equal(runs[0], runs[1])
+            report["mc"]["members_differ"] = not torch.equal(runs[0][0], runs[0][1])
+            dm_vis = evaluate_mod.make_data_module(cfg, ev.data_key, 1, 0, "test")
+            field_dir = os.path.join(out_dir, f"field_{rank}")
+            res = visualize_at_index(model_forward_fn(ev.model, in_vars, out_vars), dm_vis,
+                                     index=1, div=1, overlap=0, mag=TINY["superres_mag"],
+                                     out_dir=field_dir)
+            arrays[f"field/{rank}"] = res["preds"]
+            report["field_files"] = sorted(os.listdir(field_dir)) if os.path.isdir(
+                field_dir) else []
+    evaluate_mod.gather_rows = gather_rows
+
+    # the serving CLIs on tensor 2 (ranks 2 and 3 idle), weights from an npz
+    from orbit2_tpu_torch import visualize as visualize_cli
+
+    args = [os.path.join(in_dir, "serve_tensor2.yaml"), "--device", "cpu", "--torch-npz",
+            os.path.join(in_dir, "serve_dense.npz")]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        evaluate_mod.main(args)
+    report["cli"] = out.getvalue()
+    viz = os.path.join(out_dir, f"viz_{rank}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        visualize_cli.main(args + ["--index", "1", "--out-dir", viz])
+    report["viz_cli"] = {"printed": out.getvalue(),
+                         "files": sorted(os.listdir(viz)) if os.path.isdir(viz) else []}
+    if report["viz_cli"]["files"]:
+        arrays["viz_cli"] = np.stack([np.load(os.path.join(viz, f"pred_{v}_1.npy"))
+                                      for v in OUT_VARS])
+    np.savez(os.path.join(out_dir, f"serve_{rank}.npz"), **arrays)
+    with open(os.path.join(out_dir, f"serve_{rank}.json"), "w") as f:
         json.dump(report, f)
 
 

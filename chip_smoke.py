@@ -93,7 +93,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
                memory, tiles/s and MFU (and the hardware's flops with the
                recomputation) against 989 TFLOP/s
   5d. resume1b — checkpoints, resume, validation and fine-tuning on the same
-               config, tiles, batch and weights (synthetic train and val
+               config, tiles, batch and weights, the depth cut from 8 to 2
+               (serve1b's first two Blocks; synthetic train and val
                splits of 5 fields; the val split's 80 tiles end in a partial
                batch): Trainer A fits 2 epochs x 2 steps with a checkpoint
                directory, keep_last_checkpoints 1 and validation after each
@@ -119,7 +120,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
                12,288] bit for bit, and the validation's K1 without dropout
                at (B32, N2178, H24, d128) on its first and last batch
                elements (the 16-tile tail's shape is serve1b's)
-  6. times   — kernel vs plain (CUDA events, median of 20 after warm-up; K1,
+  6. times   — kernel vs plain (CUDA events, median of 20 after warm-up, of 5
+               for fp32 attention; K1,
                K2 and K3 also by the profiler's kernel time alone, beside SDPA
                and their two bounds, tensor cores and their dropout's Philox
                calls; K5 also by its kernel time alone beside F.dropout's,
@@ -197,10 +199,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
                the ResNet's and the ViT's fp32 shapes; {"climatebench": ...}
      mesh    — the device mesh (orbit2_tpu_torch/parallel/): (a) `python -m
                orbit2_tpu_torch.train`'s main on configs/interm_1b.yaml as
-               shipped (fsdp 8 x simple_ddp 4 x tensor_par 4), from
-               serve1b's weights (an npz): the scale-down brings the mesh to
-               the one card, 2 steps of 32 tiles, finite losses, exact
-               launches; (b) the 1B model wrapped on a one-rank NCCL mesh
+               shipped (fsdp 8 x simple_ddp 4 x tensor_par 4) but for its
+               depth, cut from 8 to 2 in (a) and (b), from serve1b's
+               weights (an npz; the later Blocks' dropped on import): the
+               scale-down brings the mesh to the one card, 2 steps of 32
+               tiles, finite losses, exact launches; (b) the 1B model
+               wrapped on a one-rank NCCL mesh
                (the Trainer's own, from the config, under a one-rank NCCL
                group: the tensor plan, FSDP2 per Block and at the root,
                DTensor parameters, AdamW on the shards) against the same 2
@@ -215,8 +219,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
                PORT DIR`) at interm_117m.yaml's width, depth 2, fp32, under
                fsdp 2 and under tensor 2, against one rank (MESH_REL), then
                test() on both meshes against the config at mesh 1 on rank
-               0 (serve_meshes: the other rank idle; MESH_REL); a rank that
-               fails or dies fails the phase; {"mesh": ...}
+               0 (serve_meshes: the other rank idle; MESH_REL), run beside
+               phase seqexpert's ranks; a rank that fails or dies fails the
+               phase; {"mesh": ...}, printed after phase seqexpert
   servemesh — serving on a mesh, from serve1b's weights (the npz phase mesh
                reads): configs/interm_1b.yaml's model at full width and
                depth on serve1b's tiles (2 fields of 16 tiles, batch 16).
@@ -259,7 +264,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
                fsdp 2 under each impl, expert 2 x fsdp 2 and expert 2 x
                tensor 2 on an MoE variant, one step against one rank
                (MESH_REL), and test() on each against the config at mesh
-               1 on rank 0 (serve_meshes); then K1-K3 at the seq path's
+               1 on rank 0 (serve_meshes), its four ranks running beside
+               (a) and (b)'s two; then K1-K3 at the seq path's
                call shapes against their plain versions (gather: B8, N_q
                1,024, N_k 2,048, H24, d128; Ulysses: N 2,048, H12; a ring
                chunk: N 1,024, its two halves merged, K2/K3 fed the merged
@@ -338,6 +344,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
                and MFU on the products it executes; K1-K3 and K5 rows at the
                training shapes and K1's at the serving batch; the line
                {"moe_1b": {...}}
+
+Each phase prints "== name (at T s)" as it starts and, at its larger steps,
+"  -- step: S s (at T s)": where the script's time limit goes.
 
 The second-to-last line is {"kernels": [...]}: for each kernel its launches
 on its path, max abs error, ms, plain ms, library ms (null where no single
@@ -426,6 +435,10 @@ MICRO_1B = 4
 # of the config's 32 that keeps the phase short
 FIELDS_RESUME_1B = 5
 RESUME_STEPS_1B = 2
+# the phase's model at the config's full width, its depth 8 cut to 2 (serve1b's
+# first Blocks): four checkpoints of the whole model took most of the
+# script's time limit on a slow disk
+RESUME_DEPTH_1B = 2
 FT_DIV, FT_OVERLAP = 3, 2
 FT_BATCH = 8
 
@@ -611,10 +624,20 @@ def check(cond, msg):
 
 
 START = time.perf_counter()
+LAP = [START]
 
 
 def phase(name):
-    print(f"== {name} (at {time.perf_counter() - START:.1f} s)", flush=True)
+    LAP[0] = time.perf_counter()
+    print(f"== {name} (at {LAP[0] - START:.1f} s)", flush=True)
+
+
+def lap(label):
+    """Prints the seconds since the phase began or the last lap: where a
+    phase's time goes."""
+    now = time.perf_counter()
+    print(f"  -- {label}: {now - LAP[0]:.1f} s (at {now - START:.1f} s)", flush=True)
+    LAP[0] = now
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -2128,6 +2151,13 @@ def same_state(saved, live, what):
     check(got_scalars == want_scalars, f"{what}: {got_scalars} vs {want_scalars}")
 
 
+def within_depth(key, depth):
+    """Whether the state-dict key `key` belongs to a model cut to its first
+    `depth` Blocks."""
+    block = re.match(r"blocks\.(\d+)\.", key)
+    return block is None or int(block.group(1)) < depth
+
+
 def resume1b(s1b, root, seed):
     """Phase resume1b: checkpoints, resume, validation and fine-tuning of
     configs/interm_1b.yaml at full width on its tiles (batch 32, full remat,
@@ -2156,12 +2186,13 @@ def resume1b(s1b, root, seed):
     ev = s1b["ev"]
     cfg = config_1b(root, seed, trainer={"batch_size": BATCH_TRAIN_1B,
                                          "grad_accum": GRAD_ACCUM_1B},
-                    n_files=1, t=FIELDS_RESUME_1B, shards=("train", "val"))
+                    n_files=1, t=FIELDS_RESUME_1B, shards=("train", "val"),
+                    depth=RESUME_DEPTH_1B)
     m, tc = cfg.model, cfg.trainer
     depth, h, d = m.depth, m.num_heads, m.embed_dim // m.num_heads
     tiles = cfg.tiling.effective_div ** 2  # a field's
     val_batches = -(-FIELDS_RESUME_1B * tiles // BATCH_TRAIN_1B)
-    n_params = sum(p.numel() for p in ev.model.parameters())
+    n_params = sum(p.numel() for k, p in ev.model.named_parameters() if within_depth(k, depth))
     moment_bytes = sum(torch.finfo(getattr(torch, dt or "float32")).bits // 8
                        for dt in (tc.adam_mu_dtype, tc.adam_nu_dtype))
     reckoned = n_params * (4 + moment_bytes)
@@ -2212,7 +2243,8 @@ def resume1b(s1b, root, seed):
     out = {"checkpoint_bytes_reckoned": reckoned, "parameters": n_params}
     ck._write = timed_write
     try:
-        init = ev.model.state_dict()  # serve1b's bf16 weights, on the card
+        # serve1b's bf16 weights, on the card: its first `depth` Blocks
+        init = {k: t for k, t in ev.model.state_dict().items() if within_depth(k, depth)}
         reset_counts()  # the phase's main path: A, B, the two resumes, the fine-tune
         tt = time.perf_counter()
         a = instrument(Trainer(cfg, "cuda", state_dict=init, checkpoint_dir=str(ck_dir),
@@ -2585,6 +2617,7 @@ def serve10b(cfg, seed, call_s, smi):
           f"{out['host_block_draw_s']:.2f} s")
     del block
     ev, out["bf16_build"] = build_10b(cfg, ("none",))
+    lap("serve10b bf16 build")
     dm = ev.data_module
     in_vars, out_vars = dm.get_data_variables()
     in_shape, out_shape = dm.get_data_dims()
@@ -2698,6 +2731,7 @@ def serve10b(cfg, seed, call_s, smi):
           f"the 10B bf16 prediction on the kernels is further from fp32 than the plain path's: "
           f"{witness}")
     del pred_plain, trunk_plain, trunks, pred_ref
+    lap("serve10b kernels, test, witness")
 
     dm_vis = make_data_module(cfg, ev.data_key, 1, 0, "test")
     sample, _, names, _ = next(iter(dm_vis.data_test))
@@ -2792,11 +2826,13 @@ def serve10b(cfg, seed, call_s, smi):
     torch.cuda.empty_cache()
 
     # the w8a8 Evaluator: the same draw, the twin quantized as it is filled
+    lap("serve10b stitched fields, MC, times")
     pred_bf16, field_bf16 = pred.cpu(), stitched["bf16"]
     del ev, pred, trunk
     gc.collect()
     torch.cuda.empty_cache()
     ev, out["w8a8_build"] = build_10b(cfg, ("none", "w8a8"))
+    lap("serve10b w8a8 build")
     qmodel = ev.serving_model("w8a8")
     with torch.no_grad(), trunk_outputs(ev.model) as trunks, trunk_outputs(qmodel) as qtrunks:
         pred = ev.model(x, in_vars, out_vars).float().cpu()
@@ -2829,6 +2865,7 @@ def serve10b(cfg, seed, call_s, smi):
           f"{out['w8a8']['kernel_ms']:.3f} ms of kernel time (its other kernels less the bf16 "
           f"step's)")
     del ev, qmodel, x, y
+    lap("serve10b w8a8 test, field, step")
     gc.collect()
     torch.cuda.empty_cache()
     out["errors"] = {"k1_nodrop": errs[("fwd", 0.0)], "k1_drop": errs[("fwd", m.drop_rate)],
@@ -3044,6 +3081,7 @@ def moe1b(root, seed, call_s, smi):
     torch.cuda.synchronize()
     out["build_s"] = time.perf_counter() - t0
     dm = ev.data_module
+    lap("moe1b build")
     in_vars, out_vars = dm.get_data_variables()
     in_shape, out_shape = dm.get_data_dims()
     b = in_shape[0]
@@ -3161,6 +3199,7 @@ def moe1b(root, seed, call_s, smi):
           f"the MoE bf16 prediction on the kernels is further from fp32 than the plain path's: "
           f"{witness}")
     del pred_plain, trunk, trunk_plain, trunks, pred_ref, routes, ref_routes
+    lap("moe1b kernels, test, witness")
 
     dm_vis = make_data_module(cfg, ev.data_key, 1, 0, "test")
     sample, _, names, _ = next(iter(dm_vis.data_test))
@@ -3228,6 +3267,7 @@ def moe1b(root, seed, call_s, smi):
     tdm = trainer.data_module(key)
     trainer.build_model(tdm, model.state_dict())
     del ev, model, routers, dm, dm_vis
+    lap("moe1b stitched field, MC, serving step")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3247,6 +3287,7 @@ def moe1b(root, seed, call_s, smi):
     want = only(**{k: v * steps * tc.grad_accum
                    for k, v in remat_launches(depth, moe_blocks=n_moe).items()})
     print(f"  fit {fit_s:.3f} s, card peak {fit_peak:.2f} GiB; launches {fit_launched}")
+    lap("moe1b fit")
     check(sum(r["batches"] for r in history) == steps, f"fit took {history}")
     check(all(np.isfinite(r["loss"]) for r in history), "an MoE train loss is not finite")
     check(fit_launched == want, f"MoE train launches {fit_launched}, want {want}")
@@ -3386,6 +3427,7 @@ def moe1b(root, seed, call_s, smi):
         print(f"    {t:9.4f} ms  {name[:110]}")
     out["train"] = step
     out["fit_launches"] = fit_launched
+    lap("moe1b checks and step after the fit")
     train_shape = (micro, tokens, h, d)
     del trainer, model, params, tstep, grad_step, xb, yb
     gc.collect()
@@ -4256,6 +4298,7 @@ def hub(root: Path, seed: int, call_s, smi):
         fit_s = time.perf_counter() - tt
         fit_counts = counts()
         history = res["history"]
+        lap(f"hub {arch} fine-tune")
         check(sum(r["batches"] for r in history) == steps and
               all(np.isfinite(r["loss"]) for r in history), f"{arch} fine-tune took {history}")
         state = restore_checkpoint(str(root / f"ft_{arch}" / "epoch_1"))["model"]
@@ -4334,6 +4377,7 @@ def hub(root: Path, seed: int, call_s, smi):
             del q, k, v, do
             torch.cuda.empty_cache()
             tokens = b * n
+            lap("hub vit checks against the plain attention")
             widths = (m["embed_dim"], int(m["embed_dim"] * m["mlp_ratio"]))
             launches.update({("flash_attn_fwd", rate): fit_counts["flash_attn_fwd"],
                              ("flash_attn_fwd", 0.0): test_counts["flash_attn_fwd"],
@@ -4377,6 +4421,7 @@ def hub(root: Path, seed: int, call_s, smi):
         eval_step = make_eval_step(model, in_vars, out_vars)
         entry["serve_ms"] = cuda_ms(lambda: eval_step(x, y), iters=5, warmup=1)
         print(f"    {arch} serving: eval step {entry['serve_ms']:.3f} ms a batch of {x.shape[0]}")
+        lap(f"hub {arch} test, steps timed")
         del trainer, tstep, xb, yb, ev, model, eval_step
         torch.cuda.empty_cache()
         rows.update({(arch, "fused_dropout", s): k5_row(s, torch.bfloat16, rate, gen, kseed,
@@ -4384,6 +4429,7 @@ def hub(root: Path, seed: int, call_s, smi):
                      for s in k5_shapes})
         out[arch] = entry
     rows.update(hub_attention_rows(gen, kseed, rate, call_s, smi, launches))
+    lap("hub attention rows")
     out["errors"] = {k_: v_ for k_, v_ in errs.items()}
     return {"out": out, "rows": rows, "errs": errs}
 
@@ -4490,6 +4536,9 @@ def climatebench_phase(seed: int, smi):
 # error MESH_REL a gradient, the loss within MESH_REL relative
 BATCH_MESH = 8
 MESH_STEPS = 2
+# (a) and (b) at the config's full width, its depth 8 cut to 2 (the npz's
+# first Blocks; the others dropped on import): the script's time
+MESH_DEPTH_1B = 2
 MESH_TWO = dict(embed_dim=1024, num_heads=16, depth=2, decoder_depth=2, batch=4)
 MESH_REL = 1e-4
 MESH_TWO_SEED = 7
@@ -4510,8 +4559,9 @@ def mesh_phase(root: Path, seed: int, weights: str, call_s, smi):
     a one-rank NCCL mesh against the unwrapped one, losses and parameters
     bit for bit, launches exactly equal, each step's time, kernel time and
     peak memory; K1-K3 and K5 at the path's shapes against their plain
-    versions; (c) two ranks on the card over gloo against one rank. Returns
-    what the kernels line reads."""
+    versions ((c), two ranks on the card over gloo against one rank, runs
+    beside phase seqexpert: start_two_ranks, two_ranks). Returns what the
+    kernels line reads."""
     import dataclasses
     import shutil
 
@@ -4525,15 +4575,22 @@ def mesh_phase(root: Path, seed: int, weights: str, call_s, smi):
     from orbit2_tpu_torch.training.trainer import Trainer
 
     out = {}
+    # serve1b's weights cut to MESH_DEPTH_1B (a one-device Trainer loads
+    # its state strictly), an npz as the CLI reads it
+    cut = str(root / "weights_1b_cut.npz")
+    full_npz = load_state_npz(weights)
+    np.savez(cut, **{k: full_npz[k].numpy() for k in full_npz
+                     if within_depth(k, MESH_DEPTH_1B)})
+    del full_npz
     # (a) the CLI on the config as shipped: the scale-down brings it to the card
-    raw = raw_config(root / "cli", seed, CONFIG_1B, n_files=FIELDS_TRAIN_1B, t=1, low=LOW_1B,
-                     shards=("train",))
+    raw = raw_config(root / "cli", seed, CONFIG_1B, model={"depth": MESH_DEPTH_1B},
+                     n_files=FIELDS_TRAIN_1B, t=1, low=LOW_1B, shards=("train",))
     shipped = {a: raw["parallelism"].get(a, 1) for a in MESH_AXES}
     path = root / "interm_1b.yaml"
     path.write_text(yaml.safe_dump(raw, sort_keys=False))
     reset_counts()
     t0 = time.perf_counter()
-    trainer = train_cli.main([str(path), "--torch-npz", weights, "--device", "cuda",
+    trainer = train_cli.main([str(path), "--torch-npz", cut, "--device", "cuda",
                               "--max-epochs", "1", "--max-steps-per-epoch", str(MESH_STEPS),
                               "--checkpoint-dir", str(root / "ck")])
     torch.cuda.synchronize()
@@ -4555,14 +4612,15 @@ def mesh_phase(root: Path, seed: int, weights: str, call_s, smi):
     check(cli_launched == want, f"the CLI's launches {cli_launched}, want {want}")
     out["cli"] = {"shipped": shipped, "scaled": scaled, "batch_tiles": tc.batch_size,
                   "losses": [r["loss"] for r in hist], "launches": cli_launched, "seconds": cli_s}
+    lap("mesh (a)")
     del trainer
     torch.cuda.empty_cache()
 
     # (b) the wrapped path on a one-rank NCCL mesh against the unwrapped one
     cfg = config_1b(root / "wrap", seed, trainer={"batch_size": BATCH_MESH}, n_files=1, t=1,
-                    shards=("train",))
+                    shards=("train",), depth=MESH_DEPTH_1B)
     key = next(iter(cfg.data.low_res_dir))
-    state = load_state_npz(weights)
+    state = load_state_npz(cut)
 
     def run():
         """The fit on the config's mesh where a process group runs (the
@@ -4640,6 +4698,7 @@ def mesh_phase(root: Path, seed: int, weights: str, call_s, smi):
     out["wrapped"]["fused_dropout_by_shape"] = {f"{r_}x{c_}": n_ for (r_, c_), n_
                                                 in wrapped["k5_widths"].items()}
     tokens, k5_launched = wrapped["tokens"], wrapped["k5_widths"]
+    lap("mesh (b)")
     del plain, wrapped, state
     torch.cuda.empty_cache()
 
@@ -4660,35 +4719,44 @@ def mesh_phase(root: Path, seed: int, weights: str, call_s, smi):
         check_dropout(*shape, torch.bfloat16, m.drop_rate, gen, kseed)
         rows[("fused_dropout", shape)] = k5_row(shape, torch.bfloat16, m.drop_rate, gen, kseed,
                                                 n, smi, "mesh 1B")
-
-    # (c) two ranks on the one card over gloo
-    out["two_ranks"] = two_ranks(root / "two", strict_serve_raw(root / "two_data", seed,
-                                                                MESH_TWO["batch"]))
+    lap("mesh (b) kernels and rows")
+    # (c) runs beside phase seqexpert's ranks (start_two_ranks, two_ranks)
     return {"out": out, "rows": rows, "errs": errs, "launched": path_t["launched"],
             "k5_shapes": list(k5_launched)}
 
 
-def two_ranks(two: Path, serve_raw):
-    """Phase mesh (c): the two gloo ranks of mesh_worker on the one card,
-    held against one rank (and serving `serve_raw`); a rank that fails or
-    dies fails the phase."""
+def start_two_ranks(two: Path, seed: int):
+    """Starts phase mesh (c)'s two gloo ranks of mesh_worker on the one card
+    (serving strict_serve_raw's split under TWO), each writing its output to
+    TWO/rank{r}.log, and returns them."""
     import yaml
 
     two.mkdir()
+    serve_raw = strict_serve_raw(two / "data", seed, MESH_TWO["batch"])
     (two / "serve.yaml").write_text(yaml.safe_dump(serve_raw, sort_keys=False))
     port = str(free_port())
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
-                               str(r), port, str(two)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
-    logs = []
+    procs = []
+    for r in (0, 1):
+        with open(two / f"rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                           "--mesh-worker", str(r), port, str(two)],
+                                          stdout=log, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def two_ranks(two: Path, procs):
+    """Phase mesh (c): waits for start_two_ranks' two ranks `procs`, held
+    against one rank (and serving); a rank that fails or dies fails the
+    phase."""
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=300)[0])
+            p.wait(timeout=300)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.wait()
+    logs = [(two / f"rank{r}.log").read_text() for r in range(len(procs))]
     for r, p in enumerate(procs):
         check(p.returncode == 0, f"two-rank worker {r} exited {p.returncode}:\n{logs[r][-3000:]}")
     res = json.loads((two / "result.json").read_text())
@@ -5377,29 +5445,49 @@ def launch_ranks(mode: str, world: int, out: Path, timeout: int, worker="--seqex
 
 
 def start_ranks(mode: str, world: int, out: Path, worker: str):
-    """Starts launch_ranks' processes (a free port of their own) and returns them."""
+    """Starts launch_ranks' processes (a free port of their own), each
+    writing its output to OUT/{mode}.rank{r}.log (a file, not a pipe: a
+    launch may run beside another, and a full pipe would stall its rank),
+    and returns them."""
     port = str(free_port())
+    procs = []
     # the ranks share the card with this process, all on expandable segments
     # (set at the top, inherited)
-    return [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                              worker, mode, str(r), str(world), port, str(out)],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(world)]
+    for r in range(world):
+        with open(out / f"{mode}.rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                           worker, mode, str(r), str(world), port, str(out)],
+                                          stdout=log, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+@contextlib.contextmanager
+def stopped_on_failure(procs):
+    """Kills start_ranks' processes `procs` if the block raises: a launch
+    that runs beside this process's work ends with the phase."""
+    try:
+        yield
+    except BaseException:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        raise
 
 
 def finish_ranks(mode: str, procs, out: Path, timeout: int):
     """Waits for start_ranks' processes (each within `timeout` s), prints
     rank 0's "  (" lines, fails the phase on a failed rank and returns rank
     0's OUT/{mode}.json."""
-    logs = []
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
+            p.wait(timeout=timeout)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.wait()
+    logs = [(out / f"{mode}.rank{r}.log").read_text() for r in range(len(procs))]
     print("\n".join(line for line in logs[0].splitlines() if line.startswith("  (")))
     failed = [f"{mode} rank {r} exited {p.returncode}:\n{logs[r][-3000:]}"
               for r, p in enumerate(procs) if p.returncode != 0]
@@ -5529,14 +5617,20 @@ def seqexpert_phase(root: Path, seed: int, call_s, smi):
     print(f"  this process holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
           f"({torch.cuda.memory_reserved() / 2 ** 30:.2f} reserved); the card has "
           f"{free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB free", flush=True)
-    full = launch_ranks("full", 2, root, timeout=600)
     for kind, (batch, model) in {"dense": (MESH_TWO["batch"], {}),
                                  "moe": (MESH_TWO["batch"], MESH_MOE),
                                  "pipeline": (PP_STRICT["batch"],
                                               {"depth": PP_STRICT["depth"]})}.items():
         (root / f"serve_{kind}.yaml").write_text(yaml.safe_dump(
             strict_serve_raw(root / f"serve_{kind}", seed, batch, **model), sort_keys=False))
-    strict = launch_ranks("strict", 4, root, timeout=420)
+    # (c)'s four ranks (117M width: a few GiB each) beside (a) and (b)'s two:
+    # both launches spend most of their time in gloo's host copies
+    strict_procs = start_ranks("strict", 4, root, "--seqexpert-worker")
+    with stopped_on_failure(strict_procs):
+        full = launch_ranks("full", 2, root, timeout=600)
+    lap("seqexpert (a), (b)")
+    strict = finish_ranks("strict", strict_procs, root, timeout=420)
+    lap("seqexpert (c), after (a) and (b)")
 
     m = load_config(seq_raw).model
     h, d = m.num_heads, m.embed_dim // m.num_heads
@@ -5562,6 +5656,7 @@ def seqexpert_phase(root: Path, seed: int, call_s, smi):
         del q, k, v, do
         torch.cuda.empty_cache()
     rows = seq_rows(shapes, gen, kseed, call_s, smi)
+    lap("seqexpert kernels and rows")
     # K5 at the seq path's shapes, each with the gather fit's launches at it
     k5 = {}
     for r, c, launches in full["seq_gather"]["k5_widths"]:
@@ -5825,6 +5920,7 @@ def pipeline_phase(root: Path, seed: int, call_s, smi, strict):
     free, total = torch.cuda.mem_get_info()
     print(f"  the card has {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB free", flush=True)
     full = launch_ranks("pipeline", 2, root, timeout=600, worker="--pipeline-worker")
+    lap("pipeline (a)")
     cfg = load_config(raw)
     m, par = cfg.model, cfg.parallelism
     one = full["one_rank"]
@@ -5863,6 +5959,7 @@ def pipeline_phase(root: Path, seed: int, call_s, smi, strict):
            "geometry": {"batch": cfg.trainer.batch_size, "microbatches": par.pipeline_microbatches,
                         "interleave": par.pipeline_interleave, "stages": par.pipeline,
                         "depth": m.depth, "tokens": n, "heads": h, "head_dim": d}}
+    lap("pipeline kernels and rows")
     return {"out": out, "rows": rows, "errs": errs, "k5": k5, "launched": full}
 
 
@@ -6285,16 +6382,19 @@ def servemesh_phase(root: Path, seed: int, weights: str, call_s, smi):
     # the two meshes' rank pairs at once (their time is mostly gloo's host
     # copies), building while this process serves the one rank and (b)
     procs = {mode: start_ranks(mode, 2, root, "--servemesh-worker") for mode in SERVE_MESHES}
-    ev = Evaluator(cfgs["one"], "cuda", state_dict=load_state_npz(weights))
-    ref = serve_reference(ev, cfgs, root)
-    print(f"  one rank, {CONFIG_1B.name} at full width and depth (embed {m.embed_dim}, depth "
-          f"{m.depth}, {m.num_heads} heads), {SERVE_FILES} fields of 16 tiles: test() "
-          f"{ref['batch_s']:.3f} s a batch, peak {ref['peak_gib']:.2f} GiB; gpu: {smi}")
-    cli = serve_cli_one_rank(root / "serve_one.yaml", weights, ev)
+    with stopped_on_failure([p for ps in procs.values() for p in ps]):
+        ev = Evaluator(cfgs["one"], "cuda", state_dict=load_state_npz(weights))
+        ref = serve_reference(ev, cfgs, root)
+        print(f"  one rank, {CONFIG_1B.name} at full width and depth (embed {m.embed_dim}, "
+              f"depth {m.depth}, {m.num_heads} heads), {SERVE_FILES} fields of 16 tiles: test() "
+              f"{ref['batch_s']:.3f} s a batch, peak {ref['peak_gib']:.2f} GiB; gpu: {smi}")
+        cli = serve_cli_one_rank(root / "serve_one.yaml", weights, ev)
+    lap("servemesh one rank and (b)")
     del ev
     gc.collect()
     torch.cuda.empty_cache()
     full = {mode: finish_ranks(mode, p, root, 900)[mode] for mode, p in procs.items()}
+    lap("servemesh (a)")
     out = {"one_rank": {k: ref[k] for k in ("test", "batch_s", "peak_gib", "field_s")},
            "cli": cli}
     for mode, both in full.items():
@@ -6335,6 +6435,7 @@ def servemesh_phase(root: Path, seed: int, weights: str, call_s, smi):
             check_dropout(r_, c_, torch.bfloat16, m.drop_rate, gen, kseed)
             k5[(r_, c_)] = k5_row((r_, c_), torch.bfloat16, m.drop_rate, gen, kseed, launches,
                                   smi, f"servemesh {mode} MC")
+    lap("servemesh kernels and rows")
     return {"out": out, "rows": rows, "errs": errs, "k5": k5}
 
 
@@ -6732,21 +6833,24 @@ def main():
                 do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
                 mult = attention_mult(q, k, DROP, kernel_seed)
                 before = counts()
+                # fp32 (on no model's path but the fp32 checks') by medians of 5
+                it = 20 if dtype == torch.bfloat16 else 5
                 kern, plain = paired_ms(lambda: flash_attention_fwd(q, k, v),
-                                        lambda: flash_attention_reference(q, k, v))
+                                        lambda: flash_attention_reference(q, k, v), it)
                 kern_drop, plain_drop = paired_ms(
                     lambda: flash_attention_fwd(q, k, v, None, DROP, kernel_seed),
-                    lambda: flash_attention_reference(q, k, v, None, mult))
+                    lambda: flash_attention_reference(q, k, v, None, mult), it)
                 o, lse = flash_attention_fwd(q, k, v, None, DROP, kernel_seed)
                 delta = attention_delta(o, do)
                 dq_ms = cuda_ms(lambda: FLASH_BWD_DQ(q, k, v, do, lse, delta, d ** -0.5, DROP,
-                                                     kernel_seed))
+                                                     kernel_seed), it)
                 dkv_ms = cuda_ms(lambda: FLASH_BWD_DKV(q, k, v, do, lse, delta, d ** -0.5, DROP,
-                                                       kernel_seed))
+                                                       kernel_seed), it)
                 bwd, bwd_plain = paired_ms(
                     lambda: flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, DROP,
                                                 kernel_seed),
-                    lambda: flash_attention_bwd_reference(q, k, v, o, lse, do, d ** -0.5, mult))
+                    lambda: flash_attention_bwd_reference(q, k, v, o, lse, do, d ** -0.5, mult),
+                    it)
                 after = counts()
                 check(all(after[n] > before[n] for n in
                           ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")),
@@ -6788,6 +6892,7 @@ def main():
                       f"dq {dq_ms:.4f}, dk/dv {dkv_ms:.4f}) plain {bwd_plain:.4f}" + lib_line)
                 del q, k, v, do, mult, o, lse, delta
                 torch.cuda.empty_cache()
+        lap("attention at SHAPES")
         for dtype in (torch.bfloat16, torch.float32):
             for r, c in DROPOUT_SHAPES:
                 x_ = torch.randn(r, c, generator=gen, device="cuda").to(dtype)
@@ -6807,7 +6912,9 @@ def main():
                       f"host {host:.1f} us a call (events, host work included)")
                 del x_, mult
         timed.update(time_fused_mlp(gen, bounds, libs))
+        lap("dropout and fused MLP at their shapes")
         probe_timed = time_probes(probe_res, smi)
+        lap("probes")
 
         step = make_eval_step(ev.model, in_vars, out_vars)
         fused_model = copy.deepcopy(ev.model)
@@ -6835,6 +6942,7 @@ def main():
               f"launches a slice train step, so {per_step * (switch_us - current_us) / 1e3:.4f} "
               f"ms a step of {ms_train:.3f}")
         del trainer, tstep, ev
+        lap("slice steps")
 
     from orbit2_tpu_torch.models import ResSlimViT
 
@@ -6856,25 +6964,31 @@ def main():
     print(f"  train step, bench.py 117M geometry (64 x 128 -> 2048 tokens, 7 variables, batch 8, "
           f"bf16, mu bf16): {ms_bench:.3f} ms, {8 / ms_bench * 1e3:.2f} samples/s "
           f"(median of 20)")
+    lap("bench.py step")
 
     # after the steps: a profiler session may slow the launches that follow it
     k1_rows(gen, kernel_seed, timed, libs, bounds, smi)
     bwd_rows(gen, kernel_seed, timed, libs, bounds, smi)
     dropout_rows(gen, kernel_seed, timed, libs, bounds, smi)
     mlp_rows(gen, timed, libs, bounds, smi)
+    lap("kernel rows")
     serving_rows(*serving, smi)
     del serving
     serving_1b = serving_1b_times(s1b, gen, kernel_seed, call_s, smi)
+    lap("serving rows, serving 1B")
     # serve1b's weights for phase mesh, as the train CLI's --torch-npz reads them
     mesh_dir = tempfile.TemporaryDirectory(dir=ROOT / "_smoke")
     weights_1b = str(Path(mesh_dir.name) / "weights_1b.npz")
     np.savez(weights_1b, **{k: t.float().cpu().numpy() for k, t in
                             s1b["ev"].model.state_dict().items()})
     del s1b
+    lap("serve1b's weights written")
     print(json.dumps({"serving_1b": serving_1b}))
     train_1b = train_1b_times(t1b, gen, kernel_seed, call_s, smi)
+    lap("train 1B")
     print(json.dumps({"train_1b": {"gpu": smi, "step": t1b["out"], "kernels": train_1b}}))
     resume_1b = resume_1b_times(r1b, gen, kernel_seed, call_s, smi)
+    lap("resume 1B")
     print(json.dumps({"resume_1b": {"gpu": smi, **r1b["out"], "launches": r1b["launched"],
                                     "finetune_launches": r1b["finetune"]["launched"],
                                     "errors": r1b["errs"], "validation_k1_error": r1b["val_err"],
@@ -6901,20 +7015,25 @@ def main():
 
     # the device mesh: before serve10b and moe1b, which need most of the card
     phase("mesh")
-    with mesh_dir:
-        mp = mesh_phase(Path(mesh_dir.name), args.seed, weights_1b, call_s, smi)
-        print(json.dumps({"mesh": {"gpu": smi, **mp["out"], "errors": mp["errs"]}}))
-        torch.cuda.empty_cache()
-        # serving on a mesh, from the same weights
-        phase("servemesh")
-        sm = servemesh_phase(Path(mesh_dir.name) / "serve", args.seed, weights_1b, call_s, smi)
+    mesh_root = Path(mesh_dir.name)
+    mp = mesh_phase(mesh_root, args.seed, weights_1b, call_s, smi)
+    torch.cuda.empty_cache()
+    # serving on a mesh, from the same weights
+    phase("servemesh")
+    sm = servemesh_phase(mesh_root / "serve", args.seed, weights_1b, call_s, smi)
     print(json.dumps({"servemesh": {"gpu": smi, **sm["out"], "errors": sm["errs"]}}))
     torch.cuda.empty_cache()
 
-    # the seq and expert axes, on two and four gloo ranks of the card
+    # the seq and expert axes, on two and four gloo ranks of the card, and
+    # beside them phase mesh's (c): two ranks at 117M width, a few GiB each
     phase("seqexpert")
-    with tempfile.TemporaryDirectory(dir=ROOT / "_smoke") as tmp:
+    two = start_two_ranks(mesh_root / "two", args.seed)
+    with stopped_on_failure(two), tempfile.TemporaryDirectory(dir=ROOT / "_smoke") as tmp:
         se = seqexpert_phase(Path(tmp), args.seed, call_s, smi)
+    mp["out"]["two_ranks"] = two_ranks(mesh_root / "two", two)
+    lap("mesh (c), beside seqexpert")
+    print(json.dumps({"mesh": {"gpu": smi, **mp["out"], "errors": mp["errs"]}}))
+    mesh_dir.cleanup()
     print(json.dumps({"seqexpert": {"gpu": smi, **{k: v for k, v in se["out"].items()
                                                    if k != "strict"},
                                     "strict": {k: v for k, v in se["out"]["strict"].items()

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Faults planted in chip_smoke.py's multi-rank checks, to show that their
-bounds fail a wrong trunk: the gradient bound (SEQEXP_GRAD_REL) and phase
-servemesh's serving bounds.
+bounds fail a wrong trunk: the gradient bound (SEQEXP_GRAD_REL), phase
+servemesh's serving bounds and phase hubmesh's BatchNorm and mask checks.
 
-    python3 chip_faults.py [seqexpert] [pipeline] [servemesh]
+    python3 chip_faults.py [seqexpert] [pipeline] [servemesh] [hubmesh]
 
-Needs one CUDA card. Builds the kernels, then, for each phase named (both
-without arguments), runs two gloo ranks on the card, as the phase does.
+Needs one CUDA card. Builds the kernels, then, for each phase named (every
+one without arguments), runs two gloo ranks on the card, as the phase does.
 Rank 0 first runs the phase's one-rank fits. Then both ranks run these
 fits, each with one fault patched in at run time (the package on disk is
 not changed):
@@ -29,15 +29,21 @@ not changed):
                       gathered round
   no_row_sum          (a) at tensor 2: the row-parallel products' sum over
                       the tensor axis skipped (attention's projection, fc2)
+  hubmesh:
+  per_rank_statistics (a): each rank's BatchNorms normalise by its own
+                      slice's statistics (the sum over the data ranks skipped)
+  unfolded_dropout    (a): the ResidualBlocks' dropout seeds fold no data
+                      coordinate, so both data ranks draw one mask
 
 Each fit prints its first-step gradient reading against one rank's, each
 serving run its readings against the one rank's (servemesh_phase's one
 rank, run here first on weights drawn from trainer.seed, which the ranks
 draw alike), and the phase's checks it fails are counted, not raised. The
 last line is one JSON object {"faults": {name: reading}, "bound":
-SEQEXP_GRAD_REL, "serving": {name: {failed checks, readings}}, "caught":
-bool}. The exit code is 0 when every gradient reading is above the bound
-and every serving fault fails a check of the phase.
+SEQEXP_GRAD_REL, "serving": {name: {failed checks, readings}}, "hub":
+{name: {failed checks, readings}}, "caught": bool}. The exit code is 0 when
+every gradient reading is above the bound and every serving and hub fault
+fails a check of its phase.
 """
 
 import datetime
@@ -54,7 +60,7 @@ import torch
 
 import chip_smoke as cs
 
-PHASES = ("seqexpert", "pipeline", "servemesh")
+PHASES = ("seqexpert", "pipeline", "servemesh", "hubmesh")
 
 
 def patch(module, name, value):
@@ -131,6 +137,21 @@ def servemesh_faults():
                                                   lambda x, group: x))}
 
 
+def hubmesh_faults():
+    """The same for phase hubmesh (a): each runs the forecast fits."""
+    import torch.distributed as dist
+
+    import orbit2_tpu_torch.models.components.cnn as cnn
+
+    def run(rank, raws, weights, refs):
+        return cs.hubmesh_forecast(rank, refs, raws["root"])
+
+    return {"per_rank_statistics": (run, patch(cnn, "all_reduce_sum",
+                                               lambda x, group: x * dist.get_world_size(group))),
+            "unfolded_dropout": (run, patch(cnn.ResidualBlock, "fold",
+                                            property(lambda self: (), lambda self, v: None)))}
+
+
 def rank_main(phase: str, rank: int, port: str, root: str):
     import torch.distributed as dist
     import yaml
@@ -140,6 +161,11 @@ def rank_main(phase: str, rank: int, port: str, root: str):
     if phase == "servemesh":
         raws, weights, refs = {"root": root}, None, None
         faults = servemesh_faults()
+    elif phase == "hubmesh":
+        raws, weights = {"root": root}, None
+        configs = yaml.safe_load((root / "configs.yaml").read_text())
+        refs = cs.hubmesh_reference(configs, root) if rank == 0 else None
+        faults = hubmesh_faults()
     elif phase == "seqexpert":
         raws = yaml.safe_load((root / "configs.yaml").read_text())
         weights = {"seq": cs.drawn_weights(cs.seqexp_config(raws["seq"], seq_par=1),
@@ -167,7 +193,14 @@ def rank_main(phase: str, rank: int, port: str, root: str):
             result = run(rank, raws, weights, refs)
         finally:
             undo()
-        if rank == 0 and phase == "servemesh":
+        if rank == 0 and phase == "hubmesh":
+            drop0, drop = result["drop0"], result["drop"]
+            readings[name] = {"failed": len(failed), "grad_rel": drop0["grad_rel"],
+                              "stats_equal": [drop0["stats_equal"], drop["stats_equal"]],
+                              "masks_differ": drop["masks_differ"]}
+            failed.clear()
+            print(f"  ({name}) {json.dumps(readings[name])}", flush=True)
+        elif rank == 0 and phase == "servemesh":
             readings[name] = {"failed": len(failed), **{k: result[k] for k in (
                 "pred_max_abs", "trunk_rel", "field_trunk_rel") if k in result},
                 "metric_rel": max(result[q]["metric_rel"] for q in ("none", "w8a8")),
@@ -193,7 +226,9 @@ def run_phase(phase: str, root: Path):
     returns rank 0's readings."""
     import yaml
 
-    if phase == "servemesh":
+    if phase == "hubmesh":
+        cs.write_hubmesh_configs(root, 0)
+    elif phase == "servemesh":
         from orbit2_tpu_torch.config import load_config
         from orbit2_tpu_torch.evaluate import Evaluator
 
@@ -242,16 +277,17 @@ def main():
     libraries = {k.library.source.name: k.library for k in cs.kernels().values()}
     with ThreadPoolExecutor(len(libraries)) as pool:
         list(pool.map(lambda lib: lib.load(), libraries.values()))
-    readings, serving = {}, {}
+    readings, serving, hub = {}, {}, {}
     t0 = time.perf_counter()
     for phase in phases:
         with tempfile.TemporaryDirectory() as tmp:
-            (serving if phase == "servemesh" else readings).update(run_phase(phase, Path(tmp)))
+            {"servemesh": serving, "hubmesh": hub}.get(phase, readings).update(
+                run_phase(phase, Path(tmp)))
     caught = (all(v > cs.SEQEXP_GRAD_REL for v in readings.values())
-              and all(r["failed"] > 0 for r in serving.values()))
+              and all(r["failed"] > 0 for r in (*serving.values(), *hub.values())))
     print(f"  {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"faults": readings, "bound": cs.SEQEXP_GRAD_REL, "serving": serving,
-                      "caught": caught}))
+                      "hub": hub, "caught": caught}))
     sys.exit(0 if caught else 1)
 
 

@@ -295,6 +295,30 @@ Phases, each of which raises (and so exits non-zero) on failure:
                d128, dropout 0.1) on two batch elements and K5 at [8,712,
                3,072 | 12,288] against their plain versions, and their rows;
                {"pipeline": ...}
+  hubmesh  — the model hub on the mesh (`python3 chip_smoke.py
+               --hubmesh-worker hubmesh RANK 2 PORT DIR`, two gloo ranks
+               started with phase servemesh and waited for after phase
+               seqexpert, beside both; a
+               rank that fails or dies fails the phase): (a)
+               configs/forecast.yaml's ResNet at its own size (19 blocks x
+               128 channels, bf16, batch 32) through the train CLI's
+               scale-down to fsdp 2, 2 steps on one unwrapped rank's global
+               batches: at dropout 0 (the factory patched) the first-step
+               gradients within SEQEXP_GRAD_REL of one rank's and the
+               BatchNorm running averages bit-equal on both ranks; at the
+               shipped 0.1 K5's launches by [rows, cols], finite losses, the
+               data ranks' masks differing on one sample; (b) `finetune
+               --arch unet | vit` at interm_fine_tune.yaml's width on the
+               hub crop at fsdp 2 and the ViT at tensor 2: exact K1-K3 and K5
+               launches, finite losses, test() in bf16 and, in fp32, against
+               one rank within SERVE_METRIC_REL; step seconds, gloo seconds
+               and peak memory a rank; (c) the train CLI on forecast.yaml under a one-rank NCCL
+               group against the unwrapped fit, bit for bit; (d) K1-K3 at the
+               ranks' attention shapes ((B4, N32768, H4, d64) at fsdp 2,
+               (B8, N32768, H2, d64) at tensor 2; K1 also without dropout, as
+               test() runs it) on their first and last (batch, head) pairs
+               and K5 at every width the ranks launched it at against their
+               plain versions, and their rows; {"hubmesh": ...}
 
   7. serve10b — configs/interm_10b.yaml served at full width and depth
                (embed 8192, depth 11, 32 heads, d 256, MLP 32,768, gelu
@@ -3806,12 +3830,10 @@ def write_forecast_dataset(root: Path, variables, seed: int, grid, n_files: int,
     return str(root)
 
 
-def forecast_config(root: Path, seed: int):
-    """configs/forecast.yaml with its mesh (fsdp 4 x simple_ddp 2) cut to the
-    card, on write_forecast_dataset's synthetic grid."""
+def forecast_raw(root: Path, seed: int):
+    """configs/forecast.yaml's raw sections as shipped (its mesh fsdp 4 x
+    simple_ddp 2), on write_forecast_dataset's synthetic grid."""
     import yaml
-
-    from orbit2_tpu_torch.config import load_config
 
     raw = yaml.safe_load(CONFIG_FORECAST.read_text())
     data = raw["data"]
@@ -3819,7 +3841,15 @@ def forecast_config(root: Path, seed: int):
     path = write_forecast_dataset(root, data["dict_in_variables"][key], seed, GRID_FORECAST,
                                   FORECAST_FILES, FORECAST_T)
     data["low_res_dir"], data["high_res_dir"] = {key: path}, {key: path}
-    return to_one_card(load_config(raw))
+    return raw
+
+
+def forecast_config(root: Path, seed: int):
+    """configs/forecast.yaml with its mesh cut to the card, on
+    write_forecast_dataset's synthetic grid."""
+    from orbit2_tpu_torch.config import load_config
+
+    return to_one_card(load_config(forecast_raw(root, seed)))
 
 
 def conv_train_flops(model, x_shape):
@@ -4163,9 +4193,10 @@ def check_pairs(q, k, v, do, rate, seed, pairs, case):
     return {name: max(val for (nm, *_), val in err.items() if nm == name) for name in names}
 
 
-def hub_attention_rows(gen, seed, rate, call_s, smi, launches):
-    """K1 (with and without dropout), K2 and K3 at ATTENTION_HUB bf16: by
-    events and kernel time alone; their plain versions over every (batch,
+def hub_attention_rows(gen, seed, rate, call_s, smi, launches, shape=ATTENTION_HUB,
+                       label="hub ViT"):
+    """K1 (with and without dropout), K2 and K3 at `shape` (B, N, H, d) bf16:
+    by events and kernel time alone; their plain versions over every (batch,
     head) pair one at a time (one pair's dropout multiplier, drawn before
     the timing, serves every pair: the plain versions' work does not depend
     on its values); SDPA's flash forward and whole backward; the bounds
@@ -4175,7 +4206,7 @@ def hub_attention_rows(gen, seed, rate, call_s, smi, launches):
         flash_attention_bwd_reference, flash_attention_fwd, flash_attention_reference)
     from orbit2_tpu_torch.ops.kernel_prng import keep_mult
 
-    b, n, h, d = ATTENTION_HUB
+    b, n, h, d = shape
     q, k, v = make_qkv(b, n, n, h, d, torch.bfloat16, gen)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
     o, lse = flash_attention_fwd(q, k, v, None, rate, seed)
@@ -4227,7 +4258,7 @@ def hub_attention_rows(gen, seed, rate, call_s, smi, launches):
             "shape": [b, n, h, d], "dropout": r, "ms": cuda_ms(fn, iters=10),
             "kernel_ms": kernel_ms(fn, iters=5), "plain_ms": plain_ms, "library_ms": library,
             "bound_ms": bound[0], "bound_by": bound[1], "launches": launches.get((name, r))}
-        print(f"  hub ViT {name} bf16 B{b} N{n} H{h} d{d} drop {r:g}: {row['ms']:.3f} ms "
+        print(f"  {label} {name} bf16 B{b} N{n} H{h} d{d} drop {r:g}: {row['ms']:.3f} ms "
               f"(kernel alone {row['kernel_ms']:.3f}, {bound[0] / row['kernel_ms']:.3f} of the "
               f"bound {bound[0]:.3f} ({bound[1]})), plain {plain_ms:.3f} (pair by pair), "
               f"library {library:.3f} ({row['kernel_ms'] / library:.2f}x by kernel time); "
@@ -5263,9 +5294,9 @@ def serve_meshes(rank: int, raw, meshes, label: str, bound=MESH_REL, state=None)
     trainer.seed) on each of `meshes` ({name: parallelism}) against the
     same config at mesh 1 (rank 0 serves it, the other ranks idle): every
     metric within `bound` by serve_readings (the largest over the ranks),
-    the samples equal, K1 launched depth times a batch, on a stage rank its
-    Blocks' times the microbatches (the bubble runs none). Returns rank 0's
-    readings."""
+    the samples equal, K1 launched depth times a batch (none in a model-hub
+    CNN), on a stage rank its Blocks' times the microbatches (the bubble
+    runs none). Returns rank 0's readings."""
     import torch.distributed as dist
 
     from orbit2_tpu_torch.config import load_config
@@ -5287,7 +5318,7 @@ def serve_meshes(rank: int, raw, meshes, label: str, bound=MESH_REL, state=None)
                "build_s": t1 - t0}
         m, p = cfg.model, cfg.parallelism
         if not ev.idle:
-            calls = m.depth
+            calls = m.depth if m.preset in ("res_slimvit", "vit") else 0  # a CNN: no K1
             if p.pipeline > 1:
                 stage = ev.mesh.get_local_rank("stage")
                 calls = (p.pipeline_microbatches or p.pipeline) * len(
@@ -6439,6 +6470,458 @@ def servemesh_phase(root: Path, seed: int, weights: str, call_s, smi):
     return {"out": out, "rows": rows, "errs": errs, "k5": k5}
 
 
+# phase hubmesh: the model hub on two gloo ranks of the card
+# (`--hubmesh-worker hubmesh RANK 2 PORT DIR`, started with phase servemesh
+# and waited for after phase seqexpert). (a) configs/forecast.yaml's ResNet at its own size (19
+# blocks x 128 channels, bf16, batch 32) through the train CLI's scale-down
+# to fsdp 2 at world 2, HUBMESH_STEPS steps on the global batches one
+# unwrapped rank takes (rank 0 runs it before the group starts;
+# pinned_batches): at dropout 0 (the preset hardcodes 0.1, as JAX's does:
+# its factory patched, no_resnet_dropout) and fp32 the first-step gradients
+# within SEQEXP_GRAD_REL of one rank's (in bf16 the sound reading is 2.1e-2:
+# the products' rounding at two batch sizes, through 19 BatchNorms, PERF.md
+# §6) and the BatchNorm running averages bit-equal on both ranks (each
+# rank's own statistics part them); at the shipped
+# dropout 0.1 K5's launches exact by [rows, cols], finite losses, and the
+# two data ranks' masks differ on one sample (the ResidualBlocks' seeds fold
+# the data rank); (b) `finetune --arch unet | vit` at interm_fine_tune.yaml's
+# width on the hub crop (N 32,768 for the ViT), the mesh cut to fsdp 2, then
+# the ViT at tensor 2 on its batch of BATCH_HUB: exact K1-K3 and K5 launches,
+# finite losses, test() on the mesh in bf16 and, against one rank within
+# SERVE_METRIC_REL, in fp32 (a test split whose samples are one field; in
+# bf16 cuDNN's algorithms at batch 4 and 8 read 9.6e-5 on the Unet, tensor
+# 2's partial sums 2.6e-5 on the ViT); (c) (this process) the train CLI on forecast.yaml under a one-rank NCCL group
+# against the unwrapped fit, losses and the state bit for bit; (d) K1-K3 at
+# the ranks' attention shapes and K5 at their widths against their plain
+# versions, and their rows.
+HUBMESH_STEPS = 2
+HUBMESH_FINETUNES = {"unet": {"fsdp": 2}, "vit": {"fsdp": 2}, "vit_tensor2": {"tensor_par": 2}}
+
+
+def hubmesh_raws(root: Path, seed: int):
+    """The phase's raw configs: "forecast" (forecast.yaml as shipped), "hub"
+    (interm_fine_tune.yaml's model on the hub crop, two train files of
+    FIELDS_HUB // 2 fields) and "hub_serve" (on a test split of two files of
+    BATCH_HUB // 2 samples, every one a field)."""
+    fc = forecast_raw(root / "forecast", seed)
+    hub_kw = dict(trainer={"batch_size": BATCH_HUB}, low=LOW_HUB)
+    hub = raw_config(root / "hub", seed, CONFIG_HUB, n_files=2, t=FIELDS_HUB // 2,
+                     shards=("train",), **hub_kw)
+    serve = raw_config(root / "hub_serve", seed + 1, CONFIG_HUB, n_files=2, t=BATCH_HUB // 2,
+                       shards=("test",), same_samples=True, **hub_kw)
+    return {"forecast": fc, "hub": hub, "hub_serve": serve}
+
+
+def write_hubmesh_configs(root: Path, seed: int):
+    """Phase hubmesh's configs under `root`: ROOT/configs.yaml (hubmesh_raws)
+    and, for the train CLI, ROOT/forecast.yaml and ROOT/forecast_fp32.yaml
+    (the same in fp32: (a)'s gradient check)."""
+    import yaml
+
+    root.mkdir(exist_ok=True)
+    raws = hubmesh_raws(root, seed)
+    (root / "configs.yaml").write_text(yaml.safe_dump(raws, sort_keys=False))
+    (root / "forecast.yaml").write_text(yaml.safe_dump(raws["forecast"], sort_keys=False))
+    fp32 = copy.deepcopy(raws["forecast"])
+    fp32["trainer"]["data_type"] = "float32"
+    (root / "forecast_fp32.yaml").write_text(yaml.safe_dump(fp32, sort_keys=False))
+
+
+def start_hubmesh(root: Path, seed: int):
+    """Writes phase hubmesh's configs under `root` and starts its two ranks
+    (start_ranks: ROOT/hubmesh.rank{r}.log); returns them."""
+    write_hubmesh_configs(root, seed)
+    return start_ranks("hubmesh", 2, root, "--hubmesh-worker")
+
+
+@contextlib.contextmanager
+def no_resnet_dropout():
+    """The ResNet presets built at dropout 0 (rasp-theurey-2020 hardcodes
+    0.1, as JAX's factory does)."""
+    from orbit2_tpu_torch.utils import loaders
+
+    resnet = loaders.ResNet
+    loaders.ResNet = lambda *a, **kw: resnet(*a, **dict(kw, dropout=0.0))
+    try:
+        yield
+    finally:
+        loaders.ResNet = resnet
+
+
+@contextlib.contextmanager
+def pinned_batches(batches):
+    """Each epoch's train loader yields `batches` (global (x, y) pairs) in
+    order, each data rank its slice of each: one rank's fit and a mesh's
+    take the same global batches."""
+    from orbit2_tpu_torch.data.itermodule import IterDataModule
+
+    loader, count = IterDataModule.train_dataloader, IterDataModule.num_batches
+
+    def pinned(self):
+        for batch in batches:
+            n = batch[0].shape[0] // self.data_par_size
+            yield tuple(a[self.data_par_rank * n:(self.data_par_rank + 1) * n] for a in batch)
+
+    IterDataModule.train_dataloader = pinned
+    IterDataModule.num_batches = lambda self, split="train": (
+        len(batches) if split == "train" else count(self, split))
+    try:
+        yield
+    finally:
+        IterDataModule.train_dataloader, IterDataModule.num_batches = loader, count
+
+
+def norm_stats(model):
+    """Every BatchNorm's running mean and variance, as one host vector."""
+    return torch.cat([torch.cat((bn.running_mean, bn.running_var)).float().cpu()
+                      for bn in batchnorms(model)])
+
+
+def hubmesh_reference(raws, out: Path):
+    """Phase hubmesh (a)'s one unwrapped rank (run by rank 0 before the group
+    starts): the fp32 dropout-0 fit of forecast.yaml cut to the card on its
+    first HUBMESH_STEPS train batches (written to OUT/batches.npz for the
+    mesh), its losses, first-step gradients and running averages."""
+    from orbit2_tpu_torch.config import load_config
+    from orbit2_tpu_torch.evaluate import make_data_module
+    from orbit2_tpu_torch.training.trainer import Trainer
+
+    cfg = to_one_card(load_config(str(out / "forecast_fp32.yaml")))
+    dm = make_data_module(cfg, next(iter(cfg.data.low_res_dir)), 1, 0)
+    loader = iter(dm.train_dataloader())
+    batches = [tuple(np.asarray(a) for a in next(loader)[:2]) for _ in range(HUBMESH_STEPS)]
+    loader.close()
+    np.savez(out / "batches.npz", **{f"{t}{i}": a for i, b in enumerate(batches)
+                                     for t, a in zip("xy", b)})
+    with no_resnet_dropout(), pinned_batches(batches), first_step_grads("") as grads:
+        trainer = Trainer(cfg, "cuda")
+        hist = trainer.fit(max_epochs=1, max_steps_per_epoch=HUBMESH_STEPS)
+    ref = {"losses": [r["loss"] for r in hist], "grads": grads,
+           "stats": norm_stats(trainer.model)}
+    del trainer
+    torch.cuda.empty_cache()
+    return ref
+
+
+def hubmesh_forecast(rank: int, refs, out: Path):
+    """Phase hubmesh (a) on one of its two ranks (the phase's comment).
+    Returns rank 0's readings."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from orbit2_tpu_torch import train as train_cli
+
+    raw = np.load(out / "batches.npz")
+    batches = [(raw[f"x{i}"], raw[f"y{i}"]) for i in range(HUBMESH_STEPS)]
+    # the launch's gloo group (NCCL takes one rank a card), joined by the CLI
+    train_cli.init_distributed = lambda device: dist.get_world_size()
+
+    def cli(name, dropout0):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        pinned = contextlib.ExitStack()
+        if dropout0:  # on the one rank's batches, at dropout 0, in fp32
+            pinned.enter_context(no_resnet_dropout())
+            pinned.enter_context(pinned_batches(batches))
+        ck = out / f"ck_{name.replace(' ', '_')}"
+        path = out / ("forecast_fp32.yaml" if dropout0 else "forecast.yaml")
+        with pinned, timed_collectives() as coll, first_step_grads("") as grads, \
+                launch_widths(kernels()["fused_dropout"]) as widths:
+            trainer = train_cli.main([str(path), "--device", "cuda",
+                                      "--max-epochs", "1", "--max-steps-per-epoch",
+                                      str(HUBMESH_STEPS), "--checkpoint-dir", str(ck)])
+            torch.cuda.synchronize()
+        if rank == 0:  # the next run starts afresh (a checkpoint there would resume)
+            shutil.rmtree(ck, ignore_errors=True)
+        dist.barrier()
+        hist = trainer.history
+        run = {"losses": [r["loss"] for r in hist], "batches": hist[0]["batches"],
+               "fit_s": hist[0]["seconds"], "step_s": hist[0]["seconds"] / HUBMESH_STEPS,
+               "collective_s": coll["s"], "launches": counts(),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "k5_widths": dict(widths),
+               "parallelism": {a: getattr(trainer.cfg.parallelism, a) for a in MESH_AXES}}
+        stats = norm_stats(trainer.model)
+        both = [torch.empty_like(stats) for _ in range(2)]
+        dist.all_gather(both, stats)
+        run["stats_equal"] = torch.equal(both[0], both[1])
+        ranks = [None, None]
+        dist.all_gather_object(ranks, (run["step_s"], run["collective_s"], run["peak_gib"]))
+        if rank == 0:
+            print(f"  (a) train CLI, forecast.yaml {name}: scaled to {run['parallelism']}; "
+                  f"losses {run['losses']}; a step a rank " + ", ".join(
+                      f"rank {r}: {s:.3f} s ({g:.3f} s in gloo), peak {p:.2f} GiB"
+                      for r, (s, g, p) in enumerate(ranks)), flush=True)
+        check(run["parallelism"] == dict({a: 1 for a in MESH_AXES}, fsdp=2),
+              f"forecast.yaml scaled to {run['parallelism']} at world 2")
+        check(run["batches"] == HUBMESH_STEPS and all(np.isfinite(run["losses"])),
+              f"forecast {name} on fsdp 2: {hist}")
+        check(run["stats_equal"], f"forecast {name}: the BatchNorm running averages differ "
+              "across the data ranks")
+        return trainer, run, grads, stats
+
+    trainer, run0, grads, stats = cli("fp32 dropout 0", True)
+    del trainer
+    out_a = {"drop0": run0}
+    if rank == 0:
+        grad_rel, grad_worst, grad_name = rel_grads(grads, refs["grads"])
+        stats_rel = rel_frob(stats, refs["stats"])
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(run0["losses"], refs["losses"]))
+        print(f"  (a) fsdp 2 at fp32, dropout 0 against one rank: first-step gradients within "
+              f"{grad_rel:.3e} relative Frobenius (the worst parameter {grad_name}: "
+              f"{grad_worst:.3e}), losses {loss_rel:.3e}, running averages {stats_rel:.3e}",
+              flush=True)
+        check(grad_rel <= SEQEXP_GRAD_REL,
+              f"forecast fsdp 2: first-step gradients {grad_rel:.3e} from one rank's")
+        run0.update(grad_rel=grad_rel, grad_param_rel=grad_worst, grad_worst=grad_name,
+                    stats_rel=stats_rel, loss_rel=loss_rel, one_rank=refs["losses"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    trainer, run, _, _ = cli("dropout 0.1", False)
+    model = trainer.model
+    tc = trainer.cfg.trainer
+    want_widths = dropout_shapes(model, tc.batch_size // 2, *GRID_FORECAST,
+                                 times=2 * HUBMESH_STEPS)
+    check(run["launches"] == only(fused_dropout=sum(want_widths.values())) and
+          run["k5_widths"] == dict(want_widths),
+          f"forecast at dropout 0.1 on fsdp 2: launches {run['launches']}, K5 by [rows, cols] "
+          f"{run['k5_widths']}, want {dict(want_widths)}")
+    # one sample on both data ranks, one seed: the masks differ
+    x = torch.from_numpy(batches[0][0][:2]).to("cuda", torch.bfloat16)
+    dm = trainer.data_module(next(iter(trainer.cfg.data.low_res_dir)))
+    in_vars, out_vars = dm.get_data_variables()
+    with torch.no_grad():
+        y = model.train()(x, in_vars, out_vars, torch.Generator().manual_seed(5)).float()
+    both = [torch.empty_like(y) for _ in range(2)]
+    dist.all_gather(both, y.contiguous())
+    run["masks_differ"] = not torch.equal(both[0], both[1])
+    check(run["masks_differ"], "forecast on fsdp 2: both data ranks drew one dropout mask")
+    run["k5_widths"] = sorted([r, c, n] for (r, c), n in run["k5_widths"].items())
+    out_a["drop"] = run
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out_a
+
+
+def hubmesh_finetunes(rank: int, raws, out: Path):
+    """Phase hubmesh (b) on one of its two ranks (the phase's comment).
+    Returns rank 0's readings."""
+    import torch.distributed as dist
+    import yaml
+
+    from orbit2_tpu_torch import finetune
+    from orbit2_tpu_torch.config import load_config
+    from orbit2_tpu_torch.evaluate import load_module, make_data_module, model_kwargs
+    from orbit2_tpu_torch.training.checkpoint import restore_checkpoint
+
+    finetune.init_distributed = lambda device: dist.get_world_size()
+    result = {}
+    m = raws["hub"]["model"]
+    h_img, w_img = LOW_HUB[0] * 4, LOW_HUB[1] * 4
+    for label, par in HUBMESH_FINETUNES.items():
+        arch = label.split("_")[0]
+        raw = copy.deepcopy(raws["hub"])
+        raw["parallelism"] = dict({a: 1 for a in MESH_AXES}, **par)
+        path = out / f"hub_{label}.rank{rank}.yaml"
+        path.write_text(yaml.safe_dump(raw, sort_keys=False))
+        ck = out / f"ft_{label}"
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with timed_collectives() as coll, \
+                launch_widths(kernels()["fused_dropout"]) as widths:
+            res = finetune.main([str(path), "--arch", arch, "--loss", HUB_LOSSES[arch],
+                                 "--max-epochs", "1", "--max-steps-per-epoch", str(HUBMESH_STEPS),
+                                 "--checkpoint-dir", str(ck), "--device", "cuda"])
+            torch.cuda.synchronize()
+        hist = res["history"]
+        launched, peak = counts(), torch.cuda.max_memory_allocated() / 2 ** 30
+        tp = par.get("tensor_par", 1)
+        b = BATCH_HUB // (2 // tp)  # a rank's batch: halved on the data mesh
+        state = restore_checkpoint(str(ck / "epoch_0"))["model"]
+        # the launches a rank: K1-K3 a Block a step on its batch and heads;
+        # K5 at pos_drop and each Block's projection and Mlp output at [b N,
+        # embed], its Mlp hidden at [b N, hidden / tensor], forward and
+        # backward; a CNN's two a ResidualBlock at [b C h', w']
+        depth = m["depth"] if arch == "vit" else 0
+        if arch == "vit":
+            n = (h_img // m["patch_size"]) * (w_img // m["patch_size"])
+            hidden = int(m["embed_dim"] * m["mlp_ratio"]) // tp
+            want_widths = {(b * n, m["embed_dim"]): 2 * HUBMESH_STEPS * (1 + 2 * depth),
+                           (b * n, hidden): 2 * HUBMESH_STEPS * depth}
+        else:
+            cfg = load_config(raw)
+            cfg.model.preset = arch
+            dm = make_data_module(cfg, next(iter(cfg.data.low_res_dir)), 1, 0)
+            with torch.device("meta"):
+                skeleton = load_module(cfg, dm, dict(model_kwargs(cfg), generator=None))[0]
+            want_widths = dict(dropout_shapes(skeleton.backbone, b, h_img, w_img,
+                                              times=2 * HUBMESH_STEPS))
+        want = only(fused_dropout=sum(want_widths.values()),
+                    **({k: depth * HUBMESH_STEPS for k in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                                                           "flash_attn_bwd_dkv")} if depth else {}))
+        run = {"losses": [r["loss"] for r in hist], "fit_s": hist[0]["seconds"],
+               "step_s": hist[0]["seconds"] / HUBMESH_STEPS, "collective_s": coll["s"],
+               "peak_gib": peak, "launches": launched,
+               "k5_widths": sorted([r_, c_, k_] for (r_, c_), k_ in widths.items()),
+               "batch_a_rank": b, "parallelism": par}
+        ranks = [None, None]
+        dist.all_gather_object(ranks, (run["step_s"], run["collective_s"], run["peak_gib"]))
+        if rank == 0:
+            print(f"  (b) finetune --arch {arch} on {par}, {b} a rank: losses {run['losses']}; "
+                  f"launches {launched}; a step a rank " + ", ".join(
+                      f"rank {r}: {s:.3f} s ({g:.3f} s in gloo), peak {p:.2f} GiB"
+                      for r, (s, g, p) in enumerate(ranks)), flush=True)
+        check(hist[0]["batches"] == HUBMESH_STEPS and all(np.isfinite(run["losses"])),
+              f"finetune --arch {arch} on {par}: {hist}")
+        check(launched == want and dict(widths) == want_widths,
+              f"finetune --arch {arch} on {par}: launches {launched}, K5 by [rows, cols] "
+              f"{dict(widths)}, want {want}, {want_widths}")
+        lap(f"hubmesh (b) finetune {label}")
+        # test() in bf16 is the path (its K1 launches, the samples); the same
+        # in fp32 is held against one rank: in bf16 cuDNN's algorithms at
+        # batch 4 and 8 (the Unet) and tensor 2's partial sums (the ViT) read
+        # above SERVE_METRIC_REL
+        serve = copy.deepcopy(raws["hub_serve"])
+        serve["model"]["preset"] = arch
+        run["serve_bf16"] = serve_meshes(rank, serve, {label: par}, f"(b) {arch} bf16",
+                                         bound=math.inf, state=state)[label]
+        serve["trainer"]["data_type"] = "float32"
+        run["serve"] = serve_meshes(rank, serve, {label: par}, f"(b) {arch} fp32",
+                                    bound=SERVE_METRIC_REL, state=state)[label]
+        result[label] = run
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return result
+
+
+def hubmesh_worker(mode: str, rank: int, world: int, port: str, out_dir: str):
+    """One of phase hubmesh's two ranks on the card (`mode` hubmesh): rank 0
+    runs (a)'s one unwrapped rank, then both join a gloo group and run (a)
+    and (b). Rank 0 writes OUT/hubmesh.json."""
+    import datetime
+    import faulthandler
+
+    import torch.distributed as dist
+    import yaml
+
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = Path(out_dir)
+    raws = yaml.safe_load((out / "configs.yaml").read_text())
+    refs = hubmesh_reference(raws, out) if rank == 0 else None
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=900))
+    t0 = time.perf_counter()
+    result = {"forecast": hubmesh_forecast(rank, refs, out)}
+    lap("hubmesh (a)")
+    result["finetune"] = hubmesh_finetunes(rank, raws, out)
+    result["seconds"] = time.perf_counter() - t0
+    if rank == 0:
+        (out / f"{mode}.json").write_text(json.dumps(result))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def hubmesh_phase(root: Path, procs, seed: int, call_s, smi):
+    """Phase hubmesh (the constants' comment): waits for start_hubmesh's
+    ranks (a), (b), then (c) and (d) here. Returns what the kernels line
+    reads."""
+    import torch.distributed as dist
+
+    from orbit2_tpu_torch import train as train_cli
+    from orbit2_tpu_torch.config import load_config
+    from orbit2_tpu_torch.parallel import full_state_dict
+    from orbit2_tpu_torch.training.trainer import Trainer
+
+    res = finish_ranks("hubmesh", procs, root, timeout=900)
+    lap("hubmesh (a), (b), beside servemesh and seqexpert")
+
+    # (c) the train CLI under a one-rank NCCL group against the unwrapped fit
+    cfg = to_one_card(load_config(str(root / "forecast.yaml")))
+
+    def fit(wrapped):
+        reset_counts()
+        if wrapped:
+            trainer = train_cli.main([str(root / "forecast.yaml"), "--device", "cuda",
+                                      "--max-epochs", "1", "--max-steps-per-epoch",
+                                      str(HUBMESH_STEPS), "--checkpoint-dir", str(root / "ck_c")])
+            state = full_state_dict(trainer.model)
+        else:
+            trainer = Trainer(cfg, "cuda")
+            trainer.fit(max_epochs=1, max_steps_per_epoch=HUBMESH_STEPS)
+            state = {k: t.detach().cpu() for k, t in trainer.model.state_dict().items()}
+        torch.cuda.synchronize()
+        run = {"losses": [r["loss"] for r in trainer.history], "launches": counts(),
+               "meshed": trainer.mesh is not None}
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        return run, state
+
+    plain, plain_state = fit(False)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        wrapped, wrapped_state = fit(True)
+    finally:
+        dist.destroy_process_group()
+    differ = [k for k, t in plain_state.items() if not torch.equal(t, wrapped_state[k])]
+    print(f"  (c) train CLI on forecast.yaml under a one-rank NCCL group: losses "
+          f"{wrapped['losses']} (unwrapped {plain['losses']}); {len(plain_state) - len(differ)} "
+          f"of {len(plain_state)} state tensors bit-equal; launches {wrapped['launches']}")
+    check(wrapped["meshed"] and not plain["meshed"], "the CLI took no mesh under the group")
+    check(list(wrapped_state) == list(plain_state) and not differ
+          and wrapped["losses"] == plain["losses"] and wrapped["launches"] == plain["launches"],
+          f"forecast.yaml on a one-rank mesh differs from unwrapped: {differ[:5]}")
+    lap("hubmesh (c)")
+
+    # (d) the ranks' attention shapes and K5 widths against the plain versions
+    m = load_config(str(root / "forecast.yaml")).model
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kseed = 2 ** 44 + seed
+    ft = res["finetune"]
+    _, n, h, d = ATTENTION_HUB
+    shapes = {"fsdp": (BATCH_HUB // 2, n, h, d, ft["vit"]),
+              "tensor": (BATCH_HUB, n, h // 2, d, ft["vit_tensor2"])}
+    rate = DROP
+    errs, rows = {}, {}
+    for mode, (b, nn_, hh, dd, run) in shapes.items():
+        launched, served = run["launches"], run["serve_bf16"]["launches_rank0"]
+        q, k, v = make_qkv(b, nn_, nn_, hh, dd, torch.bfloat16, gen)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        pairs = [(0, 0), (b - 1, hh - 1)]
+        case = f"hubmesh {mode} bf16 drop {rate:g} B{b} N{nn_} H{hh} d{dd}"
+        errs[mode] = {"train": check_pairs(q, k, v, do, rate, kseed, pairs, case),
+                      "serve": check_pairs(q, k, v, None, 0.0, kseed, pairs,
+                                           case.replace(f"drop {rate:g}", "drop 0"))}
+        del q, k, v, do
+        torch.cuda.empty_cache()
+        launches = {(name, rate): launched[name] for name in ("flash_attn_fwd",
+                                                              "flash_attn_bwd_dq",
+                                                              "flash_attn_bwd_dkv")}
+        launches[("flash_attn_fwd", 0.0)] = served["flash_attn_fwd"]
+        rows[mode] = hub_attention_rows(gen, kseed, rate, call_s, smi, launches,
+                                        shape=(b, nn_, hh, dd), label=f"hubmesh {mode} ViT")
+    lap("hubmesh (d) attention")
+    k5 = {}
+    widths = {tuple(w[:2]): (label, w[2]) for label, r in (
+        ("forecast", res["forecast"]["drop"]), *ft.items()) for w in r["k5_widths"]}
+    for shape, (label, n_launched) in sorted(widths.items()):
+        check_dropout(*shape, torch.bfloat16, rate, gen, kseed)
+        k5[shape] = k5_row(shape, torch.bfloat16, rate, gen, kseed, n_launched, smi,
+                           f"hubmesh {label}")
+    lap("hubmesh (d) K5")
+    out = {"forecast": res["forecast"], "finetune": ft, "one_rank_nccl": {
+        "losses": wrapped["losses"], "bit_equal": not differ}, "ranks_s": res["seconds"]}
+    return {"out": out, "rows": rows, "errs": errs, "k5": k5}
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Routes the model's kernel calls to the kernels' plain PyTorch versions
@@ -7018,9 +7501,12 @@ def main():
     mesh_root = Path(mesh_dir.name)
     mp = mesh_phase(mesh_root, args.seed, weights_1b, call_s, smi)
     torch.cuda.empty_cache()
-    # serving on a mesh, from the same weights
+    # serving on a mesh, from the same weights; beside it and phase
+    # seqexpert, phase hubmesh's two ranks (the model hub, ~12 GiB a rank)
     phase("servemesh")
-    sm = servemesh_phase(mesh_root / "serve", args.seed, weights_1b, call_s, smi)
+    hub_ranks = start_hubmesh(mesh_root / "hub", args.seed)
+    with stopped_on_failure(hub_ranks):
+        sm = servemesh_phase(mesh_root / "serve", args.seed, weights_1b, call_s, smi)
     print(json.dumps({"servemesh": {"gpu": smi, **sm["out"], "errors": sm["errs"]}}))
     torch.cuda.empty_cache()
 
@@ -7028,17 +7514,25 @@ def main():
     # beside them phase mesh's (c): two ranks at 117M width, a few GiB each
     phase("seqexpert")
     two = start_two_ranks(mesh_root / "two", args.seed)
-    with stopped_on_failure(two), tempfile.TemporaryDirectory(dir=ROOT / "_smoke") as tmp:
+    with stopped_on_failure(two + hub_ranks), \
+            tempfile.TemporaryDirectory(dir=ROOT / "_smoke") as tmp:
         se = seqexpert_phase(Path(tmp), args.seed, call_s, smi)
-    mp["out"]["two_ranks"] = two_ranks(mesh_root / "two", two)
+    with stopped_on_failure(hub_ranks):
+        mp["out"]["two_ranks"] = two_ranks(mesh_root / "two", two)
     lap("mesh (c), beside seqexpert")
     print(json.dumps({"mesh": {"gpu": smi, **mp["out"], "errors": mp["errs"]}}))
-    mesh_dir.cleanup()
     print(json.dumps({"seqexpert": {"gpu": smi, **{k: v for k, v in se["out"].items()
                                                    if k != "strict"},
                                     "strict": {k: v for k, v in se["out"]["strict"].items()
                                                if k != "pipeline"},
                                     "errors": se["errs"]}}))
+    torch.cuda.empty_cache()
+
+    # the model hub on the mesh: (a), (b) ran beside servemesh and seqexpert
+    phase("hubmesh")
+    hm = hubmesh_phase(mesh_root / "hub", hub_ranks, args.seed, call_s, smi)
+    mesh_dir.cleanup()
+    print(json.dumps({"hubmesh": {"gpu": smi, **hm["out"], "errors": hm["errs"]}}))
     torch.cuda.empty_cache()
 
     # the stage axis: two gloo ranks of the card ((b) ran in seqexpert's launch)
@@ -7252,6 +7746,26 @@ def main():
         *(path_entry(sm["k5"], shape, sm["k5"][shape]["launches"], "servemesh mc",
                      "fused_dropout", "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39", 0.0)
           for shape in sm["k5"]),
+        # the model hub on the mesh (phase hubmesh): the ViT's K1-K3 at a
+        # rank's shapes on fsdp 2 and tensor 2 (launches a rank's in its
+        # fine-tune), K1 without dropout as test() runs it, and K5 at every
+        # width the ranks launched it at
+        *(path_entry(hm["rows"][mode], (name, rate), hm["rows"][mode][(name, rate)]["launches"],
+                     f"hubmesh {mode}{' serve' if rate == 0.0 else ''}", name, source,
+                     f"orbit2_tpu/ops/flash_attention.py:{line}", err)
+          for mode in hm["rows"]
+          for name, rate, source, line, err in (
+              ("flash_attn_fwd", DROP, "flash_attn_fwd.cu", 150,
+               hm["errs"][mode]["train"]["fwd"]),
+              ("flash_attn_fwd", 0.0, "flash_attn_fwd.cu", 150,
+               hm["errs"][mode]["serve"]["fwd"]),
+              ("flash_attn_bwd_dq", DROP, "flash_attn_bwd.cu", 287,
+               hm["errs"][mode]["train"]["dq"]),
+              ("flash_attn_bwd_dkv", DROP, "flash_attn_bwd.cu", 328,
+               max(hm["errs"][mode]["train"]["dk"], hm["errs"][mode]["train"]["dv"])))),
+        *(path_entry(hm["k5"], shape, hm["k5"][shape]["launches"], "hubmesh", "fused_dropout",
+                     "fused_dropout.cu", "orbit2_tpu/ops/dropout.py:39", 0.0)
+          for shape in hm["k5"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -7266,6 +7780,9 @@ if __name__ == "__main__":
                          sys.argv[6])
     elif sys.argv[1:2] == ["--servemesh-worker"]:  # one of phase servemesh's two ranks
         servemesh_worker(sys.argv[2], int(sys.argv[3]), sys.argv[5], sys.argv[6])
+    elif sys.argv[1:2] == ["--hubmesh-worker"]:  # one of phase hubmesh's two ranks
+        hubmesh_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
+                       sys.argv[6])
     elif sys.argv[1:2] == ["--pipeline-worker"]:  # one of phase pipeline's two ranks
         pipeline_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
                         sys.argv[6])

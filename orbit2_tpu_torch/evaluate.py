@@ -9,8 +9,10 @@ continuous-forecasting: lat_rmse / lat_acc, denormalized), averaged over
 samples into the same `test/<metric>:<var>` dict. The model is the
 config's preset: the ResSlimViT, or a model-hub preset (utils/loaders.py:
 vit, unet, resnet, the interpolation baselines; rasp-theurey-2020 and the
-forecasting baselines), which is built whole on the device and serves bf16
-or fp32 alone, as in JAX (w8a8 raises JAX's ValueError).
+forecasting baselines), which keeps its fp32 parameters, computes in its
+dtype and serves bf16 or fp32 alone, as in JAX (w8a8 raises JAX's
+ValueError). Every preset is built on the meta device and filled unit by
+unit (`materialize`; a model-hub preset is one unit).
 
 Usage: python -m orbit2_tpu_torch.evaluate configs/interm_1b.yaml \
            [--checkpoint DIR | --torch-npz PATH] [--max-batches N] \
@@ -37,9 +39,10 @@ group its variables describe, parallel/mesh.py::init_distributed) the
 Evaluator serves on the config's mesh as written, as examples/evaluate.py
 and examples/visualize.py do (no scale-down; a mesh larger than the world
 raises JAX's ValueError, and so does a config mesh above 1 without a
-process group). The ResSlimViT is
-sharded as the Trainer shards it (parallel/sharding.py: fsdp, replica,
-tensor, seq, expert and stage), each data rank reads its file shards, and
+process group). The model is sharded as the Trainer shards it
+(parallel/sharding.py: fsdp, replica, tensor, seq, expert and stage; a
+model-hub preset over the data axes, its ViT's Blocks over tensor too),
+each data rank reads its file shards, and
 each round's predictions are gathered over the data ranks, so the metrics
 are the global batch's, as JAX's one-process mesh takes them
 (`Evaluator.test`). Rank 0 prints; the ranks past the mesh are idle.
@@ -61,10 +64,11 @@ import torch.distributed as dist
 from orbit2_tpu_torch.config import Config, load_config
 from orbit2_tpu_torch.data.itermodule import IterDataModule
 from orbit2_tpu_torch.models.components.blocks import MOE_QUANT_ERROR, QUANT_MODES
+from orbit2_tpu_torch.models.res_slimvit import ResSlimViT
 from orbit2_tpu_torch.parallel.mesh import (
     all_ranks, comm_device, data_group, data_rank, data_size, in_mesh, init_distributed,
     mesh_from_config, rank_grid, world_size)
-from orbit2_tpu_torch.parallel.sharding import check_shardable, load_full_state_dict, shard_model
+from orbit2_tpu_torch.parallel.sharding import load_full_state_dict, shard_model
 from orbit2_tpu_torch.training.checkpoint import (
     DEFAULT_CHECKPOINT_DIR, latest_port_checkpoint, load_pretrained_params, load_state_npz,
     restore_checkpoint)
@@ -125,8 +129,7 @@ def check_mesh(cfg: Config, world: int) -> None:
 
 def check_scope(cfg: Config) -> None:
     """What neither the Trainer nor the Evaluator runs: `parallelism.auto`.
-    Both run on one device or on the config's mesh (a model-hub preset on a
-    mesh raises from parallel/sharding.py::check_shardable)."""
+    Both run every preset on one device or on the config's mesh."""
     if cfg.parallelism.auto:
         raise NotImplementedError(
             "parallelism.auto resolves its mesh through the TPU AOT planner, which has no GPU "
@@ -200,7 +203,7 @@ def weight_fill(cfg: Config, data_module: IterDataModule, meta_model: torch.nn.M
     in_shape, _ = data_module.get_data_dims()
     meta = meta_model.state_dict()
     merge = lambda keys: load_pretrained_params(meta, state_dict, cfg.model.patch_size,
-                                                img_size=tuple(in_shape[2:]), keys=keys)
+                                                img_size=tuple(in_shape[-2:]), keys=keys)
     report = merge(())[1]
     lacking = set(meta) - set(report["used"]) - set(report["resized"])
     log.info("weights: %d used / %d dropped / %d resized / %d drawn", len(report["used"]),
@@ -213,9 +216,11 @@ def materialize(model: torch.nn.Module, device, dtype: Optional[torch.dtype] = N
                 fill: Optional[Callable[[List[str]], Mapping[str, torch.Tensor]]] = None,
                 on_unit: Optional[Callable[[Dict[str, torch.Tensor]], None]] = None,
                 into: Optional[torch.nn.Module] = None) -> None:
-    """Fills `model`, a ResSlimViT built on the meta device, on `device`
-    one unit at a time (ResSlimViT.init_units: a Block or a top-level
-    module): each unit is drawn from `generator` where one is given
+    """Fills `model`, built on the meta device, on `device` one unit at a
+    time (its init_units: for the ResSlimViT a Block or a top-level module,
+    and the model itself for its own tensors; a model of one unit, as the
+    model hub's, is filled whole): each unit is drawn from `generator`
+    where one is given
     (reset_parameters' values, in its order), takes the tensors that
     `fill(its keys)` returns, is handed to `on_unit` as {key: fp32 tensor},
     then cast to `dtype` (None: kept in fp32). At most one unit is on the
@@ -227,9 +232,10 @@ def materialize(model: torch.nn.Module, device, dtype: Optional[torch.dtype] = N
     into its shards and the unit is released to the meta device, so no rank
     holds more than one whole unit, and the shards hold the one-process
     draws."""
+    units = model.init_units()
     with torch.no_grad():
-        for name, module, init in model.init_units():
-            recurse = module is not model
+        for name, module, init in units:
+            recurse = module is not model or len(units) == 1
             module.to_empty(device=device, recurse=recurse)
             prefix = f"{name}." if name else ""
             own = itertools.chain(module._parameters.items(), module._buffers.items())
@@ -256,7 +262,7 @@ def build_sharded(skeleton: torch.nn.Module, mesh, device, fill_device,
                   fill: Optional[Callable[[List[str]], Mapping[str, torch.Tensor]]] = None,
                   on_unit: Optional[Callable[[Dict[str, torch.Tensor]], None]] = None,
                   dtype: Optional[torch.dtype] = None) -> torch.nn.Module:
-    """`skeleton`, a ResSlimViT on the meta device, sharded over `mesh` on
+    """`skeleton`, a model on the meta device, sharded over `mesh` on
     `device` (parallel/sharding.py::shard_model; `dtype`: serving's), each
     rank's shards filled unit by unit by `materialize` on `fill_device`
     (drawn from `generator`, or from `fill`; each unit handed to `on_unit`),
@@ -340,14 +346,18 @@ class Evaluator:
     """Builds the data module (tiled as the config says) and model of
     `config` on `device` (the card unless the caller asks for "cpu");
     `test()` evaluates the test split. The model is built on the meta device
-    and filled on `device` one Block or top-level module at a time
-    (`materialize`), so the host never holds the whole model: drawn from
+    and filled on `device` one unit at a time (`materialize`: a Block or
+    top-level module of the ResSlimViT, a model-hub preset whole), so the
+    host never holds the whole model: drawn from
     `config.trainer.seed` (by a generator on `device`: a card's draws differ
     from the host's), or merged from `state_dict` (reference layout, e.g.
     from training/checkpoint.py::state_dict_from_jax_params or
     `serving_weights`, perhaps of another grid; an NpzState is read one
     tensor at a time) by `weight_fill` (pos_embed resized to the tiles'
-    grid; drawn only where keys are left unfilled).
+    grid; drawn only where keys are left unfilled). The ResSlimViT's
+    parameters are held in its compute dtype (no per-use casts); a
+    model-hub preset keeps fp32 parameters, as it trains, its BatchNorm
+    scales fp32 as flax's param_dtype holds them.
 
     `quant_modes` names the serving modes built at construction ("none" is
     always served; default: both, or "none" alone for an MoE config, whose
@@ -362,7 +372,8 @@ class Evaluator:
     Where a process group runs, the Evaluator serves on the config's mesh
     (`mesh`; else None: one device, the model unwrapped), as the Trainer
     trains on it: the model built on the meta device, sharded
-    (parallel/sharding.py::shard_model, its parameters in the compute dtype)
+    (parallel/sharding.py::shard_model; the ResSlimViT's parameters in the
+    compute dtype)
     and each rank's shards filled unit by unit with the one-device draws or
     the merged `state_dict` (`build_sharded`); the data module is the rank's
     data shard. The int8 twin lies whole on every rank of the mesh (JAX's
@@ -409,12 +420,10 @@ class Evaluator:
         with torch.device("meta"):
             (self.model, _, _, self.test_losses, _, _,
              self.test_transforms) = load_module(c, dm, dict(model_kwargs(c), generator=None))
-        if self.mesh is not None:
-            check_shardable(self.model, self.mesh)  # a model-hub preset raises here
-        if not hasattr(self.model, "init_units"):
-            self._build_whole(state_dict)
-            return
         self._phase(self.model)
+        # the ResSlimViT serves its parameters in the compute dtype (no per-use
+        # casts); a model-hub preset keeps fp32 ones, as it trains
+        dtype = self.model.dtype if isinstance(self.model, ResSlimViT) else None
         fill, drawn = None, True
         if state_dict is not None:
             fill, drawn, _ = weight_fill(c, dm, self.model, state_dict)
@@ -433,42 +442,17 @@ class Evaluator:
                 taken = (unit if self.mesh is not None
                          else {k: t for k, t in unit.items() if k in sources})
                 quantized.update(quantize_state_dict(twin, taken, self.device, partial=True))
-        # serving holds the parameters in the compute dtype: no per-use casts
         if self.mesh is None:
-            materialize(self.model, self.device, self.model.dtype, generator, fill, on_unit)
+            materialize(self.model, self.device, dtype, generator, fill, on_unit)
         else:
             self.model = build_sharded(self.model, self.mesh, self.device, self.device,
-                                       generator, fill, on_unit, self.model.dtype)
+                                       generator, fill, on_unit, dtype)
         self.model.eval()
         if "w8a8" in self.quant_modes:
             if self.mesh is None:
                 rest = {k: t for k, t in self.model.state_dict().items() if k not in sources}
                 quantized.update(quantize_state_dict(twin, rest, self.device, partial=True))
             self._twins["w8a8"] = fill_twin(twin, quantized, self.device)
-
-    def _build_whole(self, state_dict) -> None:
-        """A model without `init_units`: a model-hub preset, small beside the
-        large ResSlimViT configs (the Unet preset, the largest, holds 144M
-        parameters). Built whole on the device, drawn from a generator there
-        seeded with trainer.seed, then merged with `state_dict` by
-        load_pretrained_params where one is given (its BatchNorm running
-        averages too). Its parameters stay fp32 and it computes in its dtype,
-        as in training."""
-        c, dm = self.cfg, self.data_module
-        generator = torch.Generator(self.device).manual_seed(c.trainer.seed)
-        with torch.device(self.device):
-            (self.model, _, _, self.test_losses, _, _,
-             self.test_transforms) = load_module(c, dm, dict(model_kwargs(c), generator=generator))
-        self._phase(self.model)
-        if state_dict is not None:
-            in_shape, _ = dm.get_data_dims()
-            merged, report = load_pretrained_params(self.model.state_dict(), state_dict,
-                                                    c.model.patch_size,
-                                                    img_size=tuple(in_shape[-2:]))
-            self.model.load_state_dict(merged, strict=True)
-            log.info("weights: %d used / %d dropped / %d resized", len(report["used"]),
-                     len(report["dropped"]), len(report["resized"]))
-        self.model.eval()
 
     def _check_quant(self, quant: str) -> None:
         """JAX's refusals of w8a8: its ValueErrors where the model has no

@@ -1,11 +1,15 @@
-"""Fine-tune from pretrained weights on one device: the port's counterpart of
+"""Fine-tune from pretrained weights: the port's counterpart of
 examples/finetune.py (reference examples/era5_daymet_downscaling.py:201-572).
+On one device, or, under torchrun (one process a card: the CLI joins the
+group its variables describe), on the config's mesh as written, as
+examples/finetune.py's Trainer builds it (no scale-down; rank 0 prints).
 
 Usage: python -m orbit2_tpu_torch.finetune configs/interm_1b.yaml \
            [--pretrain PATH] [--arch {res_slimvit,resnet,unet,vit}] \
            [--loss {mse,bayesian_tv,quantile,imagegradient,masked_mse}] \
            [--max-epochs N] [--max-steps-per-epoch N] [--checkpoint-dir DIR] \
            [--device cuda]
+       torchrun --nproc-per-node N -m orbit2_tpu_torch.finetune CONFIG [...]
 
 --pretrain takes a port checkpoint directory (epoch_N) or a reference-layout
 state_dict saved as an npz (the JAX package's `export_torch_state_dict`
@@ -21,9 +25,10 @@ from); a checkpoint already there resumes instead, as in JAX, so --pretrain
 may not lie inside it. Prints one JSON history record per epoch.
 
 --arch resnet | unet | vit fine-tunes the model-hub presets behind a
-bilinear upsample to the target grid (utils/loaders.py::PreInterpolated;
-their weights drawn whole on the host where --pretrain leaves keys
-unfilled). --loss masked_mse takes the data module's validity mask (the
+bilinear upsample to the target grid (utils/loaders.py::PreInterpolated),
+imported the same way (each preset one unit; a pretrained conv model's
+BatchNorm running statistics carried over, as examples/finetune.py:55-57
+carries them). --loss masked_mse takes the data module's validity mask (the
 Trainer wires it; TILES tiling refuses it, as in JAX). --loss perceptual
 raises NotImplementedError: LPIPS is not ported.
 """
@@ -36,11 +41,12 @@ import logging
 import os
 
 import torch
+import torch.distributed as dist
 
 from orbit2_tpu_torch.config import load_config
-from orbit2_tpu_torch.evaluate import load_module, materialize, model_kwargs, weight_fill
-from orbit2_tpu_torch.training.checkpoint import (
-    load_pretrained_params, load_state_npz, restore_checkpoint)
+from orbit2_tpu_torch.evaluate import materialize, model_kwargs, weight_fill
+from orbit2_tpu_torch.parallel.mesh import in_mesh, init_distributed
+from orbit2_tpu_torch.training.checkpoint import load_state_npz, restore_checkpoint
 from orbit2_tpu_torch.training.trainer import Trainer
 from orbit2_tpu_torch.utils.loaders import load_architecture
 
@@ -82,12 +88,14 @@ def main(argv=None) -> dict:
             f"--pretrain {args.pretrain} lies in --checkpoint-dir {args.checkpoint_dir}: the fit "
             "would resume from that directory's newest checkpoint over the pretrained weights; "
             "give the fine-tune a directory of its own")
+    init_distributed(args.device)  # torchrun's group, where its variables are set
     cfg = load_config(args.config)
     cfg.model.preset = args.arch
     cfg.trainer.train_loss = args.loss
     trainer = Trainer(cfg, args.device, checkpoint_dir=args.checkpoint_dir)
     report = None
-    if args.pretrain:
+    # a rank past the mesh imports nothing: its fit returns at once
+    if args.pretrain and (trainer.mesh is None or in_mesh(trainer.mesh)):
         dm = trainer.data_module(next(iter(cfg.data.low_res_dir)))
         if args.pretrain.endswith(".npz"):
             pretrained = load_state_npz(args.pretrain)
@@ -96,23 +104,16 @@ def main(argv=None) -> dict:
         c = trainer.cfg
         with torch.device("meta"):
             model = load_architecture(dm, c.model.preset, **dict(model_kwargs(c), generator=None))
-        if hasattr(model, "init_units"):
-            fill, drawn, report = weight_fill(c, dm, model, pretrained)
-            generator = torch.Generator().manual_seed(c.trainer.seed) if drawn else None
-            materialize(model, "cpu", generator=generator, fill=fill)
-            state = model.state_dict()
-        else:  # a model-hub preset, small: drawn whole on the host, then merged
-            model = load_module(c, dm, model_kwargs(c))[0]
-            in_shape, _ = dm.get_data_dims()
-            state, report = load_pretrained_params(model.state_dict(), pretrained,
-                                                   c.model.patch_size,
-                                                   img_size=tuple(in_shape[-2:]))
+        fill, drawn, report = weight_fill(c, dm, model, pretrained)
+        generator = torch.Generator().manual_seed(c.trainer.seed) if drawn else None
+        materialize(model, "cpu", generator=generator, fill=fill)
         log.info("pretrain import: %d used, %d dropped, %d resized", len(report["used"]),
                  len(report["dropped"]), len(report["resized"]))
-        trainer.build_model(dm, state)
+        trainer.build_model(dm, model.state_dict())
     history = trainer.fit(args.max_epochs, args.max_steps_per_epoch)
-    for record in history:
-        print(json.dumps(record))
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        for record in history:
+            print(json.dumps(record))
     return {"history": history, "pretrain": report}
 
 

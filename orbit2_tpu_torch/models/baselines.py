@@ -4,7 +4,9 @@ persistence.py, linear_regression.py, interpolation.py}).
 
 Each takes the trainers' calling convention, model(x, in_variables,
 out_variables, dropout_gen, drop_path_gen, return_aux=False), and ignores
-what it does not use.
+what it does not use. Each has `init_units`, by which
+evaluate.py::materialize fills a build on the meta device: one unit, or none
+where it holds no tensor.
 
 Interpolation is jax.image.resize's: "bilinear" is half-pixel with the
 weights renormalised at the borders, which for an upsample is
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -37,7 +40,11 @@ class Climatology(nn.Module):
 
     def __init__(self, clim):
         super().__init__()
-        self.register_buffer("clim", torch.as_tensor(clim, dtype=torch.float32))
+        self._clim = np.asarray(clim, dtype=np.float32)  # what a meta-device build fills in
+        self.register_buffer("clim", torch.as_tensor(self._clim))
+
+    def init_units(self):
+        return [("", self, lambda generator: self.clim.copy_(torch.as_tensor(self._clim)))]
 
     def forward(self, x, *args, return_aux: bool = False, **kwargs):
         return _out(self.clim[None].expand((x.shape[0],) + tuple(self.clim.shape)), return_aux)
@@ -51,6 +58,9 @@ class Persistence(nn.Module):
     def __init__(self, channels: Sequence[int]):
         super().__init__()
         self.channels = list(channels)
+
+    def init_units(self):
+        return []
 
     def forward(self, x, *args, return_aux: bool = False, **kwargs):
         if x.ndim == 5:  # [B, T, C, H, W] -> the last history step
@@ -72,6 +82,9 @@ class LinearRegression(nn.Module):
         with torch.no_grad():
             init_dense_(self.linear, generator)
 
+    def init_units(self):
+        return [("", self, lambda generator: init_dense_(self.linear, generator))]
+
     def forward(self, x, *args, return_aux: bool = False, **kwargs):
         b = x.shape[0]
         return _out(self.linear(x.reshape(b, -1)).reshape((b,) + self.out_shape), return_aux)
@@ -89,6 +102,9 @@ class Interpolation(nn.Module):
             raise KeyError(mode)
         self.scale_factor = scale_factor
         self.mode = mode
+
+    def init_units(self):
+        return []
 
     def forward(self, x, *args, return_aux: bool = False, **kwargs):
         h, w = x.shape[-2:]

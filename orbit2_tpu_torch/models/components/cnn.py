@@ -29,12 +29,26 @@ The JAX modules' numerics, where torch's differ:
     transposed kernel is K * K * its input channels, as flax counts it.
   * AttentionBlock softmaxes over the queries (the reference quirk, JAX
     cnn.py:131): it is no flash attention and stays plain torch ops.
+
+On a device mesh (parallel/sharding.py::shard_model) each data rank holds
+its slice of the global batch, and JAX's BatchNorm, inside one jitted step,
+takes its statistics over the whole global batch: a BatchNorm2d given
+`sync` = (the data ranks' process group, their count) averages the ranks'
+batch moments E[x], E[x^2] (equal slices) by an all-reduce whose backward
+sums the gradients over the ranks too (parallel/tensor.py::all_reduce_sum),
+so the running averages move by the global batch's moments, bit-equal on
+every rank, and the gradients FSDP2 averages are the global loss's. Its
+ResidualBlocks' dropout seeds fold the rank's data coordinates (`fold`), so
+two data ranks draw different masks; ranks that share a data coordinate
+(tensor, seq) draw the same. The convolutions are replicated over the
+tensor axis (JAX's rules split none of them): every tensor rank repeats the
+same work on the same batch.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +56,7 @@ from torch import nn
 
 from orbit2_tpu_torch.models.components.blocks import Conv2d, Generator, Linear
 from orbit2_tpu_torch.ops.dropout import dropout
+from orbit2_tpu_torch.parallel.tensor import all_reduce_sum
 
 # the truncated normal at two std has std 0.8796... of the untruncated one
 _TRUNC_STD = 0.87962566103423978
@@ -135,7 +150,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     """flax nn.BatchNorm(momentum=0.9, epsilon=1e-5) over NCHW channels, under
     torch BatchNorm2d's parameter and buffer names (module docstring). In
     train() mode it normalizes by the batch statistics and moves the
-    running averages; in eval() mode it normalizes by the running averages."""
+    running averages; in eval() mode it normalizes by the running averages.
+    `sync` (set on a mesh): the data ranks' (process group, count), whose
+    moments are averaged (module docstring)."""
+
+    sync: Optional[Tuple[object, int]] = None
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -154,8 +173,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         x32 = x.float()
         if self.training:
-            mean = x32.mean(dim=(0, 2, 3))
-            var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean, sq = x32.mean(dim=(0, 2, 3)), (x32 * x32).mean(dim=(0, 2, 3))
+            if self.sync is not None:  # the global batch's: the data ranks' slices averaged
+                group, ranks = self.sync
+                mean, sq = (all_reduce_sum(torch.stack((mean, sq)), group) / ranks).unbind(0)
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 decay = 1.0 - self.momentum
                 self.running_mean.mul_(decay).add_(mean.detach() * self.momentum)
@@ -170,7 +192,10 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 class ResidualBlock(nn.Module):
     """conv -> act -> norm -> drop, twice, plus the (1x1-projected) shortcut
-    (reference cnn_blocks.py:56-106)."""
+    (reference cnn_blocks.py:56-106). Both dropout sites fold `fold` (on a
+    mesh: the rank's data coordinates) into their seeds."""
+
+    fold: tuple = ()
 
     def __init__(self, in_channels: int, out_channels: int, activation: str = "leaky",
                  norm: bool = False, dropout: float = 0.1):
@@ -196,11 +221,11 @@ class ResidualBlock(nn.Module):
         h = self.act(self.conv1(x))
         if self.norm1 is not None:
             h = self.norm1(h)
-        h = dropout(h, self.drop, self.training, generator)
+        h = dropout(h, self.drop, self.training, generator, self.fold)
         h = self.act(self.conv2(h))
         if self.norm2 is not None:
             h = self.norm2(h)
-        h = dropout(h, self.drop, self.training, generator)
+        h = dropout(h, self.drop, self.training, generator, self.fold)
         return h + (x if self.shortcut is None else self.shortcut(x))
 
 

@@ -52,6 +52,12 @@ class ResNet(nn.Module):
             self.norm.reset_parameters()
         self.final.reset_parameters(generator)
 
+    def init_units(self):
+        """One unit, the whole model, drawn as reset_parameters draws: a
+        model built on the meta device is filled by evaluate.py::materialize
+        (on a mesh, into its shards) with the one-process draws."""
+        return [("", self, self.reset_parameters)]
+
     def forward(self, x, in_variables=None, out_variables=None, dropout_gen: Generator = None,
                 drop_path_gen: Generator = None, return_aux: bool = False):
         """x: [B, C, H, W] or [B, T, C, H, W]; returns [B, out, H, W] in the

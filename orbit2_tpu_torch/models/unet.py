@@ -80,6 +80,12 @@ class Unet(nn.Module):
             self.norm.reset_parameters()
         self.final.reset_parameters(generator)
 
+    def init_units(self):
+        """One unit, the whole model, drawn as reset_parameters draws: a
+        model built on the meta device is filled by evaluate.py::materialize
+        (on a mesh, into its shards) with the one-process draws."""
+        return [("", self, self.reset_parameters)]
+
     def forward(self, x, in_variables=None, out_variables=None, dropout_gen: Generator = None,
                 drop_path_gen: Generator = None, return_aux: bool = False):
         """As models/resnet.py::ResNet.forward."""

@@ -12,7 +12,9 @@ weight, applied as one product over the (C, p, p)-ordered patch features),
 pos_embed (learned, or fixed at the 2-D sin-cos table), blocks.{i}.*, norm,
 head.{2i} (Linear layers between GELUs). Drawn as the JAX module draws:
 trunc_normal(0.02) for every dense kernel, zero biases, unit LayerNorm
-scales. fp32 parameters, computing in `dtype`.
+scales. fp32 parameters, computing in `dtype`. On a mesh pos_drop folds the
+rank's data coordinates into its seed (`pos_fold`), as the Blocks' sites
+fold theirs.
 """
 
 from __future__ import annotations
@@ -40,6 +42,10 @@ class _PatchEmbed(nn.Module):
 
 @register_model("vit")
 class VisionTransformer(nn.Module):
+    # on a mesh: the data coordinates folded into pos_drop's seed
+    # (parallel/sharding.py::shard_model)
+    pos_fold: tuple = ()
+
     def __init__(self, img_size: Tuple[int, int], in_channels: int, out_channels: int,
                  history: int = 1, patch_size: int = 16, drop_path: float = 0.1,
                  drop_rate: float = 0.1, learn_pos_emb: bool = False, embed_dim: int = 1024,
@@ -92,6 +98,11 @@ class VisionTransformer(nn.Module):
             if isinstance(m, nn.Linear):
                 init_linear_(m, generator)
 
+    def init_units(self):
+        """One unit, the whole model, drawn as reset_parameters draws
+        (models/resnet.py::ResNet.init_units)."""
+        return [("", self, self.reset_parameters)]
+
     def forward(self, x, in_variables=None, out_variables=None, dropout_gen: Generator = None,
                 drop_path_gen: Generator = None, return_aux: bool = False):
         """x: [B, C, H, W] or [B, T, C, H, W] at img_size; returns [B, out, H, W]
@@ -109,7 +120,8 @@ class VisionTransformer(nn.Module):
         tokens = torch.nn.functional.linear(patches, proj.weight.reshape(D, -1).to(x.dtype),
                                             proj.bias.to(x.dtype))
         tokens = tokens + self.pos_embed.to(x.dtype)
-        tokens = dropout(tokens, self.drop_rate, self.training, dropout_gen)  # pos_drop
+        tokens = dropout(tokens, self.drop_rate, self.training, dropout_gen,
+                         self.pos_fold)  # pos_drop
         for blk in self.blocks:
             tokens = blk(tokens, dropout_gen, drop_path_gen)
         y = self.head(self.norm(tokens))

@@ -48,14 +48,26 @@ variable of JAX's stacked [V, p*p, D].
 A remat Block (models/res_slimvit.py::remat_block) recomputes inside its
 FSDP2 unit: the pre-backward all-gather serves the recomputation.
 
+The model hub (models/resnet.py, unet.py, vit.py, behind
+utils/loaders.py::PreInterpolated for downscaling, their names under
+`backbone.` as JAX's under `backbone/`) is sharded by the same table: the
+hub ViT's Blocks are split over tensor and its patch embedding and head
+take JAX's fsdp placement; no rule names a conv, so a CNN is replicated
+over tensor and each tensor rank repeats the same work. FSDP2 keeps the
+BatchNorm running averages whole on every rank (it shards parameters, not
+buffers); shard_model hands each BatchNorm the data ranks' group, over
+which it takes the global batch's statistics (models/components/cnn.py).
+
 The dropout sites fold the rank's coordinates into their seeds: the data
 coordinates (replica, fsdp) everywhere, the seq coordinate where the
 trunk's tokens are split over it (every Block site), and the tensor
 coordinate where the activation is split over it (the attention
 probabilities, the Mlp hidden), so activations replicated across the
 tensor, expert or seq axis get one mask on every such rank (pos_drop
-before the split, the MoE output after its sum). Folds are taken only over
-axes above 1, so a one-device mesh draws the one-process masks. DropPath
+before the split, the MoE output after its sum; the model hub's
+ResidualBlock sites and the hub ViT's pos_drop fold the data coordinates
+alone). Folds are taken only over axes above 1, so a one-device mesh draws
+the one-process masks. DropPath
 takes the rank's slice of the global batch's mask, the same on every
 expert, seq and tensor rank. K6 (Mlp.use_fused) steps aside on a mesh of
 more than one device, as JAX's does.
@@ -180,12 +192,19 @@ _NAMES: List[Tuple[str, str, str]] = [
     (r"^conv_out\.(weight|bias)$", "conv_out/{0}", "conv"),
     (r"^path2\.0\.(weight|bias)$", "path2_conv1/{0}", "conv"),
     (r"^path2\.3\.(weight|bias)$", "path2_conv2/{0}", "conv"),
+    # the model hub's ViT: one patch projection over all channels
+    (r"^patch_embed\.proj\.weight$", "patch_embed/kernel", "patch"),
+    (r"^patch_embed\.proj\.bias$", "patch_embed/bias", "same"),
 ]
 
 
 def jax_name(name: str) -> Tuple[str, str]:
     """(JAX path, kind) of a port parameter name; an unknown name maps
-    '.' -> '/' as it is."""
+    '.' -> '/' as it is. A model-hub preset behind PreInterpolated keeps
+    its backbone's names under `backbone.`, as JAX's under `backbone/`."""
+    if name.startswith("backbone."):
+        path, kind = jax_name(name[len("backbone."):])
+        return "backbone/" + path, kind
     for pattern, fmt, kind in _NAMES:
         m = re.match(pattern, name)
         if m:
@@ -213,6 +232,10 @@ def spec_for(name: str, shape: Sequence[int], mesh) -> Spec:
         return (s[2],) + (None,) * (len(shape) - 1)
     if kind == "token_bias":  # [D] <- one variable's row of [V, D]
         return jax_spec_for(path, (1,) + shape, mesh)[1:]
+    if kind == "patch" and len(shape) == 4:  # [D, C, p, p] <- [C p p, D]
+        s = jax_spec_for(path, (int(np.prod(shape[1:])), shape[0]), mesh)
+        # JAX's split of the (C, p, p) input dim, taken on C where it divides
+        return (s[1],) + _fit(s[:1], shape[1:2], axis_sizes(mesh)) + (None, None)
     return jax_spec_for(path, shape, mesh)
 
 
@@ -250,43 +273,53 @@ def split_linear(module: nn.Module, mode: str, packs: int, tmesh: DeviceMesh) ->
     module.tensor_split = TensorSplit(mode, tmesh.get_group(), tp, tmesh.get_local_rank(), packs)
 
 
+def trunk(model: nn.Module) -> List[Tuple[str, nn.Module]]:
+    """(name, Block) of every transformer Block the model holds: the
+    ResSlimViT's trunk (those its stage holds), the hub ViT's; none in a
+    CNN."""
+    from orbit2_tpu_torch.models.components.blocks import Block
+
+    return [(name, m) for name, m in model.named_modules() if isinstance(m, Block)]
+
+
 def tensor_plan(model: nn.Module) -> Dict[str, Tuple[str, int]]:
-    """The tensor splits of a ResSlimViT, (mode, packs) by Linear name:
-    every Block's attention and dense Mlp, and the variable aggregation."""
-    plan = {"var_agg.q": ("col", 1), "var_agg.kv": ("col", 2), "var_agg.proj": ("row", 1)}
-    for i, blk in enumerate(model.blocks):
-        if isinstance(blk, Elsewhere):
-            continue
-        plan[f"blocks.{i}.attn.qkv"] = ("col", 3)
-        plan[f"blocks.{i}.attn.proj"] = ("row", 1)
+    """The tensor splits of a model, (mode, packs) by Linear name, by JAX's
+    paths: every Block's attention and dense Mlp, and the ResSlimViT's
+    variable aggregation. Nothing of a CNN: JAX's rules split no conv."""
+    plan = {}
+    if hasattr(model, "var_agg"):
+        plan.update({"var_agg.q": ("col", 1), "var_agg.kv": ("col", 2),
+                     "var_agg.proj": ("row", 1)})
+    for name, blk in trunk(model):
+        plan[f"{name}.attn.qkv"] = ("col", 3)
+        plan[f"{name}.attn.proj"] = ("row", 1)
         if not blk.moe:
-            plan[f"blocks.{i}.mlp.fc1"] = ("col", 1)
-            plan[f"blocks.{i}.mlp.fc2"] = ("row", 1)
+            plan[f"{name}.mlp.fc1"] = ("col", 1)
+            plan[f"{name}.mlp.fc2"] = ("row", 1)
     return plan
 
 
 def check_shardable(model: nn.Module, mesh: DeviceMesh) -> None:
-    """What shard_model does not take: a model without Blocks (the model
-    hub), a stage axis above 1 other than the model's pipeline_stages (a
-    pipelined model on a mesh without one sweeps its microbatches on each
-    rank, JAX's fallback), heads or hidden columns the tensor axis does not
-    divide, an expert axis over a trunk without MoE Blocks or experts it
-    does not divide, and a seq axis under a model not built with seq_shard
-    (its tokens would stay whole)."""
+    """What shard_model does not take: a stage axis above 1 other than the
+    model's pipeline_stages (1 for the model hub; a pipelined model on a
+    mesh without one sweeps its microbatches on each rank, JAX's fallback),
+    heads or hidden columns the tensor axis does not divide, an expert axis
+    over a trunk without MoE Blocks or experts it does not divide, and a seq
+    axis under a ResSlimViT not built with seq_shard (its tokens would stay
+    whole). A model-hub preset, which has no seq_shard (JAX's
+    _phase_model sets it only where the model has one), repeats its work
+    over the seq axis, as on JAX's mesh its batch is split over the data
+    axes alone."""
     sizes = axis_sizes(mesh)
-    if not hasattr(model, "blocks") or not hasattr(model, "init_units"):
-        raise NotImplementedError(f"{type(model).__name__} on a device mesh: only the "
-                                  "ResSlimViT is sharded; model-hub presets on a mesh are not "
-                                  "ported yet (ROADMAP queue 1 item 2)")
     stages = getattr(model, "pipeline_stages", 1)
     if sizes[AXIS_STAGE] > 1 and sizes[AXIS_STAGE] != stages:
         raise ValueError(f"pipeline_stages={stages} but the mesh's stage axis is "
                          f"{sizes[AXIS_STAGE]}: build the mesh with stage={stages}")
-    if sizes[AXIS_SEQ] > 1 and not model.seq_shard:
+    if sizes[AXIS_SEQ] > 1 and not getattr(model, "seq_shard", True):
         raise ValueError(f"a seq axis of {sizes[AXIS_SEQ]} needs the model built with "
                          "seq_shard=True")
     tp, ep = sizes[AXIS_TENSOR], sizes[AXIS_EXPERT]
-    blocks = [blk for blk in model.blocks if not isinstance(blk, Elsewhere)]
+    blocks = [blk for _, blk in trunk(model)]
     if ep > 1 and not any(blk.moe for blk in blocks):
         raise ValueError(f"an expert axis of {ep} needs MoE Blocks (model.moe_experts > 0)")
     for blk in blocks:
@@ -300,7 +333,7 @@ def check_shardable(model: nn.Module, mesh: DeviceMesh) -> None:
         if heads % tp or hidden % tp:
             raise ValueError(f"tensor_par {tp} must divide the {heads} heads and the {hidden} "
                              "Mlp columns")
-    if model.var_agg.num_heads % tp:
+    if hasattr(model, "var_agg") and model.var_agg.num_heads % tp:
         raise ValueError(f"tensor_par {tp} must divide var_agg's {model.var_agg.num_heads} heads")
 
 
@@ -375,8 +408,8 @@ def _fsdp_dim(name: str, p: torch.Tensor, mesh: DeviceMesh) -> int:
 
 
 def shard_model(model: nn.Module, mesh: DeviceMesh, dtype: Optional[torch.dtype] = None):
-    """Shards a ResSlimViT over `mesh` in place (module docstring) and
-    returns it: its parameters become DTensors, each rank holding its
+    """Shards a model over `mesh` in place (module docstring) and returns
+    it: its parameters become DTensors, each rank holding its
     shards. Built on the meta device, it stays there (then to_empty and a
     fill: evaluate.py::materialize). `dtype` (serving): the floating
     tensors are cast to it first, as the one-device Evaluator holds them;
@@ -386,6 +419,7 @@ def shard_model(model: nn.Module, mesh: DeviceMesh, dtype: Optional[torch.dtype]
     from torch.distributed.fsdp import fully_shard
 
     from orbit2_tpu_torch.models.components.blocks import Attention, DropPath, Mlp
+    from orbit2_tpu_torch.models.components.cnn import BatchNorm2d, ResidualBlock
     from orbit2_tpu_torch.models.components.moe import MoEMlp
 
     check_shardable(model, mesh)
@@ -408,17 +442,19 @@ def shard_model(model: nn.Module, mesh: DeviceMesh, dtype: Optional[torch.dtype]
     split_experts(model, mesh)
 
     data = sharded_coords(mesh, BATCH_AXES)
-    seq = sharded_coords(mesh, (AXIS_SEQ,))  # the Blocks' tokens are split over seq
+    # the Blocks' tokens are split over seq where the model is built for it
+    # (a model-hub preset repeats its work over seq: check_shardable)
+    seq = sharded_coords(mesh, (AXIS_SEQ,)) if getattr(model, "seq_shard", False) else ()
     tokens = data + seq
     heads = tokens + sharded_coords(mesh, (AXIS_TENSOR,))
     many = int(np.prod(list(sizes.values()))) > 1
-    model.pos_fold = data
-    if seq:
-        model.seq_split = seq_split(mesh, model.seq_impl)
+    split = model.seq_split = seq_split(mesh, model.seq_impl) if seq else None
     for m in model.modules():
+        if hasattr(m, "pos_fold"):  # the ResSlimViT's and the hub ViT's pos_drop
+            m.pos_fold = data
         if isinstance(m, Attention):
             m.attn_fold, m.proj_fold = heads, tokens
-            m.seq_split = model.seq_split
+            m.seq_split = split
         elif isinstance(m, Mlp):
             m.hidden_fold, m.out_fold = heads, tokens
             if many:
@@ -427,6 +463,10 @@ def shard_model(model: nn.Module, mesh: DeviceMesh, dtype: Optional[torch.dtype]
             m.out_fold = data  # summed over expert x tensor: the same y on each
         elif isinstance(m, DropPath) and data_size(mesh) > 1:
             m.batch_slice = (data_rank(mesh), data_size(mesh))
+        elif isinstance(m, ResidualBlock):
+            m.fold = data
+        elif isinstance(m, BatchNorm2d) and data_size(mesh) > 1:
+            m.sync = (mesh.data_group, data_size(mesh))
 
     names = {id(p): n for n, p in model.named_parameters()}
     dp = mesh[BATCH_AXES]
@@ -436,11 +476,11 @@ def shard_model(model: nn.Module, mesh: DeviceMesh, dtype: Optional[torch.dtype]
 
     # every unit, the root too, reshards after its forward: a root left
     # unsharded after a no-grad forward would hand its whole parameters, not
-    # the shards, to named_parameters() (an optimizer built then steps them)
-    for blk in model.blocks:
-        if not isinstance(blk, Elsewhere):
-            fully_shard(blk, mesh=dp, shard_placement_fn=placement, reshard_after_forward=True,
-                        ignored_params=ignored or None)
+    # the shards, to named_parameters() (an optimizer built then steps them).
+    # The units: each transformer Block, then the root (a CNN's whole)
+    for _, blk in trunk(model):
+        fully_shard(blk, mesh=dp, shard_placement_fn=placement, reshard_after_forward=True,
+                    ignored_params=ignored or None)
     fully_shard(model, mesh=dp, shard_placement_fn=placement, reshard_after_forward=True,
                 ignored_params=ignored or None)
     return model
@@ -635,4 +675,4 @@ def full_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
 __all__ = ["axis_sizes", "check_shardable", "full_named", "full_state_dict", "full_tensor",
            "held_elsewhere", "held_state", "jax_name", "jax_spec_for", "load_full_state_dict",
            "reduce_seq_grads", "shard_like", "shard_model", "spec_for", "split_experts",
-           "split_linear", "tensor_plan"]
+           "split_linear", "tensor_plan", "trunk"]

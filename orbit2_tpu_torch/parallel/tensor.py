@@ -32,6 +32,12 @@ tokens:
     non-empty piece goes to the next rank (NCCL and gloo both take it, on
     CUDA tensors too; gloo refuses send/recv on them).
 
+Over the data axes, `all_reduce_sum` sums a tensor whose every rank's
+copy feeds that rank's loss (BatchNorm's batch moments,
+models/components/cnn.py): its backward sums the gradients the same way,
+so each rank's input gets the gradient of every rank's loss through the
+sum.
+
 Over the stage axis (parallel/pipeline.py) `stage_shift` hands a
 microbatch's activations to the next stage, and from the last to the first
 where the schedule is interleaved; its backward hands the gradient back the
@@ -76,6 +82,26 @@ class _ReduceFromTensor(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over `group`; the gradient summed over it too."""
+    return _AllReduceSum.apply(x, group)
 
 
 def copy_to_tensor(x: torch.Tensor, group) -> torch.Tensor:
@@ -280,6 +306,6 @@ def stage_shift(x: torch.Tensor, split) -> torch.Tensor:
     return _StageShift.apply(x, split.group, split.size, split.rank, split.interleave > 1)
 
 
-__all__ = ["ExpertSplit", "SeqSplit", "TensorSplit", "all_to_all", "copy_to_tensor", "gather_seq",
-           "gather_tokens", "local", "reduce_from_tensor", "ring_shift", "split_tokens",
-           "stage_shift"]
+__all__ = ["ExpertSplit", "SeqSplit", "TensorSplit", "all_reduce_sum", "all_to_all",
+           "copy_to_tensor", "gather_seq", "gather_tokens", "local", "reduce_from_tensor",
+           "ring_shift", "split_tokens", "stage_shift"]

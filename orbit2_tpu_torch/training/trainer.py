@@ -55,14 +55,24 @@ and checkpoints carry them. A loss with `set_mask` (masked_mse) takes the
 data module's validity mask (`_wire_out_mask`, JAX trainer.py:238-265).
 
 On a device mesh (the config's, whenever a process group runs:
-parallel/mesh.py; one process drives one device): the ResSlimViT is
-built on the meta device, sharded (parallel/sharding.py::shard_model: tensor
+parallel/mesh.py; one process drives one device): the model is built on
+the meta device, sharded (parallel/sharding.py::shard_model: tensor
 parallelism, the MoE expert stacks over (expert, tensor), the tokens over
 seq where `parallelism.seq_par` > 1 (the model built with seq_shard and the
 config's seq_impl, JAX trainer.py:44-46, :283-286), then FSDP2 per Block and
 at the root over (replica, fsdp)) and each rank's shards are filled unit by
 unit (evaluate.py::materialize), with the one-process draws from
-trainer.seed or the `state_dict`. The train step sums the Blocks' gradients
+trainer.seed or the `state_dict`. The model-hub presets (resnet, unet, vit,
+rasp-theurey-2020) take the same path: one unit, the hub ViT's Blocks split
+over tensor as the ResSlimViT's, the CNNs replicated over it (every tensor
+rank repeats the same work, as under JAX's replicated convs) and over a seq
+axis (JAX splits their batch over the data axes alone); their BatchNorms
+take the global batch's statistics (models/components/cnn.py), so the
+running averages are the same on every rank, and their dropout sites fold
+the rank's data coordinates. With grad_accum > 1 a BatchNorm's microbatch
+statistics are taken over each data rank's i-th chunk, where JAX takes the
+global batch's i-th contiguous chunk: the same samples only at one data
+rank. The train step sums the Blocks' gradients
 over seq (training/train.py). Each data rank (replica, fsdp) reads its own
 file shards in batches of batch_size / its count; the expert, seq and
 tensor ranks of one data rank read the same ones. An MoE trunk's aux loss
@@ -70,7 +80,9 @@ is the whole routing's on every rank, weighted as on one device. The epoch is
 clamped to the least number of batches of any rank (JAX trainer.py:470-490);
 the records' loss is the mean over the data ranks. Validation pads a short
 rank with zero batches that count no sample (JAX `_synced_batches`,
-trainer.py:621-685) and sums the sample-weighted losses over the data ranks.
+trainer.py:621-685) and takes each round's metrics over the global batch,
+every data rank's prediction and target gathered (evaluate.py::gather_rows,
+as Evaluator.test does), as JAX's one-process mesh validates it.
 Rank 0 writes the checkpoint, the model and the moments gathered whole, so
 a checkpoint resumes on any mesh, or on one device. As JAX's mesh takes the
 first devices, the mesh takes the first ranks: where the world is larger
@@ -91,8 +103,8 @@ stage rank resumes its own part of one.
 
 A mesh larger than the world raises JAX's ValueError; then
 `parallelism.auto` raises NotImplementedError (evaluate.py::check_mesh,
-check_scope), and so does a model-hub preset on a mesh
-(parallel/sharding.py::check_shardable).
+check_scope). A model-hub preset with a stage or expert axis above 1 raises
+JAX's ConfigError (config.py), as JAX does.
 """
 
 from __future__ import annotations
@@ -110,8 +122,8 @@ import torch.distributed as dist
 from orbit2_tpu_torch.config import Config
 from orbit2_tpu_torch.data.itermodule import IterDataModule
 from orbit2_tpu_torch.evaluate import (
-    build_sharded, check_mesh, check_tiling, check_scope, load_module,
-    make_data_module, model_kwargs, synced_batches)
+    build_sharded, check_mesh, check_tiling, check_scope, gather_rows, load_module,
+    make_data_module, model_kwargs, pad_rows, synced_batches)
 from orbit2_tpu_torch.parallel.mesh import (
     all_ranks, comm_device, data_group, data_rank, data_size, in_mesh, mesh_from_config,
     world_size)
@@ -383,30 +395,34 @@ class Trainer:
         """The val losses over `dm`'s val split, sample-weighted (JAX
         trainer.py:587-619). JAX pads a partial tail batch to the static
         batch size and slices the padding off again; eager PyTorch takes it
-        as it is. Sets `last_validation` = {"means", "samples"}."""
+        as it is, but on a data mesh, where the ranks gather each round's
+        batch, it is padded by its last row and the padding dropped, as
+        Evaluator.test does. Sets `last_validation` = {"means", "samples"}."""
         step = make_eval_step(self.model, in_vars, out_vars)
         agg: Dict[str, float] = {}
         n = 0
         rounds = (None if self.mesh is None
                   else all_ranks(dm.num_batches("val"), dist.ReduceOp.MAX, self.mesh, self.device))
+        gathered = self.mesh is not None and data_size(self.mesh) > 1
         loader = iter(dm.val_dataloader())
         try:
             for batch, real in synced_batches(loader, dm, rounds):
+                if gathered:
+                    batch = [pad_rows(a, dm.batch_size) for a in batch[:2]]
                 x, y = self._put(batch[0], None), self._put(batch[1], None)
-                losses = evaluate_batch(step(x, y), y, "val", self.val_losses,
-                                        self.val_transforms, out_vars)
+                yhat = step(x, y)
+                if gathered:  # the round's global batch, on every data rank
+                    (yhat, y), real = gather_rows((yhat, y), real, self.mesh, self.device)
+                    if not real:  # every data rank on a padding round
+                        continue
+                losses = evaluate_batch(yhat, y, "val", self.val_losses, self.val_transforms,
+                                        out_vars)
                 values = torch.stack(list(losses.values())).tolist()  # one sync per batch
                 for k, v in zip(losses, values):
                     agg[k] = agg.get(k, 0.0) + v * real
                 n += real
         finally:
             loader.close()
-        if self.mesh is not None:  # the sums over the data ranks
-            keys = sorted(agg)
-            t = torch.tensor([agg[k] for k in keys] + [n], dtype=torch.float64,
-                             device=comm_device(self.device))
-            dist.all_reduce(t, group=data_group(self.mesh))
-            agg, n = dict(zip(keys, t[:-1].tolist())), int(t[-1].item())
         means = {k: v / max(1, n) for k, v in agg.items()}
         log.info("validation epoch %d: %s", epoch, means)
         self.last_validation = {"means": means, "samples": n}

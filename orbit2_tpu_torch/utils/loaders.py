@@ -168,6 +168,12 @@ class PreInterpolated(nn.Module):
                   out_channels=None) -> "PreInterpolated":
         return self
 
+    def init_units(self):
+        """The backbone's units under `backbone.` (the interpolation holds no
+        tensor)."""
+        return [(f"backbone.{name}".rstrip("."), module, init)
+                for name, module, init in self.backbone.init_units()]
+
     def forward(self, x, *args, **kwargs):
         return self.backbone(self.interpolation(x), *args, **kwargs)
 

@@ -307,10 +307,10 @@ def test_trainer_refuses_axes_not_ported(synth_dataset, axis, world):
     ("moe", {"tensor": 2}), ("hub", {"fsdp": 2}), ("stage", {"stage": 2}),
     ("seq", {"seq": 2}), ("expert", {"expert": 2})])
 def test_shard_model_refuses_what_it_does_not_split(what, sizes):
-    """A model-hub preset is refused, a stage axis under a model built
-    without pipeline_stages, a seq axis under a model built without
-    seq_shard and an expert axis over a trunk without MoE Blocks too; an MoE
-    trunk under tensor parallelism is taken."""
+    """A stage axis under a model built without pipeline_stages, a seq axis
+    under a model built without seq_shard and an expert axis over a trunk
+    without MoE Blocks are refused; an MoE trunk under tensor parallelism
+    and a model-hub preset on a data mesh are taken."""
     from orbit2_tpu_torch.models import ResSlimViT
     from orbit2_tpu_torch.models.resnet import ResNet
     from orbit2_tpu_torch.parallel.sharding import check_shardable
@@ -318,8 +318,7 @@ def test_shard_model_refuses_what_it_does_not_split(what, sizes):
     with torch.device("meta"):
         model = (ResNet(7, 3, history=1) if what == "hub" else
                  ResSlimViT(DEFAULT_VARS, **TINY, moe_experts=2 if what == "moe" else 0))
-    refusal = {"hub": (NotImplementedError, "ROADMAP queue 1 item 2"),
-               "stage": (ValueError, "pipeline_stages=1 but the mesh's stage axis is 2"),
+    refusal = {"stage": (ValueError, "pipeline_stages=1 but the mesh's stage axis is 2"),
                "seq": (ValueError, "seq_shard=True"),
                "expert": (ValueError, "needs MoE Blocks")}.get(what)
     if refusal is None:

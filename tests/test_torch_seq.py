@@ -28,8 +28,9 @@ JAX's refusals are the port's: Ulysses' head divisibility, ring's
 N_local % 128, MoE x seq and pipeline x seq. The launch also runs the stage
 axis's cases of tests/test_torch_pipeline.py, whose JAX side runs as a
 process of its own beside this file's (`test_torch_pipeline.jax_side`),
-and the serving cases of tests/test_torch_serve_mesh.py, whose JAX side is
-another (`test_torch_serve_mesh.jax_side`).
+the serving cases of tests/test_torch_serve_mesh.py, whose JAX side is
+another (`test_torch_serve_mesh.jax_side`), and the model hub's cases of
+tests/test_torch_hub_mesh.py, with a third (`test_torch_hub_mesh.jax_side`).
 """
 
 import fcntl
@@ -252,7 +253,8 @@ def _wait(procs):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    sides = ("the pipeline's JAX side", "the serving cases' JAX side")
+    sides = ("the pipeline's JAX side", "the serving cases' JAX side",
+             "the model hub's JAX side")
     for r, p in enumerate(procs):  # the stage axis's and the serving's JAX sides, the ranks
         who = sides[r] if r < len(sides) else f"rank {r - len(sides)}"
         assert p.returncode == 0, f"{who} exited {p.returncode}:\n{logs[r][-4000:]}"
@@ -263,15 +265,16 @@ def _prepare_and_run(root, ds):
 
     from orbit2_tpu_torch.training.checkpoint import state_dict_from_jax_params
 
-    # the stage axis's and the serving cases' JAX sides
-    # (tests/test_torch_pipeline.py, test_torch_serve_mesh.py), processes of
-    # their own from the start: the ranks wait for their inputs after this
-    # file's cases
+    # the stage axis's, the serving cases' and the model hub's JAX sides
+    # (tests/test_torch_pipeline.py, test_torch_serve_mesh.py,
+    # test_torch_hub_mesh.py), processes of their own from the start: the
+    # ranks wait for their inputs after this file's cases
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(ROOT, "tests", side), str(root)],
         cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="1"), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
-        for side in ("test_torch_pipeline.py", "test_torch_serve_mesh.py")]
+        for side in ("test_torch_pipeline.py", "test_torch_serve_mesh.py",
+                     "test_torch_hub_mesh.py")]
     try:
         raws = configs(root, ds)
         for name, raw in raws.items():

@@ -285,10 +285,21 @@ def test_twin_quantized_at_construction_equals_the_whole_state_twin(tiny_10b, ja
                        got["blocks.0.norm1.weight"])
 
 
-def test_unit_by_unit_draw_equals_the_models_draw(tiny_10b):
+@pytest.mark.parametrize("preset", ["res_slimvit", "resnet", "unet", "vit"])
+def test_unit_by_unit_draw_equals_the_models_draw(tiny_10b, preset, monkeypatch):
     """The Evaluator's meta build filled unit by unit from the host
-    generator holds the weights the whole model draws at construction."""
-    cfg = load_config(copy.deepcopy(tiny_10b))
+    generator holds the weights the whole model draws at construction: the
+    ResSlimViT's units, and each model-hub preset's one unit, BatchNorm
+    buffers included (the Unet at a small width, two levels with an
+    AttentionBlock: every kind of its modules draws)."""
+    from orbit2_tpu_torch.models.unet import Unet
+    from orbit2_tpu_torch.utils import loaders
+
+    small = dict(hidden_channels=8, ch_mults=(1, 2), is_attn=(False, True), n_blocks=1)
+    monkeypatch.setattr(loaders, "Unet", lambda *a, **kw: Unet(*a, **{**kw, **small}))
+    raw = copy.deepcopy(tiny_10b)
+    raw["model"]["preset"] = preset
+    cfg = load_config(raw)
     ev = Evaluator(cfg, "cpu")
     want = load_architecture(ev.data_module, cfg.model.preset, **model_kwargs(cfg)).state_dict()
     got = ev.model.state_dict()

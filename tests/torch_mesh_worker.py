@@ -37,7 +37,15 @@ JAX: the test process holds the JAX side).
       (tests/test_torch_serve_mesh.py, `run_servemesh`): the Evaluator on
       every SERVE_CASES config of IN_DIR/serve_in.npz's weights, MC dropout,
       the stitched field, the evaluate CLI and test_on_many_images; each
-      rank writes OUT_DIR/serve_R.json and serve_R.npz.
+      rank writes OUT_DIR/serve_R.json and serve_R.npz. Last the model hub
+      (tests/test_torch_hub_mesh.py, `run_hubmesh`): the resnet, unet and
+      vit presets trained, checkpointed, fine-tuned and served on the data
+      and tensor meshes, while ranks 0 and 1 run configs/forecast.yaml
+      through the train CLI in a world of 2 of their own (`forecast`, a
+      process each); each rank writes OUT_DIR/hub_R.json and hub_R.npz.
+
+  python tests/torch_mesh_worker.py forecast RANK 2 PORT IN_DIR OUT_DIR
+      One rank of that train CLI run, as torchrun starts it.
 
   python tests/torch_mesh_worker.py cli RANK WORLD PORT CONFIG CKPT_DIR OUT_DIR
       The train CLI (`orbit2_tpu_torch.train.main`) as torchrun would start
@@ -677,6 +685,299 @@ def run_servemesh(rank, in_dir, out_dir):
     np.savez(os.path.join(out_dir, f"serve_{rank}.npz"), **arrays)
     with open(os.path.join(out_dir, f"serve_{rank}.json"), "w") as f:
         json.dump(report, f)
+    run_hubmesh(rank, in_dir, out_dir)
+
+
+# the model hub on a mesh (tests/test_torch_hub_mesh.py): each CNN's small
+# widths (both packages' factories patched alike), the hub ViT's config,
+# and the cases: name -> (model kind, parallelism)
+HUB_WIDTHS = {"resnet": dict(hidden_channels=8, n_blocks=2),
+              "unet": dict(hidden_channels=4, ch_mults=(1,), is_attn=(False,),
+                           mid_attn=False, n_blocks=1)}
+HUB_VIT = dict(patch_size=2, embed_dim=64, depth=2, decoder_depth=2, num_heads=2)
+HUB_CASES = {
+    "resnet_fsdp2": ("resnet", {"fsdp": 2}),
+    "resnet_replica2_fsdp2": ("resnet", {"simple_ddp": 2, "fsdp": 2}),
+    "resnet_tensor2": ("resnet", {"tensor_par": 2}),
+    "resnet_seq2_fsdp2": ("resnet", {"seq_par": 2, "fsdp": 2}),
+    "unet_fsdp2": ("unet", {"fsdp": 2}),
+    "unet_replica2_fsdp2": ("unet", {"simple_ddp": 2, "fsdp": 2}),
+    "vit_fsdp2": ("vit", {"fsdp": 2}),
+    "vit_replica2_fsdp2": ("vit", {"simple_ddp": 2, "fsdp": 2}),
+    "vit_tensor2": ("vit", {"tensor_par": 2}),
+}
+HUB_EPOCHS = 2  # of one step each, each epoch its own batch
+HUB_FAULT = "resnet_fsdp2"  # run again with each rank's own BatchNorm statistics
+HUB_VALIDATED = "vit_replica2_fsdp2"  # validates after each epoch
+HUB_WAIT_S = 400
+HUB_FAILED = "hub_jax.failed"  # the hub's JAX side's traceback, where it fails
+
+
+def hub_widths(loaders, resnet, unet):
+    """Patches a package's loaders module so that its resnet and unet
+    presets build at HUB_WIDTHS (`resnet` / `unet`: that package's classes;
+    JAX's take keywords alone)."""
+    loaders.ResNet = lambda *a, **kw: resnet(*a, **{**kw, **HUB_WIDTHS["resnet"]})
+    loaders.Unet = lambda *a, **kw: unet(*a, **{**kw, **HUB_WIDTHS["unet"]})
+
+
+def wait_for(path, limit):
+    """`path` once a JAX side beside the ranks has written it; raises at
+    `limit` seconds, or at once where the hub's JAX side failed."""
+    waited = 0.0
+    failed = os.path.join(os.path.dirname(path), HUB_FAILED)
+    while not os.path.exists(path):
+        if os.path.exists(failed):
+            raise RuntimeError(f"the JAX side failed:\n{open(failed).read()[-2000:]}")
+        if waited > limit:
+            raise TimeoutError(f"no {path} after {limit} s")
+        time.sleep(0.5)
+        waited += 0.5
+    return path
+
+
+def run_hubmesh(rank, in_dir, out_dir):
+    """The model hub's cases (tests/test_torch_hub_mesh.py): Trainer.fit of
+    each HUB_CASES config for HUB_EPOCHS epochs of one step, epoch e on
+    IN_DIR/hub_in.npz's batch e (each data rank its slice); HUB_FAULT again
+    with each rank's own BatchNorm statistics; the fsdp 2 cases' checkpoints
+    resumed on the mesh and loaded into one process, fine-tuned from by the
+    finetune CLI on the mesh, and served by the evaluate CLI (the ViT's);
+    the data ranks' dropout masks at rate 0.1; then test() on each case's
+    mesh from JAX's trained weights (IN_DIR/hub_jax.npz), MC dropout and the
+    stitched field of the ViT on tensor 2 against one process. Beside it all,
+    ranks 0 and 1 start the train CLI on IN_DIR/forecast.yaml in a world of
+    2 of its own (`forecast` mode). Each rank writes OUT_DIR/hub_R.json and
+    hub_R.npz."""
+    import contextlib
+    import io
+
+    from orbit2_tpu_torch import evaluate as evaluate_mod
+    from orbit2_tpu_torch import finetune
+    from orbit2_tpu_torch.config import load_config
+    from orbit2_tpu_torch.data.itermodule import IterDataModule
+    from orbit2_tpu_torch.models.components.cnn import BatchNorm2d
+    from orbit2_tpu_torch.models.resnet import ResNet
+    from orbit2_tpu_torch.models.unet import Unet
+    from orbit2_tpu_torch.parallel import in_mesh
+    from orbit2_tpu_torch.parallel.sharding import full_state_dict
+    from orbit2_tpu_torch.training.checkpoint import restore_checkpoint
+    from orbit2_tpu_torch.training.trainer import Trainer
+    from orbit2_tpu_torch.utils import loaders
+    from orbit2_tpu_torch.utils.mc_dropout import get_monte_carlo_predictions
+    from orbit2_tpu_torch.utils.visualize import model_forward_fn, visualize_at_index
+
+    raw = np.load(wait_for(os.path.join(in_dir, "hub_in.npz"), HUB_WAIT_S))
+    cli = start_forecast_cli(rank, in_dir, out_dir)
+    kinds = sorted({kind for kind, _ in HUB_CASES.values()})
+    states = {kind: {k.split("/", 1)[1]: torch.from_numpy(raw[k]) for k in raw.files
+                     if k.startswith(kind + "/")} for kind in kinds}
+    batches = [(raw[f"batch/x{e}"], raw[f"batch/y{e}"]) for e in range(HUB_EPOCHS)]
+    hub_widths(loaders, ResNet, Unet)
+    t_start = time.perf_counter()
+
+    # the train split: an epoch's loader yields the data rank's slice of
+    # that epoch's batch, one step
+    train_dataloader, num_batches = IterDataModule.train_dataloader, IterDataModule.num_batches
+
+    def epoch_batch(self):
+        e = self.hub_epoch = getattr(self, "hub_epoch", -1) + 1
+        n = batches[e][0].shape[0] // self.data_par_size
+        yield tuple(a[self.data_par_rank * n:(self.data_par_rank + 1) * n] for a in batches[e])
+
+    IterDataModule.train_dataloader = epoch_batch
+    IterDataModule.num_batches = lambda self, split="train": (
+        1 if split == "train" else num_batches(self, split))
+
+    report, arrays = {}, {}
+    trained = {}
+
+    def fit_case(name, label):
+        kind, _ = HUB_CASES[name]
+        cfg = load_config(os.path.join(in_dir, f"hub_{name}.yaml"))
+        ck = os.path.join(out_dir, f"hubck_{label}") if label == f"{kind}_fsdp2" else None
+        trainer = Trainer(cfg, "cpu", state_dict=states[kind], checkpoint_dir=ck,
+                          run_validation=label == HUB_VALIDATED)
+        history = trainer.fit(max_epochs=HUB_EPOCHS, max_steps_per_epoch=1)
+        r = report[label] = {"idle": not in_mesh(trainer.mesh), "history": history}
+        if r["idle"]:
+            return None
+        model = trainer.model
+        state = full_state_dict(model)
+        for k, b in model.named_buffers():
+            arrays[f"{label}/buffer/{k}"] = b.numpy()
+        if rank == 0:
+            arrays.update({f"{label}/param/{k}": t.numpy() for k, t in state.items()})
+        r["validation"] = trainer.last_validation
+        r["sync"] = [m.sync is not None for m in model.modules() if isinstance(m, BatchNorm2d)]
+        return trainer, state
+
+    for name in HUB_CASES:
+        trained[name] = fit_case(name, name)
+
+    # the fault: each rank's own statistics (the sync switched off here)
+    shard_model = evaluate_mod.shard_model
+
+    def unsynced(*a, **kw):
+        model = shard_model(*a, **kw)
+        for m in model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.sync = None
+        return model
+
+    evaluate_mod.shard_model = unsynced
+    try:
+        fit_case(HUB_FAULT, "fault_per_rank_statistics")
+    finally:
+        evaluate_mod.shard_model = shard_model
+
+    # the fsdp 2 checkpoints (ranks 0 and 1; 2 and 3 idle): resumed on the
+    # mesh bit for bit, loaded into one process, fine-tuned from and served by
+    # the CLIs on the mesh. Every rank builds each Trainer: making the
+    # mesh's groups is collective
+    for kind in kinds:
+        name = f"{kind}_fsdp2"
+        path = os.path.join(in_dir, f"hub_{name}.yaml")
+        ck = os.path.join(out_dir, f"hubck_{name}")
+        last = os.path.join(ck, f"epoch_{HUB_EPOCHS - 1}")
+        again = Trainer(load_config(path), "cpu", checkpoint_dir=ck)
+        if trained[name] is not None:
+            trainer, state = trained[name]
+            dm = again.data_module(next(iter(again.cfg.data.low_res_dir)))
+            epoch = again._start(dm)
+            resumed = full_state_dict(again.model)
+            saved = restore_checkpoint(last)["model"]
+            one = loaders.load_architecture(dm, kind, **evaluate_mod.model_kwargs(again.cfg))
+            one.load_state_dict(saved, strict=True)
+            report[f"checkpoint/{name}"] = {
+                "resumed_epoch": epoch, "saved": sorted(saved),
+                "resumed_equal": list(resumed) == list(state) and all(
+                    torch.equal(resumed[k], t) for k, t in state.items()),
+                "one_process_equal": all(torch.equal(t, state[k])
+                                         for k, t in one.state_dict().items())}
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = finetune.main([path, "--arch", kind, "--pretrain", last, "--max-epochs", "1",
+                                 "--max-steps-per-epoch", "1", "--checkpoint-dir",
+                                 os.path.join(out_dir, f"hubft_{kind}"), "--device", "cpu"])
+        report[f"finetune/{kind}"] = {
+            "history": res["history"],
+            "used": None if res["pretrain"] is None else sorted(res["pretrain"]["used"]),
+            "dropped": None if res["pretrain"] is None else res["pretrain"]["dropped"]}
+        if kind == "vit":
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                evaluate_mod.main([path, "--device", "cpu", "--checkpoint", last])
+            report["evaluate_cli"] = out.getvalue()
+
+    # dropout 0.1 on fsdp 2, both data ranks fed the same sample: their masks
+    # differ (the seeds fold the data coordinate), and a seed repeats
+    for kind in kinds:
+        if trained[f"{kind}_fsdp2"] is None:
+            continue
+        trainer, _ = trained[f"{kind}_fsdp2"]
+        dm = trainer.data_module(next(iter(trainer.cfg.data.low_res_dir)))
+        with torch.device("meta"):
+            skeleton = loaders.load_architecture(dm, kind, **dict(
+                evaluate_mod.model_kwargs(trainer.cfg), generator=None, drop_rate=0.1))
+        model = evaluate_mod.build_sharded(skeleton, trainer.mesh, "cpu", "cpu",
+                                           torch.Generator().manual_seed(0)).train()
+        in_vars, out_vars = dm.get_data_variables()
+        x = torch.from_numpy(batches[0][0][:1])
+        with torch.no_grad():
+            runs = [model(x, in_vars, out_vars, torch.Generator().manual_seed(5))
+                    for _ in range(2)]
+        both = [torch.empty_like(runs[0]) for _ in range(2)]
+        dist.all_gather(both, runs[0].contiguous(), group=data_group(trainer.mesh))
+        report[f"dropout/{kind}"] = {"ranks_differ": not torch.equal(both[0], both[1]),
+                                     "repeats": torch.equal(runs[0], runs[1])}
+
+    # serving on each case's mesh, from JAX's trained weights (the JAX side
+    # writes them while the ranks train): Evaluator.test; for the ViT on
+    # tensor 2 (ranks 0 and 1) MC dropout at its rate 0 and the stitched
+    # field against one process
+    raw = np.load(wait_for(os.path.join(in_dir, "hub_jax.npz"), HUB_WAIT_S))
+    for name in HUB_CASES:
+        state = {k.split("/", 1)[1]: torch.from_numpy(raw[k]) for k in raw.files
+                 if k.startswith(name + "/")}
+        cfg = load_config(os.path.join(in_dir, f"hub_{name}.yaml"))
+        ev = evaluate_mod.Evaluator(cfg, "cpu", state_dict=state)
+        report[name]["test"] = ev.test()
+        report[name]["samples"] = ev.last_test["samples"] if ev.last_test else 0
+        if name != "vit_tensor2" or ev.idle:
+            continue
+        dm = ev.data_module
+        in_vars, out_vars = dm.get_data_variables()
+        x = first_batch(dm)
+        with torch.no_grad():
+            det = ev.model.eval()(x, in_vars, out_vars)
+        ens = get_monte_carlo_predictions(ev.model, x, in_vars, out_vars, n_samples=2)
+        report["mc"] = {"rate0_equals_eval": all(torch.equal(e, det) for e in ens)}
+        dm_vis = evaluate_mod.make_data_module(cfg, ev.data_key, 1, 0, "test")
+        field = visualize_at_index(model_forward_fn(ev.model, in_vars, out_vars), dm_vis,
+                                   index=1, div=1, overlap=0, mag=4)["preds"]
+        one = loaders.load_architecture(dm_vis, "vit", **evaluate_mod.model_kwargs(cfg))
+        one.load_state_dict(state, strict=True)
+        want = visualize_at_index(model_forward_fn(one, in_vars, out_vars), dm_vis, index=1,
+                                  div=1, overlap=0, mag=4)["preds"]
+        report["field_max_diff"] = float(np.abs(np.asarray(field) - np.asarray(want)).max())
+    report["seconds"] = time.perf_counter() - t_start
+    IterDataModule.train_dataloader, IterDataModule.num_batches = train_dataloader, num_batches
+    np.savez(os.path.join(out_dir, f"hub_{rank}.npz"), **arrays)
+    with open(os.path.join(out_dir, f"hub_{rank}.json"), "w") as f:
+        json.dump(report, f)
+    if cli is not None:
+        log = cli.communicate(timeout=HUB_WAIT_S)[0]
+        if cli.returncode:
+            raise RuntimeError(f"forecast CLI rank {rank} exited {cli.returncode}:\n{log[-4000:]}")
+
+
+def start_forecast_cli(rank, in_dir, out_dir):
+    """On ranks 0 and 1: a process of a world of 2 (`forecast` mode), beside
+    this launch's work; None on the others."""
+    import socket
+    import subprocess
+
+    port = [None]
+    if rank == 0:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port[0] = str(sock.getsockname()[1])
+    dist.broadcast_object_list(port)
+    if rank >= 2:
+        return None
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), "forecast", str(rank), "2",
+                             port[0], in_dir, out_dir], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def run_forecast_cli(rank, in_dir, out_dir):
+    """configs/forecast.yaml on IN_DIR's small forecasting grid
+    (IN_DIR/forecast.yaml) through the train CLI as `torchrun
+    --nproc-per-node 2` starts it, one step: OUT_DIR/forecast_R.json."""
+    from orbit2_tpu_torch.models.components.cnn import BatchNorm2d
+    from orbit2_tpu_torch.train import main as train_main
+
+    t0 = time.perf_counter()
+    trainer = train_main([os.path.join(in_dir, "forecast.yaml"), "--device", "cpu",
+                          "--max-epochs", "1", "--max-steps-per-epoch", "1",
+                          "--checkpoint-dir", os.path.join(out_dir, "forecast_ck")])
+    norms = [m for m in trainer.model.modules() if isinstance(m, BatchNorm2d)]
+    stats = torch.cat([torch.cat((m.running_mean, m.running_var)) for m in norms])
+    both = [torch.empty_like(stats) for _ in range(2)]
+    dist.all_gather(both, stats)
+    par = trainer.cfg.parallelism
+    with open(os.path.join(out_dir, f"forecast_{rank}.json"), "w") as f:
+        json.dump({"history": trainer.history, "world": dist.get_world_size(),
+                   "parallelism": {a: getattr(par, a) for a in (
+                       "fsdp", "simple_ddp", "tensor_par", "seq_par", "pipeline", "expert_par")},
+                   "preset": trainer.cfg.model.preset, "blocks": len(trainer.model.blocks),
+                   "synced": all(m.sync is not None for m in norms),
+                   "stats_equal": torch.equal(both[0], both[1]),
+                   "stats_moved": bool((stats != torch.cat([torch.cat((
+                       torch.zeros_like(m.running_mean), torch.ones_like(m.running_var)))
+                       for m in norms])).all()),
+                   "seconds": time.perf_counter() - t0}, f)
 
 
 def run_cli(rank, out_dir, config, ckpt_dir):
@@ -768,8 +1069,12 @@ def main():
     else:  # torchrun's variables, for the CLI's init_distributed
         os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
                           MASTER_ADDR="localhost", MASTER_PORT=port)
-        run_cli(rank, sys.argv[7], sys.argv[5], sys.argv[6])
-    dist.destroy_process_group()
+        if mode == "forecast":
+            run_forecast_cli(rank, sys.argv[5], sys.argv[6])
+        else:
+            run_cli(rank, sys.argv[7], sys.argv[5], sys.argv[6])
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":
